@@ -15,11 +15,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
    epilogue), and the bound (the larger of FLOPs / 67 TFLOP/s f32 and bytes
    / 3.35 TB/s).
 3. Serving: full ResNet-50 (1000 classes, 224x224) with random BN running
-   statistics through ``CnnInferenceEngine`` and ``ImageServer``, 24 requests
-   in random bursts at max_batch 16.  K1's launch count is reset just before
-   and read just after: it must be 52 per forward.  Then the time of one
-   batch-16 step by host clock: the copy to the card, the forward, and
-   K1's share.
+   statistics through ``CnnInferenceEngine`` and ``ImageServer`` at
+   max_batch 16: an untimed pass of 64 requests, then a window of 512
+   requests in bursts that reach every bucket (1 to 16), with every image
+   made before the window opens.  Images/s is over the window's wall time;
+   p50/p99 are enqueue-to-result.  K1's launch count is reset just before
+   the window and read just after: it must be 52 per forward.  Then the
+   time of one batch-16 step by host clock: the copy to the card, the
+   forward, and K1's share.
 4. Slice parity: a batch of 2 images on the card against the port's CPU
    forward (the plain versions): max |diff| <= 1e-4 * max |logit| and the
    same top-1 on every image.
@@ -41,7 +44,7 @@ SRC = os.path.join(ROOT, "src")
 SEED = 0
 BATCH = 16
 IMAGE = 224
-REQUESTS = 24
+REQUESTS = 512
 F32_PEAK_FLOPS = 67e12      # H100 SXM, f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 KERNEL_REL_TOL = 1e-5
@@ -91,10 +94,7 @@ def header():
           f"{torch.backends.cuda.matmul.allow_tf32}")
     check(not torch.backends.cudnn.allow_tf32
           and not torch.backends.cuda.matmul.allow_tf32, "TF32 still on")
-    t0 = time.perf_counter()
-    built = _build.build(["conv2d_direct"])
-    print(f"kernel build: {time.perf_counter() - t0:.1f}s "
-          f"({', '.join(f'{k} {v:.1f}s' for k, v in built.items())})")
+    print(f"kernel build: conv2d_direct {_build.build('conv2d_direct'):.1f}s")
     for line in _build.build_log("conv2d_direct").splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
@@ -193,17 +193,15 @@ def random_bn_stats(params, gen):
 
 def serving(device):
     """Phase 3: the main path.  Returns (engine, K1 launches in it)."""
-    import numpy as np
     import torch
     from repro_torch.core.conv import lane_ok
     from repro_torch.graph.serving import CnnInferenceEngine
     from repro_torch.kernels import conv2d_direct as k1
-    from repro_torch.launch.serve_cnn import (ImageServer, build_model,
-                                              serve_bursts)
+    from repro_torch.launch.serve_cnn import build_model, serve_window
 
-    gxm, image = build_model("resnet50", smoke=False, num_classes=1000,
-                             device=device)
-    check(image == IMAGE, f"ResNet-50 image {image}")
+    gxm, image = build_model(smoke=False, device=device)
+    check(image == IMAGE and gxm.num_classes == 1000,
+          f"ResNet-50 image {image}, {gxm.num_classes} classes")
     gen = torch.Generator().manual_seed(SEED)
     params = gxm.init(gen)
     random_bn_stats(params, gen)
@@ -216,10 +214,8 @@ def serving(device):
           f"({report['kernel_path_signatures']} of "
           f"{report['conv_signatures']} conv signatures on K1)")
 
-    server = ImageServer(engine)
-    k1.launches = 0
-    results = serve_bursts(server, requests=REQUESTS, max_batch=BATCH,
-                           image=image, rng=np.random.default_rng(SEED))
+    # serve_window sets the K1 count to 0 just before the measured window
+    server, results = serve_window(engine, requests=REQUESTS, seed=SEED)
     launches = k1.launches
     st = server.stats()
     check(len(results) == REQUESTS, f"served {len(results)} of {REQUESTS}")
@@ -230,9 +226,11 @@ def serving(device):
                   and lane_ok(t.attrs["c"], t.attrs["k"]))
     print(f"  {REQUESTS} requests in {st['batches']} batches "
           f"{st['by_bucket']}, {st['padded_lanes']} padded lanes")
-    print(f"  images/s {st['images'] / st['serve_s']:.2f}  "
-          f"p50 {st['latency']['p50_ms']:.3f} ms  "
+    print(f"  images/s {st['images_per_s']:.2f} over {st['wall_s']:.3f} s "
+          f"wall  p50 {st['latency']['p50_ms']:.3f} ms  "
           f"p99 {st['latency']['p99_ms']:.3f} ms  (queue wait included)")
+    check(set(st["by_bucket"]) == set(engine.buckets),
+          f"buckets served {sorted(st['by_bucket'])}, not {engine.buckets}")
     print(f"  K1 launches {launches} = {per_fwd} of {convs} convs x "
           f"{st['batches']} forwards")
     check(per_fwd == 52, f"{per_fwd} lane-aligned convs per forward, not 52")

@@ -40,20 +40,19 @@ class GxM:
         self.num_classes = num_classes
 
     # -- parameter init -----------------------------------------------------
-    def init(self, generator: torch.Generator | None = None,
-             dtype=torch.float32):
+    def init(self, generator: torch.Generator | None = None):
         """Random params in the reference's distribution (He-normal conv
-        weights, identity BN, LeCun-normal fc); drawn on the CPU from
+        weights, identity BN, LeCun-normal fc), f32; drawn on the CPU from
         ``generator`` (default: seed 0), then moved to ``self.device``."""
         if generator is None:
             generator = torch.Generator().manual_seed(0)
 
         def normal(shape, std):
-            return (torch.randn(shape, generator=generator, dtype=dtype)
+            return (torch.randn(shape, generator=generator)
                     * std).to(self.device)
 
         def const(k, value):
-            return torch.full((k,), value, dtype=dtype, device=self.device)
+            return torch.full((k,), value, device=self.device)
 
         params = {}
         for t in self.etg.tasks:

@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import time
 
-import numpy as np
 import torch
 
 from repro_torch.core.conv import lane_ok
@@ -97,15 +96,16 @@ def round_buckets(buckets, num_shards: int) -> tuple[int, ...]:
     return tuple(sorted(rounded))
 
 
-def make_buckets(max_batch: int, *, num_shards: int = 1) -> tuple[int, ...]:
-    """Geometric bucket ladder up to the first power of two >= max_batch."""
-    assert max_batch >= 1 and num_shards >= 1
-    b, out = num_shards, []
+def make_buckets(max_batch: int) -> tuple[int, ...]:
+    """Geometric bucket ladder 1, 2, 4, ... up to the first power of two
+    >= max_batch."""
+    assert max_batch >= 1
+    b, out = 1, []
     while b < max_batch:
         out.append(b)
         b *= 2
     out.append(b)
-    return round_buckets(out, num_shards)
+    return tuple(out)
 
 
 def pick_bucket(n: int, buckets) -> int:
@@ -129,12 +129,11 @@ class CnnInferenceEngine:
     """
 
     def __init__(self, gxm, params, *, image_hw=(224, 224),
-                 max_batch: int = 32, buckets=None, dtype=torch.float32):
+                 max_batch: int = 32, buckets=None):
         self.gxm = gxm
         self.params = params
         self.device = gxm.device
         self.image_hw = tuple(image_hw)
-        self.dtype = dtype
         self.buckets = round_buckets(buckets, 1) if buckets \
             else make_buckets(max_batch)
 
@@ -156,8 +155,7 @@ class CnnInferenceEngine:
         }
         for bucket in self.buckets:
             t0 = time.perf_counter()
-            x = torch.zeros((bucket, *self.image_hw, 3), dtype=self.dtype,
-                            device=self.device)
+            x = torch.zeros((bucket, *self.image_hw, 3), device=self.device)
             self.gxm.infer(self.params, x)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
@@ -168,7 +166,8 @@ class CnnInferenceEngine:
         """Logits for ``images`` (n, H, W, 3), numpy or tensor; pads n up to
         the minimal bucket and returns the (n, classes) real lanes on the
         engine's device."""
-        x = torch.as_tensor(images, dtype=self.dtype, device=self.device)
+        x = torch.as_tensor(images, dtype=torch.float32,
+                            device=self.device)
         n = x.shape[0]
         bucket = pick_bucket(n, self.buckets)
         if n < bucket:

@@ -5,8 +5,7 @@ plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds, not minutes).  Libraries go to ``build/`` at the repository
 root, named by a hash of the source and the flags, so an edited source
 rebuilds and an unchanged one loads at once.  Nothing builds at import: the
-first launch of a kernel builds it, or ``build`` builds several at once,
-one ``nvcc`` per source, all started together.
+first launch of a kernel builds it, or ``build`` does so beforehand.
 """
 from __future__ import annotations
 
@@ -49,44 +48,32 @@ def nvcc_command(name: str, out: Path) -> list[str]:
     return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
 
 
-def build(names) -> dict[str, float]:
-    """Build every library in ``names`` that is not built yet, one ``nvcc``
-    per source, all in parallel.  The compiler's output (``-Xptxas -v``:
-    registers, shared memory, spills) goes to ``<library>.log``.  Returns
-    the build seconds per name (0.0 when already built); raises with the
-    log when a compile fails."""
+def build(name: str) -> float:
+    """Build ``csrc/<name>.cu`` unless it is built already.  The compiler's
+    output (``-Xptxas -v``: registers, shared memory, spills) goes to
+    ``<library>.log``.  Returns the build seconds (0.0 when already built);
+    raises with the log when the compile fails."""
+    lib = library_path(name)
+    if lib.exists():
+        return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    procs = {}
-    for name in names:
-        lib = library_path(name)
-        if lib.exists():
-            continue
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        log = open(lib.with_suffix(".log"), "w")
-        procs[name] = (subprocess.Popen(nvcc_command(name, tmp), stdout=log,
-                                        stderr=subprocess.STDOUT),
-                       tmp, lib, log)
-    seconds = {name: 0.0 for name in names}
-    failed = []
-    for name, (proc, tmp, lib, log) in procs.items():
-        rc = proc.wait()
-        log.close()
-        seconds[name] = time.perf_counter() - t0
-        if rc == 0:
-            os.replace(tmp, lib)        # atomic: a reader never sees half
-        else:
-            failed.append(f"{name} (nvcc exit {rc}):\n"
-                          + lib.with_suffix(".log").read_text())
-    if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
-    return seconds
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    log = lib.with_suffix(".log")
+    with open(log, "w") as out:
+        rc = subprocess.run(nvcc_command(name, tmp), stdout=out,
+                            stderr=subprocess.STDOUT).returncode
+    if rc != 0:
+        raise RuntimeError(f"kernel build failed: {name} (nvcc exit {rc}):\n"
+                           + log.read_text())
+    os.replace(tmp, lib)                # atomic: a reader never sees half
+    return time.perf_counter() - t0
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     if name not in _loaded:
-        build([name])
+        build(name)
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
 

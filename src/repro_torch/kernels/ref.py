@@ -18,31 +18,28 @@ import torch
 import torch.nn.functional as F
 
 
-def conv2d(x, w, *, stride: int = 1, padding: int = 0,
-           accum_dtype=torch.float32):
-    """Forward conv. x: (N,H,W,C), w: (R,S,C,K) -> (N,P,Q,K)."""
+def conv2d(x, w, *, stride: int = 1, padding: int = 0):
+    """Forward conv in f32. x: (N,H,W,C), w: (R,S,C,K) -> (N,P,Q,K)."""
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        out = F.conv2d(x.to(accum_dtype).permute(0, 3, 1, 2),
-                       w.to(accum_dtype).permute(3, 2, 0, 1),
+        out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
                        stride=stride, padding=padding)
-    return out.permute(0, 2, 3, 1).contiguous().to(x.dtype)
+    return out.permute(0, 2, 3, 1).contiguous()
 
 
 def conv2d_fused(x, w, *, stride: int = 1, padding: int = 0,
                  bias=None, scale=None, shift=None, residual=None,
-                 relu: bool = False, accum_dtype=torch.float32):
+                 relu: bool = False):
     """Conv with the paper's §II-G fused epilogue, in the reference's order:
     O = act(scale * conv(x,w) + shift + bias [+ residual])."""
-    out = conv2d(x, w, stride=stride, padding=padding,
-                 accum_dtype=accum_dtype).to(accum_dtype)
+    out = conv2d(x, w, stride=stride, padding=padding)
     if scale is not None:
-        out = out * scale.to(accum_dtype)
+        out = out * scale
     if shift is not None:
-        out = out + shift.to(accum_dtype)
+        out = out + shift
     if bias is not None:
-        out = out + bias.to(accum_dtype)
+        out = out + bias
     if residual is not None:
-        out = out + residual.to(accum_dtype)
+        out = out + residual
     if relu:
         out = torch.clamp_min(out, 0)
-    return out.to(x.dtype)
+    return out

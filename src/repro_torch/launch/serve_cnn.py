@@ -7,8 +7,10 @@ the counterpart of ``repro/launch/serve_cnn.py`` on one GPU.
 Requests (single images) land in a queue; the scheduler drains it in
 batches, each padded up to the minimal bucket of a fixed ladder
 (``graph/serving.py``).  Startup warmup runs one forward per bucket, so the
-kernels are built before the first request.  The weights are random, drawn
-from seed 0.
+kernels are built before the first request; an untimed pass of bursts then
+serves every bucket once more before the measured window opens.  The
+weights are random, drawn from seed 0, and the request images are made
+before the window opens, so the load generator costs the window nothing.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.graph import GxM, inception_v3, resnet50
+from repro_torch.graph import GxM, resnet50
 from repro_torch.graph.serving import CnnInferenceEngine, pick_bucket
 from repro_torch.kernels import conv2d_direct as k1
 
@@ -30,7 +32,8 @@ class ImageServer:
 
     ``submit`` enqueues one image and returns a request id; ``step`` serves
     one padded bucket off the queue head; ``run`` drains the queue.  Results
-    map request id -> (top-1 class, top-1 logit).
+    map request id -> (top-1 class, top-1 logit).  ``stats`` measures the
+    window from the first submit to the last result by ``clock``.
     """
 
     def __init__(self, engine: CnnInferenceEngine, *, clock=None):
@@ -40,13 +43,17 @@ class ImageServer:
         self.results: dict[int, tuple[int, float]] = {}
         self._next_rid = 0
         self._counters = {"batches": 0, "images": 0, "padded_lanes": 0,
-                          "by_bucket": collections.Counter(), "serve_s": 0.0}
+                          "by_bucket": collections.Counter()}
         self.latencies_s: list[float] = []
+        self._first_submit = self._last_done = None
 
     def submit(self, image) -> int:
         rid = self._next_rid
         self._next_rid += 1
-        self.queue.append((rid, image, self.clock()))
+        now = self.clock()
+        if self._first_submit is None:
+            self._first_submit = now
+        self.queue.append((rid, image, now))
         return rid
 
     def step(self) -> int:
@@ -59,11 +66,9 @@ class ImageServer:
         images = np.stack([img for _, img, _ in reqs])
         bucket = pick_bucket(take, self.engine.buckets)
         st = self._counters
-        t0 = self.clock()
         # .cpu() waits for the device: the latency covers the whole forward
         logits = self.engine.infer(images).cpu().numpy()
-        t1 = self.clock()
-        st["serve_s"] += t1 - t0
+        t1 = self._last_done = self.clock()
         for (rid, _, t_enq), row in zip(reqs, logits):
             top1 = int(np.argmax(row))
             self.results[rid] = (top1, float(row[top1]))
@@ -80,10 +85,15 @@ class ImageServer:
         return dict(self.results)
 
     def stats(self) -> dict:
-        """Counter snapshot plus the enqueue->complete latency summary
-        (queue wait included: what a client experiences)."""
+        """Counter snapshot, the enqueue->complete latency summary (queue
+        wait included: what a client experiences), and images/s over the
+        window's wall time, first submit to last result."""
         st = dict(self._counters)
         st["by_bucket"] = dict(st["by_bucket"])
+        st["wall_s"] = (self._last_done - self._first_submit
+                        if self._last_done is not None else 0.0)
+        st["images_per_s"] = (st["images"] / st["wall_s"] if st["wall_s"]
+                              else 0.0)
         lat = np.sort(np.asarray(self.latencies_s, dtype=np.float64))
         st["latency"] = {
             "count": int(lat.size),
@@ -94,56 +104,65 @@ class ImageServer:
         return st
 
 
-def build_model(arch: str, *, smoke: bool, num_classes: int, image: int = 0,
-                device=None):
-    """Topology + default image size per arch (tiny variants for smoke)."""
-    if arch == "resnet50":
-        nl = resnet50(num_classes,
-                      stages=(1, 1, 1, 1) if smoke else (3, 4, 6, 3))
-        image = image or (32 if smoke else 224)
-    elif arch == "inception":
-        nl = inception_v3(num_classes)
-        image = image or (48 if smoke else 224)
-    else:
-        raise ValueError(f"unknown arch {arch!r}")
-    return GxM(nl, device=device, num_classes=num_classes), image
+def build_model(*, smoke: bool, device=None):
+    """Full ResNet-50 (1000 classes, 224x224), or with ``smoke`` the tiny one
+    (one block per stage, 10 classes, 32x32).  Returns (GxM, image size)."""
+    if smoke:
+        return GxM(resnet50(10, stages=(1, 1, 1, 1)), device=device,
+                   num_classes=10), 32
+    return GxM(resnet50(1000), device=device, num_classes=1000), 224
 
 
-def serve_bursts(server: ImageServer, *, requests: int, max_batch: int,
-                 image: int, rng: np.random.Generator) -> dict:
-    """Submit ``requests`` images in random-size bursts, stepping once per
-    burst, so partial buckets (and pad-to-bucket) actually happen; then
-    drain the queue.  Returns the results."""
-    remaining = requests
-    while remaining:
-        burst = int(rng.integers(1, min(remaining, max_batch) + 1))
-        for _ in range(burst):
-            server.submit(rng.standard_normal((image, image, 3),
-                                              dtype=np.float32))
-        remaining -= burst
+def make_images(n: int, image: int, rng: np.random.Generator) -> np.ndarray:
+    """``n`` random (image, image, 3) f32 request images, made up front."""
+    return rng.standard_normal((n, image, image, 3), dtype=np.float32)
+
+
+def serve_bursts(server: ImageServer, images: np.ndarray, *,
+                 rng: np.random.Generator) -> dict:
+    """Submit ``images`` in bursts, stepping once per burst, then drain the
+    queue.  The first bursts are one of each bucket size, so every bucket is
+    served; the rest draw their size uniformly up to the largest bucket, so
+    partial buckets (and pad-to-bucket) happen.  Returns the results."""
+    buckets = sorted(server.engine.buckets)
+    sizes = iter(buckets)
+    i = 0
+    while i < len(images):
+        size = next(sizes, None) or int(rng.integers(1, buckets[-1] + 1))
+        for img in images[i:i + size]:
+            server.submit(img)
+        i += size
         server.step()
     return server.run()
 
 
+def serve_window(engine: CnnInferenceEngine, *, requests: int, seed: int = 0,
+                 warm_requests: int = 64) -> tuple[ImageServer, dict]:
+    """The measured serving window: ``warm_requests`` in bursts through a
+    throwaway server (untimed), then ``requests`` through a fresh one.  All
+    images are made before either starts, and K1's launch count is set to 0
+    as the window opens.  Returns (server, results)."""
+    rng = np.random.default_rng(seed)
+    image = engine.image_hw[0]
+    warm = make_images(warm_requests, image, rng)
+    window = make_images(requests, image, rng)
+    serve_bursts(ImageServer(engine), warm, rng=rng)
+    k1.launches = 0
+    server = ImageServer(engine)
+    return server, serve_bursts(server, window, rng=rng)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=("resnet50", "inception"),
-                    default="resnet50")
     ap.add_argument("--smoke", action="store_true",
-                    help="tiny topology + image size")
-    ap.add_argument("--requests", type=int, default=24)
-    ap.add_argument("--image", type=int, default=0,
-                    help="input H=W (0: per-arch default)")
+                    help="tiny ResNet-50 (one block per stage, 32x32)")
+    ap.add_argument("--requests", type=int, default=512)
     ap.add_argument("--max-batch", type=int, default=16)
-    ap.add_argument("--classes", type=int, default=0,
-                    help="classifier width (0: 10 smoke / 1000 full)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without a GPU)")
     args = ap.parse_args(argv)
 
-    classes = args.classes or (10 if args.smoke else 1000)
-    m, image = build_model(args.arch, smoke=args.smoke, num_classes=classes,
-                           image=args.image, device=args.device)
+    m, image = build_model(smoke=args.smoke, device=args.device)
     params = m.init(torch.Generator().manual_seed(0))
     engine = CnnInferenceEngine(m, params, image_hw=(image, image),
                                 max_batch=args.max_batch)
@@ -154,21 +173,18 @@ def main(argv=None):
           f"({report['kernel_path_signatures']} on the kernel path), "
           f"buckets {report['buckets']} in {warm_s:.1f}s")
 
-    k1.launches = 0
-    server = ImageServer(engine)
-    results = serve_bursts(server, requests=args.requests,
-                           max_batch=args.max_batch, image=image,
-                           rng=np.random.default_rng(0))
+    server, results = serve_window(engine, requests=args.requests)
     st = server.stats()
     summary = {
-        "arch": args.arch, "device": str(m.device), "image": image,
+        "device": str(m.device), "image": image,
         "requests": len(results), "batches": st["batches"],
         "pad_fraction": st["padded_lanes"]
         / max(st["images"] + st["padded_lanes"], 1),
         "by_bucket": st["by_bucket"],
         "latency_p50_ms": st["latency"]["p50_ms"],
         "latency_p99_ms": st["latency"]["p99_ms"],
-        "images_per_s": st["images"] / st["serve_s"] if st["serve_s"] else 0.0,
+        "wall_s": st["wall_s"],
+        "images_per_s": st["images_per_s"],
         "conv2d_direct_launches": k1.launches,
     }
     print(json.dumps(summary))

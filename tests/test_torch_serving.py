@@ -30,9 +30,8 @@ def _images(n, seed=0):
 @pytest.mark.parametrize("max_batch", [1, 3, 8, 12, 16, 33])
 def test_buckets_match_reference(max_batch):
     assert make_buckets(max_batch) == jax_serving.make_buckets(max_batch)
-    for shards in (1, 2, 4):
-        assert make_buckets(max_batch, num_shards=shards) == \
-            jax_serving.make_buckets(max_batch, num_shards=shards)
+    assert make_buckets(max_batch) == \
+        jax_serving.make_buckets(max_batch, num_shards=1)
     ladder = (3, max_batch, 2 * max_batch + 1)
     assert round_buckets(ladder, 1) == jax_serving.round_buckets(ladder, 1)
     buckets = make_buckets(max_batch)
@@ -78,13 +77,16 @@ def test_image_server_answers_every_request(tiny):
     eng = CnnInferenceEngine(m, params, image_hw=(32, 32), max_batch=4)
     server = ImageServer(eng)
     rng = np.random.default_rng(3)
-    results = serve_cnn.serve_bursts(server, requests=11, max_batch=4,
-                                     image=32, rng=rng)
+    results = serve_cnn.serve_bursts(
+        server, serve_cnn.make_images(11, 32, rng), rng=rng)
     assert sorted(results) == list(range(11))
     st = server.stats()
     assert st["images"] == 11 and st["latency"]["count"] == 11
     assert sum(b * c for b, c in st["by_bucket"].items()) == \
         11 + st["padded_lanes"]
+    assert set(st["by_bucket"]) == {1, 2, 4}          # every bucket served
+    assert st["wall_s"] > 0
+    assert st["images_per_s"] == pytest.approx(11 / st["wall_s"])
     # a request's top-1 is the argmax of its own logits
     images = _images(2, seed=5)
     ids = [server.submit(img) for img in images]
@@ -94,10 +96,24 @@ def test_image_server_answers_every_request(tiny):
         assert server.results[rid][0] == int(row.argmax())
 
 
+def test_image_server_window_is_wall_time(tiny):
+    m, params = tiny
+    eng = CnnInferenceEngine(m, params, image_hw=(32, 32), max_batch=4)
+    ticks = iter(range(100))
+    server = ImageServer(eng, clock=lambda: float(next(ticks)))
+    for img in _images(3):                            # submitted at 0, 1, 2
+        server.submit(img)
+    server.run()                                      # done at 3
+    st = server.stats()
+    assert st["wall_s"] == 3.0 and st["images_per_s"] == 1.0
+    assert st["latency"]["max_ms"] == 3000.0          # queue wait included
+
+
 def test_main_smoke_on_cpu(capsys):
     summary = serve_cnn.main(["--smoke", "--device", "cpu", "--requests",
                               "5", "--max-batch", "4"])
     assert summary["requests"] == 5 and summary["device"] == "cpu"
+    assert summary["images_per_s"] == pytest.approx(5 / summary["wall_s"])
     assert summary["conv2d_direct_launches"] == 0     # the CPU runs no kernel
     assert '"requests": 5' in capsys.readouterr().out
 
@@ -112,7 +128,7 @@ def test_entry_points_raise_without_gpu_and_device(monkeypatch):
     with pytest.raises(RuntimeError, match="no GPU"):
         params_from_jax({"fc": {"b": np.zeros(3, np.float32)}})
     with pytest.raises(RuntimeError, match="no GPU"):
-        build_model("resnet50", smoke=True, num_classes=10)
+        build_model(smoke=True)
     with pytest.raises(RuntimeError, match="no GPU"):
         serve_cnn.main(["--smoke"])
     assert GxM(nl, device="cpu").device == torch.device("cpu")
