@@ -5,7 +5,8 @@ plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds, not minutes).  Libraries go to ``build/`` at the repository
 root, named by a hash of the source and the flags, so an edited source
 rebuilds and an unchanged one loads at once.  Nothing builds at import: the
-first launch of a kernel builds it, or ``build`` does so beforehand.
+first launch of a kernel builds it, or ``build`` / ``build_all`` do so
+beforehand (``build_all`` runs one ``nvcc`` per source, all at once).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+KERNELS = ("conv2d_direct", "conv2d_wu")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -48,26 +50,45 @@ def nvcc_command(name: str, out: Path) -> list[str]:
     return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
 
 
-def build(name: str) -> float:
-    """Build ``csrc/<name>.cu`` unless it is built already.  The compiler's
-    output (``-Xptxas -v``: registers, shared memory, spills) goes to
-    ``<library>.log``.  Returns the build seconds (0.0 when already built);
-    raises with the log when the compile fails."""
-    lib = library_path(name)
-    if lib.exists():
-        return 0.0
+def build_all(names=KERNELS) -> dict[str, float]:
+    """Build every ``csrc/<name>.cu`` of ``names`` that is not built yet,
+    one ``nvcc`` each, all started together.  The compiler's output
+    (``-Xptxas -v``: registers, shared memory, spills) goes to
+    ``<library>.log``.  Returns each name's build seconds (0.0 when already
+    built); raises with the log of the first build that fails, after every
+    compiler has exited."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    log = lib.with_suffix(".log")
-    with open(log, "w") as out:
-        rc = subprocess.run(nvcc_command(name, tmp), stdout=out,
-                            stderr=subprocess.STDOUT).returncode
-    if rc != 0:
+    started = {}
+    seconds = {}
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            seconds[name] = 0.0
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        with open(lib.with_suffix(".log"), "w") as log:
+            proc = subprocess.Popen(nvcc_command(name, tmp), stdout=log,
+                                    stderr=subprocess.STDOUT)
+        started[name] = (proc, tmp, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, t0) in started.items():
+        rc = proc.wait()
+        seconds[name] = time.perf_counter() - t0
+        if rc == 0:
+            os.replace(tmp, library_path(name))   # atomic: no reader sees half
+        else:
+            failed.append((name, rc))
+    if failed:
+        name, rc = failed[0]
         raise RuntimeError(f"kernel build failed: {name} (nvcc exit {rc}):\n"
-                           + log.read_text())
-    os.replace(tmp, lib)                # atomic: a reader never sees half
-    return time.perf_counter() - t0
+                           + build_log(name))
+    return seconds
+
+
+def build(name: str) -> float:
+    """Build ``csrc/<name>.cu`` unless it is built already; returns the
+    build seconds (0.0 when already built)."""
+    return build_all((name,))[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -74,3 +74,46 @@ def test_nvcc_missing_raises(monkeypatch):
     monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc()
+
+
+def test_wu_kernel_symbol_matches_its_binding():
+    src = (_build.CSRC / "conv2d_wu.cu").read_text()
+    assert 'extern "C" int repro_conv2d_wu_f32(' in src
+    binding = (PORT / "kernels" / "conv2d_wu.py").read_text()
+    assert ".repro_conv2d_wu_f32" in binding
+    assert set(_build.KERNELS) == {p.stem for p in _build.CSRC.glob("*.cu")}
+
+
+def test_build_all_starts_every_compiler_before_waiting(tmp_path,
+                                                         monkeypatch):
+    """One nvcc per source, all started before the first is waited on;
+    a failed build raises with its log after every compiler exited."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path / "csrc")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "csrc").mkdir()
+    for name in ("a", "b"):
+        (tmp_path / "csrc" / f"{name}.cu").write_text(f"// {name}")
+    events = []
+
+    class FakeProc:
+        def __init__(self, cmd, stdout, stderr):
+            self.out = pathlib.Path(cmd[cmd.index("-o") + 1])
+            self.name = pathlib.Path(cmd[-1]).stem
+            events.append(("start", self.name))
+
+        def wait(self):
+            events.append(("wait", self.name))
+            if self.name == "b":
+                return 1
+            self.out.write_text("lib")
+            return 0
+
+    monkeypatch.setattr(_build, "nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "Popen", FakeProc)
+    with pytest.raises(RuntimeError, match="kernel build failed: b"):
+        _build.build_all(("a", "b"))
+    assert events == [("start", "a"), ("start", "b"), ("wait", "a"),
+                      ("wait", "b")]
+    assert _build.library_path("a").exists()
+    assert not _build.library_path("b").exists()
+    assert _build.build_all(("a",)) == {"a": 0.0}
