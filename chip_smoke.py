@@ -28,35 +28,57 @@ Phases, each of which fails the run (nonzero exit, no result line):
 4. Serving parity: a batch of 2 images on the card against the port's CPU
    forward (the plain versions): max |diff| <= 1e-4 * max |logit| and the
    same top-1 on every image.
-5. K1 in training: every distinct lane-aligned signature one ResNet-50
+5. K3 vs plain: the same 23 signatures at batch 16, int8 operands from
+   ``quantize_conv_inputs`` on random f32, random BN scale, shift and
+   residual: K3 against its plain version, max |diff| = 0 on every one,
+   plus an integer-exact case; CUDA-event times of K3, the plain version,
+   K1's f32 time from phase 2 and, on the 1x1 signatures, the library
+   yardstick ``torch._int_mm`` with the dequant and epilogue in torch (for
+   stride 2 on the strided slice); the bound is the larger of int8 ops /
+   1979 TOP/s and bytes / 3.35 TB/s.
+6. int8 serving: the same ResNet-50, params and BN statistics as phase 3
+   through ``CnnInferenceEngine(quantized=True)`` at max_batch 16; warmup
+   calibrates on the reference's default synthetic batches.  The window of
+   phase 3 (64 untimed, then 512 in bursts), with images/s, p50 and p99
+   beside phase 3's f32 figures; K3 must launch exactly 52 times per
+   forward and K1 not at all.  Then one batch-16 step by host clock (H2D,
+   forward), K3's device time per forward, and the device time of the
+   ``quantize_act`` glue on that forward's 53 conv inputs.
+7. int8 parity: a batch of 2 on the card against the port's CPU int8
+   forward on the same quantized params tree: max |diff| <= 1e-3 *
+   max |logit| and the same top-1; it prints how many quantized
+   activations differ by one step between the two, and the int8-vs-f32
+   logit gap and top-1 agreement on the card (printed, not gated: a
+   property of the quantization scheme).
+8. K1 in training: every distinct lane-aligned signature one ResNet-50
    training step at batch 32 launches on K1, the bare forwards and the
    backward-data dual convs of ``dual_conv_signatures`` (31 distinct, 61
    launches), against the plain version (<= 1e-5), with times, the cuDNN
    yardstick and the bound.
-6. K2 vs plain: the 22 distinct lane-aligned weight-update signatures of
+9. K2 vs plain: the 22 distinct lane-aligned weight-update signatures of
    ResNet-50 at batch 32 (<= 1e-5), with the kernel's ``splits``, times,
    the bound, and the library yardstick: cuDNN's f32 weight gradient
    (``aten.convolution_backward``, output mask [False, True, False], TF32
    off), which the port never calls.
-7. Training: full ResNet-50 (224x224, 1000 classes, batch 32, lr 0.1)
-   through ``launch.train_cnn.build_trainer`` on ``SyntheticImageData``
-   batches put on the card before timing: 2 untimed steps, 10 timed steps
-   (median step ms, images/s, every loss finite), one step with the launch
-   counts set to 0 just before it and read just after (K1 = forward +
-   dual launches, K2 = one per lane-aligned conv, both derived from the
-   port's ETG), then 3 steps under ``torch.profiler``: device time by
-   kernel, the device's busy and idle share, K1 and K2 per step.
-8. Training parity: one step of full ResNet-50 at batch 2 on the card
-   against the same step on the port's CPU path (the plain versions) from
-   the same params and batch: the loss within 1e-4 relative; every
-   trainable leaf's update (old - new) / lr, and the change of every
-   running mean and variance, within 1e-3 * max |CPU|.  ReLU and max-pool
-   are discontinuous: a pre-activation within f32 rounding of zero, or two
-   pooled values within rounding of each other, may be decided differently
-   by two summation orders, and then a whole pixel's gradient moves.  So
-   the CPU step takes the card's ReLU masks and max-pool choices, and the
-   script prints how many of them the CPU would have decided otherwise.
-9. The kernels line, then the device line last.
+10. Training: full ResNet-50 (224x224, 1000 classes, batch 32, lr 0.1)
+    through ``launch.train_cnn.build_trainer`` on ``SyntheticImageData``
+    batches put on the card before timing: 2 untimed steps, 10 timed steps
+    (median step ms, images/s, every loss finite), one step with the launch
+    counts set to 0 just before it and read just after (K1 = forward +
+    dual launches, K2 = one per lane-aligned conv, both derived from the
+    port's ETG), then 3 steps under ``torch.profiler``: device time by
+    kernel, the device's busy and idle share, K1 and K2 per step.
+11. Training parity: one step of full ResNet-50 at batch 2 on the card
+    against the same step on the port's CPU path (the plain versions) from
+    the same params and batch: the loss within 1e-4 relative; every
+    trainable leaf's update (old - new) / lr, and the change of every
+    running mean and variance, within 1e-3 * max |CPU|.  ReLU and max-pool
+    are discontinuous: a pre-activation within f32 rounding of zero, or two
+    pooled values within rounding of each other, may be decided differently
+    by two summation orders, and then a whole pixel's gradient moves.  So
+    the CPU step takes the card's ReLU masks and max-pool choices, and the
+    script prints how many of them the CPU would have decided otherwise.
+12. The kernels line, then the device line last.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -79,9 +101,11 @@ TRAIN_BATCH = 32            # torchvision's ResNet-50 recipe, per GPU
 TRAIN_LR = 0.1
 PARITY_BATCH = 2
 F32_PEAK_FLOPS = 67e12      # H100 SXM, f32 outside the tensor cores
+INT8_PEAK_OPS = 1979e12     # H100 SXM, dense int8 tensor cores (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 KERNEL_REL_TOL = 1e-5
 LOGIT_REL_TOL = 1e-4
+INT8_LOGIT_REL_TOL = 1e-3   # card vs CPU int8 forward, one quantized params tree
 LOSS_REL_TOL = 1e-4
 UPDATE_REL_TOL = 1e-3
 PINNED_SHARE_TOL = 1e-5     # ReLU / max-pool decisions the CPU takes from the card
@@ -142,22 +166,20 @@ def header():
     return smi[0], device
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
+def bound(flops: float, nbytes: float,
+          peak: float = F32_PEAK_FLOPS) -> tuple[float, str]:
     """The least time the card could take, ms, and what bounds it."""
-    t_ops = flops / F32_PEAK_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def kernel_signatures(device):
-    """Phase 2.  Returns per-signature records, each with ``count``: how
-    many conv tasks of one ResNet-50 forward share it."""
-    import torch
+def serving_signatures() -> dict[tuple, int]:
+    """Every distinct lane-aligned (shape, fused epilogue) signature of one
+    ResNet-50 forward at IMAGE x IMAGE, with how many conv tasks share it."""
     from repro_torch.core.conv import lane_ok
     from repro_torch.graph import build_etg, resnet50
     from repro_torch.graph.serving import conv_shapes
-    from repro_torch.kernels import conv2d_direct as k1
-    from repro_torch.kernels import ref
 
     etg = build_etg(resnet50())
     by_name = {t.name: t for t in etg.tasks}
@@ -169,6 +191,15 @@ def kernel_signatures(device):
         key = (sh["h"], sh["w"], sh["c"], sh["k"], sh["r"], sh["s"],
                sh["stride"], sh["padding"], fused)
         sigs[key] = sigs.get(key, 0) + 1
+    return sigs
+
+
+def kernel_signatures(device, sigs):
+    """Phase 2.  Returns per-signature records, each with ``count``: how
+    many conv tasks of one ResNet-50 forward share it."""
+    import torch
+    from repro_torch.kernels import conv2d_direct as k1
+    from repro_torch.kernels import ref
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     rows = []
@@ -205,7 +236,8 @@ def kernel_signatures(device):
                         + 2 * k
                         + (BATCH * p * q * k if "add" in fused else 0))
         bound_ms, bound_by = bound(flops, nbytes)
-        rec = dict(h=h, w=w, c=c, k=k, r=r, stride=st, fused=list(fused),
+        rec = dict(h=h, w=w, c=c, k=k, r=r, s=s, stride=st, padding=pad,
+                   fused=list(fused),
                    count=count, max_rel_err=max_rel, max_abs_err=max_abs,
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by, flops=flops)
@@ -237,7 +269,8 @@ def random_bn_stats(params, gen):
 
 
 def serving(device):
-    """Phase 3: the main path.  Returns (engine, K1 launches in it)."""
+    """Phase 3: the main path.  Returns (engine, K1 launches in it, the
+    window's stats)."""
     import torch
     from repro_torch.core.conv import lane_ok
     from repro_torch.graph.serving import CnnInferenceEngine
@@ -281,7 +314,22 @@ def serving(device):
     check(per_fwd == 52, f"{per_fwd} lane-aligned convs per forward, not 52")
     check(launches == per_fwd * st["batches"],
           f"K1 launched {launches} times, expected {per_fwd * st['batches']}")
-    return engine, launches
+    return engine, launches, st
+
+
+def wall_ms(fn) -> float:
+    """Median host-clock ms of 5 runs of ``fn``, each ending in a
+    synchronise."""
+    import numpy as np
+    import torch
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
 
 
 def breakdown(engine, k1_ms: float) -> None:
@@ -291,16 +339,6 @@ def breakdown(engine, k1_ms: float) -> None:
     on the card, and K1's device time per forward from phase 2."""
     import numpy as np
     import torch
-
-    def wall_ms(fn):
-        times = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return float(np.median(times))
 
     host = np.random.default_rng(SEED + 2).standard_normal(
         (BATCH, IMAGE, IMAGE, 3), dtype=np.float32)
@@ -339,6 +377,280 @@ def parity(engine):
     check(max_abs <= LOGIT_REL_TOL * scale,
           f"logits differ by {max_abs:.3e} > {LOGIT_REL_TOL} * {scale:.3e}")
     check(same_top1, "top-1 differs between the card and the CPU")
+
+
+def q8_signatures(device, sigs, k1_rows):
+    """Phase 5: K3 against its plain version on every serving signature,
+    bit for bit, with K1's f32 time from phase 2 beside it.  Returns
+    per-signature records with ``count``."""
+    import torch
+    from repro_torch.kernels import conv2d_direct as k1
+    from repro_torch.kernels import conv2d_q8 as k3
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    k1_ms = {(r["h"], r["w"], r["c"], r["k"], r["r"], r["s"], r["stride"],
+              r["padding"], tuple(r["fused"])): r["ms"] for r in k1_rows}
+    rows = []
+    print(f"\nK3 vs plain, ResNet-50 {IMAGE}x{IMAGE} batch {BATCH} "
+          f"({len(sigs)} signatures, {sum(sigs.values())} convs), int8 "
+          f"operands; library = torch._int_mm + dequant/epilogue in torch "
+          f"(1x1 only); dev = kernel device time by the profiler:")
+    print("  h  w    c    k r st fused         count max_abs        ms"
+          "  plain_ms   k1_f32_ms  library_ms  bound_ms bound_by  k3_dev"
+          "  k1_dev")
+    for key, count in sigs.items():
+        h, w, c, k, r, s, st, pad, fused = key
+        p = (h + 2 * pad - r) // st + 1
+        q = (w + 2 * pad - s) // st + 1
+
+        def randn(*shape, std=1.0):
+            return torch.randn(shape, generator=gen, device=device) * std
+
+        x_q, w_q, x_scale, w_scale = k3.quantize_conv_inputs(
+            randn(BATCH, h, w, c),
+            randn(r, s, c, k, std=math.sqrt(2.0 / (r * s * c))))
+        args = dict(
+            x_q=x_q, w_q=w_q, x_scale=x_scale, w_scale=w_scale,
+            stride=st, padding=pad,
+            scale=torch.rand(k, generator=gen, device=device) + 0.5,
+            shift=randn(k, std=0.1),
+            residual=randn(BATCH, p, q, k) if "add" in fused else None,
+            relu="relu" in fused)
+        out = k3.conv2d_q8(**args)
+        plain = k3.conv2d_q8_plain(**args)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"K3 non-finite at {h, c, k}")
+        max_abs = float((out - plain).abs().max())
+        ms = cuda_ms(lambda: k3.conv2d_q8(**args), 50)
+        plain_ms = cuda_ms(lambda: k3.conv2d_q8_plain(**args), 5)
+        library_ms = library_exact = None
+        if r == s == 1 and pad == 0:
+            xs = x_q[:, ::st, ::st, :].reshape(BATCH * p * q, c)
+            deq = x_scale.reshape(()) * w_scale
+
+            def library():
+                acc = torch._int_mm(xs, w_q[0, 0])
+                y = (acc.to(torch.float32) * deq * args["scale"]
+                     + args["shift"])
+                if args["residual"] is not None:
+                    y = y + args["residual"].reshape(-1, k)
+                return torch.clamp_min(y, 0) if args["relu"] else y
+            library_exact = bool(torch.equal(library().reshape(out.shape),
+                                             plain))
+            library_ms = cuda_ms(library, 50)
+        # device time alone: the CUDA-event times above include the host's
+        # launch gaps wherever the kernel is shorter than its wrapper
+        k3_dev = device_ms_of(trace_device(
+            lambda i: k3.conv2d_q8(**args), 20), "conv2d_q8_kernel")
+        f32 = dict(x=x_q.float(), w=w_q.float(), stride=st, padding=pad,
+                   scale=args["scale"], shift=args["shift"],
+                   residual=args["residual"], relu=args["relu"])
+        k1_dev = device_ms_of(trace_device(
+            lambda i: k1.conv2d_direct(**f32), 20), "conv2d_direct_kernel")
+        ops = 2.0 * BATCH * p * q * k * c * r * s
+        nbytes = (BATCH * h * w * c + r * s * c * k + 4.0 * BATCH * p * q * k
+                  + 4.0 * (3 * k + 1)
+                  + (4.0 * BATCH * p * q * k if "add" in fused else 0))
+        bound_ms, bound_by = bound(ops, nbytes, INT8_PEAK_OPS)
+        rec = dict(h=h, w=w, c=c, k=k, r=r, s=s, stride=st, padding=pad,
+                   fused=list(fused), count=count, max_abs_err=max_abs,
+                   ms=ms, plain_ms=plain_ms, k1_f32_ms=k1_ms[key],
+                   library_ms=library_ms, library_exact=library_exact,
+                   bound_ms=bound_ms, bound_by=bound_by, ops=ops,
+                   k3_device_ms=k3_dev, k1_device_ms=k1_dev)
+        rows.append(rec)
+        lib = "—" if library_ms is None else f"{library_ms:.4f}"
+        print(f"{h:3d}{w:3d}{c:5d}{k:5d}{r:2d}{st:3d} "
+              f"{'+'.join(fused):14s}{count:5d}  {max_abs:.1e} {ms:9.4f} "
+              f"{plain_ms:9.4f} {k1_ms[key]:11.4f} {lib:>11s} "
+              f"{bound_ms:9.4f} {bound_by:10s}{k3_dev:7.4f} {k1_dev:7.4f}")
+        check(max_abs == 0.0,
+              f"K3 differs from its plain version at {(h, c, k, r, st)}: "
+              f"max |diff| {max_abs:.3e}, not 0")
+        del x_q, w_q, args, out, plain, f32
+    # integer-valued inputs, unit scales, no epilogue: the exact conv
+    xi = torch.randint(-127, 128, (BATCH, 14, 14, 256), generator=gen,
+                       device=device, dtype=torch.int8)
+    wi = torch.randint(-127, 128, (3, 3, 256, 256), generator=gen,
+                       device=device, dtype=torch.int8)
+    out = k3.conv2d_q8(xi, wi, x_scale=torch.ones((), device=device),
+                       w_scale=torch.ones(256, device=device), padding=1)
+    exact = torch.nn.functional.conv2d(
+        xi.double().permute(0, 3, 1, 2), wi.double().permute(3, 2, 0, 1),
+        padding=1).permute(0, 2, 3, 1)
+    exact_ok = bool(torch.equal(out.double(), exact.to(torch.float32)
+                                .double()))
+    print(f"  integer-exact case (16x14x14x256, 3x3, values +-127, unit "
+          f"scales) equals the float64 conv: {exact_ok}")
+    check(exact_ok, "K3 is not exact on integer inputs with unit scales")
+    print("  per-signature JSON:", json.dumps(rows))
+    return rows
+
+
+def int8_serving(device, params, f32_stats):
+    """Phase 6: the int8 main path.  Returns (engine, K3 launches in it)."""
+    import torch
+    from repro_torch.core.conv import lane_ok
+    from repro_torch.graph.serving import CnnInferenceEngine
+    from repro_torch.kernels import conv2d_direct as k1
+    from repro_torch.kernels import conv2d_q8 as k3
+    from repro_torch.launch.serve_cnn import build_model, serve_window
+
+    gxm, image = build_model(smoke=False, device=device)
+    engine = CnnInferenceEngine(gxm, params, image_hw=(image, image),
+                                max_batch=BATCH, quantized=True)
+    check(gxm.quantized and engine.quantized, "the int8 engine is not int8")
+    t0 = time.perf_counter()
+    report = engine.warmup()
+    print(f"\nint8 serving: warmup (calibration of "
+          f"{len(engine.act_scales)} activation scales on the default "
+          f"synthetic batches, then buckets {report['buckets']}) in "
+          f"{time.perf_counter() - t0:.2f}s")
+    check(report["quantized"] and engine.qparams is not None,
+          "warmup did not calibrate")
+    # serve_window sets the K1 and K3 counts to 0 just before the window
+    server, results = serve_window(engine, requests=REQUESTS, seed=SEED)
+    launches, k1_launches = k3.launches, k1.launches
+    st = server.stats()
+    check(len(results) == REQUESTS, f"served {len(results)} of {REQUESTS}")
+    check(all(0 <= c < 1000 and math.isfinite(v)
+              for c, v in results.values()), "non-finite or bad top-1")
+    per_fwd = sum(1 for t in gxm.etg.tasks if t.op == "conv"
+                  and lane_ok(t.attrs["c"], t.attrs["k"]))
+    print(f"  {REQUESTS} requests in {st['batches']} batches "
+          f"{st['by_bucket']}, {st['padded_lanes']} padded lanes")
+    for name, x in (("int8", st), ("f32 ", f32_stats)):
+        print(f"  {name}: images/s {x['images_per_s']:.2f} over "
+              f"{x['wall_s']:.3f} s wall  p50 {x['latency']['p50_ms']:.3f} "
+              f"ms  p99 {x['latency']['p99_ms']:.3f} ms")
+    print(f"  K3 launches {launches} = {per_fwd} x {st['batches']} forwards; "
+          f"K1 launches {k1_launches}")
+    check(set(st["by_bucket"]) == set(engine.buckets),
+          f"buckets served {sorted(st['by_bucket'])}, not {engine.buckets}")
+    check(per_fwd == 52 and launches == per_fwd * st["batches"],
+          f"K3 launched {launches} times, expected 52 x {st['batches']}")
+    check(k1_launches == 0, f"K1 launched {k1_launches} times in the int8 "
+          f"window, expected 0")
+    return engine, launches, st
+
+
+def int8_breakdown(engine, k3_ms: float) -> dict:
+    """One batch-16 int8 step by host clock (H2D, forward), K3's device
+    time per forward from phase 5, and the device time of ``quantize_act``
+    on that forward's conv inputs (CUDA events)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.quantize import quantize_act
+
+    host = np.random.default_rng(SEED + 2).standard_normal(
+        (BATCH, IMAGE, IMAGE, 3), dtype=np.float32)
+    on_card = torch.as_tensor(host, device=engine.device)
+    step = wall_ms(lambda: engine.infer(host))
+    h2d = wall_ms(lambda: torch.as_tensor(host, device=engine.device))
+    fwd = wall_ms(lambda: engine.gxm.infer(engine.qparams, on_card))
+    inputs = []
+    with torch.inference_mode():
+        engine.gxm.forward(engine.qparams, on_card, train=False,
+                           tap=lambda name, v: inputs.append(
+                               (v, engine.qparams[name]["x_scale"])))
+    glue = cuda_ms(lambda: [quantize_act(v, sc) for v, sc in inputs], 5)
+    out = dict(step_ms=step, h2d_ms=h2d, forward_ms=fwd, k3_ms=k3_ms,
+               quantize_act_ms=glue, quantized_inputs=len(inputs))
+    del inputs
+    print(f"  batch {BATCH} int8 step {step:.3f} ms: H2D {h2d:.3f} ms, "
+          f"forward {fwd:.3f} ms (wall), K3 {k3_ms:.3f} ms by CUDA events "
+          f"({100 * k3_ms / step:.1f}% of the step), quantize_act on the 53 "
+          f"conv inputs {glue:.3f} ms by CUDA events "
+          f"({100 * glue / step:.1f}%)")
+    # the same forward, int8 and f32 (the q8-marked GxM with the f32 tree
+    # runs K1), 5 each under the profiler: device time by kernel name
+    for name, params in (("int8", engine.qparams), ("f32", engine.params)):
+        with torch.inference_mode():
+            trace = trace_device(lambda i: engine.gxm.forward(
+                params, on_card, train=False), 5)
+        out[name] = dict(
+            wall_ms=trace["wall_ms"], device_ms=trace["device_ms"],
+            busy_share=trace["busy_share"],
+            k3_ms=device_ms_of(trace, "conv2d_q8_kernel"),
+            k1_ms=device_ms_of(trace, "conv2d_direct_kernel"),
+            top=[dict(ms=ms, launches=n, name=kname[:100])
+                 for ms, n, kname in trace["by_name"][:10]])
+        r = out[name]
+        busy = "n/a" if r["busy_share"] is None else f"{r['busy_share']:.4f}"
+        print(f"  {name} forward under the profiler: {r['wall_ms']:.3f} ms "
+              f"host clock, device {r['device_ms']:.3f} ms (K3 "
+              f"{r['k3_ms']:.3f}, K1 {r['k1_ms']:.3f}), busy share {busy}")
+        for rec in r["top"]:
+            print(f"    {rec['ms']:8.3f} ms  x{rec['launches']:5.1f}  "
+                  f"{rec['name']}")
+    return out
+
+
+def int8_parity(engine) -> dict:
+    """Phase 7: the card's int8 logits against the port's CPU int8 forward
+    on the same quantized params tree, counting quantized activations that
+    land a step apart; then the int8-vs-f32 gap on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.core.quantize import quantize_act
+    from repro_torch.graph import GxM, resnet50
+
+    images = np.random.default_rng(SEED + 1).standard_normal(
+        (PARITY_BATCH, IMAGE, IMAGE, 3), dtype=np.float32)
+    q = engine.qparams
+    card_q = []
+    with torch.inference_mode():
+        on_card = engine.gxm.forward(
+            q, torch.as_tensor(images, device=engine.device), train=False,
+            tap=lambda name, v: card_q.append(
+                quantize_act(v, q[name]["x_scale"]).cpu())).cpu()
+    cpu_q = {name: {leaf: v.cpu() for leaf, v in p.items()}
+             for name, p in q.items()}
+    flips = dict(values=0, one_step=0, more=0, first_layers=[])
+    replay = iter(card_q)
+
+    def count(name, v):
+        theirs = next(replay)
+        diff = (quantize_act(v, cpu_q[name]["x_scale"]).int()
+                - theirs.int()).abs()
+        flips["values"] += diff.numel()
+        flips["one_step"] += int((diff == 1).sum())
+        flips["more"] += int((diff > 1).sum())
+        if int((diff > 0).sum()) and len(flips["first_layers"]) < 3:
+            flips["first_layers"].append((name, int((diff > 0).sum())))
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        on_cpu = GxM(resnet50(), device="cpu", quantized=True).forward(
+            cpu_q, torch.from_numpy(images), train=False, tap=count)
+    cpu_s = time.perf_counter() - t0
+    check(on_card.shape == (PARITY_BATCH, 1000)
+          and bool(torch.isfinite(on_card).all()), "int8 logits not finite")
+    max_abs = float((on_card - on_cpu).abs().max())
+    scale = float(on_cpu.abs().max())
+    same_top1 = bool((on_card.argmax(-1) == on_cpu.argmax(-1)).all())
+    print(f"\nint8 parity: card vs CPU int8 forward (batch {PARITY_BATCH}, "
+          f"one quantized params tree, {cpu_s:.1f}s on CPU): max|diff| "
+          f"{max_abs:.3e}, max|logit| {scale:.3e}, ratio "
+          f"{max_abs / scale:.3e} (limit {INT8_LOGIT_REL_TOL}), same top-1 "
+          f"{same_top1}")
+    print(f"  quantized activations: {flips['one_step']} of "
+          f"{flips['values']} one step apart, {flips['more']} further; "
+          f"first layers that differ: {flips['first_layers']}")
+    with torch.inference_mode():
+        f32 = engine.gxm.infer(engine.params, torch.as_tensor(
+            images, device=engine.device)).cpu()
+    gap = float((on_card - f32).abs().max()) / float(f32.abs().max())
+    agree = int((on_card.argmax(-1) == f32.argmax(-1)).sum())
+    print(f"  int8 vs f32 on the card (scheme property, not gated): max|diff|"
+          f" / max|f32| {gap:.3e}, top-1 agrees on {agree} of "
+          f"{PARITY_BATCH}")
+    check(max_abs <= INT8_LOGIT_REL_TOL * scale,
+          f"int8 logits differ by {max_abs:.3e} > {INT8_LOGIT_REL_TOL} * "
+          f"{scale:.3e}")
+    check(same_top1, "int8 top-1 differs between the card and the CPU")
+    return dict(max_abs=max_abs, ratio=max_abs / scale, flips=flips,
+                int8_vs_f32_gap=gap, int8_vs_f32_top1_agree=agree)
 
 
 def training_signatures(etg):
@@ -502,9 +814,12 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_steps(step, params, batches) -> dict:
-    """Device time by kernel name and the device's busy share over
-    ``len(batches)`` training steps under ``torch.profiler``."""
+def trace_device(fn, iters: int) -> dict:
+    """``fn(i)`` for i in range(iters) under ``torch.profiler``: device
+    time by kernel name per iteration (ms, launches, name; largest first),
+    their sum, the device's busy share (the union of device intervals over
+    the span from the first device event to the last; None when the trace
+    shows no device time) and the host-clock ms per iteration."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -513,17 +828,13 @@ def profile_steps(step, params, batches) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for batch in batches:
-            params, _ = step(params, batch)
+        for i in range(iters):
+            fn(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    steps = len(batches)
-    by_name = sorted(((_device_us(e) / 1e3 / steps, e.count / steps, e.key)
+    by_name = sorted(((_device_us(e) / 1e3 / iters, e.count / iters, e.key)
                       for e in prof.key_averages() if e.device_type == cuda),
                      reverse=True)
-    device_ms = sum(ms for ms, _, _ in by_name)
-    # busy share: the union of device intervals over the span from the
-    # first device event to the last
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events() if e.device_type == cuda)
     busy_us = 0.0
@@ -537,11 +848,32 @@ def profile_steps(step, params, batches) -> dict:
                 cur_e = max(cur_e, e)
         busy_us += cur_e - cur_s
     span_us = spans[-1][1] - spans[0][0] if spans else 0.0
+    return dict(by_name=by_name, device_ms=sum(ms for ms, _, _ in by_name),
+                busy_share=busy_us / span_us if span_us else None,
+                wall_ms=wall_ms / iters)
+
+
+def device_ms_of(trace: dict, needle: str) -> float:
+    """Device ms per iteration of the kernels whose name holds ``needle``."""
+    return sum(ms for ms, _, name in trace["by_name"] if needle in name)
+
+
+def profile_steps(step, params, batches) -> dict:
+    """Device time by kernel name and the device's busy share over
+    ``len(batches)`` training steps under ``torch.profiler``."""
+    state = [params]
+
+    def run(i):
+        state[0], _ = step(state[0], batches[i])
+    trace = trace_device(run, len(batches))
+    steps = len(batches)
+    by_name, device_ms = trace["by_name"], trace["device_ms"]
 
     def named(needle):
-        return sum(ms for ms, _, name in by_name if needle in name)
-    out = dict(wall_ms_per_step=wall_ms / steps, device_ms_per_step=device_ms,
-               device_busy_share=busy_us / span_us if span_us else None,
+        return device_ms_of(trace, needle)
+    out = dict(wall_ms_per_step=trace["wall_ms"],
+               device_ms_per_step=device_ms,
+               device_busy_share=trace["busy_share"],
                k1_ms_per_step=named("conv2d_direct_kernel"),
                k2_ms_per_step=named("conv2d_wu_kernel") + named("wu_reduce"),
                k2_reduce_ms_per_step=named("wu_reduce"),
@@ -550,9 +882,9 @@ def profile_steps(step, params, batches) -> dict:
     print(f"  profile of {steps} steps: {out['wall_ms_per_step']:.3f} ms/step "
           f"by host clock under the profiler, device {device_ms:.3f} ms/step "
           f"over {len(by_name)} kernel names")
-    if device_ms == 0.0 or not span_us:
+    if device_ms == 0.0 or trace["busy_share"] is None:
         print("  profiler: key_averages() shows no device time; the CUDA-"
-              "event numbers of phases 5 and 6 stand alone")
+              "event numbers of phases 8 and 9 stand alone")
         return out
     print(f"  device busy share {out['device_busy_share']:.4f}, idle "
           f"{1 - out['device_busy_share']:.4f} (first to last device event)")
@@ -732,9 +1064,11 @@ def train_parity(device):
 
 
 def totals(rows) -> dict:
-    """Per-pass sums over signature records (each time x its count), and
-    what bounds most of the bound."""
-    out = {key: sum(r[key] * r["count"] for r in rows)
+    """Per-pass sums over signature records (each time x its count; a
+    library time only where one exists), and what bounds most of the
+    bound."""
+    out = {key: sum(r[key] * r["count"] for r in rows
+                    if r[key] is not None)
            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     by = {}
     for r in rows:
@@ -759,12 +1093,24 @@ def main() -> int:
 
     t_start = time.perf_counter()
     card, device = header()
-    rows = kernel_signatures(device)
-    engine, serve_launches = serving(device)
+    sigs = serving_signatures()
+    rows = kernel_signatures(device, sigs)
+    engine, serve_launches, f32_stats = serving(device)
     serve = totals(rows)
     breakdown(engine, serve["ms"])
     parity(engine)
+    params = engine.params
     del engine
+    torch.cuda.empty_cache()
+
+    q8_rows = q8_signatures(device, sigs, rows)
+    k3 = totals(q8_rows)
+    k3_lib_convs_ms = sum(r["ms"] * r["count"] for r in q8_rows
+                          if r["library_ms"] is not None)
+    engine, q8_launches, q8_stats = int8_serving(device, params, f32_stats)
+    q8_step = int8_breakdown(engine, k3["ms"])
+    q8_parity = int8_parity(engine)
+    del engine, params
     torch.cuda.empty_cache()
 
     fwd, dual, wu = training_signatures(build_etg(resnet50()))
@@ -816,7 +1162,33 @@ def main() -> int:
         "per": f"the 52 K2 launches of one ResNet-50 training step, batch "
                f"{TRAIN_BATCH}",
         "card": card,
+    }, {
+        "name": "conv2d_q8",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/conv2d_q8.cu",
+        "replaces": "src/repro/kernels/conv2d_q8.py:204",
+        "launches": q8_launches,
+        "launches_by_path": {"serving_int8": q8_launches},
+        "max_abs_err": max(r["max_abs_err"] for r in q8_rows),
+        "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+        "library_ms": k3["library_ms"],
+        "library_covers": "the 1x1 convs only (torch._int_mm + dequant and "
+                          "epilogue in torch); K3 on the same convs: "
+                          f"{k3_lib_convs_ms:.4f} ms",
+        "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+        "k1_f32_ms": serve["ms"],
+        "per": f"the 52 K3 convs of one int8 ResNet-50 forward, batch "
+               f"{BATCH}, {IMAGE}x{IMAGE}",
+        "card": card,
     }]
+    print(json.dumps({"serving_int8": {
+        "images_per_s": q8_stats["images_per_s"],
+        "p50_ms": q8_stats["latency"]["p50_ms"],
+        "p99_ms": q8_stats["latency"]["p99_ms"],
+        "f32_images_per_s": f32_stats["images_per_s"],
+        "f32_p50_ms": f32_stats["latency"]["p50_ms"],
+        "f32_p99_ms": f32_stats["latency"]["p99_ms"],
+        "step": q8_step, "parity": q8_parity}}))
     print(json.dumps({"training": {
         key: summary[key] for key in ("step_ms", "images_per_s", "losses")},
         "profile": {key: v for key, v in summary["profile"].items()

@@ -3,11 +3,29 @@
 The reference's ``repro.backend`` selects a kernel implementation
 ("pallas" / "interpret" / "xla").  Here the tensor's device selects it: a
 CPU tensor takes each kernel's plain PyTorch version, a CUDA tensor launches
-the hand-written kernel.  What remains to decide is the device itself.
+the hand-written kernel.  What remains to decide is the device itself,
+and whether inference runs the int8 path (``REPRO_QUANTIZE``).
 """
 from __future__ import annotations
 
+import os
+
 import torch
+
+VALID_QUANTIZE = ("off", "int8")
+
+
+def get_quantize() -> str:
+    """The quantized-inference knob ``REPRO_QUANTIZE``: "off" (default) =
+    f32 convs; "int8" = the §II-K serving path (conv tasks marked "q8",
+    int8 weights and calibrated activations through K3).  Read at each
+    call.  An invalid value raises: the port never runs another path than
+    the one asked for."""
+    mode = os.environ.get("REPRO_QUANTIZE", "off")
+    if mode not in VALID_QUANTIZE:
+        raise ValueError(f"REPRO_QUANTIZE={mode!r}; valid: "
+                         f"{', '.join(VALID_QUANTIZE)}")
+    return mode
 
 
 def resolve_device(device=None) -> torch.device:

@@ -4,16 +4,20 @@ Forward: the direct-conv kernel K1 with its fused epilogue.  Training:
 ``conv2d_train``, a ``torch.autograd.Function`` whose backward is the
 paper's pipeline: dI by the §II-I duality (``core.duality``), every dual
 forward through K1, and dW through the update-pass kernel K2 (§II-J).
-Convs whose (C, K) fail the lane rule take the ``kernels.ref`` oracles, as
-in the reference.  int8 and chains come with later slices.
+int8 inference (§II-K): ``conv2d_q8_fwd`` quantizes the activation and
+runs the int8 kernel K3.  Convs whose (C, K) fail the lane rule take the
+``kernels.ref`` oracles, as in the reference.  Chains come with a later
+slice.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import duality
+from repro_torch.core.quantize import quantize_act
 from repro_torch.kernels import ref
 from repro_torch.kernels.conv2d_direct import conv2d_direct
+from repro_torch.kernels.conv2d_q8 import _deq, conv2d_q8
 from repro_torch.kernels.conv2d_wu import conv2d_wu
 
 
@@ -31,6 +35,34 @@ def conv2d_fwd(x, w, *, stride=1, padding=1, bias=None, scale=None,
     fn = conv2d_direct if lane_ok(c, k) else ref.conv2d_fused
     return fn(x, w, stride=stride, padding=padding, bias=bias, scale=scale,
               shift=shift, residual=residual, relu=relu)
+
+
+def conv2d_q8_fwd(x, w_q, *, x_scale, w_scale, stride=1, padding=1,
+                  bias=None, scale=None, shift=None, residual=None,
+                  relu=False):
+    """Fused quantized forward conv (§II-K): quantize the f32 activation
+    against its calibrated per-tensor scale (plain torch: XLA glue in the
+    reference), run K3 for lane-aligned (C, K), return f32.
+
+    The C=3 stem follows the reference's fallback: ``ref.conv2d_fused`` on
+    the int8 operands cast to f32, with the premultiplied dequant scale
+    folded into the BN-scale slot, ``acc*(deq*bn)`` where K3 computes
+    ``(acc*deq)*bn``: the same scheme, another f32 rounding."""
+    c, k = x.shape[-1], w_q.shape[-1]
+    x_q = quantize_act(x, x_scale)
+    if lane_ok(c, k):
+        return conv2d_q8(x_q, w_q, x_scale=x_scale, w_scale=w_scale,
+                         stride=stride, padding=padding, bias=bias,
+                         scale=scale, shift=shift, residual=residual,
+                         relu=relu)
+    deq = _deq(x_scale, w_scale)
+    combined = deq if scale is None else deq * scale
+    combined_shift = shift if scale is not None else \
+        torch.zeros((k,), dtype=torch.float32, device=x.device)
+    return ref.conv2d_fused(x_q.to(torch.float32), w_q.to(torch.float32),
+                            stride=stride, padding=padding, bias=bias,
+                            scale=combined, shift=combined_shift,
+                            residual=residual, relu=relu)
 
 
 def _dual_fwd(x, w, stride, padding):

@@ -1,7 +1,6 @@
 """Execution Task Graph construction — the GxM flow of paper Fig. 3.
 
-The port's copy of ``repro/graph/etg.py`` (int8 marking, ``quantize_etg``,
-comes with the int8 slice).
+The port's copy of ``repro/graph/etg.py``.
 
 Parser -> NL  (topology.py builders)
 NL Extender   -> adds Split nodes for multi-consumer tensors
@@ -82,8 +81,6 @@ def toposort(nodes: list[Node]) -> list[Node]:
 def conv_signature(n: Node) -> tuple:
     a = n.attrs
     fused_kinds = tuple(k for k, _ in n.fused)
-    # kernel_kind ("f32" | "q8") is part of the reference's signature; this
-    # slice has only "f32"
     return (a["c"], a["k"], a["r"], a["s"], a["stride"], a["padding"],
             fused_kinds, a.get("kernel_kind", "f32"))
 
@@ -100,7 +97,22 @@ def _assign_kernel_ids(tasks: list[Node]) -> dict[tuple, int]:
     return cache
 
 
-def build_etg(nl: list[Node], *, fuse: bool = True) -> ETG:
+def quantize_etg(etg: ETG) -> ETG:
+    """Mark every conv task for the §II-K int8 kernel path and rebuild the
+    dedup cache (q8 signatures are distinct code-generator entries).  The
+    executor dispatches a task to ``conv2d_q8_fwd`` when its params carry
+    quantized leaves (``core.quantize.quantize_gxm_params``); a q8-marked
+    ETG with f32 params still runs the f32 path, which is what calibration
+    relies on."""
+    for t in etg.tasks:
+        if t.op == "conv":
+            t.attrs["kernel_kind"] = "q8"
+    etg.kernel_cache = _assign_kernel_ids(etg.tasks)
+    return etg
+
+
+def build_etg(nl: list[Node], *, fuse: bool = True,
+              quantized: bool = False) -> ETG:
     enl = extend_nl([dataclasses.replace(n, inputs=list(n.inputs),
                                          attrs=dict(n.attrs),
                                          fused=list(n.fused))
@@ -118,4 +130,5 @@ def build_etg(nl: list[Node], *, fuse: bool = True) -> ETG:
     stats = fusion_stats(enl, fused)
     stats["chains"] = len(chains)
     stats["chained_convs"] = sum(len(c) for c in chains)
-    return ETG(tasks=tasks, kernel_cache=cache, stats=stats, chains=chains)
+    etg = ETG(tasks=tasks, kernel_cache=cache, stats=stats, chains=chains)
+    return quantize_etg(etg) if quantized else etg

@@ -9,10 +9,12 @@ Training: every conv runs ``core.conv.conv2d_train``, whose backward is the
 paper's pipeline (dI by duality through K1, dW through K2); BN uses batch
 statistics and yields the running-statistics update.  Inference: BN is
 folded from the running statistics into each conv's fused epilogue, and
-every lane-aligned conv goes through K1 (``core.conv.conv2d_fwd``).
+every lane-aligned conv goes through K1 (``core.conv.conv2d_fwd``), or,
+for a q8-marked task whose params hold int8 weights, through K3
+(``core.conv.conv2d_q8_fwd``, §II-K).  ``forward(tap=)`` shows every conv
+input to a callback: the calibration pass of ``core.quantize``.
 
-Depth-first chain fusion, int8 and calibration taps come with later slices
-and raise here.
+Depth-first chain fusion comes with a later slice and raises here.
 """
 from __future__ import annotations
 
@@ -22,8 +24,8 @@ import os
 import torch
 import torch.nn.functional as F
 
-from repro_torch.backend import resolve_device
-from repro_torch.core.conv import conv2d_fwd, conv2d_train
+from repro_torch.backend import get_quantize, resolve_device
+from repro_torch.core.conv import conv2d_fwd, conv2d_q8_fwd, conv2d_train
 from repro_torch.graph.etg import ETG, build_etg
 
 # BN leaves that are running statistics: buffers, not trained by SGD.
@@ -63,10 +65,13 @@ class GxM:
     """Graph execution model over an ETG, on one device."""
 
     def __init__(self, nl, *, device=None, fuse: bool = True,
-                 num_classes: int = 1000):
-        self.etg: ETG = build_etg(nl, fuse=fuse)
+                 num_classes: int = 1000, quantized: bool | None = None):
+        if quantized is None:
+            quantized = get_quantize() == "int8"
+        self.etg: ETG = build_etg(nl, fuse=fuse, quantized=quantized)
         self.device = resolve_device(device)
         self.num_classes = num_classes
+        self.quantized = quantized
 
     # -- parameter init -----------------------------------------------------
     def init(self, generator: torch.Generator | None = None):
@@ -118,10 +123,10 @@ class GxM:
         ``{task: (mean, var)}`` for the running update.  Inference folds
         the *running* BN statistics into the conv epilogue (scale' =
         g/sqrt(var+eps), shift' = b - g*mean/sqrt(var+eps)), the paper's
-        §II-G fused BN."""
-        if tap is not None:
-            raise NotImplementedError(
-                "calibration taps arrive with the int8 slice")
+        §II-G fused BN.  ``tap(name, x)``, if given, sees the input of
+        every conv task (the calibration pass of ``core.quantize``).  A
+        q8-marked conv whose params hold ``w_q`` runs the int8 path, one
+        with f32 params the f32 path."""
         if (not train and self.etg.chains
                 and os.environ.get("REPRO_CHAIN_FUSION") == "on"):
             raise NotImplementedError(
@@ -134,7 +139,11 @@ class GxM:
             return tensors[name]
 
         def folded(p):
-            inv = torch.rsqrt(p["var"] + 1e-5)
+            # 1/sqrt, both correctly rounded, not rsqrt: CUDA's rsqrt is
+            # approximate, so the card would fold BN to other bits than the
+            # CPU, and on the int8 path each such bit can move a quantized
+            # activation a step
+            inv = 1.0 / torch.sqrt(p["var"] + 1e-5)
             return p["scale"] * inv, p["shift"] - p["scale"] * p["mean"] * inv
 
         for t in self.etg.tasks:
@@ -142,11 +151,10 @@ class GxM:
             if t.op == "input":
                 continue
             if t.op == "conv":
+                inp = get(t.inputs[0])
+                if tap is not None:
+                    tap(t.name, inp)
                 p = params[t.name]
-                if "w_q" in p:
-                    raise NotImplementedError(
-                        f"conv {t.name} holds int8 weights (w_q): the int8 "
-                        f"path arrives with the int8 slice")
                 bn = bias = residual = None
                 relu = False
                 for kind, attrs in t.fused:
@@ -159,9 +167,14 @@ class GxM:
                     elif kind == "add":
                         residual = get(attrs["residual"])
                 if train:
+                    if "w_q" in p:
+                        raise ValueError(
+                            f"conv {t.name} holds quantized weights (w_q); "
+                            f"the q8 path is inference-only: train with "
+                            f"the f32 params tree")
                     # the conv runs bare; BN with batch statistics, bias,
                     # residual and relu follow as separate passes
-                    out = conv2d_train(get(t.inputs[0]), p["w"], a["stride"],
+                    out = conv2d_train(inp, p["w"], a["stride"],
                                        a["padding"])
                     if bn is not None:
                         mu, var = stats[t.name] = _batch_stats(out)
@@ -176,10 +189,18 @@ class GxM:
                 else:
                     scale, shift = folded(bn) if bn is not None \
                         else (None, None)
-                    out = conv2d_fwd(get(t.inputs[0]), p["w"],
-                                     stride=a["stride"], padding=a["padding"],
-                                     bias=bias, scale=scale, shift=shift,
-                                     residual=residual, relu=relu)
+                    kw = dict(stride=a["stride"], padding=a["padding"],
+                              bias=bias, scale=scale, shift=shift,
+                              residual=residual, relu=relu)
+                    if a.get("kernel_kind") == "q8" and "w_q" in p:
+                        # §II-K: int8 kernel, f32 epilogue.  A q8-marked
+                        # task with f32 params (no w_q) takes K1: the
+                        # calibration pass.
+                        out = conv2d_q8_fwd(inp, p["w_q"],
+                                            x_scale=p["x_scale"],
+                                            w_scale=p["w_scale"], **kw)
+                    else:
+                        out = conv2d_fwd(inp, p["w"], **kw)
             elif t.op == "bn":
                 p = params[t.name]
                 y = get(t.inputs[0])

@@ -5,17 +5,25 @@
   batch sizes, so the set of shapes every kernel sees is finite.
 * **Warmup** — ``CnnInferenceEngine.warmup`` runs one forward per bucket, so
   the kernels build and load before the first request arrives.
+* **int8** (§II-K) — a quantized engine calibrates per-conv activation
+  scales at warmup and serves the int8 params tree through K3.
 
-No mesh, no autotuner and no int8 yet: those come with later slices.
+No mesh and no autotuner yet: those come with later slices.
 ``launch/serve_cnn.py`` builds the request queue on top.
 """
 from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.core.conv import lane_ok
+from repro_torch.core.quantize import calibrate_network, quantize_gxm_params
+from repro_torch.graph.etg import quantize_etg
+
+# calibration's synthetic warmup batches (the reference's defaults)
+CALIB_BATCHES, CALIB_BATCH = 2, 4
 
 
 def _out(dim: int, f: int, stride: int, padding: int) -> int:
@@ -124,26 +132,75 @@ class CnnInferenceEngine:
 
     ``infer(images)`` pads the batch with zero images to the minimal bucket,
     runs the forward and returns only the real lanes' logits.  Inference has
-    no cross-batch ops (BN folded from running stats), so padded lanes
-    cannot perturb real ones.
+    no cross-batch ops (BN folded from running stats, activation scales
+    fixed at calibration), so padded lanes cannot perturb real ones.
+
+    ``quantized`` (§II-K int8 serving): ``None`` follows the GxM (whose own
+    default is ``REPRO_QUANTIZE``); ``True`` on an f32 GxM re-marks its ETG
+    in place.  ``params`` stays the f32 tree, on which calibration runs;
+    the quantized tree the request path serves (``qparams``) is derived by
+    ``calibrate``, which ``warmup`` calls first.
     """
 
     def __init__(self, gxm, params, *, image_hw=(224, 224),
-                 max_batch: int = 32, buckets=None):
+                 max_batch: int = 32, buckets=None,
+                 quantized: bool | None = None):
         self.gxm = gxm
         self.params = params
         self.device = gxm.device
         self.image_hw = tuple(image_hw)
         self.buckets = round_buckets(buckets, 1) if buckets \
             else make_buckets(max_batch)
+        if quantized is None:
+            quantized = bool(getattr(gxm, "quantized", False))
+        elif quantized and not getattr(gxm, "quantized", False):
+            quantize_etg(gxm.etg)
+            gxm.quantized = True
+        self.quantized = quantized
+        self.qparams = None
+        self.act_scales = None
 
     def conv_shapes(self) -> list[dict]:
         return conv_shapes(self.gxm.etg, self.image_hw)
 
+    @property
+    def _run_params(self):
+        """The params tree the request path runs: the quantized tree on a
+        quantized engine, the f32 tree otherwise.  A quantized engine that
+        has not been calibrated raises rather than serve f32."""
+        if not self.quantized:
+            return self.params
+        if self.qparams is None:
+            raise ValueError("quantized engine is not calibrated: call "
+                             "warmup() or calibrate() first")
+        return self.qparams
+
+    def calibrate(self, *, seed: int = 0) -> dict:
+        """Calibrate per-conv activation scales and build the quantized
+        params tree (``core.quantize``) on ``CALIB_BATCHES`` synthetic
+        batches of ``CALIB_BATCH`` images from
+        ``np.random.default_rng(seed)``, the same draws as the reference's
+        defaults, so calibration is deterministic for a seed.  Returns the
+        scale dict."""
+        if not self.quantized:
+            raise ValueError("calibrate() on an engine that is not quantized")
+        rng = np.random.default_rng(seed)
+        images = [rng.standard_normal(
+            (CALIB_BATCH, *self.image_hw, 3)).astype(np.float32)
+            for _ in range(CALIB_BATCHES)]
+        self.act_scales = calibrate_network(self.gxm, self.params, images)
+        self.qparams = quantize_gxm_params(self.gxm.etg, self.params,
+                                           self.act_scales)
+        return self.act_scales
+
     def warmup(self) -> dict:
-        """One forward per bucket, so every kernel the request path launches
-        is built and loaded first.  Returns a report: signature counts and
-        the warmup seconds per bucket."""
+        """Calibrate first when the engine is quantized and not calibrated
+        yet, then one forward per bucket, so every kernel the request path
+        launches is built and loaded.  Returns a report: signature counts,
+        whether the engine serves int8, and the warmup seconds per
+        bucket."""
+        if self.quantized and self.qparams is None:
+            self.calibrate()          # deterministic synthetic batches
         sigs = distinct_conv_signatures(self.conv_shapes())
         report = {
             "conv_signatures": len(sigs),
@@ -151,12 +208,13 @@ class CnnInferenceEngine:
                 sum(1 for s in sigs if lane_ok(s["c"], s["k"])),
             "kernel_cache_entries": len(self.gxm.etg.kernel_cache),
             "buckets": list(self.buckets),
+            "quantized": self.quantized,
             "warmup_s": {},
         }
         for bucket in self.buckets:
             t0 = time.perf_counter()
             x = torch.zeros((bucket, *self.image_hw, 3), device=self.device)
-            self.gxm.infer(self.params, x)
+            self.gxm.infer(self._run_params, x)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             report["warmup_s"][bucket] = time.perf_counter() - t0
@@ -172,4 +230,4 @@ class CnnInferenceEngine:
         bucket = pick_bucket(n, self.buckets)
         if n < bucket:
             x = torch.cat([x, x.new_zeros((bucket - n, *x.shape[1:]))])
-        return self.gxm.infer(self.params, x.contiguous())[:n]
+        return self.gxm.infer(self._run_params, x.contiguous())[:n]

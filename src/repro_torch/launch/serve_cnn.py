@@ -3,6 +3,11 @@ the counterpart of ``repro/launch/serve_cnn.py`` on one GPU.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_cnn              # full ResNet-50, cuda
   PYTHONPATH=src python -m repro_torch.launch.serve_cnn --smoke --device cpu
+  REPRO_QUANTIZE=int8 PYTHONPATH=src python -m repro_torch.launch.serve_cnn
+
+``REPRO_QUANTIZE=int8`` serves the §II-K int8 path, as the reference's CLI
+does: warmup calibrates the activation scales first, and every lane-aligned
+conv runs K3.
 
 Requests (single images) land in a queue; the scheduler drains it in
 batches, each padded up to the minimal bucket of a fixed ladder
@@ -25,6 +30,7 @@ import torch
 from repro_torch.graph import GxM, resnet50
 from repro_torch.graph.serving import CnnInferenceEngine, pick_bucket
 from repro_torch.kernels import conv2d_direct as k1
+from repro_torch.kernels import conv2d_q8 as k3
 
 
 class ImageServer:
@@ -140,14 +146,14 @@ def serve_window(engine: CnnInferenceEngine, *, requests: int, seed: int = 0,
                  warm_requests: int = 64) -> tuple[ImageServer, dict]:
     """The measured serving window: ``warm_requests`` in bursts through a
     throwaway server (untimed), then ``requests`` through a fresh one.  All
-    images are made before either starts, and K1's launch count is set to 0
-    as the window opens.  Returns (server, results)."""
+    images are made before either starts, and the launch counts of K1 and
+    K3 are set to 0 as the window opens.  Returns (server, results)."""
     rng = np.random.default_rng(seed)
     image = engine.image_hw[0]
     warm = make_images(warm_requests, image, rng)
     window = make_images(requests, image, rng)
     serve_bursts(ImageServer(engine), warm, rng=rng)
-    k1.launches = 0
+    k1.launches = k3.launches = 0
     server = ImageServer(engine)
     return server, serve_bursts(server, window, rng=rng)
 
@@ -171,12 +177,14 @@ def main(argv=None):
     warm_s = time.perf_counter() - t0
     print(f"warmup: {report['conv_signatures']} conv signatures "
           f"({report['kernel_path_signatures']} on the kernel path), "
-          f"buckets {report['buckets']} in {warm_s:.1f}s")
+          f"buckets {report['buckets']}, "
+          f"{'int8' if report['quantized'] else 'f32'}, in {warm_s:.1f}s")
 
     server, results = serve_window(engine, requests=args.requests)
     st = server.stats()
     summary = {
         "device": str(m.device), "image": image,
+        "quantized": engine.quantized,
         "requests": len(results), "batches": st["batches"],
         "pad_fraction": st["padded_lanes"]
         / max(st["images"] + st["padded_lanes"], 1),
@@ -186,6 +194,7 @@ def main(argv=None):
         "wall_s": st["wall_s"],
         "images_per_s": st["images_per_s"],
         "conv2d_direct_launches": k1.launches,
+        "conv2d_q8_launches": k3.launches,
     }
     print(json.dumps(summary))
     if len(results) != args.requests:

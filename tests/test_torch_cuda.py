@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.core.conv import conv2d_train
 from repro_torch.kernels import conv2d_direct as k1
+from repro_torch.kernels import conv2d_q8 as k3
 from repro_torch.kernels import conv2d_wu as k2
 from repro_torch.kernels import ref
 
@@ -177,3 +178,73 @@ def test_conv2d_train_grads_match_ref(cuda, case):
     torch.sin(ref.conv2d(xr, wr, stride=stride, padding=pad)).sum().backward()
     assert _rel_err(xk.grad, xr.grad) <= 1e-4
     assert _rel_err(wk.grad, wr.grad) <= 1e-4
+
+
+def _q8_args(case, dev, *, bias=False, bn=False, residual=False, relu=False):
+    """int8 operands from ``quantize_conv_inputs`` on random f32, f32
+    epilogue operands."""
+    f = _args(case, dev, bias=bias, bn=bn, residual=residual, relu=relu)
+    x_q, w_q, x_scale, w_scale = k3.quantize_conv_inputs(f.pop("x"),
+                                                         f.pop("w"))
+    return dict(x_q=x_q, w_q=w_q, x_scale=x_scale, w_scale=w_scale, **f)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("epi", range(len(EPILOGUES)))
+def test_q8_kernel_matches_plain_bit_for_bit(cuda, case, epi):
+    """K3 against its plain version: int32 sums are exact and the f32
+    epilogue rounds in the same places, so max |diff| = 0."""
+    args = _q8_args(case, cuda, **EPILOGUES[epi])
+    before = k3.launches
+    out = k3.conv2d_q8(**args)
+    torch.cuda.synchronize()
+    assert k3.launches == before + 1
+    exp = k3.conv2d_q8_plain(**args)
+    assert out.shape == exp.shape and out.dtype == torch.float32
+    assert torch.equal(out, exp), float((out - exp).abs().max())
+
+
+# K3's 128x128 tile, with whole-vector loads (C % 16 == 0) and byte loads
+Q8_TILE_CASES = [(16, 28, 28, 64, 256, 1, 1, 0), (32, 28, 28, 24, 100, 3, 1, 1)]
+
+
+@pytest.mark.parametrize("case", Q8_TILE_CASES)
+def test_q8_kernel_large_tile_matches_plain(cuda, case):
+    args = _q8_args(case, cuda, **EPILOGUES[-1])
+    out = k3.conv2d_q8(**args)
+    assert torch.equal(out, k3.conv2d_q8_plain(**args))
+
+
+@pytest.mark.parametrize("c,k", [(8, 8), (64, 128), (5, 7)])
+def test_q8_kernel_integer_inputs_exact(cuda, c, k):
+    """Integer-valued inputs with unit scales and no epilogue: K3 equals
+    the float64 conv of the same integers on the CPU."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randint(-3, 4, (2, 9, 9, c), generator=g, device=cuda)
+    w = torch.randint(-3, 4, (3, 3, c, k), generator=g, device=cuda)
+    out = k3.conv2d_q8(x.to(torch.int8), w.to(torch.int8),
+                       x_scale=torch.ones((), device=cuda),
+                       w_scale=torch.ones(k, device=cuda), stride=1,
+                       padding=1)
+    exp = ref.conv2d(x.double().cpu(), w.double().cpu(), stride=1,
+                     padding=1)
+    assert torch.equal(out.cpu(), exp.float())
+
+
+def test_q8_kernel_overflow_and_rejects(cuda):
+    x = torch.zeros((1, 3, 3, 16384), dtype=torch.int8, device=cuda)
+    w = torch.zeros((3, 3, 16384, 8), dtype=torch.int8, device=cuda)
+    one, ones = torch.ones((), device=cuda), torch.ones(8, device=cuda)
+    before = k3.launches
+    with pytest.raises(ValueError, match="overflow"):
+        k3.conv2d_q8(x, w, x_scale=one, w_scale=ones, padding=1)
+    args = _q8_args(CASES[0], cuda)
+    with pytest.raises(ValueError, match="int8"):
+        k3.conv2d_q8(**{**args, "x_q": args["x_q"].float()})
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.conv2d_q8(**{**args, "x_q": args["x_q"].transpose(1, 2)})
+    with pytest.raises(ValueError, match="on cpu"):
+        k3.conv2d_q8(**{**args, "x_scale": args["x_scale"].cpu()})
+    with pytest.raises(ValueError, match="float32"):
+        k3.conv2d_q8(**{**args, "w_scale": args["w_scale"].double()})
+    assert k3.launches == before

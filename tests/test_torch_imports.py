@@ -84,6 +84,15 @@ def test_wu_kernel_symbol_matches_its_binding():
     assert set(_build.KERNELS) == {p.stem for p in _build.CSRC.glob("*.cu")}
 
 
+def test_q8_kernel_symbol_matches_its_binding():
+    src = (_build.CSRC / "conv2d_q8.cu").read_text()
+    assert 'extern "C" int repro_conv2d_q8(' in src
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in src
+    binding = (PORT / "kernels" / "conv2d_q8.py").read_text()
+    assert ".repro_conv2d_q8" in binding
+    assert "conv2d_q8" in _build.KERNELS
+
+
 def test_build_all_starts_every_compiler_before_waiting(tmp_path,
                                                          monkeypatch):
     """One nvcc per source, all started before the first is waited on;
