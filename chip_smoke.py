@@ -78,7 +78,25 @@ Phases, each of which fails the run (nonzero exit, no result line):
     by two summation orders, and then a whole pixel's gradient moves.  So
     the CPU step takes the card's ReLU masks and max-pool choices, and the
     script prints how many of them the CPU would have decided otherwise.
-12. The kernels line, then the device line last.
+12. K4 vs plain: the same 23 serving signatures at batch 16 with random
+    bias, ReLU where the signature fuses it, under the analytic "streams"
+    blocking (``core.blocking``, autotune off): K4 against its plain
+    replay of the same schedule (max |diff| / max |plain| <= 1e-5) under
+    order nkpc and one other order, and once on a schedule whose runs are
+    shuffled (``core.streams.permute_runs``); per signature the steps and
+    RLE segments, K4's CUDA-event and profiler device times, the plain
+    replay's, K1's with the same bias and ReLU, the library yardstick
+    (cuDNN ``F.conv2d`` in true f32 plus bias and ReLU) and the bound.
+13. Tuned replay, the slice's main path: ``tune.warmup_convs`` on every
+    serving shape at batch 16, kind "streams", mode "tune", into a cache
+    in a temporary directory (``REPRO_TUNE_CACHE``): the cost model's 8
+    best candidates of each are timed on the card; every entry must say
+    "measured".  Then ``conv2d_streams_auto(autotune="cache")`` runs each
+    signature once with K4's count set to 0 just before and read just
+    after (one launch each), no candidate timed and every lookup a hit;
+    each result within 1e-5 of the plain replay; tuned times against the
+    analytic ones, per signature and per 52-conv forward.
+14. The kernels line, then the device line last.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -100,9 +118,6 @@ REQUESTS = 512
 TRAIN_BATCH = 32            # torchvision's ResNet-50 recipe, per GPU
 TRAIN_LR = 0.1
 PARITY_BATCH = 2
-F32_PEAK_FLOPS = 67e12      # H100 SXM, f32 outside the tensor cores
-INT8_PEAK_OPS = 1979e12     # H100 SXM, dense int8 tensor cores (NVIDIA data sheet)
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 KERNEL_REL_TOL = 1e-5
 LOGIT_REL_TOL = 1e-4
 INT8_LOGIT_REL_TOL = 1e-3   # card vs CPU int8 forward, one quantized params tree
@@ -166,12 +181,13 @@ def header():
     return smi[0], device
 
 
-def bound(flops: float, nbytes: float,
-          peak: float = F32_PEAK_FLOPS) -> tuple[float, str]:
-    """The least time the card could take, ms, and what bounds it."""
-    t_ops = flops / peak * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+def bound(flops: float, nbytes: float, int8: bool = False) -> tuple[float, str]:
+    """The least time the card could take, ms, and what bounds it: the
+    H100 peaks of ``repro_torch.launch.roofline`` (f32 SIMT, or int8 tensor
+    cores), the ones the tuner's cost model uses."""
+    from repro_torch.launch import roofline
+    return roofline.bound_ms(flops, nbytes, roofline.INT8_PEAK_OPS if int8
+                             else roofline.F32_PEAK_FLOPS)
 
 
 def serving_signatures() -> dict[tuple, int]:
@@ -451,7 +467,7 @@ def q8_signatures(device, sigs, k1_rows):
         nbytes = (BATCH * h * w * c + r * s * c * k + 4.0 * BATCH * p * q * k
                   + 4.0 * (3 * k + 1)
                   + (4.0 * BATCH * p * q * k if "add" in fused else 0))
-        bound_ms, bound_by = bound(ops, nbytes, INT8_PEAK_OPS)
+        bound_ms, bound_by = bound(ops, nbytes, int8=True)
         rec = dict(h=h, w=w, c=c, k=k, r=r, s=s, stride=st, padding=pad,
                    fused=list(fused), count=count, max_abs_err=max_abs,
                    ms=ms, plain_ms=plain_ms, k1_f32_ms=k1_ms[key],
@@ -1063,6 +1079,268 @@ def train_parity(device):
     return dict(loss_rel=loss_rel, worst=worst, flips=flips)
 
 
+STREAM_ORDERS = ("npkc", "knpc", "pknc")   # the second order, in turn
+
+
+def stream_inputs(device, gen, key):
+    """Random x, w and bias of one serving signature at BATCH, and its
+    ``conv2d_streams_auto`` arguments (bias, and ReLU as the signature
+    fuses it)."""
+    import torch
+    h, w, c, k, r, s, st, pad, fused = key
+    x = torch.randn((BATCH, h, w, c), generator=gen, device=device)
+    wt = torch.randn((r, s, c, k), generator=gen, device=device) \
+        * math.sqrt(2.0 / (r * s * c))
+    bias = torch.randn(k, generator=gen, device=device) * 0.1
+    return x, wt, dict(stride=st, padding=pad, bias=bias,
+                       relu="relu" in fused)
+
+
+def stream_schedule(x, wt, blk, order, relu, stride, padding):
+    """The dryrun of one conv under ``blk`` with ``order``."""
+    from repro_torch.core.streams import build_conv_schedule
+    n, h, _, c = x.shape
+    r, _, _, k = wt.shape
+    p = (h + 2 * padding - r) // stride + 1
+    return build_conv_schedule(n=n, k_b=k // blk.k_blk,
+                               p_b=math.ceil(p / min(blk.rb_p, p)),
+                               c_b=c // blk.c_blk, order=order, relu=relu)
+
+
+def rel_err(out, plain) -> tuple[float, float]:
+    max_abs = float((out - plain).abs().max())
+    return max_abs, max_abs / float(plain.abs().max())
+
+
+def streams_signatures(device, sigs):
+    """Phase 12: K4 against its plain replay on every serving signature
+    under the analytic "streams" blocking, with order nkpc and one other
+    order, and once on a schedule whose runs are shuffled; times of K4
+    (CUDA events and profiler), the plain replay, K1 with the same bias and
+    ReLU, cuDNN, and the bound.  Returns per-signature records."""
+    import numpy as np
+    import torch
+    from repro_torch.core.blocking import conv_blocking
+    from repro_torch.core.streams import permute_runs, run_starts
+    from repro_torch.kernels import conv2d_direct as k1
+    from repro_torch.kernels import conv2d_streams as k4
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    rows = []
+    print(f"\nK4 vs plain replay, ResNet-50 {IMAGE}x{IMAGE} batch {BATCH} "
+          f"({len(sigs)} signatures, {sum(sigs.values())} convs), analytic "
+          f"'streams' blocking, bias + ReLU as fused; ev = CUDA events, dev "
+          f"= profiler device time; k1 = K1 with the same bias/ReLU; library"
+          f" = cuDNN f32 + bias/ReLU:")
+    print("  h  w    c    k r st relu count rb_p k_blk c_blk order tile "
+          " steps  segs  max_rel   k4_ev  k4_dev  plain_ms   k1_ev  k1_dev "
+          " library  bound bound_by")
+    for i, (key, count) in enumerate(sigs.items()):
+        h, w, c, k, r, s, st, pad, fused = key
+        p = (h + 2 * pad - r) // st + 1
+        q = (w + 2 * pad - s) // st + 1
+        x, wt, kw = stream_inputs(device, gen, key)
+        blk = conv_blocking(h=h, w=w, c=c, k=k, r=r, s=s, stride=st,
+                            padding=pad, kind="streams", autotune="off")
+        knobs = dict(stride=st, padding=pad, bias=kw["bias"], rb_p=blk.rb_p,
+                     k_blk=blk.k_blk, c_blk=blk.c_blk)
+        worst = (0.0, 0.0)
+        for order in ("nkpc", STREAM_ORDERS[i % len(STREAM_ORDERS)]):
+            sched = stream_schedule(x, wt, blk, order, kw["relu"], st, pad)
+            out = k4.conv2d_streams(x, wt, schedule=sched, **knobs)
+            plain = k4.conv2d_streams_plain(x, wt, schedule=sched, **knobs)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out).all()), f"K4 non-finite at {key}")
+            err = rel_err(out, plain)
+            worst = max(worst, err, key=lambda e: e[1])
+            check(err[1] <= KERNEL_REL_TOL,
+                  f"K4 disagrees with its plain replay at {key} order "
+                  f"{order}: max_rel {err[1]:.3e} > {KERNEL_REL_TOL}")
+        sched = stream_schedule(x, wt, blk, blk.order, kw["relu"], st, pad)
+        shuffled = None
+        if i == 1:
+            perm = np.random.default_rng(SEED).permutation(
+                len(run_starts(sched))).tolist()
+            shuf = permute_runs(sched, perm)
+            base = k4.conv2d_streams(x, wt, schedule=sched, **knobs)
+            out = k4.conv2d_streams(x, wt, schedule=shuf, **knobs)
+            plain = k4.conv2d_streams_plain(x, wt, schedule=sched, **knobs)
+            torch.cuda.synchronize()
+            shuffled = dict(runs=len(perm), equal_bits=bool(torch.equal(
+                out, base)), max_rel_err=rel_err(out, plain)[1])
+            print(f"  shuffled runs ({len(perm)} runs permuted, {key}): same "
+                  f"bits as in order {shuffled['equal_bits']}, max_rel "
+                  f"{shuffled['max_rel_err']:.2e}")
+            check(shuffled["max_rel_err"] <= KERNEL_REL_TOL,
+                  "K4 on shuffled runs disagrees with the plain replay")
+
+        def run():
+            return k4.conv2d_streams(x, wt, schedule=sched, **knobs)
+
+        def k1_run():
+            return k1.conv2d_direct(x, wt, stride=st, padding=pad,
+                                    bias=kw["bias"], relu=kw["relu"])
+        ms = cuda_ms(run, 30)
+        dev = device_ms_of(trace_device(lambda i: run(), 10),
+                           "conv2d_streams_kernel")
+        plain_ms = cuda_ms(lambda: k4.conv2d_streams_plain(
+            x, wt, schedule=sched, **knobs), 1)
+        k1_ms = cuda_ms(k1_run, 30)
+        k1_dev = device_ms_of(trace_device(lambda i: k1_run(), 10),
+                              "conv2d_direct_kernel")
+        library_ms = cuda_ms(lambda: ref.conv2d_fused(
+            x, wt, stride=st, padding=pad, bias=kw["bias"],
+            relu=kw["relu"]), 30)
+        flops = 2.0 * BATCH * p * q * k * c * r * s
+        nbytes = 4.0 * (BATCH * h * w * c + r * s * c * k + k
+                        + BATCH * p * q * k)
+        bound_ms, bound_by = bound(flops, nbytes)
+        tile, _ = k4.tile_config(tile_m=min(blk.rb_p, p) * q, k_blk=blk.k_blk,
+                                 c_blk=blk.c_blk,
+                                 runs=len(run_starts(sched)))
+        rec = dict(h=h, w=w, c=c, k=k, r=r, s=s, stride=st, padding=pad,
+                   relu=kw["relu"], count=count,
+                   blocking=dict(rb_p=blk.rb_p, k_blk=blk.k_blk,
+                                 c_blk=blk.c_blk, order=blk.order),
+                   tile=k4.TILES[tile][:2], steps=len(sched),
+                   segments=len(sched.segments), max_abs_err=worst[0],
+                   max_rel_err=worst[1], ms=ms, device_ms=dev,
+                   plain_ms=plain_ms, k1_ms=k1_ms, k1_device_ms=k1_dev,
+                   library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, flops=flops, shuffled=shuffled)
+        rows.append(rec)
+        print(f"{h:3d}{w:3d}{c:5d}{k:5d}{r:2d}{st:3d} {int(kw['relu']):4d}"
+              f"{count:6d}{blk.rb_p:5d}{blk.k_blk:6d}{blk.c_blk:6d} "
+              f"{blk.order:5s} {rec['tile'][0]:3d}x{rec['tile'][1]:<3d}"
+              f"{len(sched):6d}{len(sched.segments):6d}  {worst[1]:.2e} "
+              f"{ms:7.4f} {dev:7.4f} {plain_ms:9.3f} {k1_ms:7.4f} "
+              f"{k1_dev:7.4f} {library_ms:8.4f} {bound_ms:6.4f} {bound_by}")
+        del x, wt, kw, out, plain, sched
+    print("  per-signature JSON:", json.dumps(rows))
+    return rows
+
+
+def tuned_replay(device, sigs, rows):
+    """Phase 13, the slice's main path: ``tune.warmup_convs`` times the
+    cost model's shortlist of "streams" blockings for every serving shape
+    on the card into a cache in a temporary directory
+    (``REPRO_TUNE_CACHE``); then ``conv2d_streams_auto(autotune="cache")``
+    (dryrun with the cached blocking, replay through K4) runs every
+    signature once, with K4's count set to 0 just before and read just
+    after, and no measurement may happen in that pass.  Each result is held
+    against the plain replay of the same schedule."""
+    import tempfile
+
+    import torch
+    from repro_torch import tune
+    from repro_torch.core.blocking import conv_blocking
+    from repro_torch.kernels import conv2d_streams as k4
+    from repro_torch.tune import measure
+
+    shapes = []
+    for key in sigs:
+        sh = dict(zip(("h", "w", "c", "k", "r", "s", "stride", "padding"),
+                      key[:8]))
+        if sh not in shapes:
+            shapes.append(sh)
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    inputs = {key: stream_inputs(device, gen, key) for key in sigs}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["REPRO_TUNE_CACHE"] = os.path.join(tmp, "blockings.json")
+        try:
+            k4.launches = measure.measurements = 0
+            t0 = time.perf_counter()
+            report = tune.warmup_convs(shapes, minibatches=(BATCH,),
+                                       kinds=("streams",), mode="tune",
+                                       backend="cuda")
+            torch.cuda.synchronize()
+            tune_s = time.perf_counter() - t0
+            tuning = dict(launches=k4.launches, timed=measure.measurements,
+                          seconds=tune_s, shapes=len(shapes))
+            print(f"\ntuned replay: warmup_convs tuned {len(shapes)} shapes "
+                  f"at batch {BATCH} in {tune_s:.2f}s wall: "
+                  f"{measure.measurements} candidates timed, {k4.launches} K4 "
+                  f"launches")
+            check(len(report) == len(shapes) and all(
+                e["cached"] and e["source"] == "measured" for e in report),
+                f"warmup did not leave a measured entry for every shape: "
+                f"{report}")
+            check(os.path.isfile(os.environ["REPRO_TUNE_CACHE"]),
+                  "the tuned cache was not written")
+
+            k4.launches = measure.measurements = 0
+            outs = {}
+            for key, (x, wt, kw) in inputs.items():
+                outs[key] = k4.conv2d_streams_auto(x, wt, autotune="cache",
+                                                   **kw)
+            torch.cuda.synchronize()
+            replay_launches = k4.launches
+            cache_timed = measure.measurements
+            blocks = {key: conv_blocking(
+                **dict(zip(("h", "w", "c", "k", "r", "s", "stride",
+                            "padding"), key[:8])),
+                kind="streams", autotune="cache", backend="cuda",
+                minibatch=BATCH) for key in sigs}
+            hits = sum(tune.lookup_conv(
+                **dict(zip(("h", "w", "c", "k", "r", "s", "stride",
+                            "padding"), key[:8])),
+                kind="streams", backend="cuda", minibatch=BATCH) is not None
+                for key in sigs)
+        finally:
+            del os.environ["REPRO_TUNE_CACHE"]
+    print(f"  cache pass: {replay_launches} K4 launches for {len(sigs)} "
+          f"signatures, {cache_timed} candidates timed, {hits} cache hits")
+    check(replay_launches == len(sigs),
+          f"K4 launched {replay_launches} times in the cache pass, expected "
+          f"{len(sigs)}")
+    check(cache_timed == 0, f"the cache pass timed {cache_timed} candidates")
+    check(hits == len(sigs), f"{hits} of {len(sigs)} cache hits")
+
+    analytic = dict(zip(sigs, rows))     # phase 12's rows, in sigs' order
+    out_rows = []
+    print("  h  w    c    k r st count  tuned rb_p k_blk c_blk order  steps "
+          " max_rel  tuned_ev tuned_dev analytic_ev analytic_dev  plain_ms")
+    for key, count in sigs.items():
+        x, wt, kw = inputs[key]
+        blk = blocks[key]
+        sched = stream_schedule(x, wt, blk, blk.order, kw["relu"],
+                                kw["stride"], kw["padding"])
+        knobs = dict(stride=kw["stride"], padding=kw["padding"],
+                     bias=kw["bias"], rb_p=blk.rb_p, k_blk=blk.k_blk,
+                     c_blk=blk.c_blk)
+        plain = k4.conv2d_streams_plain(x, wt, schedule=sched, **knobs)
+        max_abs, max_rel = rel_err(outs[key], plain)
+        check(max_rel <= KERNEL_REL_TOL,
+              f"tuned K4 disagrees with its plain replay at {key}: max_rel "
+              f"{max_rel:.3e}")
+
+        def run():
+            return k4.conv2d_streams_auto(x, wt, blocking=blk, **kw)
+        ms = cuda_ms(run, 30)
+        dev = device_ms_of(trace_device(lambda i: run(), 10),
+                           "conv2d_streams_kernel")
+        plain_ms = cuda_ms(lambda: k4.conv2d_streams_plain(
+            x, wt, schedule=sched, **knobs), 1)
+        a = analytic[key]
+        rec = dict(a, blocking=dict(rb_p=blk.rb_p, k_blk=blk.k_blk,
+                                    c_blk=blk.c_blk, order=blk.order),
+                   steps=len(sched), segments=len(sched.segments),
+                   max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
+                   device_ms=dev, plain_ms=plain_ms,
+                   analytic_ms=a["ms"], analytic_device_ms=a["device_ms"])
+        out_rows.append(rec)
+        h, w, c, k, r, s, st, pad, fused = key
+        print(f"{h:3d}{w:3d}{c:5d}{k:5d}{r:2d}{st:3d}{count:6d}       "
+              f"{blk.rb_p:4d}{blk.k_blk:6d}{blk.c_blk:6d} {blk.order:5s}"
+              f"{len(sched):7d}  {max_rel:.2e} {ms:9.4f} {dev:9.4f} "
+              f"{a['ms']:11.4f} {a['device_ms']:12.4f} {plain_ms:9.3f}")
+        del plain, sched
+    print("  per-signature JSON:", json.dumps(out_rows))
+    return out_rows, dict(tuning, replay_launches=replay_launches,
+                          cache_timed=cache_timed, hits=hits)
+
+
 def totals(rows) -> dict:
     """Per-pass sums over signature records (each time x its count; a
     library time only where one exists), and what bounds most of the
@@ -1127,6 +1405,26 @@ def main() -> int:
           f"{k1_fwd['ms']:.3f} ms + dual {k1_dual['ms']:.3f} ms, K2 "
           f"{k2['ms']:.3f} ms; of a {summary['step_ms']:.3f} ms step")
     summary["parity"] = train_parity(device)
+    torch.cuda.empty_cache()
+
+    k4_rows = streams_signatures(device, sigs)
+    tuned_rows, tuned = tuned_replay(device, sigs, k4_rows)
+    k4_analytic = totals(k4_rows)
+    k4_tuned = totals(tuned_rows)
+
+    def weighted(rows_, key):
+        return sum(r_[key] * r_["count"] for r_ in rows_)
+    print(f"  per {sum(sigs.values())}-conv forward (x count): tuned K4 "
+          f"{k4_tuned['ms']:.3f} ms by events, "
+          f"{weighted(tuned_rows, 'device_ms'):.3f} device; analytic K4 "
+          f"{k4_analytic['ms']:.3f} / "
+          f"{weighted(k4_rows, 'device_ms'):.3f}; K1 with bias+ReLU "
+          f"{weighted(k4_rows, 'k1_ms'):.3f} / "
+          f"{weighted(k4_rows, 'k1_device_ms'):.3f}; cuDNN "
+          f"{k4_analytic['library_ms']:.3f}; plain replay "
+          f"{k4_tuned['plain_ms']:.3f} (tuned schedules), "
+          f"{k4_analytic['plain_ms']:.3f} (analytic); bound "
+          f"{k4_analytic['bound_ms']:.3f} ({k4_analytic['bound_by']})")
     print(f"\nall phases in {time.perf_counter() - t_start:.1f}s")
 
     def timing(d):
@@ -1179,6 +1477,30 @@ def main() -> int:
         "k1_f32_ms": serve["ms"],
         "per": f"the 52 K3 convs of one int8 ResNet-50 forward, batch "
                f"{BATCH}, {IMAGE}x{IMAGE}",
+        "card": card,
+    }, {
+        "name": "conv2d_streams",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/conv2d_streams.cu",
+        "replaces": "src/repro/kernels/conv2d_streams.py:104",
+        "launches": tuned["replay_launches"],
+        "launches_by_path": {"replay": tuned["replay_launches"],
+                             "tuning": tuned["launches"]},
+        "max_abs_err": max(r_["max_abs_err"] for r_ in k4_rows + tuned_rows),
+        "max_rel_err": max(r_["max_rel_err"] for r_ in k4_rows + tuned_rows),
+        **timing(k4_tuned),
+        "device_ms": weighted(tuned_rows, "device_ms"),
+        "analytic_ms": k4_analytic["ms"],
+        "analytic_device_ms": weighted(k4_rows, "device_ms"),
+        "k1_bias_relu_ms": weighted(k4_rows, "k1_ms"),
+        "k1_bias_relu_device_ms": weighted(k4_rows, "k1_device_ms"),
+        "tuning_seconds": tuned["seconds"],
+        "candidates_timed": tuned["timed"],
+        "per": f"the {sum(sigs.values())} lane-aligned convs of one "
+               f"ResNet-50 forward, batch {BATCH}, {IMAGE}x{IMAGE}, with "
+               f"bias and ReLU as fused, tuned 'streams' blockings (the "
+               f"replay pass launches each of the {len(sigs)} signatures "
+               f"once)",
         "card": card,
     }]
     print(json.dumps({"serving_int8": {

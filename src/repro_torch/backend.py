@@ -4,15 +4,19 @@ The reference's ``repro.backend`` selects a kernel implementation
 ("pallas" / "interpret" / "xla").  Here the tensor's device selects it: a
 CPU tensor takes each kernel's plain PyTorch version, a CUDA tensor launches
 the hand-written kernel.  What remains to decide is the device itself,
-and whether inference runs the int8 path (``REPRO_QUANTIZE``).
+whether inference runs the int8 path (``REPRO_QUANTIZE``), and where
+blockings come from (``REPRO_AUTOTUNE``).
 """
 from __future__ import annotations
 
 import os
+from contextlib import contextmanager
 
 import torch
 
 VALID_QUANTIZE = ("off", "int8")
+VALID_AUTOTUNE = ("off", "cache", "tune")
+_autotune: str | None = None     # set_autotune's value; None reads the env
 
 
 def get_quantize() -> str:
@@ -26,6 +30,49 @@ def get_quantize() -> str:
         raise ValueError(f"REPRO_QUANTIZE={mode!r}; valid: "
                          f"{', '.join(VALID_QUANTIZE)}")
     return mode
+
+
+def _valid_autotune(mode: str, source: str) -> str:
+    if mode not in VALID_AUTOTUNE:
+        raise ValueError(f"{source}={mode!r}; valid: "
+                         f"{', '.join(VALID_AUTOTUNE)}")
+    return mode
+
+
+def get_autotune() -> str:
+    """The blocking-autotune knob (§II-D): "off" (default) = the analytic
+    blocking of ``core.blocking``; "cache" = the persistent per-shape
+    cache of ``repro_torch.tune``, analytic on a miss; "tune" = on a miss,
+    search the space, time the shortlist on the card, persist the winner.
+    ``set_autotune`` overrides ``REPRO_AUTOTUNE``, which is read at each
+    call otherwise.  An invalid value raises."""
+    if _autotune is not None:
+        return _autotune
+    return _valid_autotune(os.environ.get("REPRO_AUTOTUNE", "off"),
+                           "REPRO_AUTOTUNE")
+
+
+def set_autotune(mode: str) -> None:
+    """Pin the autotune mode for this process, over ``REPRO_AUTOTUNE``."""
+    global _autotune
+    _autotune = _valid_autotune(mode, "autotune")
+
+
+@contextmanager
+def use_autotune(mode: str):
+    global _autotune
+    prev = _autotune
+    set_autotune(mode)
+    try:
+        yield
+    finally:
+        _autotune = prev
+
+
+def resolve_autotune(mode: str | None) -> str:
+    """``mode`` if given (validated), else ``get_autotune()``."""
+    return get_autotune() if mode is None else _valid_autotune(mode,
+                                                                "autotune")
 
 
 def resolve_device(device=None) -> torch.device:

@@ -131,7 +131,7 @@ class GxM:
                 and os.environ.get("REPRO_CHAIN_FUSION") == "on"):
             raise NotImplementedError(
                 "REPRO_CHAIN_FUSION=on: depth-first chain fusion arrives "
-                "with the streams-and-chains slice")
+                "with the chains slice")
         tensors = {"input": x}
         stats = {}
 

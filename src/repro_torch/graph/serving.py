@@ -8,7 +8,8 @@
 * **int8** (§II-K) — a quantized engine calibrates per-conv activation
   scales at warmup and serves the int8 params tree through K3.
 
-No mesh and no autotuner yet: those come with later slices.
+No mesh yet, and no tuned blockings: K1 and K3 choose their tiles inside
+their ``.cu`` files (the autotuner, ``repro_torch.tune``, serves K4).
 ``launch/serve_cnn.py`` builds the request queue on top.
 """
 from __future__ import annotations

@@ -10,9 +10,11 @@ import math
 import pytest
 import torch
 
+from repro_torch.core import streams
 from repro_torch.core.conv import conv2d_train
 from repro_torch.kernels import conv2d_direct as k1
 from repro_torch.kernels import conv2d_q8 as k3
+from repro_torch.kernels import conv2d_streams as k4
 from repro_torch.kernels import conv2d_wu as k2
 from repro_torch.kernels import ref
 
@@ -248,3 +250,101 @@ def test_q8_kernel_overflow_and_rejects(cuda):
     with pytest.raises(ValueError, match="float32"):
         k3.conv2d_q8(**{**args, "w_scale": args["w_scale"].double()})
     assert k3.launches == before
+
+
+# n, h, w, c, k, r, stride, pad, rb_p, k_blk, c_blk: the CPU cases of
+# tests/test_torch_streams.py, a ragged c_blk, and two ResNet-50 layers
+STREAM_CASES = [
+    (2, 8, 8, 16, 16, 3, 1, 1, 4, 8, 8),
+    (1, 9, 9, 8, 16, 3, 1, 1, 4, 8, 8),
+    (2, 16, 16, 8, 8, 3, 2, 1, 3, 8, 8),
+    (1, 14, 14, 16, 32, 1, 1, 0, 4, 16, 8),
+    (1, 24, 24, 8, 16, 7, 2, 3, 5, 8, 8),
+    (1, 8, 8, 16, 8, 1, 2, 0, 3, 8, 16),
+    (2, 9, 9, 12, 20, 3, 1, 1, 4, 10, 6),
+    (4, 56, 56, 64, 64, 3, 1, 1, 8, 64, 32),
+    (4, 7, 7, 512, 256, 1, 1, 0, 7, 128, 128),
+]
+STREAM_ORDERS = ("nkpc", "npkc", "knpc", "pknc")
+
+
+def _stream_args(case, dev, order="nkpc", relu=True):
+    n, h, w, c, k, r, stride, pad, rb_p, k_blk, c_blk = case
+    g = torch.Generator(device=dev).manual_seed(5)
+    p = (h + 2 * pad - r) // stride + 1
+    sched = streams.build_conv_schedule(
+        n=n, k_b=k // k_blk, p_b=math.ceil(p / min(rb_p, p)), c_b=c // c_blk,
+        order=order, relu=relu)
+    return dict(x=torch.randn((n, h, w, c), generator=g, device=dev),
+                w=torch.randn((r, r, c, k), generator=g, device=dev)
+                / math.sqrt(r * r * c),
+                bias=torch.randn(k, generator=g, device=dev),
+                schedule=sched, stride=stride, padding=pad, rb_p=rb_p,
+                k_blk=k_blk, c_blk=c_blk)
+
+
+@pytest.mark.parametrize("case", STREAM_CASES)
+@pytest.mark.parametrize("order", STREAM_ORDERS)
+def test_streams_kernel_matches_plain(cuda, case, order):
+    args = _stream_args(case, cuda, order)
+    before = k4.launches
+    out = k4.conv2d_streams(**args)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 1
+    exp = k4.conv2d_streams_plain(**args)
+    assert out.shape == exp.shape and out.device == exp.device
+    assert _rel_err(out, exp) <= 1e-5
+
+
+@pytest.mark.parametrize("case", [STREAM_CASES[0], STREAM_CASES[4],
+                                  STREAM_CASES[7]])
+def test_streams_kernel_follows_shuffled_runs(cuda, case):
+    """Whole runs permuted in the streams: the kernel must give the same
+    output, which it can only if it reads its work from the streams."""
+    args = _stream_args(case, cuda, relu=False)
+    base = k4.conv2d_streams(**args)
+    runs = len(streams.run_starts(args["schedule"]))
+    perm = torch.randperm(runs, generator=torch.Generator().manual_seed(1))
+    shuf = streams.permute_runs(args["schedule"], perm.tolist())
+    out = k4.conv2d_streams(**{**args, "schedule": shuf})
+    torch.cuda.synchronize()
+    assert torch.equal(out, base)
+    assert _rel_err(out, k4.conv2d_streams_plain(**args)) <= 1e-5
+
+
+@pytest.mark.parametrize("tile", range(len(k4.TILES)))
+def test_streams_kernel_every_tile(cuda, tile, monkeypatch):
+    """Each CTA tile of the kernel's switch, forced, on a case with a P
+    tail and ragged k_blk and c_blk edges."""
+    monkeypatch.setattr(k4, "tile_config", lambda **kw: (tile, 1.0))
+    for case in (STREAM_CASES[6], STREAM_CASES[7]):
+        args = _stream_args(case, cuda)
+        out = k4.conv2d_streams(**args)
+        torch.cuda.synchronize()
+        assert _rel_err(out, k4.conv2d_streams_plain(**args)) <= 1e-5
+
+
+def test_streams_auto_on_the_card(cuda):
+    args = _stream_args(STREAM_CASES[0], cuda)
+    out = k4.conv2d_streams_auto(args["x"], args["w"], stride=1, padding=1,
+                                 bias=args["bias"], relu=True,
+                                 autotune="off")
+    exp = ref.conv2d_fused(args["x"], args["w"], stride=1, padding=1,
+                           bias=args["bias"], relu=True)
+    assert _rel_err(out, exp) <= 1e-5
+
+
+def test_streams_kernel_rejects_what_it_does_not_take(cuda):
+    args = _stream_args(STREAM_CASES[0], cuda)
+    before = k4.launches
+    with pytest.raises(ValueError, match="float32"):
+        k4.conv2d_streams(**{**args, "x": args["x"].double()})
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.conv2d_streams(**{**args, "x": args["x"].transpose(1, 2)})
+    with pytest.raises(ValueError, match="on cpu"):
+        k4.conv2d_streams(**{**args, "w": args["w"].cpu()})
+    with pytest.raises(ValueError, match="on cpu"):
+        k4.conv2d_streams(**{**args, "bias": args["bias"].cpu()})
+    with pytest.raises(ValueError, match="float32"):
+        k4.conv2d_streams(**{**args, "bias": args["bias"].double()})
+    assert k4.launches == before

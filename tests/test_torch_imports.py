@@ -3,7 +3,9 @@
 of the port leaves JAX unloaded.  Also the kernel build's plumbing, which the
 CPU can check without ``nvcc``."""
 import ast
+import ctypes
 import os
+import re
 import pathlib
 import subprocess
 import sys
@@ -126,3 +128,34 @@ def test_build_all_starts_every_compiler_before_waiting(tmp_path,
     assert _build.library_path("a").exists()
     assert not _build.library_path("b").exists()
     assert _build.build_all(("a",)) == {"a": 0.0}
+
+
+def test_streams_kernel_symbol_and_argtypes(monkeypatch):
+    """K4's ctypes binding: one argtype per parameter of the C function,
+    pointers as c_void_p and ints as c_int, and the kernel's tile switch
+    lists the tiles the wrapper chooses from."""
+    from repro_torch.kernels import conv2d_streams as k4
+    src = (_build.CSRC / "conv2d_streams.cu").read_text()
+    sig = re.search(r'extern "C" int repro_conv2d_streams_f32\((.*?)\)\s*\{',
+                    src, re.S)
+    params = [p.strip() for p in sig.group(1).split(",")]
+
+    class Fn:
+        argtypes = restype = None
+
+    class Lib:
+        repro_conv2d_streams_f32 = Fn()
+
+    monkeypatch.setattr(_build, "load", lambda name: {
+        "conv2d_streams": Lib()}[name])
+    monkeypatch.setattr(k4, "_fn", None)
+    fn = k4._kernel_fn()
+    assert fn.restype is ctypes.c_int
+    assert len(fn.argtypes) == len(params) == 22
+    for ty, param in zip(fn.argtypes, params):
+        assert ty is (ctypes.c_void_p if "*" in param else ctypes.c_int), \
+            param
+    tiles = re.findall(r"launch<(\d+), (\d+), (\d+), (\d+)>\(a, runs, st\)",
+                       src)
+    assert [tuple(map(int, t)) for t in tiles] == list(k4.TILES)
+    assert "conv2d_streams" in _build.KERNELS
