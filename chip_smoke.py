@@ -7,8 +7,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. Header: the card's name and power limit, torch and CUDA versions, the
    TF32 flags, and the build of every CUDA kernel from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, all started together), with each build's
-   seconds and its ptxas register and spill lines.
+   (six sources: K1-K4, K7, K6; one ``nvcc`` per source, all started
+   together), with each build's seconds and its ptxas register and spill
+   lines.
 2. K1 vs plain, serving: every distinct lane-aligned (shape, fused
    epilogue) signature of ResNet-50 at 224x224, batch 16, on random
    weights, BN scale, shift and residual: K1 against its plain PyTorch
@@ -96,7 +97,42 @@ Phases, each of which fails the run (nonzero exit, no result line):
     after (one launch each), no candidate timed and every lookup a hit;
     each result within 1e-5 of the plain replay; tuned times against the
     analytic ones, per signature and per 52-conv forward.
-14. The kernels line, then the device line last.
+14. K7 vs plain: flash attention at Qwen2-1.5B's prefill shapes (12 query
+    and 2 KV heads, Dh 128; L 128, 333 and 1024 at batch 1 and 8; causal,
+    and one non-causal case) and one SmolLM-360M shape (15 / 5 heads, Dh
+    64), in f32 and bf16: max |diff| / max |plain| <= 1e-5 (f32) and
+    <= 1e-2 (bf16); K7 by CUDA events and by profiler device time, the
+    plain version, the library yardstick ``F.scaled_dot_product_attention``
+    (used only here) and the bound, the larger of FLOPs (4 B Hq Dh L(L+1)/2
+    when causal) over the dtype's peak (989 TFLOP/s bf16 tensor cores, 67
+    TFLOP/s f32 SIMT) and bytes over 3.35 TB/s.
+15. K6 vs plain: the fused matmul at Qwen2-1.5B's projections at M = 4096
+    tokens (1536->1536 + bias, 1536->256 + bias, 1536->8960 silu,
+    8960->1536 + residual, one gelu and one relu case), f32 and bf16, with
+    the same limits, times and bound; the yardstick is ``torch.matmul`` in
+    the input dtype with the epilogue in torch (TF32 off).  No model path
+    calls K6, in the reference either: its launches are this phase's.
+16. LM serving, the slice's main path: full Qwen2-1.5B (28 layers, bf16,
+    random weights from ``init_lm`` with seed 0) through
+    ``launch.serve.serve_continuous`` with 8 lanes, max_len 2048, 32 new
+    tokens per request: an untimed pass of 8 requests, then a window of 32
+    requests whose prompt lengths are uniform in 128-1024
+    (``numpy.random.default_rng(0)``), all made before the window opens.
+    Generated tokens/s over the window's wall time; K7's count, set to 0
+    just before the window and read just after, must be 28 x 32 (one
+    launch per layer of each prefill; decode launches none).  Then,
+    through ``forward`` and ``decode_step``: a batch-8 prefill at 512
+    tokens by host clock and CUDA events, 16 decode steps (p50 / p99 ms per
+    step, K7 launched 0 times), and both under ``torch.profiler``: device
+    time by kernel, K7's share of the prefill, the busy share.
+17. LM parity: full Qwen2-1.5B in f32, the same params on the card and on
+    the CPU (plain versions): two 64-token prompts, prefill logits within
+    1e-4 * max |logit| and the same last argmax, then 4 teacher-forced
+    decode steps (both fed the CPU's tokens) within the same limit, with
+    the argmax agreement printed.
+18. The LM serving summary line, the int8 serving and training summary
+    lines, the kernels line (K1, K2, K3, K4, K7, K6), then the device line
+    last.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -1112,6 +1148,13 @@ def rel_err(out, plain) -> tuple[float, float]:
     return max_abs, max_abs / float(plain.abs().max())
 
 
+def row_rel_err(out, plain) -> float:
+    """The worst row's max |diff| / max |plain| along the last axis (one
+    query row of an attention output)."""
+    return float(((out - plain).abs().amax(-1)
+                  / plain.abs().amax(-1).clamp_min(1e-30)).max())
+
+
 def streams_signatures(device, sigs):
     """Phase 12: K4 against its plain replay on every serving signature
     under the analytic "streams" blocking, with order nkpc and one other
@@ -1341,6 +1384,444 @@ def tuned_replay(device, sigs, rows):
                           cache_timed=cache_timed, hits=hits)
 
 
+# ---------------------------------------------------------------------------
+# Phases 14-17: the dense-LM serving slice (Qwen2-1.5B, K7 and K6)
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen2-1.5b"
+LM_LANES = 8
+LM_MAX_LEN = 2048
+LM_MAX_NEW = 32
+LM_REQUESTS = 32
+LM_WARM_REQUESTS = 8
+LM_PROMPT_LEN = (128, 1024)       # uniform, both ends included
+LM_PREFILL = (8, 512)             # batch, tokens of the direct prefill
+LM_DECODE_STEPS = 16
+LM_PARITY_PROMPT = (2, 64)
+LM_PARITY_STEPS = 4
+BF16_REL_TOL = 1e-2               # K6, K7 vs plain on bf16 inputs
+MATMUL_M = 4096                   # tokens of the K6 shapes
+# K7: b, hq, hkv, l, dh, causal (Qwen2-1.5B's prefill, one SmolLM-360M)
+ATTN_SHAPES = [(b, 12, 2, l, 128, True) for b in (1, 8)
+               for l in (128, 333, 1024)] + [(1, 12, 2, 1024, 128, False),
+                                             (1, 15, 5, 512, 64, True)]
+# K6: k, n, act, bias, residual (Qwen2-1.5B's projections, gelu, relu)
+MATMUL_SHAPES = [(1536, 1536, "none", True, False),
+                 (1536, 256, "none", True, False),
+                 (1536, 8960, "silu", False, False),
+                 (8960, 1536, "none", False, True),
+                 (1536, 8960, "gelu", True, False),
+                 (1536, 1536, "relu", True, True)]
+
+
+def auto_ms(fn, target_ms: float = 60.0) -> float:
+    """``cuda_ms`` over enough launches to fill about ``target_ms``."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = (time.perf_counter() - t0) * 1e3
+    return cuda_ms(fn, max(3, min(200, int(target_ms / max(once, 1e-3)))))
+
+
+def kernel_device_ms(fn, needle: str, iters: int = 5) -> tuple[float, int]:
+    """Device ms per launch of the kernels named ``needle`` over ``iters``
+    calls of ``fn`` under ``torch.profiler``, averaged over the launches the
+    trace recorded, and that count (0.0, 0 when the trace shows none).  A
+    short trace can miss launches at its start, so the mean is per recorded
+    launch, not per call."""
+    trace = trace_device(lambda i: fn(), iters)
+    hits = [(ms, n) for ms, n, name in trace["by_name"] if needle in name]
+    launches = sum(n for _, n in hits)
+    if not launches:
+        return 0.0, 0
+    return sum(ms for ms, _ in hits) / launches, round(launches * iters)
+
+
+def attention_signatures(device):
+    """Phase 14: K7 against its plain version at Qwen2-1.5B's prefill
+    shapes (Hq 12, Hkv 2, Dh 128; L 128, 333, 1024; batch 1 and 8; causal,
+    and one non-causal case) and one SmolLM-360M shape (Hq 15, Hkv 5, Dh
+    64), in f32 and bf16: error, K7 by CUDA events and profiler, the plain
+    version, the library yardstick (``F.scaled_dot_product_attention``,
+    used only here) and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention as k7
+
+    shapes = ATTN_SHAPES
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rows = []
+    print(f"\nK7 vs plain ({len(shapes)} shapes x f32, bf16; limits "
+          f"{KERNEL_REL_TOL} f32 of max |plain|, {BF16_REL_TOL} bf16 of "
+          f"max |plain| per query row):")
+    print("  dtype  b  hq hkv    l  dh causal  max_rel    max_abs        ms"
+          "  device_ms    plain_ms  library_ms  bound_ms bound_by")
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, hq, hkv, l, dh, causal in shapes:
+            q = torch.randn((b, hq, l, dh), generator=gen,
+                            device=device).to(dtype)
+            k = torch.randn((b, hkv, l, dh), generator=gen,
+                            device=device).to(dtype)
+            v = torch.randn((b, hkv, l, dh), generator=gen,
+                            device=device).to(dtype)
+            out = k7.flash_attention(q, k, v, causal=causal)
+            plain = k7.flash_attention_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out).all()),
+                  f"K7 non-finite at {(b, hq, l, dh)}")
+            max_abs, max_rel = rel_err(out.float(), plain.float())
+            if dtype == torch.bfloat16:
+                # per query row: a late causal row's outputs are far below
+                # max |plain|, which row 0 (a copy of v[0]) sets
+                max_rel = row_rel_err(out.float(), plain.float())
+            tol = KERNEL_REL_TOL if dtype == torch.float32 else BF16_REL_TOL
+            ms = auto_ms(lambda: k7.flash_attention(q, k, v, causal=causal))
+            device_ms, recorded = kernel_device_ms(
+                lambda: k7.flash_attention(q, k, v, causal=causal),
+                "flash_attention_kernel")
+            plain_ms = auto_ms(lambda: k7.flash_attention_plain(
+                q, k, v, causal=causal), 30.0)
+            library_ms = auto_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True))
+            pairs = l * (l + 1) / 2 if causal else l * l
+            flops = 4.0 * b * hq * dh * pairs
+            nbytes = q.element_size() * (2 * b * hq + 2 * b * hkv) * l * dh
+            bound_ms, bound_by = bound_for(flops, nbytes, dtype)
+            rec = dict(dtype=str(dtype).removeprefix("torch."), b=b, hq=hq,
+                       hkv=hkv, l=l, dh=dh, causal=causal, count=1,
+                       max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
+                       device_ms=device_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, flops=flops,
+                       tflops=flops / ms / 1e9, traced_launches=recorded)
+            rows.append(rec)
+            print(f"  {rec['dtype']:8s}{b:2d}{hq:4d}{hkv:4d}{l:5d}{dh:4d} "
+                  f"{causal!s:6s} {max_rel:.2e}  {max_abs:.2e} {ms:9.4f} "
+                  f"{device_ms:10.4f} {plain_ms:11.4f} {library_ms:11.4f} "
+                  f"{bound_ms:9.4f} {bound_by}  "
+                  f"({rec['tflops']:.2f} TFLOP/s; {recorded} of 5 launches "
+                  f"traced)")
+            check(max_rel <= tol, f"K7 disagrees with its plain version at "
+                  f"{(b, hq, hkv, l, dh, causal, rec['dtype'])}: max_rel "
+                  f"{max_rel:.3e} > {tol}")
+            del q, k, v, out, plain
+    print("  per-shape JSON:", json.dumps(rows))
+    return rows
+
+
+def bound_for(flops: float, nbytes: float, dtype) -> tuple[float, str]:
+    """``bound`` at the peak of the function's dtype: bf16 tensor cores or
+    f32 SIMT (``repro_torch.launch.roofline``)."""
+    import torch
+    from repro_torch.launch import roofline
+    return roofline.bound_ms(flops, nbytes, roofline.BF16_PEAK_FLOPS
+                             if dtype == torch.bfloat16
+                             else roofline.F32_PEAK_FLOPS)
+
+
+def matmul_signatures(device):
+    """Phase 15: K6 against its plain version at Qwen2-1.5B's projections
+    at M = 4096 tokens (q/o 1536->1536 + bias, k/v 1536->256 + bias, gate
+    1536->8960 silu, down 8960->1536 + residual, and one gelu and one relu
+    case), in f32 and bf16: error, K6 by CUDA events and profiler, the
+    plain version, the library yardstick (``torch.matmul`` in the input
+    dtype with the epilogue in torch, TF32 off) and the bound.  Returns
+    (records, K6 launches in this phase)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import matmul_fused as k6
+
+    acts = {"none": lambda x: x, "relu": torch.relu, "silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh")}
+    shapes = MATMUL_SHAPES
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rows = []
+    k6.launches = 0
+    print(f"\nK6 vs plain, M = {MATMUL_M} ({len(shapes)} shapes x f32, bf16; "
+          f"limits {KERNEL_REL_TOL} f32, {BF16_REL_TOL} bf16):")
+    print("  dtype       k     n act  bias res  max_rel    max_abs        ms"
+          "  device_ms  plain_ms  library_ms  bound_ms bound_by")
+    for dtype in (torch.float32, torch.bfloat16):
+        for kk, n, act, has_bias, has_res in shapes:
+            a = torch.randn((MATMUL_M, kk), generator=gen,
+                            device=device).to(dtype)
+            b = (torch.randn((kk, n), generator=gen, device=device)
+                 / math.sqrt(kk)).to(dtype)
+            bias = (torch.randn(n, generator=gen, device=device).to(dtype)
+                    if has_bias else None)
+            res = (torch.randn((MATMUL_M, n), generator=gen,
+                               device=device).to(dtype) if has_res else None)
+            kw = dict(bias=bias, act=act, residual=res)
+            out = k6.matmul_fused(a, b, **kw)
+            plain = k6.matmul_fused_plain(a, b, **kw)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out).all()), f"K6 non-finite at {kk, n}")
+            max_abs, max_rel = rel_err(out.float(), plain.float())
+            tol = KERNEL_REL_TOL if dtype == torch.float32 else BF16_REL_TOL
+
+            def library():
+                y = torch.matmul(a, b)
+                if bias is not None:
+                    y = y + bias
+                if res is not None:
+                    y = y + res
+                return acts[act](y)
+            ms = auto_ms(lambda: k6.matmul_fused(a, b, **kw))
+            device_ms, recorded = kernel_device_ms(
+                lambda: k6.matmul_fused(a, b, **kw), "matmul_fused_kernel")
+            plain_ms = auto_ms(lambda: k6.matmul_fused_plain(a, b, **kw))
+            library_ms = auto_ms(library)
+            flops = 2.0 * MATMUL_M * kk * n
+            nbytes = a.element_size() * (MATMUL_M * kk + kk * n + MATMUL_M * n
+                                         + (n if has_bias else 0)
+                                         + (MATMUL_M * n if has_res else 0))
+            bound_ms, bound_by = bound_for(flops, nbytes, dtype)
+            rec = dict(dtype=str(dtype).removeprefix("torch."), m=MATMUL_M,
+                       k=kk, n=n, act=act, bias=has_bias, residual=has_res,
+                       count=1, max_abs_err=max_abs, max_rel_err=max_rel,
+                       ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, flops=flops,
+                       tflops=flops / ms / 1e9, traced_launches=recorded)
+            rows.append(rec)
+            print(f"  {rec['dtype']:8s}{kk:6d}{n:6d} {act:5s}{has_bias!s:5s}"
+                  f"{has_res!s:5s} {max_rel:.2e}  {max_abs:.2e} {ms:9.4f} "
+                  f"{device_ms:10.4f} {plain_ms:9.4f} {library_ms:11.4f} "
+                  f"{bound_ms:9.4f} {bound_by}  "
+                  f"({rec['tflops']:.2f} TFLOP/s; {recorded} of 5 launches "
+                  f"traced)")
+            check(max_rel <= tol, f"K6 disagrees with its plain version at "
+                  f"{(kk, n, act, rec['dtype'])}: max_rel {max_rel:.3e} > "
+                  f"{tol}")
+            del a, b, bias, res, out, plain
+    launches = k6.launches
+    print(f"  K6 launches in this phase: {launches}")
+    print("  per-shape JSON:", json.dumps(rows))
+    return rows, launches
+
+
+def lm_prompts(n: int, vocab: int, seed: int):
+    """``n`` prompts with lengths uniform in LM_PROMPT_LEN and random token
+    ids, from ``numpy.random.default_rng(seed)``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(LM_PROMPT_LEN[0], LM_PROMPT_LEN[1] + 1, size=n)
+    return [rng.integers(0, vocab, size=int(m)) for m in lengths]
+
+
+def lm_serving(device):
+    """Phase 16, the slice's main path: full Qwen2-1.5B in bf16 (random
+    weights from ``init_lm``, seed 0) through ``serve_continuous``: an
+    untimed pass of LM_WARM_REQUESTS requests, then a window of
+    LM_REQUESTS, every prompt made before it opens; K7's count set to 0
+    just before the window and read just after.  Then a batch-8 prefill at
+    512 tokens and 16 decode steps through ``forward`` / ``decode_step``,
+    and both under ``torch.profiler``.  Returns (K7 launches in the window,
+    summary)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention as k7
+    from repro_torch.launch.serve import serve_continuous
+    from repro_torch.nn import transformer as T
+
+    cfg = get_config(LM_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.dtype) ==
+          (28, 1536, 12, 2, 128, 8960, 151936, "bfloat16"),
+          f"{LM_ARCH} is not the full Qwen2-1.5B: {cfg}")
+    t0 = time.perf_counter()
+    params = T.init_lm(cfg, torch.Generator(device=device).manual_seed(SEED),
+                       device=device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"\nLM serving: {LM_ARCH}, {n_params / 1e9:.3f} B params in "
+          f"{cfg.dtype} ({n_params * 2 / 1e9:.2f} GB), random from seed "
+          f"{SEED} in {time.perf_counter() - t0:.1f}s; lanes {LM_LANES}, "
+          f"max_len {LM_MAX_LEN}, max_new {LM_MAX_NEW}, prompts of "
+          f"{LM_PROMPT_LEN[0]}-{LM_PROMPT_LEN[1]} tokens")
+    window = lm_prompts(LM_REQUESTS, cfg.vocab, SEED)
+    warm = lm_prompts(LM_WARM_REQUESTS, cfg.vocab, SEED + 1)
+    kw = dict(lanes=LM_LANES, max_len=LM_MAX_LEN, max_new=LM_MAX_NEW, eos=-1)
+    t0 = time.perf_counter()
+    serve_continuous(params, cfg, warm, **kw)
+    torch.cuda.synchronize()
+    print(f"  untimed pass: {LM_WARM_REQUESTS} requests in "
+          f"{time.perf_counter() - t0:.2f}s")
+    k7.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = serve_continuous(params, cfg, window, **kw)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = k7.launches
+    tokens = sum(len(r) for r in results.values())
+    prompt_tokens = int(sum(len(p) for p in window))
+    print(f"  window: {LM_REQUESTS} requests ({prompt_tokens} prompt "
+          f"tokens), {tokens} generated in {wall_s:.3f}s: "
+          f"{tokens / wall_s:.2f} generated tokens/s, "
+          f"{(tokens + prompt_tokens) / wall_s:.2f} tokens/s with the "
+          f"prompts")
+    print(f"  K7 launches in the window: {launches} (expected "
+          f"{cfg.n_layers} x {LM_REQUESTS} = {cfg.n_layers * LM_REQUESTS})")
+    check(len(results) == LM_REQUESTS and all(
+        len(r) == LM_MAX_NEW for r in results.values()),
+        f"served {len(results)} requests, not {LM_REQUESTS} x {LM_MAX_NEW} "
+        f"tokens")
+    check(launches == cfg.n_layers * LM_REQUESTS,
+          f"K7 launched {launches} times in the window, expected "
+          f"{cfg.n_layers * LM_REQUESTS}")
+
+    b, l = LM_PREFILL
+    toks = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
+        0, cfg.vocab, (b, l))).to(device)
+
+    def prefill():
+        return T.forward(params, cfg, tokens=toks, return_cache=True,
+                         cache_len=LM_MAX_LEN)
+    logits, _, cache = prefill()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits[:, -1].float()).all()),
+          "non-finite prefill logits")
+    host, events = [], []
+    for _ in range(3):
+        del logits, cache
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        logits, _, cache = prefill()
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(end))
+    prefill_ms = float(np.median(host))
+    print(f"  prefill, batch {b} x {l} tokens: {prefill_ms:.3f} ms by host "
+          f"clock, {float(np.median(events)):.3f} by CUDA events (median of "
+          f"3); {b * l / prefill_ms * 1e3:.0f} tokens/s")
+    last = logits[:, -1:].argmax(dim=-1)
+    step_ms = []
+    k7.launches = 0
+    for t in range(LM_DECODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cache = T.decode_step(params, cfg, last, cache,
+                                   torch.full((b,), l + t, device=device))
+        last = out.argmax(dim=-1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    check(k7.launches == 0, f"decode launched K7 {k7.launches} times")
+    check(bool(torch.isfinite(out.float()).all()), "non-finite decode logits")
+    p50, p99 = (float(np.percentile(step_ms, q)) for q in (50, 99))
+    print(f"  decode, batch {b} at {l}+ tokens: p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms per step over {LM_DECODE_STEPS} steps "
+          f"({b / p50 * 1e3:.1f} tokens/s); K7 launches 0")
+
+    def show(name, trace, needle=None):
+        k7_ms = device_ms_of(trace, "flash_attention_kernel")
+        busy = trace["busy_share"]
+        n_launch = sum(n for _, n, _ in trace["by_name"])
+        print(f"  profile of {name}: {trace['wall_ms']:.3f} ms by host clock,"
+              f" device {trace['device_ms']:.3f} ms in {n_launch:.0f} kernel "
+              f"launches, busy {'n/a' if busy is None else f'{busy:.4f}'}; K7 "
+              f"{k7_ms:.3f} ms ({k7_ms / max(trace['device_ms'], 1e-9):.4f}"
+              f" of device time)")
+        for ms, n, kname in trace["by_name"][:8]:
+            print(f"    {ms:9.3f} ms  x{n:6.1f}  {kname[:100]}")
+        return dict(wall_ms=trace["wall_ms"], device_ms=trace["device_ms"],
+                    launches=n_launch, busy_share=busy, k7_ms=k7_ms,
+                    top=[dict(ms=ms, launches=n, name=kname[:120])
+                         for ms, n, kname in trace["by_name"][:8]])
+    del logits, cache
+    pre_trace = trace_device(lambda i: prefill(), 1)
+    logits, _, cache = prefill()
+    last = logits[:, -1:].argmax(dim=-1)
+    del logits
+    dec_trace = trace_device(lambda i: T.decode_step(
+        params, cfg, last, cache, torch.full((b,), l + i, device=device)), 8)
+    summary = dict(
+        window=dict(requests=LM_REQUESTS, prompt_tokens=prompt_tokens,
+                    generated_tokens=tokens, wall_s=wall_s,
+                    generated_tokens_per_s=tokens / wall_s,
+                    k7_launches=launches),
+        prefill=dict(batch=b, tokens=l, host_ms=prefill_ms,
+                     event_ms=float(np.median(events)),
+                     profile=show(f"one batch-{b} prefill", pre_trace)),
+        decode=dict(batch=b, p50_ms=p50, p99_ms=p99, step_ms=step_ms,
+                    profile=show("8 decode steps (per step)", dec_trace)))
+    del params, cache
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def lm_parity():
+    """Phase 17: full Qwen2-1.5B in f32, the same params on the card and
+    on the CPU (the plain versions): prefill logits of two 64-token prompts
+    and 4 teacher-forced decode steps (both sides fed the CPU's greedy
+    tokens) within LOGIT_REL_TOL * max |logit|, and the same argmax at the
+    last position."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_to
+    from repro_torch.nn import transformer as T
+
+    device = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    params = T.init_lm(cfg, torch.Generator(device=device).manual_seed(SEED),
+                       device=device)
+    cpu = params_to(params, "cpu")
+    b, l = LM_PARITY_PROMPT
+    toks = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab, (b, l)))
+    cache_len = l + LM_PARITY_STEPS + 1
+    t0 = time.perf_counter()
+    lg, _, cache_g = T.forward(params, cfg, tokens=toks.to(device),
+                               return_cache=True, cache_len=cache_len)
+    lc, _, cache_c = T.forward(cpu, cfg, tokens=toks, return_cache=True,
+                               cache_len=cache_len)
+    rels = [rel_err(lg.cpu(), lc)[1]]
+    same_last = bool((lg[:, -1].argmax(-1).cpu() == lc[:, -1].argmax(-1))
+                     .all())
+    print(f"\nLM parity: {LM_ARCH} in f32, {b} prompts of {l} tokens, card "
+          f"vs CPU: prefill max |diff| / max |logit| {rels[0]:.3e}, same "
+          f"last argmax {same_last}")
+    agree = []
+    last = lc[:, -1:].argmax(dim=-1)
+    for t in range(LM_PARITY_STEPS):
+        og, cache_g = T.decode_step(params, cfg, last.to(device), cache_g,
+                                    l + t)
+        oc, cache_c = T.decode_step(cpu, cfg, last, cache_c, l + t)
+        rels.append(rel_err(og.cpu(), oc)[1])
+        agree.append(bool((og.argmax(-1).cpu() == oc.argmax(-1)).all()))
+        last = oc.argmax(dim=-1)
+    print(f"  {LM_PARITY_STEPS} teacher-forced decode steps: max |diff| / "
+          f"max |logit| {[f'{r:.3e}' for r in rels[1:]]}, argmax agrees "
+          f"{agree} ({time.perf_counter() - t0:.1f}s)")
+    check(all(r <= LOGIT_REL_TOL for r in rels),
+          f"card vs CPU LM logits apart by {max(rels):.3e} > "
+          f"{LOGIT_REL_TOL} of max |logit|")
+    check(same_last, "card and CPU disagree on the last prefill argmax")
+    del params, cpu, cache_g, cache_c
+    torch.cuda.empty_cache()
+    return dict(prefill_rel=rels[0], decode_rel=rels[1:],
+                same_last_argmax=same_last, decode_argmax_agree=agree)
+
+
 def totals(rows) -> dict:
     """Per-pass sums over signature records (each time x its count; a
     library time only where one exists), and what bounds most of the
@@ -1425,6 +1906,12 @@ def main() -> int:
           f"{k4_tuned['plain_ms']:.3f} (tuned schedules), "
           f"{k4_analytic['plain_ms']:.3f} (analytic); bound "
           f"{k4_analytic['bound_ms']:.3f} ({k4_analytic['bound_by']})")
+    torch.cuda.empty_cache()
+
+    attn_rows = attention_signatures(device)
+    mm_rows, mm_launches = matmul_signatures(device)
+    lm_launches, lm_summary = lm_serving(device)
+    lm_summary["parity"] = lm_parity()
     print(f"\nall phases in {time.perf_counter() - t_start:.1f}s")
 
     def timing(d):
@@ -1503,6 +1990,47 @@ def main() -> int:
                f"once)",
         "card": card,
     }]
+    k7_row = next(r_ for r_ in attn_rows if (r_["dtype"], r_["b"], r_["l"],
+                                              r_["causal"]) ==
+                  ("bfloat16", 1, 1024, True))
+    mm_bf16 = totals([r_ for r_ in mm_rows if r_["dtype"] == "bfloat16"])
+    mm_f32 = totals([r_ for r_ in mm_rows if r_["dtype"] == "float32"])
+    kernels += [{
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/attention.py:87",
+        "launches": lm_launches,
+        "launches_by_path": {"lm_serving": lm_launches},
+        "max_abs_err": max(r_["max_abs_err"] for r_ in attn_rows),
+        "max_rel_err": max(r_["max_rel_err"] for r_ in attn_rows),
+        **{key: k7_row[key] for key in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by",
+                                        "device_ms")},
+        "per": "one launch at Qwen2-1.5B's prefill shape: batch 1, 1024 "
+               "tokens, 12 query / 2 KV heads, Dh 128, causal, bf16 (28 "
+               "launches per prefill); library: F.scaled_dot_product_"
+               "attention",
+        "card": card,
+    }, {
+        "name": "matmul_fused",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/matmul_fused.cu",
+        "replaces": "src/repro/kernels/matmul_fused.py:85",
+        "launches": mm_launches,
+        "launches_by_path": {"matmul_check": mm_launches},
+        "max_abs_err": max(r_["max_abs_err"] for r_ in mm_rows),
+        "max_rel_err": max(r_["max_rel_err"] for r_ in mm_rows),
+        **timing(mm_bf16),
+        "f32": timing(mm_f32),
+        "per": f"the six Qwen2-1.5B projection shapes of phase 15 at M = "
+               f"{MATMUL_M} tokens, one launch each, bf16; library: "
+               f"torch.matmul plus the epilogue in torch.  No model path "
+               f"calls K6, in the reference either (its nn/ modules use "
+               f"plain matmuls), so its launches are phase 15's",
+        "card": card,
+    }]
+    print(json.dumps({"lm_serving": lm_summary}))
     print(json.dumps({"serving_int8": {
         "images_per_s": q8_stats["images_per_s"],
         "p50_ms": q8_stats["latency"]["p50_ms"],

@@ -1,7 +1,9 @@
 """Carry the reference's parameters over to the port.
 
 torch cannot reproduce ``jax.random`` streams, so parity runs build params
-with the reference's ``GxM.init`` and hand them across as numpy.
+with the reference's ``GxM.init`` or ``init_lm`` and hand them across as
+numpy.  A bf16 leaf arrives as numpy's ``ml_dtypes.bfloat16``, which torch
+does not know; it crosses through a ``uint16`` view, bit for bit.
 """
 from __future__ import annotations
 
@@ -11,16 +13,35 @@ import torch
 from repro_torch.backend import resolve_device
 
 
+def to_tensor(leaf, device) -> torch.Tensor:
+    """One array-like leaf as a fresh tensor on ``device``; bf16 (numpy's
+    ``ml_dtypes.bfloat16``, named "bfloat16") bit for bit."""
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(arr.copy(order="C").view(np.uint16))
+        return bits.view(torch.bfloat16).to(device, copy=True)
+    return torch.tensor(arr, device=device)
+
+
 def params_from_jax(tree, device=None) -> dict:
-    """The reference's params (nested dicts keyed by task name, leaves
-    array-like: numpy or anything ``np.asarray`` takes) as the port's
-    tensors on ``device``.  Layouts are copied as they are (RSCK weights,
-    per-K vectors, (C, K) fc weight); every leaf is a fresh copy."""
+    """The reference's params (nested dicts, leaves array-like: numpy or
+    anything ``np.asarray`` takes) as the port's tensors on ``device``.
+    Layouts and dtypes are copied as they are (RSCK weights, per-K vectors,
+    the LM's stacked "layers" axis, f32 or bf16); every leaf is a fresh
+    copy."""
     device = resolve_device(device)
 
     def convert(node):
         if isinstance(node, dict):
             return {key: convert(v) for key, v in node.items()}
-        return torch.tensor(np.asarray(node), device=device)
+        return to_tensor(node, device)
 
     return convert(tree)
+
+
+def params_to(tree, device) -> dict:
+    """A params tree of the port (nested dicts of tensors) with every leaf
+    copied to ``device``: the same params on the card and on the CPU."""
+    if isinstance(tree, dict):
+        return {key: params_to(v, device) for key, v in tree.items()}
+    return tree.to(device, copy=True)

@@ -12,8 +12,17 @@ convolution in TF32 by default, so ``conv2d`` turns it off locally, and
 The backward oracles are the exact VJPs of ``conv2d``, taken with
 ``torch.autograd.grad``.  A convolution's backward runs when ``grad`` is
 called, not when the forward ran, so the TF32-off block encloses the
-``grad`` call too.  The matmul and LM oracles arrive with the slices that
-need them.
+``grad`` call too.
+
+The LM oracles (``matmul_fused``, ``attention_chunked``) follow
+``repro/kernels/ref.py``: GELU is ``jax.nn.gelu``'s tanh form.  The
+reference has two attention oracles, ``attention`` (full softmax, ``-inf``
+causal mask) and ``attention_chunked`` (query chunks, finite ``-1e30``
+mask, falling back to ``attention`` when the chunk does not divide L).  The
+port keeps one, ``attention_chunked``, whose last chunk may be ragged: a
+chunk of L is the reference's ``attention``, since every causal row keeps
+its diagonal and so ``-1e30`` and ``-inf`` give the same softmax.
+``conv1d_causal`` and ``moe_gmm`` wait for the slices that run them.
 """
 from __future__ import annotations
 
@@ -82,3 +91,64 @@ def conv2d_bwd_weights(x, do, *, stride: int = 1, padding: int = 0,
         out = conv2d(x.detach(), w0, stride=stride, padding=padding)
         (dw,) = torch.autograd.grad(out, w0, do)
     return dw
+
+
+# ---------------------------------------------------------------------------
+# LM oracles
+# ---------------------------------------------------------------------------
+
+def _act(out, act: str):
+    if act == "relu":
+        return torch.clamp_min(out, 0)
+    if act == "gelu":
+        return F.gelu(out, approximate="tanh")   # jax.nn.gelu's default
+    if act == "silu":
+        return F.silu(out)
+    if act != "none":
+        raise ValueError(act)
+    return out
+
+
+def matmul_fused(a, b, *, bias=None, act: str = "none", residual=None):
+    """act(a @ b + bias [+ residual]) in f32, cast to a's dtype.
+    a: (M,K), b: (K,N)."""
+    out = a.float() @ b.float()
+    if bias is not None:
+        out = out + bias.float()
+    if residual is not None:
+        out = out + residual.float()
+    return _act(out, act).to(a.dtype)
+
+
+def _repeat_kv(q, k, v):
+    hq, hkv = q.shape[1], k.shape[1]
+    if hkv != hq:
+        rep = hq // hkv
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    return k, v
+
+
+def attention_chunked(q, k, v, *, causal: bool = True, scale=None,
+                      chunk: int = 512):
+    """q: (B,Hq,L,Dh), k/v: (B,Hkv,L,Dh), GQA by head repeat -> (B,Hq,L,Dh).
+    f32 logits, ``-1e30`` causal mask, full softmax over each chunk of
+    ``chunk`` queries (O(chunk x L) logits at a time; the last chunk may be
+    shorter)."""
+    l, dh = q.shape[2], q.shape[3]
+    if scale is None:
+        scale = dh ** -0.5
+    k, v = _repeat_kv(q, k, v)
+    kf, vf = k.float(), v.float()
+    kpos = torch.arange(l, device=q.device)
+    outs = []
+    for q0 in range(0, l, chunk):
+        qi = q[:, :, q0:q0 + chunk]
+        logits = torch.einsum("bhqd,bhkd->bhqk", qi.float(), kf) * scale
+        if causal:
+            qpos = q0 + torch.arange(qi.shape[2], device=q.device)
+            mask = qpos[:, None] >= kpos[None, :]
+            logits = torch.where(mask, logits, -1e30)
+        probs = torch.softmax(logits, dim=-1)
+        outs.append(torch.einsum("bhqk,bhkd->bhqd", probs, vf).to(q.dtype))
+    return torch.cat(outs, dim=2)

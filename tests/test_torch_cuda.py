@@ -86,6 +86,13 @@ def _rel_err(out, exp):
     return float((out - exp).abs().max()) / float(exp.abs().max())
 
 
+def _row_rel_err(out, exp):
+    """max |diff| / max |exp| within each row of the last axis, the worst
+    row's."""
+    return float(((out - exp).abs().amax(-1)
+                  / exp.abs().amax(-1).clamp_min(1e-30)).max())
+
+
 @pytest.mark.parametrize("r,s", [(2, 2), (2, 1), (1, 2), (1, 1)])
 def test_kernel_on_dual_subfilters(cuda, r, s):
     """The sub-filters of the phase plan of a 3x3 stride-2 conv, padding 0,
@@ -348,3 +355,112 @@ def test_streams_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="float32"):
         k4.conv2d_streams(**{**args, "bias": args["bias"].double()})
     assert k4.launches == before
+
+
+# -- K7 (flash attention) and K6 (fused matmul) -----------------------------
+
+from repro_torch.kernels import attention as k7  # noqa: E402
+from repro_torch.kernels import matmul_fused as k6  # noqa: E402
+
+# b, hq, hkv, l, dh: tails of the 64-query and 64-key blocks, L = 1, GQA
+# groups of 1 to 6, every head width the kernel takes
+ATTN_CASES = [
+    (1, 4, 4, 1, 64), (2, 4, 2, 37, 16), (1, 6, 2, 64, 16),
+    (2, 12, 2, 65, 128), (1, 15, 5, 200, 64), (3, 8, 8, 129, 128),
+]
+
+
+def _attn_args(case, dev, dtype):
+    b, hq, hkv, l, dh = case
+    g = torch.Generator(device=dev).manual_seed(l)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa: E731
+    return rnd(b, hq, l, dh), rnd(b, hkv, l, dh), rnd(b, hkv, l, dh)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, case, causal, dtype):
+    q, k, v = _attn_args(case, cuda, dtype)
+    before = k7.launches
+    out = k7.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert k7.launches == before + 1
+    exp = k7.flash_attention_plain(q, k, v, causal=causal)
+    assert out.dtype == dtype and out.shape == exp.shape
+    if dtype == torch.float32:
+        assert _rel_err(out, exp) <= 1e-5
+    else:   # per query row: a late causal row's outputs are small
+        assert _row_rel_err(out.float(), exp.float()) <= 1e-2
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v = _attn_args((1, 4, 2, 8, 64), cuda, torch.float32)
+    with pytest.raises(ValueError, match="Dh"):
+        k7.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                           v[..., :48].contiguous())
+    wide = torch.zeros((1, 4, 8, 128), device=cuda)[..., :64]
+    with pytest.raises(ValueError, match="contiguous"):
+        k7.flash_attention(wide, k, v)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        k7.flash_attention(q.double(), k.double(), v.double())
+
+
+# m, k, n: both tiles, ragged M/N/K (no vector path), K = 1
+MM_CASES = [(64, 96, 32), (300, 129, 257), (1024, 512, 768), (7, 1, 5),
+            (4096, 64, 256)]
+
+
+@pytest.mark.parametrize("case", MM_CASES)
+@pytest.mark.parametrize("act", ["none", "relu", "gelu", "silu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_kernel_matches_plain(cuda, case, act, dtype):
+    m, kk, n = case
+    g = torch.Generator(device=cuda).manual_seed(m + n)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)  # noqa: E731
+    a, b, bias, res = rnd(m, kk), rnd(kk, n) / kk ** 0.5, rnd(n), rnd(m, n)
+    for kw in (dict(), dict(bias=bias), dict(bias=bias, residual=res)):
+        before = k6.launches
+        out = k6.matmul_fused(a, b, act=act, **kw)
+        torch.cuda.synchronize()
+        assert k6.launches == before + 1
+        exp = k6.matmul_fused_plain(a, b, act=act, **kw)
+        tol = 1e-5 if dtype == torch.float32 else 1e-2
+        assert out.dtype == dtype
+        assert _rel_err(out.float(), exp.float()) <= tol, kw.keys()
+
+
+def test_matmul_kernel_rejects_what_it_does_not_take(cuda):
+    a = torch.zeros(8, 4, device=cuda)
+    b = torch.zeros(4, 8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        k6.matmul_fused(a, b.t().contiguous().t())
+    with pytest.raises(ValueError, match="is torch.bfloat16"):
+        k6.matmul_fused(a, b.bfloat16())
+
+
+def test_lm_smoke_forward_and_serving_match_the_cpu(cuda):
+    """A 2-layer smoke qwen2 (Dh 16): the card's prefill logits (through
+    K7) within 1e-4 of the CPU's, and the same greedy tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.convert import params_to
+    from repro_torch.launch import serve
+    from repro_torch.nn import transformer as T
+    cfg = dataclasses.replace(smoke_config(get_config("qwen2-1.5b")),
+                              n_layers=2)
+    cpu = T.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    dev = params_to(cpu, cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 70),
+                         generator=torch.Generator().manual_seed(1))
+    before = k7.launches
+    lg, _ = T.forward(dev, cfg, tokens=toks.to(cuda))
+    assert k7.launches == before + cfg.n_layers
+    lc, _ = T.forward(cpu, cfg, tokens=toks)
+    assert _rel_err(lg.cpu(), lc) <= 1e-4
+    prompts = [toks[0, :9].numpy(), toks[1, :4].numpy(), toks[0, 3:8].numpy()]
+    assert serve.serve_continuous(dev, cfg, prompts, lanes=2, max_len=32,
+                                  max_new=5) == \
+        serve.serve_continuous(cpu, cfg, prompts, lanes=2, max_len=32,
+                               max_new=5)

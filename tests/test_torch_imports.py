@@ -159,3 +159,31 @@ def test_streams_kernel_symbol_and_argtypes(monkeypatch):
                        src)
     assert [tuple(map(int, t)) for t in tiles] == list(k4.TILES)
     assert "conv2d_streams" in _build.KERNELS
+
+
+@pytest.mark.parametrize("name,symbol,module", [
+    ("flash_attention", "repro_flash_attention", "attention"),
+    ("matmul_fused", "repro_matmul_fused", "matmul_fused")])
+def test_lm_kernel_symbols_and_argtypes(monkeypatch, name, symbol, module):
+    """K7's and K6's ctypes bindings: one argtype per parameter of the C
+    function, pointers as c_void_p, floats as c_float, ints as c_int."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    sig = re.search(rf'extern "C" int {symbol}\((.*?)\)\s*\{{', src, re.S)
+    params = [p.strip() for p in sig.group(1).split(",")]
+
+    class Fn:
+        argtypes = restype = None
+
+    monkeypatch.setattr(_build, "load", lambda n: {
+        name: type("Lib", (), {symbol: Fn()})()}[n])
+    monkeypatch.setattr(mod, "_fn", None)
+    fn = mod._kernel_fn()
+    assert fn.restype is ctypes.c_int
+    assert len(fn.argtypes) == len(params)
+    for ty, param in zip(fn.argtypes, params):
+        want = (ctypes.c_void_p if "*" in param else
+                ctypes.c_float if param.startswith("float") else ctypes.c_int)
+        assert ty is want, param
+    assert name in _build.KERNELS
