@@ -7,7 +7,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. Header: the card's name and power limit, torch and CUDA versions, the
    TF32 flags, and the build of every CUDA kernel from ``src/repro_torch/csrc``
-   (six sources: K1-K4, K7, K6; one ``nvcc`` per source, all started
+   (seven sources: K1-K4, K7, K6, K8; one ``nvcc`` per source, all started
    together), with each build's seconds and its ptxas register and spill
    lines.
 2. K1 vs plain, serving: every distinct lane-aligned (shape, fused
@@ -130,14 +130,54 @@ Phases, each of which fails the run (nonzero exit, no result line):
     1e-4 * max |logit| and the same last argmax, then 4 teacher-forced
     decode steps (both fed the CPU's tokens) within the same limit, with
     the argmax agreement printed.
-18. The LM serving summary line, the int8 serving and training summary
-    lines, the kernels line (K1, K2, K3, K4, K7, K6), then the device line
-    last.
+18. K8 vs plain: the depthwise causal conv1d at the Jamba cut's Mamba
+    shapes (d_inner 16384, 4 taps, bias and SiLU: L 1, 333 and 1024 at
+    batch 1, 512 at batch 8; the last two also on x read in place as the
+    mixer passes it, half of a (B, L, 32768) projection, the layout the
+    kernels line is timed on) and one tail case (2, 77, 1003), f32 and
+    bf16, with the limits of phase 14; K8 by CUDA events and profiler, the
+    plain version, cuDNN's depthwise ``F.conv1d`` as the yardstick, the
+    bound (bytes over 3.35 TB/s).
+19. Hybrid serving, the slice's main path: ``jamba-1.5-large-398b-1chip``
+    (one 8-layer period of Jamba-1.5-Large at full width, 8 of each MoE
+    layer's 16 experts, bf16, 51.8 GB) through ``serve_continuous`` with
+    phase 16's lanes, lengths and window: K8's count must be 7 x 32 and
+    K7's 1 x 32; then a batch-8 prefill at 512 tokens and 16 decode steps
+    (neither kernel launched), both under ``torch.profiler`` with K8's,
+    K7's, the selective scan's and the MoE experts' shares, launches per
+    decode step and the busy share; the parameter bytes and
+    ``torch.cuda.max_memory_allocated()``.
+20. Hybrid decode vs forward on the card, capacity factor 16 (dropless,
+    as ``tests/test_decode_parity.py``): ``launch/decode_parity.measure``
+    prefills 96 tokens at batch 2 and runs 8 decode steps, against
+    ``forward`` over all 104, K8 launched 0 times by decode.  On the served
+    bf16 params it is printed; on the f32 params of phase 21 it is held to
+    1e-3 * max |logit|.  The bf16 model is not held to a limit: this
+    random-weight model moves its logits by more than 2e-2 of their
+    maximum under any other rounding of its bf16 activations, in the JAX
+    reference too (``tests/torch_bf16_witness.py``; the diagnosis with the
+    routing pinned is ``python -m repro_torch.launch.decode_parity``).
+21. Hybrid parity: the cut in f32 holding 2 experts of 16 (45.7 GB on
+    each side; 1 expert if the host has not 55 GB available, which
+    ``free -g`` and the script print), card vs CPU: a 64-token and a
+    100-token prompt (whole scan chunks, a ragged one), prefill and 4
+    teacher-forced decode steps within 1e-4 * max |logit|, the same last
+    argmax.
+22. The LM and hybrid serving summary lines, the int8 serving and
+    training summary lines, the kernels line (K1, K2, K3, K4, K7, K6, K8),
+    then the device line last.
+
+Device times by kernel come from ``trace_device``: a ``torch.profiler``
+trace with one warm-up step, whose recorded launches of each port kernel
+must equal the wrapper's count over the traced iterations (a short trace
+fails the run).  Each model is freed before the next is built: Qwen2-1.5B
+3.1 GB, the Jamba cut 51.8 GB, the parity pair 45.7 GB.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -493,12 +533,14 @@ def q8_signatures(device, sigs, k1_rows):
         # device time alone: the CUDA-event times above include the host's
         # launch gaps wherever the kernel is shorter than its wrapper
         k3_dev = device_ms_of(trace_device(
-            lambda i: k3.conv2d_q8(**args), 20), "conv2d_q8_kernel")
+            lambda i: k3.conv2d_q8(**args), 20, {"conv2d_q8_kernel": k3}),
+            "conv2d_q8_kernel")
         f32 = dict(x=x_q.float(), w=w_q.float(), stride=st, padding=pad,
                    scale=args["scale"], shift=args["shift"],
                    residual=args["residual"], relu=args["relu"])
         k1_dev = device_ms_of(trace_device(
-            lambda i: k1.conv2d_direct(**f32), 20), "conv2d_direct_kernel")
+            lambda i: k1.conv2d_direct(**f32), 20,
+            {"conv2d_direct_kernel": k1}), "conv2d_direct_kernel")
         ops = 2.0 * BATCH * p * q * k * c * r * s
         nbytes = (BATCH * h * w * c + r * s * c * k + 4.0 * BATCH * p * q * k
                   + 4.0 * (3 * k + 1)
@@ -593,6 +635,8 @@ def int8_breakdown(engine, k3_ms: float) -> dict:
     import numpy as np
     import torch
     from repro_torch.core.quantize import quantize_act
+    from repro_torch.kernels import conv2d_direct as k1
+    from repro_torch.kernels import conv2d_q8 as k3
 
     host = np.random.default_rng(SEED + 2).standard_normal(
         (BATCH, IMAGE, IMAGE, 3), dtype=np.float32)
@@ -619,7 +663,8 @@ def int8_breakdown(engine, k3_ms: float) -> dict:
     for name, params in (("int8", engine.qparams), ("f32", engine.params)):
         with torch.inference_mode():
             trace = trace_device(lambda i: engine.gxm.forward(
-                params, on_card, train=False), 5)
+                params, on_card, train=False), 5,
+                {"conv2d_q8_kernel": k3, "conv2d_direct_kernel": k1})
         out[name] = dict(
             wall_ms=trace["wall_ms"], device_ms=trace["device_ms"],
             busy_share=trace["busy_share"],
@@ -866,29 +911,105 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def trace_device(fn, iters: int) -> dict:
-    """``fn(i)`` for i in range(iters) under ``torch.profiler``: device
-    time by kernel name per iteration (ms, launches, name; largest first),
-    their sum, the device's busy share (the union of device intervals over
-    the span from the first device event to the last; None when the trace
-    shows no device time) and the host-clock ms per iteration."""
+TRACE_WARMUP_MS = 50.0      # the profiler's warm-up step runs fn this long
+TRACE_ATTEMPTS = 10         # traces taken before a short one fails the run
+
+
+def trace_device(fn, iters: int, counters: dict) -> dict:
+    """``fn(i)`` for i in range(iters) under ``torch.profiler``, after a
+    warm-up step (a profiler ``schedule`` with warmup=1) that calls
+    ``fn(0)`` for at least TRACE_WARMUP_MS and whose events are discarded,
+    so the profiler is recording when the traced iterations start.
+
+    A trace is complete when every kernel launch call the profiler
+    recorded on the host (``cudaLaunchKernel``, ``cuLaunchKernelEx`` and
+    the like: CUPTI's callback records) has the kernel record of the same
+    correlation id (CUPTI's activity records, which the profiler drops at
+    random), and when, for each needle of ``counters`` (a kernel-name
+    needle mapped to the port module whose ``launches`` counter its wrapper
+    keeps), the launches recorded under names that hold the needle equal
+    what the counter counted over the same traced iterations.  A trace
+    that is not complete is refused with a message and not read, since its
+    device times would read low; after TRACE_ATTEMPTS refused traces the
+    run fails, and so does a trace with no launch calls recorded at all.
+
+    Returns device time by kernel name per iteration (ms, launches, name;
+    largest first), the launches recorded by name over the whole trace,
+    their sum (``device_ms``), the device's busy share (the union of kernel
+    intervals over the span from the first to the last; None when the trace
+    shows no device time), the host-clock ms per iteration, the device ms
+    per iteration inside each ``record_function`` range of the port
+    (``ranges``: "mamba.scan", "moe.experts") and the traces refused."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, schedule
 
     cuda = torch.autograd.DeviceType.CUDA
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(iters):
-            fn(i)
+
+    def kernel(e):
+        return e.device_type == cuda and not getattr(
+            e, "is_user_annotation", False)
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        with torch.profiler.profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                schedule=schedule(wait=0, warmup=1, active=iters,
+                                  repeat=1)) as prof:
+            t0 = time.perf_counter()
+            while True:
+                fn(0)
+                torch.cuda.synchronize()
+                if (time.perf_counter() - t0) * 1e3 >= TRACE_WARMUP_MS:
+                    break
+            prof.step()
+            before = {needle: mod.launches
+                      for needle, mod in counters.items()}
+            t0 = time.perf_counter()
+            for i in range(iters):
+                fn(i)
+                if i == iters - 1:
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                prof.step()
+        averages = prof.key_averages()
+        launches = {e.key: e.count for e in averages if kernel(e)}
+        # every host-side launch call (cudaLaunchKernel, cuLaunchKernelEx)
+        # must have its kernel record, matched by their shared correlation id
+        events = prof.events()
+        recorded_ids = {e.id for e in events if kernel(e)}
+        calls = [e.id for e in events if e.device_type != cuda
+                 and "LaunchKernel" in e.name]
+        lost = sum(1 for i in calls if i not in recorded_ids)
+        short = [f"{lost} of {len(calls)} recorded launch calls have no "
+                 f"kernel record"] if lost else []
+        for needle, mod in counters.items():
+            counted = mod.launches - before[needle]
+            recorded = sum(n for name, n in launches.items()
+                           if needle in name)
+            if recorded != counted:
+                short.append(f"{recorded} launches of {needle} recorded, "
+                             f"{counted} counted")
+        if not short:
+            break
+        print(f"  profiler trace {attempt} of {TRACE_ATTEMPTS} refused "
+              f"({iters} iterations, {sum(launches.values())} kernel "
+              f"launches recorded): {'; '.join(short)}")
+    check(not short, f"{TRACE_ATTEMPTS} profiler traces in a row recorded "
+          f"other launch counts than the wrappers counted: {short}")
+    check(len(calls) > 0, "the profiler recorded no kernel launch calls, "
+          "so a trace's completeness cannot be checked")
     by_name = sorted(((_device_us(e) / 1e3 / iters, e.count / iters, e.key)
-                      for e in prof.key_averages() if e.device_type == cuda),
-                     reverse=True)
+                      for e in averages if kernel(e)), reverse=True)
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == cuda)
+                   for e in events if kernel(e))
+    # a range's kernels run inside its device-side span (one stream); the
+    # CPU-side range's device_time_total counts some kernels twice
+    ranges = {}
+    for e in events:
+        if e.name in ("mamba.scan", "moe.experts") and e.device_type == cuda:
+            a, b = e.time_range.start, e.time_range.end
+            ranges[e.name] = ranges.get(e.name, 0.0) + sum(
+                end - start for start, end in spans if a <= start < b) \
+                / 1e3 / iters
     busy_us = 0.0
     if spans:
         cur_s, cur_e = spans[0]
@@ -900,9 +1021,11 @@ def trace_device(fn, iters: int) -> dict:
                 cur_e = max(cur_e, e)
         busy_us += cur_e - cur_s
     span_us = spans[-1][1] - spans[0][0] if spans else 0.0
-    return dict(by_name=by_name, device_ms=sum(ms for ms, _, _ in by_name),
+    return dict(by_name=by_name, launches=launches,
+                device_ms=sum(ms for ms, _, _ in by_name),
                 busy_share=busy_us / span_us if span_us else None,
-                wall_ms=wall_ms / iters)
+                wall_ms=wall_ms / iters, ranges=ranges,
+                refused=attempt - 1)
 
 
 def device_ms_of(trace: dict, needle: str) -> float:
@@ -913,11 +1036,14 @@ def device_ms_of(trace: dict, needle: str) -> float:
 def profile_steps(step, params, batches) -> dict:
     """Device time by kernel name and the device's busy share over
     ``len(batches)`` training steps under ``torch.profiler``."""
+    from repro_torch.kernels import conv2d_direct as k1
+    from repro_torch.kernels import conv2d_wu as k2
     state = [params]
 
     def run(i):
         state[0], _ = step(state[0], batches[i])
-    trace = trace_device(run, len(batches))
+    trace = trace_device(run, len(batches), {"conv2d_direct_kernel": k1,
+                                             "conv2d_wu_kernel": k2})
     steps = len(batches)
     by_name, device_ms = trace["by_name"], trace["device_ms"]
 
@@ -1225,12 +1351,14 @@ def streams_signatures(device, sigs):
             return k1.conv2d_direct(x, wt, stride=st, padding=pad,
                                     bias=kw["bias"], relu=kw["relu"])
         ms = cuda_ms(run, 30)
-        dev = device_ms_of(trace_device(lambda i: run(), 10),
+        dev = device_ms_of(trace_device(lambda i: run(), 10,
+                                        {"conv2d_streams_kernel": k4}),
                            "conv2d_streams_kernel")
         plain_ms = cuda_ms(lambda: k4.conv2d_streams_plain(
             x, wt, schedule=sched, **knobs), 1)
         k1_ms = cuda_ms(k1_run, 30)
-        k1_dev = device_ms_of(trace_device(lambda i: k1_run(), 10),
+        k1_dev = device_ms_of(trace_device(lambda i: k1_run(), 10,
+                                           {"conv2d_direct_kernel": k1}),
                               "conv2d_direct_kernel")
         library_ms = cuda_ms(lambda: ref.conv2d_fused(
             x, wt, stride=st, padding=pad, bias=kw["bias"],
@@ -1361,7 +1489,8 @@ def tuned_replay(device, sigs, rows):
         def run():
             return k4.conv2d_streams_auto(x, wt, blocking=blk, **kw)
         ms = cuda_ms(run, 30)
-        dev = device_ms_of(trace_device(lambda i: run(), 10),
+        dev = device_ms_of(trace_device(lambda i: run(), 10,
+                                        {"conv2d_streams_kernel": k4}),
                            "conv2d_streams_kernel")
         plain_ms = cuda_ms(lambda: k4.conv2d_streams_plain(
             x, wt, schedule=sched, **knobs), 1)
@@ -1397,7 +1526,7 @@ LM_WARM_REQUESTS = 8
 LM_PROMPT_LEN = (128, 1024)       # uniform, both ends included
 LM_PREFILL = (8, 512)             # batch, tokens of the direct prefill
 LM_DECODE_STEPS = 16
-LM_PARITY_PROMPT = (2, 64)
+LM_PARITY_PROMPTS = [(2, 64)]       # (batch, tokens) of each parity batch
 LM_PARITY_STEPS = 4
 BF16_REL_TOL = 1e-2               # K6, K7 vs plain on bf16 inputs
 MATMUL_M = 4096                   # tokens of the K6 shapes
@@ -1426,18 +1555,15 @@ def auto_ms(fn, target_ms: float = 60.0) -> float:
     return cuda_ms(fn, max(3, min(200, int(target_ms / max(once, 1e-3)))))
 
 
-def kernel_device_ms(fn, needle: str, iters: int = 5) -> tuple[float, int]:
+def kernel_device_ms(fn, needle: str, module, iters: int = 5
+                     ) -> tuple[float, int]:
     """Device ms per launch of the kernels named ``needle`` over ``iters``
-    calls of ``fn`` under ``torch.profiler``, averaged over the launches the
-    trace recorded, and that count (0.0, 0 when the trace shows none).  A
-    short trace can miss launches at its start, so the mean is per recorded
-    launch, not per call."""
-    trace = trace_device(lambda i: fn(), iters)
-    hits = [(ms, n) for ms, n, name in trace["by_name"] if needle in name]
-    launches = sum(n for _, n in hits)
-    if not launches:
-        return 0.0, 0
-    return sum(ms for ms, _ in hits) / launches, round(launches * iters)
+    calls of ``fn`` under ``torch.profiler`` (``trace_device``, which holds
+    the launches it recorded to ``module.launches``), and that count."""
+    trace = trace_device(lambda i: fn(), iters, {needle: module})
+    launches = sum(n for name, n in trace["launches"].items()
+                   if needle in name)
+    return device_ms_of(trace, needle) * iters / launches, launches
 
 
 def attention_signatures(device):
@@ -1481,7 +1607,7 @@ def attention_signatures(device):
             ms = auto_ms(lambda: k7.flash_attention(q, k, v, causal=causal))
             device_ms, recorded = kernel_device_ms(
                 lambda: k7.flash_attention(q, k, v, causal=causal),
-                "flash_attention_kernel")
+                "flash_attention_kernel", k7)
             plain_ms = auto_ms(lambda: k7.flash_attention_plain(
                 q, k, v, causal=causal), 30.0)
             library_ms = auto_ms(lambda: F.scaled_dot_product_attention(
@@ -1571,7 +1697,8 @@ def matmul_signatures(device):
                 return acts[act](y)
             ms = auto_ms(lambda: k6.matmul_fused(a, b, **kw))
             device_ms, recorded = kernel_device_ms(
-                lambda: k6.matmul_fused(a, b, **kw), "matmul_fused_kernel")
+                lambda: k6.matmul_fused(a, b, **kw), "matmul_fused_kernel",
+                k6)
             plain_ms = auto_ms(lambda: k6.matmul_fused_plain(a, b, **kw))
             library_ms = auto_ms(library)
             flops = 2.0 * MATMUL_M * kk * n
@@ -1612,34 +1739,40 @@ def lm_prompts(n: int, vocab: int, seed: int):
     return [rng.integers(0, vocab, size=int(m)) for m in lengths]
 
 
-def lm_serving(device):
-    """Phase 16, the slice's main path: full Qwen2-1.5B in bf16 (random
-    weights from ``init_lm``, seed 0) through ``serve_continuous``: an
-    untimed pass of LM_WARM_REQUESTS requests, then a window of
-    LM_REQUESTS, every prompt made before it opens; K7's count set to 0
-    just before the window and read just after.  Then a batch-8 prefill at
-    512 tokens and 16 decode steps through ``forward`` / ``decode_step``,
-    and both under ``torch.profiler``.  Returns (K7 launches in the window,
-    summary)."""
+def lm_serving(device, arch: str, widths: tuple, kernels: dict):
+    """Phase 16 (Qwen2-1.5B) and phase 19 (the Jamba cut), each a slice's
+    main path: ``arch`` in bf16 (random weights from ``init_lm``, seed 0;
+    ``widths`` = (n_layers, d_model, n_heads, n_kv_heads, head_dim, d_ff,
+    vocab, dtype) are checked) through ``serve_continuous``: an untimed
+    pass of LM_WARM_REQUESTS requests, then a window of LM_REQUESTS, every
+    prompt made before it opens.  ``kernels`` maps a kernel's name to
+    (module, kernel-name needle, launches per prefill): each count is set
+    to 0 just before the window and read just after, and must be its
+    launches per prefill x LM_REQUESTS.  Then a batch-8 prefill at 512
+    tokens and 16 decode steps (which launch none of them) through
+    ``forward`` / ``decode_step``, and both under ``torch.profiler``
+    (``trace_device``, each kernel's recorded launches held to its
+    counter).  Returns (launches in the window by kernel name, summary,
+    params, cfg)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import attention as k7
     from repro_torch.launch.serve import serve_continuous
     from repro_torch.nn import transformer as T
 
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-           cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.dtype) ==
-          (28, 1536, 12, 2, 128, 8960, 151936, "bfloat16"),
-          f"{LM_ARCH} is not the full Qwen2-1.5B: {cfg}")
+           cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.dtype) == widths,
+          f"{arch} does not have the widths {widths}: {cfg}")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = T.init_lm(cfg, torch.Generator(device=device).manual_seed(SEED),
                        device=device)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"\nLM serving: {LM_ARCH}, {n_params / 1e9:.3f} B params in "
-          f"{cfg.dtype} ({n_params * 2 / 1e9:.2f} GB), random from seed "
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"\nLM serving: {arch}, {n_params / 1e9:.3f} B params in "
+          f"{cfg.dtype} ({param_bytes / 1e9:.2f} GB), random from seed "
           f"{SEED} in {time.perf_counter() - t0:.1f}s; lanes {LM_LANES}, "
           f"max_len {LM_MAX_LEN}, max_new {LM_MAX_NEW}, prompts of "
           f"{LM_PROMPT_LEN[0]}-{LM_PROMPT_LEN[1]} tokens")
@@ -1651,13 +1784,14 @@ def lm_serving(device):
     torch.cuda.synchronize()
     print(f"  untimed pass: {LM_WARM_REQUESTS} requests in "
           f"{time.perf_counter() - t0:.2f}s")
-    k7.launches = 0
+    for mod, _, _ in kernels.values():
+        mod.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = serve_continuous(params, cfg, window, **kw)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = k7.launches
+    launches = {name: mod.launches for name, (mod, _, _) in kernels.items()}
     tokens = sum(len(r) for r in results.values())
     prompt_tokens = int(sum(len(p) for p in window))
     print(f"  window: {LM_REQUESTS} requests ({prompt_tokens} prompt "
@@ -1665,15 +1799,16 @@ def lm_serving(device):
           f"{tokens / wall_s:.2f} generated tokens/s, "
           f"{(tokens + prompt_tokens) / wall_s:.2f} tokens/s with the "
           f"prompts")
-    print(f"  K7 launches in the window: {launches} (expected "
-          f"{cfg.n_layers} x {LM_REQUESTS} = {cfg.n_layers * LM_REQUESTS})")
     check(len(results) == LM_REQUESTS and all(
         len(r) == LM_MAX_NEW for r in results.values()),
         f"served {len(results)} requests, not {LM_REQUESTS} x {LM_MAX_NEW} "
         f"tokens")
-    check(launches == cfg.n_layers * LM_REQUESTS,
-          f"K7 launched {launches} times in the window, expected "
-          f"{cfg.n_layers * LM_REQUESTS}")
+    for name, (_, _, per_prefill) in kernels.items():
+        print(f"  {name} launches in the window: {launches[name]} (expected "
+              f"{per_prefill} x {LM_REQUESTS} = {per_prefill * LM_REQUESTS})")
+        check(launches[name] == per_prefill * LM_REQUESTS,
+              f"{name} launched {launches[name]} times in the window, "
+              f"expected {per_prefill * LM_REQUESTS}")
 
     b, l = LM_PREFILL
     toks = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
@@ -1705,7 +1840,7 @@ def lm_serving(device):
           f"3); {b * l / prefill_ms * 1e3:.0f} tokens/s")
     last = logits[:, -1:].argmax(dim=-1)
     step_ms = []
-    k7.launches = 0
+    before = {name: mod.launches for name, (mod, _, _) in kernels.items()}
     for t in range(LM_DECODE_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1714,48 +1849,62 @@ def lm_serving(device):
         last = out.argmax(dim=-1)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    check(k7.launches == 0, f"decode launched K7 {k7.launches} times")
+    for name, (mod, _, _) in kernels.items():
+        check(mod.launches == before[name],
+              f"decode launched {name} {mod.launches - before[name]} times")
     check(bool(torch.isfinite(out.float()).all()), "non-finite decode logits")
     p50, p99 = (float(np.percentile(step_ms, q)) for q in (50, 99))
     print(f"  decode, batch {b} at {l}+ tokens: p50 {p50:.3f} ms, p99 "
           f"{p99:.3f} ms per step over {LM_DECODE_STEPS} steps "
-          f"({b / p50 * 1e3:.1f} tokens/s); K7 launches 0")
+          f"({b / p50 * 1e3:.1f} tokens/s); launches of "
+          f"{', '.join(kernels)}: 0")
 
-    def show(name, trace, needle=None):
-        k7_ms = device_ms_of(trace, "flash_attention_kernel")
+    counters = {needle: mod for mod, needle, _ in kernels.values()}
+
+    def show(name, trace, iters):
+        device_ms = trace["device_ms"]
         busy = trace["busy_share"]
-        n_launch = sum(n for _, n, _ in trace["by_name"])
+        n_launch = sum(trace["launches"].values()) / iters
+        shares = {kname: device_ms_of(trace, needle)
+                  for kname, (_, needle, _) in kernels.items()}
+        shares.update(trace["ranges"])
         print(f"  profile of {name}: {trace['wall_ms']:.3f} ms by host clock,"
-              f" device {trace['device_ms']:.3f} ms in {n_launch:.0f} kernel "
-              f"launches, busy {'n/a' if busy is None else f'{busy:.4f}'}; K7 "
-              f"{k7_ms:.3f} ms ({k7_ms / max(trace['device_ms'], 1e-9):.4f}"
-              f" of device time)")
+              f" device {device_ms:.3f} ms in {n_launch:.0f} kernel "
+              f"launches, busy {'n/a' if busy is None else f'{busy:.4f}'}; "
+              + ", ".join(f"{kname} {ms:.3f} ms "
+                          f"({ms / max(device_ms, 1e-9):.4f} of device time)"
+                          for kname, ms in shares.items()))
         for ms, n, kname in trace["by_name"][:8]:
             print(f"    {ms:9.3f} ms  x{n:6.1f}  {kname[:100]}")
-        return dict(wall_ms=trace["wall_ms"], device_ms=trace["device_ms"],
-                    launches=n_launch, busy_share=busy, k7_ms=k7_ms,
+        return dict(wall_ms=trace["wall_ms"], device_ms=device_ms,
+                    launches=n_launch, busy_share=busy, kernel_ms=shares,
                     top=[dict(ms=ms, launches=n, name=kname[:120])
                          for ms, n, kname in trace["by_name"][:8]])
     del logits, cache
-    pre_trace = trace_device(lambda i: prefill(), 1)
+    pre_trace = trace_device(lambda i: prefill(), 1, counters)
     logits, _, cache = prefill()
     last = logits[:, -1:].argmax(dim=-1)
     del logits
     dec_trace = trace_device(lambda i: T.decode_step(
-        params, cfg, last, cache, torch.full((b,), l + i, device=device)), 8)
+        params, cfg, last, cache, torch.full((b,), l + i, device=device)), 8,
+        counters)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  parameters {param_bytes / 1e9:.3f} GB; "
+          f"torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB")
     summary = dict(
+        arch=arch, params=n_params, param_bytes=param_bytes,
+        max_memory_allocated=peak,
         window=dict(requests=LM_REQUESTS, prompt_tokens=prompt_tokens,
                     generated_tokens=tokens, wall_s=wall_s,
                     generated_tokens_per_s=tokens / wall_s,
-                    k7_launches=launches),
+                    launches=launches),
         prefill=dict(batch=b, tokens=l, host_ms=prefill_ms,
                      event_ms=float(np.median(events)),
-                     profile=show(f"one batch-{b} prefill", pre_trace)),
+                     profile=show(f"one batch-{b} prefill", pre_trace, 1)),
         decode=dict(batch=b, p50_ms=p50, p99_ms=p99, step_ms=step_ms,
-                    profile=show("8 decode steps (per step)", dec_trace)))
-    del params, cache
-    torch.cuda.empty_cache()
-    return launches, summary
+                    profile=show("8 decode steps (per step)", dec_trace, 8)))
+    del cache
+    return launches, summary, params, cfg
 
 
 def _leaves(tree):
@@ -1766,60 +1915,223 @@ def _leaves(tree):
             yield v
 
 
-def lm_parity():
-    """Phase 17: full Qwen2-1.5B in f32, the same params on the card and
-    on the CPU (the plain versions): prefill logits of two 64-token prompts
-    and 4 teacher-forced decode steps (both sides fed the CPU's greedy
-    tokens) within LOGIT_REL_TOL * max |logit|, and the same argmax at the
-    last position."""
-    import dataclasses
-
+def lm_parity(params, cfg, prompts) -> dict:
+    """Phase 17 (Qwen2-1.5B) and phase 21 (the Jamba cut): ``cfg`` (f32),
+    the same params on the card (``params``, drawn there) and on the CPU
+    (copied to the host; the plain versions).  For each (batch, length) of
+    ``prompts``: prefill logits within LOGIT_REL_TOL * max |logit| and the
+    same argmax at the last position, then LM_PARITY_STEPS teacher-forced
+    decode steps (both sides fed the CPU's greedy tokens) within the same
+    limit.  Frees the CPU copy; the caller frees ``params``."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.convert import params_to
     from repro_torch.nn import transformer as T
 
-    device = torch.device("cuda")
-    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
-    params = T.init_lm(cfg, torch.Generator(device=device).manual_seed(SEED),
-                       device=device)
-    cpu = params_to(params, "cpu")
-    b, l = LM_PARITY_PROMPT
-    toks = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
-        0, cfg.vocab, (b, l)))
-    cache_len = l + LM_PARITY_STEPS + 1
+    device = params["embed"].device
     t0 = time.perf_counter()
-    lg, _, cache_g = T.forward(params, cfg, tokens=toks.to(device),
-                               return_cache=True, cache_len=cache_len)
-    lc, _, cache_c = T.forward(cpu, cfg, tokens=toks, return_cache=True,
-                               cache_len=cache_len)
-    rels = [rel_err(lg.cpu(), lc)[1]]
-    same_last = bool((lg[:, -1].argmax(-1).cpu() == lc[:, -1].argmax(-1))
-                     .all())
-    print(f"\nLM parity: {LM_ARCH} in f32, {b} prompts of {l} tokens, card "
-          f"vs CPU: prefill max |diff| / max |logit| {rels[0]:.3e}, same "
-          f"last argmax {same_last}")
-    agree = []
-    last = lc[:, -1:].argmax(dim=-1)
-    for t in range(LM_PARITY_STEPS):
-        og, cache_g = T.decode_step(params, cfg, last.to(device), cache_g,
-                                    l + t)
-        oc, cache_c = T.decode_step(cpu, cfg, last, cache_c, l + t)
-        rels.append(rel_err(og.cpu(), oc)[1])
-        agree.append(bool((og.argmax(-1).cpu() == oc.argmax(-1)).all()))
-        last = oc.argmax(dim=-1)
-    print(f"  {LM_PARITY_STEPS} teacher-forced decode steps: max |diff| / "
-          f"max |logit| {[f'{r:.3e}' for r in rels[1:]]}, argmax agrees "
-          f"{agree} ({time.perf_counter() - t0:.1f}s)")
-    check(all(r <= LOGIT_REL_TOL for r in rels),
-          f"card vs CPU LM logits apart by {max(rels):.3e} > "
-          f"{LOGIT_REL_TOL} of max |logit|")
-    check(same_last, "card and CPU disagree on the last prefill argmax")
-    del params, cpu, cache_g, cache_c
-    torch.cuda.empty_cache()
-    return dict(prefill_rel=rels[0], decode_rel=rels[1:],
-                same_last_argmax=same_last, decode_argmax_agree=agree)
+    cpu = params_to(params, "cpu")
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(cpu))
+    print(f"\nLM parity: {cfg.name} in f32 ({n_bytes / 1e9:.2f} GB on each "
+          f"side, copied in {time.perf_counter() - t0:.1f}s), card vs CPU")
+    out = []
+    for i, (b, l) in enumerate(prompts):
+        toks = torch.from_numpy(np.random.default_rng(SEED + 3 + i).integers(
+            0, cfg.vocab, (b, l)))
+        cache_len = l + LM_PARITY_STEPS + 1
+        t0 = time.perf_counter()
+        lg, _, cache_g = T.forward(params, cfg, tokens=toks.to(device),
+                                   return_cache=True, cache_len=cache_len)
+        lc, _, cache_c = T.forward(cpu, cfg, tokens=toks, return_cache=True,
+                                   cache_len=cache_len)
+        rels = [rel_err(lg.cpu(), lc)[1]]
+        same_last = bool((lg[:, -1].argmax(-1).cpu() == lc[:, -1].argmax(-1))
+                         .all())
+        print(f"  {b} prompt(s) of {l} tokens: prefill max |diff| / max "
+              f"|logit| {rels[0]:.3e}, same last argmax {same_last}")
+        agree = []
+        last = lc[:, -1:].argmax(dim=-1)
+        for t in range(LM_PARITY_STEPS):
+            og, cache_g = T.decode_step(params, cfg, last.to(device),
+                                        cache_g, l + t)
+            oc, cache_c = T.decode_step(cpu, cfg, last, cache_c, l + t)
+            rels.append(rel_err(og.cpu(), oc)[1])
+            agree.append(bool((og.argmax(-1).cpu() == oc.argmax(-1)).all()))
+            last = oc.argmax(dim=-1)
+        print(f"  {LM_PARITY_STEPS} teacher-forced decode steps: max |diff| "
+              f"/ max |logit| {[f'{r:.3e}' for r in rels[1:]]}, argmax "
+              f"agrees {agree} ({time.perf_counter() - t0:.1f}s)")
+        check(all(r <= LOGIT_REL_TOL for r in rels),
+              f"card vs CPU LM logits apart by {max(rels):.3e} > "
+              f"{LOGIT_REL_TOL} of max |logit|")
+        check(same_last, "card and CPU disagree on the last prefill argmax")
+        out.append(dict(batch=b, tokens=l, prefill_rel=rels[0],
+                        decode_rel=rels[1:], same_last_argmax=same_last,
+                        decode_argmax_agree=agree))
+        del cache_g, cache_c
+    del cpu
+    return dict(bytes_per_side=n_bytes, prompts=out)
+
+
+def init_on_card(cfg):
+    """``init_lm`` of ``cfg`` on the card from seed SEED."""
+    import torch
+    from repro_torch.nn import transformer as T
+    device = torch.device("cuda")
+    return T.init_lm(cfg, torch.Generator(device=device).manual_seed(SEED),
+                     device=device)
+
+
+# ---------------------------------------------------------------------------
+# Phases 18-21: hybrid Mamba + MoE serving (the Jamba cut, K8)
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "jamba-1.5-large-398b-1chip"
+HYBRID_WIDTHS = (8, 8192, 64, 8, 128, 24576, 65536, "bfloat16")
+HYBRID_PARITY_PROMPTS = [(1, 64), (1, 100)]   # whole chunks; a ragged one
+HYBRID_PARITY_SHARE = (0, 8)                  # 2 of 16 experts: 45.7 GB f32
+HYBRID_PARITY_SHARE_SMALL = (0, 16)           # 1 expert, if the host is short
+HYBRID_DECODE = (2, 96, 8)                    # batch, prefill, decode steps
+DECODE_REL_TOL = 1e-3              # f32 decode vs forward (~9e-5 on an H100)
+BF16_DECODE_REL_TOL = 2e-2         # bf16 decode vs forward: printed only
+# K8: b, l, d, kw, and whether x is read in place as the mixer passes it
+# (the first half of the input projection's (B, L, 2 d) rows); the cut's
+# Mamba prefills at d_inner 16384, L = 1; a tail
+CONV1D_SHAPES = [(1, 1, 16384, 4, False), (1, 333, 16384, 4, False),
+                 (1, 1024, 16384, 4, False), (8, 512, 16384, 4, False),
+                 (1, 1024, 16384, 4, True), (8, 512, 16384, 4, True),
+                 (2, 77, 1003, 4, False)]
+
+
+def conv1d_signatures(device):
+    """Phase 18: K8 against its plain version at the Mamba mixer's shapes
+    (d_inner 16384: L 1, 333, 1024 at batch 1 and 512 at batch 8; the last
+    two also on x read in place as the mixer passes it, the first half of
+    a (B, L, 32768) input projection, rows 32768 apart) and one tail case
+    (D and L not multiples of 8 or of a block), f32 and bf16:
+    max |diff| / max |plain| <= 1e-5 (f32), <= 1e-2 (bf16); K8 by CUDA
+    events and by profiler device time, the plain version, the library
+    yardstick (cuDNN's depthwise ``F.conv1d`` with padding KW - 1, sliced
+    to L, bias and SiLU in torch; used only here) and the bound, the larger
+    of bytes (x read and y written once, w and bias) over 3.35 TB/s and
+    2 KW multiply-adds per output over the dtype's peak."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import conv1d_causal as k8
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 18)
+    rows = []
+    print(f"\nK8 vs plain ({len(CONV1D_SHAPES)} shapes x f32, bf16, SiLU "
+          f"and bias; limits {KERNEL_REL_TOL} f32, {BF16_REL_TOL} bf16 of "
+          f"max |plain|):")
+    print("  dtype  b     l     d kw x        max_rel    max_abs        ms  "
+          "device_ms    plain_ms  library_ms  bound_ms bound_by   GB/s")
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, l, d, kw, in_place in CONV1D_SHAPES:
+            x = torch.randn((b, l, 2 * d if in_place else d), generator=gen,
+                            device=device).to(dtype)
+            if in_place:
+                x = x.chunk(2, dim=-1)[0]
+            w = (torch.randn((kw, d), generator=gen, device=device)
+                 * kw ** -0.5).to(dtype)
+            bias = torch.randn((d,), generator=gen, device=device).to(dtype)
+            out = k8.conv1d_causal(x, w, bias=bias)
+            plain = k8.conv1d_causal_plain(x, w, bias=bias)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out).all()),
+                  f"K8 non-finite at {(b, l, d, kw)}")
+            max_abs, max_rel = rel_err(out.float(), plain.float())
+            tol = KERNEL_REL_TOL if dtype == torch.float32 else BF16_REL_TOL
+            w_lib = w.t().unsqueeze(1).contiguous()            # (D,1,KW)
+
+            def library():
+                y = F.conv1d(x.transpose(1, 2), w_lib, bias, padding=kw - 1,
+                             groups=d)[..., :l]
+                return F.silu(y).transpose(1, 2)
+            lib_rel = rel_err(library().float(), plain.float())[1]
+            ms = auto_ms(lambda: k8.conv1d_causal(x, w, bias=bias))
+            device_ms, recorded = kernel_device_ms(
+                lambda: k8.conv1d_causal(x, w, bias=bias),
+                "conv1d_causal_kernel", k8)
+            plain_ms = auto_ms(lambda: k8.conv1d_causal_plain(
+                x, w, bias=bias), 30.0)
+            library_ms = auto_ms(library)
+            flops = 2.0 * kw * b * l * d
+            nbytes = x.element_size() * (2 * b * l * d + (kw + 1) * d)
+            bound_ms, bound_by = bound_for(flops, nbytes, dtype)
+            rec = dict(dtype=str(dtype).removeprefix("torch."), b=b, l=l, d=d,
+                       kw=kw, x="in place" if in_place else "contiguous",
+                       count=1, max_abs_err=max_abs,
+                       max_rel_err=max_rel, ms=ms, device_ms=device_ms,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       library_rel_err=lib_rel, bound_ms=bound_ms,
+                       bound_by=bound_by, gb_per_s=nbytes / ms / 1e6,
+                       traced_launches=recorded)
+            rows.append(rec)
+            print(f"  {rec['dtype']:8s}{b:2d}{l:6d}{d:6d}{kw:3d} "
+                  f"{rec['x']:10s} {max_rel:.2e}  {max_abs:.2e} {ms:9.4f} "
+                  f"{device_ms:10.4f}"
+                  f" {plain_ms:11.4f} {library_ms:11.4f} {bound_ms:9.4f} "
+                  f"{bound_by:9s}{rec['gb_per_s']:7.0f}  (library vs plain "
+                  f"{lib_rel:.1e}; {recorded} of 5 launches traced)")
+            check(max_rel <= tol, f"K8 disagrees with its plain version at "
+                  f"{(b, l, d, kw, rec['dtype'])}: max_rel {max_rel:.3e} > "
+                  f"{tol}")
+            del x, w, bias, out, plain
+    print("  per-shape JSON:", json.dumps(rows))
+    return rows
+
+
+def decode_vs_forward(params, cfg) -> dict:
+    """Phase 20: ``decode_parity.measure`` on the card at full width, in the
+    reference's dropless regime: prefill HYBRID_DECODE's 96 tokens, 8
+    ``decode_step``s, against ``forward`` over all 104 tokens.  Prints and
+    returns max |diff| / max |logit| of the decode logits (``rel``, per
+    step), the argmax agreement and the prefill's own logits against
+    forward's.  Fails if decode launches K8 or gives non-finite logits;
+    the caller holds ``rel`` to its limit."""
+    from repro_torch.launch import decode_parity
+
+    b, lp, steps = HYBRID_DECODE
+    toks = decode_parity.tokens(cfg, b, lp + steps, SEED,
+                                params["embed"].device)
+    out = decode_parity.measure(params, cfg, toks, lp)
+    print(f"\ndecode vs forward ({cfg.name}, {cfg.dtype}, capacity factor "
+          f"{decode_parity.CAPACITY_FACTOR:g}, batch {b}): prefill {lp} "
+          f"tokens, then {steps} decode steps against forward over "
+          f"{lp + steps}: max |diff| / max |logit| {out['rel']:.3e} (per "
+          f"step {[f'{r:.2e}' for r in out['per_step']]}), argmax agrees on "
+          f"{out['argmax_agree']:.3f}; the prefill's own logits vs forward's "
+          f"{out['prefill_rel']:.3e}; K8 launches in decode "
+          f"{out['decode_k8_launches']}")
+    check(math.isfinite(out["rel"]), "non-finite decode logits")
+    check(out["decode_k8_launches"] == 0,
+          f"decode launched K8 {out['decode_k8_launches']} times")
+    return out
+
+
+def hybrid_parity_cfg():
+    """Phase 21's config: the cut in f32 holding HYBRID_PARITY_SHARE (2 of
+    16 experts, 45.7 GB on each side), or one expert when the host has not
+    that much memory free.  ``free -g``'s total is printed."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True,
+                          timeout=60).stdout.splitlines()
+    print("\nhost memory (free -g):", " | ".join(line.strip()
+                                                for line in free[:2]))
+    with open("/proc/meminfo") as f:
+        info = dict(line.split(":", 1) for line in f)
+    available_gb = int(info["MemAvailable"].split()[0]) * 1024 / 1e9
+    share = (HYBRID_PARITY_SHARE if available_gb >= 55.0
+             else HYBRID_PARITY_SHARE_SMALL)
+    print(f"  {available_gb:.1f} GB available: the parity model holds "
+          f"expert share {share}")
+    cfg = get_config(HYBRID_ARCH)
+    return dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+        cfg.moe, expert_share=share)), available_gb
 
 
 def totals(rows) -> dict:
@@ -1908,10 +2220,47 @@ def main() -> int:
           f"{k4_analytic['bound_ms']:.3f} ({k4_analytic['bound_by']})")
     torch.cuda.empty_cache()
 
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention as k7
+    from repro_torch.kernels import conv1d_causal as k8
+
     attn_rows = attention_signatures(device)
     mm_rows, mm_launches = matmul_signatures(device)
-    lm_launches, lm_summary = lm_serving(device)
-    lm_summary["parity"] = lm_parity()
+    lm_launches, lm_summary, params, _ = lm_serving(
+        device, LM_ARCH, (28, 1536, 12, 2, 128, 8960, 151936, "bfloat16"),
+        {"flash_attention": (k7, "flash_attention_kernel", 28)})
+    del params
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    lm_summary["parity"] = lm_parity(init_on_card(cfg), cfg,
+                                     LM_PARITY_PROMPTS)
+    torch.cuda.empty_cache()
+
+    conv_rows = conv1d_signatures(device)
+    hy_launches, hy_summary, params, cfg = lm_serving(
+        device, HYBRID_ARCH, HYBRID_WIDTHS,
+        {"conv1d_causal": (k8, "conv1d_causal_kernel", 7),
+         "flash_attention": (k7, "flash_attention_kernel", 1)})
+    bf16 = decode_vs_forward(params, cfg)
+    print(f"  bf16: {bf16['rel']:.3e} of max |logit|, printed and not held "
+          f"to {BF16_DECODE_REL_TOL}: this random-weight model moves its "
+          f"logits by more than that under any other rounding of its bf16 "
+          f"activations (PERF.md section 5); the f32 model below is held "
+          f"to {DECODE_REL_TOL}")
+    del params
+    torch.cuda.empty_cache()
+    cfg, available_gb = hybrid_parity_cfg()
+    params = init_on_card(cfg)
+    f32 = decode_vs_forward(params, cfg)
+    check(f32["rel"] <= DECODE_REL_TOL,
+          f"f32 decode differs from forward by {f32['rel']:.3e} > "
+          f"{DECODE_REL_TOL} of max |logit|")
+    hy_summary["decode_vs_forward"] = dict(bfloat16=bf16, float32=f32)
+    hy_summary["parity"] = dict(lm_parity(params, cfg, HYBRID_PARITY_PROMPTS),
+                                expert_share=cfg.moe.expert_share,
+                                host_available_gb=available_gb)
+    del params
+    torch.cuda.empty_cache()
     print(f"\nall phases in {time.perf_counter() - t_start:.1f}s")
 
     def timing(d):
@@ -2000,8 +2349,11 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/attention.py:87",
-        "launches": lm_launches,
-        "launches_by_path": {"lm_serving": lm_launches},
+        "launches": lm_launches["flash_attention"]
+        + hy_launches["flash_attention"],
+        "launches_by_path": {
+            "lm_serving": lm_launches["flash_attention"],
+            "hybrid_serving": hy_launches["flash_attention"]},
         "max_abs_err": max(r_["max_abs_err"] for r_ in attn_rows),
         "max_rel_err": max(r_["max_rel_err"] for r_ in attn_rows),
         **{key: k7_row[key] for key in ("ms", "plain_ms", "library_ms",
@@ -2030,7 +2382,33 @@ def main() -> int:
                f"plain matmuls), so its launches are phase 15's",
         "card": card,
     }]
+    k8_row = next(r_ for r_ in conv_rows if (r_["dtype"], r_["b"], r_["l"],
+                                             r_["x"])
+                  == ("bfloat16", 1, 1024, "in place"))
+    kernels.append({
+        "name": "conv1d_causal",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/conv1d_causal.cu",
+        "replaces": "src/repro/kernels/conv1d_causal.py:43",
+        "launches": hy_launches["conv1d_causal"],
+        "launches_by_path": {
+            "hybrid_serving": hy_launches["conv1d_causal"],
+            "decode_step": 0},
+        "max_abs_err": max(r_["max_abs_err"] for r_ in conv_rows),
+        "max_rel_err": max(r_["max_rel_err"] for r_ in conv_rows),
+        **{key: k8_row[key] for key in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by",
+                                        "device_ms")},
+        "per": "one launch at the Jamba cut's Mamba prefill shape: batch 1, "
+               "1024 tokens, d_inner 16384, 4 taps, bias and SiLU, bf16, x "
+               "read in place from the input projection's rows as the "
+               "mixer passes it (7 "
+               "launches per prefill, 0 per decode step); library: cuDNN's "
+               "depthwise F.conv1d with bias and SiLU in torch",
+        "card": card,
+    })
     print(json.dumps({"lm_serving": lm_summary}))
+    print(json.dumps({"hybrid_serving": hy_summary}))
     print(json.dumps({"serving_int8": {
         "images_per_s": q8_stats["images_per_s"],
         "p50_ms": q8_stats["latency"]["p50_ms"],

@@ -39,6 +39,28 @@ def params_from_jax(tree, device=None) -> dict:
     return convert(tree)
 
 
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def take_expert_share(tree, cfg, *, axis: int = 1) -> dict:
+    """The reference's params ``tree`` with every MoE expert leaf
+    (``w_gate``, ``w_up``, ``w_down`` of an MoE layer) cut along its expert
+    ``axis`` to the experts ``cfg.moe.expert_share`` holds: axis 1 for an LM
+    tree (leading "layers" axis, then E), axis 0 for one MoE layer's tree.
+    Other leaves are passed through as they are; no leaf is copied."""
+    e0, e1 = cfg.moe.held_experts()
+    cut = (slice(None),) * axis + (slice(e0, e1),)
+
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        moe_layer = "router" in node and all(k in node for k in EXPERT_LEAVES)
+        return {key: v[cut] if moe_layer and key in EXPERT_LEAVES
+                else walk(v) for key, v in node.items()}
+
+    return walk(tree)
+
+
 def params_to(tree, device) -> dict:
     """A params tree of the port (nested dicts of tensors) with every leaf
     copied to ``device``: the same params on the card and on the CPU."""

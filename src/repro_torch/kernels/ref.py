@@ -22,7 +22,8 @@ mask, falling back to ``attention`` when the chunk does not divide L).  The
 port keeps one, ``attention_chunked``, whose last chunk may be ragged: a
 chunk of L is the reference's ``attention``, since every causal row keeps
 its diagonal and so ``-1e30`` and ``-inf`` give the same softmax.
-``conv1d_causal`` and ``moe_gmm`` wait for the slices that run them.
+``conv1d_causal`` is ``repro/kernels/ref.py:134-145``; ``moe_gmm`` waits for
+the slice that runs it.
 """
 from __future__ import annotations
 
@@ -152,3 +153,23 @@ def attention_chunked(q, k, v, *, causal: bool = True, scale=None,
         probs = torch.softmax(logits, dim=-1)
         outs.append(torch.einsum("bhqk,bhkd->bhqd", probs, vf).to(q.dtype))
     return torch.cat(outs, dim=2)
+
+
+# ---------------------------------------------------------------------------
+# Depthwise causal conv1d (the Mamba mixer)
+# ---------------------------------------------------------------------------
+
+def conv1d_causal(x, w, *, bias=None, act: str = "silu"):
+    """x: (B,L,D), w: (KW,D) depthwise causal -> (B,L,D) in x's dtype: left
+    pad KW - 1 zeros, the f32 sum of the KW shifted products, + bias, then
+    act ("silu" or "none")."""
+    if act not in ("silu", "none"):
+        raise ValueError(act)
+    kw, l = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, kw - 1, 0))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(kw):
+        out = out + xp[:, i:i + l].float() * w[i].float()
+    if bias is not None:
+        out = out + bias.float()
+    return _act(out, act).to(x.dtype)

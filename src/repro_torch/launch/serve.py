@@ -2,11 +2,16 @@
 lockstep batched generation and continuous batching over a shared KV cache.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch jamba-1.5-large-398b-1chip
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
 Every prefill runs the whole prompt through ``transformer.forward``, whose
-attention is K7 on the card; decode steps are plain torch
-(``attention.decode``).  Weights are random, drawn from seed 0.  Greedy
+attention is K7 and whose Mamba conv1d is K8 on the card; decode steps are
+plain torch (``attention.decode``, ``mamba.decode``).  A lane's refill
+copies every entry of its packed prefill cache into the lane's slot: K/V
+for attention, conv and ssm states for Mamba.  Weights are random, drawn
+from seed 0.  Greedy
 decoding gives the reference's token ids on the same params and prompts;
 sampling draws from a ``torch.Generator``, which cannot reproduce
 ``jax.random`` and is not held to it.
@@ -23,6 +28,7 @@ import torch
 from repro_torch.backend import resolve_device
 from repro_torch.configs import get_config, list_archs, smoke_config
 from repro_torch.kernels import attention as k7
+from repro_torch.kernels import conv1d_causal as k8
 from repro_torch.nn import transformer as T
 
 
@@ -88,8 +94,8 @@ def serve_continuous(params, cfg, request_queue, *, lanes: int = 4,
         logits, _, one = T.forward(params, cfg, tokens=tokens,
                                    return_cache=True, cache_len=max_len)
         for name, entry in one.items():
-            for kv, t in entry.items():
-                cache[name][kv][:, lane:lane + 1] = t
+            for state, t in entry.items():
+                cache[name][state][:, lane:lane + 1] = t
         pos[lane] = len(prompt)
         first = int(logits[0, -1].argmax())
         results[rid].append(first)            # first token comes from prefill
@@ -149,19 +155,19 @@ def main(argv=None):
                for _ in range(args.requests)]
     max_len = max(len(p) for p in prompts) + args.max_new + 1
 
-    k7.launches = 0
+    k7.launches = k8.launches = 0
     _sync(device)
     t0 = time.perf_counter()
     outs = generate(params, cfg, prompts, max_new=args.max_new,
                     max_len=max_len)
     _sync(device)
     gen_s = time.perf_counter() - t0
-    gen_launches = k7.launches
+    gen_launches = k7.launches, k8.launches
     for i, o in enumerate(outs):
         print(f"req{i}: prompt={[int(t) for t in prompts[i][:6]]}... -> "
               f"{o[:8]}...")
 
-    k7.launches = 0
+    k7.launches = k8.launches = 0
     t0 = time.perf_counter()
     results = serve_continuous(params, cfg, prompts, max_len=max_len,
                                max_new=args.max_new, eos=-1)
@@ -174,10 +180,12 @@ def main(argv=None):
         "generate": {"tokens": args.requests * args.max_new,
                      "seconds": gen_s,
                      "tokens_per_s": args.requests * args.max_new / gen_s,
-                     "flash_attention_launches": gen_launches},
+                     "flash_attention_launches": gen_launches[0],
+                     "conv1d_causal_launches": gen_launches[1]},
         "continuous": {"tokens": tokens,
                        "seconds": cont_s, "tokens_per_s": tokens / cont_s,
-                       "flash_attention_launches": k7.launches},
+                       "flash_attention_launches": k7.launches,
+                       "conv1d_causal_launches": k8.launches},
     }
     print(json.dumps(summary))
     if len(results) != args.requests:

@@ -5,10 +5,21 @@ means the same model on both sides.  ``block_pattern`` is the repeating
 layer pattern; each entry is ``(mixer, mlp)`` with mixer ∈ {"attn",
 "mamba", "rwkv"} and mlp ∈ {"dense", "moe", "rwkv_cm"}.  ``n_layers`` must
 be a multiple of the pattern length: params are stacked over pattern
-repeats, and the port's decoder loops over them.  Fields that steer only
-the reference's distributed execution (``remat``, ``fsdp``,
-``factored_opt``, ``accum_steps``, ``sharding``, ``scan_chunk``) are kept
-so configs stay identical; the port's serving path does not read them.
+repeats, and the port's decoder loops over them.  ``scan_chunk`` is the
+Mamba mixer's chunk of the selective scan.  Fields that steer only the
+reference's distributed execution (``remat``, ``fsdp``, ``factored_opt``,
+``accum_steps``, ``sharding``) are kept so configs stay identical; the
+port's serving path does not read them.
+
+One field is the port's own: ``MoECfg.expert_share`` = (index, count) says
+which experts of each MoE layer this device holds, the share
+[index·E/count, (index+1)·E/count) that expert parallelism over ``count``
+devices gives device ``index`` (the reference's "ep" sharding profile puts
+the expert axis on its ``model`` mesh axis).  ``n_experts`` stays the
+published E: the router, the capacity and the aux losses are over all E,
+and the layer returns the part of its output that the held experts give.
+The default (0, 1) holds every expert and means exactly what the
+reference's config means.
 """
 from __future__ import annotations
 
@@ -20,6 +31,16 @@ class MoECfg:
     n_experts: int
     top_k: int
     capacity_factor: float = 1.25
+    expert_share: tuple = (0, 1)  # (index, count): experts held, see above
+
+    def held_experts(self) -> tuple[int, int]:
+        """[e0, e1): the experts of ``expert_share``."""
+        index, count = self.expert_share
+        if count < 1 or not 0 <= index < count or self.n_experts % count:
+            raise ValueError(f"expert_share {self.expert_share} does not "
+                             f"split {self.n_experts} experts evenly")
+        per = self.n_experts // count
+        return index * per, (index + 1) * per
 
 
 @dataclasses.dataclass(frozen=True)

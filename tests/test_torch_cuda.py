@@ -464,3 +464,104 @@ def test_lm_smoke_forward_and_serving_match_the_cpu(cuda):
                                   max_new=5) == \
         serve.serve_continuous(cpu, cfg, prompts, lanes=2, max_len=32,
                                max_new=5)
+
+
+# -- K8 (depthwise causal conv1d) and the hybrid LM -------------------------
+
+from repro_torch.kernels import conv1d_causal as k8  # noqa: E402
+
+# b, l, d, kw: the served widths (L 1, a ragged run), D tails that are and
+# are not multiples of the 16-byte vector (1000, 1003), every tap count up to
+# 8, and runs that cross each other's halos
+CONV1D_CASES = [
+    (1, 1, 16384, 4), (1, 333, 16384, 4), (2, 77, 1000, 4), (2, 77, 1003, 4),
+    (3, 5, 24, 2), (1, 64, 8, 8), (2, 17, 256, 1), (1, 200, 4096, 3),
+    (4, 130, 136, 5), (1, 9, 40, 7), (2, 70, 48, 6),
+]
+
+
+def _conv1d_args(case, dev, dtype):
+    b, l, d, kw = case
+    g = torch.Generator(device=dev).manual_seed(l * d + kw)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    return (rnd(b, l, d).to(dtype), (rnd(kw, d) * kw ** -0.5).to(dtype),
+            rnd(d).to(dtype))
+
+
+@pytest.mark.parametrize("case", CONV1D_CASES)
+@pytest.mark.parametrize("act", ["silu", "none"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv1d_kernel_matches_plain(cuda, case, act, dtype):
+    x, w, bias = _conv1d_args(case, cuda, dtype)
+    for kw in (dict(bias=bias), dict()):
+        before = k8.launches
+        out = k8.conv1d_causal(x, w, act=act, **kw)
+        torch.cuda.synchronize()
+        assert k8.launches == before + 1
+        exp = k8.conv1d_causal_plain(x, w, act=act, **kw)
+        assert out.dtype == dtype and out.shape == exp.shape
+        tol = 1e-5 if dtype == torch.float32 else 1e-2
+        assert _rel_err(out.float(), exp.float()) <= tol, kw.keys()
+
+
+@pytest.mark.parametrize("d", [2048, 1003])
+def test_conv1d_kernel_on_strided_rows(cuda, d):
+    """The Mamba mixer's input: one half of a projection, rows 2 D apart
+    (16-byte aligned for D 2048, not for D 1003), read in place."""
+    xz = torch.randn((2, 45, 2 * d), device=cuda).bfloat16()
+    x = xz.chunk(2, dim=-1)[1]
+    assert not x.is_contiguous()
+    w = torch.randn((4, d), device=cuda).bfloat16()
+    bias = torch.randn((d,), device=cuda).bfloat16()
+    out = k8.conv1d_causal(x, w, bias=bias)
+    exp = k8.conv1d_causal_plain(x.contiguous(), w, bias=bias)
+    assert _rel_err(out.float(), exp.float()) <= 1e-2
+
+
+def test_conv1d_kernel_rejects_what_it_does_not_take(cuda):
+    x, w, bias = _conv1d_args((1, 8, 16, 4), cuda, torch.float32)
+    before = k8.launches
+    with pytest.raises(ValueError, match="taps"):
+        k8.conv1d_causal(x, torch.zeros((9, 16), device=cuda))
+    with pytest.raises(ValueError, match="is torch.bfloat16"):
+        k8.conv1d_causal(x, w.bfloat16())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        k8.conv1d_causal(x.half(), w.half())
+    strided = x.transpose(1, 2).contiguous().transpose(1, 2)
+    assert strided.stride(2) != 1
+    with pytest.raises(ValueError, match="channels"):
+        k8.conv1d_causal(strided, w)
+    assert k8.launches == before
+
+
+def test_hybrid_smoke_forward_and_serving_match_the_cpu(cuda):
+    """The smoke Jamba period (7 Mamba + 1 attention, MoE on odd layers):
+    the card's prefill logits (through K8 and K7) within 1e-4 of the CPU's,
+    7 K8 and 1 K7 launches per forward, none in decode, and the same greedy
+    tokens from ``serve_continuous``."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.convert import params_to
+    from repro_torch.launch import serve
+    from repro_torch.nn import transformer as T
+    cfg = smoke_config(get_config("jamba-1.5-large-398b-1chip"))
+    cpu = T.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    dev = params_to(cpu, cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 70),
+                         generator=torch.Generator().manual_seed(1))
+    k7_before, k8_before = k7.launches, k8.launches
+    lg, aux = T.forward(dev, cfg, tokens=toks.to(cuda))
+    assert (k7.launches - k7_before, k8.launches - k8_before) == (1, 7)
+    lc, aux_c = T.forward(cpu, cfg, tokens=toks)
+    assert _rel_err(lg.cpu(), lc) <= 1e-4
+    assert abs(float(aux) - float(aux_c)) <= 1e-4 * abs(float(aux_c))
+    cache = T.init_cache(cfg, 2, 4, device=cuda)
+    k8_before = k8.launches
+    T.decode_step(dev, cfg, toks[:, :1].to(cuda), cache, 0)
+    assert k8.launches == k8_before
+    prompts = [toks[0, :9].numpy(), toks[1, :4].numpy(), toks[0, 3:8].numpy()]
+    assert serve.serve_continuous(dev, cfg, prompts, lanes=2, max_len=32,
+                                  max_new=5) == \
+        serve.serve_continuous(cpu, cfg, prompts, lanes=2, max_len=32,
+                               max_new=5)

@@ -163,10 +163,12 @@ def test_streams_kernel_symbol_and_argtypes(monkeypatch):
 
 @pytest.mark.parametrize("name,symbol,module", [
     ("flash_attention", "repro_flash_attention", "attention"),
-    ("matmul_fused", "repro_matmul_fused", "matmul_fused")])
+    ("matmul_fused", "repro_matmul_fused", "matmul_fused"),
+    ("conv1d_causal", "repro_conv1d_causal", "conv1d_causal")])
 def test_lm_kernel_symbols_and_argtypes(monkeypatch, name, symbol, module):
-    """K7's and K6's ctypes bindings: one argtype per parameter of the C
-    function, pointers as c_void_p, floats as c_float, ints as c_int."""
+    """K7's, K6's and K8's ctypes bindings: one argtype per parameter of the
+    C function, pointers as c_void_p, floats as c_float, 64-bit ints as
+    c_longlong, ints as c_int."""
     import importlib
     mod = importlib.import_module(f"repro_torch.kernels.{module}")
     src = (_build.CSRC / f"{name}.cu").read_text()
@@ -184,6 +186,8 @@ def test_lm_kernel_symbols_and_argtypes(monkeypatch, name, symbol, module):
     assert len(fn.argtypes) == len(params)
     for ty, param in zip(fn.argtypes, params):
         want = (ctypes.c_void_p if "*" in param else
-                ctypes.c_float if param.startswith("float") else ctypes.c_int)
+                ctypes.c_float if param.startswith("float") else
+                ctypes.c_longlong if param.startswith("long long") else
+                ctypes.c_int)
         assert ty is want, param
     assert name in _build.KERNELS

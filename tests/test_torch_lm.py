@@ -233,8 +233,7 @@ def test_init_lm_layout_and_dtype():
     assert torch.equal(p["embed"], again["embed"])
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "rwkv6-1.6b",
-                                  "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b"])
 def test_unported_patterns_raise(arch):
     cfg = smoke_config(get_config(arch))
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
