@@ -7,9 +7,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. Header: the card's name and power limit, torch and CUDA versions, the
    TF32 flags, and the build of every CUDA kernel from ``src/repro_torch/csrc``
-   (seven sources: K1-K4, K7, K6, K8; one ``nvcc`` per source, all started
-   together), with each build's seconds and its ptxas register and spill
-   lines.
+   (eight sources: K1-K4, K7, K6, K8, K9; one ``nvcc`` per source, all
+   started together), with each build's seconds and its ptxas register
+   and spill lines.
 2. K1 vs plain, serving: every distinct lane-aligned (shape, fused
    epilogue) signature of ResNet-50 at 224x224, batch 16, on random
    weights, BN scale, shift and residual: K1 against its plain PyTorch
@@ -138,15 +138,36 @@ Phases, each of which fails the run (nonzero exit, no result line):
     bf16, with the limits of phase 14; K8 by CUDA events and profiler, the
     plain version, cuDNN's depthwise ``F.conv1d`` as the yardstick, the
     bound (bytes over 3.35 TB/s).
+18b. K9 vs plain: the grouped MoE matmul at (a) the cut's decode, 16
+    routed rows of batch 8 spread over the 8 held experts in tiles of 16,
+    and (b) a batch-8 x 512 prefill's rows from the layer's router on
+    random activations (its groups, capacity, drops and layout), each at
+    D 8192 -> F 24576 (gate/up) and 24576 -> 8192 (down), f32 and bf16;
+    (c) ``benchmarks/moe_streams_bench.py``'s shapes (T 512, D 128, F 256,
+    E 8, cap 128, bm 64) through ``route_dryrun``, f32; (d) T, D, F that
+    are multiples of no block, with a -1 tile, f32 and bf16; with the
+    limits of phase 14; K9 by CUDA events and profiler, the plain version,
+    the library yardstick (one ``torch.bmm`` over the capacity-padded (E,
+    C, D) x (E, D, F), the port's replay before K9), for (c) the bench's
+    dense every-expert einsum, and the bound (FLOPs of the rows with a
+    token over the dtype's peak, bytes of the rows, the weights of the
+    experts that have rows and the output over 3.35 TB/s).  Held: the bf16
+    decode with all 16 rows on one expert takes under half the time of 16
+    rows over 8 (empty experts' weights are not read).
 19. Hybrid serving, the slice's main path: ``jamba-1.5-large-398b-1chip``
     (one 8-layer period of Jamba-1.5-Large at full width, 8 of each MoE
     layer's 16 experts, bf16, 51.8 GB) through ``serve_continuous`` with
-    phase 16's lanes, lengths and window: K8's count must be 7 x 32 and
-    K7's 1 x 32; then a batch-8 prefill at 512 tokens and 16 decode steps
-    (neither kernel launched), both under ``torch.profiler`` with K8's,
-    K7's, the selective scan's and the MoE experts' shares, launches per
-    decode step and the busy share; the parameter bytes and
-    ``torch.cuda.max_memory_allocated()``.
+    phase 16's lanes, lengths and window: K8's count must be 7 x 32, K7's
+    1 x 32 and K9's 12 x the forward and decode_step calls the scheduler
+    counted (3 per MoE layer, 4 MoE layers); then a batch-8 prefill at 512
+    tokens and 16 decode steps (K9 12 a step, K7 and K8 none), with the
+    held experts that receive rows per MoE layer and step, one prefill and
+    one decode step with ``moe.apply`` under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host synchronisation
+    in the layer fails the run), and both under ``torch.profiler`` with
+    K8's, K7's, K9's, the selective scan's and the MoE replay's
+    (``moe.experts``) shares, launches per decode step and the busy share;
+    the parameter bytes and ``torch.cuda.max_memory_allocated()``.
 20. Hybrid decode vs forward on the card, capacity factor 16 (dropless,
     as ``tests/test_decode_parity.py``): ``launch/decode_parity.measure``
     prefills 96 tokens at batch 2 and runs 8 decode steps, against
@@ -162,10 +183,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
     ``free -g`` and the script print), card vs CPU: a 64-token and a
     100-token prompt (whole scan chunks, a ragged one), prefill and 4
     teacher-forced decode steps within 1e-4 * max |logit|, the same last
-    argmax.
+    argmax.  Phases 20 and 21 run K9 on the card (its f32 instance here).
 22. The LM and hybrid serving summary lines, the int8 serving and
-    training summary lines, the kernels line (K1, K2, K3, K4, K7, K6, K8),
-    then the device line last.
+    training summary lines, the kernels line (K1, K2, K3, K4, K7, K6, K8,
+    K9), then the device line last.
 
 Device times by kernel come from ``trace_device``: a ``torch.profiler``
 trace with one warm-up step, whose recorded launches of each port kernel
@@ -1746,18 +1767,24 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict):
     vocab, dtype) are checked) through ``serve_continuous``: an untimed
     pass of LM_WARM_REQUESTS requests, then a window of LM_REQUESTS, every
     prompt made before it opens.  ``kernels`` maps a kernel's name to
-    (module, kernel-name needle, launches per prefill): each count is set
-    to 0 just before the window and read just after, and must be its
-    launches per prefill x LM_REQUESTS.  Then a batch-8 prefill at 512
-    tokens and 16 decode steps (which launch none of them) through
-    ``forward`` / ``decode_step``, and both under ``torch.profiler``
-    (``trace_device``, each kernel's recorded launches held to its
-    counter).  Returns (launches in the window by kernel name, summary,
-    params, cfg)."""
+    (module, kernel-name needle, launches per forward, launches per decode
+    step): each count is set to 0 just before the window and read just
+    after, and must be its launches per forward and per decode step times
+    the ``forward`` and ``decode_step`` calls the scheduler counted in the
+    window (one forward per request).  Then a batch-8 prefill at 512 tokens
+    and 16 decode steps through ``forward`` / ``decode_step``, and both
+    under ``torch.profiler`` (``trace_device``, each kernel's recorded
+    launches held to its counter).  For a model with MoE layers, the decode
+    steps count the held experts that receive rows per layer and step, and
+    one prefill and one decode step run with ``moe.apply`` under
+    ``torch.cuda.set_sync_debug_mode("error")``, so a host synchronisation
+    in the layer fails the run.  Returns (launches in the window by kernel
+    name, summary, params, cfg)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve_continuous
+    from repro_torch.nn import moe
     from repro_torch.nn import transformer as T
 
     cfg = get_config(arch)
@@ -1784,14 +1811,16 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict):
     torch.cuda.synchronize()
     print(f"  untimed pass: {LM_WARM_REQUESTS} requests in "
           f"{time.perf_counter() - t0:.2f}s")
-    for mod, _, _ in kernels.values():
+    calls = {}
+    for mod, _, _, _ in kernels.values():
         mod.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    results = serve_continuous(params, cfg, window, **kw)
+    results = serve_continuous(params, cfg, window, calls=calls, **kw)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {name: mod.launches for name, (mod, _, _) in kernels.items()}
+    launches = {name: mod.launches
+                for name, (mod, _, _, _) in kernels.items()}
     tokens = sum(len(r) for r in results.values())
     prompt_tokens = int(sum(len(p) for p in window))
     print(f"  window: {LM_REQUESTS} requests ({prompt_tokens} prompt "
@@ -1803,12 +1832,18 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict):
         len(r) == LM_MAX_NEW for r in results.values()),
         f"served {len(results)} requests, not {LM_REQUESTS} x {LM_MAX_NEW} "
         f"tokens")
-    for name, (_, _, per_prefill) in kernels.items():
+    print(f"  the scheduler's calls in the window: {calls['forward']} "
+          f"forward, {calls['decode_step']} decode_step")
+    check(calls["forward"] == LM_REQUESTS,
+          f"{calls['forward']} prefills for {LM_REQUESTS} requests")
+    for name, (_, _, per_fwd, per_dec) in kernels.items():
+        expected = per_fwd * calls["forward"] + per_dec * calls["decode_step"]
         print(f"  {name} launches in the window: {launches[name]} (expected "
-              f"{per_prefill} x {LM_REQUESTS} = {per_prefill * LM_REQUESTS})")
-        check(launches[name] == per_prefill * LM_REQUESTS,
+              f"{per_fwd} x {calls['forward']} + {per_dec} x "
+              f"{calls['decode_step']} = {expected})")
+        check(launches[name] == expected,
               f"{name} launched {launches[name]} times in the window, "
-              f"expected {per_prefill * LM_REQUESTS}")
+              f"expected {expected}")
 
     b, l = LM_PREFILL
     toks = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
@@ -1840,33 +1875,59 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict):
           f"3); {b * l / prefill_ms * 1e3:.0f} tokens/s")
     last = logits[:, -1:].argmax(dim=-1)
     step_ms = []
-    before = {name: mod.launches for name, (mod, _, _) in kernels.items()}
-    for t in range(LM_DECODE_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out, cache = T.decode_step(params, cfg, last, cache,
-                                   torch.full((b,), l + t, device=device))
-        last = out.argmax(dim=-1)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    for name, (mod, _, _) in kernels.items():
-        check(mod.launches == before[name],
-              f"decode launched {name} {mod.launches - before[name]} times")
+    before = {name: mod.launches for name, (mod, _, _, _) in kernels.items()}
+    routes = []
+    route = moe.route
+
+    def recording_route(probs, k):
+        out = route(probs, k)
+        routes.append(out[1])
+        return out
+    moe.route = recording_route
+    try:
+        for t in range(LM_DECODE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, cache = T.decode_step(params, cfg, last, cache,
+                                       torch.full((b,), l + t, device=device))
+            last = out.argmax(dim=-1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        moe.route = route
+    for name, (mod, _, _, per_dec) in kernels.items():
+        check(mod.launches - before[name] == per_dec * LM_DECODE_STEPS,
+              f"decode launched {name} {mod.launches - before[name]} times, "
+              f"expected {per_dec} x {LM_DECODE_STEPS}")
     check(bool(torch.isfinite(out.float()).all()), "non-finite decode logits")
     p50, p99 = (float(np.percentile(step_ms, q)) for q in (50, 99))
     print(f"  decode, batch {b} at {l}+ tokens: p50 {p50:.3f} ms, p99 "
           f"{p99:.3f} ms per step over {LM_DECODE_STEPS} steps "
-          f"({b / p50 * 1e3:.1f} tokens/s); launches of "
-          f"{', '.join(kernels)}: 0")
+          f"({b / p50 * 1e3:.1f} tokens/s); launches per step: "
+          + ", ".join(f"{name} {per_dec}" for name, (_, _, _, per_dec)
+                      in kernels.items()))
+    experts_read = None
+    if cfg.moe is not None:
+        e0, e1 = cfg.moe.held_experts()
+        with_rows = [int(torch.unique(gi[(gi >= e0) & (gi < e1)]).numel())
+                     for gi in routes]
+        experts_read = dict(mean=float(np.mean(with_rows)),
+                            min=min(with_rows), max=max(with_rows),
+                            held=e1 - e0, layer_steps=len(with_rows))
+        print(f"  held experts with rows per MoE layer per decode step: mean "
+              f"{experts_read['mean']:.3f} (min {experts_read['min']}, max "
+              f"{experts_read['max']}) of {e1 - e0}, over {len(with_rows)} "
+              f"layer-steps")
+        strict_moe_step(params, cfg, prefill, b, l, device)
 
-    counters = {needle: mod for mod, needle, _ in kernels.values()}
+    counters = {needle: mod for mod, needle, _, _ in kernels.values()}
 
     def show(name, trace, iters):
         device_ms = trace["device_ms"]
         busy = trace["busy_share"]
         n_launch = sum(trace["launches"].values()) / iters
         shares = {kname: device_ms_of(trace, needle)
-                  for kname, (_, needle, _) in kernels.items()}
+                  for kname, (_, needle, _, _) in kernels.items()}
         shares.update(trace["ranges"])
         print(f"  profile of {name}: {trace['wall_ms']:.3f} ms by host clock,"
               f" device {device_ms:.3f} ms in {n_launch:.0f} kernel "
@@ -1902,9 +1963,42 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict):
                      event_ms=float(np.median(events)),
                      profile=show(f"one batch-{b} prefill", pre_trace, 1)),
         decode=dict(batch=b, p50_ms=p50, p99_ms=p99, step_ms=step_ms,
+                    held_experts_with_rows=experts_read,
                     profile=show("8 decode steps (per step)", dec_trace, 8)))
     del cache
     return launches, summary, params, cfg
+
+
+def strict_moe_step(params, cfg, prefill, b: int, l: int, device) -> None:
+    """One prefill and one decode step with every ``moe.apply`` under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host synchronisation in
+    the MoE layer raises and fails the run."""
+    import torch
+    from repro_torch.nn import moe
+    from repro_torch.nn import transformer as T
+
+    apply = moe.apply
+
+    def strict_apply(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return apply(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    moe.apply = strict_apply
+    try:
+        logits, _, cache = prefill()
+        last = logits[:, -1:].argmax(dim=-1)
+        del logits
+        T.decode_step(params, cfg, last, cache,
+                      torch.full((b,), l, device=device))
+        torch.cuda.synchronize()
+    except RuntimeError as err:
+        check(False, f"the MoE layer synchronised with the host: {err}")
+    finally:
+        moe.apply = apply
+    print("  one prefill and one decode step with moe.apply under "
+          "set_sync_debug_mode('error'): no host synchronisation")
 
 
 def _leaves(tree):
@@ -1983,7 +2077,7 @@ def init_on_card(cfg):
 
 
 # ---------------------------------------------------------------------------
-# Phases 18-21: hybrid Mamba + MoE serving (the Jamba cut, K8)
+# Phases 18-21: hybrid Mamba + MoE serving (the Jamba cut, K8 and K9)
 # ---------------------------------------------------------------------------
 
 HYBRID_ARCH = "jamba-1.5-large-398b-1chip"
@@ -2080,6 +2174,206 @@ def conv1d_signatures(device):
             del x, w, bias, out, plain
     print("  per-shape JSON:", json.dumps(rows))
     return rows
+
+
+# K9: the cut's MoE layer has D 8192, F 24576 and holds 8 of 16 experts,
+# top-2; decode routes batch 8 (16 entries), prefill batch 8 x 512
+MOE_D, MOE_F, MOE_E, MOE_HELD, MOE_K = 8192, 24576, 16, 8, 2
+MOE_PREFILL = (8, 512)
+MOE_BENCH = (512, 128, 256, 8, 128, 64)   # moe_streams_bench: T D F E cap bm
+MOE_TAIL = (77, 1003, 517, 3, 16, [0, 2, -1, 1, 0])   # T D F E bm tile_eid
+MOE_ONE_EXPERT_RATIO = 0.5    # one expert's 16 rows vs 16 over 8, at most
+# the profiler loses most kernel records of launches this long (K9's f32
+# prefill, 60+ ms each: 10 traces of 5 refused in a row on an H100), so
+# their device time is left to the CUDA events
+TRACE_MAX_MS = 20.0
+
+
+def moe_cases(device, gen):
+    """Phase 18b's inputs, each (name, tokens f32, weights-shape, tile_eid,
+    bm, rows with a token, capacity C of the library's (E, C, D) bmm)."""
+    import torch
+    from repro_torch.kernels import moe_gmm as k9
+    from repro_torch.nn import moe
+
+    def plan(gate_idx, keep, cap):
+        bm, tile_eid, _, source = moe.replay_plan(gate_idx, keep, 0,
+                                                  MOE_HELD, cap)
+        return bm, tile_eid, source
+
+    cases = []
+    # (a) decode: 16 entries of batch 8, spread 2 a held expert or all on
+    # one, through the layer's own layout (capacity 1 per one-token group)
+    b = MOE_PREFILL[0]
+    spread = torch.stack([torch.arange(b), (torch.arange(b) + 1) % b],
+                         dim=-1).reshape(b, 1, MOE_K).to(device)
+    for name, gate_idx in (("decode", spread),
+                           ("decode, one expert", torch.zeros_like(spread))):
+        bm, tile_eid, source = plan(gate_idx, torch.ones_like(
+            gate_idx, dtype=torch.bool), 1)
+        x = torch.randn((b, MOE_D), generator=gen, device=device)
+        x_rows = torch.where((source > 0)[:, None],
+                             x[(source - 1).clamp_min(0)], 0)
+        cases.append((name, x_rows, tile_eid, bm, b * MOE_K, b))
+    # (b) prefill: batch 8 x 512 through a random router, the layer's
+    # groups, capacity, drops and layout
+    b, l = MOE_PREFILL
+    x = torch.randn((b * l, MOE_D), generator=gen, device=device)
+    router = torch.randn((MOE_D, MOE_E), generator=gen, device=device) \
+        * MOE_D ** -0.5
+    gate_vals, gate_idx = moe.route(torch.softmax(x @ router, dim=-1)
+                                    .reshape(b, l, MOE_E), MOE_K)
+    cap = max(int(1.25 * l * MOE_K / MOE_E), 1)
+    bm, tile_eid, source = plan(gate_idx, moe.kept(gate_idx, MOE_E, cap),
+                                cap)
+    x_rows = torch.where((source > 0)[:, None],
+                         x[(source - 1).clamp_min(0)], 0)
+    cases.append(("prefill", x_rows, tile_eid, bm, int((source > 0).sum()),
+                  b * cap))
+    del x, router, gate_vals, gate_idx
+    # (c) benchmarks/moe_streams_bench.py through route_dryrun
+    t, d, f, e, cap, bm = MOE_BENCH
+    tok = torch.randn((t, d), generator=gen, device=device)
+    eid = torch.randint(0, e, (t,), generator=gen, device=device)
+    gi, tile_eid, keep = k9.route_dryrun(eid, e, cap, bm)
+    cases.append(("bench", tok[gi.long()] * keep[:, None], tile_eid, bm,
+                  int(keep.sum()), cap, (tok, eid)))
+    # (d) tails of T, D, F and an empty tile
+    t, d, f, e, bm, ids = MOE_TAIL
+    cases.append(("tail", torch.randn((t, d), generator=gen, device=device),
+                  torch.tensor(ids, dtype=torch.int32, device=device), bm,
+                  t - bm, 2 * bm))
+    return cases
+
+
+def moe_signatures(device):
+    """Phase 18b: K9 against its plain version at (a) the cut's decode (16
+    routed rows over the 8 held experts) and (b) a batch-8 x 512 prefill's
+    rows from the layer's router on random activations, each at the
+    gate/up shape D 8192 -> F 24576 and the down shape 24576 -> 8192, in
+    f32 and bf16; (c) benchmarks/moe_streams_bench.py's shapes through
+    ``route_dryrun`` (f32); (d) T, D, F that are multiples of no block with
+    a -1 tile (f32 and bf16).  Limits: max |diff| / max |plain| <= 1e-5
+    (f32), <= 1e-2 (bf16).  K9 by CUDA events and profiler device time,
+    the plain version (profiler time only below TRACE_MAX_MS a launch),
+    the library yardstick (one ``torch.bmm`` over the
+    capacity-padded (E, C, D) x (E, D, F), the port's replay until K9; used
+    only here), for (c) the bench's dense every-expert einsum, and the
+    bound: the larger of 2 x rows x D x F over the dtype's peak and the
+    bytes of the rows, the weights of the experts that have rows and the
+    output, over 3.35 TB/s.  Holds the bf16 decode with one expert's rows
+    under MOE_ONE_EXPERT_RATIO of the spread case's time: empty experts'
+    weights are not read."""
+    import torch
+    from repro_torch.kernels import moe_gmm as k9
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    cases = moe_cases(device, gen)
+    rows = []
+    print(f"\nK9 vs plain (decode and prefill of the cut's MoE layer at "
+          f"D {MOE_D}, F {MOE_F}, {MOE_HELD} of {MOE_E} experts held; the "
+          f"moe_streams bench; a tail; limits {KERNEL_REL_TOL} f32, "
+          f"{BF16_REL_TOL} bf16 of max |plain|):")
+    print("  case                dtype    shape (T x D -> F)  bm used  "
+          "max_rel        ms  device_ms    plain_ms  library_ms  bound_ms "
+          "bound_by")
+    one_vs_spread = {}
+    for case in cases:
+        name, tokens, tile_eid, bm, n_rows, cap = case[:6]
+        ids = tile_eid.tolist()
+        used = sorted({i for i in ids if i >= 0})
+        if name in ("bench",):
+            shapes, dtypes = [(MOE_BENCH[1], MOE_BENCH[2], MOE_BENCH[3])], \
+                (torch.float32,)
+        elif name == "tail":
+            shapes, dtypes = [MOE_TAIL[1:4]], (torch.float32, torch.bfloat16)
+        elif name == "decode, one expert":
+            shapes, dtypes = [(MOE_D, MOE_F, MOE_HELD)], (torch.bfloat16,)
+        else:
+            shapes = [(MOE_D, MOE_F, MOE_HELD), (MOE_F, MOE_D, MOE_HELD)]
+            dtypes = (torch.float32, torch.bfloat16)
+        for d, f, e in shapes:
+            for dtype in dtypes:
+                x = tokens if tokens.shape[1] == d else torch.randn(
+                    (tokens.shape[0], d), generator=gen, device=device) \
+                    * (tokens.abs().sum(1, keepdim=True) > 0)
+                x = x.to(dtype)
+                w = (torch.randn((e, d, f), generator=gen, device=device)
+                     * d ** -0.5).to(dtype)
+                out = k9.moe_gmm(x, w, tile_eid, bm=bm)
+                plain = k9.moe_gmm_plain(x, w, tile_eid, bm=bm)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(out).all()),
+                      f"K9 non-finite at {name} {(d, f)}")
+                max_abs, max_rel = rel_err(out.float(), plain.float())
+                tol = KERNEL_REL_TOL if dtype == torch.float32 \
+                    else BF16_REL_TOL
+                ms = auto_ms(lambda: k9.moe_gmm(x, w, tile_eid, bm=bm))
+                device_ms, recorded = (None, 0) if ms > TRACE_MAX_MS \
+                    else kernel_device_ms(
+                        lambda: k9.moe_gmm(x, w, tile_eid, bm=bm),
+                        "moe_gmm_kernel", k9)
+                plain_ms = auto_ms(lambda: k9.moe_gmm_plain(
+                    x, w, tile_eid, bm=bm), 30.0)
+                xc = torch.zeros((e, cap, d), dtype=dtype, device=device)
+                library_ms = auto_ms(lambda: torch.bmm(xc, w))
+                del xc
+                bench_ms = None
+                if name == "bench":
+                    tok, eid = (a.to(dtype) if a.is_floating_point() else a
+                                for a in case[6])
+                    mask = torch.nn.functional.one_hot(eid, e).to(dtype) \
+                        .t()[:, :, None]
+
+                    def dense_all_experts():
+                        y = torch.einsum("td,edf->etf", tok, w)
+                        return (y * mask).sum(0)
+                    bench_ms = auto_ms(dense_all_experts)
+                flops = 2.0 * n_rows * d * f
+                nbytes = x.element_size() * (n_rows * d + len(used) * d * f
+                                             + x.shape[0] * f)
+                bound_ms, bound_by = bound_for(flops, nbytes, dtype)
+                rec = dict(case=name, dtype=str(dtype).removeprefix("torch."),
+                           t=x.shape[0], d=d, f=f, experts=e, bm=bm,
+                           rows=n_rows, experts_used=len(used), count=1,
+                           max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
+                           device_ms=device_ms, plain_ms=plain_ms,
+                           library_ms=library_ms, library_capacity=cap,
+                           bench_dense_ms=bench_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, traced_launches=recorded,
+                           tflops=flops / ms / 1e9,
+                           gb_per_s=nbytes / ms / 1e6)
+                rows.append(rec)
+                print(f"  {name:19s} {rec['dtype']:8s} {x.shape[0]:5d} x "
+                      f"{d:5d} -> {f:5d} {bm:4d} {len(used):4d} "
+                      f"{max_rel:.2e} {ms:9.4f} "
+                      + (f"{device_ms:10.4f} " if device_ms is not None
+                         else "       n/a ") +
+                      f"{plain_ms:11.4f} {library_ms:11.4f} {bound_ms:9.4f} "
+                      f"{bound_by}  ({rec['tflops']:.1f} TFLOP/s, "
+                      f"{rec['gb_per_s']:.0f} GB/s; {recorded} of 5 "
+                      f"launches traced"
+                      + (f"; bench dense einsum {bench_ms:.4f} ms"
+                         if bench_ms is not None else "") + ")")
+                check(max_rel <= tol, f"K9 disagrees with its plain version "
+                      f"at {name} {(x.shape[0], d, f, rec['dtype'])}: "
+                      f"max_rel {max_rel:.3e} > {tol}")
+                check(not any(out[i * bm:(i + 1) * bm].any()
+                              for i, eid in enumerate(ids) if eid < 0),
+                      f"K9 wrote a -1 tile at {name}")
+                if name.startswith("decode") and dtype == torch.bfloat16 \
+                        and d == MOE_D:
+                    one_vs_spread[name] = ms
+                del x, w, out, plain
+    ratio = one_vs_spread["decode, one expert"] / one_vs_spread["decode"]
+    print(f"  bf16 decode, gate shape: 16 rows on one expert "
+          f"{one_vs_spread['decode, one expert']:.4f} ms against 16 over 8 "
+          f"{one_vs_spread['decode']:.4f} ms: {ratio:.3f} of it (limit "
+          f"{MOE_ONE_EXPERT_RATIO})")
+    check(ratio < MOE_ONE_EXPERT_RATIO, f"K9 with one expert's rows takes "
+          f"{ratio:.3f} of the eight-expert time: empty experts are read")
+    print("  per-case JSON:", json.dumps(rows))
+    return rows, ratio
 
 
 def decode_vs_forward(params, cfg) -> dict:
@@ -2223,12 +2517,13 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import attention as k7
     from repro_torch.kernels import conv1d_causal as k8
+    from repro_torch.kernels import moe_gmm as k9
 
     attn_rows = attention_signatures(device)
     mm_rows, mm_launches = matmul_signatures(device)
     lm_launches, lm_summary, params, _ = lm_serving(
         device, LM_ARCH, (28, 1536, 12, 2, 128, 8960, 151936, "bfloat16"),
-        {"flash_attention": (k7, "flash_attention_kernel", 28)})
+        {"flash_attention": (k7, "flash_attention_kernel", 28, 0)})
     del params
     torch.cuda.empty_cache()
     cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
@@ -2237,10 +2532,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     conv_rows = conv1d_signatures(device)
+    moe_rows, one_expert_ratio = moe_signatures(device)
+    torch.cuda.empty_cache()
+    # the cut's period: 7 Mamba + 1 attention mixers, 4 MoE MLPs of 3 K9
+    # products each, in every forward and every decode step
     hy_launches, hy_summary, params, cfg = lm_serving(
         device, HYBRID_ARCH, HYBRID_WIDTHS,
-        {"conv1d_causal": (k8, "conv1d_causal_kernel", 7),
-         "flash_attention": (k7, "flash_attention_kernel", 1)})
+        {"conv1d_causal": (k8, "conv1d_causal_kernel", 7, 0),
+         "flash_attention": (k7, "flash_attention_kernel", 1, 0),
+         "moe_gmm": (k9, "moe_gmm_kernel", 12, 12)})
     bf16 = decode_vs_forward(params, cfg)
     print(f"  bf16: {bf16['rel']:.3e} of max |logit|, printed and not held "
           f"to {BF16_DECODE_REL_TOL}: this random-weight model moves its "
@@ -2405,6 +2705,34 @@ def main() -> int:
                "mixer passes it (7 "
                "launches per prefill, 0 per decode step); library: cuDNN's "
                "depthwise F.conv1d with bias and SiLU in torch",
+        "card": card,
+    })
+    k9_rows = {(r_["case"], r_["dtype"], r_["d"]): r_ for r_ in moe_rows}
+    k9_decode = k9_rows[("decode", "bfloat16", MOE_D)]
+    kernels.append({
+        "name": "moe_gmm",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm.py:61",
+        "launches": hy_launches["moe_gmm"],
+        "launches_by_path": {
+            "hybrid_serving": hy_launches["moe_gmm"],
+            "per_forward": 12, "per_decode_step": 12},
+        "max_abs_err": max(r_["max_abs_err"] for r_ in moe_rows),
+        "max_rel_err": max(r_["max_rel_err"] for r_ in moe_rows),
+        **{key: k9_decode[key] for key in ("ms", "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by",
+                                           "device_ms")},
+        "prefill": {key: k9_rows[("prefill", "bfloat16", MOE_D)][key]
+                    for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by", "device_ms")},
+        "one_expert_over_spread": one_expert_ratio,
+        "per": f"one launch at the Jamba cut's decode gate/up shape: 16 "
+               f"routed rows of batch 8 over the {MOE_HELD} held experts "
+               f"(tiles of 16), D {MOE_D} -> F {MOE_F}, bf16 (12 launches "
+               f"per forward and per decode step); prefill: batch 8 x 512 "
+               f"at the same shape; library: torch.bmm over the "
+               f"capacity-padded (E, C, D) x (E, D, F)",
         "card": card,
     })
     print(json.dumps({"lm_serving": lm_summary}))

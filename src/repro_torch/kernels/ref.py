@@ -22,8 +22,10 @@ mask, falling back to ``attention`` when the chunk does not divide L).  The
 port keeps one, ``attention_chunked``, whose last chunk may be ragged: a
 chunk of L is the reference's ``attention``, since every causal row keeps
 its diagonal and so ``-1e30`` and ``-inf`` give the same softmax.
-``conv1d_causal`` is ``repro/kernels/ref.py:134-145``; ``moe_gmm`` waits for
-the slice that runs it.
+``conv1d_causal`` is ``repro/kernels/ref.py:134-145`` and ``moe_gmm``
+``:217-230``, computed segment by segment: one (rows_e, D) @ (D, F)
+product per expert, where the reference gathers a (T, D, F) weight per
+row.
 """
 from __future__ import annotations
 
@@ -173,3 +175,28 @@ def conv1d_causal(x, w, *, bias=None, act: str = "silu"):
     if bias is not None:
         out = out + bias.float()
     return _act(out, act).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Grouped matmul for MoE dispatch (kernel streams, paper §II-H)
+# ---------------------------------------------------------------------------
+
+def moe_gmm(tokens, weights, group_sizes):
+    """Grouped matmul.  tokens: (T, D) sorted by expert; weights: (E, D, F);
+    group_sizes: (E,) ints summing to T.  Row t uses the expert whose
+    segment holds it.  Sums in f32, output in the tokens' dtype."""
+    t, d = tokens.shape
+    e, dw, f = weights.shape
+    sizes = [int(n) for n in torch.as_tensor(group_sizes).tolist()]
+    if dw != d or len(sizes) != e or min(sizes, default=0) < 0 \
+            or sum(sizes) != t:
+        raise ValueError(f"tokens {tuple(tokens.shape)}, weights "
+                         f"{tuple(weights.shape)}: group_sizes {sizes} must "
+                         f"be {e} non-negative ints summing to {t}")
+    out = torch.empty((t, f), dtype=tokens.dtype, device=tokens.device)
+    start = 0
+    for eid, n in enumerate(sizes):
+        out[start:start + n] = (tokens[start:start + n].float()
+                                @ weights[eid].float()).to(tokens.dtype)
+        start += n
+    return out

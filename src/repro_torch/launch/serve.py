@@ -8,7 +8,8 @@ lockstep batched generation and continuous batching over a shared KV cache.
 
 Every prefill runs the whole prompt through ``transformer.forward``, whose
 attention is K7 and whose Mamba conv1d is K8 on the card; decode steps are
-plain torch (``attention.decode``, ``mamba.decode``).  A lane's refill
+plain torch (``attention.decode``, ``mamba.decode``).  The MoE layer's
+expert products are K9 in both.  A lane's refill
 copies every entry of its packed prefill cache into the lane's slot: K/V
 for attention, conv and ssm states for Mamba.  Weights are random, drawn
 from seed 0.  Greedy
@@ -29,6 +30,7 @@ from repro_torch.backend import resolve_device
 from repro_torch.configs import get_config, list_archs, smoke_config
 from repro_torch.kernels import attention as k7
 from repro_torch.kernels import conv1d_causal as k8
+from repro_torch.kernels import moe_gmm as k9
 from repro_torch.nn import transformer as T
 
 
@@ -66,12 +68,18 @@ def generate(params, cfg, prompts, *, max_new: int = 16, max_len: int = 64,
 
 
 def serve_continuous(params, cfg, request_queue, *, lanes: int = 4,
-                     max_len: int = 64, max_new: int = 16, eos: int = 0):
+                     max_len: int = 64, max_new: int = 16, eos: int = 0,
+                     calls: dict | None = None):
     """Continuous batching: ``lanes`` sequences decode in lockstep at their
     own positions; a lane that finishes (EOS, ``max_new`` tokens or a full
     cache) is refilled at once from the queue by a batch-1 prefill of the
-    next prompt written into that lane's cache slot.  Greedy.  Returns
+    next prompt written into that lane's cache slot.  Greedy.  ``calls``,
+    when given, counts the ``transformer.forward`` and ``decode_step``
+    calls made, under "forward" and "decode_step".  Returns
     {request_id: generated ids}."""
+    calls = {} if calls is None else calls
+    calls.setdefault("forward", 0)
+    calls.setdefault("decode_step", 0)
     device = params["embed"].device
     queue = list(enumerate(request_queue))
     results: dict[int, list[int]] = {}
@@ -93,6 +101,7 @@ def serve_continuous(params, cfg, request_queue, *, lanes: int = 4,
                                  device=device)[None, :]
         logits, _, one = T.forward(params, cfg, tokens=tokens,
                                    return_cache=True, cache_len=max_len)
+        calls["forward"] += 1
         for name, entry in one.items():
             for state, t in entry.items():
                 cache[name][state][:, lane:lane + 1] = t
@@ -111,6 +120,7 @@ def serve_continuous(params, cfg, request_queue, *, lanes: int = 4,
         logits, cache = T.decode_step(params, cfg,
                                       torch.from_numpy(cur).to(device), cache,
                                       torch.from_numpy(pos).to(device))
+        calls["decode_step"] += 1
         nxt = logits.argmax(dim=-1).cpu().numpy()
         for lane in range(lanes):
             rid = lane_req[lane]
@@ -155,19 +165,19 @@ def main(argv=None):
                for _ in range(args.requests)]
     max_len = max(len(p) for p in prompts) + args.max_new + 1
 
-    k7.launches = k8.launches = 0
+    k7.launches = k8.launches = k9.launches = 0
     _sync(device)
     t0 = time.perf_counter()
     outs = generate(params, cfg, prompts, max_new=args.max_new,
                     max_len=max_len)
     _sync(device)
     gen_s = time.perf_counter() - t0
-    gen_launches = k7.launches, k8.launches
+    gen_launches = k7.launches, k8.launches, k9.launches
     for i, o in enumerate(outs):
         print(f"req{i}: prompt={[int(t) for t in prompts[i][:6]]}... -> "
               f"{o[:8]}...")
 
-    k7.launches = k8.launches = 0
+    k7.launches = k8.launches = k9.launches = 0
     t0 = time.perf_counter()
     results = serve_continuous(params, cfg, prompts, max_len=max_len,
                                max_new=args.max_new, eos=-1)
@@ -181,11 +191,13 @@ def main(argv=None):
                      "seconds": gen_s,
                      "tokens_per_s": args.requests * args.max_new / gen_s,
                      "flash_attention_launches": gen_launches[0],
-                     "conv1d_causal_launches": gen_launches[1]},
+                     "conv1d_causal_launches": gen_launches[1],
+                     "moe_gmm_launches": gen_launches[2]},
         "continuous": {"tokens": tokens,
                        "seconds": cont_s, "tokens_per_s": tokens / cont_s,
                        "flash_attention_launches": k7.launches,
-                       "conv1d_causal_launches": k8.launches},
+                       "conv1d_causal_launches": k8.launches,
+                       "moe_gmm_launches": k9.launches},
     }
     print(json.dumps(summary))
     if len(results) != args.requests:

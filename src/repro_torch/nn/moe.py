@@ -5,16 +5,28 @@ GShard/Switch dispatch with groups: the tokens of a sequence are cut into
 contiguous groups of ``GROUP_SIZE`` (one group of L when that does not
 divide L), each group gets a capacity of C = max(int(cf·S·k/E), 1) slots
 per expert, and overflow is dropped slot by slot, then token by token in
-the group's order, exactly as the reference does.  The experts run as the
-reference's dense einsums over (G, E, C, D).
+the group's order, exactly as the reference does.  That is the dryrun of
+paper §II-H.
+
+The replay is K9 (``kernels/moe_gmm``), the grouped matmul the reference
+calls the single-chip version of its einsum schedule
+(``repro/nn/moe.py:9-12``): the kept entries of the held experts become
+rows grouped by expert, each group padded to a tile of ``bm`` rows, with a
+``tile_eid`` stream naming each tile's expert and -1 on the tiles past the
+last used one; the SwiGLU runs as three K9 products over those rows, and
+each token sums its k weighted rows in slot order.  Only the experts that
+received tokens are read.  The rows buffer is sized on the host from the
+shapes alone, so the layer reads no device value on the host.  On a CPU
+tensor K9 is its plain version.  The function is the reference's einsum
+replay's; the gate values are rounded to the activation dtype before the
+combine, as the reference's ``combine.astype(x.dtype)`` does.
 
 A device may hold a share of the experts (``MoECfg.expert_share``, the
 per-device view of expert parallelism).  The router, the capacity, the
-drops and the aux losses are computed over all E experts; the SwiGLU runs
-on the held experts only, and the layer returns the part of the combined
-output that they give, so the shares of all devices sum to the full layer.
-Every held expert runs in decode too (replaying only the experts that
-received tokens is K9's work).
+drops and the aux losses are computed over all E experts; only the held
+experts' entries are replayed, and the layer returns the part of the
+combined output that they give, so the shares of all devices sum to the
+full layer.
 
 Aux losses: load balancing (Switch) and the router z-loss.
 """
@@ -23,6 +35,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import moe_gmm as k9
 from repro_torch.nn.common import dense_init
 
 GROUP_SIZE = 512
@@ -59,6 +72,74 @@ def route(probs, k: int):
             gate_idx)
 
 
+def kept(gate_idx, e: int, cap: int):
+    """The capacity rule: which of the (G,S,k) routed entries keep a slot.
+    Slot by slot, then token by token in the group's order, each entry
+    takes its expert's next free place of ``cap`` in its group
+    (``repro/nn/moe.py:62-71``)."""
+    counts = torch.zeros((gate_idx.shape[0], e), dtype=torch.float32,
+                         device=gate_idx.device)
+    keep = []
+    for slot in range(gate_idx.shape[-1]):
+        onehot = F.one_hot(gate_idx[..., slot], e).float()    # (G,S,E)
+        pos_in_slot = onehot.cumsum(dim=1) - onehot
+        pos = ((pos_in_slot + counts[:, None, :]) * onehot).sum(-1)
+        keep.append(pos < cap)
+        counts = counts + (onehot * keep[-1][..., None]).sum(dim=1)
+    return torch.stack(keep, dim=-1)
+
+
+def replay_layout(expert, mine, held: int, bm: int, tiles: int):
+    """Rows of K9's input for the entries to replay here.
+
+    expert: (N,) held-expert id of each entry (id - e0); mine: (N,) whether
+    the entry is kept and its expert held.  The entries of held expert h
+    take the rows from h's group start on, in entry order; each group
+    starts at a tile, so it is padded to a multiple of ``bm``.  Returns
+    (row (N,) int64, with ``tiles * bm`` for an entry not replayed;
+    tile_eid (tiles,) int32, each tile's held expert, -1 past the last
+    used tile).  ``tiles`` must bound the tiles used; nothing is read on
+    the host."""
+    local = torch.where(mine, expert, held)
+    onehot = (local[:, None] == torch.arange(
+        held + 1, device=local.device)[None, :]).long()         # (N, held+1)
+    rank = ((onehot.cumsum(dim=0) - 1) * onehot).sum(dim=1)
+    used = (onehot[:, :held].sum(dim=0) + bm - 1) // bm         # tiles per h
+    ends = used.cumsum(dim=0)
+    starts = F.pad((ends - used) * bm, (0, 1))
+    row = torch.where(mine, starts[local] + rank, tiles * bm)
+    tile = torch.arange(tiles, device=local.device)
+    owner = (tile[:, None] >= ends[None, :]).sum(dim=1)
+    tile_eid = torch.where(owner < held, owner, -1).to(torch.int32)
+    return row, tile_eid
+
+
+def replay_plan(gate_idx, keep, e0: int, e1: int, cap: int):
+    """K9's input rows for the kept entries of the held experts [e0, e1).
+
+    gate_idx, keep: (G,S,k).  The rows buffer is sized on the host from the
+    shapes alone: at most min(G·S·k, held·G·cap) entries, each expert's
+    group padded to a tile, so ⌈that / bm⌉ + held tiles.  Returns (bm,
+    tile_eid (tiles,) int32, row (G·S·k,) int64 of each entry, ``tiles*bm``
+    for one not replayed here, source (tiles*bm,) int64: 1 + the token
+    (G·S order) of each row, 0 on padding)."""
+    g, s, k = gate_idx.shape
+    held = e1 - e0
+    rows_max = min(g * s * k, held * g * cap)
+    bm = k9.pick_bm(rows_max, held)
+    tiles = -(-rows_max // bm) + held
+    expert = gate_idx.reshape(-1) - e0
+    row, tile_eid = replay_layout(
+        expert, keep.reshape(-1) & (expert >= 0) & (expert < held), held,
+        bm, tiles)
+    source = torch.zeros((tiles * bm + 1,), dtype=torch.long,
+                         device=gate_idx.device)
+    source.index_put_((row,), torch.arange(
+        1, g * s + 1, device=gate_idx.device)[:, None].expand(g * s, k)
+        .reshape(-1))
+    return bm, tile_eid, row, source[:-1]
+
+
 def apply(p, cfg, x):
     """x: (B,L,D) -> (out (B,L,D), {"lb_loss", "z_loss"} f32 scalars)."""
     b, l, d = x.shape
@@ -76,32 +157,25 @@ def apply(p, cfg, x):
 
     cap = max(int(cfg.moe.capacity_factor * s * k / e), 1)
 
-    # --- dryrun: per-group dispatch and combine over all E experts --------
-    combine = torch.zeros((g, s, e, cap), dtype=torch.float32,
-                          device=x.device)
-    dispatch = torch.zeros_like(combine)
-    counts = torch.zeros((g, e), dtype=torch.float32, device=x.device)
-    for slot in range(k):
-        onehot = F.one_hot(gate_idx[..., slot], e).float()    # (G,S,E)
-        pos_in_slot = onehot.cumsum(dim=1) - onehot
-        pos = ((pos_in_slot + counts[:, None, :]) * onehot).sum(-1).long()
-        keep = pos < cap
-        posc = pos.clamp_max(cap - 1)
-        mask = (onehot * keep[..., None])[..., None] \
-            * F.one_hot(posc, cap).float()[..., None, :]
-        dispatch = dispatch + mask
-        combine = combine + mask * gate_vals[..., slot][..., None, None]
-        counts = counts + (onehot * keep[..., None]).sum(dim=1)
+    # --- dryrun: the kept entries of the held experts as K9's rows --------
+    bm, tile_eid, row, source = replay_plan(gate_idx, kept(gate_idx, e, cap),
+                                            e0, e1, cap)
 
-    # --- replay: the held experts' SwiGLU ---------------------------------
+    # --- replay: the held experts' SwiGLU on their rows, then the combine --
     with torch.profiler.record_function("moe.experts"):
-        xe = torch.einsum("gsec,gsd->gecd",
-                          dispatch[:, :, e0:e1].to(x.dtype), xg)
-        h = F.silu(torch.einsum("gecd,edf->gecf", xe, p["w_gate"]))
-        u = torch.einsum("gecd,edf->gecf", xe, p["w_up"])
-        ye = torch.einsum("gecf,efd->gecd", h * u, p["w_down"])
-        out = torch.einsum("gsec,gecd->gsd",
-                           combine[:, :, e0:e1].to(x.dtype), ye)
+        xf = x.reshape(g * s, d)
+        x_rows = torch.where((source > 0)[:, None],
+                             xf[(source - 1).clamp_min(0)], 0)
+        h = F.silu(k9.moe_gmm(x_rows, p["w_gate"], tile_eid, bm=bm))
+        u = k9.moe_gmm(x_rows, p["w_up"], tile_eid, bm=bm)
+        ye = k9.moe_gmm(h * u, p["w_down"], tile_eid, bm=bm)
+        ye = torch.cat([ye, ye.new_zeros((1, d))])   # the row of no entry
+        rows = row.reshape(g * s, k)
+        gates = gate_vals.reshape(g * s, k).to(x.dtype).float()
+        out = torch.zeros((g * s, d), dtype=torch.float32, device=x.device)
+        for slot in range(k):
+            out = out + gates[:, slot, None] * ye[rows[:, slot]].float()
+        out = out.to(x.dtype)
 
     # --- aux losses over the full router ----------------------------------
     me = probs.mean(dim=(0, 1))

@@ -565,3 +565,106 @@ def test_hybrid_smoke_forward_and_serving_match_the_cpu(cuda):
                                   max_new=5) == \
         serve.serve_continuous(cpu, cfg, prompts, lanes=2, max_len=32,
                                max_new=5)
+
+
+# -- K9 (grouped MoE matmul) ------------------------------------------------
+
+from repro_torch.kernels import moe_gmm as k9  # noqa: E402
+
+# t, d, f, e, bm: the decode layout (tiles of 16, few rows each), the
+# moe_streams bench's shapes, a prefill tile of 128, bm 32 (two blocks of 16
+# per tile), tails of T, D and F that are multiples of no block (and of no
+# 16-byte vector)
+K9_CASES = [(144, 256, 512, 8, 16), (512, 128, 256, 8, 64),
+            (640, 256, 384, 4, 128), (100, 64, 72, 2, 32),
+            (77, 1003, 517, 3, 16), (70, 40, 20, 5, 64)]
+
+
+def _k9_args(case, dev, dtype):
+    t, d, f, e, bm = case
+    g = torch.Generator(device=dev).manual_seed(t * d + f)
+    tiles = -(-t // bm)
+    tile_eid = torch.randint(-1, e, (tiles,), generator=g, device=dev,
+                             dtype=torch.int32)
+    tile_eid[0], tile_eid[-1] = e - 1, -1 if tiles > 2 else 0
+    tokens = torch.randn((t, d), generator=g, device=dev).to(dtype)
+    weights = (torch.randn((e, d, f), generator=g, device=dev)
+               * d ** -0.5).to(dtype)
+    return tokens, weights, tile_eid
+
+
+@pytest.mark.parametrize("case", K9_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_kernel_matches_plain(cuda, case, dtype):
+    """Every tile's rows against its expert's product; -1 tiles zero."""
+    tokens, weights, tile_eid = _k9_args(case, cuda, dtype)
+    bm = case[-1]
+    before = k9.launches
+    out = k9.moe_gmm(tokens, weights, tile_eid, bm=bm)
+    torch.cuda.synchronize()
+    assert k9.launches == before + 1
+    exp = k9.moe_gmm_plain(tokens, weights, tile_eid, bm=bm)
+    assert out.dtype == dtype and out.shape == exp.shape
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert _rel_err(out.float(), exp.float()) <= tol
+    for i, eid in enumerate(tile_eid.tolist()):
+        if eid < 0:
+            assert not out[i * bm:(i + 1) * bm].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_kernel_gives_the_same_bits_twice(cuda, dtype):
+    tokens, weights, tile_eid = _k9_args(K9_CASES[2], cuda, dtype)
+    first = k9.moe_gmm(tokens, weights, tile_eid, bm=128)
+    assert torch.equal(first, k9.moe_gmm(tokens, weights, tile_eid, bm=128))
+
+
+def test_moe_gmm_kernel_rejects_what_it_does_not_take(cuda):
+    tokens, weights, tile_eid = _k9_args((64, 32, 48, 4, 16), cuda,
+                                         torch.float32)
+    before = k9.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        k9.moe_gmm(tokens, weights, torch.zeros((8,), dtype=torch.int32,
+                                                device=cuda), bm=8)
+    with pytest.raises(ValueError, match="weights are torch.bfloat16"):
+        k9.moe_gmm(tokens, weights.bfloat16(), tile_eid, bm=16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        k9.moe_gmm(tokens.half(), weights.half(), tile_eid, bm=16)
+    with pytest.raises(ValueError, match="tile_eid on cpu"):
+        k9.moe_gmm(tokens, weights, tile_eid.cpu(), bm=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        k9.moe_gmm(tokens, weights.transpose(1, 2).contiguous()
+                   .transpose(1, 2), tile_eid, bm=16)
+    assert k9.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,l", [(8, 1), (2, 600)])
+def test_moe_layer_on_the_card_matches_the_cpu(cuda, dtype, b, l):
+    """The smoke MoE layer (4 experts, top-2; a share of 2) on the card:
+    3 K9 launches, no host synchronisation, the same bits twice, and the
+    CPU's output (f32 within 1e-5, bf16 within 2e-2 of max |out|)."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.convert import params_to
+    from repro_torch.nn import moe
+    cfg = smoke_config(get_config("jamba-1.5-large-398b"))
+    cfg = dataclasses.replace(cfg, dtype=dtype, moe=dataclasses.replace(
+        cfg.moe, expert_share=(1, 2)))
+    tdt = getattr(torch, dtype)
+    cpu = moe.init(torch.Generator().manual_seed(0), cfg, tdt, "cpu")
+    dev = params_to(cpu, cuda)
+    x = torch.randn((b, l, cfg.d_model),
+                    generator=torch.Generator().manual_seed(l)).to(tdt)
+    x_dev = x.to(cuda)
+    before = k9.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, _ = moe.apply(dev, cfg, x_dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert k9.launches == before + 3
+    assert torch.equal(out, moe.apply(dev, cfg, x_dev)[0])   # same bits
+    exp, _ = moe.apply(cpu, cfg, x)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    assert _rel_err(out.float().cpu(), exp.float()) <= tol

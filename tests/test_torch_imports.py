@@ -164,9 +164,10 @@ def test_streams_kernel_symbol_and_argtypes(monkeypatch):
 @pytest.mark.parametrize("name,symbol,module", [
     ("flash_attention", "repro_flash_attention", "attention"),
     ("matmul_fused", "repro_matmul_fused", "matmul_fused"),
-    ("conv1d_causal", "repro_conv1d_causal", "conv1d_causal")])
+    ("conv1d_causal", "repro_conv1d_causal", "conv1d_causal"),
+    ("moe_gmm", "repro_moe_gmm", "moe_gmm")])
 def test_lm_kernel_symbols_and_argtypes(monkeypatch, name, symbol, module):
-    """K7's, K6's and K8's ctypes bindings: one argtype per parameter of the
+    """K7's, K6's, K8's and K9's ctypes bindings: one argtype per parameter of the
     C function, pointers as c_void_p, floats as c_float, 64-bit ints as
     c_longlong, ints as c_int."""
     import importlib
@@ -191,3 +192,16 @@ def test_lm_kernel_symbols_and_argtypes(monkeypatch, name, symbol, module):
                 ctypes.c_int)
         assert ty is want, param
     assert name in _build.KERNELS
+
+
+def test_moe_gmm_kernel_uses_the_bf16_tensor_cores():
+    """K9's bf16 instance multiplies with mma.sync bf16 -> f32, reads its B
+    fragments by ldmatrix.trans from the (D, F) weights, and picks its block
+    height from the heights the wrapper names."""
+    from repro_torch.kernels import moe_gmm as k9
+    src = (_build.CSRC / "moe_gmm.cu").read_text()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16" in src
+    heights = [int(h) for h in re.findall(r"bm % (\d+) == 0", src)]
+    assert heights == [128, 64, 128, 64]
+    assert k9.BLOCK_ROWS == (128, 64, 16)
