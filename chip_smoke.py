@@ -7,9 +7,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. Header: the card's name and power limit, torch and CUDA versions, the
    TF32 flags, and the build of every CUDA kernel from ``src/repro_torch/csrc``
-   (eight sources: K1-K4, K7, K6, K8, K9; one ``nvcc`` per source, all
-   started together), with each build's seconds and its ptxas register
-   and spill lines.
+   (twelve sources: K1-K4, K7, K6, K8, K9, K10a-c, K5; one ``nvcc`` per
+   source, all started together), with each build's seconds and its ptxas
+   register and spill lines.
 2. K1 vs plain, serving: every distinct lane-aligned (shape, fused
    epilogue) signature of ResNet-50 at 224x224, batch 16, on random
    weights, BN scale, shift and residual: K1 against its plain PyTorch
@@ -184,9 +184,47 @@ Phases, each of which fails the run (nonzero exit, no result line):
     100-token prompt (whole scan chunks, a ragged one), prefill and 4
     teacher-forced decode steps within 1e-4 * max |logit|, the same last
     argmax.  Phases 20 and 21 run K9 on the card (its f32 instance here).
-22. The LM and hybrid serving summary lines, the int8 serving and
-    training summary lines, the kernels line (K1, K2, K3, K4, K7, K6, K8,
-    K9), then the device line last.
+22. K10a vs plain and vs K1: the 23 serving signatures of phase 2 with
+    their epilogues at batch 16, under the reference's whole-plane blocking
+    (``core.conv.whole_blocking``: ``conv_blocking`` at the reference's
+    budget, kind "fwd"): K10a against its plain version (max |diff| /
+    max |plain| <= 1e-5), its difference from K1 printed; K10a by CUDA
+    events and profiler device time, the plain version, K1's time, cuDNN
+    plus epilogue and the bound from phase 2; per signature rb_p, k_blk,
+    the register tile, the rows a pass takes, the shared memory and the
+    blocks of the grid.
+23. Whole-plane f32 serving: phase 3's engine on phase 3's params and BN
+    statistics under ``use_conv_tiling("whole")``: 32 untimed requests,
+    then a window of 128 (cut from 512: it keeps the script within its time
+    limit); images/s and p50/p99 beside phase 3's; K10a exactly 52 per
+    forward, K1 none; a batch-16 forward's logits within 1e-4 * max |logit|
+    of the tiled engine's on the same batch, the same top-1; that forward
+    under the profiler.
+24. K10c vs plain and vs K3 on the 23 signatures (int8 operands as phase
+    5, the reference's q8 blocking), max |diff| 0 to each, with times, K3's
+    from phase 5 and the bound; then one int8 forward at batch 16 on phase
+    6's quantized tree under ``whole``: 52 K10c launches, no K3, logits
+    equal bit for bit to the tiled int8 forward's.
+25. K10b vs plain and vs K2 on the 22 weight-update signatures at batch 32,
+    b_p from ``conv_blocking(require_divisor=True, kind="wu")`` (<= 1e-5),
+    run twice on the same inputs (the same bits), with times, K2's, cuDNN
+    dW and the bound from phase 9.
+26. Whole-plane training: full ResNet-50 at batch 32 under ``whole``: one
+    untimed step, then 3 timed steps with the launch counts set to 0 just
+    before each and read just after (K10a 113 = 52 forward + 61 dual, K10b
+    52, K1 and K2 none), step ms and images/s beside phase 10's, 2 steps
+    under the profiler; then phase 11's card-vs-CPU step and limits under
+    ``whole``, ReLU and max-pool decisions pinned as there.
+27. K5's entry point at the stem pool (16, 112, 112, 64) f32, 3x3 s2 p1,
+    and on the reference test's three cases (3,2,1,12), (2,2,0,8),
+    (3,1,1,7), its count set to 0 just before the four calls and read
+    just after (4); each against its plain version and ``F.max_pool2d``
+    (max |diff| 0); the times of K5 (events, profiler), the plain version
+    and ``F.max_pool2d`` at the stem pool against the bytes bound (51.4 MB
+    read, 12.8 MB written: 0.0192 ms at 3.35 TB/s).
+28. The whole-plane, LM and hybrid serving summary lines, the int8 serving
+    and training summary lines, the kernels line (K1, K2, K3, K4, K7, K6,
+    K8, K9, K10a, K10b, K10c, K5), then the device line last.
 
 Device times by kernel come from ``trace_device``: a ``torch.profiler``
 trace with one warm-up step, whose recorded launches of each port kernel
@@ -206,6 +244,7 @@ import subprocess
 import sys
 import time
 
+T_IMPORT = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 SEED = 0
@@ -554,14 +593,16 @@ def q8_signatures(device, sigs, k1_rows):
         # device time alone: the CUDA-event times above include the host's
         # launch gaps wherever the kernel is shorter than its wrapper
         k3_dev = device_ms_of(trace_device(
-            lambda i: k3.conv2d_q8(**args), 20, {"conv2d_q8_kernel": k3}),
+            lambda i: k3.conv2d_q8(**args), 20, {"conv2d_q8_kernel": k3},
+            sync_each=True),
             "conv2d_q8_kernel")
         f32 = dict(x=x_q.float(), w=w_q.float(), stride=st, padding=pad,
                    scale=args["scale"], shift=args["shift"],
                    residual=args["residual"], relu=args["relu"])
         k1_dev = device_ms_of(trace_device(
             lambda i: k1.conv2d_direct(**f32), 20,
-            {"conv2d_direct_kernel": k1}), "conv2d_direct_kernel")
+            {"conv2d_direct_kernel": k1}, sync_each=True),
+            "conv2d_direct_kernel")
         ops = 2.0 * BATCH * p * q * k * c * r * s
         nbytes = (BATCH * h * w * c + r * s * c * k + 4.0 * BATCH * p * q * k
                   + 4.0 * (3 * k + 1)
@@ -934,13 +975,28 @@ def _device_us(evt) -> float:
 
 TRACE_WARMUP_MS = 50.0      # the profiler's warm-up step runs fn this long
 TRACE_ATTEMPTS = 10         # traces taken before a short one fails the run
+TRACE_SETTLE_MS = (100.0, 10.0, 1000.0)   # idle edge: floor, x a call, cap
+TRACES = []                 # (s since import, traces refused, clock lag ms)
 
 
-def trace_device(fn, iters: int, counters: dict) -> dict:
+def trace_device(fn, iters: int, counters: dict,
+                 sync_each: bool = False) -> dict:
     """``fn(i)`` for i in range(iters) under ``torch.profiler``, after a
     warm-up step (a profiler ``schedule`` with warmup=1) that calls
     ``fn(0)`` for at least TRACE_WARMUP_MS and whose events are discarded,
-    so the profiler is recording when the traced iterations start.
+    so the profiler is recording when the traced iterations start.  With
+    ``sync_each`` the host waits for the device after every iteration, so
+    no launch is queued behind another while the profiler records.
+
+    The device is idle on each side of the warm-up step's end and before
+    the profiler stops, for ``attempt`` x (10 x one warm-up call, at least
+    100 ms, at most 1 s: TRACE_SETTLE_MS).  On the card the profiler lost
+    the kernel records of the first launches of a window, up to 4 of 5 of
+    K10b's 10-20 ms launches in 10 traces in a row; with idle edges of
+    100 ms they were still lost in some traces, and with 300 ms in none.
+    A refused trace names which of its launch calls lost their records,
+    and every trace reports the least kernel-start minus launch-call time
+    (``clock_lag_ms``, negative when a kernel is dated before its launch).
 
     A trace is complete when every kernel launch call the profiler
     recorded on the host (``cudaLaunchKernel``, ``cuLaunchKernelEx`` and
@@ -960,7 +1016,8 @@ def trace_device(fn, iters: int, counters: dict) -> dict:
     intervals over the span from the first to the last; None when the trace
     shows no device time), the host-clock ms per iteration, the device ms
     per iteration inside each ``record_function`` range of the port
-    (``ranges``: "mamba.scan", "moe.experts") and the traces refused."""
+    (``ranges``: "mamba.scan", "moe.experts"), the traces refused and
+    ``clock_lag_ms``; each trace also goes into TRACES."""
     import torch
     from torch.profiler import ProfilerActivity, schedule
 
@@ -969,39 +1026,52 @@ def trace_device(fn, iters: int, counters: dict) -> dict:
     def kernel(e):
         return e.device_type == cuda and not getattr(
             e, "is_user_annotation", False)
+    floor_ms, per_call, cap_ms = TRACE_SETTLE_MS
     for attempt in range(1, TRACE_ATTEMPTS + 1):
         torch.cuda.synchronize()
         with torch.profiler.profile(
                 activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                 schedule=schedule(wait=0, warmup=1, active=iters,
                                   repeat=1)) as prof:
-            t0 = time.perf_counter()
+            t0, warm_calls = time.perf_counter(), 0
             while True:
                 fn(0)
                 torch.cuda.synchronize()
-                if (time.perf_counter() - t0) * 1e3 >= TRACE_WARMUP_MS:
+                warm_calls += 1
+                warm_ms = (time.perf_counter() - t0) * 1e3
+                if warm_ms >= TRACE_WARMUP_MS:
                     break
+            settle_s = attempt * min(cap_ms, max(
+                floor_ms, per_call * warm_ms / warm_calls)) / 1e3
+            time.sleep(settle_s)
             prof.step()
+            time.sleep(settle_s)
             before = {needle: mod.launches
                       for needle, mod in counters.items()}
             t0 = time.perf_counter()
             for i in range(iters):
                 fn(i)
-                if i == iters - 1:
+                if sync_each or i == iters - 1:
                     torch.cuda.synchronize()
+                if i == iters - 1:
                     wall_ms = (time.perf_counter() - t0) * 1e3
+                    time.sleep(settle_s)
                 prof.step()
         averages = prof.key_averages()
         launches = {e.key: e.count for e in averages if kernel(e)}
         # every host-side launch call (cudaLaunchKernel, cuLaunchKernelEx)
         # must have its kernel record, matched by their shared correlation id
         events = prof.events()
-        recorded_ids = {e.id for e in events if kernel(e)}
-        calls = [e.id for e in events if e.device_type != cuda
-                 and "LaunchKernel" in e.name]
-        lost = sum(1 for i in calls if i not in recorded_ids)
-        short = [f"{lost} of {len(calls)} recorded launch calls have no "
-                 f"kernel record"] if lost else []
+        starts = {e.id: e.time_range.start for e in events if kernel(e)}
+        calls = sorted((e.time_range.start, e.id) for e in events
+                       if e.device_type != cuda and "LaunchKernel" in e.name)
+        lost = [k for k, (_, i) in enumerate(calls) if i not in starts]
+        lags = [starts[i] - t for t, i in calls if i in starts]
+        clock_lag_ms = min(lags) / 1e3 if lags else None
+        short = [f"{len(lost)} of {len(calls)} recorded launch calls have no "
+                 f"kernel record (calls {lost[:8]} in host order; least "
+                 f"kernel-start minus launch-call time "
+                 f"{clock_lag_ms if lags else 'n/a'} ms)"] if lost else []
         for needle, mod in counters.items():
             counted = mod.launches - before[needle]
             recorded = sum(n for name, n in launches.items()
@@ -1014,6 +1084,8 @@ def trace_device(fn, iters: int, counters: dict) -> dict:
         print(f"  profiler trace {attempt} of {TRACE_ATTEMPTS} refused "
               f"({iters} iterations, {sum(launches.values())} kernel "
               f"launches recorded): {'; '.join(short)}")
+    TRACES.append((time.perf_counter() - T_IMPORT, attempt - 1 if not short
+                   else attempt, clock_lag_ms))
     check(not short, f"{TRACE_ATTEMPTS} profiler traces in a row recorded "
           f"other launch counts than the wrappers counted: {short}")
     check(len(calls) > 0, "the profiler recorded no kernel launch calls, "
@@ -1046,7 +1118,7 @@ def trace_device(fn, iters: int, counters: dict) -> dict:
                 device_ms=sum(ms for ms, _, _ in by_name),
                 busy_share=busy_us / span_us if span_us else None,
                 wall_ms=wall_ms / iters, ranges=ranges,
-                refused=attempt - 1)
+                refused=attempt - 1, clock_lag_ms=clock_lag_ms)
 
 
 def device_ms_of(trace: dict, needle: str) -> float:
@@ -1160,11 +1232,13 @@ def training(device, fwd, dual, wu):
                         losses=losses, profile=prof)
 
 
-def train_parity(device):
-    """Phase 8: one training step on the card against the port's CPU
-    step, with the CPU taking the card's ReLU masks and max-pool choices."""
+def train_parity(device, tiling: str = "tiled"):
+    """Phase 11 (and 26 with ``tiling="whole"``): one training step on the
+    card against the port's CPU step under the same conv input strategy,
+    with the CPU taking the card's ReLU masks and max-pool choices."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.backend import use_conv_tiling
     from repro_torch.data.pipeline import SyntheticImageData
     from repro_torch.graph import GxM, executor, resnet50
     from repro_torch.train.step import to_device
@@ -1212,19 +1286,20 @@ def train_parity(device):
 
     try:
         executor._relu, executor._maxpool = record_relu, record_pool
-        new_card, loss_card = on_card.sgd_train_step(
-            params, to_device(batch, device), TRAIN_LR)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        executor._relu, executor._maxpool = pinned_relu, pinned_pool
-        new_cpu, loss_cpu = on_cpu.sgd_train_step(
-            cpu_params, to_device(batch, "cpu"), TRAIN_LR)
-        cpu_s = time.perf_counter() - t0
+        with use_conv_tiling(tiling):
+            new_card, loss_card = on_card.sgd_train_step(
+                params, to_device(batch, device), TRAIN_LR)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            executor._relu, executor._maxpool = pinned_relu, pinned_pool
+            new_cpu, loss_cpu = on_cpu.sgd_train_step(
+                cpu_params, to_device(batch, "cpu"), TRAIN_LR)
+            cpu_s = time.perf_counter() - t0
     finally:
         executor._relu, executor._maxpool = relu, maxpool
     loss_rel = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
-    print(f"\ntraining parity: one step, batch {PARITY_BATCH}, card vs CPU "
-          f"({cpu_s:.1f}s on CPU): loss {float(loss_card):.6f} vs "
+    print(f"\ntraining parity ({tiling}): one step, batch {PARITY_BATCH}, "
+          f"card vs CPU ({cpu_s:.1f}s on CPU): loss {float(loss_card):.6f} vs "
           f"{float(loss_cpu):.6f}, rel {loss_rel:.3e}")
     print(f"  the CPU would have decided {flips['relu']} of "
           f"{flips['relu_values']} ReLU inputs and {flips['pool']} of "
@@ -1373,13 +1448,15 @@ def streams_signatures(device, sigs):
                                     bias=kw["bias"], relu=kw["relu"])
         ms = cuda_ms(run, 30)
         dev = device_ms_of(trace_device(lambda i: run(), 10,
-                                        {"conv2d_streams_kernel": k4}),
+                                        {"conv2d_streams_kernel": k4},
+                                        sync_each=True),
                            "conv2d_streams_kernel")
         plain_ms = cuda_ms(lambda: k4.conv2d_streams_plain(
             x, wt, schedule=sched, **knobs), 1)
         k1_ms = cuda_ms(k1_run, 30)
         k1_dev = device_ms_of(trace_device(lambda i: k1_run(), 10,
-                                           {"conv2d_direct_kernel": k1}),
+                                           {"conv2d_direct_kernel": k1},
+                                           sync_each=True),
                               "conv2d_direct_kernel")
         library_ms = cuda_ms(lambda: ref.conv2d_fused(
             x, wt, stride=st, padding=pad, bias=kw["bias"],
@@ -1511,7 +1588,8 @@ def tuned_replay(device, sigs, rows):
             return k4.conv2d_streams_auto(x, wt, blocking=blk, **kw)
         ms = cuda_ms(run, 30)
         dev = device_ms_of(trace_device(lambda i: run(), 10,
-                                        {"conv2d_streams_kernel": k4}),
+                                        {"conv2d_streams_kernel": k4},
+                                        sync_each=True),
                            "conv2d_streams_kernel")
         plain_ms = cuda_ms(lambda: k4.conv2d_streams_plain(
             x, wt, schedule=sched, **knobs), 1)
@@ -1580,8 +1658,11 @@ def kernel_device_ms(fn, needle: str, module, iters: int = 5
                      ) -> tuple[float, int]:
     """Device ms per launch of the kernels named ``needle`` over ``iters``
     calls of ``fn`` under ``torch.profiler`` (``trace_device``, which holds
-    the launches it recorded to ``module.launches``), and that count."""
-    trace = trace_device(lambda i: fn(), iters, {needle: module})
+    the launches it recorded to ``module.launches``), and that count.  The
+    host waits for each call to end before the next, which leaves each
+    kernel's device time as it is and keeps the profiler's records whole."""
+    trace = trace_device(lambda i: fn(), iters, {needle: module},
+                         sync_each=True)
     launches = sum(n for name, n in trace["launches"].items()
                    if needle in name)
     return device_ms_of(trace, needle) * iters / launches, launches
@@ -2428,6 +2509,523 @@ def hybrid_parity_cfg():
         cfg.moe, expert_share=share)), available_gb
 
 
+# ---------------------------------------------------------------------------
+# Phases 22-27: the whole-plane path (REPRO_CONV_TILING=whole: K10a, K10c,
+# K10b) and the max-pool K5
+# ---------------------------------------------------------------------------
+
+WHOLE_REQUESTS = 128        # cut from phase 3's 512: keeps the script in its limit
+WHOLE_WARM_REQUESTS = 32
+WHOLE_TRAIN_STEPS = 3
+POOL_SHAPE = (BATCH, 112, 112, 64)   # the stem pool's input at batch 16
+POOL_CASES = [(3, 2, 1, 12), (2, 2, 0, 8), (3, 1, 1, 7)]   # the reference's
+
+
+class Counter:
+    """A wrapper's launch count kept under another name than ``launches``
+    (the whole-plane kernels' ``launches_whole``), read as ``launches`` by
+    ``trace_device``."""
+
+    def __init__(self, module, attr: str):
+        self.module, self.attr = module, attr
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.module, self.attr)
+
+
+def _sig(r: dict) -> tuple:
+    return (r["h"], r["w"], r["c"], r["k"], r["r"], r["s"], r["stride"],
+            r["padding"], tuple(r.get("fused", ())))
+
+
+def whole_signatures(device, sigs, k1_rows):
+    """Phase 22: K10a against its plain version and against K1 on the 23
+    serving signatures at batch 16, with the reference's blocking."""
+    import torch
+    from repro_torch.core.conv import whole_blocking
+    from repro_torch.kernels import conv2d_direct as k1
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    k1_by = {_sig(r): r for r in k1_rows}
+    needle = "conv2d_direct_whole_kernel"
+    counter = Counter(k1, "launches_whole")
+    rows = []
+    print(f"\nK10a vs plain and K1, ResNet-50 {IMAGE}x{IMAGE} batch {BATCH} "
+          f"({len(sigs)} signatures), the reference's whole-plane blocking; "
+          f"ev = CUDA events, dev = profiler device time, library = cuDNN + "
+          f"epilogue (phase 2):")
+    print("  h  w    c    k r st fused         count rb_p k_blk tm rows   "
+          "smem blocks  max_rel  vs_k1       ev      dev  plain_ms   k1_ms "
+          "library_ms bound_ms")
+    for key, count in sigs.items():
+        h, w, c, k, r, s, st, pad, fused = key
+        p = (h + 2 * pad - r) // st + 1
+        q = (w + 2 * pad - s) // st + 1
+
+        def randn(*shape, std=1.0):
+            return torch.randn(shape, generator=gen, device=device) * std
+
+        args = dict(
+            x=randn(BATCH, h, w, c),
+            w=randn(r, s, c, k, std=math.sqrt(2.0 / (r * s * c))),
+            stride=st, padding=pad,
+            scale=torch.rand(k, generator=gen, device=device) + 0.5,
+            shift=randn(k, std=0.1),
+            residual=randn(BATCH, p, q, k) if "add" in fused else None,
+            relu="relu" in fused)
+        blk = whole_blocking((BATCH, h, w, c), (r, s, c, k), stride=st,
+                             padding=pad, kind="fwd")
+        bk = dict(rb_p=blk.rb_p, k_blk=blk.k_blk)
+        plan = k1.whole_plan(p=p, q=q, k_blk=blk.k_blk,
+                             rb_p=min(blk.rb_p, p), r=r, s=s, stride=st,
+                             wp=w + 2 * pad, slice_bytes=32)
+        out = k1.conv2d_direct_whole(**args, **bk)
+        plain = k1.conv2d_direct_whole_plain(**args, **bk)
+        tiled = k1.conv2d_direct(**args)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"K10a non-finite at {key}")
+        scale = float(plain.abs().max())
+        max_abs = float((out - plain).abs().max())
+        max_rel = max_abs / scale
+        k1_rel = float((out - tiled).abs().max()) / scale
+        ms = cuda_ms(lambda: k1.conv2d_direct_whole(**args, **bk), 20)
+        dev = device_ms_of(trace_device(
+            lambda i: k1.conv2d_direct_whole(**args, **bk), 10,
+            {needle: counter}, sync_each=True), needle)
+        plain_ms = cuda_ms(lambda: k1.conv2d_direct_whole_plain(**args, **bk),
+                           3)
+        ref = k1_by[key]
+        blocks = BATCH * (k // blk.k_blk) * -(-p // blk.rb_p)
+        rec = dict(h=h, w=w, c=c, k=k, r=r, s=s, stride=st, padding=pad,
+                   fused=list(fused), count=count, rb_p=blk.rb_p,
+                   k_blk=blk.k_blk, tm=plan.tm, rows_pass=plan.rows_pass,
+                   smem=plan.smem, blocks=blocks, max_abs_err=max_abs,
+                   max_rel_err=max_rel, k1_rel_err=k1_rel, ms=ms,
+                   device_ms=dev, plain_ms=plain_ms, k1_ms=ref["ms"],
+                   library_ms=ref["library_ms"], bound_ms=ref["bound_ms"],
+                   bound_by=ref["bound_by"])
+        rows.append(rec)
+        print(f"{h:3d}{w:3d}{c:5d}{k:5d}{r:2d}{st:3d} "
+              f"{'+'.join(fused):14s}{count:5d}{blk.rb_p:5d}{blk.k_blk:6d}"
+              f"{plan.tm:3d}{plan.rows_pass:5d}{plan.smem:7d}{blocks:7d} "
+              f"{max_rel:.2e} {k1_rel:.2e} {ms:8.4f} {dev:8.4f} "
+              f"{plain_ms:9.4f} {ref['ms']:7.4f} {ref['library_ms']:10.4f} "
+              f"{ref['bound_ms']:8.4f}")
+        check(max_rel <= KERNEL_REL_TOL,
+              f"K10a disagrees with its plain version at {key}: max_rel "
+              f"{max_rel:.3e} > {KERNEL_REL_TOL}")
+        del args, out, plain, tiled
+    print("  per-signature JSON:", json.dumps(rows))
+    return rows
+
+
+def whole_serving(device, params):
+    """Phase 23: the whole-plane serving path.  ``CnnInferenceEngine`` and
+    ``ImageServer`` under ``use_conv_tiling("whole")`` on phase 3's params:
+    WHOLE_WARM_REQUESTS untimed, then a window of WHOLE_REQUESTS; K10a
+    exactly 52 per forward and K1 none; one batch-16 forward's logits
+    against the tiled engine's on the same batch; that forward under the
+    profiler.  Returns (K10a launches in the window, summary)."""
+    import numpy as np
+    import torch
+    from repro_torch.backend import use_conv_tiling
+    from repro_torch.graph.serving import CnnInferenceEngine
+    from repro_torch.kernels import conv2d_direct as k1
+    from repro_torch.launch.serve_cnn import build_model, serve_window
+
+    gxm, image = build_model(smoke=False, device=device)
+    engine = CnnInferenceEngine(gxm, params, image_hw=(image, image),
+                                max_batch=BATCH)
+    with use_conv_tiling("whole"):
+        t0 = time.perf_counter()
+        report = engine.warmup()
+        print(f"\nwhole-plane serving: warmup of buckets {report['buckets']} "
+              f"in {time.perf_counter() - t0:.2f}s, conv_tiling "
+              f"{report['conv_tiling']!r}")
+        check(report["conv_tiling"] == "whole", "warmup not under whole")
+        # serve_window sets the K1 and K10a counts to 0 as the window opens
+        server, results = serve_window(engine, requests=WHOLE_REQUESTS,
+                                       seed=SEED,
+                                       warm_requests=WHOLE_WARM_REQUESTS)
+        launches, k1_launches = k1.launches_whole, k1.launches
+    st = server.stats()
+    check(len(results) == WHOLE_REQUESTS,
+          f"served {len(results)} of {WHOLE_REQUESTS}")
+    check(all(0 <= c < 1000 and math.isfinite(v)
+              for c, v in results.values()), "non-finite or bad top-1")
+    print(f"  {WHOLE_REQUESTS} requests (cut from {REQUESTS}) in "
+          f"{st['batches']} batches {st['by_bucket']}")
+    print(f"  images/s {st['images_per_s']:.2f} over {st['wall_s']:.3f} s "
+          f"wall  p50 {st['latency']['p50_ms']:.3f} ms  p99 "
+          f"{st['latency']['p99_ms']:.3f} ms")
+    print(f"  K10a launches {launches} = 52 x {st['batches']} forwards; K1 "
+          f"launches {k1_launches}")
+    check(launches == 52 * st["batches"],
+          f"K10a launched {launches} times, expected 52 x {st['batches']}")
+    check(k1_launches == 0, f"K1 launched {k1_launches} times under whole")
+
+    images = np.random.default_rng(SEED + 23).standard_normal(
+        (BATCH, IMAGE, IMAGE, 3), dtype=np.float32)
+    with use_conv_tiling("tiled"):
+        tiled = engine.infer(images).cpu()
+    with use_conv_tiling("whole"):
+        whole = engine.infer(images).cpu()
+    max_abs = float((whole - tiled).abs().max())
+    scale = float(tiled.abs().max())
+    same_top1 = bool((whole.argmax(-1) == tiled.argmax(-1)).all())
+    print(f"  batch {BATCH} logits, whole vs tiled engine: max|diff| "
+          f"{max_abs:.3e}, max|logit| {scale:.3e}, ratio "
+          f"{max_abs / scale:.3e} (limit {LOGIT_REL_TOL}), same top-1 "
+          f"{same_top1}")
+    check(max_abs <= LOGIT_REL_TOL * scale,
+          f"whole-plane logits differ by {max_abs:.3e} > {LOGIT_REL_TOL} * "
+          f"{scale:.3e} from the tiled engine's")
+    check(same_top1, "whole-plane top-1 differs from the tiled engine's")
+
+    on_card = torch.as_tensor(images, device=device)
+    with torch.inference_mode(), use_conv_tiling("whole"):
+        trace = trace_device(lambda i: engine.gxm.forward(
+            engine.params, on_card, train=False), 3,
+            {"conv2d_direct_whole_kernel": Counter(k1, "launches_whole"),
+             "conv2d_direct_kernel": k1})
+    prof = dict(wall_ms=trace["wall_ms"], device_ms=trace["device_ms"],
+                busy_share=trace["busy_share"],
+                k10a_ms=device_ms_of(trace, "conv2d_direct_whole_kernel"),
+                k1_ms=device_ms_of(trace, "conv2d_direct_kernel"))
+    busy = "n/a" if prof["busy_share"] is None else \
+        f"{prof['busy_share']:.4f}"
+    print(f"  batch {BATCH} whole-plane forward under the profiler: "
+          f"{prof['wall_ms']:.3f} ms host clock, device "
+          f"{prof['device_ms']:.3f} ms (K10a {prof['k10a_ms']:.3f}, K1 "
+          f"{prof['k1_ms']:.3f}), busy share {busy}")
+    summary = dict(requests=WHOLE_REQUESTS,
+                   images_per_s=st["images_per_s"],
+                   p50_ms=st["latency"]["p50_ms"],
+                   p99_ms=st["latency"]["p99_ms"], batches=st["batches"],
+                   logits_rel=max_abs / scale, same_top1=same_top1,
+                   profile=prof)
+    del engine
+    return launches, summary
+
+
+def whole_q8(device, sigs, q8_rows, q8_gxm, qparams):
+    """Phase 24: K10c against its plain version and K3 on the 23 serving
+    signatures (max |diff| 0 each), then one int8 forward at batch 16 on
+    phase 6's quantized tree under ``whole``: 52 K10c launches, no K3,
+    logits equal bit for bit to the tiled int8 forward's.  Returns (the
+    records, K10c launches in that forward, its summary)."""
+    import numpy as np
+    import torch
+    from repro_torch.backend import use_conv_tiling
+    from repro_torch.core.conv import whole_blocking
+    from repro_torch.kernels import conv2d_q8 as k3
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 24)
+    k3_by = {_sig(r): r for r in q8_rows}
+    needle = "conv2d_q8_whole_kernel"
+    counter = Counter(k3, "launches_whole")
+    rows = []
+    print(f"\nK10c vs plain and K3, ResNet-50 {IMAGE}x{IMAGE} batch {BATCH} "
+          f"({len(sigs)} signatures), int8 operands, the reference's q8 "
+          f"blocking; library = torch._int_mm (phase 5, 1x1 only):")
+    print("  h  w    c    k r st fused         count rb_p k_blk tm rows   "
+          "smem blocks vs_plain vs_k3       ev      dev  plain_ms   k3_ms "
+          "library_ms bound_ms")
+    for key, count in sigs.items():
+        h, w, c, k, r, s, st, pad, fused = key
+        p = (h + 2 * pad - r) // st + 1
+        q = (w + 2 * pad - s) // st + 1
+
+        def randn(*shape, std=1.0):
+            return torch.randn(shape, generator=gen, device=device) * std
+
+        x_q, w_q, x_scale, w_scale = k3.quantize_conv_inputs(
+            randn(BATCH, h, w, c),
+            randn(r, s, c, k, std=math.sqrt(2.0 / (r * s * c))))
+        args = dict(
+            x_q=x_q, w_q=w_q, x_scale=x_scale, w_scale=w_scale,
+            stride=st, padding=pad,
+            scale=torch.rand(k, generator=gen, device=device) + 0.5,
+            shift=randn(k, std=0.1),
+            residual=randn(BATCH, p, q, k) if "add" in fused else None,
+            relu="relu" in fused)
+        blk = whole_blocking((BATCH, h, w, c), (r, s, c, k), stride=st,
+                             padding=pad, kind="q8")
+        bk = dict(rb_p=blk.rb_p, k_blk=blk.k_blk)
+        plan = k3.whole_plan(p=p, q=q, k_blk=blk.k_blk,
+                             rb_p=min(blk.rb_p, p), r=r, s=s, stride=st,
+                             wp=w + 2 * pad, slice_bytes=32)
+        out = k3.conv2d_q8_whole(**args, **bk)
+        plain = k3.conv2d_q8_whole_plain(**args, **bk)
+        tiled = k3.conv2d_q8(**args)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"K10c non-finite at {key}")
+        vs_plain = float((out - plain).abs().max())
+        vs_k3 = float((out - tiled).abs().max())
+        ms = cuda_ms(lambda: k3.conv2d_q8_whole(**args, **bk), 20)
+        dev = device_ms_of(trace_device(
+            lambda i: k3.conv2d_q8_whole(**args, **bk), 10,
+            {needle: counter}, sync_each=True), needle)
+        plain_ms = cuda_ms(lambda: k3.conv2d_q8_whole_plain(**args, **bk), 3)
+        ref = k3_by[key]
+        blocks = BATCH * (k // blk.k_blk) * -(-p // blk.rb_p)
+        rec = dict(h=h, w=w, c=c, k=k, r=r, s=s, stride=st, padding=pad,
+                   fused=list(fused), count=count, rb_p=blk.rb_p,
+                   k_blk=blk.k_blk, tm=plan.tm, rows_pass=plan.rows_pass,
+                   smem=plan.smem, blocks=blocks, max_abs_err=vs_plain,
+                   k3_abs_err=vs_k3, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                   k3_ms=ref["ms"], k3_device_ms=ref["k3_device_ms"],
+                   library_ms=ref["library_ms"], bound_ms=ref["bound_ms"],
+                   bound_by=ref["bound_by"])
+        rows.append(rec)
+        lib = "—" if ref["library_ms"] is None else f"{ref['library_ms']:.4f}"
+        print(f"{h:3d}{w:3d}{c:5d}{k:5d}{r:2d}{st:3d} "
+              f"{'+'.join(fused):14s}{count:5d}{blk.rb_p:5d}{blk.k_blk:6d}"
+              f"{plan.tm:3d}{plan.rows_pass:5d}{plan.smem:7d}{blocks:7d} "
+              f"{vs_plain:8.1e} {vs_k3:5.1e} {ms:8.4f} {dev:8.4f} "
+              f"{plain_ms:9.4f} {ref['ms']:7.4f} {lib:>10s} "
+              f"{ref['bound_ms']:8.4f}")
+        check(vs_plain == 0.0 and vs_k3 == 0.0,
+              f"K10c differs at {key}: max |diff| {vs_plain:.3e} from its "
+              f"plain version, {vs_k3:.3e} from K3; not 0")
+        del x_q, w_q, args, out, plain, tiled
+    print("  per-signature JSON:", json.dumps(rows))
+
+    images = np.random.default_rng(SEED + 24).standard_normal(
+        (BATCH, IMAGE, IMAGE, 3), dtype=np.float32)
+    x = torch.as_tensor(images, device=device)
+    with torch.inference_mode():
+        with use_conv_tiling("whole"):
+            k3.launches = k3.launches_whole = 0
+            whole = q8_gxm.infer(qparams, x)
+            torch.cuda.synchronize()
+            launches, k3_launches = k3.launches_whole, k3.launches
+        with use_conv_tiling("tiled"):
+            tiled = q8_gxm.infer(qparams, x)
+    equal = bool(torch.equal(whole, tiled))
+    print(f"  int8 forward at batch {BATCH} on phase 6's quantized tree under "
+          f"whole: K10c {launches} launches, K3 {k3_launches}; logits equal "
+          f"to the tiled int8 forward's bit for bit: {equal}")
+    check(launches == 52 and k3_launches == 0,
+          f"K10c launched {launches} and K3 {k3_launches} times in one int8 "
+          f"forward, expected 52 and 0")
+    check(equal, "whole-plane int8 logits differ from the tiled int8 "
+          "forward's")
+    return rows, launches, dict(k10c_launches=launches,
+                                k3_launches=k3_launches,
+                                equal_to_tiled=equal)
+
+
+def whole_wu(device, wu, wu_rows):
+    """Phase 25: K10b against its plain version and K2 on the 22 weight-
+    update signatures at batch 32, b_p from the reference's
+    ``conv_blocking(require_divisor=True, kind="wu")``; twice on the same
+    inputs, which must give the same bits."""
+    import torch
+    from repro_torch.core.conv import whole_blocking
+    from repro_torch.kernels import conv2d_wu as k2
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 25)
+    k2_by = {_sig(r): r for r in wu_rows}
+    needle = "conv2d_wu_whole_kernel"
+    counter = Counter(k2, "launches_whole")
+    rows = []
+    print(f"\nK10b vs plain and K2, ResNet-50 {IMAGE}x{IMAGE} batch "
+          f"{TRAIN_BATCH} ({len(wu)} signatures), the reference's b_p | P "
+          f"blocking; library = cuDNN dW (phase 9):")
+    print("  h   w    c    k r st pad count  b_p k_blk tile blocks  max_rel "
+          "  vs_k2  same       ev      dev  plain_ms   k2_ms library_ms "
+          "bound_ms")
+    for (h, w, c, k, r, s, st, pad), count in wu.items():
+        p = (h + 2 * pad - r) // st + 1
+        q = (w + 2 * pad - s) // st + 1
+        x = torch.randn((TRAIN_BATCH, h, w, c), generator=gen, device=device)
+        do = torch.randn((TRAIN_BATCH, p, q, k), generator=gen,
+                         device=device)
+        args = dict(x=x, do=do, stride=st, padding=pad, filter_rs=(r, s))
+        blk = whole_blocking(x.shape, (r, s, c, k), stride=st, padding=pad,
+                             kind="wu")
+        bk = dict(b_p=blk.rb_p, k_blk=blk.k_blk)
+        out = k2.conv2d_wu_whole(**args, **bk)
+        again = k2.conv2d_wu_whole(**args, **bk)
+        plain = k2.conv2d_wu_whole_plain(**args, **bk)
+        tiled = k2.conv2d_wu(**args)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"K10b non-finite at "
+              f"{h, c, k}")
+        scale = float(plain.abs().max())
+        max_abs = float((out - plain).abs().max())
+        max_rel = max_abs / scale
+        k2_rel = float((out - tiled).abs().max()) / scale
+        same = bool(torch.equal(out, again))
+        ms = auto_ms(lambda: k2.conv2d_wu_whole(**args, **bk))
+        dev = None if ms > TRACE_MAX_MS else kernel_device_ms(
+            lambda: k2.conv2d_wu_whole(**args, **bk), needle, counter)[0]
+        plain_ms = cuda_ms(lambda: k2.conv2d_wu_whole_plain(**args, **bk), 2)
+        ref = k2_by[(h, w, c, k, r, s, st, pad, ())]
+        tile = k2.whole_tile(c, blk.k_blk)
+        bm = k2.WHOLE_TILES[tile][0]
+        blocks = -(-c // bm) * (k // blk.k_blk) * r * s
+        rows.append(dict(h=h, w=w, c=c, k=k, r=r, s=s, stride=st,
+                         padding=pad, count=count, b_p=blk.rb_p,
+                         k_blk=blk.k_blk, tile=tile, blocks=blocks,
+                         max_abs_err=max_abs, max_rel_err=max_rel,
+                         k2_rel_err=k2_rel, same_bits=same, ms=ms,
+                         device_ms=dev, plain_ms=plain_ms, k2_ms=ref["ms"],
+                         library_ms=ref["library_ms"],
+                         bound_ms=ref["bound_ms"], bound_by=ref["bound_by"]))
+        dev_s = "     n/a" if dev is None else f"{dev:8.4f}"
+        print(f"{h:3d}{w:4d}{c:5d}{k:5d}{r:2d}{st:3d}{pad:4d}{count:6d}"
+              f"{blk.rb_p:5d}{blk.k_blk:6d}{tile:5d}{blocks:7d}  "
+              f"{max_rel:.2e} {k2_rel:.1e} {same!s:5s} {ms:8.4f} {dev_s} "
+              f"{plain_ms:9.4f} {ref['ms']:7.4f} {ref['library_ms']:10.4f} "
+              f"{ref['bound_ms']:8.4f}")
+        check(max_rel <= KERNEL_REL_TOL,
+              f"K10b disagrees with its plain version at {(h, c, k, r, st)}: "
+              f"max_rel {max_rel:.3e} > {KERNEL_REL_TOL}")
+        check(same, f"K10b gave other bits on a second run at {(h, c, k)}")
+        del x, do, args, out, again, plain, tiled
+    print("  per-signature JSON:", json.dumps(rows))
+    return rows
+
+
+def whole_training(device, fwd, dual, wu, tiled_summary):
+    """Phase 26: full ResNet-50 training under ``whole`` at batch 32: one
+    untimed step, then WHOLE_TRAIN_STEPS timed steps, each with the launch
+    counts set to 0 just before it and read just after (K10a = 52 forward +
+    61 dual, K10b = 52, K1 and K2 none), beside phase 10's step; 2 steps
+    under the profiler.  Returns (launch counts of one step, summary)."""
+    import numpy as np
+    import torch
+    from repro_torch.backend import use_conv_tiling
+    from repro_torch.kernels import conv2d_direct as k1
+    from repro_torch.kernels import conv2d_wu as k2
+    from repro_torch.launch.train_cnn import build_trainer
+    from repro_torch.train.step import to_device
+
+    gxm, params, step, data = build_trainer(
+        full=True, num_classes=1000, image=IMAGE, batch=TRAIN_BATCH,
+        lr=TRAIN_LR, device=device, seed=SEED)
+    batches = [to_device(data.batch_at(i), device)
+               for i in range(1 + WHOLE_TRAIN_STEPS + 3)]
+    torch.cuda.synchronize()
+    expect = {"conv2d_direct_whole": sum(fwd.values()) + sum(dual.values()),
+              "conv2d_wu_whole": sum(wu.values()), "conv2d_direct": 0,
+              "conv2d_wu": 0}
+    print(f"\nwhole-plane training: ResNet-50 {IMAGE}x{IMAGE}, 1000 classes, "
+          f"batch {TRAIN_BATCH}, lr {TRAIN_LR}, under whole")
+    losses, times = [], []
+    with use_conv_tiling("whole"):
+        t0 = time.perf_counter()
+        params, loss = step(params, batches[0])
+        losses.append(float(loss))
+        print(f"  1 untimed step in {time.perf_counter() - t0:.2f}s")
+        for batch in batches[1:1 + WHOLE_TRAIN_STEPS]:
+            torch.cuda.synchronize()
+            k1.launches = k1.launches_whole = 0
+            k2.launches = k2.launches_whole = 0
+            t1 = time.perf_counter()
+            params, loss = step(params, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            counts = {"conv2d_direct_whole": k1.launches_whole,
+                      "conv2d_wu_whole": k2.launches_whole,
+                      "conv2d_direct": k1.launches,
+                      "conv2d_wu": k2.launches}
+            losses.append(float(loss))
+            check(counts == expect, f"launches in a whole-plane step "
+                  f"{counts}, expected {expect}")
+        trace = trace_device(
+            lambda i: step(params, batches[1 + WHOLE_TRAIN_STEPS + i]), 2,
+            {"conv2d_direct_whole_kernel": Counter(k1, "launches_whole"),
+             "conv2d_wu_whole_kernel": Counter(k2, "launches_whole")})
+    step_ms = float(np.median(times))
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
+    prof = dict(wall_ms_per_step=trace["wall_ms"],
+                device_ms_per_step=trace["device_ms"],
+                device_busy_share=trace["busy_share"],
+                k10a_ms_per_step=device_ms_of(trace,
+                                              "conv2d_direct_whole_kernel"),
+                k10b_ms_per_step=device_ms_of(trace, "conv2d_wu_whole_kernel"))
+    print(f"  {WHOLE_TRAIN_STEPS} timed steps: median {step_ms:.3f} ms/step "
+          f"({[round(t, 3) for t in times]}), "
+          f"{TRAIN_BATCH / step_ms * 1e3:.2f} images/s; tiled (phase 10) "
+          f"{tiled_summary['step_ms']:.3f} ms/step, "
+          f"{tiled_summary['images_per_s']:.2f} images/s")
+    print(f"  launches in each timed step: {counts}")
+    print(f"  losses {[round(v, 4) for v in losses]}")
+    busy = "n/a" if prof["device_busy_share"] is None else \
+        f"{prof['device_busy_share']:.4f}"
+    print(f"  profile of 2 steps: {prof['wall_ms_per_step']:.3f} ms/step host "
+          f"clock, device {prof['device_ms_per_step']:.3f} ms/step (K10a "
+          f"{prof['k10a_ms_per_step']:.3f}, K10b "
+          f"{prof['k10b_ms_per_step']:.3f}), busy share {busy}")
+    return counts, dict(step_ms=step_ms, step_times_ms=times,
+                        images_per_s=TRAIN_BATCH / step_ms * 1e3,
+                        losses=losses, profile=prof)
+
+
+def pool_phase(device):
+    """Phase 27: K5's entry point at the stem pool (16, 112, 112, 64) f32,
+    3x3 s2 p1, and on the reference test's three cases, with the launch
+    count set to 0 just before those four calls and read just after; then
+    each against its plain version and ``F.max_pool2d`` (max |diff| 0), and
+    the times of K5, the plain version and ``F.max_pool2d`` at the stem
+    pool against the bytes bound.  Returns (record, K5 launches in the four
+    calls)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import pool2d as k5
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 27)
+
+    def library(x, window=3, stride=2, pad=1):
+        return F.max_pool2d(x.permute(0, 3, 1, 2), window, stride,
+                            pad).permute(0, 2, 3, 1)
+
+    x = torch.randn(POOL_SHAPE, generator=gen, device=device)
+    cases = [(case, torch.randn((2, case[3], case[3], 8), generator=gen,
+                                device=device)) for case in POOL_CASES]
+    k5.launches = 0
+    out = k5.maxpool2d(x)
+    outs = [k5.maxpool2d(xs, window=window, stride=stride, padding=pad)
+            for (window, stride, pad, _), xs in cases]
+    torch.cuda.synchronize()
+    launches = k5.launches
+    check(launches == 1 + len(POOL_CASES),
+          f"K5 launched {launches} times in {1 + len(POOL_CASES)} calls")
+    vs_plain = float((out - k5.maxpool2d_plain(x)).abs().max())
+    vs_lib = float((out - library(x)).abs().max())
+    ms = cuda_ms(lambda: k5.maxpool2d(x), 100)
+    dev = kernel_device_ms(lambda: k5.maxpool2d(x), "maxpool2d_kernel", k5,
+                           20)[0]
+    plain_ms = cuda_ms(lambda: k5.maxpool2d_plain(x), 10)
+    library_ms = cuda_ms(lambda: library(x), 100)
+    nbytes = 4.0 * (x.numel() + out.numel())
+    bound_ms, bound_by = bound(9.0 * out.numel(), nbytes)
+    print(f"\nK5 vs plain and F.max_pool2d at the stem pool {POOL_SHAPE} f32, "
+          f"3x3 s2 p1: max |diff| {vs_plain} and {vs_lib}; K5 {ms:.4f} ms by "
+          f"events, {dev:.4f} device; plain {plain_ms:.4f}; F.max_pool2d "
+          f"{library_ms:.4f}; bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{nbytes / 1e6:.1f} MB read once and written once), "
+          f"{nbytes / dev / 1e6:.1f} GB/s by device time")
+    check(vs_plain == 0.0 and vs_lib == 0.0,
+          f"K5 differs at the stem pool: {vs_plain} from plain, {vs_lib} "
+          f"from F.max_pool2d")
+    for ((window, stride, pad, h), xs), got in zip(cases, outs):
+        ok = bool(torch.equal(got, k5.maxpool2d_plain(
+            xs, window=window, stride=stride, padding=pad))) and \
+            bool(torch.equal(got, library(xs, window, stride, pad)))
+        print(f"  case window {window} stride {stride} pad {pad} (2, {h}, "
+              f"{h}, 8): equal to plain and F.max_pool2d: {ok}")
+        check(ok, f"K5 differs on the case {(window, stride, pad, h)}")
+    return dict(shape=list(POOL_SHAPE), max_abs_err=max(vs_plain, vs_lib),
+                ms=ms, device_ms=dev, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by), launches
+
+
 def totals(rows) -> dict:
     """Per-pass sums over signature records (each time x its count; a
     library time only where one exists), and what bounds most of the
@@ -2464,7 +3062,7 @@ def main() -> int:
     serve = totals(rows)
     breakdown(engine, serve["ms"])
     parity(engine)
-    params = engine.params
+    params = serve_params = engine.params
     del engine
     torch.cuda.empty_cache()
 
@@ -2475,7 +3073,9 @@ def main() -> int:
     engine, q8_launches, q8_stats = int8_serving(device, params, f32_stats)
     q8_step = int8_breakdown(engine, k3["ms"])
     q8_parity = int8_parity(engine)
-    del engine, params
+    # phase 3's params and phase 6's quantized tree serve phases 23 and 24
+    q8_gxm, qparams = engine.gxm, engine.qparams
+    del engine
     torch.cuda.empty_cache()
 
     fwd, dual, wu = training_signatures(build_etg(resnet50()))
@@ -2561,7 +3161,35 @@ def main() -> int:
                                 host_available_gb=available_gb)
     del params
     torch.cuda.empty_cache()
-    print(f"\nall phases in {time.perf_counter() - t_start:.1f}s")
+
+    whole_rows = whole_signatures(device, sigs, rows)
+    whole_launches, whole_summary = whole_serving(device, serve_params)
+    k10c_rows, k10c_launches, k10c_summary = whole_q8(device, sigs, q8_rows,
+                                                      q8_gxm, qparams)
+    del serve_params, q8_gxm, qparams
+    torch.cuda.empty_cache()
+    k10b_rows = whole_wu(device, wu, wu_rows)
+    whole_counts, whole_train = whole_training(device, fwd, dual, wu,
+                                               summary)
+    whole_train["parity"] = train_parity(device, "whole")
+    torch.cuda.empty_cache()
+    pool, pool_launches = pool_phase(device)
+    k10a = totals(whole_rows)
+    k10b = totals(k10b_rows)
+    k10c = totals(k10c_rows)
+    print(f"\nwhole plane against tiled, per 52-conv forward at batch {BATCH} "
+          f"(x count, CUDA events): K10a {k10a['ms']:.3f} ms vs K1 "
+          f"{weighted(whole_rows, 'k1_ms'):.3f}; K10c {k10c['ms']:.3f} vs K3 "
+          f"{weighted(k10c_rows, 'k3_ms'):.3f}; per 52-launch weight "
+          f"gradient at batch {TRAIN_BATCH}: K10b {k10b['ms']:.3f} vs K2 "
+          f"{weighted(k10b_rows, 'k2_ms'):.3f}")
+    lags = [lag for _, _, lag in TRACES if lag is not None]
+    print(f"\nprofiler: {len(TRACES)} traces kept, "
+          f"{sum(n for _, n, _ in TRACES)} refused and retaken; least "
+          f"kernel-start minus launch-call time {TRACES[0][2]} ms in the "
+          f"first ({TRACES[0][0]:.0f} s in), {TRACES[-1][2]} ms in the last "
+          f"({TRACES[-1][0]:.0f} s in), {min(lags)} ms at least")
+    print(f"all phases in {time.perf_counter() - t_start:.1f}s")
 
     def timing(d):
         return {key: d[key] for key in ("ms", "plain_ms", "library_ms",
@@ -2735,6 +3363,85 @@ def main() -> int:
                f"capacity-padded (E, C, D) x (E, D, F)",
         "card": card,
     })
+    def dev_sum(rows_):
+        return sum(r_["device_ms"] * r_["count"] for r_ in rows_
+                   if r_["device_ms"] is not None)
+    per_fwd = (f"the 52 convs of one ResNet-50 forward, batch {BATCH}, "
+               f"{IMAGE}x{IMAGE}")
+    kernels += [{
+        "name": "conv2d_direct_whole",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/conv2d_direct_whole.cu",
+        "replaces": "src/repro/kernels/conv2d_direct.py:338",
+        "launches": whole_launches + whole_counts["conv2d_direct_whole"],
+        "launches_by_path": {
+            "whole_serving": whole_launches,
+            "whole_training": whole_counts["conv2d_direct_whole"]},
+        "max_abs_err": max(r_["max_abs_err"] for r_ in whole_rows),
+        "max_rel_err": max(r_["max_rel_err"] for r_ in whole_rows),
+        **timing(k10a),
+        "device_ms": dev_sum(whole_rows),
+        "k1_ms": weighted(whole_rows, "k1_ms"),
+        "per": per_fwd + " (K10a, the reference's whole-plane blocking); "
+               "library: cuDNN + epilogue",
+        "card": card,
+    }, {
+        "name": "conv2d_wu_whole",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/conv2d_wu_whole.cu",
+        "replaces": "src/repro/kernels/conv2d_wu.py:200",
+        "launches": whole_counts["conv2d_wu_whole"],
+        "launches_by_path": {
+            "whole_training": whole_counts["conv2d_wu_whole"]},
+        "max_abs_err": max(r_["max_abs_err"] for r_ in k10b_rows),
+        "max_rel_err": max(r_["max_rel_err"] for r_ in k10b_rows),
+        **timing(k10b),
+        "device_ms": dev_sum(k10b_rows),
+        "device_ms_covers": sum(r_["count"] for r_ in k10b_rows
+                                if r_["device_ms"] is not None),
+        "k2_ms": weighted(k10b_rows, "k2_ms"),
+        "per": f"the 52 weight gradients of one ResNet-50 training step, "
+               f"batch {TRAIN_BATCH} (device time only for launches under "
+               f"{TRACE_MAX_MS} ms); library: cuDNN dW",
+        "card": card,
+    }, {
+        "name": "conv2d_q8_whole",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/conv2d_q8_whole.cu",
+        "replaces": "src/repro/kernels/conv2d_q8.py:246",
+        "launches": k10c_launches,
+        "launches_by_path": {"whole_int8": k10c_launches},
+        "max_abs_err": max(r_["max_abs_err"] for r_ in k10c_rows),
+        **timing(k10c),
+        "device_ms": dev_sum(k10c_rows),
+        "k3_ms": weighted(k10c_rows, "k3_ms"),
+        "library_covers": "the 1x1 convs only (torch._int_mm + dequant and "
+                          "epilogue in torch)",
+        "per": per_fwd + " (K10c, int8, the reference's q8 blocking)",
+        "card": card,
+    }, {
+        "name": "maxpool2d",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/pool2d.cu",
+        "replaces": "src/repro/kernels/pool2d.py:46",
+        "launches": pool_launches,
+        "launches_by_path": {"chip_smoke": pool_launches},
+        **{key: pool[key] for key in ("max_abs_err", "ms", "device_ms",
+                                      "plain_ms", "library_ms", "bound_ms",
+                                      "bound_by")},
+        "per": f"one launch at the ResNet-50 stem pool {POOL_SHAPE} f32, 3x3 "
+               f"stride 2 pad 1; library: F.max_pool2d.  No model path calls "
+               f"K5, in the reference either (its executor pools with "
+               f"lax.reduce_window), so its launches are phase 27's four "
+               f"calls of its entry point",
+        "card": card,
+    }]
+    print(json.dumps({"whole_plane": {
+        "serving": whole_summary, "int8": k10c_summary,
+        "training": {key: whole_train[key] for key in (
+            "step_ms", "images_per_s", "losses", "profile", "parity")},
+        "tiled_training_step_ms": summary["step_ms"],
+        "tiled_serving_images_per_s": f32_stats["images_per_s"]}}))
     print(json.dumps({"lm_serving": lm_summary}))
     print(json.dumps({"hybrid_serving": hy_summary}))
     print(json.dumps({"serving_int8": {

@@ -4,8 +4,9 @@ The reference's ``repro.backend`` selects a kernel implementation
 ("pallas" / "interpret" / "xla").  Here the tensor's device selects it: a
 CPU tensor takes each kernel's plain PyTorch version, a CUDA tensor launches
 the hand-written kernel.  What remains to decide is the device itself,
-whether inference runs the int8 path (``REPRO_QUANTIZE``), and where
-blockings come from (``REPRO_AUTOTUNE``).
+whether inference runs the int8 path (``REPRO_QUANTIZE``), where
+blockings come from (``REPRO_AUTOTUNE``), and which input strategy the
+conv kernels take (``REPRO_CONV_TILING``).
 """
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ import torch
 
 VALID_QUANTIZE = ("off", "int8")
 VALID_AUTOTUNE = ("off", "cache", "tune")
+VALID_CONV_TILING = ("tiled", "whole")
 _autotune: str | None = None     # set_autotune's value; None reads the env
+_conv_tiling: str | None = None  # set_conv_tiling's value; None reads the env
 
 
 def get_quantize() -> str:
@@ -73,6 +76,45 @@ def resolve_autotune(mode: str | None) -> str:
     """``mode`` if given (validated), else ``get_autotune()``."""
     return get_autotune() if mode is None else _valid_autotune(mode,
                                                                 "autotune")
+
+
+def _valid_conv_tiling(mode: str, source: str) -> str:
+    if mode not in VALID_CONV_TILING:
+        raise ValueError(f"{source}={mode!r}; valid: "
+                         f"{', '.join(VALID_CONV_TILING)}")
+    return mode
+
+
+def get_conv_tiling() -> str:
+    """The conv input-strategy knob: "tiled" (default) = K1, K2 and K3,
+    which stage only the input rows each tile reads; "whole" = the
+    reference's legacy whole-plane kernels K10a, K10b and K10c (one block
+    per output block over the resident padded plane), kept for A/B
+    measurement.  ``set_conv_tiling`` overrides ``REPRO_CONV_TILING``,
+    which is read at each call otherwise.  An invalid value raises: the
+    port never runs another path than the one asked for."""
+    if _conv_tiling is not None:
+        return _conv_tiling
+    return _valid_conv_tiling(os.environ.get("REPRO_CONV_TILING", "tiled"),
+                              "REPRO_CONV_TILING")
+
+
+def set_conv_tiling(mode: str) -> None:
+    """Pin the conv input strategy for this process, over
+    ``REPRO_CONV_TILING``."""
+    global _conv_tiling
+    _conv_tiling = _valid_conv_tiling(mode, "conv_tiling")
+
+
+@contextmanager
+def use_conv_tiling(mode: str):
+    global _conv_tiling
+    prev = _conv_tiling
+    set_conv_tiling(mode)
+    try:
+        yield
+    finally:
+        _conv_tiling = prev
 
 
 def resolve_device(device=None) -> torch.device:

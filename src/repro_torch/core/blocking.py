@@ -41,6 +41,10 @@ from repro_torch import backend as be
 
 # bytes one CTA may claim (H100: 227 KB of shared memory per block)
 VMEM_BUDGET = int(os.environ.get("REPRO_VMEM_BUDGET", 232448))
+# the reference's default budget (16 MiB), which the whole-plane kernels
+# K10a-c take their blocking at: their plane stays in L2 (50 MB), not in a
+# CTA's shared memory, and this budget gives the reference's rb_p and k_blk
+WHOLE_PLANE_BUDGET = 16 * 1024 * 1024
 LANE = 128          # widest feature block
 SUBLANE = 8         # feature blocks are multiples of 8 (``lane_ok``)
 M_TILE = 128        # pixels per tile the analytic heuristic aims for

@@ -8,17 +8,27 @@ int8 inference (§II-K): ``conv2d_q8_fwd`` quantizes the activation and
 runs the int8 kernel K3.  Convs whose (C, K) fail the lane rule take the
 ``kernels.ref`` oracles, as in the reference.  Chains come with a later
 slice.
+
+Under ``REPRO_CONV_TILING=whole`` (``backend.get_conv_tiling``, read at
+each call) every lane-aligned conv takes the reference's legacy
+whole-plane kernels instead, with the reference's blocking
+(``repro/core/conv.py:56-64, 162-178``): K10a for each forward and dual
+conv, K10c for each int8 forward, K10b for each weight gradient.  There is
+no fallback from one strategy to the other.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import backend as be
 from repro_torch.core import duality
+from repro_torch.core.blocking import WHOLE_PLANE_BUDGET, conv_blocking
 from repro_torch.core.quantize import quantize_act
 from repro_torch.kernels import ref
-from repro_torch.kernels.conv2d_direct import conv2d_direct
-from repro_torch.kernels.conv2d_q8 import _deq, conv2d_q8
-from repro_torch.kernels.conv2d_wu import conv2d_wu
+from repro_torch.kernels.conv2d_direct import (conv2d_direct,
+                                               conv2d_direct_whole)
+from repro_torch.kernels.conv2d_q8 import _deq, conv2d_q8, conv2d_q8_whole
+from repro_torch.kernels.conv2d_wu import conv2d_wu, conv2d_wu_whole
 
 
 def lane_ok(c: int, k: int) -> bool:
@@ -27,14 +37,39 @@ def lane_ok(c: int, k: int) -> bool:
     return c % 8 == 0 and k % 8 == 0
 
 
+def whole_blocking(x_shape, w_shape, *, stride, padding, kind):
+    """The reference's blocking of a whole-plane launch: ``conv_blocking``
+    at the reference's budget with ``minibatch`` N, as
+    ``repro/core/conv.py`` picks it.  ``kind`` is "fwd", "bwd" (a dual
+    conv), "q8" (one byte an element) or "wu" (the update pass, whose
+    rb_p, then b_p, must divide P)."""
+    n, h, wd, c = x_shape
+    r, s, _, k = w_shape
+    return conv_blocking(h=h, w=wd, c=c, k=k, r=r, s=s, stride=stride,
+                         padding=padding,
+                         dtype_bytes=1 if kind == "q8" else 4,
+                         vmem_budget=WHOLE_PLANE_BUDGET,
+                         require_divisor=(kind == "wu"), kind=kind,
+                         minibatch=n)
+
+
 def conv2d_fwd(x, w, *, stride=1, padding=1, bias=None, scale=None,
-               shift=None, residual=None, relu=False):
-    """Fused forward conv: K1 for lane-aligned (C, K), ``ref.conv2d_fused``
-    otherwise.  K1 itself picks its plain version on a CPU tensor."""
+               shift=None, residual=None, relu=False, kind="fwd"):
+    """Fused forward conv: K1 (K10a under ``whole``, its blocking of
+    ``kind``: "fwd", or "bwd" for a dual conv) for lane-aligned (C, K),
+    ``ref.conv2d_fused`` otherwise.  The kernel's wrapper itself picks its
+    plain version on a CPU tensor."""
     c, k = x.shape[-1], w.shape[-1]
-    fn = conv2d_direct if lane_ok(c, k) else ref.conv2d_fused
-    return fn(x, w, stride=stride, padding=padding, bias=bias, scale=scale,
+    kw = dict(stride=stride, padding=padding, bias=bias, scale=scale,
               shift=shift, residual=residual, relu=relu)
+    if not lane_ok(c, k):
+        return ref.conv2d_fused(x, w, **kw)
+    if be.get_conv_tiling() == "whole":
+        blk = whole_blocking(x.shape, w.shape, stride=stride,
+                             padding=padding, kind=kind)
+        return conv2d_direct_whole(x, w, rb_p=blk.rb_p, k_blk=blk.k_blk,
+                                   **kw)
+    return conv2d_direct(x, w, **kw)
 
 
 def conv2d_q8_fwd(x, w_q, *, x_scale, w_scale, stride=1, padding=1,
@@ -51,10 +86,15 @@ def conv2d_q8_fwd(x, w_q, *, x_scale, w_scale, stride=1, padding=1,
     c, k = x.shape[-1], w_q.shape[-1]
     x_q = quantize_act(x, x_scale)
     if lane_ok(c, k):
-        return conv2d_q8(x_q, w_q, x_scale=x_scale, w_scale=w_scale,
-                         stride=stride, padding=padding, bias=bias,
-                         scale=scale, shift=shift, residual=residual,
-                         relu=relu)
+        kw = dict(x_scale=x_scale, w_scale=w_scale, stride=stride,
+                  padding=padding, bias=bias, scale=scale, shift=shift,
+                  residual=residual, relu=relu)
+        if be.get_conv_tiling() == "whole":
+            blk = whole_blocking(x.shape, w_q.shape, stride=stride,
+                                 padding=padding, kind="q8")
+            return conv2d_q8_whole(x_q, w_q, rb_p=blk.rb_p, k_blk=blk.k_blk,
+                                   **kw)
+        return conv2d_q8(x_q, w_q, **kw)
     deq = _deq(x_scale, w_scale)
     combined = deq if scale is None else deq * scale
     combined_shift = shift if scale is not None else \
@@ -67,7 +107,7 @@ def conv2d_q8_fwd(x, w_q, *, x_scale, w_scale, stride=1, padding=1,
 
 def _dual_fwd(x, w, stride, padding):
     """One forward launch of the backward-data pass."""
-    return conv2d_fwd(x, w, stride=stride, padding=padding)
+    return conv2d_fwd(x, w, stride=stride, padding=padding, kind="bwd")
 
 
 def conv2d_bwd_data_via_fwd(do, w, *, stride, padding, input_hw, mode=None):
@@ -89,12 +129,20 @@ def conv2d_bwd_data_via_fwd(do, w, *, stride, padding, input_hw, mode=None):
 
 
 def conv2d_bwd_weights(x, do, *, stride, padding, filter_rs):
-    """dW by the update-pass kernel K2 (§II-J) for lane-aligned (C, K),
+    """dW by the update-pass kernel K2 (§II-J; K10b under ``whole``, with
+    the reference's b_p | P blocking) for lane-aligned (C, K),
     ``ref.conv2d_bwd_weights`` otherwise."""
     c, k = x.shape[-1], do.shape[-1]
     if not lane_ok(c, k):
         return ref.conv2d_bwd_weights(x, do, stride=stride, padding=padding,
                                       filter_rs=filter_rs)
+    if be.get_conv_tiling() == "whole":
+        r, s = filter_rs
+        blk = whole_blocking(x.shape, (r, s, c, k), stride=stride,
+                             padding=padding, kind="wu")
+        return conv2d_wu_whole(x, do, stride=stride, padding=padding,
+                               filter_rs=filter_rs, b_p=blk.rb_p,
+                               k_blk=blk.k_blk)
     return conv2d_wu(x, do, stride=stride, padding=padding,
                      filter_rs=filter_rs)
 

@@ -19,6 +19,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import backend as be
 from repro_torch.core.conv import lane_ok
 from repro_torch.core.quantize import calibrate_network, quantize_gxm_params
 from repro_torch.graph.etg import quantize_etg
@@ -198,8 +199,8 @@ class CnnInferenceEngine:
         """Calibrate first when the engine is quantized and not calibrated
         yet, then one forward per bucket, so every kernel the request path
         launches is built and loaded.  Returns a report: signature counts,
-        whether the engine serves int8, and the warmup seconds per
-        bucket."""
+        the conv input strategy (``backend.get_conv_tiling``), whether the
+        engine serves int8, and the warmup seconds per bucket."""
         if self.quantized and self.qparams is None:
             self.calibrate()          # deterministic synthetic batches
         sigs = distinct_conv_signatures(self.conv_shapes())
@@ -209,6 +210,7 @@ class CnnInferenceEngine:
                 sum(1 for s in sigs if lane_ok(s["c"], s["k"])),
             "kernel_cache_entries": len(self.gxm.etg.kernel_cache),
             "buckets": list(self.buckets),
+            "conv_tiling": be.get_conv_tiling(),
             "quantized": self.quantized,
             "warmup_s": {},
         }

@@ -23,7 +23,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("conv2d_direct", "conv2d_wu", "conv2d_q8", "conv2d_streams",
-           "flash_attention", "matmul_fused", "conv1d_causal", "moe_gmm")
+           "flash_attention", "matmul_fused", "conv1d_causal", "moe_gmm",
+           "conv2d_direct_whole", "conv2d_wu_whole", "conv2d_q8_whole",
+           "pool2d")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -7,7 +7,8 @@ the counterpart of ``repro/launch/serve_cnn.py`` on one GPU.
 
 ``REPRO_QUANTIZE=int8`` serves the §II-K int8 path, as the reference's CLI
 does: warmup calibrates the activation scales first, and every lane-aligned
-conv runs K3.
+conv runs K3.  ``REPRO_CONV_TILING=whole`` serves through the whole-plane
+kernels (K10a, or K10c for int8) in place of K1 and K3.
 
 Requests (single images) land in a queue; the scheduler drains it in
 batches, each padded up to the minimal bucket of a fixed ladder
@@ -147,13 +148,15 @@ def serve_window(engine: CnnInferenceEngine, *, requests: int, seed: int = 0,
     """The measured serving window: ``warm_requests`` in bursts through a
     throwaway server (untimed), then ``requests`` through a fresh one.  All
     images are made before either starts, and the launch counts of K1 and
-    K3 are set to 0 as the window opens.  Returns (server, results)."""
+    K3, and of their whole-plane forms K10a and K10c, are set to 0 as the
+    window opens.  Returns (server, results)."""
     rng = np.random.default_rng(seed)
     image = engine.image_hw[0]
     warm = make_images(warm_requests, image, rng)
     window = make_images(requests, image, rng)
     serve_bursts(ImageServer(engine), warm, rng=rng)
     k1.launches = k3.launches = 0
+    k1.launches_whole = k3.launches_whole = 0
     server = ImageServer(engine)
     return server, serve_bursts(server, window, rng=rng)
 
@@ -193,8 +196,11 @@ def main(argv=None):
         "latency_p99_ms": st["latency"]["p99_ms"],
         "wall_s": st["wall_s"],
         "images_per_s": st["images_per_s"],
+        "conv_tiling": report["conv_tiling"],
         "conv2d_direct_launches": k1.launches,
         "conv2d_q8_launches": k3.launches,
+        "conv2d_direct_whole_launches": k1.launches_whole,
+        "conv2d_q8_whole_launches": k3.launches_whole,
     }
     print(json.dumps(summary))
     if len(results) != args.requests:

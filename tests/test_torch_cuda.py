@@ -668,3 +668,185 @@ def test_moe_layer_on_the_card_matches_the_cpu(cuda, dtype, b, l):
     exp, _ = moe.apply(cpu, cfg, x)
     tol = 1e-5 if dtype == "float32" else 2e-2
     assert _rel_err(out.float().cpu(), exp.float()) <= tol
+
+
+# -- the whole-plane kernels (K10a, K10b, K10c) and the max-pool K5 ---------
+
+from repro_torch import backend as be  # noqa: E402
+from repro_torch.core import conv as core_conv  # noqa: E402
+from repro_torch.kernels import pool2d as k5  # noqa: E402
+
+# the lane-aligned CASES, each with the reference's blocking
+WHOLE_CASES = [c for c in CASES if c[3] % 8 == 0 and c[4] % 8 == 0]
+
+
+def _whole_blk(case, kind="fwd"):
+    n, h, w, c, k, r, stride, pad = case
+    blk = core_conv.whole_blocking((n, h, w, c), (r, r, c, k), stride=stride,
+                                   padding=pad, kind=kind)
+    return dict(rb_p=blk.rb_p, k_blk=blk.k_blk)
+
+
+# blockings beside the reference's: a P tail, rb_p = P at 56x56 (several
+# passes per block), k_blk below K, one row per block
+WHOLE_BLOCKINGS = [
+    (CASES[0], dict(rb_p=4, k_blk=8)),
+    (CASES[7], dict(rb_p=56, k_blk=64)),
+    (CASES[7], dict(rb_p=5, k_blk=32)),
+    (CASES[6], dict(rb_p=7, k_blk=128)),
+    (CASES[2], dict(rb_p=1, k_blk=8)),
+]
+
+
+@pytest.mark.parametrize("case", WHOLE_CASES)
+@pytest.mark.parametrize("epi", range(len(EPILOGUES)))
+def test_whole_kernel_matches_plain(cuda, case, epi):
+    args = _args(case, cuda, **EPILOGUES[epi])
+    blk = _whole_blk(case)
+    before, tiled = k1.launches_whole, k1.launches
+    out = k1.conv2d_direct_whole(**args, **blk)
+    torch.cuda.synchronize()
+    assert (k1.launches_whole, k1.launches) == (before + 1, tiled)
+    exp = k1.conv2d_direct_whole_plain(**args, **blk)
+    assert out.shape == exp.shape and out.device == exp.device
+    assert _rel_err(out, exp) <= 1e-5
+    assert _rel_err(out, k1.conv2d_direct(**args)) <= 1e-5
+
+
+@pytest.mark.parametrize("case,blk", WHOLE_BLOCKINGS)
+def test_whole_kernel_other_blockings(cuda, case, blk):
+    args = _args(case, cuda, bn=True, residual=True, relu=True)
+    out = k1.conv2d_direct_whole(**args, **blk)
+    assert _rel_err(out, k1.conv2d_direct_whole_plain(**args, **blk)) <= 1e-5
+
+
+def test_whole_kernel_rejects_what_it_does_not_take(cuda):
+    args = _args(CASES[0], cuda)
+    with pytest.raises(ValueError, match="float32"):
+        k1.conv2d_direct_whole(**{**args, "x": args["x"].double()},
+                               rb_p=4, k_blk=8)
+    with pytest.raises(ValueError, match="8 input"):
+        k1.conv2d_direct_whole(**_args(CASES[5], cuda), rb_p=4, k_blk=7)
+    with pytest.raises(ValueError, match="k_blk"):
+        k1.conv2d_direct_whole(**args, rb_p=4, k_blk=12)
+
+
+@pytest.mark.parametrize("case", WHOLE_CASES)
+@pytest.mark.parametrize("epi", [0, 2, 3])
+def test_whole_q8_kernel_equals_plain_and_k3(cuda, case, epi):
+    """K10c = its plain version = K3, bit for bit, at the reference's int8
+    blocking (rb_p grows to the budget: several passes per block)."""
+    args = _q8_args(case, cuda, **EPILOGUES[epi])
+    blk = _whole_blk(case, "q8")
+    before, tiled = k3.launches_whole, k3.launches
+    out = k3.conv2d_q8_whole(**args, **blk)
+    torch.cuda.synchronize()
+    assert (k3.launches_whole, k3.launches) == (before + 1, tiled)
+    assert torch.equal(out, k3.conv2d_q8_whole_plain(**args, **blk))
+    assert torch.equal(out, k3.conv2d_q8(**args))
+
+
+@pytest.mark.parametrize("case,blk", WHOLE_BLOCKINGS)
+def test_whole_q8_kernel_other_blockings(cuda, case, blk):
+    args = _q8_args(case, cuda, bias=True, residual=True, relu=True)
+    assert torch.equal(k3.conv2d_q8_whole(**args, **blk),
+                       k3.conv2d_q8_plain(**args))
+
+
+# the lane-aligned WU_CASES whose P the reference's b_p divides
+WU_WHOLE_CASES = [c for c in WU_CASES if c[3] % 8 == 0 and c[4] % 8 == 0]
+
+
+@pytest.mark.parametrize("case", WU_WHOLE_CASES)
+def test_wu_whole_kernel_matches_plain(cuda, case):
+    args = _wu_args(case, cuda)
+    n, h, w, c, k, r, stride, pad = case
+    blk = core_conv.whole_blocking((n, h, w, c), (r, r, c, k), stride=stride,
+                                   padding=pad, kind="wu")
+    kw = dict(b_p=blk.rb_p, k_blk=blk.k_blk)
+    before, tiled = k2.launches_whole, k2.launches
+    out = k2.conv2d_wu_whole(**args, **kw)
+    torch.cuda.synchronize()
+    assert (k2.launches_whole, k2.launches) == (before + 1, tiled)
+    exp = k2.conv2d_wu_whole_plain(**args, **kw)
+    assert out.shape == exp.shape
+    assert _rel_err(out, exp) <= 1e-5
+    assert _rel_err(out, k2.conv2d_wu_plain(**args)) <= 1e-5
+    assert torch.equal(out, k2.conv2d_wu_whole(**args, **kw))  # same bits
+
+
+def test_wu_whole_kernel_every_tile_and_raises(cuda):
+    for c, k, k_blk in ((128, 128, 128), (128, 64, 64), (64, 128, 128),
+                        (64, 64, 64), (136, 72, 24)):
+        args = _wu_args((2, 9, 9, c, k, 3, 1, 1), cuda)
+        out = k2.conv2d_wu_whole(**args, b_p=3, k_blk=k_blk)
+        assert _rel_err(out, k2.conv2d_wu_plain(**args)) <= 1e-5, (c, k)
+    with pytest.raises(ValueError, match="does not divide P"):
+        k2.conv2d_wu_whole(**args, b_p=4, k_blk=24)
+
+
+@pytest.mark.parametrize("shape", [(16, 112, 112, 64), (2, 12, 12, 8),
+                                   (2, 9, 7, 5), (3, 8, 8, 12)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("window,stride,pad", [(3, 2, 1), (2, 2, 0),
+                                               (3, 1, 1)])
+def test_maxpool_kernel_equals_plain_and_max_pool2d(cuda, shape, dtype,
+                                                    window, stride, pad):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    before = k5.launches
+    out = k5.maxpool2d(x, window=window, stride=stride, padding=pad)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 1 and out.dtype == dtype
+    assert torch.equal(out, k5.maxpool2d_plain(x, window=window,
+                                               stride=stride, padding=pad))
+    lib = torch.nn.functional.max_pool2d(x.permute(0, 3, 1, 2), window,
+                                         stride, pad).permute(0, 2, 3, 1)
+    assert torch.equal(out, lib)
+
+
+def test_maxpool_kernel_nan_and_rejects(cuda):
+    x = torch.randn((2, 8, 8, 8), device=cuda)
+    x[0, 3, 3, 2] = float("nan")
+    assert torch.equal(torch.isnan(k5.maxpool2d(x)),
+                       torch.isnan(k5.maxpool2d_plain(x)))
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.maxpool2d(x.transpose(1, 2))
+    with pytest.raises(ValueError, match="float32"):
+        k5.maxpool2d(x.double())
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+def test_whole_plane_smoke_resnet_on_the_card(cuda, quantized):
+    """Reduced ResNet-50 under ``whole`` on the card: only K10a (or K10c)
+    launch, 16 per forward, K1 and K3 none; f32 within 1e-4 of the CPU,
+    int8 equal bit for bit to the tiled int8 forward on the card."""
+    from repro_torch.convert import params_to
+    from repro_torch.core.quantize import (calibrate_network,
+                                           quantize_gxm_params)
+    from repro_torch.graph import GxM, resnet50
+    net = lambda dev: GxM(resnet50(10, stages=(1, 1, 1, 1)), device=dev,  # noqa: E731
+                          num_classes=10, quantized=quantized)
+    cpu = net("cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    x = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(1))
+    if quantized:
+        scales = calibrate_network(cpu, params, [x])
+        params = quantize_gxm_params(cpu.etg, params, scales)
+    card = net(cuda)
+    on_card = params_to(params, cuda)
+    counts = lambda: (k1.launches, k1.launches_whole, k3.launches,  # noqa: E731
+                      k3.launches_whole)
+    before = counts()
+    with be.use_conv_tiling("whole"):
+        out = card.infer(on_card, x.to(cuda))
+        torch.cuda.synchronize()
+    delta = [a - b for a, b in zip(counts(), before)]
+    assert delta == ([0, 0, 0, 16] if quantized else [0, 16, 0, 0])
+    if quantized:
+        assert torch.equal(out, card.infer(on_card, x.to(cuda)))
+    else:
+        with be.use_conv_tiling("whole"):
+            exp = cpu.infer(params, x)
+        assert _rel_err(out.cpu(), exp) <= 1e-4
