@@ -108,9 +108,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
     TFLOP/s f32 SIMT) and bytes over 3.35 TB/s.
 15. K6 vs plain: the fused matmul at Qwen2-1.5B's projections at M = 4096
     tokens (1536->1536 + bias, 1536->256 + bias, 1536->8960 silu,
-    8960->1536 + residual, one gelu and one relu case), f32 and bf16, with
-    the same limits, times and bound; the yardstick is ``torch.matmul`` in
-    the input dtype with the epilogue in torch (TF32 off).  No model path
+    8960->1536 + residual, one gelu and one relu case), f32 and bf16, and
+    two ragged bf16 cases (M 1000, N 1000; K 1528 on the wgmma route with
+    tails, K 1530 on the SIMT route), with the same limits, times and
+    bound; the yardstick is ``torch.matmul`` in the input dtype with the
+    epilogue in torch (TF32 off).  Each shape's route is printed and held
+    (bf16 through the wgmma kernel, f32 through the SIMT one), and the
+    wgmma launches of the first pass over the six bf16 shapes must be 6;
+    then the bf16 sum beside the library's and the bound.  No model path
     calls K6, in the reference either: its launches are this phase's.
 16. LM serving, the slice's main path: full Qwen2-1.5B (28 layers, bf16,
     random weights from ``init_lm`` with seed 0) through
@@ -207,13 +212,16 @@ Phases, each of which fails the run (nonzero exit, no result line):
     equal bit for bit to the tiled int8 forward's.
 25. K10b vs plain and vs K2 on the 22 weight-update signatures at batch 32,
     b_p from ``conv_blocking(require_divisor=True, kind="wu")`` (<= 1e-5),
-    run twice on the same inputs (the same bits), with times, K2's, cuDNN
+    run twice on the same inputs (the same bits), with each signature's
+    split (``plan_whole``: runs of whole (n, p_b) steps, blocks a grid),
+    times (device time of the split kernel and the sum pass), K2's, cuDNN
     dW and the bound from phase 9.
 26. Whole-plane training: full ResNet-50 at batch 32 under ``whole``: one
     untimed step, then 3 timed steps with the launch counts set to 0 just
     before each and read just after (K10a 113 = 52 forward + 61 dual, K10b
     52, K1 and K2 none), step ms and images/s beside phase 10's, 2 steps
-    under the profiler; then phase 11's card-vs-CPU step and limits under
+    under the profiler (K10b's time holds its sum pass); then phase 11's
+    card-vs-CPU step and limits under
     ``whole``, ReLU and max-pool decisions pinned as there.
 27. K5's entry point at the stem pool (16, 112, 112, 64) f32, 3x3 s2 p1,
     and on the reference test's three cases (3,2,1,12), (2,2,0,8),
@@ -1640,6 +1648,11 @@ MATMUL_SHAPES = [(1536, 1536, "none", True, False),
                  (8960, 1536, "none", False, True),
                  (1536, 8960, "gelu", True, False),
                  (1536, 1536, "relu", True, True)]
+# K6, bf16: m, k, n, act, bias, residual, and the route each must take:
+# tails of every tile dimension on the wgmma route, and a K off the
+# multiples of 8 on the SIMT route
+MATMUL_RAGGED = [(1000, 1528, 1000, "gelu", True, True, "wgmma"),
+                 (1000, 1530, 1000, "silu", True, True, "simt")]
 
 
 def auto_ms(fn, target_ms: float = 60.0) -> float:
@@ -1654,18 +1667,21 @@ def auto_ms(fn, target_ms: float = 60.0) -> float:
     return cuda_ms(fn, max(3, min(200, int(target_ms / max(once, 1e-3)))))
 
 
-def kernel_device_ms(fn, needle: str, module, iters: int = 5
-                     ) -> tuple[float, int]:
+def kernel_device_ms(fn, needle: str, module, iters: int = 5,
+                     also: tuple = ()) -> tuple[float, int]:
     """Device ms per launch of the kernels named ``needle`` over ``iters``
     calls of ``fn`` under ``torch.profiler`` (``trace_device``, which holds
-    the launches it recorded to ``module.launches``), and that count.  The
-    host waits for each call to end before the next, which leaves each
-    kernel's device time as it is and keeps the profiler's records whole."""
+    the launches it recorded to ``module.launches``), and that count; the
+    device time of the kernels named by the needles in ``also`` (a
+    wrapper's second pass) is added in.  The host waits for each call to
+    end before the next, which leaves each kernel's device time as it is
+    and keeps the profiler's records whole."""
     trace = trace_device(lambda i: fn(), iters, {needle: module},
                          sync_each=True)
     launches = sum(n for name, n in trace["launches"].items()
                    if needle in name)
-    return device_ms_of(trace, needle) * iters / launches, launches
+    ms = sum(device_ms_of(trace, key) for key in (needle, *also))
+    return ms * iters / launches, launches
 
 
 def attention_signatures(device):
@@ -1754,82 +1770,113 @@ def matmul_signatures(device):
     """Phase 15: K6 against its plain version at Qwen2-1.5B's projections
     at M = 4096 tokens (q/o 1536->1536 + bias, k/v 1536->256 + bias, gate
     1536->8960 silu, down 8960->1536 + residual, and one gelu and one relu
-    case), in f32 and bf16: error, K6 by CUDA events and profiler, the
-    plain version, the library yardstick (``torch.matmul`` in the input
-    dtype with the epilogue in torch, TF32 off) and the bound.  Returns
-    (records, K6 launches in this phase)."""
+    case), in f32 and bf16, and two ragged bf16 cases (MATMUL_RAGGED):
+    each shape's route (``matmul_fused.route``: bf16 takes the wgmma
+    kernel, f32 and a K off the multiples of 8 the SIMT one), error, K6 by
+    CUDA events and profiler, the plain version, the library yardstick
+    (``torch.matmul`` in the input dtype with the epilogue in torch, TF32
+    off) and the bound.  The first call of each shape counts its wgmma
+    launches: one per bf16 shape, 6 a pass.  Returns (records of the
+    twelve shapes, K6 launches in this phase, records of the ragged
+    cases)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import matmul_fused as k6
 
     acts = {"none": lambda x: x, "relu": torch.relu, "silu": F.silu,
             "gelu": lambda x: F.gelu(x, approximate="tanh")}
-    shapes = MATMUL_SHAPES
+    cases = [(dtype, MATMUL_M, kk, n, act, has_bias, has_res,
+              "wgmma" if dtype == torch.bfloat16 else "simt")
+             for dtype in (torch.float32, torch.bfloat16)
+             for kk, n, act, has_bias, has_res in MATMUL_SHAPES]
+    cases += [(torch.bfloat16, *case) for case in MATMUL_RAGGED]
     gen = torch.Generator(device=device).manual_seed(SEED)
-    rows = []
-    k6.launches = 0
-    print(f"\nK6 vs plain, M = {MATMUL_M} ({len(shapes)} shapes x f32, bf16; "
-          f"limits {KERNEL_REL_TOL} f32, {BF16_REL_TOL} bf16):")
-    print("  dtype       k     n act  bias res  max_rel    max_abs        ms"
-          "  device_ms  plain_ms  library_ms  bound_ms bound_by")
-    for dtype in (torch.float32, torch.bfloat16):
-        for kk, n, act, has_bias, has_res in shapes:
-            a = torch.randn((MATMUL_M, kk), generator=gen,
-                            device=device).to(dtype)
-            b = (torch.randn((kk, n), generator=gen, device=device)
-                 / math.sqrt(kk)).to(dtype)
-            bias = (torch.randn(n, generator=gen, device=device).to(dtype)
-                    if has_bias else None)
-            res = (torch.randn((MATMUL_M, n), generator=gen,
-                               device=device).to(dtype) if has_res else None)
-            kw = dict(bias=bias, act=act, residual=res)
-            out = k6.matmul_fused(a, b, **kw)
-            plain = k6.matmul_fused_plain(a, b, **kw)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(out).all()), f"K6 non-finite at {kk, n}")
-            max_abs, max_rel = rel_err(out.float(), plain.float())
-            tol = KERNEL_REL_TOL if dtype == torch.float32 else BF16_REL_TOL
+    rows, ragged = [], []
+    k6.launches = k6.launches_wgmma = 0
+    pass_wgmma = 0
+    print(f"\nK6 vs plain, M = {MATMUL_M} ({len(MATMUL_SHAPES)} shapes x f32, "
+          f"bf16) and {len(MATMUL_RAGGED)} ragged bf16 cases; limits "
+          f"{KERNEL_REL_TOL} f32, {BF16_REL_TOL} bf16:")
+    print("  dtype       m     k     n act  bias  res   route max_rel    "
+          "max_abs        ms  device_ms  plain_ms  library_ms  bound_ms "
+          "bound_by")
+    for dtype, m, kk, n, act, has_bias, has_res, want in cases:
+        a = torch.randn((m, kk), generator=gen, device=device).to(dtype)
+        b = (torch.randn((kk, n), generator=gen, device=device)
+             / math.sqrt(kk)).to(dtype)
+        bias = (torch.randn(n, generator=gen, device=device).to(dtype)
+                if has_bias else None)
+        res = (torch.randn((m, n), generator=gen, device=device).to(dtype)
+               if has_res else None)
+        kw = dict(bias=bias, act=act, residual=res)
+        path = k6.route(a, b)
+        check(path == want, f"K6 takes the {path} route at {(m, kk, n)} "
+              f"{dtype}, expected {want}")
+        before = k6.launches_wgmma
+        out = k6.matmul_fused(a, b, **kw)
+        wgmma = k6.launches_wgmma - before
+        check(wgmma == (path == "wgmma"), f"{wgmma} wgmma launches for one "
+              f"{path} call at {(m, kk, n)}")
+        if m == MATMUL_M and dtype == torch.bfloat16:
+            pass_wgmma += wgmma
+        plain = k6.matmul_fused_plain(a, b, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"K6 non-finite at {kk, n}")
+        max_abs, max_rel = rel_err(out.float(), plain.float())
+        tol = KERNEL_REL_TOL if dtype == torch.float32 else BF16_REL_TOL
 
-            def library():
-                y = torch.matmul(a, b)
-                if bias is not None:
-                    y = y + bias
-                if res is not None:
-                    y = y + res
-                return acts[act](y)
-            ms = auto_ms(lambda: k6.matmul_fused(a, b, **kw))
-            device_ms, recorded = kernel_device_ms(
-                lambda: k6.matmul_fused(a, b, **kw), "matmul_fused_kernel",
-                k6)
-            plain_ms = auto_ms(lambda: k6.matmul_fused_plain(a, b, **kw))
-            library_ms = auto_ms(library)
-            flops = 2.0 * MATMUL_M * kk * n
-            nbytes = a.element_size() * (MATMUL_M * kk + kk * n + MATMUL_M * n
-                                         + (n if has_bias else 0)
-                                         + (MATMUL_M * n if has_res else 0))
-            bound_ms, bound_by = bound_for(flops, nbytes, dtype)
-            rec = dict(dtype=str(dtype).removeprefix("torch."), m=MATMUL_M,
-                       k=kk, n=n, act=act, bias=has_bias, residual=has_res,
-                       count=1, max_abs_err=max_abs, max_rel_err=max_rel,
-                       ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, flops=flops,
-                       tflops=flops / ms / 1e9, traced_launches=recorded)
-            rows.append(rec)
-            print(f"  {rec['dtype']:8s}{kk:6d}{n:6d} {act:5s}{has_bias!s:5s}"
-                  f"{has_res!s:5s} {max_rel:.2e}  {max_abs:.2e} {ms:9.4f} "
-                  f"{device_ms:10.4f} {plain_ms:9.4f} {library_ms:11.4f} "
-                  f"{bound_ms:9.4f} {bound_by}  "
-                  f"({rec['tflops']:.2f} TFLOP/s; {recorded} of 5 launches "
-                  f"traced)")
-            check(max_rel <= tol, f"K6 disagrees with its plain version at "
-                  f"{(kk, n, act, rec['dtype'])}: max_rel {max_rel:.3e} > "
-                  f"{tol}")
-            del a, b, bias, res, out, plain
+        def library():
+            y = torch.matmul(a, b)
+            if bias is not None:
+                y = y + bias
+            if res is not None:
+                y = y + res
+            return acts[act](y)
+        ms = auto_ms(lambda: k6.matmul_fused(a, b, **kw))
+        device_ms, recorded = kernel_device_ms(
+            lambda: k6.matmul_fused(a, b, **kw), "matmul_fused_kernel",
+            k6)
+        plain_ms = auto_ms(lambda: k6.matmul_fused_plain(a, b, **kw))
+        library_ms = auto_ms(library)
+        flops = 2.0 * m * kk * n
+        nbytes = a.element_size() * (m * kk + kk * n + m * n
+                                     + (n if has_bias else 0)
+                                     + (m * n if has_res else 0))
+        bound_ms, bound_by = bound_for(flops, nbytes, dtype)
+        rec = dict(dtype=str(dtype).removeprefix("torch."), m=m,
+                   k=kk, n=n, act=act, bias=has_bias, residual=has_res,
+                   route=path, count=1, max_abs_err=max_abs,
+                   max_rel_err=max_rel, ms=ms, device_ms=device_ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                   tflops=flops / ms / 1e9, traced_launches=recorded)
+        (rows if m == MATMUL_M else ragged).append(rec)
+        print(f"  {rec['dtype']:8s}{m:6d}{kk:6d}{n:6d} {act:5s}"
+              f"{has_bias!s:6s}{has_res!s:6s}{path:6s} {max_rel:.2e}  "
+              f"{max_abs:.2e} {ms:9.4f} {device_ms:10.4f} {plain_ms:9.4f} "
+              f"{library_ms:11.4f} {bound_ms:9.4f} {bound_by}  "
+              f"({rec['tflops']:.2f} TFLOP/s; {recorded} of 5 launches "
+              f"traced)")
+        check(max_rel <= tol, f"K6 disagrees with its plain version at "
+              f"{(m, kk, n, act, rec['dtype'])}: max_rel {max_rel:.3e} > "
+              f"{tol}")
+        del a, b, bias, res, out, plain
+    check(pass_wgmma == len(MATMUL_SHAPES), f"{pass_wgmma} wgmma launches in "
+          f"one pass over the {len(MATMUL_SHAPES)} bf16 shapes")
     launches = k6.launches
-    print(f"  K6 launches in this phase: {launches}")
-    print("  per-shape JSON:", json.dumps(rows))
-    return rows, launches
+    bf16 = [r_ for r_ in rows if r_["dtype"] == "bfloat16"]
+    wide = [r_ for r_ in bf16 if 8960 in (r_["k"], r_["n"])]
+    print(f"  K6 bf16 over the {len(bf16)} shapes: "
+          f"{sum(r_['ms'] for r_ in bf16):.4f} ms by events, "
+          f"{sum(r_['device_ms'] for r_ in bf16):.4f} device; torch.matmul "
+          f"+ epilogue {sum(r_['library_ms'] for r_ in bf16):.4f}; bound "
+          f"{sum(r_['bound_ms'] for r_ in bf16):.4f}; the 1536<->8960 "
+          f"shapes at {[round(r_['tflops'], 1) for r_ in wide]} TFLOP/s")
+    print(f"  K6 launches in this phase: {launches} ({k6.launches_wgmma} "
+          f"through wgmma; {pass_wgmma} in the first pass over the bf16 "
+          f"shapes)")
+    print("  per-shape JSON:", json.dumps(rows + ragged))
+    return rows, launches, ragged
 
 
 def lm_prompts(n: int, vocab: int, seed: int):
@@ -2517,6 +2564,7 @@ def hybrid_parity_cfg():
 WHOLE_REQUESTS = 128        # cut from phase 3's 512: keeps the script in its limit
 WHOLE_WARM_REQUESTS = 32
 WHOLE_TRAIN_STEPS = 3
+WU_WHOLE_SUM = "wu_whole_sum_kernel"   # K10b's second pass, timed with it
 POOL_SHAPE = (BATCH, 112, 112, 64)   # the stem pool's input at batch 16
 POOL_CASES = [(3, 2, 1, 12), (2, 2, 0, 8), (3, 1, 1, 7)]   # the reference's
 
@@ -2821,7 +2869,10 @@ def whole_wu(device, wu, wu_rows):
     """Phase 25: K10b against its plain version and K2 on the 22 weight-
     update signatures at batch 32, b_p from the reference's
     ``conv_blocking(require_divisor=True, kind="wu")``; twice on the same
-    inputs, which must give the same bits."""
+    inputs, which must give the same bits; each signature's split
+    (``plan_whole``: splits, steps a run, blocks) beside its time, whose
+    device part holds both of K10b's kernels (the split one and the sum
+    pass, WU_WHOLE_SUM)."""
     import torch
     from repro_torch.core.conv import whole_blocking
     from repro_torch.kernels import conv2d_wu as k2
@@ -2834,9 +2885,9 @@ def whole_wu(device, wu, wu_rows):
     print(f"\nK10b vs plain and K2, ResNet-50 {IMAGE}x{IMAGE} batch "
           f"{TRAIN_BATCH} ({len(wu)} signatures), the reference's b_p | P "
           f"blocking; library = cuDNN dW (phase 9):")
-    print("  h   w    c    k r st pad count  b_p k_blk tile blocks  max_rel "
-          "  vs_k2  same       ev      dev  plain_ms   k2_ms library_ms "
-          "bound_ms")
+    print("  h   w    c    k r st pad count  b_p k_blk tile splits run "
+          "blocks  max_rel   vs_k2  same       ev      dev  plain_ms   k2_ms "
+          "library_ms bound_ms")
     for (h, w, c, k, r, s, st, pad), count in wu.items():
         p = (h + 2 * pad - r) // st + 1
         q = (w + 2 * pad - s) // st + 1
@@ -2861,15 +2912,17 @@ def whole_wu(device, wu, wu_rows):
         same = bool(torch.equal(out, again))
         ms = auto_ms(lambda: k2.conv2d_wu_whole(**args, **bk))
         dev = None if ms > TRACE_MAX_MS else kernel_device_ms(
-            lambda: k2.conv2d_wu_whole(**args, **bk), needle, counter)[0]
+            lambda: k2.conv2d_wu_whole(**args, **bk), needle, counter,
+            also=(WU_WHOLE_SUM,))[0]
         plain_ms = cuda_ms(lambda: k2.conv2d_wu_whole_plain(**args, **bk), 2)
         ref = k2_by[(h, w, c, k, r, s, st, pad, ())]
-        tile = k2.whole_tile(c, blk.k_blk)
-        bm = k2.WHOLE_TILES[tile][0]
-        blocks = -(-c // bm) * (k // blk.k_blk) * r * s
+        pl = k2.plan_whole(n=TRAIN_BATCH, p=p, q=q, c=c, k=k, r=r, s=s,
+                           **bk)
+        tile, blocks = pl.tile, pl.blocks
         rows.append(dict(h=h, w=w, c=c, k=k, r=r, s=s, stride=st,
                          padding=pad, count=count, b_p=blk.rb_p,
-                         k_blk=blk.k_blk, tile=tile, blocks=blocks,
+                         k_blk=blk.k_blk, tile=tile, splits=pl.splits,
+                         run=pl.run, blocks=blocks,
                          max_abs_err=max_abs, max_rel_err=max_rel,
                          k2_rel_err=k2_rel, same_bits=same, ms=ms,
                          device_ms=dev, plain_ms=plain_ms, k2_ms=ref["ms"],
@@ -2877,7 +2930,8 @@ def whole_wu(device, wu, wu_rows):
                          bound_ms=ref["bound_ms"], bound_by=ref["bound_by"]))
         dev_s = "     n/a" if dev is None else f"{dev:8.4f}"
         print(f"{h:3d}{w:4d}{c:5d}{k:5d}{r:2d}{st:3d}{pad:4d}{count:6d}"
-              f"{blk.rb_p:5d}{blk.k_blk:6d}{tile:5d}{blocks:7d}  "
+              f"{blk.rb_p:5d}{blk.k_blk:6d}{tile:5d}{pl.splits:7d}"
+              f"{pl.run:4d}{blocks:7d}  "
               f"{max_rel:.2e} {k2_rel:.1e} {same!s:5s} {ms:8.4f} {dev_s} "
               f"{plain_ms:9.4f} {ref['ms']:7.4f} {ref['library_ms']:10.4f} "
               f"{ref['bound_ms']:8.4f}")
@@ -2947,7 +3001,8 @@ def whole_training(device, fwd, dual, wu, tiled_summary):
                 device_busy_share=trace["busy_share"],
                 k10a_ms_per_step=device_ms_of(trace,
                                               "conv2d_direct_whole_kernel"),
-                k10b_ms_per_step=device_ms_of(trace, "conv2d_wu_whole_kernel"))
+                k10b_ms_per_step=device_ms_of(trace, "conv2d_wu_whole_kernel")
+                + device_ms_of(trace, WU_WHOLE_SUM))
     print(f"  {WHOLE_TRAIN_STEPS} timed steps: median {step_ms:.3f} ms/step "
           f"({[round(t, 3) for t in times]}), "
           f"{TRAIN_BATCH / step_ms * 1e3:.2f} images/s; tiled (phase 10) "
@@ -3120,7 +3175,7 @@ def main() -> int:
     from repro_torch.kernels import moe_gmm as k9
 
     attn_rows = attention_signatures(device)
-    mm_rows, mm_launches = matmul_signatures(device)
+    mm_rows, mm_launches, mm_ragged = matmul_signatures(device)
     lm_launches, lm_summary, params, _ = lm_serving(
         device, LM_ARCH, (28, 1536, 12, 2, 128, 8960, 151936, "bfloat16"),
         {"flash_attention": (k7, "flash_attention_kernel", 28, 0)})
@@ -3299,15 +3354,19 @@ def main() -> int:
         "replaces": "src/repro/kernels/matmul_fused.py:85",
         "launches": mm_launches,
         "launches_by_path": {"matmul_check": mm_launches},
-        "max_abs_err": max(r_["max_abs_err"] for r_ in mm_rows),
-        "max_rel_err": max(r_["max_rel_err"] for r_ in mm_rows),
+        "max_abs_err": max(r_["max_abs_err"] for r_ in mm_rows + mm_ragged),
+        "max_rel_err": max(r_["max_rel_err"] for r_ in mm_rows + mm_ragged),
         **timing(mm_bf16),
+        "device_ms": sum(r_["device_ms"] for r_ in mm_rows
+                         if r_["dtype"] == "bfloat16"),
         "f32": timing(mm_f32),
+        "routes": {"bfloat16": "wgmma (TMA + wgmma bf16)",
+                   "float32": "simt (f32 FMA)"},
         "per": f"the six Qwen2-1.5B projection shapes of phase 15 at M = "
-               f"{MATMUL_M} tokens, one launch each, bf16; library: "
-               f"torch.matmul plus the epilogue in torch.  No model path "
-               f"calls K6, in the reference either (its nn/ modules use "
-               f"plain matmuls), so its launches are phase 15's",
+               f"{MATMUL_M} tokens, one launch each, bf16 through the wgmma "
+               f"route; library: torch.matmul plus the epilogue in torch.  "
+               f"No model path calls K6, in the reference either (its nn/ "
+               f"modules use plain matmuls), so its launches are phase 15's",
         "card": card,
     }]
     k8_row = next(r_ for r_ in conv_rows if (r_["dtype"], r_["b"], r_["l"],
@@ -3401,8 +3460,10 @@ def main() -> int:
                                 if r_["device_ms"] is not None),
         "k2_ms": weighted(k10b_rows, "k2_ms"),
         "per": f"the 52 weight gradients of one ResNet-50 training step, "
-               f"batch {TRAIN_BATCH} (device time only for launches under "
-               f"{TRACE_MAX_MS} ms); library: cuDNN dW",
+               f"batch {TRAIN_BATCH}, each a split kernel over runs of whole "
+               f"(n, p_b) steps (cp.async staging) and its sum pass (device "
+               f"time only for launches under {TRACE_MAX_MS} ms); library: "
+               f"cuDNN dW",
         "card": card,
     }, {
         "name": "conv2d_q8_whole",

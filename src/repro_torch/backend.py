@@ -89,8 +89,8 @@ def get_conv_tiling() -> str:
     """The conv input-strategy knob: "tiled" (default) = K1, K2 and K3,
     which stage only the input rows each tile reads; "whole" = the
     reference's legacy whole-plane kernels K10a, K10b and K10c (one block
-    per output block over the resident padded plane), kept for A/B
-    measurement.  ``set_conv_tiling`` overrides ``REPRO_CONV_TILING``,
+    per output block over the resident padded plane; K10b's blocks each
+    take a run of the plane's row steps), kept for A/B measurement.  ``set_conv_tiling`` overrides ``REPRO_CONV_TILING``,
     which is read at each call otherwise.  An invalid value raises: the
     port never runs another path than the one asked for."""
     if _conv_tiling is not None:

@@ -5,11 +5,45 @@
 // a (M,K), b (K,N), bias (N,), residual (M,N), all row-major and of one
 // dtype (f32 or bf16), f32 accumulation, act in {none, relu, gelu (tanh
 // form), silu}, out in a's dtype.  Built with nvcc for sm_90a and bound
-// through the plain C function at the bottom (ctypes; see
+// through the plain C functions at the bottom (ctypes; see
 // repro_torch/kernels/_build.py).
 //
-// Design: a register-tiled GEMM on the SIMT cores, the tiling of
-// csrc/conv2d_direct.cu without the im2col gather.
+// What bounds it on an H100: at the LM's projection shapes (M = 4096
+// tokens, K and N of 256 to 8960) a matmul does hundreds of FLOP per byte
+// it must move, so the bound is the arithmetic rate: 989 TFLOP/s on the
+// bf16 tensor cores, 67 TFLOP/s f32 on the SIMT cores.  Two kernels, one
+// route each, chosen by shape in the wrapper (kernels/matmul_fused.route):
+//
+// matmul_fused_kernel_wgmma, bf16 with K and N multiples of 8 and a, b, out
+// 16-byte aligned (TMA needs 16-byte row strides and bases):
+//   * a block owns a 128 x 128 output tile; one thread of its producer warp
+//     starts TMA loads (cp.async.bulk.tensor) of the a tile (128 x 64,
+//     K-major) and of the b tile (64 x 128, as two 64-column boxes: b stays
+//     row-major (K, N) and is read MN-major through the transpose bit of
+//     wgmma) into a ring of 3 shared-memory stages with 128-byte swizzle,
+//     each stage completing on an mbarrier;
+//   * two consumer warpgroups each run wgmma.mma_async m64n128k16 bf16 ->
+//     f32 on 64 rows of the tile, keep one group of products in flight, and
+//     free a stage (a second mbarrier) once the products that read it are
+//     done;
+//   * two blocks share an SM (97 KB of shared memory and 94 registers a
+//     thread each), so one block's epilogue and the fill of its ring overlap
+//     the other's products; blocks are numbered down groups of 8 row tiles,
+//     so the blocks in flight share their a and b tiles in L2;
+//   * TMA zero-fills the M, N and K tails of every box, so the mainloop
+//     has no bounds tests;
+//   * the epilogue runs on the register tile in the reference's order
+//     (matmul_fused.py:48-56): + bias, + residual, act, for every act (exp
+//     and tanh approximate: their error lies below bf16's rounding); the
+//     bf16 results go into the then free ring in the 128-byte swizzle and
+//     leave by TMA stores, which drop what lies past M or N.
+//   The tensor maps are encoded on the host in the C entry point, through
+//   cuTensorMapEncodeTiled got from cudaGetDriverEntryPoint (no -lcuda), and
+//   passed as __grid_constant__ kernel parameters.
+//
+// matmul_fused_kernel, f32 (held to 1e-5, which TF32 would not keep) and
+// bf16 off that rule: a register-tiled GEMM on the SIMT cores, the tiling
+// of csrc/conv2d_direct.cu without the im2col gather.
 //   * A block of 256 threads owns a BM x BN output tile and walks K in
 //     steps of 8: the a slice (BM x 8, stored transposed) and the b slice
 //     (8 x BN) are staged in shared memory as f32, double buffered through
@@ -17,13 +51,14 @@
 //   * Each thread keeps a TM x TN tile of outputs in registers (8x8 on the
 //     128x128 tile, 4x4 on the 64x64 tile chosen when 128x128 tiles would
 //     not give every SM a block), in float4 groups 64 rows / columns apart.
-//   * The epilogue runs on the register tile before the single store, in the
-//     reference's order (matmul_fused.py:48-56): + bias, + residual, act.
+//   * The epilogue runs on the register tile before the single store, in
+//     the same order.
 //   * Every M, N, K tail is masked on load and store; float4 / 8-byte loads
 //     are used where the row length and the base pointers allow.
 // Offsets are 64-bit.
 #include <cstdint>
 
+#include <cuda.h>  // CUtensorMap and its enums only: no libcuda call is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -245,6 +280,341 @@ int launch(const MmArgs& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the bf16 route: TMA + wgmma ----------------------------------------
+
+namespace wg {
+
+constexpr int kBM = 128;                      // output rows of a block
+constexpr int kBN = 128;                      // output columns of a block
+constexpr int kBK = 64;                       // k of a stage: 128 bytes of bf16
+constexpr int kStages = 3;                    // the shared-memory ring
+constexpr int kConsumers = 2;                 // warpgroups of 64 rows each
+constexpr int kThreads = 128 * kConsumers + 32;  // + one producer warp
+constexpr int kBlocksPerSm = 2;               // one's epilogue overlaps the other's loop
+constexpr int kABytes = kBM * kBK * 2;        // a tile, K-major, 128 B rows
+constexpr int kBBox = kBK * 64 * 2;           // one 64-column box of b
+constexpr int kGroupM = 8;                    // row tiles of a raster group
+
+constexpr int kBBytes = kBK * kBN * 2;        // b tile: kBN / 64 boxes
+constexpr int kStageBytes = kABytes + kBBytes;
+constexpr int kSmem = kStages * kStageBytes + 1024;  // + slack to align to 1 KB
+
+struct Args {
+  const void* bias;      // may be null
+  const void* residual;  // may be null
+  int m, n, k, act;
+  bool vec;  // bias and residual 4-byte aligned: pairs load at once
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Spins until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// One TMA load of the box at (c0 innermost, c1) of `map` into dst; its
+// bytes complete a transaction on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// One TMA store of the box at src (shared) to (c0 innermost, c1) of `map`;
+// the parts of the box past the tensor's edges are not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The epilogue's activation on the bf16 route, with the hardware's
+// approximate exp and tanh: their errors (about 1e-7 and 5e-4 relative)
+// lie below bf16's rounding of the result (2e-3).
+__device__ __forceinline__ float activate_bf16(float x, int act) {
+  switch (act) {
+    case kRelu:
+      return fmaxf(x, 0.f);
+    case kGelu: {  // jax.nn.gelu(approximate=True)
+      float th;
+      const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
+      asm("tanh.approx.f32 %0, %1;" : "=f"(th) : "f"(u));
+      return 0.5f * x * (1.f + th);
+    }
+    case kSilu:
+      return __fdividef(x, 1.f + __expf(-x));
+    default:
+      return x;
+  }
+}
+
+// A wgmma shared-memory descriptor with 128-byte swizzle: start address,
+// leading and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (64 x 128 f32, the warpgroup's accumulator fragment) += a (64 x 16,
+// K-major) x b (16 x 128, MN-major: the transpose bit is set).
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16\n"
+      "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "},\n"
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// One block: a 128 x 128 output tile.  Blocks are numbered down groups of
+// kGroupM row tiles, column by column, so the blocks in flight share a few
+// row and column tiles of a and b in L2.
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+matmul_fused_kernel_wgmma(const __grid_constant__ CUtensorMap map_a,
+                          const __grid_constant__ CUtensorMap map_b,
+                          const __grid_constant__ CUtensorMap map_out, const Args p) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages];   // the stage's loads landed
+  __shared__ __align__(8) uint64_t empty[kStages];  // both consumers are done with it
+  // 128-byte swizzle repeats every 1 KB: the ring starts on a 1 KB boundary
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int w = threadIdx.x / 128;  // consumer warpgroup, or kConsumers: the producer
+  const int tiles_m = (p.m + kBM - 1) / kBM;
+  const int tiles_n = (p.n + kBN - 1) / kBN;
+  const int per_group = kGroupM * tiles_n;
+  const int first_m = static_cast<int>(blockIdx.x) / per_group * kGroupM;
+  const int rows = min(tiles_m - first_m, kGroupM);
+  const int in_group = static_cast<int>(blockIdx.x) % per_group;
+  const int m0 = (first_m + in_group % rows) * kBM;
+  const int n0 = in_group / rows * kBN;
+  const int k_tiles = (p.k + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (w == kConsumers) {  // the producer warp: one thread keeps the ring full
+    if (threadIdx.x == 128 * kConsumers) {
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int s = kt % kStages;
+        mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);  // the first round passes
+        uint8_t* sa = ring + s * kStageBytes;
+        uint8_t* sb = sa + kABytes;
+        mbar_expect_tx(&full[s], kStageBytes);
+        tma_load(sa, &map_a, &full[s], kt * kBK, m0);
+#pragma unroll
+        for (int box = 0; box < kBN / 64; ++box)
+          tma_load(sb + box * kBBox, &map_b, &full[s], n0 + box * 64, kt * kBK);
+      }
+    }
+    return;
+  }
+
+  // a consumer: rows m0 + w*64 .. + 63 of the tile
+  float acc[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int s = kt % kStages;
+    mbar_wait(&full[s], (kt / kStages) & 1);
+    const uint32_t sa = smem_u32(ring + s * kStageBytes) + w * 64 * 128;
+    const uint32_t sb = smem_u32(ring + s * kStageBytes + kABytes);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      // a: 16 k = 32 bytes along the swizzled 128-byte rows, 8-row groups
+      // 1 KB apart; b: 16 k rows = 2 KB on, 8-row groups 1 KB apart
+      // (stride), 64-column boxes kBBox apart (leading)
+      wgmma_bf16(acc, desc_sw128(sa + kk * 32, 16, 1024),
+                 desc_sw128(sb + kk * 16 * 128, kBBox, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the products of stage kt-1 are done: free it
+    if (kt > 0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[(kt - 1) % kStages]);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+
+  // Both consumers are past their last wgmma: the ring is free.  Each
+  // warpgroup writes its 64 x 128 bf16 results into 16 KB of it, as two
+  // 64 x 64 boxes in the 128-byte swizzle (a warp's 8 rows of 16 bytes fall
+  // on 8 different bank groups), and one thread stores them with TMA,
+  // which drops what lies past M or N.
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
+  uint8_t* tile = ring + w * (kBN / 64) * kBBox;
+  // the fragment: thread t holds rows 16*(t/32) + (t%32)/4 (+ 8) and column
+  // pairs 8*j + 2*(t%4) of the warpgroup's 64 x 128
+  const __nv_bfloat16* bias = static_cast<const __nv_bfloat16*>(p.bias);
+  const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(p.residual);
+  const int t = threadIdx.x % 128;
+  const int r0 = (t / 32) * 16 + (t % 32) / 4;
+  const int64_t row0 = m0 + w * 64 + r0;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int cl = j * 8 + (t % 4) * 2;  // column in the tile
+    const int64_t col = n0 + cl;
+    const bool col_ok = col < p.n;       // N % 8 == 0: col + 1 lies in bounds too
+    float e0 = 0.f, e1 = 0.f;
+    if (bias != nullptr && col_ok) {
+      if (p.vec) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col));
+        e0 = f.x;
+        e1 = f.y;
+      } else {
+        e0 = __bfloat162float(bias[col]);
+        e1 = __bfloat162float(bias[col + 1]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + h * 8;  // row in the warpgroup's 64
+      const int64_t row = row0 + h * 8;
+      float v0 = acc[j * 4 + h * 2], v1 = acc[j * 4 + h * 2 + 1];
+      if (bias != nullptr) {
+        v0 = __fadd_rn(v0, e0);
+        v1 = __fadd_rn(v1, e1);
+      }
+      if (res != nullptr && col_ok && row < p.m) {
+        const __nv_bfloat16* rp = res + row * p.n + col;
+        if (p.vec) {
+          const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(rp));
+          v0 = __fadd_rn(v0, f.x);
+          v1 = __fadd_rn(v1, f.y);
+        } else {
+          v0 = __fadd_rn(v0, __bfloat162float(rp[0]));
+          v1 = __fadd_rn(v1, __bfloat162float(rp[1]));
+        }
+      }
+      const int cb = cl % 64;  // column in its box
+      const int at = (cl / 64) * kBBox + r * 128 + (((cb / 8) ^ (r % 8)) * 16) + (cb % 8) * 2;
+      *reinterpret_cast<__nv_bfloat162*>(tile + at) =
+          __floats2bfloat162_rn(activate_bf16(v0, p.act), activate_bf16(v1, p.act));
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to TMA
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + w) : "memory");
+  if (t == 0) {
+#pragma unroll
+    for (int box = 0; box < kBN / 64; ++box)
+      tma_store(&map_out, tile + box * kBBox, n0 + box * 64, m0 + w * 64);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");  // before the ring is freed
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the libcuda the runtime has loaded, or null.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* sym = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &sym, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(sym);
+  }
+  return fn;
+}
+
+// A 2-D bf16 tensor map of a row-major (rows, cols) matrix, boxes of
+// box_rows x box_cols (box_cols * 2 = 128 bytes), 128-byte swizzle, zero
+// fill out of bounds.
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int64_t rows, int64_t cols,
+            uint32_t box_rows, uint32_t box_cols) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace wg
+
 bool aligned(const void* ptr, uintptr_t bytes) {
   return ptr == nullptr || (reinterpret_cast<uintptr_t>(ptr) % bytes) == 0;
 }
@@ -267,4 +637,37 @@ extern "C" int repro_matmul_fused(const void* a, const void* b, const void* bias
   if (dtype == 0) return launch<float>(p, s);
   if (dtype == 1) return launch<__nv_bfloat16>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 route: a (M,K), b (K,N), bias (N,) or null, residual (M,N) or
+// null, out (M,N), all bf16, with K and N positive multiples of 8 and a, b,
+// out 16-byte aligned (kernels/matmul_fused.route).  act as above.  Returns
+// a cudaError_t: cudaErrorInvalidValue for arguments off that rule or a
+// tensor map cuTensorMapEncodeTiled refuses, cudaErrorNotSupported when
+// libcuda has no cuTensorMapEncodeTiled.
+extern "C" int repro_matmul_fused_wgmma(const void* a, const void* b, const void* bias,
+                                        const void* residual, void* out, int m, int n, int k,
+                                        int act, void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || k % 8 || n % 8 || act < kNone || act > kSilu ||
+      !aligned(a, 16) || !aligned(b, 16) || !aligned(out, 16) || a == nullptr || b == nullptr ||
+      out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const wg::EncodeTiled fn = wg::encoder();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap map_a, map_b, map_out;
+  if (!wg::encode(fn, &map_a, a, m, k, wg::kBM, wg::kBK) ||
+      !wg::encode(fn, &map_b, b, k, n, wg::kBK, 64) ||
+      !wg::encode(fn, &map_out, out, m, n, 64, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // per call: the attribute belongs to the current device
+  const cudaError_t err = cudaFuncSetAttribute(
+      wg::matmul_fused_kernel_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t blocks =
+      static_cast<int64_t>((m + wg::kBM - 1) / wg::kBM) * ((n + wg::kBN - 1) / wg::kBN);
+  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  wg::Args p{bias, residual, m, n, k, act, aligned(bias, 4) && aligned(residual, 4)};
+  wg::matmul_fused_kernel_wgmma<<<static_cast<unsigned>(blocks), wg::kThreads, wg::kSmem,
+                                  static_cast<cudaStream_t>(stream)>>>(map_a, map_b, map_out, p);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -26,18 +26,20 @@ K10b, the same function by the reference's legacy whole-plane strategy
 (``repro/kernels/conv2d_wu.py:_conv2d_wu_whole``, ``pallas_call`` at
 :200), lives here too: ``conv2d_wu_whole``, its plain version
 ``conv2d_wu_whole_plain`` and the kernel ``csrc/conv2d_wu_whole.cu``,
-counted by ``launches_whole``.  Each block keeps its dW tile in registers
-across the whole (n, p_b) sweep, b_p rows of dO at a time (b_p must divide
-P, as in the reference): no pixel split, no second pass, the same bits on
-every run.
+counted by ``launches_whole`` (one per call, the sum pass included).  Each
+block keeps its dW tile in registers across a run of the reference's
+(n, p_b) steps, b_p rows of dO at a time (b_p must divide P, as in the
+reference); ``plan_whole`` cuts the step sequence into runs of whole steps
+so that the grid fills the card, and a second pass sums the runs' partial
+tiles in a fixed order: the same bits on every run.
 
 What bounds it on an H100: FLOPs, 2*N*P*Q*K*C*R*S at 67 TFLOP/s f32, for
 every ResNet-50 weight gradient but the 56x56 1x1 64->64 one, which moves
 more bytes (x + dO + dW once each, at 3.35 TB/s) than its FLOPs take.
 The TPU kernel carries one dW tile across a sequential pixel sweep; on
 the card blocks run in parallel, and the dW tile is small against a long
-reduction, so the pixels are split across blocks (``plan``) to give every
-SM work.
+reduction, so the pixels are split across blocks (``plan``; for K10b
+``plan_whole``, in runs of whole (n, p_b) steps) to give every SM work.
 """
 from __future__ import annotations
 
@@ -118,6 +120,41 @@ def conv2d_wu_plain(x, do, *, stride: int = 1, padding: int = 0, filter_rs):
                     ss:ss + (q - 1) * stride + 1:stride, :]
             dw[rr, ss] = xs.reshape(n * p * q, c).t() @ g
     return dw
+
+
+@dataclasses.dataclass(frozen=True)
+class WholeWuPlan:
+    """How K10b cuts one weight-gradient: the block tile (code into
+    ``WHOLE_TILES``), the number of runs the (n, p_b) step sequence is cut
+    into, the steps of each run (the last may hold fewer), the pixels of
+    one run and the blocks of the first kernel's grid."""
+    tile: int
+    splits: int
+    run: int
+    pixels: int
+    blocks: int
+
+
+def plan_whole(*, n: int, p: int, q: int, c: int, k: int, r: int, s: int,
+               b_p: int, k_blk: int) -> WholeWuPlan:
+    """A pure function of the shape and the reference's blocking.  The
+    N * P/b_p steps of the sweep are cut into ``splits`` contiguous runs of
+    whole steps, as few as give the grid (C tiles x K/k_blk x R*S x
+    splits) about ``TARGET_BLOCKS`` blocks, with splits * R * S at most
+    ``MAX_GRID_Z`` and no run empty."""
+    _check_wu_blocking(p, k, b_p, k_blk)
+    if n < 1 or q < 1 or c < 1 or r < 1 or s < 1:
+        raise ValueError(f"empty weight gradient: N={n}, Q={q}, C={c}, "
+                         f"filter {r}x{s}")
+    tile = whole_tile(c, k_blk)
+    tiles = -(-c // WHOLE_TILES[tile][0]) * (k // k_blk) * r * s
+    steps = n * (p // b_p)
+    splits = max(1, min(steps, -(-TARGET_BLOCKS // tiles),
+                        MAX_GRID_Z // (r * s)))
+    run = -(-steps // splits)
+    splits = -(-steps // run)
+    return WholeWuPlan(tile=tile, splits=splits, run=run,
+                       pixels=run * b_p * q, blocks=tiles * splits)
 
 
 def whole_tile(c: int, k_blk: int) -> int:
@@ -241,7 +278,7 @@ def _kernel_fn_whole():
     global _fn_whole
     if _fn_whole is None:
         fn = _build.load("conv2d_wu_whole").repro_conv2d_wu_whole_f32
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn_whole = fn
@@ -285,15 +322,18 @@ def conv2d_wu_whole(x, do, *, stride: int = 1, padding: int = 0, filter_rs,
     dw = torch.empty((r, s, c, k), dtype=torch.float32, device=x.device)
     if dw.numel() == 0:
         return dw
-    tile = whole_tile(c, k_blk)
+    pl = plan_whole(n=n, p=p, q=q, c=c, k=k, r=r, s=s, b_p=b_p, k_blk=k_blk)
+    part = dw if pl.splits == 1 else torch.empty(
+        (pl.splits, r, s, c, k), dtype=torch.float32, device=x.device)
     fn = _kernel_fn_whole()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         launches_whole += 1
-        err = fn(xp.data_ptr(), do.data_ptr(), dw.data_ptr(), n, hp, wp, c, k,
-                 r, s, stride, p, q, b_p, k_blk, tile, stream)
+        err = fn(xp.data_ptr(), do.data_ptr(), part.data_ptr(), dw.data_ptr(),
+                 n, hp, wp, c, k, r, s, stride, p, q, b_p, k_blk, pl.tile,
+                 pl.splits, pl.run, stream)
     if err != 0:
         raise RuntimeError(f"conv2d_wu_whole kernel launch failed: CUDA error "
                            f"{err} (x {tuple(x.shape)}, dO {tuple(do.shape)}, "
-                           f"b_p {b_p}, k_blk {k_blk}, tile {tile})")
+                           f"b_p {b_p}, k_blk {k_blk}, {pl})")
     return dw

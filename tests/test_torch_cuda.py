@@ -439,6 +439,73 @@ def test_matmul_kernel_rejects_what_it_does_not_take(cuda):
         k6.matmul_fused(a, b.bfloat16())
 
 
+# m, k, n of the wgmma route: M of 1, 63 and 4097 rows, N and K tails of
+# its 128 x 128 x 64 tiles in multiples of 8
+WGMMA_CASES = [(1, 72, 136), (63, 200, 520), (4097, 1528, 1000)]
+EPILOGUE_OPERANDS = [(False, False), (True, False), (False, True),
+                     (True, True)]
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES)
+@pytest.mark.parametrize("act", ["none", "relu", "gelu", "silu"])
+def test_matmul_wgmma_route_matches_plain(cuda, case, act):
+    m, kk, n = case
+    g = torch.Generator(device=cuda).manual_seed(m + kk + n)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda).bfloat16()  # noqa: E731
+    a, b, bias, res = rnd(m, kk), rnd(kk, n) / kk ** 0.5, rnd(n), rnd(m, n)
+    assert k6.route(a, b) == "wgmma"
+    for with_bias, with_res in EPILOGUE_OPERANDS:
+        kw = dict(bias=bias if with_bias else None,
+                  residual=res if with_res else None)
+        before = (k6.launches, k6.launches_wgmma)
+        out = k6.matmul_fused(a, b, act=act, **kw)
+        torch.cuda.synchronize()
+        assert (k6.launches, k6.launches_wgmma) == (before[0] + 1,
+                                                    before[1] + 1)
+        exp = k6.matmul_fused_plain(a, b, act=act, **kw)
+        assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+        assert _rel_err(out.float(), exp.float()) <= 1e-2, (with_bias,
+                                                            with_res)
+
+
+def test_matmul_wgmma_route_takes_unaligned_bias_and_residual(cuda):
+    """bias and residual 2 bytes off 4-byte alignment: the epilogue reads
+    them an element at a time."""
+    m, kk, n = 130, 64, 136
+    g = torch.Generator(device=cuda).manual_seed(5)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda).bfloat16()  # noqa: E731
+    a, b = rnd(m, kk), rnd(kk, n) / 8
+    bias = rnd(n + 1)[1:]
+    res = rnd(m * n + 1)[1:].view(m, n)
+    out = k6.matmul_fused(a, b, bias=bias, residual=res, act="silu")
+    exp = k6.matmul_fused_plain(a, b, bias=bias, residual=res, act="silu")
+    assert k6.route(a, b) == "wgmma"
+    assert _rel_err(out.float(), exp.float()) <= 1e-2
+
+
+def test_matmul_simt_route_for_f32_and_bf16_off_the_rule(cuda):
+    """f32 (held to 1e-5), and bf16 whose K or N is off the multiples of 8
+    or whose a lies off 16-byte alignment, take the SIMT kernel."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    offset = torch.randn(64 * 96 + 1, generator=g, device=cuda).bfloat16()
+    for a, b, tol in (
+            (torch.randn(64, 96, generator=g, device=cuda),
+             torch.randn(96, 40, generator=g, device=cuda) / 10, 1e-5),
+            (torch.randn(64, 90, generator=g, device=cuda).bfloat16(),
+             torch.randn(90, 40, generator=g, device=cuda).bfloat16(), 1e-2),
+            (torch.randn(64, 96, generator=g, device=cuda).bfloat16(),
+             torch.randn(96, 36, generator=g, device=cuda).bfloat16(), 1e-2),
+            (offset[1:].view(64, 96),
+             torch.randn(96, 40, generator=g, device=cuda).bfloat16(), 1e-2)):
+        assert k6.route(a, b) == "simt"
+        before = (k6.launches, k6.launches_wgmma)
+        out = k6.matmul_fused(a, b, act="gelu")
+        torch.cuda.synchronize()
+        assert (k6.launches, k6.launches_wgmma) == (before[0] + 1, before[1])
+        exp = k6.matmul_fused_plain(a, b, act="gelu")
+        assert _rel_err(out.float(), exp.float()) <= tol
+
+
 def test_lm_smoke_forward_and_serving_match_the_cpu(cuda):
     """A 2-layer smoke qwen2 (Dh 16): the card's prefill logits (through
     K7) within 1e-4 of the CPU's, and the same greedy tokens."""
@@ -783,6 +850,66 @@ def test_wu_whole_kernel_every_tile_and_raises(cuda):
         assert _rel_err(out, k2.conv2d_wu_plain(**args)) <= 1e-5, (c, k)
     with pytest.raises(ValueError, match="does not divide P"):
         k2.conv2d_wu_whole(**args, b_p=4, k_blk=24)
+
+
+# ResNet-50's weight-update signatures at 56x56 (h, w, c, k, r, stride,
+# pad) at batch 32, the layers that had 1-9 blocks before the split
+WU_WHOLE_56 = [(56, 56, 64, 64, 1, 1, 0), (56, 56, 64, 64, 3, 1, 1),
+               (56, 56, 64, 256, 1, 1, 0), (56, 56, 256, 64, 1, 1, 0),
+               (56, 56, 256, 128, 1, 1, 0), (56, 56, 128, 128, 3, 2, 1),
+               (56, 56, 256, 512, 1, 2, 0)]
+
+
+@pytest.mark.parametrize("sig", WU_WHOLE_56)
+def test_wu_whole_kernel_at_the_56x56_signatures(cuda, sig):
+    h, w, c, k, r, stride, pad = sig
+    args = _wu_args((32, h, w, c, k, r, stride, pad), cuda)
+    blk = core_conv.whole_blocking((32, h, w, c), (r, r, c, k), stride=stride,
+                                   padding=pad, kind="wu")
+    kw = dict(b_p=blk.rb_p, k_blk=blk.k_blk)
+    p = (h + 2 * pad - r) // stride + 1
+    assert k2.plan_whole(n=32, p=p, q=p, c=c, k=k, r=r, s=r,
+                         **kw).blocks >= 132
+    before = k2.launches_whole
+    out = k2.conv2d_wu_whole(**args, **kw)
+    again = k2.conv2d_wu_whole(**args, **kw)
+    torch.cuda.synchronize()
+    assert k2.launches_whole == before + 2
+    assert torch.equal(out, again)                      # same bits
+    assert _rel_err(out, k2.conv2d_wu_whole_plain(**args, **kw)) <= 1e-5
+
+
+# n, h, c, k, r, b_p, k_blk: every tile of WHOLE_TILES, once with one run
+# (splits == 1: no sum pass) and once with many; and a C and K off the
+# multiples of 4 (4-byte copies)
+WU_WHOLE_TILES = [(1, 9, 128, 128, 3, 9, 128), (16, 9, 128, 128, 1, 3, 128),
+                  (1, 9, 128, 64, 3, 9, 64), (16, 9, 136, 72, 1, 3, 24),
+                  (1, 9, 64, 128, 3, 9, 128), (16, 9, 64, 128, 1, 3, 128),
+                  (1, 9, 64, 64, 3, 9, 64), (16, 9, 64, 64, 1, 9, 32),
+                  (3, 11, 5, 7, 3, 11, 7)]
+
+
+@pytest.mark.parametrize("case", WU_WHOLE_TILES)
+def test_wu_whole_kernel_every_tile_split_and_not(cuda, case):
+    n, h, c, k, r, b_p, k_blk = case
+    args = _wu_args((n, h, h, c, k, r, 1, r // 2), cuda)
+    p = h + 2 * (r // 2) - r + 1
+    plan = k2.plan_whole(n=n, p=p, q=p, c=c, k=k, r=r, s=r, b_p=b_p,
+                         k_blk=k_blk)
+    out = k2.conv2d_wu_whole(**args, b_p=b_p, k_blk=k_blk)
+    torch.cuda.synchronize()
+    exp = k2.conv2d_wu_whole_plain(**args, b_p=b_p, k_blk=k_blk)
+    assert _rel_err(out, exp) <= 1e-5, plan
+    assert torch.equal(out, k2.conv2d_wu_whole(**args, b_p=b_p, k_blk=k_blk))
+
+
+def test_wu_whole_tile_cases_meet_one_run_and_many():
+    splits = []
+    for n, h, c, k, r, b_p, k_blk in WU_WHOLE_TILES:
+        p = h + 2 * (r // 2) - r + 1
+        splits.append(k2.plan_whole(n=n, p=p, q=p, c=c, k=k, r=r, s=r,
+                                    b_p=b_p, k_blk=k_blk).splits)
+    assert 1 in splits and max(splits) > 1, splits
 
 
 @pytest.mark.parametrize("shape", [(16, 112, 112, 64), (2, 12, 12, 8),

@@ -172,6 +172,52 @@ def test_ops_on_cpu_take_the_plain_versions():
                                     residual=jnp.asarray(res)))
 
 
+def _offset(m, k, dtype):
+    """A contiguous (m, k) view whose data starts one element past a fresh
+    allocation: 2 (bf16) or 4 (f32) bytes off TMA's 16-byte alignment."""
+    return torch.zeros(m * k + 1, dtype=dtype)[1:].view(m, k)
+
+
+BF16 = torch.bfloat16
+# (a, b) of each case and the route a CUDA call of matmul_fused takes
+ROUTE_CASES = {
+    "aligned bf16": (lambda: (torch.zeros(64, 96, dtype=BF16),
+                              torch.zeros(96, 32, dtype=BF16)), "wgmma"),
+    "f32": (lambda: (torch.zeros(64, 96), torch.zeros(96, 32)), "simt"),
+    "K % 8 != 0": (lambda: (torch.zeros(64, 90, dtype=BF16),
+                            torch.zeros(90, 32, dtype=BF16)), "simt"),
+    "N % 8 != 0": (lambda: (torch.zeros(64, 96, dtype=BF16),
+                            torch.zeros(96, 36, dtype=BF16)), "simt"),
+    "offset a": (lambda: (_offset(64, 96, BF16),
+                          torch.zeros(96, 32, dtype=BF16)), "simt"),
+    "offset b": (lambda: (torch.zeros(64, 96, dtype=BF16),
+                          _offset(96, 32, BF16)), "simt"),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_matmul_route_by_shape_dtype_and_alignment(case):
+    """``matmul_fused.route``: aligned bf16 with K and N multiples of 8
+    takes the wgmma kernel; f32, a K or N off the multiples of 8, or a view
+    off 16-byte alignment takes the SIMT kernel."""
+    make, want = ROUTE_CASES[case]
+    a, b = make()
+    assert k6.route(a, b) == want
+
+
+def test_matmul_on_cpu_takes_the_plain_version_on_either_route():
+    """On CPU tensors ``matmul_fused`` is the plain version whatever the
+    route would be on the card, and counts no launch of either kernel."""
+    a, b, bv, res = _mm(7, 72, 64, 40)
+    t = [torch.from_numpy(x).to(BF16) for x in (a, b, bv, res)]
+    assert k6.route(t[0], t[1]) == "wgmma"
+    k6.launches = k6.launches_wgmma = 0
+    out = k6.matmul_fused(t[0], t[1], bias=t[2], residual=t[3], act="gelu")
+    assert (k6.launches, k6.launches_wgmma) == (0, 0)
+    assert torch.equal(out, k6.matmul_fused_plain(t[0], t[1], bias=t[2],
+                                                  residual=t[3], act="gelu"))
+
+
 def test_to_tensor_carries_bf16_bit_for_bit():
     x = np.asarray(jnp.asarray(np.random.default_rng(0).standard_normal(
         (3, 5)), jnp.bfloat16))
