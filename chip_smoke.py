@@ -105,7 +105,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
     plain version, the library yardstick ``F.scaled_dot_product_attention``
     (used only here) and the bound, the larger of FLOPs (4 B Hq Dh L(L+1)/2
     when causal) over the dtype's peak (989 TFLOP/s bf16 tensor cores, 67
-    TFLOP/s f32 SIMT) and bytes over 3.35 TB/s.
+    TFLOP/s f32 SIMT) and bytes over 3.35 TB/s.  Each shape's route
+    (``attention.route``) is printed and held: bf16 through the TMA +
+    wgmma kernel, f32 through the SIMT one, with one wgmma launch for each
+    bf16 call; each bf16 shape is also timed (profiler device time) at
+    both key blocks of the wgmma kernel, 64 and 128, the measurement
+    behind ``attention.wgmma_key_block``, and SDPA by device time too.
 15. K6 vs plain: the fused matmul at Qwen2-1.5B's projections at M = 4096
     tokens (1536->1536 + bias, 1536->256 + bias, 1536->8960 silu,
     8960->1536 + residual, one gelu and one relu case), f32 and bf16, and
@@ -125,11 +130,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
     (``numpy.random.default_rng(0)``), all made before the window opens.
     Generated tokens/s over the window's wall time; K7's count, set to 0
     just before the window and read just after, must be 28 x 32 (one
-    launch per layer of each prefill; decode launches none).  Then,
+    launch per layer of each prefill; decode launches none), all of them
+    through the wgmma route (``launches_wgmma``).  Then,
     through ``forward`` and ``decode_step``: a batch-8 prefill at 512
     tokens by host clock and CUDA events, 16 decode steps (p50 / p99 ms per
     step, K7 launched 0 times), and both under ``torch.profiler``: device
-    time by kernel, K7's share of the prefill, the busy share.
+    time by kernel, K7's share of the prefill, the busy share, and the
+    traced prefill's K7 launches by route (kernel name): 28 through wgmma.
 17. LM parity: full Qwen2-1.5B in f32, the same params on the card and on
     the CPU (plain versions): two 64-token prompts, prefill logits within
     1e-4 * max |logit| and the same last argmax, then 4 teacher-forced
@@ -147,7 +154,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
     routed rows of batch 8 spread over the 8 held experts in tiles of 16,
     and (b) a batch-8 x 512 prefill's rows from the layer's router on
     random activations (its groups, capacity, drops and layout), each at
-    D 8192 -> F 24576 (gate/up) and 24576 -> 8192 (down), f32 and bf16;
+    D 8192 -> F 24576 (gate/up) and 24576 -> 8192 (down), f32 and bf16,
+    and (b') one 256-token prompt's rows (tiles of 64), bf16, both shapes;
     (c) ``benchmarks/moe_streams_bench.py``'s shapes (T 512, D 128, F 256,
     E 8, cap 128, bm 64) through ``route_dryrun``, f32; (d) T, D, F that
     are multiples of no block, with a -1 tile, f32 and bf16; with the
@@ -158,13 +166,18 @@ Phases, each of which fails the run (nonzero exit, no result line):
     token over the dtype's peak, bytes of the rows, the weights of the
     experts that have rows and the output over 3.35 TB/s).  Held: the bf16
     decode with all 16 rows on one expert takes under half the time of 16
-    rows over 8 (empty experts' weights are not read).
+    rows over 8 (empty experts' weights are not read).  Each case's route
+    (``moe_gmm.route``) is printed and held: the bf16 prefill cases through
+    the TMA + wgmma kernel, decode, f32 and the tail through the mma one.
 19. Hybrid serving, the slice's main path: ``jamba-1.5-large-398b-1chip``
     (one 8-layer period of Jamba-1.5-Large at full width, 8 of each MoE
     layer's 16 experts, bf16, 51.8 GB) through ``serve_continuous`` with
     phase 16's lanes, lengths and window: K8's count must be 7 x 32, K7's
     1 x 32 and K9's 12 x the forward and decode_step calls the scheduler
-    counted (3 per MoE layer, 4 MoE layers); then a batch-8 prefill at 512
+    counted (3 per MoE layer, 4 MoE layers), K7's and K9's forward
+    launches all through the wgmma route (every K9 call with bm >= 64,
+    counted by bm in the window; decode's bm 16 through the mma route);
+    then a batch-8 prefill at 512
     tokens and 16 decode steps (K9 12 a step, K7 and K8 none), with the
     held experts that receive rows per MoE layer and step, one prefill and
     one decode step with ``moe.apply`` under
@@ -1698,11 +1711,13 @@ def attention_signatures(device):
     shapes = ATTN_SHAPES
     gen = torch.Generator(device=device).manual_seed(SEED)
     rows = []
+    k7.launches = k7.launches_wgmma = 0
     print(f"\nK7 vs plain ({len(shapes)} shapes x f32, bf16; limits "
           f"{KERNEL_REL_TOL} f32 of max |plain|, {BF16_REL_TOL} bf16 of "
-          f"max |plain| per query row):")
-    print("  dtype  b  hq hkv    l  dh causal  max_rel    max_abs        ms"
-          "  device_ms    plain_ms  library_ms  bound_ms bound_by")
+          f"max |plain| per query row; bf16 through the wgmma route, f32 "
+          f"through the SIMT one):")
+    print("  dtype  b  hq hkv    l  dh causal route  max_rel    max_abs      "
+          "  ms  device_ms    plain_ms  library_ms  bound_ms bound_by")
     for dtype in (torch.float32, torch.bfloat16):
         for b, hq, hkv, l, dh, causal in shapes:
             q = torch.randn((b, hq, l, dh), generator=gen,
@@ -1711,7 +1726,15 @@ def attention_signatures(device):
                             device=device).to(dtype)
             v = torch.randn((b, hkv, l, dh), generator=gen,
                             device=device).to(dtype)
+            path = k7.route(q, k, v)
+            want = "wgmma" if dtype == torch.bfloat16 else "simt"
+            check(path == want, f"K7 takes the {path} route at "
+                  f"{(b, hq, hkv, l, dh)} {dtype}, expected {want}")
+            before = k7.launches_wgmma
             out = k7.flash_attention(q, k, v, causal=causal)
+            wgmma = k7.launches_wgmma - before
+            check(wgmma == (path == "wgmma"), f"{wgmma} wgmma launches for "
+                  f"one {path} call at {(b, hq, l, dh)}")
             plain = k7.flash_attention_plain(q, k, v, causal=causal)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(out).all()),
@@ -1734,24 +1757,54 @@ def attention_signatures(device):
             flops = 4.0 * b * hq * dh * pairs
             nbytes = q.element_size() * (2 * b * hq + 2 * b * hkv) * l * dh
             bound_ms, bound_by = bound_for(flops, nbytes, dtype)
+            by_block = {}
+            if path == "wgmma":
+                # both key blocks by device time (the wrapper's rule picks
+                # one by shape; this is the measurement behind it)
+                pick = k7.wgmma_key_block
+                try:
+                    for kb in k7.KEY_BLOCKS:
+                        k7.wgmma_key_block = lambda *_, kb_=kb: kb_
+                        by_block[kb] = kernel_device_ms(
+                            lambda: k7.flash_attention(q, k, v,
+                                                       causal=causal),
+                            "flash_attention_kernel", k7)[0]
+                finally:
+                    k7.wgmma_key_block = pick
+            library_device_ms = trace_device(
+                lambda i: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True), 5, {},
+                sync_each=True)["device_ms"]
             rec = dict(dtype=str(dtype).removeprefix("torch."), b=b, hq=hq,
-                       hkv=hkv, l=l, dh=dh, causal=causal, count=1,
-                       max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
-                       device_ms=device_ms, plain_ms=plain_ms,
+                       hkv=hkv, l=l, dh=dh, causal=causal, route=path,
+                       count=1, max_abs_err=max_abs, max_rel_err=max_rel,
+                       ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=bound_ms,
                        bound_by=bound_by, flops=flops,
-                       tflops=flops / ms / 1e9, traced_launches=recorded)
+                       tflops=flops / ms / 1e9, traced_launches=recorded,
+                       launches_wgmma=wgmma,
+                       library_device_ms=library_device_ms,
+                       key_block=(k7.wgmma_key_block(b, hq, l, causal)
+                                  if path == "wgmma" else None),
+                       device_ms_by_key_block=by_block)
             rows.append(rec)
             print(f"  {rec['dtype']:8s}{b:2d}{hq:4d}{hkv:4d}{l:5d}{dh:4d} "
-                  f"{causal!s:6s} {max_rel:.2e}  {max_abs:.2e} {ms:9.4f} "
-                  f"{device_ms:10.4f} {plain_ms:11.4f} {library_ms:11.4f} "
-                  f"{bound_ms:9.4f} {bound_by}  "
-                  f"({rec['tflops']:.2f} TFLOP/s; {recorded} of 5 launches "
-                  f"traced)")
+                  f"{causal!s:6s} {path:6s}{max_rel:.2e}  {max_abs:.2e} "
+                  f"{ms:9.4f} {device_ms:10.4f} {plain_ms:11.4f} "
+                  f"{library_ms:11.4f} {bound_ms:9.4f} {bound_by}  "
+                  f"({rec['tflops']:.2f} TFLOP/s; launches_wgmma +{wgmma} "
+                  f"for its first call; {recorded} of 5 launches "
+                  f"traced; SDPA device {library_device_ms:.4f} ms"
+                  + (f"; key block {rec['key_block']}, device ms by key "
+                     f"block " + ", ".join(f"{kb_}: {ms_:.4f}" for kb_, ms_
+                                          in by_block.items())
+                     if by_block else "") + ")")
             check(max_rel <= tol, f"K7 disagrees with its plain version at "
                   f"{(b, hq, hkv, l, dh, causal, rec['dtype'])}: max_rel "
                   f"{max_rel:.3e} > {tol}")
             del q, k, v, out, plain
+    print(f"  K7 launches in this phase: {k7.launches} ({k7.launches_wgmma} "
+          f"through wgmma)")
     print("  per-shape JSON:", json.dumps(rows))
     return rows
 
@@ -1888,7 +1941,8 @@ def lm_prompts(n: int, vocab: int, seed: int):
     return [rng.integers(0, vocab, size=int(m)) for m in lengths]
 
 
-def lm_serving(device, arch: str, widths: tuple, kernels: dict):
+def lm_serving(device, arch: str, widths: tuple, kernels: dict,
+               wgmma: dict):
     """Phase 16 (Qwen2-1.5B) and phase 19 (the Jamba cut), each a slice's
     main path: ``arch`` in bf16 (random weights from ``init_lm``, seed 0;
     ``widths`` = (n_layers, d_model, n_heads, n_kv_heads, head_dim, d_ff,
@@ -1899,7 +1953,11 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict):
     step): each count is set to 0 just before the window and read just
     after, and must be its launches per forward and per decode step times
     the ``forward`` and ``decode_step`` calls the scheduler counted in the
-    window (one forward per request).  Then a batch-8 prefill at 512 tokens
+    window (one forward per request).  ``wgmma`` maps a kernel's name to
+    its wgmma-route launches per forward and per decode step, held the same
+    way on ``launches_wgmma``; for K9 every call with bm >= 64 is counted
+    in the window and must have taken that route.  Then a batch-8 prefill
+    at 512 tokens
     and 16 decode steps through ``forward`` / ``decode_step``, and both
     under ``torch.profiler`` (``trace_device``, each kernel's recorded
     launches held to its counter).  For a model with MoE layers, the decode
@@ -1911,6 +1969,7 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_gmm as k9
     from repro_torch.launch.serve import serve_continuous
     from repro_torch.nn import moe
     from repro_torch.nn import transformer as T
@@ -1942,13 +2001,27 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict):
     calls = {}
     for mod, _, _, _ in kernels.values():
         mod.launches = 0
+    for name in wgmma:
+        kernels[name][0].launches_wgmma = 0
+    k9_calls = []      # bm of every K9 call in the window
+    gmm = k9.moe_gmm
+
+    def recording_gmm(tokens, weights, tile_eid, *, bm):
+        k9_calls.append(bm)
+        return gmm(tokens, weights, tile_eid, bm=bm)
+    k9.moe_gmm = recording_gmm
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    results = serve_continuous(params, cfg, window, calls=calls, **kw)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        results = serve_continuous(params, cfg, window, calls=calls, **kw)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        k9.moe_gmm = gmm
     launches = {name: mod.launches
                 for name, (mod, _, _, _) in kernels.items()}
+    launches_wgmma = {name: kernels[name][0].launches_wgmma
+                      for name in wgmma}
     tokens = sum(len(r) for r in results.values())
     prompt_tokens = int(sum(len(p) for p in window))
     print(f"  window: {LM_REQUESTS} requests ({prompt_tokens} prompt "
@@ -1972,6 +2045,24 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict):
         check(launches[name] == expected,
               f"{name} launched {launches[name]} times in the window, "
               f"expected {expected}")
+    for name, (per_fwd, per_dec) in wgmma.items():
+        expected = per_fwd * calls["forward"] + per_dec * calls["decode_step"]
+        print(f"  {name} launches through the wgmma route in the window: "
+              f"{launches_wgmma[name]} of {launches[name]} (expected "
+              f"{per_fwd} x {calls['forward']} + {per_dec} x "
+              f"{calls['decode_step']} = {expected})")
+        check(launches_wgmma[name] == expected,
+              f"{name} took the wgmma route {launches_wgmma[name]} times in "
+              f"the window, expected {expected}")
+    if k9_calls:
+        big = sum(bm >= 64 for bm in k9_calls)
+        print(f"  moe_gmm calls in the window by bm: "
+              + ", ".join(f"{bm}: {k9_calls.count(bm)}"
+                          for bm in sorted(set(k9_calls)))
+              + f"; {big} with bm >= 64, {k9.launches_wgmma} wgmma launches")
+        check(big == k9.launches_wgmma == launches_wgmma.get("moe_gmm", -1),
+              f"{big} K9 calls with bm >= 64 but {k9.launches_wgmma} wgmma "
+              f"launches in the window")
 
     b, l = LM_PREFILL
     toks = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
@@ -2071,6 +2162,16 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict):
                          for ms, n, kname in trace["by_name"][:8]])
     del logits, cache
     pre_trace = trace_device(lambda i: prefill(), 1, counters)
+    for name, (per_fwd, _) in wgmma.items():
+        needle = kernels[name][1]
+        traced = {kname: n for kname, n in pre_trace["launches"].items()
+                  if needle in kname}
+        on_wgmma = sum(n for kname, n in traced.items() if "_wgmma" in kname)
+        print(f"  {name} launches in the traced prefill: "
+              f"{sum(traced.values())}, {on_wgmma} through the wgmma route "
+              f"(by kernel name; expected {per_fwd})")
+        check(on_wgmma == per_fwd, f"{on_wgmma} {name} wgmma launches in the "
+              f"traced prefill, expected {per_fwd}")
     logits, _, cache = prefill()
     last = logits[:, -1:].argmax(dim=-1)
     del logits
@@ -2086,7 +2187,7 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict):
         window=dict(requests=LM_REQUESTS, prompt_tokens=prompt_tokens,
                     generated_tokens=tokens, wall_s=wall_s,
                     generated_tokens_per_s=tokens / wall_s,
-                    launches=launches),
+                    launches=launches, launches_wgmma=launches_wgmma),
         prefill=dict(batch=b, tokens=l, host_ms=prefill_ms,
                      event_ms=float(np.median(events)),
                      profile=show(f"one batch-{b} prefill", pre_trace, 1)),
@@ -2308,6 +2409,7 @@ def conv1d_signatures(device):
 # top-2; decode routes batch 8 (16 entries), prefill batch 8 x 512
 MOE_D, MOE_F, MOE_E, MOE_HELD, MOE_K = 8192, 24576, 16, 8, 2
 MOE_PREFILL = (8, 512)
+MOE_PREFILL_SHORT = (1, 256)     # one lane's prompt: tiles of 64
 MOE_BENCH = (512, 128, 256, 8, 128, 64)   # moe_streams_bench: T D F E cap bm
 MOE_TAIL = (77, 1003, 517, 3, 16, [0, 2, -1, 1, 0])   # T D F E bm tile_eid
 MOE_ONE_EXPERT_RATIO = 0.5    # one expert's 16 rows vs 16 over 8, at most
@@ -2358,7 +2460,20 @@ def moe_cases(device, gen):
                          x[(source - 1).clamp_min(0)], 0)
     cases.append(("prefill", x_rows, tile_eid, bm, int((source > 0).sum()),
                   b * cap))
-    del x, router, gate_vals, gate_idx
+    # (b') one 256-token prompt, as the scheduler prefills a lane: the
+    # layer's plan gives tiles of 64
+    b, l = MOE_PREFILL_SHORT
+    xs = x[:b * l]
+    gate_vals, gate_idx = moe.route(torch.softmax(xs @ router, dim=-1)
+                                    .reshape(b, l, MOE_E), MOE_K)
+    cap = max(int(1.25 * l * MOE_K / MOE_E), 1)
+    bm, tile_eid, source = plan(gate_idx, moe.kept(gate_idx, MOE_E, cap),
+                                cap)
+    x_rows = torch.where((source > 0)[:, None],
+                         xs[(source - 1).clamp_min(0)], 0)
+    cases.append(("prefill, 1 x 256", x_rows, tile_eid, bm,
+                  int((source > 0).sum()), b * cap))
+    del x, xs, router, gate_vals, gate_idx
     # (c) benchmarks/moe_streams_bench.py through route_dryrun
     t, d, f, e, cap, bm = MOE_BENCH
     tok = torch.randn((t, d), generator=gen, device=device)
@@ -2402,8 +2517,8 @@ def moe_signatures(device):
           f"D {MOE_D}, F {MOE_F}, {MOE_HELD} of {MOE_E} experts held; the "
           f"moe_streams bench; a tail; limits {KERNEL_REL_TOL} f32, "
           f"{BF16_REL_TOL} bf16 of max |plain|):")
-    print("  case                dtype    shape (T x D -> F)  bm used  "
-          "max_rel        ms  device_ms    plain_ms  library_ms  bound_ms "
+    print("  case                dtype    route shape (T x D -> F)  bm used"
+          "  max_rel        ms  device_ms    plain_ms  library_ms  bound_ms "
           "bound_by")
     one_vs_spread = {}
     for case in cases:
@@ -2417,6 +2532,9 @@ def moe_signatures(device):
             shapes, dtypes = [MOE_TAIL[1:4]], (torch.float32, torch.bfloat16)
         elif name == "decode, one expert":
             shapes, dtypes = [(MOE_D, MOE_F, MOE_HELD)], (torch.bfloat16,)
+        elif name == "prefill, 1 x 256":
+            shapes = [(MOE_D, MOE_F, MOE_HELD), (MOE_F, MOE_D, MOE_HELD)]
+            dtypes = (torch.bfloat16,)
         else:
             shapes = [(MOE_D, MOE_F, MOE_HELD), (MOE_F, MOE_D, MOE_HELD)]
             dtypes = (torch.float32, torch.bfloat16)
@@ -2428,7 +2546,16 @@ def moe_signatures(device):
                 x = x.to(dtype)
                 w = (torch.randn((e, d, f), generator=gen, device=device)
                      * d ** -0.5).to(dtype)
+                path = k9.route(x, w, bm)
+                want = "wgmma" if name.startswith("prefill") \
+                    and dtype == torch.bfloat16 else "mma"
+                check(path == want, f"K9 takes the {path} route at {name} "
+                      f"{(d, f, bm)} {dtype}, expected {want}")
+                before = k9.launches_wgmma
                 out = k9.moe_gmm(x, w, tile_eid, bm=bm)
+                check(k9.launches_wgmma - before == (path == "wgmma"),
+                      f"{k9.launches_wgmma - before} wgmma launches for one "
+                      f"{path} call at {name}")
                 plain = k9.moe_gmm_plain(x, w, tile_eid, bm=bm)
                 torch.cuda.synchronize()
                 check(bool(torch.isfinite(out).all()),
@@ -2462,7 +2589,8 @@ def moe_signatures(device):
                                              + x.shape[0] * f)
                 bound_ms, bound_by = bound_for(flops, nbytes, dtype)
                 rec = dict(case=name, dtype=str(dtype).removeprefix("torch."),
-                           t=x.shape[0], d=d, f=f, experts=e, bm=bm,
+                           route=path, t=x.shape[0], d=d, f=f, experts=e,
+                           bm=bm,
                            rows=n_rows, experts_used=len(used), count=1,
                            max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
                            device_ms=device_ms, plain_ms=plain_ms,
@@ -2472,7 +2600,8 @@ def moe_signatures(device):
                            tflops=flops / ms / 1e9,
                            gb_per_s=nbytes / ms / 1e6)
                 rows.append(rec)
-                print(f"  {name:19s} {rec['dtype']:8s} {x.shape[0]:5d} x "
+                print(f"  {name:19s} {rec['dtype']:8s} {path:5s} "
+                      f"{x.shape[0]:5d} x "
                       f"{d:5d} -> {f:5d} {bm:4d} {len(used):4d} "
                       f"{max_rel:.2e} {ms:9.4f} "
                       + (f"{device_ms:10.4f} " if device_ms is not None
@@ -3178,7 +3307,8 @@ def main() -> int:
     mm_rows, mm_launches, mm_ragged = matmul_signatures(device)
     lm_launches, lm_summary, params, _ = lm_serving(
         device, LM_ARCH, (28, 1536, 12, 2, 128, 8960, 151936, "bfloat16"),
-        {"flash_attention": (k7, "flash_attention_kernel", 28, 0)})
+        {"flash_attention": (k7, "flash_attention_kernel", 28, 0)},
+        {"flash_attention": (28, 0)})
     del params
     torch.cuda.empty_cache()
     cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
@@ -3195,7 +3325,8 @@ def main() -> int:
         device, HYBRID_ARCH, HYBRID_WIDTHS,
         {"conv1d_causal": (k8, "conv1d_causal_kernel", 7, 0),
          "flash_attention": (k7, "flash_attention_kernel", 1, 0),
-         "moe_gmm": (k9, "moe_gmm_kernel", 12, 12)})
+         "moe_gmm": (k9, "moe_gmm_kernel", 12, 12)},
+        {"flash_attention": (1, 0), "moe_gmm": (12, 0)})
     bf16 = decode_vs_forward(params, cfg)
     print(f"  bf16: {bf16['rel']:.3e} of max |logit|, printed and not held "
           f"to {BF16_DECODE_REL_TOL}: this random-weight model moves its "
@@ -3325,8 +3456,13 @@ def main() -> int:
     k7_row = next(r_ for r_ in attn_rows if (r_["dtype"], r_["b"], r_["l"],
                                               r_["causal"]) ==
                   ("bfloat16", 1, 1024, True))
+    k7_f32 = next(r_ for r_ in attn_rows if (r_["dtype"], r_["b"], r_["l"],
+                                              r_["causal"]) ==
+                  ("float32", 1, 1024, True))
     mm_bf16 = totals([r_ for r_ in mm_rows if r_["dtype"] == "bfloat16"])
     mm_f32 = totals([r_ for r_ in mm_rows if r_["dtype"] == "float32"])
+    lm_wgmma = lm_summary["window"]["launches_wgmma"]
+    hy_wgmma = hy_summary["window"]["launches_wgmma"]
     kernels += [{
         "name": "flash_attention",
         "route": "cuda",
@@ -3334,6 +3470,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/attention.py:87",
         "launches": lm_launches["flash_attention"]
         + hy_launches["flash_attention"],
+        "launches_wgmma": lm_wgmma["flash_attention"]
+        + hy_wgmma["flash_attention"],
         "launches_by_path": {
             "lm_serving": lm_launches["flash_attention"],
             "hybrid_serving": hy_launches["flash_attention"]},
@@ -3341,11 +3479,17 @@ def main() -> int:
         "max_rel_err": max(r_["max_rel_err"] for r_ in attn_rows),
         **{key: k7_row[key] for key in ("ms", "plain_ms", "library_ms",
                                         "bound_ms", "bound_by",
-                                        "device_ms")},
+                                        "device_ms", "library_device_ms",
+                                        "key_block",
+                                        "device_ms_by_key_block")},
+        "f32": {key: k7_f32[key] for key in ("ms", "plain_ms", "library_ms",
+                                             "bound_ms", "bound_by")},
+        "routes": {"bfloat16, Dh 64 and 128": "wgmma (TMA + wgmma bf16)",
+                   "float32; bfloat16 at Dh 16": "simt (f32 FMA)"},
         "per": "one launch at Qwen2-1.5B's prefill shape: batch 1, 1024 "
-               "tokens, 12 query / 2 KV heads, Dh 128, causal, bf16 (28 "
-               "launches per prefill); library: F.scaled_dot_product_"
-               "attention",
+               "tokens, 12 query / 2 KV heads, Dh 128, causal, bf16 through "
+               "the wgmma route (28 launches per prefill); library: "
+               "F.scaled_dot_product_attention",
         "card": card,
     }, {
         "name": "matmul_fused",
@@ -3402,6 +3546,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm.py:61",
         "launches": hy_launches["moe_gmm"],
+        "launches_wgmma": hy_wgmma["moe_gmm"],
         "launches_by_path": {
             "hybrid_serving": hy_launches["moe_gmm"],
             "per_forward": 12, "per_decode_step": 12},
@@ -3411,14 +3556,22 @@ def main() -> int:
                                            "bound_ms", "bound_by",
                                            "device_ms")},
         "prefill": {key: k9_rows[("prefill", "bfloat16", MOE_D)][key]
-                    for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                "bound_by", "device_ms")},
+                    for key in ("route", "ms", "plain_ms", "library_ms",
+                                "bound_ms", "bound_by", "device_ms")},
+        "prefill_down": {key: k9_rows[("prefill", "bfloat16", MOE_F)][key]
+                         for key in ("route", "ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by", "device_ms")},
+        "routes": {"bfloat16, bm a multiple of 64": "wgmma (TMA + wgmma "
+                   "bf16)", "bm 16, float32, ragged D or F": "mma "
+                   "(mma.sync bf16; SIMT f32)"},
         "one_expert_over_spread": one_expert_ratio,
         "per": f"one launch at the Jamba cut's decode gate/up shape: 16 "
                f"routed rows of batch 8 over the {MOE_HELD} held experts "
-               f"(tiles of 16), D {MOE_D} -> F {MOE_F}, bf16 (12 launches "
-               f"per forward and per decode step); prefill: batch 8 x 512 "
-               f"at the same shape; library: torch.bmm over the "
+               f"(tiles of 16), D {MOE_D} -> F {MOE_F}, bf16, the mma "
+               f"route (12 launches per forward, through the wgmma route, "
+               f"and 12 per decode step, through the mma route); prefill: "
+               f"batch 8 x 512 at the same shape and at the down shape, the "
+               f"wgmma route; library: torch.bmm over the "
                f"capacity-padded (E, C, D) x (E, D, F)",
         "card": card,
     })

@@ -9,7 +9,7 @@
 // whose id lies outside [0, E) (the caller marks unused tiles with -1) comes
 // out zero and reads no weight, and T, D and F need not be multiples of the
 // blocks (every tail is masked).  Built with nvcc for sm_90a and bound
-// through the plain C function at the bottom (ctypes; see
+// through the plain C functions at the bottom (ctypes; see
 // repro_torch/kernels/_build.py).
 //
 // What bounds it: in decode a tile holds a few routed rows, so the weights
@@ -17,8 +17,39 @@
 // expert is 3 x 8192 x 24576 bf16 = 1.2 GB); in prefill each expert has
 // hundreds of rows and the bf16 products bound it (tensor cores).
 //
-// Design: a tiled GEMM whose B operand is picked per block by the id
-// stream, the way K4 reads its streams from device memory.
+// Two kernels, one route each, chosen in the wrapper (kernels/moe_gmm.route):
+//
+// moe_gmm_kernel_wgmma, the prefill route: bf16 with bm a multiple of 64,
+// D and F multiples of 8, tokens and weights 16-byte aligned (TMA).  K6's
+// mainloop (matmul_fused.cu), widened, with the B operand picked per block:
+//   * a block owns a 128 x 256 output tile (bm a multiple of 128) or a
+//     64 x 256 one (bm 64), so it never straddles two tiles of the id
+//     stream; it reads its tile's id at its start (the reference's scalar
+//     prefetch);
+//   * one thread of a producer warp keeps TMA loads of the tokens tile (64
+//     deep, K-major) and of the weight tile in flight in a ring of 4 (2 at
+//     bm 64) shared-memory stages on mbarriers; the weights' tensor map is
+//     3-D over (F, D, E) with the expert as the third box coordinate, so a
+//     D tail reads zeros, never the next expert's rows, and they are read
+//     MN-major through wgmma's transpose bit, with no transposed copy;
+//   * two consumer warpgroups run wgmma m64n256k16 (m64n128k16 at bm 64)
+//     bf16 -> f32 and free a stage once the products that read it are
+//     done; the first product of a tile sets the accumulator (d = 0), so
+//     ptxas keeps the products in flight (K6's zeroed accumulator makes it
+//     serialize them); one block an SM (two at bm 64);
+//   * an id outside [0, E) issues no load and stores a zero tile;
+//   * blocks are numbered down groups of 8 row tiles, column by column, so
+//     the row tiles of one expert read each weight column tile at about the
+//     same time: an expert's gate weight (403 MB at Jamba's widths) is far
+//     above L2, and each tile of it comes from device memory about once;
+//   * the results leave through the free ring in the 128-byte swizzle by
+//     TMA stores, which drop the T and F tails.  No epilogue: SiLU and the
+//     gate-times-up product stay in torch, as the reference's kernel has
+//     none.  The helpers live in hopper.cuh.
+//
+// moe_gmm_kernel, decode (bm 16), f32 and ragged D or F: a tiled GEMM whose
+// B operand is picked per block by the id stream, the way K4 reads its
+// streams from device memory.
 //   * A block owns a BM x BN output tile of one M-tile (bm % BM == 0); it
 //     reads tile_eid at its start and, for an empty tile, writes zeros and
 //     stops.  The grid is sized on the host from T alone.
@@ -41,6 +72,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"  // TMA, mbarriers, wgmma, the tensor-map encoder
 
 namespace {
 
@@ -320,6 +353,176 @@ int launch(const GmmArgs& a, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the bf16 prefill route: TMA + wgmma ----------------------------------
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int kBK = 64;                          // k of a stage: 128 bytes of bf16
+constexpr int kConsumers = 2;                    // warpgroups of 64 rows each
+constexpr int kThreads = 128 * kConsumers + 32;  // + one producer warp
+constexpr int kBox = kBK * 64 * 2;               // one 64 x 64 bf16 box, 8 KB
+constexpr int kGroupM = 8;                       // row tiles of a raster group
+
+// kMW: consumer warpgroups along M.  2: a 128 x 256 block (bm a multiple
+// of 128), each warpgroup 64 rows x 256 columns, a 4-stage ring, one block
+// an SM; 1: a 64 x 256 block (bm 64), each warpgroup 64 x 128, a 2-stage
+// ring, two blocks an SM.  A block never straddles two tiles of the id
+// stream.
+template <int kMW>
+struct Tile {
+  static constexpr int kBM = 64 * kMW;
+  static constexpr int kBN = 256;
+  static constexpr int kNC = kBN * kMW / kConsumers;  // columns of a warpgroup
+  static constexpr int kStages = kMW == 2 ? 4 : 2;
+  static constexpr int kPerSm = kMW == 2 ? 1 : 2;     // what shared memory allows
+  static constexpr int kABytes = kBM * kBK * 2;       // tokens, K-major
+  static constexpr int kBBytes = kBK * kBN * 2;       // weights, kBN / 64 boxes
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kSmem = kStages * kStageBytes + 1024;  // + 1 KB alignment
+};
+
+struct Args {
+  const int* tile_eid;
+  int t, d, f, e, bm;
+};
+
+// One block: a kBM x kBN output tile of one tile of the id stream.  Blocks
+// are numbered down groups of kGroupM row tiles, column by column, so the
+// row tiles of one expert (consecutive in the stream) read each weight
+// column tile at about the same time, and it comes from device memory about
+// once per expert.
+template <int kMW>
+__global__ void __launch_bounds__(kThreads, Tile<kMW>::kPerSm)
+moe_gmm_kernel_wgmma(const __grid_constant__ CUtensorMap map_x,
+                     const __grid_constant__ CUtensorMap map_w,
+                     const __grid_constant__ CUtensorMap map_out, const Args p) {
+  using G = Tile<kMW>;
+  constexpr int kStages = G::kStages;
+  constexpr int kNC = G::kNC;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages];   // the stage's loads landed
+  __shared__ __align__(8) uint64_t empty[kStages];  // both consumers are done with it
+  // 128-byte swizzle repeats every 1 KB: the ring starts on a 1 KB boundary
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int w = threadIdx.x / 128;  // consumer warpgroup, or kConsumers: the producer
+  const int tiles_m = (p.t + G::kBM - 1) / G::kBM;
+  const int tiles_n = (p.f + G::kBN - 1) / G::kBN;
+  const int per_group = kGroupM * tiles_n;
+  const int first_m = static_cast<int>(blockIdx.x) / per_group * kGroupM;
+  const int rows = min(tiles_m - first_m, kGroupM);
+  const int in_group = static_cast<int>(blockIdx.x) % per_group;
+  const int m0 = (first_m + in_group % rows) * G::kBM;
+  const int n0 = in_group / rows * G::kBN;
+  // the tile's expert (the reference's scalar prefetch); an id outside
+  // [0, E) gives a zero tile and loads no weight
+  const int eid = __ldg(p.tile_eid + m0 / p.bm);
+  const int k_tiles = eid >= 0 && eid < p.e ? (p.d + kBK - 1) / kBK : 0;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (w == kConsumers) {  // the producer warp: one thread keeps the ring full
+    if (threadIdx.x == 128 * kConsumers) {
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int s = kt % kStages;
+        mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);  // the first round passes
+        uint8_t* sa = ring + s * G::kStageBytes;
+        uint8_t* sb = sa + G::kABytes;
+        mbar_expect_tx(&full[s], G::kStageBytes);
+        tma_load(sa, &map_x, &full[s], kt * kBK, m0);
+#pragma unroll
+        for (int box = 0; box < G::kBN / 64; ++box)
+          tma_load_3d(sb + box * kBox, &map_w, &full[s], n0 + box * 64, kt * kBK, eid);
+      }
+    }
+    return;
+  }
+
+  // a consumer: rows mw*64 .. + 63, columns nw*kNC .. + kNC - 1 of the
+  // block; its first product sets the accumulator (d = 0), so no
+  // instruction but wgmma defines it inside the loop
+  const int mw = w % kMW, nw = w / kMW;
+  float acc[kNC / 2];
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int s = kt % kStages;
+    mbar_wait(&full[s], (kt / kStages) & 1);
+    const uint32_t sa = smem_u32(ring + s * G::kStageBytes) + mw * 64 * 128;
+    const uint32_t sb = smem_u32(ring + s * G::kStageBytes + G::kABytes) + nw * (kNC / 64) * kBox;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_bf16(acc, desc_sw128(sa + kk * 32, 16, 1024),
+                 desc_sw128(sb + kk * 16 * 128, kBox, 1024), kt > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // the products of stage kt-1 are done: free it
+    if (kt > 0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[(kt - 1) % kStages]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (k_tiles == 0) {  // an empty tile: zeros
+#pragma unroll
+    for (int i = 0; i < kNC / 2; ++i) acc[i] = 0.f;
+  }
+
+  // Both consumers are past their last wgmma: the ring is free.  Each
+  // warpgroup writes its 64 x kNC bf16 results into it as 64 x 64 boxes in
+  // the 128-byte swizzle, and one thread stores them with TMA, which drops
+  // what lies past T or F.
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
+  uint8_t* tile = ring + w * (kNC / 64) * kBox;
+  const int t = threadIdx.x % 128;
+  const int r0 = (t / 32) * 16 + (t % 32) / 4;
+#pragma unroll
+  for (int j = 0; j < kNC / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<__nv_bfloat162*>(tile + sw128_at(r0 + 8 * h, j * 8 + (t % 4) * 2, kBox)) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  fence_async_smem();
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + w) : "memory");
+  if (t == 0) {
+#pragma unroll
+    for (int box = 0; box < kNC / 64; ++box)
+      tma_store(&map_out, tile + box * kBox, n0 + nw * kNC + box * 64, m0 + mw * 64);
+    tma_store_wait();
+  }
+}
+
+template <int kMW>
+int launch(const void* tokens, const void* weights, const int* tile_eid, void* out, int t, int d,
+           int f, int e, int bm, cudaStream_t stream) {
+  using G = Tile<kMW>;
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap map_x, map_w, map_out;
+  if (!encode(fn, &map_x, tokens, t, d, G::kBM, kBK) ||
+      !encode_3d(fn, &map_w, weights, e, d, f, kBK, 64) ||
+      !encode(fn, &map_out, out, t, f, 64, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // per call: the attribute belongs to the current device
+  const cudaError_t err = cudaFuncSetAttribute(
+      moe_gmm_kernel_wgmma<kMW>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t blocks = static_cast<int64_t>((t + G::kBM - 1) / G::kBM) *
+                         ((f + G::kBN - 1) / G::kBN);
+  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  const Args p{tile_eid, t, d, f, e, bm};
+  moe_gmm_kernel_wgmma<kMW><<<static_cast<unsigned>(blocks), kThreads, G::kSmem, stream>>>(
+      map_x, map_w, map_out, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
 bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
@@ -349,4 +552,22 @@ extern "C" int repro_moe_gmm(const void* tokens, const void* weights, const int*
     return launch<SimtF32<16, 64, 32>, 16, 64, 32, 3>(a, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 prefill route: tokens (T,D), weights (E,D,F), out (T,F), all
+// bf16, with D and F positive multiples of 8, tokens and weights 16-byte
+// aligned and bm a multiple of 64 (kernels/moe_gmm.route); tile_eid
+// (ceil(T/bm),) int32 on the device.  Returns a cudaError_t:
+// cudaErrorInvalidValue for arguments off that rule or a tensor map
+// cuTensorMapEncodeTiled refuses, cudaErrorNotSupported when libcuda has no
+// cuTensorMapEncodeTiled.
+extern "C" int repro_moe_gmm_wgmma(const void* tokens, const void* weights, const int* tile_eid,
+                                   void* out, int t, int d, int f, int e, int bm, void* stream) {
+  if (t <= 0 || d <= 0 || f <= 0 || e <= 0 || bm <= 0 || bm % 64 != 0 || d % 8 != 0 ||
+      f % 8 != 0 || tokens == nullptr || weights == nullptr || tile_eid == nullptr ||
+      out == nullptr || !aligned(tokens) || !aligned(weights) || !aligned(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bm % 128 ? wg::launch<1>(tokens, weights, tile_eid, out, t, d, f, e, bm, s)
+                  : wg::launch<2>(tokens, weights, tile_eid, out, t, d, f, e, bm, s);
 }

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds, not minutes).  Libraries go to ``build/`` at the repository
-root, named by a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one loads at once.  Nothing builds at import: the
+root, named by a hash of the source, the ``csrc/*.cuh`` headers it includes
+and the flags, so an edited source or header rebuilds and an unchanged one
+loads at once.  Nothing builds at import: the
 first launch of a kernel builds it, or ``build`` / ``build_all`` do so
 beforehand (``build_all`` runs one ``nvcc`` per source, all at once).
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -42,9 +44,26 @@ def nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: list[Path]) -> list[Path]:
+    """``path`` and every ``#include "*.cuh"`` it reaches under ``CSRC``,
+    each once, in the order first met."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    for header in _INCLUDE.findall(path.read_bytes()):
+        _sources(CSRC / header.decode(), seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by source and flags."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    """Where ``csrc/<name>.cu`` builds to: keyed by the source, every header
+    of ``csrc`` it includes, and the flags."""
+    digest = hashlib.sha256()
+    for path in _sources(CSRC / f"{name}.cu", []):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

@@ -27,16 +27,24 @@ Three functions live here besides the wrapper:
   path run it; ``chip_smoke.py`` holds the kernel against it.
 * ``pick_bm``: the tile height for a row count known on the host.
 
-``moe_gmm`` takes the plain version for a CPU tensor and launches the CUDA
-C++ kernel ``csrc/moe_gmm.cu`` (sm_90a) for a CUDA tensor; there is no
-fallback between them.  ``launches`` counts the kernel's launches.
+``moe_gmm`` takes the plain version for a CPU tensor and launches a CUDA
+C++ kernel of ``csrc/moe_gmm.cu`` (sm_90a) for a CUDA tensor, one per route
+(``route``, by dtype, tile height, shape and alignment): ``"wgmma"``, the
+prefill route, for bf16 with bm a multiple of 64, D and F multiples of 8
+and tokens and weights 16-byte aligned, a Hopper kernel on the bf16 tensor
+cores (TMA loads into a shared-memory ring, the weights read through a 3-D
+tensor map with the tile's expert as its third coordinate, ``wgmma`` on two
+consumer warpgroups); ``"mma"`` for the rest: decode (bm 16), f32 and
+ragged D or F.  There is no fallback between the CPU and the card, nor
+between the routes: a launch that fails raises.  ``launches`` counts the
+launches of both kernels, ``launches_wgmma`` those of the wgmma route.
 
 What bounds it on an H100: in decode a tile holds a few rows, so the
 weights of the experts that have rows, read once, bound it (bytes); in
 prefill each expert has hundreds of rows and the bf16 products bound it
-(tensor cores).  The kernel's bf16 instance runs ``mma.sync`` m16n8k16 on
-the tensor cores; the f32 instance runs true f32 products on the SIMT
-cores, with no TF32.
+(tensor cores).  The "mma" kernel's bf16 instance runs ``mma.sync``
+m16n8k16 on the tensor cores; its f32 instance runs true f32 products on
+the SIMT cores, with no TF32.
 """
 from __future__ import annotations
 
@@ -46,9 +54,12 @@ import torch
 
 from repro_torch.kernels import _build
 
-# Launches of the CUDA kernel since the last reset (set it to 0 to reset).
+# Launches of the CUDA kernels since the last reset (set it to 0 to reset):
+# both routes, and the wgmma route's alone.
 launches = 0
+launches_wgmma = 0
 _fn = None
+_fn_wgmma = None
 
 BLOCK_ROWS = (128, 64, 16)   # the kernel's block heights; bm is a multiple
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -132,6 +143,33 @@ def moe_gmm_plain(tokens, weights, tile_eid, *, bm: int):
     return out
 
 
+def route(tokens, weights, bm: int) -> str:
+    """Which kernel a CUDA call of ``moe_gmm(tokens, weights, tile_eid,
+    bm=bm)`` launches, by dtype, tile height, shape and alignment alone:
+    "wgmma" for bf16 tokens and weights with bm a multiple of 64, D and F
+    positive multiples of 8 and both 16-byte aligned (TMA's row strides and
+    bases), else "mma" (decode's bm 16, f32, ragged D or F).  A dispatch by
+    shape, not a fallback: each route raises on failure."""
+    d, f = weights.shape[1], weights.shape[2]
+    if (tokens.dtype == weights.dtype == torch.bfloat16 and bm % 64 == 0
+            and d > 0 and d % 8 == 0 and f % 8 == 0
+            and tokens.data_ptr() % 16 == 0
+            and weights.data_ptr() % 16 == 0):
+        return "wgmma"
+    return "mma"
+
+
+def _kernel_fn_wgmma():
+    global _fn_wgmma
+    if _fn_wgmma is None:
+        fn = _build.load("moe_gmm").repro_moe_gmm_wgmma
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn_wgmma = fn
+    return _fn_wgmma
+
+
 def _kernel_fn():
     global _fn
     if _fn is None:
@@ -146,10 +184,10 @@ def _kernel_fn():
 def moe_gmm(tokens, weights, tile_eid, *, bm: int = 128):
     """tokens (T, D), weights (E, D, F), tile_eid (⌈T/bm⌉,) int32 -> (T, F)
     in the tokens' dtype.  A CPU tensor takes ``moe_gmm_plain``; a CUDA
-    tensor launches the sm_90a kernel on the current stream or raises.  On
-    the card an id outside [0, E) gives zero rows (the kernel cannot raise),
-    and bm must be a multiple of 16."""
-    global launches
+    tensor launches the sm_90a kernel of its ``route`` on the current
+    stream or raises.  On the card an id outside [0, E) gives zero rows (the
+    kernel cannot raise), and bm must be a multiple of 16."""
+    global launches, launches_wgmma
     _check(tokens, weights, tile_eid, bm)
     if tokens.device.type == "cpu":
         return moe_gmm_plain(tokens, weights, tile_eid, bm=bm)
@@ -177,15 +215,23 @@ def moe_gmm(tokens, weights, tile_eid, *, bm: int = 128):
     out = torch.empty((t, f), dtype=tokens.dtype, device=tokens.device)
     if out.numel() == 0:
         return out
-    fn = _kernel_fn()
+    path = route(tokens, weights, bm)
     with torch.cuda.device(tokens.device):
         stream = torch.cuda.current_stream(tokens.device).cuda_stream
-        launches += 1
-        err = fn(tokens.data_ptr(), weights.data_ptr(), tile_eid.data_ptr(),
-                 out.data_ptr(), t, d, f, e, bm, _DTYPES[tokens.dtype],
-                 stream)
+        args = (tokens.data_ptr(), weights.data_ptr(), tile_eid.data_ptr(),
+                out.data_ptr(), t, d, f, e, bm)
+        if path == "wgmma":
+            fn = _kernel_fn_wgmma()
+            launches += 1
+            launches_wgmma += 1
+            err = fn(*args, stream)
+        else:
+            fn = _kernel_fn()
+            launches += 1
+            err = fn(*args, _DTYPES[tokens.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"moe_gmm kernel launch failed: CUDA error {err} "
+        raise RuntimeError(f"moe_gmm kernel launch failed ({path} route): "
+                           f"CUDA error {err} "
                            f"(tokens {tuple(tokens.shape)}, weights "
                            f"{tuple(weights.shape)}, bm {bm}, "
                            f"{tokens.dtype})")

@@ -406,6 +406,49 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         k7.flash_attention(q.double(), k.double(), v.double())
 
 
+# the bf16 cases of ATTN_CASES that the wgmma route takes (Dh 64 and 128):
+# L = 1, 65, 129, 200 (tails of the 64-query and of both key blocks), GQA
+# groups of 1 to 6
+ATTN_WGMMA_CASES = [c for c in ATTN_CASES if c[4] in k7.WGMMA_HEAD_DIMS]
+
+
+@pytest.mark.parametrize("case", ATTN_WGMMA_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kb", k7.KEY_BLOCKS)
+def test_flash_wgmma_route_matches_plain(cuda, case, causal, kb,
+                                         monkeypatch):
+    """bf16 at Dh 64 and 128 takes the TMA + wgmma kernel at either key
+    block: within 1e-2 of max |plain| per query row, the same bits twice."""
+    monkeypatch.setattr(k7, "wgmma_key_block", lambda *_: kb)
+    q, k, v = _attn_args(case, cuda, torch.bfloat16)
+    assert k7.route(q, k, v) == "wgmma"
+    before = (k7.launches, k7.launches_wgmma)
+    out = k7.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (k7.launches, k7.launches_wgmma) == (before[0] + 1, before[1] + 1)
+    exp = k7.flash_attention_plain(q, k, v, causal=causal)
+    assert out.dtype == torch.bfloat16 and out.shape == exp.shape
+    assert bool(torch.isfinite(out).all())
+    assert _row_rel_err(out.float(), exp.float()) <= 1e-2
+    assert torch.equal(out, k7.flash_attention(q, k, v, causal=causal))
+
+
+def test_flash_simt_route_for_f32_and_dh16(cuda):
+    """f32 at every head width (held to 1e-5) and bf16 at Dh 16 keep the
+    SIMT kernel."""
+    for case, dtype, tol in (((1, 4, 2, 70, 128), torch.float32, 1e-5),
+                             ((1, 6, 2, 70, 64), torch.float32, 1e-5),
+                             ((2, 4, 2, 37, 16), torch.bfloat16, 1e-2)):
+        q, k, v = _attn_args(case, cuda, dtype)
+        assert k7.route(q, k, v) == "simt"
+        before = (k7.launches, k7.launches_wgmma)
+        out = k7.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert (k7.launches, k7.launches_wgmma) == (before[0] + 1, before[1])
+        exp = k7.flash_attention_plain(q, k, v, causal=True)
+        assert _row_rel_err(out.float(), exp.float()) <= tol
+
+
 # m, k, n: both tiles, ragged M/N/K (no vector path), K = 1
 MM_CASES = [(64, 96, 32), (300, 129, 257), (1024, 512, 768), (7, 1, 5),
             (4096, 64, 256)]
@@ -705,12 +748,66 @@ def test_moe_gmm_kernel_rejects_what_it_does_not_take(cuda):
     assert k9.launches == before
 
 
+# t, d, f, e, bm of the wgmma route: both block shapes (bm 128: 128 x 128;
+# bm 64: 64 x 256), ragged T, a D tail inside a 64-deep stage (72) and F
+# tails (136, 264) in multiples of 8
+K9_WGMMA_CASES = [(640, 256, 384, 4, 128), (300, 128, 264, 3, 64),
+                  (1000, 512, 1024, 8, 128), (200, 72, 136, 5, 64)]
+
+
+def _k9_wgmma_args(case, dev):
+    """bf16 inputs whose id stream holds the last expert E-1 first, -1
+    tiles in the middle and at the end, and random ids between."""
+    tokens, weights, tile_eid = _k9_args(case, dev, torch.bfloat16)
+    e, tiles = case[3], tile_eid.shape[0]
+    tile_eid[0], tile_eid[tiles // 2], tile_eid[-1] = e - 1, -1, -1
+    return tokens, weights, tile_eid
+
+
+@pytest.mark.parametrize("case", K9_WGMMA_CASES)
+def test_moe_gmm_wgmma_route_matches_plain(cuda, case):
+    """The prefill route: every tile's rows against its expert's product
+    within 1e-2, -1 tiles zero, the same bits twice."""
+    tokens, weights, tile_eid = _k9_wgmma_args(case, cuda)
+    bm = case[-1]
+    assert k9.route(tokens, weights, bm) == "wgmma"
+    before = (k9.launches, k9.launches_wgmma)
+    out = k9.moe_gmm(tokens, weights, tile_eid, bm=bm)
+    torch.cuda.synchronize()
+    assert (k9.launches, k9.launches_wgmma) == (before[0] + 1, before[1] + 1)
+    exp = k9.moe_gmm_plain(tokens, weights, tile_eid, bm=bm)
+    assert out.dtype == torch.bfloat16 and out.shape == exp.shape
+    assert _rel_err(out.float(), exp.float()) <= 1e-2
+    for i, eid in enumerate(tile_eid.tolist()):
+        if eid < 0:
+            assert not out[i * bm:(i + 1) * bm].any()
+    assert torch.equal(out, k9.moe_gmm(tokens, weights, tile_eid, bm=bm))
+
+
+def test_moe_gmm_mma_route_for_decode_f32_and_ragged(cuda):
+    """bm 16 (decode), f32, and a D off the multiples of 8 keep the mma.sync
+    / SIMT kernel, at their present limits."""
+    for case, dtype, tol in (((144, 256, 512, 8, 16), torch.bfloat16, 1e-2),
+                             ((640, 256, 384, 4, 128), torch.float32, 1e-5),
+                             ((300, 1003, 520, 3, 64), torch.bfloat16, 1e-2)):
+        tokens, weights, tile_eid = _k9_args(case, cuda, dtype)
+        bm = case[-1]
+        assert k9.route(tokens, weights, bm) == "mma"
+        before = (k9.launches, k9.launches_wgmma)
+        out = k9.moe_gmm(tokens, weights, tile_eid, bm=bm)
+        torch.cuda.synchronize()
+        assert (k9.launches, k9.launches_wgmma) == (before[0] + 1, before[1])
+        exp = k9.moe_gmm_plain(tokens, weights, tile_eid, bm=bm)
+        assert _rel_err(out.float(), exp.float()) <= tol
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,l", [(8, 1), (2, 600)])
 def test_moe_layer_on_the_card_matches_the_cpu(cuda, dtype, b, l):
     """The smoke MoE layer (4 experts, top-2; a share of 2) on the card:
-    3 K9 launches, no host synchronisation, the same bits twice, and the
-    CPU's output (f32 within 1e-5, bf16 within 2e-2 of max |out|)."""
+    3 K9 launches (through the wgmma route in the bf16 prefill), no host
+    synchronisation, the same bits twice, and the CPU's output (f32 within
+    1e-5, bf16 within 2e-2 of max |out|)."""
     import dataclasses
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.convert import params_to
@@ -724,13 +821,15 @@ def test_moe_layer_on_the_card_matches_the_cpu(cuda, dtype, b, l):
     x = torch.randn((b, l, cfg.d_model),
                     generator=torch.Generator().manual_seed(l)).to(tdt)
     x_dev = x.to(cuda)
-    before = k9.launches
+    before = (k9.launches, k9.launches_wgmma)
     torch.cuda.set_sync_debug_mode("error")
     try:
         out, _ = moe.apply(dev, cfg, x_dev)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert k9.launches == before + 3
+    wgmma = 3 if dtype == "bfloat16" and l > 1 else 0
+    assert (k9.launches, k9.launches_wgmma) == (before[0] + 3,
+                                                before[1] + wgmma)
     assert torch.equal(out, moe.apply(dev, cfg, x_dev)[0])   # same bits
     exp, _ = moe.apply(cpu, cfg, x)
     tol = 1e-5 if dtype == "float32" else 2e-2

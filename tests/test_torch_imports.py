@@ -65,6 +65,48 @@ def test_build_targets_hopper_and_keys_on_the_source(tmp_path, monkeypatch):
     assert first.parent == _build.BUILD_DIR
 
 
+def test_library_name_keys_on_the_headers_the_source_includes(tmp_path,
+                                                             monkeypatch):
+    """An edited ``csrc/*.cuh`` that a source includes (directly or through
+    another header) renames its library, so no stale build loads; a header
+    it does not include leaves the name as it is."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for path in _build.CSRC.iterdir():
+        (csrc / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    names = {n: _build.library_path(n) for n in _build.KERNELS}
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    for name in _build.KERNELS:
+        includes = '#include "hopper.cuh"' in (csrc / f"{name}.cu").read_text()
+        assert (_build.library_path(name) != names[name]) == includes, name
+    assert {n for n in _build.KERNELS if _build.library_path(n) != names[n]} \
+        == {"flash_attention", "matmul_fused", "moe_gmm"}
+    (csrc / "k.cu").write_text('#include "a.cuh"\n')
+    (csrc / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (csrc / "b.cuh").write_text("// one\n")
+    (csrc / "c.cuh").write_text("// one\n")
+    first = _build.library_path("k")
+    (csrc / "c.cuh").write_text("// two\n")
+    assert _build.library_path("k") == first
+    (csrc / "b.cuh").write_text("// two\n")
+    assert _build.library_path("k") != first
+
+
+@pytest.mark.parametrize("kernel,symbol", [
+    ("flash_attention", "repro_flash_attention_wgmma"),
+    ("moe_gmm", "repro_moe_gmm_wgmma"),
+    ("matmul_fused", "repro_matmul_fused_wgmma")])
+def test_wgmma_route_symbol_matches_its_binding(kernel, symbol):
+    src = (_build.CSRC / f"{kernel}.cu").read_text()
+    assert f'extern "C" int {symbol}(' in src
+    assert '#include "hopper.cuh"' in src
+    wrapper = {"flash_attention": "attention"}.get(kernel, kernel)
+    binding = (PORT / "kernels" / f"{wrapper}.py").read_text()
+    assert f".{symbol}" in binding
+
+
 def test_kernel_symbol_matches_its_binding():
     src = (_build.CSRC / "conv2d_direct.cu").read_text()
     assert 'extern "C" int repro_conv2d_direct_f32(' in src

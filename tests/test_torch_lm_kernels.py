@@ -205,6 +205,142 @@ def test_matmul_route_by_shape_dtype_and_alignment(case):
     assert k6.route(a, b) == want
 
 
+def _qkv_bf16(b, hq, hkv, l, dh):
+    return [torch.zeros(shape, dtype=BF16)
+            for shape in ((b, hq, l, dh), (b, hkv, l, dh), (b, hkv, l, dh))]
+
+
+def _offset_qkv(b, hq, hkv, l, dh):
+    """q a contiguous view 2 bytes past a fresh allocation: off TMA's
+    16-byte alignment."""
+    q, k, v = _qkv_bf16(b, hq, hkv, l, dh)
+    n = q.numel()
+    return torch.zeros(n + 1, dtype=BF16)[1:].view(q.shape), k, v
+
+
+def _strided_qkv(b, hq, hkv, l, dh):
+    """k a (B, Hkv, L, Dh) view of a (B, L, Hkv, Dh) tensor: the layout of a
+    projection before its transpose, not contiguous."""
+    q, _, v = _qkv_bf16(b, hq, hkv, l, dh)
+    return q, torch.zeros((b, l, hkv, dh), dtype=BF16).transpose(1, 2), v
+
+
+# (q, k, v) of each case and the route a CUDA call of flash_attention takes
+ATTN_ROUTE_CASES = {
+    "bf16 Dh 128": (lambda: _qkv_bf16(1, 12, 2, 70, 128), "wgmma"),
+    "bf16 Dh 64": (lambda: _qkv_bf16(2, 15, 5, 33, 64), "wgmma"),
+    "bf16 Dh 16": (lambda: _qkv_bf16(1, 4, 2, 37, 16), "simt"),
+    "f32 Dh 128": (lambda: _t(_qkv(1, 1, 4, 2, 70, 128)), "simt"),
+    "f32 Dh 64": (lambda: _t(_qkv(1, 1, 4, 4, 9, 64)), "simt"),
+    "offset q": (lambda: _offset_qkv(1, 4, 2, 40, 128), "simt"),
+    "non-contiguous k": (lambda: _strided_qkv(1, 4, 2, 40, 64), "simt"),
+}
+
+
+@pytest.mark.parametrize("case", list(ATTN_ROUTE_CASES))
+def test_attention_route_by_dtype_head_width_and_alignment(case):
+    """``attention.route``: bf16 q, k, v with Dh 64 or 128, contiguous and
+    16-byte aligned take the wgmma kernel; f32 at any Dh, bf16 at Dh 16, an
+    unaligned view or a non-contiguous tensor take the SIMT kernel."""
+    make, want = ATTN_ROUTE_CASES[case]
+    assert k7.route(*make()) == want
+
+
+@pytest.mark.parametrize("b,hq,l,causal,kb", [
+    (1, 12, 1024, True, 128), (1, 15, 512, True, 128), (1, 12, 333, True, 64),
+    (1, 12, 1024, False, 64), (8, 12, 512, True, 64), (8, 12, 128, True, 64),
+    (1, 64, 1024, True, 64), (2, 12, 700, True, 128)])
+def test_attention_key_block_by_shape(b, hq, l, causal, kb):
+    """``wgmma_key_block``: 128 keys a step only for a causal prompt of 512
+    tokens or more whose 64-query blocks fit twice on the card's SMs."""
+    assert k7.wgmma_key_block(b, hq, l, causal) == kb
+
+
+def wgmma_emulated(q, k, v, *, causal, scale=None, p_dtype=BF16,
+                   out_dtype=BF16):
+    """K7's wgmma route in plain torch, rounding where it rounds: S = Q Kᵀ
+    in f32 from the bf16 q and k, scaled after the product (log2 e folded
+    in); per 64-key block the running max, p = 2^(s - m) in f32 (masked
+    logits 0), l summed from the f32 p, P rounded to ``p_dtype`` (bf16) for
+    P V with f32 accumulation; out = acc / l rounded to ``out_dtype``."""
+    b, hq, l, dh = q.shape
+    rep = hq // k.shape[1]
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    qf = q.float()
+    c = torch.tensor((dh ** -0.5 if scale is None else scale)
+                     * 1.4426950408889634, dtype=torch.float32)
+    m = torch.full((b, hq, l), -1e30)
+    lsum = torch.zeros((b, hq, l))
+    acc = torch.zeros((b, hq, l, dh))
+    rows = torch.arange(l)
+    for k0 in range(0, l, 64):
+        keys = torch.arange(k0, min(k0 + 64, l))
+        s = (qf @ kf[:, :, k0:k0 + 64].transpose(-1, -2)) * c
+        if causal:
+            s = s.masked_fill(keys[None, :] > rows[:, None], float("-inf"))
+        mx = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - mx)
+        m = mx
+        p = torch.exp2(s - m[..., None])
+        lsum = lsum * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] \
+            + p.to(p_dtype).float() @ vf[:, :, k0:k0 + 64]
+    return (acc / lsum[..., None]).to(out_dtype)
+
+
+def _row_rel(out, exp) -> float:
+    """The worst query row's max |diff| / max |exp|."""
+    out, exp = out.float(), exp.float()
+    return float(((out - exp).abs().amax(-1)
+                  / exp.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("l", [333, 1024])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_roundings_hold_the_bf16_row_limit(l, causal):
+    """The wgmma route's roundings against ``flash_attention_plain`` at
+    Qwen2-1.5B's heads (GQA 12/2, Dh 128): within the bf16 limit of 1e-2 of
+    max |plain| per query row, before the card runs it.  Prints the
+    headroom, and the share of P's rounding (the new one): the emulation
+    in f32 out against the plain version on the same values in f32.  That
+    share stays under 2^-8, the least step of a bf16 output relative to its
+    row's max, so the two bf16 outputs differ by at most 2^-7 of it."""
+    q, k, v = _t(_qkv(l, 1, 12, 2, l, 128), BF16)
+    out = wgmma_emulated(q, k, v, causal=causal)
+    err = _row_rel(out, k7.flash_attention_plain(q, k, v, causal=causal))
+    p_only = _row_rel(
+        wgmma_emulated(q, k, v, causal=causal, out_dtype=torch.float32),
+        k7.flash_attention_plain(q.float(), k.float(), v.float(),
+                                 causal=causal))
+    print(f"L {l} causal {causal}: worst row {err:.3e} of the 1e-2 limit "
+          f"(headroom {BF16_REL_TOL / err:.2f}x); P's rounding alone "
+          f"{p_only:.3e}, the rest one bf16 step of the output")
+    assert err <= BF16_REL_TOL
+    assert p_only < 2.0 ** -8
+
+
+def test_wgmma_emulation_is_the_plain_function_in_f32():
+    """Without the bf16 roundings (P and the output in f32) the emulated
+    blockwise order equals the plain version within f32's 1e-5: the
+    emulation is the same function, so its bf16 gap is the roundings'."""
+    q, k, v = _t(_qkv(3, 1, 6, 2, 150, 64))
+    out = wgmma_emulated(q, k, v, causal=True, p_dtype=torch.float32,
+                         out_dtype=torch.float32)
+    _close(out, k7.flash_attention_plain(q, k, v, causal=True).numpy())
+
+
+def test_flash_on_cpu_takes_the_plain_version_on_either_route():
+    """On CPU tensors ``flash_attention`` is the plain version whatever the
+    route would be on the card, and counts no launch of either kernel."""
+    q, k, v = _t(_qkv(8, 1, 4, 2, 70, 128), BF16)
+    assert k7.route(q, k, v) == "wgmma"
+    k7.launches = k7.launches_wgmma = 0
+    out = k7.flash_attention(q, k, v, causal=True)
+    assert (k7.launches, k7.launches_wgmma) == (0, 0)
+    assert torch.equal(out, k7.flash_attention_plain(q, k, v, causal=True))
+
+
 def test_matmul_on_cpu_takes_the_plain_version_on_either_route():
     """On CPU tensors ``matmul_fused`` is the plain version whatever the
     route would be on the card, and counts no launch of either kernel."""

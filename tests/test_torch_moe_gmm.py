@@ -184,6 +184,61 @@ def test_pick_bm():
     assert k9.pick_bm(0, 8) == 16
 
 
+def _tw(t, d, f, e=4, dtype=torch.bfloat16, offset=None):
+    """tokens (t, d) and weights (e, d, f); ``offset`` names the one made a
+    contiguous view 2 (bf16) or 4 (f32) bytes off 16-byte alignment."""
+    def make(shape, off):
+        n = int(np.prod(shape))
+        if off:
+            return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+        return torch.zeros(shape, dtype=dtype)
+    return (make((t, d), offset == "tokens"),
+            make((e, d, f), offset == "weights"))
+
+
+# (tokens, weights) of each case, bm, and the route a CUDA call takes
+K9_ROUTE_CASES = {
+    "bf16 bm 128": (lambda: _tw(300, 256, 384), 128, "wgmma"),
+    "bf16 bm 64": (lambda: _tw(300, 256, 384), 64, "wgmma"),
+    "bf16 bm 16 (decode)": (lambda: _tw(144, 256, 512), 16, "mma"),
+    "bf16 bm 32": (lambda: _tw(100, 64, 72), 32, "mma"),
+    "f32 bm 128": (lambda: _tw(300, 256, 384, dtype=torch.float32), 128,
+                   "mma"),
+    "D % 8 != 0": (lambda: _tw(77, 1003, 520), 64, "mma"),
+    "F % 8 != 0": (lambda: _tw(77, 1000, 517), 64, "mma"),
+    "offset tokens": (lambda: _tw(64, 128, 256, offset="tokens"), 64, "mma"),
+    "offset weights": (lambda: _tw(64, 128, 256, offset="weights"), 128,
+                       "mma"),
+}
+
+
+@pytest.mark.parametrize("case", list(K9_ROUTE_CASES))
+def test_route_by_dtype_tile_height_shape_and_alignment(case):
+    """``moe_gmm.route``: bf16 with bm a multiple of 64, D and F multiples
+    of 8 and both operands 16-byte aligned take the wgmma kernel; decode's
+    bm 16, f32, a ragged D or F, or an unaligned view take the mma one."""
+    make, bm, want = K9_ROUTE_CASES[case]
+    tokens, weights = make()
+    assert k9.route(tokens, weights, bm) == want
+
+
+def test_moe_gmm_on_cpu_takes_the_plain_version_on_either_route():
+    """On CPU tensors ``moe_gmm`` is the plain version whatever the route
+    would be on the card, and counts no launch of either kernel."""
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.standard_normal((200, 64), np.float32))
+    weights = torch.from_numpy(rng.standard_normal((3, 64, 40), np.float32))
+    tokens, weights = tokens.bfloat16(), weights.bfloat16()
+    tile_eid = torch.tensor([2, -1, 0, 1], dtype=torch.int32)
+    assert k9.route(tokens, weights, 64) == "wgmma"
+    k9.launches = k9.launches_wgmma = 0
+    out = k9.moe_gmm(tokens, weights, tile_eid, bm=64)
+    assert (k9.launches, k9.launches_wgmma) == (0, 0)
+    assert torch.equal(out, k9.moe_gmm_plain(tokens, weights, tile_eid,
+                                             bm=64))
+    assert not out[64:128].any()
+
+
 def _cfgs(dtype):
     arch = "jamba-1.5-large-398b"
     return (dataclasses.replace(smoke_config(get_config(arch)), dtype=dtype),
