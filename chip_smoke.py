@@ -57,8 +57,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
    launches), against the plain version (<= 1e-5), with times, the cuDNN
    yardstick and the bound.
 9. K2 vs plain: the 22 distinct lane-aligned weight-update signatures of
-   ResNet-50 at batch 32 (<= 1e-5), with the kernel's ``splits``, times,
-   the bound, and the library yardstick: cuDNN's f32 weight gradient
+   ResNet-50 at batch 32 (<= 1e-5), each run twice on the same inputs (the
+   same bits), with its route (``conv2d_wu.route``: "mma", 3xTF32 on the
+   tensor cores, for every one of them), tile, ``splits`` and chunk, its
+   time by CUDA events and by profiler device time (the reduction pass
+   included), both bounds (f32 SIMT; 3 x the FLOPs at the TF32 rate), and
+   the library yardstick: cuDNN's f32 weight gradient
    (``aten.convolution_backward``, output mask [False, True, False], TF32
    off), which the port never calls.
 10. Training: full ResNet-50 (224x224, 1000 classes, batch 32, lr 0.1)
@@ -67,8 +71,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
     (median step ms, images/s, every loss finite), one step with the launch
     counts set to 0 just before it and read just after (K1 = forward +
     dual launches, K2 = one per lane-aligned conv, both derived from the
-    port's ETG), then 3 steps under ``torch.profiler``: device time by
-    kernel, the device's busy and idle share, K1 and K2 per step.
+    port's ETG, every K2 launch on the mma route by ``launches_mma``), then
+    3 steps under ``torch.profiler``: device time by kernel, the device's
+    busy and idle share, K1 and K2 per step.
 11. Training parity: one step of full ResNet-50 at batch 2 on the card
     against the same step on the port's CPU path (the plain versions) from
     the same params and batch: the loss within 1e-4 relative; every
@@ -164,11 +169,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
     C, D) x (E, D, F), the port's replay before K9), for (c) the bench's
     dense every-expert einsum, and the bound (FLOPs of the rows with a
     token over the dtype's peak, bytes of the rows, the weights of the
-    experts that have rows and the output over 3.35 TB/s).  Held: the bf16
-    decode with all 16 rows on one expert takes under half the time of 16
-    rows over 8 (empty experts' weights are not read).  Each case's route
-    (``moe_gmm.route``) is printed and held: the bf16 prefill cases through
-    the TMA + wgmma kernel, decode, f32 and the tail through the mma one.
+    experts that have rows and the output over 3.35 TB/s) with K9's share
+    of it.  Held: the bf16 decode with all 16 rows on one expert takes
+    under half the time of 16 rows over 8 (empty experts' weights are not
+    read); each case gives the same bits on a second run.  Each case's
+    route (``moe_gmm.route``) is printed and held: the bf16 prefill cases
+    through the TMA + wgmma kernel, the bf16 decode through the TMA weight
+    stream (its sum pass timed with it), f32 and the tail through the mma
+    one.
 19. Hybrid serving, the slice's main path: ``jamba-1.5-large-398b-1chip``
     (one 8-layer period of Jamba-1.5-Large at full width, 8 of each MoE
     layer's 16 experts, bf16, 51.8 GB) through ``serve_continuous`` with
@@ -176,10 +184,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
     1 x 32 and K9's 12 x the forward and decode_step calls the scheduler
     counted (3 per MoE layer, 4 MoE layers), K7's and K9's forward
     launches all through the wgmma route (every K9 call with bm >= 64,
-    counted by bm in the window; decode's bm 16 through the mma route);
+    counted by bm in the window; every decode call, bm 16, counted by
+    route and held to the stream route by ``launches_stream``);
     then a batch-8 prefill at 512
     tokens and 16 decode steps (K9 12 a step, K7 and K8 none), with the
-    held experts that receive rows per MoE layer and step, one prefill and
+    held experts that receive rows per MoE layer and step, K9's device ms
+    per traced decode step beside its bytes bound (the weights of the held
+    experts with rows in every MoE layer the trace ran), one prefill and
     one decode step with ``moe.apply`` under
     ``torch.cuda.set_sync_debug_mode("error")`` (a host synchronisation
     in the layer fails the run), and both under ``torch.profiler`` with
@@ -869,7 +880,7 @@ def training_signatures(etg):
 
 
 def train_k1_signatures(device, fwd, dual):
-    """Phase 5: K1 on every bare forward and dual signature of a training
+    """Phase 8: K1 on every bare forward and dual signature of a training
     step at TRAIN_BATCH.  Returns records with ``role`` and ``count``."""
     import torch
     from repro_torch.kernels import conv2d_direct as k1
@@ -924,17 +935,23 @@ def train_k1_signatures(device, fwd, dual):
 
 
 def wu_signatures(device, wu):
-    """Phase 6: K2 against its plain version on every weight-update
-    signature of a training step at TRAIN_BATCH."""
+    """Phase 9: K2 against its plain version on every weight-update
+    signature of a training step at TRAIN_BATCH, each run twice on the same
+    inputs (the same bits), with its route and plan, its time by CUDA
+    events and by profiler device time (the split kernel and its reduction
+    pass), cuDNN's, and both bounds: the f32 SIMT one and the mma route's
+    (3 x the FLOPs at the TF32 tensor-core rate, or the bytes)."""
     import torch
     from repro_torch.kernels import conv2d_wu as k2
+    from repro_torch.launch import roofline
 
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
     rows = []
     print(f"\nK2 vs plain, ResNet-50 {IMAGE}x{IMAGE} batch {TRAIN_BATCH} "
           f"({len(wu)} signatures, {sum(wu.values())} convs):")
-    print("  h   w    c    k r st pad count tile splits chunk  max_rel"
-          "    max_abs        ms  plain_ms  library_ms  bound_ms bound_by")
+    print("  h   w    c    k r st pad count route tile splits chunk  max_rel"
+          "    max_abs        ms device_ms  plain_ms  library_ms  bound_ms "
+          "bound_by mma_bound_ms")
     for (h, w, c, k, r, s, st, pad), count in wu.items():
         p = (h + 2 * pad - r) // st + 1
         q = (w + 2 * pad - s) // st + 1
@@ -942,11 +959,16 @@ def wu_signatures(device, wu):
         do = torch.randn((TRAIN_BATCH, p, q, k), generator=gen,
                          device=device)
         args = dict(x=x, do=do, stride=st, padding=pad, filter_rs=(r, s))
-        plan = k2.plan(n=TRAIN_BATCH, p=p, q=q, c=c, k=k, r=r, s=s)
+        path = k2.route(x, do)
+        plan = k2.plan(n=TRAIN_BATCH, p=p, q=q, c=c, k=k, r=r, s=s,
+                       route=path)
         out = k2.conv2d_wu(**args)
+        again = k2.conv2d_wu(**args)
         plain = k2.conv2d_wu_plain(**args)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out).all()), f"K2 non-finite at {h, c, k}")
+        check(torch.equal(out, again), f"K2 ({path} route) gave other bits "
+              f"on a second run at {(h, c, k, r, st)}")
         max_abs = float((out - plain).abs().max())
         max_rel = max_abs / float(plain.abs().max())
         # cuDNN's weight gradient on the same NHWC tensors (channels-last
@@ -962,26 +984,43 @@ def wu_signatures(device, wu):
                     [1, 1], False, [0, 0], 1, [False, True, False])[1]
         lib_abs = float((library().permute(2, 3, 1, 0) - plain).abs().max())
         ms = cuda_ms(lambda: k2.conv2d_wu(**args), 20)
+        device_ms, _ = kernel_device_ms(lambda: k2.conv2d_wu(**args),
+                                        "conv2d_wu_kernel", k2,
+                                        also=("wu_reduce",))
         plain_ms = cuda_ms(lambda: k2.conv2d_wu_plain(**args), 5)
         library_ms = cuda_ms(library, 20)
         flops = 2.0 * TRAIN_BATCH * p * q * k * c * r * s
         nbytes = 4.0 * (TRAIN_BATCH * (h * w * c + p * q * k) + r * s * c * k)
         bound_ms, bound_by = bound(flops, nbytes)
+        mma_bound_ms, mma_bound_by = roofline.bound_ms(
+            3 * flops, nbytes, roofline.TF32_PEAK_FLOPS)
         rows.append(dict(h=h, w=w, c=c, k=k, r=r, s=s, stride=st,
-                         padding=pad, count=count, tile=plan.tile,
+                         padding=pad, count=count, route=path, tile=plan.tile,
                          splits=plan.splits, chunk=plan.chunk,
                          max_rel_err=max_rel, max_abs_err=max_abs,
                          library_rel_err=lib_abs / float(plain.abs().max()),
-                         ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=bound_ms, bound_by=bound_by))
-        print(f"{h:3d}{w:4d}{c:5d}{k:5d}{r:2d}{st:3d}{pad:4d}{count:6d}"
-              f"{plan.tile:5d}{plan.splits:7d}{plan.chunk:6d}  {max_rel:.2e}"
-              f"  {max_abs:.2e} {ms:9.4f} {plain_ms:9.4f} {library_ms:11.4f}"
-              f" {bound_ms:9.4f} {bound_by}")
+                         ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, mma_bound_ms=mma_bound_ms,
+                         mma_bound_by=mma_bound_by))
+        print(f"{h:3d}{w:4d}{c:5d}{k:5d}{r:2d}{st:3d}{pad:4d}{count:6d} "
+              f"{path:5s}{plan.tile:5d}{plan.splits:7d}{plan.chunk:6d}  "
+              f"{max_rel:.2e}  {max_abs:.2e} {ms:9.4f} {device_ms:9.4f} "
+              f"{plain_ms:9.4f} {library_ms:11.4f} {bound_ms:9.4f} "
+              f"{bound_by:10s}{mma_bound_ms:9.4f} {mma_bound_by}")
         check(max_rel <= KERNEL_REL_TOL,
               f"K2 disagrees with its plain version at {(h, c, k, r, st)}: "
               f"max_rel {max_rel:.3e} > {KERNEL_REL_TOL}")
-        del x, do, args, out, plain, x_nchw, do_nchw
+        del x, do, args, out, again, plain, x_nchw, do_nchw
+    step = totals(rows)
+    per_route = {path: sum(r_["count"] for r_ in rows if r_["route"] == path)
+                 for path in k2.ROUTES}
+    print(f"  per step (x count): K2 {step['ms']:.4f} ms by events, "
+          f"{sum(r_['device_ms'] * r_['count'] for r_ in rows):.4f} device; "
+          f"cuDNN dW {step['library_ms']:.4f}; bounds {step['bound_ms']:.4f} "
+          f"(f32 SIMT) and "
+          f"{sum(r_['mma_bound_ms'] * r_['count'] for r_ in rows):.4f} "
+          f"(3xTF32); launches by route {per_route}")
     print("  per-signature JSON:", json.dumps(rows))
     return rows
 
@@ -1190,7 +1229,7 @@ def profile_steps(step, params, batches) -> dict:
 
 
 def training(device, fwd, dual, wu):
-    """Phase 7: the training main path.  Returns (launch counts of one
+    """Phase 10: the training main path.  Returns (launch counts of one
     step, summary)."""
     import numpy as np
     import torch
@@ -1234,19 +1273,25 @@ def training(device, fwd, dual, wu):
 
     expect_k1 = sum(fwd.values()) + sum(dual.values())
     expect_k2 = sum(wu.values())
-    k1.launches = k2.launches = 0
+    k1.launches = k2.launches = k2.launches_mma = 0
     params, loss = step(params, batches[12])
     torch.cuda.synchronize()
-    counts = {"conv2d_direct": k1.launches, "conv2d_wu": k2.launches}
+    counts = {"conv2d_direct": k1.launches, "conv2d_wu": k2.launches,
+              "conv2d_wu_mma": k2.launches_mma}
     print(f"  launches in one step: K1 {counts['conv2d_direct']} (expected "
           f"{sum(fwd.values())} forward + {sum(dual.values())} dual = "
-          f"{expect_k1}), K2 {counts['conv2d_wu']} (expected {expect_k2})")
+          f"{expect_k1}), K2 {counts['conv2d_wu']} (expected {expect_k2}), "
+          f"{counts['conv2d_wu_mma']} of them on the mma route (expected "
+          f"all)")
     check(counts["conv2d_direct"] == expect_k1 == 113,
           f"K1 launched {counts['conv2d_direct']} times in a step, expected "
           f"{expect_k1} (113)")
     check(counts["conv2d_wu"] == expect_k2 == 52,
           f"K2 launched {counts['conv2d_wu']} times in a step, expected "
           f"{expect_k2} (52)")
+    check(counts["conv2d_wu_mma"] == counts["conv2d_wu"],
+          f"{counts['conv2d_wu_mma']} of the step's {counts['conv2d_wu']} K2 "
+          f"launches took the mma route, expected all")
     prof = profile_steps(step, params, batches[13:16])
     return counts, dict(step_ms=step_ms, step_times_ms=times,
                         images_per_s=TRAIN_BATCH / step_ms * 1e3,
@@ -2003,11 +2048,12 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict,
         mod.launches = 0
     for name in wgmma:
         kernels[name][0].launches_wgmma = 0
-    k9_calls = []      # bm of every K9 call in the window
+    k9_calls = []      # (bm, route) of every K9 call in the window
+    k9.launches_stream = 0
     gmm = k9.moe_gmm
 
     def recording_gmm(tokens, weights, tile_eid, *, bm):
-        k9_calls.append(bm)
+        k9_calls.append((bm, k9.route(tokens, weights, bm)))
         return gmm(tokens, weights, tile_eid, bm=bm)
     k9.moe_gmm = recording_gmm
     torch.cuda.synchronize()
@@ -2022,6 +2068,7 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict,
                 for name, (mod, _, _, _) in kernels.items()}
     launches_wgmma = {name: kernels[name][0].launches_wgmma
                       for name in wgmma}
+    launches_stream = k9.launches_stream
     tokens = sum(len(r) for r in results.values())
     prompt_tokens = int(sum(len(p) for p in window))
     print(f"  window: {LM_REQUESTS} requests ({prompt_tokens} prompt "
@@ -2055,14 +2102,26 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict,
               f"{name} took the wgmma route {launches_wgmma[name]} times in "
               f"the window, expected {expected}")
     if k9_calls:
-        big = sum(bm >= 64 for bm in k9_calls)
+        bms = [bm for bm, _ in k9_calls]
+        big = sum(bm >= 64 for bm in bms)
+        small = len(bms) - big
         print(f"  moe_gmm calls in the window by bm: "
-              + ", ".join(f"{bm}: {k9_calls.count(bm)}"
-                          for bm in sorted(set(k9_calls)))
+              + ", ".join(f"{bm}: {bms.count(bm)}" for bm in sorted(set(bms)))
               + f"; {big} with bm >= 64, {k9.launches_wgmma} wgmma launches")
         check(big == k9.launches_wgmma == launches_wgmma.get("moe_gmm", -1),
               f"{big} K9 calls with bm >= 64 but {k9.launches_wgmma} wgmma "
               f"launches in the window")
+        by_route = {r_: sum(route_ == r_ for _, route_ in k9_calls)
+                    for r_ in ("stream", "wgmma", "mma")}
+        decode_routes = {route_ for bm, route_ in k9_calls if bm < 64}
+        print(f"  moe_gmm calls in the window by route: {by_route}; the "
+              f"{small} decode calls (bm < 64) on {sorted(decode_routes)}, "
+              f"{k9.launches_stream} stream launches")
+        check(small == k9.launches_stream == by_route["stream"]
+              and decode_routes <= {"stream"},
+              f"{small} K9 decode calls, {by_route['stream']} routed to the "
+              f"stream kernel and {k9.launches_stream} stream launches in "
+              f"the window: every bf16 decode call must take it")
 
     b, l = LM_PREFILL
     toks = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
@@ -2175,9 +2234,52 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict,
     logits, _, cache = prefill()
     last = logits[:, -1:].argmax(dim=-1)
     del logits
-    dec_trace = trace_device(lambda i: T.decode_step(
-        params, cfg, last, cache, torch.full((b,), l + i, device=device)), 8,
-        counters)
+    traced_routes = []   # the routing of every MoE layer the trace ran
+    steps = [0]          # decode_step calls the trace made, warm-up included
+
+    def tracing_route(probs, k):
+        out = route(probs, k)
+        traced_routes.append(out)
+        return out
+    if cfg.moe is not None:
+        moe.route = tracing_route
+
+    def decode(i):
+        steps[0] += 1
+        return T.decode_step(params, cfg, last, cache,
+                             torch.full((b,), l + i, device=device))
+    try:
+        dec_trace = trace_device(decode, 8, counters)
+    finally:
+        moe.route = route
+    k9_decode = None
+    if cfg.moe is not None:
+        # K9's bytes bound of a decode step: for each MoE layer the trace
+        # ran, the weights of the held experts with rows (one tile each at
+        # decode), gate and up (D x F) and down (F x D), once each, over
+        # 3.35 TB/s; per decode_step call
+        from repro_torch.launch import roofline
+        e0, e1 = cfg.moe.held_experts()
+        used = [int(torch.unique(gi[(gi >= e0) & (gi < e1)]).numel())
+                for _, gi in traced_routes]
+        layers = len(used) / steps[0]
+        step_bytes = sum(3 * u * cfg.d_model * cfg.d_ff * 2
+                         for u in used) / steps[0]
+        bound_ms = step_bytes / roofline.HBM_BYTES_PER_S * 1e3
+        ms = device_ms_of(dec_trace, "moe_gmm_kernel") \
+            + device_ms_of(dec_trace, "moe_stream_sum")
+        stream_n = sum(n for kname, n in dec_trace["launches"].items()
+                       if "moe_gmm_kernel_stream" in kname) / 8
+        k9_decode = dict(device_ms=ms, bound_ms=bound_ms,
+                         bound_share=bound_ms / ms if ms else None,
+                         experts_with_rows=float(np.mean(used)),
+                         moe_layers=layers, stream_launches_per_step=stream_n)
+        print(f"  K9 per decode step (device, sum pass included): {ms:.3f} ms "
+              f"against its bytes bound {bound_ms:.3f} ms "
+              f"({k9_decode['experts_with_rows']:.3f} held experts with rows "
+              f"in each of {layers:.0f} MoE layers, 3 weights each): "
+              f"{bound_ms / max(ms, 1e-9):.3f} of it; "
+              f"{stream_n:.1f} stream launches a step (by kernel name)")
     peak = torch.cuda.max_memory_allocated()
     print(f"  parameters {param_bytes / 1e9:.3f} GB; "
           f"torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB")
@@ -2187,12 +2289,13 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict,
         window=dict(requests=LM_REQUESTS, prompt_tokens=prompt_tokens,
                     generated_tokens=tokens, wall_s=wall_s,
                     generated_tokens_per_s=tokens / wall_s,
-                    launches=launches, launches_wgmma=launches_wgmma),
+                    launches=launches, launches_wgmma=launches_wgmma,
+                    launches_stream=launches_stream),
         prefill=dict(batch=b, tokens=l, host_ms=prefill_ms,
                      event_ms=float(np.median(events)),
                      profile=show(f"one batch-{b} prefill", pre_trace, 1)),
         decode=dict(batch=b, p50_ms=p50, p99_ms=p99, step_ms=step_ms,
-                    held_experts_with_rows=experts_read,
+                    held_experts_with_rows=experts_read, k9=k9_decode,
                     profile=show("8 decode steps (per step)", dec_trace, 8)))
     del cache
     return launches, summary, params, cfg
@@ -2504,9 +2607,13 @@ def moe_signatures(device):
     only here), for (c) the bench's dense every-expert einsum, and the
     bound: the larger of 2 x rows x D x F over the dtype's peak and the
     bytes of the rows, the weights of the experts that have rows and the
-    output, over 3.35 TB/s.  Holds the bf16 decode with one expert's rows
-    under MOE_ONE_EXPERT_RATIO of the spread case's time: empty experts'
-    weights are not read."""
+    output, over 3.35 TB/s, with the share of it K9 reaches by events.
+    Each case runs twice on the same inputs (the same bits) and its route
+    (``moe_gmm.route``) is held: bf16 decode on the stream kernel (its
+    device time holds its sum pass), bf16 prefill on the wgmma one, f32 and
+    the ragged tail on the mma one.  Holds the bf16 decode with one
+    expert's rows under MOE_ONE_EXPERT_RATIO of the spread case's time:
+    empty experts' weights are not read."""
     import torch
     from repro_torch.kernels import moe_gmm as k9
 
@@ -2517,7 +2624,7 @@ def moe_signatures(device):
           f"D {MOE_D}, F {MOE_F}, {MOE_HELD} of {MOE_E} experts held; the "
           f"moe_streams bench; a tail; limits {KERNEL_REL_TOL} f32, "
           f"{BF16_REL_TOL} bf16 of max |plain|):")
-    print("  case                dtype    route shape (T x D -> F)  bm used"
+    print("  case                dtype    route  shape (T x D -> F)  bm used"
           "  max_rel        ms  device_ms    plain_ms  library_ms  bound_ms "
           "bound_by")
     one_vs_spread = {}
@@ -2547,27 +2654,34 @@ def moe_signatures(device):
                 w = (torch.randn((e, d, f), generator=gen, device=device)
                      * d ** -0.5).to(dtype)
                 path = k9.route(x, w, bm)
-                want = "wgmma" if name.startswith("prefill") \
-                    and dtype == torch.bfloat16 else "mma"
+                want = "mma" if dtype == torch.float32 or name == "tail" \
+                    else "wgmma" if name.startswith("prefill") else "stream"
                 check(path == want, f"K9 takes the {path} route at {name} "
                       f"{(d, f, bm)} {dtype}, expected {want}")
-                before = k9.launches_wgmma
+                before = (k9.launches_wgmma, k9.launches_stream)
                 out = k9.moe_gmm(x, w, tile_eid, bm=bm)
-                check(k9.launches_wgmma - before == (path == "wgmma"),
-                      f"{k9.launches_wgmma - before} wgmma launches for one "
-                      f"{path} call at {name}")
+                check((k9.launches_wgmma - before[0],
+                       k9.launches_stream - before[1])
+                      == (path == "wgmma", path == "stream"),
+                      f"{k9.launches_wgmma - before[0]} wgmma and "
+                      f"{k9.launches_stream - before[1]} stream launches for "
+                      f"one {path} call at {name}")
+                again = k9.moe_gmm(x, w, tile_eid, bm=bm)
                 plain = k9.moe_gmm_plain(x, w, tile_eid, bm=bm)
                 torch.cuda.synchronize()
                 check(bool(torch.isfinite(out).all()),
                       f"K9 non-finite at {name} {(d, f)}")
+                check(torch.equal(out, again), f"K9 ({path} route) gave "
+                      f"other bits on a second run at {name} {(d, f)}")
                 max_abs, max_rel = rel_err(out.float(), plain.float())
                 tol = KERNEL_REL_TOL if dtype == torch.float32 \
                     else BF16_REL_TOL
                 ms = auto_ms(lambda: k9.moe_gmm(x, w, tile_eid, bm=bm))
+                # the stream route's time holds its sum pass
                 device_ms, recorded = (None, 0) if ms > TRACE_MAX_MS \
                     else kernel_device_ms(
                         lambda: k9.moe_gmm(x, w, tile_eid, bm=bm),
-                        "moe_gmm_kernel", k9)
+                        "moe_gmm_kernel", k9, also=("moe_stream_sum",))
                 plain_ms = auto_ms(lambda: k9.moe_gmm_plain(
                     x, w, tile_eid, bm=bm), 30.0)
                 xc = torch.zeros((e, cap, d), dtype=dtype, device=device)
@@ -2599,15 +2713,17 @@ def moe_signatures(device):
                            bound_by=bound_by, traced_launches=recorded,
                            tflops=flops / ms / 1e9,
                            gb_per_s=nbytes / ms / 1e6)
+                rec["bound_share"] = bound_ms / ms
                 rows.append(rec)
-                print(f"  {name:19s} {rec['dtype']:8s} {path:5s} "
+                print(f"  {name:19s} {rec['dtype']:8s} {path:6s} "
                       f"{x.shape[0]:5d} x "
                       f"{d:5d} -> {f:5d} {bm:4d} {len(used):4d} "
                       f"{max_rel:.2e} {ms:9.4f} "
                       + (f"{device_ms:10.4f} " if device_ms is not None
                          else "       n/a ") +
                       f"{plain_ms:11.4f} {library_ms:11.4f} {bound_ms:9.4f} "
-                      f"{bound_by}  ({rec['tflops']:.1f} TFLOP/s, "
+                      f"{bound_by}  ({bound_ms / ms:.3f} of the {bound_by} "
+                      f"bound by events; {rec['tflops']:.1f} TFLOP/s, "
                       f"{rec['gb_per_s']:.0f} GB/s; {recorded} of 5 "
                       f"launches traced"
                       + (f"; bench dense einsum {bench_ms:.4f} ms"
@@ -2621,7 +2737,7 @@ def moe_signatures(device):
                 if name.startswith("decode") and dtype == torch.bfloat16 \
                         and d == MOE_D:
                     one_vs_spread[name] = ms
-                del x, w, out, plain
+                del x, w, out, again, plain
     ratio = one_vs_spread["decode, one expert"] / one_vs_spread["decode"]
     print(f"  bf16 decode, gate shape: 16 rows on one expert "
           f"{one_vs_spread['decode, one expert']:.4f} ms against 16 over 8 "
@@ -3404,11 +3520,20 @@ def main() -> int:
         "source": "src/repro_torch/csrc/conv2d_wu.cu",
         "replaces": "src/repro/kernels/conv2d_wu.py:159",
         "launches": train_counts["conv2d_wu"],
+        "launches_mma": train_counts["conv2d_wu_mma"],
         "max_abs_err": max(r["max_abs_err"] for r in wu_rows),
         "max_rel_err": max(r["max_rel_err"] for r in wu_rows),
         **timing(k2),
+        "device_ms": weighted(wu_rows, "device_ms"),
+        "mma_bound_ms": weighted(wu_rows, "mma_bound_ms"),
+        "bound_is": "f32 on the SIMT cores; mma_bound_ms: 3 x the FLOPs at "
+                    "the TF32 tensor-core rate (3xTF32), or the bytes",
+        "routes": {"C and K multiples of 4, 16-byte aligned": "mma "
+                   "(3xTF32 on mma.sync m16n8k8)", "the rest": "simt "
+                   "(f32 FMA)"},
         "per": f"the 52 K2 launches of one ResNet-50 training step, batch "
-               f"{TRAIN_BATCH}",
+               f"{TRAIN_BATCH}, by CUDA events (device_ms: profiler, the "
+               f"reduction pass included)",
         "card": card,
     }, {
         "name": "conv2d_q8",
@@ -3547,6 +3672,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/moe_gmm.py:61",
         "launches": hy_launches["moe_gmm"],
         "launches_wgmma": hy_wgmma["moe_gmm"],
+        "launches_stream": hy_summary["window"]["launches_stream"],
         "launches_by_path": {
             "hybrid_serving": hy_launches["moe_gmm"],
             "per_forward": 12, "per_decode_step": 12},
@@ -3561,15 +3687,21 @@ def main() -> int:
         "prefill_down": {key: k9_rows[("prefill", "bfloat16", MOE_F)][key]
                          for key in ("route", "ms", "plain_ms", "library_ms",
                                      "bound_ms", "bound_by", "device_ms")},
+        "decode_down": {key: k9_rows[("decode", "bfloat16", MOE_F)][key]
+                        for key in ("route", "ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by", "device_ms")},
+        "decode_step": hy_summary["decode"]["k9"],
         "routes": {"bfloat16, bm a multiple of 64": "wgmma (TMA + wgmma "
-                   "bf16)", "bm 16, float32, ragged D or F": "mma "
-                   "(mma.sync bf16; SIMT f32)"},
+                   "bf16)", "bfloat16, bm 16, 32 or 48": "stream (TMA "
+                   "weight stream, mma.sync bf16)", "float32, ragged D or F":
+                   "mma (mma.sync bf16; SIMT f32)"},
         "one_expert_over_spread": one_expert_ratio,
         "per": f"one launch at the Jamba cut's decode gate/up shape: 16 "
                f"routed rows of batch 8 over the {MOE_HELD} held experts "
-               f"(tiles of 16), D {MOE_D} -> F {MOE_F}, bf16, the mma "
-               f"route (12 launches per forward, through the wgmma route, "
-               f"and 12 per decode step, through the mma route); prefill: "
+               f"(tiles of 16), D {MOE_D} -> F {MOE_F}, bf16, the stream "
+               f"route, its sum pass included (12 launches per forward, "
+               f"through the wgmma route, and 12 per decode step, through "
+               f"the stream route); prefill: "
                f"batch 8 x 512 at the same shape and at the down shape, the "
                f"wgmma route; library: torch.bmm over the "
                f"capacity-padded (E, C, D) x (E, D, F)",

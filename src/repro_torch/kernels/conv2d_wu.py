@@ -13,14 +13,21 @@ Two versions live here:
   then per (r, s) one strided slice and one (pixels, C)^T x (pixels, K)
   matmul, in f32.  The CPU tests run it, and ``chip_smoke.py`` holds the
   kernel against it on the card.
-* the CUDA C++ kernel ``csrc/conv2d_wu.cu``, built for sm_90a: a split-K
-  GEMM per (r, s) over the N*P*Q pixels, whose f32 partial tiles a second
-  pass sums in a fixed order (deterministic, no atomics).
+* the CUDA C++ kernels of ``csrc/conv2d_wu.cu``, built for sm_90a: a
+  split-K GEMM per (r, s) over the N*P*Q pixels, whose f32 partial tiles a
+  second pass sums in a fixed order (deterministic, no atomics), on one of
+  two routes (``route``): ``"mma"``, the f32 products on the tensor cores
+  by the 3xTF32 split (each value v = hi + lo, hi = tf32(v), lo =
+  tf32(v - hi); lo*hi + hi*lo + hi*hi by ``mma.sync`` m16n8k8 tf32 with
+  f32 sums), for C and K multiples of 4 and 16-byte aligned operands,
+  which is every ResNet-50 signature; ``"simt"``, f32 FMAs on the SIMT
+  cores, for the rest.
 
 ``conv2d_wu`` takes the plain version for a CPU tensor and launches the
-kernel for a CUDA tensor; there is no fallback between them.  ``launches``
-counts the wrapper's kernel launches (one per call, the reduction pass
-included).
+kernel of its route for a CUDA tensor; there is no fallback between them,
+nor between the routes: a launch that fails raises.  ``launches`` counts
+the wrapper's kernel launches on either route (one per call, the
+reduction pass included), ``launches_mma`` those of the mma route.
 
 K10b, the same function by the reference's legacy whole-plane strategy
 (``repro/kernels/conv2d_wu.py:_conv2d_wu_whole``, ``pallas_call`` at
@@ -33,9 +40,12 @@ reference); ``plan_whole`` cuts the step sequence into runs of whole steps
 so that the grid fills the card, and a second pass sums the runs' partial
 tiles in a fixed order: the same bits on every run.
 
-What bounds it on an H100: FLOPs, 2*N*P*Q*K*C*R*S at 67 TFLOP/s f32, for
-every ResNet-50 weight gradient but the 56x56 1x1 64->64 one, which moves
-more bytes (x + dO + dW once each, at 3.35 TB/s) than its FLOPs take.
+What bounds it on an H100: FLOPs, 2*N*P*Q*K*C*R*S at 67 TFLOP/s f32 on
+the SIMT route, for every ResNet-50 weight gradient but the 56x56 1x1
+64->64 one, which moves more bytes (x + dO + dW once each, at 3.35 TB/s)
+than its FLOPs take; on the mma route three TF32 products per f32 one at
+the TF32 tensor-core rate (``launch/roofline.TF32_PEAK_FLOPS``), or the
+bytes where those take longer.
 The TPU kernel carries one dW tile across a sequential pixel sweep; on
 the card blocks run in parallel, and the dW tile is small against a long
 reduction, so the pixels are split across blocks (``plan``; for K10b
@@ -45,16 +55,21 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv2d_direct import pad_input
+from repro_torch.launch import roofline
 
-# Launches of the CUDA kernel since the last reset (set it to 0 to reset).
+# Launches of the CUDA kernels since the last reset (set it to 0 to reset):
+# both routes, and the mma route's alone.
 launches = 0
+launches_mma = 0
 _fn = None
+_fn_mma = None
 # Launches of the whole-plane kernel K10b since the last reset.
 launches_whole = 0
 _fn_whole = None
@@ -68,6 +83,19 @@ TARGET_BLOCKS = 264      # about two blocks per SM on a 132-SM H100
 MAX_CHUNK = 4096         # most pixels one thread sums in sequence
 MIN_CHUNK = 256          # fewest pixels worth a block of their own
 MAX_GRID_Z = 65535       # splits * R * S share the grid's z dimension
+# The mma route (3xTF32 on the tensor cores): C x K block tiles by code, the
+# blocks of each an SM holds at once (registers and shared memory), the
+# pixels of one ring stage (a multiple of mma.sync's k of 8), and the
+# fewest and most pixels one block's f32 accumulator sums.  Inside a stage
+# the products of its 32 pixels add up in the tensor cores' accumulator,
+# which is then added to the block's f32 sums on the SIMT cores: each
+# tensor-core run holds 12 products, whatever the chunk.
+MMA_TILES = {0: (128, 128), 1: (128, 64), 2: (64, 128), 3: (64, 64)}
+MMA_BLOCKS_PER_SM = {0: 1, 1: 2, 2: 2, 3: 3}
+MMA_PIX_STEP = 32
+MMA_MIN_CHUNK = 384
+MMA_MAX_CHUNK = 2048
+ROUTES = ("mma", "simt")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,28 +105,82 @@ class WuPlan:
     tile: int
     splits: int
     chunk: int
+    route: str = "simt"
 
 
-def plan(*, n: int, p: int, q: int, c: int, k: int, r: int, s: int) -> WuPlan:
-    """A pure function of the shape.  The tile is 128x128 when C and K are
-    both at least 128, 128x64 when only C is, else 64x64.  ``splits`` gives
-    the grid about ``TARGET_BLOCKS`` blocks, keeps every chunk at most
-    ``MAX_CHUNK`` pixels and, where that allows, at least ``MIN_CHUNK``;
-    every chunk is a multiple of ``PIX_STEP`` and none is empty."""
+def plan(*, n: int, p: int, q: int, c: int, k: int, r: int, s: int,
+         route: str = "simt") -> WuPlan:
+    """A pure function of the shape and the route.
+
+    SIMT route: the tile (a code into ``TILES``) is 128x128 when C and K
+    are both at least 128, 128x64 when only C is, else 64x64; ``splits``
+    gives the grid about ``TARGET_BLOCKS`` blocks, keeps every chunk at
+    most ``MAX_CHUNK`` pixels and, where that allows, at least
+    ``MIN_CHUNK``; every chunk is a multiple of ``PIX_STEP``.
+
+    mma route (``_mma_plan``): each of C and K takes 128 when it is at
+    least 128, else 64 (a code into ``MMA_TILES``); the split is the one
+    whose rounds of blocks over the card (132 SMs x ``MMA_BLOCKS_PER_SM``)
+    take the fewest pixel steps, with chunks of whole ``MMA_PIX_STEP``
+    stages, at most ``MMA_MAX_CHUNK`` pixels and at most ceil(N*P*Q /
+    ``MMA_MIN_CHUNK``) splits.
+
+    No chunk is empty, and splits x R x S stays within ``MAX_GRID_Z``."""
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     m = n * p * q
-    tile = 0 if c >= 128 and k >= 128 else 1 if c >= 128 else 2
-    bm, bn = TILES[tile]
-    tiles = -(-c // bm) * -(-k // bn) * r * s
-    splits = -(-TARGET_BLOCKS // tiles)
-    splits = min(splits, -(-m // MIN_CHUNK))
-    splits = max(splits, -(-m // MAX_CHUNK), 1)
-    chunk = -(-m // splits)
-    chunk = -(-chunk // PIX_STEP) * PIX_STEP
-    splits = -(-m // chunk)
+    if route == "mma":
+        tile = (0 if k >= 128 else 1) if c >= 128 else (2 if k >= 128 else 3)
+        bm, bn = MMA_TILES[tile]
+        splits, chunk = _mma_plan(m, -(-c // bm) * -(-k // bn) * r * s,
+                                  roofline.SMS * MMA_BLOCKS_PER_SM[tile])
+    else:
+        tile = 0 if c >= 128 and k >= 128 else 1 if c >= 128 else 2
+        bm, bn = TILES[tile]
+        tiles = -(-c // bm) * -(-k // bn) * r * s
+        splits = -(-TARGET_BLOCKS // tiles)
+        splits = min(splits, -(-m // MIN_CHUNK))
+        splits = max(splits, -(-m // MAX_CHUNK), 1)
+        chunk = -(-m // splits)
+        chunk = -(-chunk // PIX_STEP) * PIX_STEP
+        splits = -(-m // chunk)
     if splits * r * s > MAX_GRID_Z:
         raise ValueError(f"{splits} splits x {r}x{s} filter taps exceed the "
                          f"grid's z limit {MAX_GRID_Z}")
-    return WuPlan(tile=tile, splits=splits, chunk=chunk)
+    return WuPlan(tile=tile, splits=splits, chunk=chunk, route=route)
+
+
+@functools.lru_cache(maxsize=256)
+def _mma_plan(m: int, tiles: int, slots: int) -> tuple[int, int]:
+    """(splits, chunk) of m pixels over ``tiles`` output tiles on a card
+    that holds ``slots`` blocks at once: the split whose ceil(tiles x
+    splits / slots) rounds times its chunk is least, the fewest splits on
+    a tie (a round's blocks run side by side, so a round costs its chunk;
+    a split more costs a partial tile written and summed).  Cached: the
+    wrapper plans every launch."""
+    lo = max(1, -(-m // MMA_MAX_CHUNK))
+    hi = max(lo, -(-m // MMA_MIN_CHUNK))
+    best = None
+    for splits in range(lo, hi + 1):
+        chunk = -(-(-(-m // splits)) // MMA_PIX_STEP) * MMA_PIX_STEP
+        if -(-m // chunk) != splits:
+            continue
+        cost = -(-tiles * splits // slots) * chunk
+        if best is None or cost < best[0]:
+            best = (cost, splits, chunk)
+    return best[1], best[2]
+
+
+def route(x, do) -> str:
+    """Which kernel a CUDA call of ``conv2d_wu(x, do, ...)`` launches, by
+    channels and alignment alone: "mma" (3xTF32 on the tensor cores) when
+    C and K are multiples of 4 and x and dO start on 16-byte boundaries
+    (every row of 16-byte copies then lies on one), else "simt".  A
+    dispatch by shape, not a fallback: each route raises on failure."""
+    if (x.shape[-1] % 4 == 0 and do.shape[-1] % 4 == 0
+            and x.data_ptr() % 16 == 0 and do.data_ptr() % 16 == 0):
+        return "mma"
+    return "simt"
 
 
 def _out_hw(h, w, r, s, stride, padding):
@@ -229,11 +311,22 @@ def _kernel_fn():
     return _fn
 
 
+def _kernel_fn_mma():
+    global _fn_mma
+    if _fn_mma is None:
+        fn = _build.load("conv2d_wu").repro_conv2d_wu_mma
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn_mma = fn
+    return _fn_mma
+
+
 def conv2d_wu(x, do, *, stride: int = 1, padding: int = 0, filter_rs):
     """dW (R,S,C,K) from x (N,H,W,C) and dO (N,P,Q,K).  A CPU tensor takes
-    ``conv2d_wu_plain``; a CUDA tensor launches the sm_90a kernel on the
-    current stream or raises."""
-    global launches
+    ``conv2d_wu_plain``; a CUDA tensor launches the sm_90a kernel of its
+    ``route`` on the current stream or raises."""
+    global launches, launches_mma
     r, s = _check(x, do, stride, padding, filter_rs)
     if x.device.type == "cpu":
         return conv2d_wu_plain(x, do, stride=stride, padding=padding,
@@ -257,20 +350,23 @@ def conv2d_wu(x, do, *, stride: int = 1, padding: int = 0, filter_rs):
         return dw
     if n == 0:
         return dw.zero_()
-    pl = plan(n=n, p=p, q=q, c=c, k=k, r=r, s=s)
+    path = route(x, do)
+    pl = plan(n=n, p=p, q=q, c=c, k=k, r=r, s=s, route=path)
     part = dw if pl.splits == 1 else torch.empty(
         (pl.splits, r, s, c, k), dtype=torch.float32, device=x.device)
-    fn = _kernel_fn()
+    fn = _kernel_fn_mma() if path == "mma" else _kernel_fn()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         launches += 1
+        if path == "mma":
+            launches_mma += 1
         err = fn(x.data_ptr(), do.data_ptr(), part.data_ptr(), dw.data_ptr(),
                  n, h, wd, c, k, r, s, stride, padding, pl.tile, pl.splits,
                  pl.chunk, stream)
     if err != 0:
-        raise RuntimeError(f"conv2d_wu kernel launch failed: CUDA error {err} "
-                           f"(x {tuple(x.shape)}, dO {tuple(do.shape)}, "
-                           f"{pl})")
+        raise RuntimeError(f"conv2d_wu kernel launch failed ({path} route): "
+                           f"CUDA error {err} (x {tuple(x.shape)}, dO "
+                           f"{tuple(do.shape)}, {pl})")
     return dw
 
 

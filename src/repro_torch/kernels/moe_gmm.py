@@ -34,17 +34,24 @@ prefill route, for bf16 with bm a multiple of 64, D and F multiples of 8
 and tokens and weights 16-byte aligned, a Hopper kernel on the bf16 tensor
 cores (TMA loads into a shared-memory ring, the weights read through a 3-D
 tensor map with the tile's expert as its third coordinate, ``wgmma`` on two
-consumer warpgroups); ``"mma"`` for the rest: decode (bm 16), f32 and
-ragged D or F.  There is no fallback between the CPU and the card, nor
+consumer warpgroups); ``"stream"``, the decode route, for bf16 with bm a
+multiple of 16 below 64 (decode's 16) under the same shape and alignment
+rule, a weight stream: a persistent block per SM walks a work list of
+(used tile, column box, D chunk) built on the card from ``tile_eid``
+(``stream_work`` is its plan in Python), one producer thread keeps a ring
+of TMA loads of 512-byte weight rows in flight, and a second pass sums the
+D chunks in a fixed order; ``"mma"`` for the rest: f32 and ragged or
+unaligned bf16.  There is no fallback between the CPU and the card, nor
 between the routes: a launch that fails raises.  ``launches`` counts the
-launches of both kernels, ``launches_wgmma`` those of the wgmma route.
+launches of every route, ``launches_wgmma`` and ``launches_stream`` those
+of their routes.
 
 What bounds it on an H100: in decode a tile holds a few rows, so the
 weights of the experts that have rows, read once, bound it (bytes); in
 prefill each expert has hundreds of rows and the bf16 products bound it
-(tensor cores).  The "mma" kernel's bf16 instance runs ``mma.sync``
-m16n8k16 on the tensor cores; its f32 instance runs true f32 products on
-the SIMT cores, with no TF32.
+(tensor cores).  The "stream" and "mma" kernels' bf16 products run
+``mma.sync`` m16n8k16 on the tensor cores; the "mma" kernel's f32 instance
+runs true f32 products on the SIMT cores, with no TF32.
 """
 from __future__ import annotations
 
@@ -55,14 +62,26 @@ import torch
 from repro_torch.kernels import _build
 
 # Launches of the CUDA kernels since the last reset (set it to 0 to reset):
-# both routes, and the wgmma route's alone.
+# every route, and the wgmma and stream routes' alone.
 launches = 0
 launches_wgmma = 0
+launches_stream = 0
 _fn = None
 _fn_wgmma = None
+_fn_stream = None
 
 BLOCK_ROWS = (128, 64, 16)   # the kernel's block heights; bm is a multiple
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The stream route (csrc/moe_gmm.cu, namespace st): an item is STREAM_BN
+# columns of one used tile over a chunk of D, read in stages of STREAM_BK
+# rows; a block lists at most STREAM_MAX_TILES tiles of the id stream; D is
+# cut into at most STREAM_MAX_SPLITS chunks, fewer where their f32 partials
+# (splits, T, F) would pass STREAM_PART_BYTES.
+STREAM_BN = 256
+STREAM_BK = 64
+STREAM_MAX_TILES = 2048
+STREAM_MAX_SPLITS = 8
+STREAM_PART_BYTES = 64 << 20
 
 
 def route_dryrun(expert_of_token, num_experts: int, capacity: int, bm: int):
@@ -148,15 +167,80 @@ def route(tokens, weights, bm: int) -> str:
     bm=bm)`` launches, by dtype, tile height, shape and alignment alone:
     "wgmma" for bf16 tokens and weights with bm a multiple of 64, D and F
     positive multiples of 8 and both 16-byte aligned (TMA's row strides and
-    bases), else "mma" (decode's bm 16, f32, ragged D or F).  A dispatch by
-    shape, not a fallback: each route raises on failure."""
+    bases); "stream" under the same rule for bm 16, 32 or 48 (decode's 16)
+    with at most ``STREAM_MAX_TILES`` tiles; else "mma" (f32, ragged D or
+    F, unaligned operands).  A dispatch by shape, not a fallback: each
+    route raises on failure."""
     d, f = weights.shape[1], weights.shape[2]
     if (tokens.dtype == weights.dtype == torch.bfloat16 and bm % 64 == 0
             and d > 0 and d % 8 == 0 and f % 8 == 0
             and tokens.data_ptr() % 16 == 0
             and weights.data_ptr() % 16 == 0):
         return "wgmma"
+    if (tokens.dtype == weights.dtype == torch.bfloat16
+            and bm in (16, 32, 48) and d > 0 and d % 8 == 0 and f % 8 == 0
+            and -(-tokens.shape[0] // bm) <= STREAM_MAX_TILES
+            and tokens.data_ptr() % 16 == 0
+            and weights.data_ptr() % 16 == 0):
+        return "stream"
     return "mma"
+
+
+def stream_max_splits(t: int, f: int) -> int:
+    """The most D chunks the stream route may cut (T, F) into: its f32
+    partials (splits, T, F) stay within ``STREAM_PART_BYTES``."""
+    return max(1, min(STREAM_MAX_SPLITS, STREAM_PART_BYTES // (t * f * 4)))
+
+
+def stream_splits(n_used: int, n_col: int, k_steps: int, grid: int,
+                  s_max: int, bm: int) -> tuple[int, int]:
+    """(splits, chunk): how the stream route cuts D, which its kernel
+    derives on the card from the used tiles' count (``plan`` in
+    ``csrc/moe_gmm.cu``, namespace st).  Each of the n_used x n_col (used
+    tile, column box) pairs takes ``splits`` chunks of ``chunk`` stages of
+    ``STREAM_BK`` rows (the last may hold fewer); the items go round
+    ``grid`` blocks.  The split is the one whose rounds move the fewest
+    bytes: each round the largest item's weights, plus, when D is split,
+    an item's f32 partial written and read back; the fewest splits on a
+    tie, and never two splits with the same chunk."""
+    best, best_cost = (1, k_steps), None
+    for s in range(1, min(s_max, k_steps) + 1):
+        chunk = -(-k_steps // s)
+        if -(-k_steps // chunk) != s:
+            continue
+        rounds = -(-(n_used * n_col * s) // grid)
+        cost = rounds * (chunk * STREAM_BK * STREAM_BN * 2
+                         + (bm * STREAM_BN * 8 if s > 1 else 0))
+        if best_cost is None or cost < best_cost:
+            best, best_cost = (s, chunk), cost
+    return best
+
+
+def stream_work(tile_eid, *, e: int, d: int, f: int, bm: int, grid: int,
+                s_max: int) -> list[list[tuple]]:
+    """The stream route's work list as each of ``grid`` blocks walks it:
+    item w = block + i * grid of the (used tile, column box, D chunk)
+    triples, the used tile outermost, each as (tile, first column, last
+    column + 1, D chunk, first row of D, last row + 1).  A tile whose id
+    lies outside [0, E) has no item.  ``tile_eid`` is a list of ints."""
+    used = [i for i, eid in enumerate(tile_eid) if 0 <= eid < e]
+    n_col = -(-f // STREAM_BN)
+    k_steps = -(-d // STREAM_BK)
+    splits, chunk = stream_splits(len(used), n_col, k_steps, grid, s_max, bm)
+    items = len(used) * n_col * splits
+    work = []
+    for block in range(grid):
+        mine = []
+        for w in range(block, items, grid):
+            j = w % splits
+            col = w // splits % n_col
+            u = w // splits // n_col
+            mine.append((used[u], col * STREAM_BN,
+                         min((col + 1) * STREAM_BN, f), j,
+                         j * chunk * STREAM_BK,
+                         min((j + 1) * chunk, k_steps) * STREAM_BK))
+        work.append(mine)
+    return work
 
 
 def _kernel_fn_wgmma():
@@ -168,6 +252,17 @@ def _kernel_fn_wgmma():
         fn.restype = ctypes.c_int
         _fn_wgmma = fn
     return _fn_wgmma
+
+
+def _kernel_fn_stream():
+    global _fn_stream
+    if _fn_stream is None:
+        fn = _build.load("moe_gmm").repro_moe_gmm_stream
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn_stream = fn
+    return _fn_stream
 
 
 def _kernel_fn():
@@ -187,7 +282,7 @@ def moe_gmm(tokens, weights, tile_eid, *, bm: int = 128):
     tensor launches the sm_90a kernel of its ``route`` on the current
     stream or raises.  On the card an id outside [0, E) gives zero rows (the
     kernel cannot raise), and bm must be a multiple of 16."""
-    global launches, launches_wgmma
+    global launches, launches_wgmma, launches_stream
     _check(tokens, weights, tile_eid, bm)
     if tokens.device.type == "cpu":
         return moe_gmm_plain(tokens, weights, tile_eid, bm=bm)
@@ -225,6 +320,15 @@ def moe_gmm(tokens, weights, tile_eid, *, bm: int = 128):
             launches += 1
             launches_wgmma += 1
             err = fn(*args, stream)
+        elif path == "stream":
+            s_max = stream_max_splits(t, f)
+            part = torch.empty((s_max, t, f), dtype=torch.float32,
+                               device=tokens.device) if s_max > 1 else None
+            fn = _kernel_fn_stream()
+            launches += 1
+            launches_stream += 1
+            err = fn(*args[:4], None if part is None else part.data_ptr(),
+                     *args[4:], s_max, stream)
         else:
             fn = _kernel_fn()
             launches += 1

@@ -4,8 +4,10 @@ reports beside every kernel time.
 
 Published peaks of one H100 SXM at its full 700 W limit (NVIDIA's data
 sheet, dense, no sparsity): f32 on the SIMT cores (no tensor cores, which
-is what the port's f32 kernels use), bf16 and int8 on the tensor cores,
-HBM3.  A bf16 function is bound by the bf16 tensor-core rate even where
+is what most of the port's f32 kernels use), TF32, bf16 and int8 on the
+tensor cores, HBM3.  K2's mma route computes each f32 product as three
+TF32 ones (the 3xTF32 split), so its bound is 3 x its FLOPs at the TF32
+rate.  A bf16 function is bound by the bf16 tensor-core rate even where
 the port's kernel widens bf16 to f32 on the SIMT cores: the bound is what
 the card could do, not what the kernel does.  A
 card set below 700 W runs slower; the records state its limit beside every
@@ -14,6 +16,7 @@ number.
 from __future__ import annotations
 
 F32_PEAK_FLOPS = 67e12      # f32 FMA outside the tensor cores
+TF32_PEAK_FLOPS = 494.7e12  # dense TF32 tensor cores
 BF16_PEAK_FLOPS = 989e12    # dense bf16 tensor cores
 INT8_PEAK_OPS = 1979e12     # dense int8 tensor cores
 HBM_BYTES_PER_S = 3.35e12   # HBM3

@@ -785,9 +785,9 @@ def test_moe_gmm_wgmma_route_matches_plain(cuda, case):
 
 
 def test_moe_gmm_mma_route_for_decode_f32_and_ragged(cuda):
-    """bm 16 (decode), f32, and a D off the multiples of 8 keep the mma.sync
-    / SIMT kernel, at their present limits."""
-    for case, dtype, tol in (((144, 256, 512, 8, 16), torch.bfloat16, 1e-2),
+    """bm 16 (decode) and bm 64 with a D off the multiples of 8, and f32,
+    keep the mma.sync / SIMT kernel, at their present limits."""
+    for case, dtype, tol in (((144, 250, 512, 8, 16), torch.bfloat16, 1e-2),
                              ((640, 256, 384, 4, 128), torch.float32, 1e-5),
                              ((300, 1003, 520, 3, 64), torch.bfloat16, 1e-2)):
         tokens, weights, tile_eid = _k9_args(case, cuda, dtype)
@@ -1076,3 +1076,163 @@ def test_whole_plane_smoke_resnet_on_the_card(cuda, quantized):
         with be.use_conv_tiling("whole"):
             exp = cpu.infer(params, x)
         assert _rel_err(out.cpu(), exp) <= 1e-4
+
+
+# -- K2's mma route (3xTF32) and K9's stream route ---------------------------
+
+def _wu_signatures(batch):
+    """ResNet-50's 22 lane-aligned weight-update signatures at ``batch`` as
+    WU_CASES tuples (n, h, w, c, k, r, stride, pad)."""
+    from repro_torch.core.conv import lane_ok
+    from repro_torch.graph import build_etg, resnet50
+    from repro_torch.graph.serving import conv_shapes
+    out = []
+    for sh in conv_shapes(build_etg(resnet50()), (224, 224)):
+        case = (batch, sh["h"], sh["w"], sh["c"], sh["k"], sh["r"],
+                sh["stride"], sh["padding"])
+        if lane_ok(sh["c"], sh["k"]) and case not in out:
+            out.append(case)
+    return out
+
+
+# ragged pixel counts: N*P*Q not a multiple of the 32-pixel stage, chunks
+# that end inside a stage, one pixel
+WU_MMA_RAGGED = [(1, 5, 7, 8, 12, 1, 1, 0), (3, 11, 13, 12, 20, 3, 2, 1),
+                 (1, 1, 1, 4, 4, 1, 1, 0), (5, 17, 19, 36, 44, 3, 1, 1),
+                 (7, 23, 23, 64, 64, 1, 1, 0)]
+
+
+@pytest.mark.parametrize("case", WU_MMA_RAGGED + _wu_signatures(2))
+def test_wu_mma_route_matches_plain(cuda, case):
+    """The mma route at ragged pixel counts and at the 22 training
+    signatures' shapes at batch 2: within 1e-5 of max |plain|, the same
+    bits twice, one launch counted on both counters."""
+    args = _wu_args(case, cuda)
+    assert k2.route(args["x"], args["do"]) == "mma"
+    before = (k2.launches, k2.launches_mma)
+    out = k2.conv2d_wu(**args)
+    torch.cuda.synchronize()
+    assert (k2.launches, k2.launches_mma) == (before[0] + 1, before[1] + 1)
+    exp = k2.conv2d_wu_plain(**args)
+    assert _rel_err(out, exp) <= 1e-5
+    assert torch.equal(out, k2.conv2d_wu(**args))
+
+
+def test_wu_simt_route_keeps_ragged_channels(cuda):
+    args = _wu_args((3, 11, 13, 5, 7, 3, 2, 1), cuda)
+    assert k2.route(args["x"], args["do"]) == "simt"
+    before = (k2.launches, k2.launches_mma)
+    out = k2.conv2d_wu(**args)
+    torch.cuda.synchronize()
+    assert (k2.launches, k2.launches_mma) == (before[0] + 1, before[1])
+    assert _rel_err(out, k2.conv2d_wu_plain(**args)) <= 1e-5
+    assert torch.equal(out, k2.conv2d_wu(**args))
+
+
+def test_wu_mma_kernel_refuses_what_its_route_excludes(cuda):
+    """The mma route's C function returns an error for C or K off the
+    multiples of 4, an unaligned operand and a chunk off the stage: the
+    wrapper would raise on it, and never gives way to the SIMT kernel."""
+    args = _wu_args((3, 11, 13, 5, 7, 3, 2, 1), cuda)
+    x, do = args["x"], args["do"]
+    dw = torch.empty((3, 3, 5, 7), device=cuda)
+    fn = k2._kernel_fn_mma()
+    stream = torch.cuda.current_stream().cuda_stream
+    assert fn(x.data_ptr(), do.data_ptr(), dw.data_ptr(), dw.data_ptr(),
+              3, 11, 13, 5, 7, 3, 3, 2, 1, 3, 1, 2048, stream) != 0
+    x8 = torch.randn((2, 9, 9, 8), device=cuda)
+    d8 = torch.randn((2, 9, 9, 8), device=cuda)
+    w8 = torch.empty((1, 1, 8, 8), device=cuda)
+    flat = torch.empty(8 * 9 * 9 * 2 + 1, device=cuda)[1:].view(2, 9, 9, 8)
+    for xp, chunk in ((flat, 192), (x8, 100)):
+        assert fn(xp.data_ptr(), d8.data_ptr(), w8.data_ptr(),
+                  w8.data_ptr(), 2, 9, 9, 8, 8, 1, 1, 1, 0, 3, 1, chunk,
+                  stream) != 0
+
+
+def _k9_stream_args(case, dev, ids):
+    t, d, f, e, bm = case
+    g = torch.Generator(device=dev).manual_seed(t + d + f)
+    tokens = torch.randn((t, d), generator=g, device=dev).bfloat16()
+    weights = (torch.randn((e, d, f), generator=g, device=dev)
+               * d ** -0.5).bfloat16()
+    return tokens, weights, torch.tensor(ids, dtype=torch.int32, device=dev)
+
+
+# (t, d, f, e, bm), tile_eid: the decode layout spread over 8 experts and
+# on one, -1 tiles in the middle and at the end, D and F tails (D 200 ends
+# inside a 64-row stage, F 136 inside a 256-column box), bm 32 and 48, a
+# ragged last tile, and the cut's D (one expert's items cut into D chunks)
+K9_STREAM_CASES = [
+    ((144, 256, 512, 8, 16), [0, 1, 2, 3, 4, 5, 6, 7, -1]),
+    ((144, 256, 512, 8, 16), [3, -1, -1, -1, -1, -1, -1, -1, -1]),
+    ((144, 512, 768, 8, 16), [2, -1, 0, 5, -1, 1, 7, 7, -1]),
+    ((144, 200, 136, 4, 16), [1, 3, -1, 0, 2, -1, 3, 1, -1]),
+    ((96, 328, 264, 3, 32), [2, -1, 0]),
+    ((100, 64, 72, 2, 48), [1, 0, -1]),
+    ((130, 96, 40, 3, 16), [0, 1, 2, -1, 0, 1, 2, -1, 2]),
+    ((144, 8192, 3072, 8, 16), [0, 1, 2, 3, 4, 5, 6, 7, -1]),
+    ((144, 8192, 3072, 8, 16), [6, -1, -1, -1, -1, -1, -1, -1, -1]),
+    ((144, 1024, 8192, 8, 16), [0, 1, 2, 3, 4, 5, 6, 7, -1]),
+]
+
+
+@pytest.mark.parametrize("case,ids", K9_STREAM_CASES)
+def test_moe_gmm_stream_route_matches_plain(cuda, case, ids):
+    """The decode route: every used tile's rows against its expert's
+    product within 1e-2 (bf16), -1 tiles zero, the same bits twice, one
+    launch on ``launches`` and ``launches_stream``."""
+    tokens, weights, tile_eid = _k9_stream_args(case, cuda, ids)
+    bm = case[-1]
+    assert k9.route(tokens, weights, bm) == "stream"
+    before = (k9.launches, k9.launches_stream, k9.launches_wgmma)
+    out = k9.moe_gmm(tokens, weights, tile_eid, bm=bm)
+    torch.cuda.synchronize()
+    assert (k9.launches, k9.launches_stream, k9.launches_wgmma) == \
+        (before[0] + 1, before[1] + 1, before[2])
+    exp = k9.moe_gmm_plain(tokens, weights, tile_eid, bm=bm)
+    assert out.dtype == torch.bfloat16 and out.shape == exp.shape
+    assert _rel_err(out.float(), exp.float()) <= 1e-2
+    for i, eid in enumerate(ids):
+        if eid < 0:
+            assert not out[i * bm:(i + 1) * bm].any()
+    assert torch.equal(out, k9.moe_gmm(tokens, weights, tile_eid, bm=bm))
+
+
+@pytest.mark.parametrize("bm,dtype,want", [
+    (16, torch.bfloat16, "stream"), (32, torch.bfloat16, "stream"),
+    (64, torch.bfloat16, "wgmma"), (128, torch.bfloat16, "wgmma"),
+    (16, torch.float32, "mma"), (64, torch.float32, "mma"),
+    (128, torch.float32, "mma")])
+def test_moe_gmm_dispatch_by_bm_and_dtype_on_the_card(cuda, bm, dtype, want):
+    """K9's dispatch as the card runs it: each call counts one launch on
+    ``launches`` and one on its route's counter (none for mma), and agrees
+    with the plain version."""
+    tokens, weights, tile_eid = _k9_args((512, 256, 384, 4, bm), cuda, dtype)
+    assert k9.route(tokens, weights, bm) == want
+    before = (k9.launches, k9.launches_wgmma, k9.launches_stream)
+    out = k9.moe_gmm(tokens, weights, tile_eid, bm=bm)
+    torch.cuda.synchronize()
+    delta = [a - b for a, b in zip(
+        (k9.launches, k9.launches_wgmma, k9.launches_stream), before)]
+    assert delta == [1, int(want == "wgmma"), int(want == "stream")]
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    exp = k9.moe_gmm_plain(tokens, weights, tile_eid, bm=bm)
+    assert _rel_err(out.float(), exp.float()) <= tol
+
+
+def test_moe_gmm_stream_kernel_refuses_what_its_route_excludes(cuda):
+    """The stream route's C function returns an error for bm 64 or 8, a D
+    off the multiples of 8, and more D chunks than it takes or than its
+    scratch holds: no route gives way to another."""
+    tokens, weights, tile_eid = _k9_stream_args(
+        (144, 256, 512, 8, 16), cuda, [0] * 9)
+    out = torch.empty((144, 512), dtype=torch.bfloat16, device=cuda)
+    fn = k9._kernel_fn_stream()
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (tokens.data_ptr(), weights.data_ptr(), tile_eid.data_ptr(),
+            out.data_ptr())
+    for t, d, bm, s_max in ((144, 256, 64, 1), (144, 256, 8, 1),
+                            (144, 250, 16, 1), (144, 256, 16, 2),
+                            (144, 256, 16, 9)):
+        assert fn(*ptrs, None, t, d, 512, 8, bm, s_max, stream) != 0

@@ -200,8 +200,8 @@ def _tw(t, d, f, e=4, dtype=torch.bfloat16, offset=None):
 K9_ROUTE_CASES = {
     "bf16 bm 128": (lambda: _tw(300, 256, 384), 128, "wgmma"),
     "bf16 bm 64": (lambda: _tw(300, 256, 384), 64, "wgmma"),
-    "bf16 bm 16 (decode)": (lambda: _tw(144, 256, 512), 16, "mma"),
-    "bf16 bm 32": (lambda: _tw(100, 64, 72), 32, "mma"),
+    "bf16 bm 16 (decode)": (lambda: _tw(144, 256, 512), 16, "stream"),
+    "bf16 bm 32": (lambda: _tw(100, 64, 72), 32, "stream"),
     "f32 bm 128": (lambda: _tw(300, 256, 384, dtype=torch.float32), 128,
                    "mma"),
     "D % 8 != 0": (lambda: _tw(77, 1003, 520), 64, "mma"),
@@ -215,8 +215,9 @@ K9_ROUTE_CASES = {
 @pytest.mark.parametrize("case", list(K9_ROUTE_CASES))
 def test_route_by_dtype_tile_height_shape_and_alignment(case):
     """``moe_gmm.route``: bf16 with bm a multiple of 64, D and F multiples
-    of 8 and both operands 16-byte aligned take the wgmma kernel; decode's
-    bm 16, f32, a ragged D or F, or an unaligned view take the mma one."""
+    of 8 and both operands 16-byte aligned take the wgmma kernel; under the
+    same rule decode's bm 16 (or 32, 48) takes the stream kernel; f32, a
+    ragged D or F, or an unaligned view take the mma one."""
     make, bm, want = K9_ROUTE_CASES[case]
     tokens, weights = make()
     assert k9.route(tokens, weights, bm) == want
