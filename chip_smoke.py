@@ -8,22 +8,29 @@ Phases, each of which fails the run (nonzero exit, no result line):
 1. Header: the card's name and power limit, torch and CUDA versions, the
    TF32 flags, and the build of every CUDA kernel from ``src/repro_torch/csrc``
    (twelve sources: K1-K4, K7, K6, K8, K9, K10a-c, K5; one ``nvcc`` per
-   source, all started together), with each build's seconds and its ptxas
-   register and spill lines.
+   source, all started together; K1, K2 and K10a include the shared 3xTF32
+   products mainloop ``csrc/conv_tf32.cuh``), with each build's seconds and
+   its ptxas register and spill lines, each under its kernel's name.
 2. K1 vs plain, serving: every distinct lane-aligned (shape, fused
    epilogue) signature of ResNet-50 at 224x224, batch 16, on random
    weights, BN scale, shift and residual: K1 against its plain PyTorch
-   version (max |diff| / max |plain| <= 1e-5), with CUDA-event times of K1,
-   the plain version and the library yardstick (cuDNN ``F.conv2d`` in true
-   f32 plus the epilogue), and the bound (the larger of FLOPs / 67 TFLOP/s
-   f32 and bytes / 3.35 TB/s).
+   version (max |diff| / max |plain| <= 1e-5), each signature run twice on
+   the same inputs (the same bits), with its route (``conv2d_direct.route``:
+   "mma", 3xTF32 on the tensor cores, for every one of them) and plan
+   (tile, splits of the reduction, chunk, blocks), K1's CUDA-event and
+   profiler device times (a split's sum pass included), the plain
+   version's, the library yardstick's (cuDNN ``F.conv2d`` in true f32 plus
+   the epilogue), and both bounds: f32 SIMT (the larger of FLOPs / 67
+   TFLOP/s and bytes / 3.35 TB/s) and 3xTF32 (3 x the FLOPs at the TF32
+   rate, or the bytes).
 3. Serving: full ResNet-50 (1000 classes, 224x224) with random BN running
    statistics through ``CnnInferenceEngine`` and ``ImageServer`` at
    max_batch 16: an untimed pass of 64 requests, then a window of 512
    requests in bursts that reach every bucket (1 to 16), with every image
    made before the window opens.  Images/s is over the window's wall time;
    p50/p99 are enqueue-to-result.  K1's launch count is reset just before
-   the window and read just after: it must be 52 per forward.  Then the
+   the window and read just after: it must be 52 per forward, every one on
+   the mma route (``launches_mma``).  Then the
    time of one batch-16 step by host clock: the copy to the card, the
    forward, and K1's share.
 4. Serving parity: a batch of 2 images on the card against the port's CPU
@@ -54,8 +61,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
 8. K1 in training: every distinct lane-aligned signature one ResNet-50
    training step at batch 32 launches on K1, the bare forwards and the
    backward-data dual convs of ``dual_conv_signatures`` (31 distinct, 61
-   launches), against the plain version (<= 1e-5), with times, the cuDNN
-   yardstick and the bound.
+   launches), against the plain version (<= 1e-5), with phase 2's route,
+   plan, same-bits check, event and device times, the cuDNN yardstick and
+   both bounds.
 9. K2 vs plain: the 22 distinct lane-aligned weight-update signatures of
    ResNet-50 at batch 32 (<= 1e-5), each run twice on the same inputs (the
    same bits), with its route (``conv2d_wu.route``: "mma", 3xTF32 on the
@@ -71,7 +79,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
     (median step ms, images/s, every loss finite), one step with the launch
     counts set to 0 just before it and read just after (K1 = forward +
     dual launches, K2 = one per lane-aligned conv, both derived from the
-    port's ETG, every K2 launch on the mma route by ``launches_mma``), then
+    port's ETG, every K1 and every K2 launch on the mma route by each
+    module's ``launches_mma``), then
     3 steps under ``torch.profiler``: device time by kernel, the device's
     busy and idle share, K1 and K2 per step.
 11. Training parity: one step of full ResNet-50 at batch 2 on the card
@@ -84,6 +93,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
     by two summation orders, and then a whole pixel's gradient moves.  So
     the CPU step takes the card's ReLU masks and max-pool choices, and the
     script prints how many of them the CPU would have decided otherwise.
+    A ReLU mask is taken both ways: the forward's (x > 0) and the
+    backward's (``clamp_min`` passes the gradient where x >= 0, so a
+    pre-activation of exactly 0 passes it).
 12. K4 vs plain: the same 23 serving signatures at batch 16 with random
     bias, ReLU where the signature fuses it, under the analytic "streams"
     blocking (``core.blocking``, autotune off): K4 against its plain
@@ -219,14 +231,19 @@ Phases, each of which fails the run (nonzero exit, no result line):
     budget, kind "fwd"): K10a against its plain version (max |diff| /
     max |plain| <= 1e-5), its difference from K1 printed; K10a by CUDA
     events and profiler device time, the plain version, K1's time, cuDNN
-    plus epilogue and the bound from phase 2; per signature rb_p, k_blk,
-    the register tile, the rows a pass takes, the shared memory and the
-    blocks of the grid.
+    plus epilogue and both bounds from phase 2; per signature its route
+    (``route_whole``: "mma" for every one), rb_p, k_blk, the rows a pass
+    takes, the shared memory, and the CTA-floor question: the CTAs of the
+    reference's grid and of the grid with each reference block's rows cut
+    across CTAs (``whole_slices``), both run twice (the same bits, and the
+    same bits as each other) and timed by events and device time, and the
+    side ``whole_split`` takes, whose times are the signature's.
 23. Whole-plane f32 serving: phase 3's engine on phase 3's params and BN
     statistics under ``use_conv_tiling("whole")``: 32 untimed requests,
     then a window of 128 (cut from 512: it keeps the script within its time
     limit); images/s and p50/p99 beside phase 3's; K10a exactly 52 per
-    forward, K1 none; a batch-16 forward's logits within 1e-4 * max |logit|
+    forward, all on the mma route (``launches_whole_mma``), K1 none; a
+    batch-16 forward's logits within 1e-4 * max |logit|
     of the tiled engine's on the same batch, the same top-1; that forward
     under the profiler.
 24. K10c vs plain and vs K3 on the 23 signatures (int8 operands as phase
@@ -242,9 +259,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
     dW and the bound from phase 9.
 26. Whole-plane training: full ResNet-50 at batch 32 under ``whole``: one
     untimed step, then 3 timed steps with the launch counts set to 0 just
-    before each and read just after (K10a 113 = 52 forward + 61 dual, K10b
-    52, K1 and K2 none), step ms and images/s beside phase 10's, 2 steps
-    under the profiler (K10b's time holds its sum pass); then phase 11's
+    before each and read just after (K10a 113 = 52 forward + 61 dual, all
+    on the mma route, K10b 52, K1 and K2 none), step ms and images/s beside
+    phase 10's, the same steps timed with every reference block whole and
+    with every one cut as ``whole_slices`` cuts it (the CTA-floor question
+    at the step), 2 steps under the profiler (K10b's time holds its sum
+    pass); then phase 11's
     card-vs-CPU step and limits under
     ``whole``, ReLU and max-pool decisions pinned as there.
 27. K5's entry point at the stem pool (16, 112, 112, 64) f32, 3x3 s2 p1,
@@ -268,6 +288,7 @@ It imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -358,6 +379,47 @@ def bound(flops: float, nbytes: float, int8: bool = False) -> tuple[float, str]:
                              else roofline.F32_PEAK_FLOPS)
 
 
+K1_NEEDLE = "conv2d_direct_kernel"      # both routes' kernel names hold it
+K1_SPLIT_SUM = "direct_split_sum"       # the mma route's split sum pass
+
+
+def k1_case(args: dict, *, n: int, p: int, q: int, c: int, k: int, r: int,
+            s: int, flops: float, nbytes: float, what: str) -> dict:
+    """K1 on one signature (phases 2 and 8): its route and, on the mma
+    route, its plan; two runs on the same inputs, which must give the same
+    bits; CUDA-event and profiler device times (a split's sum pass
+    included), both bounds (f32 SIMT; 3 x the FLOPs at the TF32 rate, or
+    the bytes).  Returns the record and the first run's output."""
+    import torch
+    from repro_torch.kernels import conv2d_direct as k1
+    from repro_torch.launch import roofline
+
+    path = k1.route(args["x"], args["w"])
+    plan = k1.mma_plan(n=n, p=p, q=q, c=c, k=k, r=r, s=s) \
+        if path == "mma" else None
+    out = k1.conv2d_direct(**args)
+    again = k1.conv2d_direct(**args)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), f"K1 non-finite at {what}")
+    check(torch.equal(out, again), f"K1 ({path} route) gave other bits on a "
+          f"second run at {what}")
+    ms = cuda_ms(lambda: k1.conv2d_direct(**args), 20)
+    device_ms, _ = kernel_device_ms(lambda: k1.conv2d_direct(**args),
+                                    K1_NEEDLE, k1, also=(K1_SPLIT_SUM,))
+    bound_ms, bound_by = bound(flops, nbytes)
+    mma_bound_ms, mma_bound_by = roofline.bound_ms(
+        3 * flops, nbytes, roofline.TF32_PEAK_FLOPS)
+    rec = dict(route=path, tile=plan.tile if plan else None,
+               splits=plan.splits if plan else 1,
+               chunk=plan.chunk if plan else None,
+               blocks=plan.blocks if plan else None, ms=ms,
+               device_ms=device_ms, bound_ms=bound_ms, bound_by=bound_by,
+               mma_bound_ms=mma_bound_ms, mma_bound_by=mma_bound_by,
+               flops=flops)
+    del again
+    return rec, out
+
+
 def serving_signatures() -> dict[tuple, int]:
     """Every distinct lane-aligned (shape, fused epilogue) signature of one
     ResNet-50 forward at IMAGE x IMAGE, with how many conv tasks share it."""
@@ -389,8 +451,9 @@ def kernel_signatures(device, sigs):
     rows = []
     print(f"\nK1 vs plain, ResNet-50 {IMAGE}x{IMAGE} batch {BATCH} "
           f"({len(sigs)} signatures, {sum(sigs.values())} convs):")
-    print("  h  w    c    k r st fused         count  max_rel    max_abs"
-          "        ms  plain_ms  library_ms  bound_ms bound_by")
+    print("  h  w    c    k r st fused         count route tile splits "
+          "chunk blocks  max_rel    max_abs        ms device_ms  plain_ms "
+          "library_ms  bound_ms mma_bound_ms")
     for (h, w, c, k, r, s, st, pad, fused), count in sigs.items():
         p = (h + 2 * pad - r) // st + 1
         q = (w + 2 * pad - s) // st + 1
@@ -406,33 +469,42 @@ def kernel_signatures(device, sigs):
             shift=randn(k, std=0.1),
             residual=randn(BATCH, p, q, k) if "add" in fused else None,
             relu="relu" in fused)
-        out = k1.conv2d_direct(**args)
-        plain = k1.conv2d_direct_plain(**args)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(out).all()), f"K1 non-finite at {h, c, k}")
-        max_abs = float((out - plain).abs().max())
-        max_rel = max_abs / float(plain.abs().max())
-        ms = cuda_ms(lambda: k1.conv2d_direct(**args), 50)
-        plain_ms = cuda_ms(lambda: k1.conv2d_direct_plain(**args), 10)
-        library_ms = cuda_ms(lambda: ref.conv2d_fused(**args), 50)
         flops = 2.0 * BATCH * p * q * k * c * r * s
         nbytes = 4.0 * (BATCH * h * w * c + r * s * c * k + BATCH * p * q * k
                         + 2 * k
                         + (BATCH * p * q * k if "add" in fused else 0))
-        bound_ms, bound_by = bound(flops, nbytes)
+        rec, out = k1_case(args, n=BATCH, p=p, q=q, c=c, k=k, r=r, s=s,
+                           flops=flops, nbytes=nbytes,
+                           what=str((h, c, k, r, st, fused)))
+        plain = k1.conv2d_direct_plain(**args)
+        torch.cuda.synchronize()
+        max_abs = float((out - plain).abs().max())
+        max_rel = max_abs / float(plain.abs().max())
+        plain_ms = cuda_ms(lambda: k1.conv2d_direct_plain(**args), 10)
+        library_ms = cuda_ms(lambda: ref.conv2d_fused(**args), 50)
         rec = dict(h=h, w=w, c=c, k=k, r=r, s=s, stride=st, padding=pad,
-                   fused=list(fused),
-                   count=count, max_rel_err=max_rel, max_abs_err=max_abs,
-                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, flops=flops)
+                   fused=list(fused), count=count, max_rel_err=max_rel,
+                   max_abs_err=max_abs, plain_ms=plain_ms,
+                   library_ms=library_ms, **rec)
         rows.append(rec)
         print(f"{h:3d}{w:3d}{c:5d}{k:5d}{r:2d}{st:3d} "
-              f"{'+'.join(fused):14s}{count:5d}  {max_rel:.2e}  "
-              f"{max_abs:.2e} {ms:9.4f} {plain_ms:9.4f} {library_ms:11.4f} "
-              f"{rec['bound_ms']:9.4f} {rec['bound_by']}")
+              f"{'+'.join(fused):14s}{count:5d} {rec['route']:5s}"
+              f"{rec['tile'] if rec['tile'] is not None else '-':>5}"
+              f"{rec['splits']:7d}{rec['chunk'] or 0:6d}"
+              f"{rec['blocks'] or 0:7d}  {max_rel:.2e}  {max_abs:.2e} "
+              f"{rec['ms']:9.4f} {rec['device_ms']:9.4f} {plain_ms:9.4f} "
+              f"{library_ms:10.4f} {rec['bound_ms']:9.4f} "
+              f"{rec['mma_bound_ms']:12.4f}")
         check(max_rel <= KERNEL_REL_TOL,
               f"K1 disagrees with its plain version at {(h, c, k, r, st)}: "
               f"max_rel {max_rel:.3e} > {KERNEL_REL_TOL}")
+    print(f"  per forward (x count): K1 {totals(rows)['ms']:.4f} ms by "
+          f"events, {sum(r_['device_ms'] * r_['count'] for r_ in rows):.4f} "
+          f"device; cuDNN + epilogue {totals(rows)['library_ms']:.4f}; "
+          f"bounds {totals(rows)['bound_ms']:.4f} (f32 SIMT) and "
+          f"{sum(r_['mma_bound_ms'] * r_['count'] for r_ in rows):.4f} "
+          f"(3xTF32); launches by route "
+          f"{ {path: sum(r_['count'] for r_ in rows if r_['route'] == path) for path in ('mma', 'simt')} }")
     print("  per-signature JSON:", json.dumps(rows))
     return rows
 
@@ -478,7 +550,7 @@ def serving(device):
 
     # serve_window sets the K1 count to 0 just before the measured window
     server, results = serve_window(engine, requests=REQUESTS, seed=SEED)
-    launches = k1.launches
+    launches, mma = k1.launches, k1.launches_mma
     st = server.stats()
     check(len(results) == REQUESTS, f"served {len(results)} of {REQUESTS}")
     check(all(0 <= c < 1000 and math.isfinite(v)
@@ -498,6 +570,10 @@ def serving(device):
     check(per_fwd == 52, f"{per_fwd} lane-aligned convs per forward, not 52")
     check(launches == per_fwd * st["batches"],
           f"K1 launched {launches} times, expected {per_fwd * st['batches']}")
+    print(f"  K1 launches on the mma route (launches_mma): {mma} of "
+          f"{launches}")
+    check(mma == launches, f"{mma} of the window's {launches} K1 launches "
+          f"took the mma route, expected all")
     return engine, launches, st
 
 
@@ -631,10 +707,10 @@ def q8_signatures(device, sigs, k1_rows):
         f32 = dict(x=x_q.float(), w=w_q.float(), stride=st, padding=pad,
                    scale=args["scale"], shift=args["shift"],
                    residual=args["residual"], relu=args["relu"])
-        k1_dev = device_ms_of(trace_device(
-            lambda i: k1.conv2d_direct(**f32), 20,
-            {"conv2d_direct_kernel": k1}, sync_each=True),
-            "conv2d_direct_kernel")
+        trace = trace_device(lambda i: k1.conv2d_direct(**f32), 20,
+                             {K1_NEEDLE: k1}, sync_each=True)
+        k1_dev = device_ms_of(trace, K1_NEEDLE) \
+            + device_ms_of(trace, K1_SPLIT_SUM)
         ops = 2.0 * BATCH * p * q * k * c * r * s
         nbytes = (BATCH * h * w * c + r * s * c * k + 4.0 * BATCH * p * q * k
                   + 4.0 * (3 * k + 1)
@@ -891,8 +967,9 @@ def train_k1_signatures(device, fwd, dual):
     print(f"\nK1 in training, batch {TRAIN_BATCH}: {len(fwd)} forward "
           f"signatures ({sum(fwd.values())} launches), {len(dual)} dual "
           f"({sum(dual.values())} launches), bare conv:")
-    print("  role   h   w    c    k r s st pad count  max_rel    max_abs"
-          "        ms  plain_ms  library_ms  bound_ms bound_by")
+    print("  role   h   w    c    k r s st pad count route tile splits "
+          "chunk blocks  max_rel    max_abs        ms device_ms  plain_ms "
+          "library_ms  bound_ms mma_bound_ms")
     for role, table in (("fwd", fwd), ("dual", dual)):
         for (h, w, c, k, r, s, st, pad), count in table.items():
             p = (h + 2 * pad - r) // st + 1
@@ -902,34 +979,45 @@ def train_k1_signatures(device, fwd, dual):
             wt = torch.randn((r, s, c, k), generator=gen, device=device) \
                 * math.sqrt(2.0 / (r * s * c))
             args = dict(x=x, w=wt, stride=st, padding=pad)
-            out = k1.conv2d_direct(**args)
-            plain = k1.conv2d_direct_plain(**args)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(out).all()),
-                  f"K1 non-finite at {role} {h, c, k, r, s}")
-            max_abs = float((out - plain).abs().max())
-            max_rel = max_abs / float(plain.abs().max())
-            ms = cuda_ms(lambda: k1.conv2d_direct(**args), 20)
-            plain_ms = cuda_ms(lambda: k1.conv2d_direct_plain(**args), 5)
-            library_ms = cuda_ms(lambda: ref.conv2d(**args), 20)
             flops = 2.0 * TRAIN_BATCH * p * q * k * c * r * s
             nbytes = 4.0 * (TRAIN_BATCH * (h * w * c + p * q * k)
                             + r * s * c * k)
-            bound_ms, bound_by = bound(flops, nbytes)
-            rows.append(dict(role=role, h=h, w=w, c=c, k=k, r=r, s=s,
-                             stride=st, padding=pad, count=count,
-                             max_rel_err=max_rel, max_abs_err=max_abs, ms=ms,
-                             plain_ms=plain_ms, library_ms=library_ms,
-                             bound_ms=bound_ms, bound_by=bound_by))
+            rec, out = k1_case(args, n=TRAIN_BATCH, p=p, q=q, c=c, k=k, r=r,
+                               s=s, flops=flops, nbytes=nbytes,
+                               what=f"{role} {(h, c, k, r, s, st, pad)}")
+            plain = k1.conv2d_direct_plain(**args)
+            torch.cuda.synchronize()
+            max_abs = float((out - plain).abs().max())
+            max_rel = max_abs / float(plain.abs().max())
+            plain_ms = cuda_ms(lambda: k1.conv2d_direct_plain(**args), 5)
+            library_ms = cuda_ms(lambda: ref.conv2d(**args), 20)
+            rec = dict(role=role, h=h, w=w, c=c, k=k, r=r, s=s, stride=st,
+                       padding=pad, count=count, max_rel_err=max_rel,
+                       max_abs_err=max_abs, plain_ms=plain_ms,
+                       library_ms=library_ms, **rec)
+            rows.append(rec)
             print(f"  {role:5s}{h:4d}{w:4d}{c:5d}{k:5d}{r:2d}{s:2d}{st:3d}"
-                  f"{pad:4d}{count:6d}  {max_rel:.2e}  {max_abs:.2e} "
-                  f"{ms:9.4f} {plain_ms:9.4f} {library_ms:11.4f} "
-                  f"{bound_ms:9.4f} {bound_by}")
+                  f"{pad:4d}{count:6d} {rec['route']:5s}"
+                  f"{rec['tile'] if rec['tile'] is not None else '-':>5}"
+                  f"{rec['splits']:7d}{rec['chunk'] or 0:6d}"
+                  f"{rec['blocks'] or 0:7d}  {max_rel:.2e}  {max_abs:.2e} "
+                  f"{rec['ms']:9.4f} {rec['device_ms']:9.4f} "
+                  f"{plain_ms:9.4f} {library_ms:10.4f} "
+                  f"{rec['bound_ms']:9.4f} {rec['mma_bound_ms']:12.4f}")
             check(max_rel <= KERNEL_REL_TOL,
                   f"K1 disagrees with its plain version at {role} "
                   f"{(h, c, k, r, s, st, pad)}: max_rel {max_rel:.3e} > "
                   f"{KERNEL_REL_TOL}")
             del x, wt, args, out, plain
+    for role in ("fwd", "dual"):
+        part = [r_ for r_ in rows if r_["role"] == role]
+        print(f"  per step, {role} (x count): K1 {totals(part)['ms']:.4f} ms "
+              f"by events, "
+              f"{sum(r_['device_ms'] * r_['count'] for r_ in part):.4f} "
+              f"device; cuDNN {totals(part)['library_ms']:.4f}; bounds "
+              f"{totals(part)['bound_ms']:.4f} (f32 SIMT) and "
+              f"{sum(r_['mma_bound_ms'] * r_['count'] for r_ in part):.4f} "
+              f"(3xTF32)")
     print("  per-signature JSON:", json.dumps(rows))
     return rows
 
@@ -1205,7 +1293,8 @@ def profile_steps(step, params, batches) -> dict:
     out = dict(wall_ms_per_step=trace["wall_ms"],
                device_ms_per_step=device_ms,
                device_busy_share=trace["busy_share"],
-               k1_ms_per_step=named("conv2d_direct_kernel"),
+               k1_ms_per_step=named(K1_NEEDLE) + named(K1_SPLIT_SUM),
+               k1_split_sum_ms_per_step=named(K1_SPLIT_SUM),
                k2_ms_per_step=named("conv2d_wu_kernel") + named("wu_reduce"),
                k2_reduce_ms_per_step=named("wu_reduce"),
                top=[dict(ms=ms, launches=n, name=name[:120])
@@ -1219,7 +1308,8 @@ def profile_steps(step, params, batches) -> dict:
         return out
     print(f"  device busy share {out['device_busy_share']:.4f}, idle "
           f"{1 - out['device_busy_share']:.4f} (first to last device event)")
-    print(f"  K1 {out['k1_ms_per_step']:.3f} ms/step, K2 "
+    print(f"  K1 {out['k1_ms_per_step']:.3f} ms/step (its split sum pass "
+          f"{out['k1_split_sum_ms_per_step']:.3f}), K2 "
           f"{out['k2_ms_per_step']:.3f} ms/step (its reduction "
           f"{out['k2_reduce_ms_per_step']:.3f}), by kernel name")
     for rec in out["top"]:
@@ -1273,11 +1363,12 @@ def training(device, fwd, dual, wu):
 
     expect_k1 = sum(fwd.values()) + sum(dual.values())
     expect_k2 = sum(wu.values())
-    k1.launches = k2.launches = k2.launches_mma = 0
+    k1.launches = k1.launches_mma = k2.launches = k2.launches_mma = 0
     params, loss = step(params, batches[12])
     torch.cuda.synchronize()
     counts = {"conv2d_direct": k1.launches, "conv2d_wu": k2.launches,
-              "conv2d_wu_mma": k2.launches_mma}
+              "conv2d_wu_mma": k2.launches_mma,
+              "conv2d_direct_mma": k1.launches_mma}
     print(f"  launches in one step: K1 {counts['conv2d_direct']} (expected "
           f"{sum(fwd.values())} forward + {sum(dual.values())} dual = "
           f"{expect_k1}), K2 {counts['conv2d_wu']} (expected {expect_k2}), "
@@ -1292,6 +1383,12 @@ def training(device, fwd, dual, wu):
     check(counts["conv2d_wu_mma"] == counts["conv2d_wu"],
           f"{counts['conv2d_wu_mma']} of the step's {counts['conv2d_wu']} K2 "
           f"launches took the mma route, expected all")
+    print(f"  K1 launches on the mma route (launches_mma): "
+          f"{counts['conv2d_direct_mma']} of {counts['conv2d_direct']}")
+    check(counts["conv2d_direct_mma"] == counts["conv2d_direct"],
+          f"{counts['conv2d_direct_mma']} of the step's "
+          f"{counts['conv2d_direct']} K1 launches took the mma route, "
+          f"expected all")
     prof = profile_steps(step, params, batches[13:16])
     return counts, dict(step_ms=step_ms, step_times_ms=times,
                         images_per_s=TRAIN_BATCH / step_ms * 1e3,
@@ -1321,7 +1418,10 @@ def train_parity(device, tiling: str = "tiled"):
     relu, maxpool = executor._relu, executor._maxpool
 
     def record_relu(x):
-        masks.append((x > 0).cpu())
+        # the card's decision both ways: its forward mask and its backward
+        # one (clamp_min passes the gradient where x >= 0, so an input of
+        # exactly 0 passes it and outputs 0)
+        masks.append(((x > 0).cpu(), (x >= 0).cpu()))
         return relu(x)
 
     def record_pool(x, window, stride, padding):
@@ -1334,10 +1434,11 @@ def train_parity(device, tiling: str = "tiled"):
     replay_m, replay_p = iter(masks), iter(pools)
 
     def pinned_relu(x):
-        m = next(replay_m)
-        flips["relu"] += int((m != (x > 0)).sum())
+        m, g = next(replay_m)
+        flips["relu"] += int(((m != (x > 0)) | (g != (x >= 0))).sum())
         flips["relu_values"] += m.numel()
-        return x * m
+        # forward x * m; backward the gradient times g
+        return x * m + (x - x.detach()) * (g.to(x.dtype) - m.to(x.dtype))
 
     def pinned_pool(x, window, stride, padding):
         idx = next(replay_p)
@@ -1520,10 +1621,10 @@ def streams_signatures(device, sigs):
         plain_ms = cuda_ms(lambda: k4.conv2d_streams_plain(
             x, wt, schedule=sched, **knobs), 1)
         k1_ms = cuda_ms(k1_run, 30)
-        k1_dev = device_ms_of(trace_device(lambda i: k1_run(), 10,
-                                           {"conv2d_direct_kernel": k1},
-                                           sync_each=True),
-                              "conv2d_direct_kernel")
+        trace = trace_device(lambda i: k1_run(), 10, {K1_NEEDLE: k1},
+                             sync_each=True)
+        k1_dev = device_ms_of(trace, K1_NEEDLE) \
+            + device_ms_of(trace, K1_SPLIT_SUM)
         library_ms = cuda_ms(lambda: ref.conv2d_fused(
             x, wt, stride=st, padding=pad, bias=kw["bias"],
             relu=kw["relu"]), 30)
@@ -2832,9 +2933,28 @@ def _sig(r: dict) -> tuple:
             r["padding"], tuple(r.get("fused", ())))
 
 
+@contextlib.contextmanager
+def whole_split_forced(split: bool):
+    """K10a's mma route with every reference block's rows cut into
+    ``whole_slices`` slices (True) or none (False), in place of the rule
+    ``conv2d_direct.whole_split``: the two sides of the CTA-floor
+    question."""
+    from repro_torch.kernels import conv2d_direct as k1
+    rule = k1.whole_split
+    k1.whole_split = lambda **kw: split
+    try:
+        yield
+    finally:
+        k1.whole_split = rule
+
+
 def whole_signatures(device, sigs, k1_rows):
     """Phase 22: K10a against its plain version and against K1 on the 23
-    serving signatures at batch 16, with the reference's blocking."""
+    serving signatures at batch 16, with the reference's blocking; on the
+    mma route each signature unsplit and with its reference blocks' rows
+    cut across CTAs (``whole_slices``), the same bits both ways and twice,
+    each timed by CUDA events and profiler device time; the record's own
+    time is that of the side ``conv2d_direct.whole_split`` takes."""
     import torch
     from repro_torch.core.conv import whole_blocking
     from repro_torch.kernels import conv2d_direct as k1
@@ -2847,10 +2967,13 @@ def whole_signatures(device, sigs, k1_rows):
     print(f"\nK10a vs plain and K1, ResNet-50 {IMAGE}x{IMAGE} batch {BATCH} "
           f"({len(sigs)} signatures), the reference's whole-plane blocking; "
           f"ev = CUDA events, dev = profiler device time, library = cuDNN + "
-          f"epilogue (phase 2):")
-    print("  h  w    c    k r st fused         count rb_p k_blk tm rows   "
-          "smem blocks  max_rel  vs_k1       ev      dev  plain_ms   k1_ms "
-          "library_ms bound_ms")
+          f"epilogue (phase 2); unsplit / split: the reference's blocks "
+          f"whole, or their rows cut across CTAs; rule: the side "
+          f"whole_split takes:")
+    print("  h  w    c    k r st fused         count route rb_p k_blk rows "
+          "pass  smem ctas split_ctas  max_rel  vs_k1  ev_unsplit "
+          "dev_unsplit ev_split dev_split rule  plain_ms  k1_ms library_ms "
+          "bound_ms mma_bound_ms")
     for key, count in sigs.items():
         h, w, c, k, r, s, st, pad, fused = key
         p = (h + 2 * pad - r) // st + 1
@@ -2870,45 +2993,82 @@ def whole_signatures(device, sigs, k1_rows):
         blk = whole_blocking((BATCH, h, w, c), (r, s, c, k), stride=st,
                              padding=pad, kind="fwd")
         bk = dict(rb_p=blk.rb_p, k_blk=blk.k_blk)
-        plan = k1.whole_plan(p=p, q=q, k_blk=blk.k_blk,
-                             rb_p=min(blk.rb_p, p), r=r, s=s, stride=st,
-                             wp=w + 2 * pad, slice_bytes=32)
-        out = k1.conv2d_direct_whole(**args, **bk)
+        rb_p = min(blk.rb_p, p)
+        geo = dict(n=BATCH, p=p, q=q, k=k, rb_p=rb_p, k_blk=blk.k_blk)
+        path = k1.route_whole(args["x"], args["w"])
+        check(path == "mma", f"K10a at {key} takes the {path} route")
+        rule = k1.whole_split(**geo)
+        slices = k1.whole_slices(n=BATCH, p=p, k=k, rb_p=rb_p,
+                                 k_blk=blk.k_blk)
+        plan = k1.whole_mma_plan(p=p, q=q, k_blk=blk.k_blk, rb_p=rb_p, r=r,
+                                 s=s, stride=st, rows_cta=rb_p)
+        blocks = BATCH * (k // blk.k_blk) * -(-p // rb_p)
+        timed = {}
+        outs = []
+        for split in (False, True):
+            with whole_split_forced(split):
+                outs.append(k1.conv2d_direct_whole(**args, **bk))
+                outs.append(k1.conv2d_direct_whole(**args, **bk))
+                torch.cuda.synchronize()
+                ev = cuda_ms(lambda: k1.conv2d_direct_whole(**args, **bk), 20)
+                dev = device_ms_of(trace_device(
+                    lambda i: k1.conv2d_direct_whole(**args, **bk), 10,
+                    {needle: counter}, sync_each=True), needle)
+            timed[split] = (ev, dev)
+        out = outs[0]
+        check(bool(torch.isfinite(out).all()), f"K10a non-finite at {key}")
+        check(all(torch.equal(out, o) for o in outs[1:]),
+              f"K10a (mma route) gave other bits on a second run or with "
+              f"its rows cut across CTAs at {key}")
         plain = k1.conv2d_direct_whole_plain(**args, **bk)
         tiled = k1.conv2d_direct(**args)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(out).all()), f"K10a non-finite at {key}")
         scale = float(plain.abs().max())
         max_abs = float((out - plain).abs().max())
         max_rel = max_abs / scale
         k1_rel = float((out - tiled).abs().max()) / scale
-        ms = cuda_ms(lambda: k1.conv2d_direct_whole(**args, **bk), 20)
-        dev = device_ms_of(trace_device(
-            lambda i: k1.conv2d_direct_whole(**args, **bk), 10,
-            {needle: counter}, sync_each=True), needle)
         plain_ms = cuda_ms(lambda: k1.conv2d_direct_whole_plain(**args, **bk),
                            3)
         ref = k1_by[key]
-        blocks = BATCH * (k // blk.k_blk) * -(-p // blk.rb_p)
         rec = dict(h=h, w=w, c=c, k=k, r=r, s=s, stride=st, padding=pad,
-                   fused=list(fused), count=count, rb_p=blk.rb_p,
-                   k_blk=blk.k_blk, tm=plan.tm, rows_pass=plan.rows_pass,
-                   smem=plan.smem, blocks=blocks, max_abs_err=max_abs,
-                   max_rel_err=max_rel, k1_rel_err=k1_rel, ms=ms,
-                   device_ms=dev, plain_ms=plain_ms, k1_ms=ref["ms"],
+                   fused=list(fused), count=count, route=path,
+                   rb_p=blk.rb_p, k_blk=blk.k_blk, rows_pass=plan.rows_pass,
+                   smem=plan.smem, blocks=blocks,
+                   split_blocks=blocks * slices, slices=slices,
+                   split_taken=rule, max_abs_err=max_abs,
+                   max_rel_err=max_rel, k1_rel_err=k1_rel,
+                   ms_unsplit=timed[False][0],
+                   device_ms_unsplit=timed[False][1],
+                   ms_split=timed[True][0], device_ms_split=timed[True][1],
+                   ms=timed[rule][0], device_ms=timed[rule][1],
+                   plain_ms=plain_ms, k1_ms=ref["ms"],
                    library_ms=ref["library_ms"], bound_ms=ref["bound_ms"],
-                   bound_by=ref["bound_by"])
+                   bound_by=ref["bound_by"],
+                   mma_bound_ms=ref["mma_bound_ms"])
         rows.append(rec)
         print(f"{h:3d}{w:3d}{c:5d}{k:5d}{r:2d}{st:3d} "
-              f"{'+'.join(fused):14s}{count:5d}{blk.rb_p:5d}{blk.k_blk:6d}"
-              f"{plan.tm:3d}{plan.rows_pass:5d}{plan.smem:7d}{blocks:7d} "
-              f"{max_rel:.2e} {k1_rel:.2e} {ms:8.4f} {dev:8.4f} "
-              f"{plain_ms:9.4f} {ref['ms']:7.4f} {ref['library_ms']:10.4f} "
-              f"{ref['bound_ms']:8.4f}")
+              f"{'+'.join(fused):14s}{count:5d} {path:5s}{blk.rb_p:4d}"
+              f"{blk.k_blk:6d}{rb_p:5d}{plan.rows_pass:5d}{plan.smem:7d}"
+              f"{blocks:5d}{blocks * slices:11d}  {max_rel:.2e} "
+              f"{k1_rel:.2e} {timed[False][0]:10.4f} {timed[False][1]:11.4f} "
+              f"{timed[True][0]:8.4f} {timed[True][1]:9.4f} "
+              f"{'split' if rule else 'whole':6s}{plain_ms:9.4f} "
+              f"{ref['ms']:7.4f} {ref['library_ms']:10.4f} "
+              f"{ref['bound_ms']:8.4f} {ref['mma_bound_ms']:12.4f}")
         check(max_rel <= KERNEL_REL_TOL,
               f"K10a disagrees with its plain version at {key}: max_rel "
               f"{max_rel:.3e} > {KERNEL_REL_TOL}")
-        del args, out, plain, tiled
+        del args, out, outs, plain, tiled
+
+    def weighted_(key):
+        return sum(r_[key] * r_["count"] for r_ in rows)
+    print(f"  per forward (x count): K10a unsplit {weighted_('ms_unsplit'):.4f}"
+          f" ms by events, {weighted_('device_ms_unsplit'):.4f} device; split "
+          f"{weighted_('ms_split'):.4f} / {weighted_('device_ms_split'):.4f}; "
+          f"the rule {weighted_('ms'):.4f} / {weighted_('device_ms'):.4f}; "
+          f"K1 {weighted_('k1_ms'):.4f}; cuDNN + epilogue "
+          f"{weighted_('library_ms'):.4f}; bounds {weighted_('bound_ms'):.4f} "
+          f"(f32 SIMT), {weighted_('mma_bound_ms'):.4f} (3xTF32)")
     print("  per-signature JSON:", json.dumps(rows))
     return rows
 
@@ -2942,6 +3102,7 @@ def whole_serving(device, params):
                                        seed=SEED,
                                        warm_requests=WHOLE_WARM_REQUESTS)
         launches, k1_launches = k1.launches_whole, k1.launches
+        mma = k1.launches_whole_mma
     st = server.stats()
     check(len(results) == WHOLE_REQUESTS,
           f"served {len(results)} of {WHOLE_REQUESTS}")
@@ -2957,6 +3118,10 @@ def whole_serving(device, params):
     check(launches == 52 * st["batches"],
           f"K10a launched {launches} times, expected 52 x {st['batches']}")
     check(k1_launches == 0, f"K1 launched {k1_launches} times under whole")
+    print(f"  K10a launches on the mma route (launches_whole_mma): {mma} of "
+          f"{launches}")
+    check(mma == launches, f"{mma} of the window's {launches} K10a launches "
+          f"took the mma route, expected all")
 
     images = np.random.default_rng(SEED + 23).standard_normal(
         (BATCH, IMAGE, IMAGE, 3), dtype=np.float32)
@@ -3210,6 +3375,8 @@ def whole_training(device, fwd, dual, wu, tiled_summary):
                for i in range(1 + WHOLE_TRAIN_STEPS + 3)]
     torch.cuda.synchronize()
     expect = {"conv2d_direct_whole": sum(fwd.values()) + sum(dual.values()),
+              "conv2d_direct_whole_mma": sum(fwd.values())
+              + sum(dual.values()),
               "conv2d_wu_whole": sum(wu.values()), "conv2d_direct": 0,
               "conv2d_wu": 0}
     print(f"\nwhole-plane training: ResNet-50 {IMAGE}x{IMAGE}, 1000 classes, "
@@ -3222,19 +3389,33 @@ def whole_training(device, fwd, dual, wu, tiled_summary):
         print(f"  1 untimed step in {time.perf_counter() - t0:.2f}s")
         for batch in batches[1:1 + WHOLE_TRAIN_STEPS]:
             torch.cuda.synchronize()
-            k1.launches = k1.launches_whole = 0
+            k1.launches = k1.launches_whole = k1.launches_whole_mma = 0
             k2.launches = k2.launches_whole = 0
             t1 = time.perf_counter()
             params, loss = step(params, batch)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t1) * 1e3)
             counts = {"conv2d_direct_whole": k1.launches_whole,
+                      "conv2d_direct_whole_mma": k1.launches_whole_mma,
                       "conv2d_wu_whole": k2.launches_whole,
                       "conv2d_direct": k1.launches,
                       "conv2d_wu": k2.launches}
             losses.append(float(loss))
             check(counts == expect, f"launches in a whole-plane step "
                   f"{counts}, expected {expect}")
+        # the CTA-floor question at the step: every reference block whole,
+        # and every one cut across CTAs where whole_slices cuts it
+        floor = {}
+        for split in (False, True):
+            with whole_split_forced(split):
+                split_times = []
+                for batch in batches[1:1 + WHOLE_TRAIN_STEPS]:
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    step(params, batch)
+                    torch.cuda.synchronize()
+                    split_times.append((time.perf_counter() - t1) * 1e3)
+            floor["split" if split else "unsplit"] = split_times
         trace = trace_device(
             lambda i: step(params, batches[1 + WHOLE_TRAIN_STEPS + i]), 2,
             {"conv2d_direct_whole_kernel": Counter(k1, "launches_whole"),
@@ -3254,6 +3435,10 @@ def whole_training(device, fwd, dual, wu, tiled_summary):
           f"{tiled_summary['step_ms']:.3f} ms/step, "
           f"{tiled_summary['images_per_s']:.2f} images/s")
     print(f"  launches in each timed step: {counts}")
+    for side, side_times in floor.items():
+        print(f"  K10a {side} everywhere: median "
+              f"{float(np.median(side_times)):.3f} ms/step "
+              f"({[round(t, 3) for t in side_times]})")
     print(f"  losses {[round(v, 4) for v in losses]}")
     busy = "n/a" if prof["device_busy_share"] is None else \
         f"{prof['device_busy_share']:.4f}"
@@ -3263,7 +3448,9 @@ def whole_training(device, fwd, dual, wu, tiled_summary):
           f"{prof['k10b_ms_per_step']:.3f}), busy share {busy}")
     return counts, dict(step_ms=step_ms, step_times_ms=times,
                         images_per_s=TRAIN_BATCH / step_ms * 1e3,
-                        losses=losses, profile=prof)
+                        losses=losses, profile=prof,
+                        floor={side: float(np.median(t))
+                               for side, t in floor.items()})
 
 
 def pool_phase(device):
@@ -3502,14 +3689,35 @@ def main() -> int:
         "source": "src/repro_torch/csrc/conv2d_direct.cu",
         "replaces": "src/repro/kernels/conv2d_direct.py:295",
         "launches": serve_launches + train_counts["conv2d_direct"],
+        "launches_mma": serve_launches + train_counts["conv2d_direct_mma"],
         "launches_by_path": {"serving": serve_launches,
                              "training_step": train_counts["conv2d_direct"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows + k1_rows),
         "max_rel_err": max(r["max_rel_err"] for r in rows + k1_rows),
         **timing(serve),
+        "device_ms": weighted(rows, "device_ms"),
+        "mma_bound_ms": weighted(rows, "mma_bound_ms"),
+        "bound_is": "f32 on the SIMT cores; mma_bound_ms: 3 x the FLOPs at "
+                    "the TF32 tensor-core rate (3xTF32), or the bytes",
+        "routes": {"C and K multiples of 4, 16-byte aligned": "mma "
+                   "(3xTF32 on mma.sync m16n8k8, csrc/conv_tf32.cuh)",
+                   "the rest": "simt (f32 FMA)"},
         "per": f"the 52 K1 convs of one ResNet-50 forward, batch {BATCH}, "
-               f"{IMAGE}x{IMAGE}",
+               f"{IMAGE}x{IMAGE}, by CUDA events (device_ms: profiler, a "
+               f"split's sum pass included)",
         "training": {"forward": timing(k1_fwd), "dual": timing(k1_dual),
+                     "forward_device_ms": weighted(
+                         [r_ for r_ in k1_rows if r_["role"] == "fwd"],
+                         "device_ms"),
+                     "dual_device_ms": weighted(
+                         [r_ for r_ in k1_rows if r_["role"] == "dual"],
+                         "device_ms"),
+                     "forward_mma_bound_ms": weighted(
+                         [r_ for r_ in k1_rows if r_["role"] == "fwd"],
+                         "mma_bound_ms"),
+                     "dual_mma_bound_ms": weighted(
+                         [r_ for r_ in k1_rows if r_["role"] == "dual"],
+                         "mma_bound_ms"),
                      "per": f"one ResNet-50 training step, batch "
                             f"{TRAIN_BATCH}: 52 bare forwards and 61 dual "
                             f"convs"},
@@ -3718,6 +3926,8 @@ def main() -> int:
         "source": "src/repro_torch/csrc/conv2d_direct_whole.cu",
         "replaces": "src/repro/kernels/conv2d_direct.py:338",
         "launches": whole_launches + whole_counts["conv2d_direct_whole"],
+        "launches_mma": whole_launches
+        + whole_counts["conv2d_direct_whole_mma"],
         "launches_by_path": {
             "whole_serving": whole_launches,
             "whole_training": whole_counts["conv2d_direct_whole"]},
@@ -3725,9 +3935,20 @@ def main() -> int:
         "max_rel_err": max(r_["max_rel_err"] for r_ in whole_rows),
         **timing(k10a),
         "device_ms": dev_sum(whole_rows),
+        "mma_bound_ms": weighted(whole_rows, "mma_bound_ms"),
+        "unsplit": {"ms": weighted(whole_rows, "ms_unsplit"),
+                    "device_ms": weighted(whole_rows, "device_ms_unsplit")},
+        "split": {"ms": weighted(whole_rows, "ms_split"),
+                  "device_ms": weighted(whole_rows, "device_ms_split")},
+        "training_step_ms": {"rule": whole_train["step_ms"],
+                             **whole_train["floor"]},
         "k1_ms": weighted(whole_rows, "k1_ms"),
-        "per": per_fwd + " (K10a, the reference's whole-plane blocking); "
-               "library: cuDNN + epilogue",
+        "routes": {"C and K multiples of 4, 16-byte aligned": "mma "
+                   "(3xTF32 on mma.sync m16n8k8, csrc/conv_tf32.cuh)",
+                   "the rest": "simt (f32 FMA)"},
+        "per": per_fwd + " (K10a, the reference's whole-plane blocking, "
+               "each reference block whole or its rows cut across CTAs as "
+               "whole_split decides); library: cuDNN + epilogue",
         "card": card,
     }, {
         "name": "conv2d_wu_whole",

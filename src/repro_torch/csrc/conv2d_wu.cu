@@ -66,6 +66,8 @@
 
 #include <cuda_runtime.h>
 
+#include "conv_tf32.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -259,37 +261,8 @@ namespace tc {
 constexpr int kBK = 32;   // pixels of a ring stage
 constexpr int kPad = 8;   // floats past each shared row: conflict-free fragments
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared; zero-filled when src_bytes is 0.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// v = hi + lo + (below f32's 24th bit): hi = tf32(v), lo = tf32(v - hi),
-// both rounded to nearest, ties away from zero.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
-  const float rest = v - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
-}
-
-// d += a (16 x 8, row) x b (8 x 8, col), TF32 operands, f32 sums.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// smem_addr, cp_async16, cp_async_commit, cp_async_wait, split_tf32 and
+// mma_tf32 come from conv_tf32.cuh.
 
 // A BM x BN block of WM x WN warps, STAGES ring stages, MINB blocks an SM.
 template <int BM, int BN, int WM, int WN, int STAGES, int MINB>

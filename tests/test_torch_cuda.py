@@ -1236,3 +1236,199 @@ def test_moe_gmm_stream_kernel_refuses_what_its_route_excludes(cuda):
                             (144, 250, 16, 1), (144, 256, 16, 2),
                             (144, 256, 16, 9)):
         assert fn(*ptrs, None, t, d, 512, 8, bm, s_max, stream) != 0
+
+
+# -- K1's and K10a's mma routes (3xTF32 on the tensor cores) -----------------
+
+# ragged pixel counts: N*P*Q off the 64- and 128-pixel tiles, one pixel, C
+# off the 32-channel stage (a zero-filled tail), K off the 64-channel tile
+K1_MMA_RAGGED = [(1, 5, 7, 8, 12, 1, 1, 0), (3, 11, 13, 12, 20, 3, 2, 1),
+                 (1, 1, 1, 4, 4, 1, 1, 0), (5, 17, 19, 36, 44, 3, 1, 1),
+                 (7, 23, 23, 64, 72, 1, 1, 0), (2, 9, 9, 100, 68, 3, 1, 1)]
+K1_MMA_CASES = [c for c in CASES if c[3] % 4 == 0 and c[4] % 4 == 0] \
+    + K1_MMA_RAGGED
+
+
+def _k1_counts():
+    return k1.launches, k1.launches_mma
+
+
+@pytest.mark.parametrize("case", K1_MMA_CASES)
+@pytest.mark.parametrize("epi", range(len(EPILOGUES)))
+def test_conv_mma_route_matches_plain(cuda, case, epi):
+    """K1's mma route on CASES and ragged pixel counts, every epilogue:
+    within 1e-5 of max |plain|, the same bits twice, one launch counted on
+    both counters."""
+    args = _args(case, cuda, **EPILOGUES[epi])
+    assert k1.route(args["x"], args["w"]) == "mma"
+    before = _k1_counts()
+    out = k1.conv2d_direct(**args)
+    torch.cuda.synchronize()
+    assert _k1_counts() == (before[0] + 1, before[1] + 1)
+    exp = k1.conv2d_direct_plain(**args)
+    assert out.shape == exp.shape
+    assert _rel_err(out, exp) <= 1e-5
+    assert torch.equal(out, k1.conv2d_direct(**args))
+
+
+@pytest.mark.parametrize("r,s", [(2, 2), (2, 1), (1, 2), (1, 1)])
+def test_conv_mma_route_on_dual_subfilters(cuda, r, s):
+    """The four sub-filters of the 56x56 -> 28x28 3x3 stride-2 layer's
+    phase plan, on its pre-padded dO plane, through the mma route."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((4, 28 + r - 1, 28 + s - 1, 128), generator=g,
+                    device=cuda)
+    w = torch.randn((r, s, 128, 128), generator=g, device=cuda) / 16
+    assert k1.route(x, w) == "mma"
+    before = _k1_counts()
+    out = k1.conv2d_direct(x, w, stride=1, padding=0)
+    torch.cuda.synchronize()
+    assert _k1_counts() == (before[0] + 1, before[1] + 1)
+    assert _rel_err(out, k1.conv2d_direct_plain(x, w, stride=1,
+                                                padding=0)) <= 1e-5
+    assert torch.equal(out, k1.conv2d_direct(x, w, stride=1, padding=0))
+
+
+@pytest.mark.parametrize("tile", sorted(k1.MMA_TILES))
+@pytest.mark.parametrize("splits", [1, 2, 3])
+def test_conv_mma_every_tile_and_split(cuda, tile, splits):
+    """Each block tile, unsplit and split (the sum pass applies the
+    epilogue), on a 7x7 stage's shape with a residual: within 1e-5 of
+    plain, the same bits twice."""
+    case = (3, 7, 7, 96, 136, 3, 1, 1)
+    args = _args(case, cuda, bn=True, residual=True, relu=True)
+    steps = 9 * 3
+    chunk = -(-steps // splits)
+    plan = k1.MmaPlan(tile=tile, splits=splits, chunk=chunk, blocks=0)
+    out = torch.empty((3, 7, 7, 136), device=cuda)
+    kw = dict(scale=args["scale"], shift=args["shift"], bias=None,
+              residual=args["residual"], relu=True, stride=1, padding=1)
+    k1._launch_mma(args["x"], args["w"], out, plan=plan, **kw)
+    again = k1._launch_mma(args["x"], args["w"], torch.empty_like(out),
+                           plan=plan, **kw)
+    torch.cuda.synchronize()
+    assert _rel_err(out, k1.conv2d_direct_plain(**args)) <= 1e-5
+    assert torch.equal(out, again)
+
+
+def test_conv_simt_route_keeps_ragged_channels(cuda):
+    args = _args((3, 11, 13, 5, 7, 3, 2, 1), cuda, bn=True, relu=True)
+    assert k1.route(args["x"], args["w"]) == "simt"
+    before = _k1_counts()
+    out = k1.conv2d_direct(**args)
+    torch.cuda.synchronize()
+    assert _k1_counts() == (before[0] + 1, before[1])
+    assert _rel_err(out, k1.conv2d_direct_plain(**args)) <= 1e-5
+    flat = torch.empty(2 * 9 * 9 * 8 + 1, device=cuda)[1:].view(2, 9, 9, 8)
+    flat.copy_(torch.randn((2, 9, 9, 8), device=cuda))
+    w = torch.randn((3, 3, 8, 8), device=cuda)
+    assert k1.route(flat, w) == "simt"
+    out = k1.conv2d_direct(flat, w, stride=1, padding=1)
+    assert _k1_counts() == (before[0] + 2, before[1])
+    assert _rel_err(out, k1.conv2d_direct_plain(flat, w, stride=1,
+                                                padding=1)) <= 1e-5
+
+
+def test_conv_mma_kernel_refuses_what_its_route_excludes(cuda):
+    """The mma route's C function returns an error for C or K off the
+    multiples of 4, an unaligned operand and a chunk that leaves a split
+    empty or steps uncovered: the wrapper would raise, and never gives way
+    to the SIMT kernel."""
+    fn = k1._kernel_fn_mma()
+    stream = torch.cuda.current_stream().cuda_stream
+    x = torch.randn((2, 9, 9, 8), device=cuda)
+    w = torch.randn((3, 3, 8, 8), device=cuda)
+    out = torch.empty((2, 9, 9, 8), device=cuda)
+    flat = torch.empty(8 * 9 * 9 * 2 + 1, device=cuda)[1:].view(2, 9, 9, 8)
+
+    def call(xp, c, k, splits, chunk):
+        return fn(xp.data_ptr(), w.data_ptr(), None, None, None, None,
+                  out.data_ptr(), out.data_ptr(), 2, 9, 9, c, k, 3, 3, 1, 1,
+                  0, 0, splits, chunk, stream)
+    assert call(x, 8, 8, 1, 9) == 0       # 9 steps in one block
+    torch.cuda.synchronize()
+    assert call(x, 6, 8, 1, 9) != 0
+    assert call(x, 8, 6, 1, 9) != 0
+    assert call(flat, 8, 8, 1, 9) != 0
+    assert call(x, 8, 8, 1, 8) != 0       # a step uncovered
+    assert call(x, 8, 8, 3, 5) != 0       # the third split empty
+
+
+@pytest.mark.parametrize("case", WHOLE_CASES)
+@pytest.mark.parametrize("epi", range(len(EPILOGUES)))
+def test_whole_mma_route_matches_plain_split_or_not(cuda, case, epi,
+                                                    monkeypatch):
+    """K10a's mma route on WHOLE_CASES with the reference's blocking:
+    within 1e-5 of plain, the same bits twice, and the same bits with each
+    reference block's rows cut across blocks (``whole_split``)."""
+    args = _args(case, cuda, **EPILOGUES[epi])
+    blk = _whole_blk(case)
+    assert k1.route_whole(args["x"], args["w"]) == "mma"
+    before = (k1.launches_whole, k1.launches_whole_mma, k1.launches)
+    monkeypatch.setattr(k1, "whole_split", lambda **kw: False)
+    out = k1.conv2d_direct_whole(**args, **blk)
+    torch.cuda.synchronize()
+    assert (k1.launches_whole, k1.launches_whole_mma, k1.launches) == \
+        (before[0] + 1, before[1] + 1, before[2])
+    assert _rel_err(out, k1.conv2d_direct_whole_plain(**args, **blk)) <= 1e-5
+    assert torch.equal(out, k1.conv2d_direct_whole(**args, **blk))
+    monkeypatch.setattr(k1, "whole_split", lambda **kw: True)
+    assert torch.equal(out, k1.conv2d_direct_whole(**args, **blk))
+
+
+@pytest.mark.parametrize("case,blk", WHOLE_BLOCKINGS)
+def test_whole_mma_route_other_blockings(cuda, case, blk, monkeypatch):
+    """A P tail, rb_p = P at 56x56 (several passes a block), k_blk below K,
+    one row a block: split and unsplit equal bit for bit."""
+    args = _args(case, cuda, bn=True, residual=True, relu=True)
+    outs = []
+    for split in (False, True):
+        monkeypatch.setattr(k1, "whole_split", lambda **kw: split)
+        outs.append(k1.conv2d_direct_whole(**args, **blk))
+    assert _rel_err(outs[0],
+                    k1.conv2d_direct_whole_plain(**args, **blk)) <= 1e-5
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_whole_mma_route_on_rows_wider_than_a_pass(cuda):
+    """Q 150 and 200 (rows in segments of at most 128 columns), stride 1
+    and 2."""
+    for case in ((1, 6, 150, 8, 16, 3, 1, 1), (2, 8, 400, 16, 8, 3, 2, 1)):
+        args = _args(case, cuda, bn=True, relu=True)
+        blk = dict(rb_p=3, k_blk=8)
+        out = k1.conv2d_direct_whole(**args, **blk)
+        assert _rel_err(out, k1.conv2d_direct_whole_plain(**args, **blk)) \
+            <= 1e-5
+
+
+def test_conv_mma_dispatch_by_counters(cuda):
+    """Reduced ResNet-50 on the card: a tiled forward and a training step's
+    K1 launches all take the mma route; under ``whole`` every K10a launch
+    does."""
+    from repro_torch.convert import params_to
+    from repro_torch.graph import GxM, resnet50
+    net = GxM(resnet50(10, stages=(1, 1, 1, 1)), device=cuda,
+              num_classes=10)
+    params = params_to(net.init(torch.Generator().manual_seed(0)), cuda)
+    x = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(1)
+                    ).to(cuda)
+    before = _k1_counts()
+    net.infer(params, x)
+    torch.cuda.synchronize()
+    fwd = [a - b for a, b in zip(_k1_counts(), before)]
+    assert fwd[0] == fwd[1] == 16
+    before = (k1.launches_whole, k1.launches_whole_mma)
+    with be.use_conv_tiling("whole"):
+        net.infer(params, x)
+    torch.cuda.synchronize()
+    assert (k1.launches_whole - before[0],
+            k1.launches_whole_mma - before[1]) == (16, 16)
+    case = (2, 10, 10, 16, 24, 3, 2, 1)
+    n, h, w, c, k, r, st, pad = case
+    xx = torch.randn((n, h, w, c), device=cuda, requires_grad=True)
+    ww = torch.randn((r, r, c, k), device=cuda, requires_grad=True)
+    before = _k1_counts()
+    conv2d_train(xx, ww, st, pad).square().sum().backward()
+    torch.cuda.synchronize()
+    delta = [a - b for a, b in zip(_k1_counts(), before)]
+    assert delta[0] == delta[1] >= 2     # the forward and the dual convs
