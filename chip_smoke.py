@@ -8,8 +8,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
 1. Header: the card's name and power limit, torch and CUDA versions, the
    TF32 flags, and the build of every CUDA kernel from ``src/repro_torch/csrc``
    (twelve sources: K1-K4, K7, K6, K8, K9, K10a-c, K5; one ``nvcc`` per
-   source, all started together; K1, K2 and K10a include the shared 3xTF32
-   products mainloop ``csrc/conv_tf32.cuh``), with each build's seconds and
+   source, all started together; K1, K2, K4 and K10a include the shared
+   3xTF32 products mainloop ``csrc/conv_tf32.cuh``, K3 and K10c the int8
+   products and epilogue ``csrc/q8_mma.cuh``), with each build's seconds and
    its ptxas register and spill lines, each under its kernel's name.
 2. K1 vs plain, serving: every distinct lane-aligned (shape, fused
    epilogue) signature of ResNet-50 at 224x224, batch 16, on random
@@ -101,19 +102,27 @@ Phases, each of which fails the run (nonzero exit, no result line):
     blocking (``core.blocking``, autotune off): K4 against its plain
     replay of the same schedule (max |diff| / max |plain| <= 1e-5) under
     order nkpc and one other order, and once on a schedule whose runs are
-    shuffled (``core.streams.permute_runs``); per signature the steps and
-    RLE segments, K4's CUDA-event and profiler device times, the plain
-    replay's, K1's with the same bias and ReLU, the library yardstick
-    (cuDNN ``F.conv2d`` in true f32 plus bias and ReLU) and the bound.
+    shuffled (``core.streams.permute_runs``), which must give the same
+    bits as the runs in order; every one of these launches on the mma
+    route (``conv2d_streams.route``; held by ``launches_mma``); per
+    signature the route, the mma CTA sub-tile (``mma_tile_config``), the
+    steps and RLE segments, K4's CUDA-event and profiler device times on
+    the mma route and with the SIMT route forced, the plain replay's, K1's
+    with the same bias and ReLU, the library yardstick (cuDNN
+    ``F.conv2d`` in true f32 plus bias and ReLU) and both bounds (f32
+    SIMT; 3 x the FLOPs at the TF32 rate).
 13. Tuned replay, the slice's main path: ``tune.warmup_convs`` on every
     serving shape at batch 16, kind "streams", mode "tune", into a cache
     in a temporary directory (``REPRO_TUNE_CACHE``): the cost model's 8
-    best candidates of each are timed on the card; every entry must say
-    "measured".  Then ``conv2d_streams_auto(autotune="cache")`` runs each
-    signature once with K4's count set to 0 just before and read just
-    after (one launch each), no candidate timed and every lookup a hit;
-    each result within 1e-5 of the plain replay; tuned times against the
-    analytic ones, per signature and per 52-conv forward.
+    best candidates of each (ranked by the model of the route K4 takes)
+    are timed on the card, every launch on the mma route; every entry must
+    say "measured".  Then ``conv2d_streams_auto(autotune="cache")`` runs
+    each signature once with K4's counts set to 0 just before and read
+    just after (one launch each, all on the mma route), no candidate timed
+    and every lookup a hit; each result within 1e-5 of the plain replay;
+    per signature the route, the tile, the tuned times on the mma route
+    and with the SIMT route forced, the analytic ones and K1's, and per
+    52-conv forward.
 14. K7 vs plain: flash attention at Qwen2-1.5B's prefill shapes (12 query
     and 2 KV heads, Dh 128; L 128, 333 and 1024 at batch 1 and 8; causal,
     and one non-causal case) and one SmolLM-360M shape (15 / 5 heads, Dh
@@ -247,10 +256,19 @@ Phases, each of which fails the run (nonzero exit, no result line):
     of the tiled engine's on the same batch, the same top-1; that forward
     under the profiler.
 24. K10c vs plain and vs K3 on the 23 signatures (int8 operands as phase
-    5, the reference's q8 blocking), max |diff| 0 to each, with times, K3's
-    from phase 5 and the bound; then one int8 forward at batch 16 on phase
-    6's quantized tree under ``whole``: 52 K10c launches, no K3, logits
-    equal bit for bit to the tiled int8 forward's.
+    5, the reference's q8 blocking), max |diff| 0 to each; per signature
+    its route (``conv2d_q8.route_whole``: "mma" for every one), the CTAs of
+    the reference's grid and of its cut (rows, ``whole_rows_cta``, and
+    output channels, ``whole_k_cta``), the ring's stages, and K10c run
+    three ways, twice each, all with the same bits: the mma route uncut
+    and cut, and the ``__dp4a`` route
+    forced, each timed by CUDA events and profiler device time (the
+    record's time is the side ``whole_split`` takes), K3's from phase 5 and
+    the bound; the sums per forward and on the 1x1 convs beside
+    ``torch._int_mm``'s; then one int8 forward at batch 16 on phase 6's
+    quantized tree under ``whole``: 52 K10c launches, all on the mma route
+    (``launches_whole_mma``), no K3, logits equal bit for bit to the tiled
+    int8 forward's, and that forward under the profiler.
 25. K10b vs plain and vs K2 on the 22 weight-update signatures at batch 32,
     b_p from ``conv_blocking(require_divisor=True, kind="wu")`` (<= 1e-5),
     run twice on the same inputs (the same bits), with each signature's
@@ -335,6 +353,19 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def returning(module, name: str, value):
+    """``module.name`` replaced, for the block, by a function that returns
+    ``value``: a route or a rule forced, to time the side it does not take.
+    Only this script calls it."""
+    rule = getattr(module, name)
+    setattr(module, name, lambda *a, **kw: value)
+    try:
+        yield
+    finally:
+        setattr(module, name, rule)
 
 
 def header():
@@ -1544,12 +1575,18 @@ def row_rel_err(out, plain) -> float:
                   / plain.abs().amax(-1).clamp_min(1e-30)).max())
 
 
+K4_NEEDLE = "conv2d_streams_kernel"     # both routes' kernel names hold it
+
+
 def streams_signatures(device, sigs):
     """Phase 12: K4 against its plain replay on every serving signature
     under the analytic "streams" blocking, with order nkpc and one other
-    order, and once on a schedule whose runs are shuffled; times of K4
-    (CUDA events and profiler), the plain replay, K1 with the same bias and
-    ReLU, cuDNN, and the bound.  Returns per-signature records."""
+    order, and once on a schedule whose runs are shuffled, every launch on
+    the mma route (``launches_mma``); per signature its route and mma tile,
+    times of K4 on the mma route and with the SIMT route forced (CUDA
+    events and profiler), the plain replay, K1 with the same bias and
+    ReLU, cuDNN, and both bounds (f32 SIMT, 3xTF32).  Returns
+    per-signature records."""
     import numpy as np
     import torch
     from repro_torch.core.blocking import conv_blocking
@@ -1557,17 +1594,21 @@ def streams_signatures(device, sigs):
     from repro_torch.kernels import conv2d_direct as k1
     from repro_torch.kernels import conv2d_streams as k4
     from repro_torch.kernels import ref
+    from repro_torch.launch import roofline
 
     gen = torch.Generator(device=device).manual_seed(SEED + 12)
     rows = []
     print(f"\nK4 vs plain replay, ResNet-50 {IMAGE}x{IMAGE} batch {BATCH} "
           f"({len(sigs)} signatures, {sum(sigs.values())} convs), analytic "
           f"'streams' blocking, bias + ReLU as fused; ev = CUDA events, dev "
-          f"= profiler device time; k1 = K1 with the same bias/ReLU; library"
-          f" = cuDNN f32 + bias/ReLU:")
-    print("  h  w    c    k r st relu count rb_p k_blk c_blk order tile "
-          " steps  segs  max_rel   k4_ev  k4_dev  plain_ms   k1_ev  k1_dev "
-          " library  bound bound_by")
+          f"= profiler device time; mma = the route taken (conv2d_streams."
+          f"route), tile its CTA sub-tile (mma_tile_config); simt = the SIMT "
+          f"route forced; k1 = K1 with the same bias/ReLU; library = cuDNN "
+          f"f32 + bias/ReLU; bounds f32 SIMT and 3xTF32:")
+    print("  h  w    c    k r st relu count rb_p k_blk c_blk order route "
+          "tile     steps  segs  max_rel  mma_ev mma_dev simt_ev simt_dev "
+          " plain_ms   k1_ev  k1_dev  library  bound mma_bound bound_by")
+    routed = [0, 0]     # K4 launches of the checks, and those on mma
     for i, (key, count) in enumerate(sigs.items()):
         h, w, c, k, r, s, st, pad, fused = key
         p = (h + 2 * pad - r) // st + 1
@@ -1577,6 +1618,9 @@ def streams_signatures(device, sigs):
                             padding=pad, kind="streams", autotune="off")
         knobs = dict(stride=st, padding=pad, bias=kw["bias"], rb_p=blk.rb_p,
                      k_blk=blk.k_blk, c_blk=blk.c_blk)
+        path = k4.route(x, wt, blk.c_blk, blk.k_blk)
+        check(path == "mma", f"K4 at {key} takes the {path} route")
+        k4.launches = k4.launches_mma = 0
         worst = (0.0, 0.0)
         for order in ("nkpc", STREAM_ORDERS[i % len(STREAM_ORDERS)]):
             sched = stream_schedule(x, wt, blk, order, kw["relu"], st, pad)
@@ -1606,6 +1650,8 @@ def streams_signatures(device, sigs):
                   f"{shuffled['max_rel_err']:.2e}")
             check(shuffled["max_rel_err"] <= KERNEL_REL_TOL,
                   "K4 on shuffled runs disagrees with the plain replay")
+            check(shuffled["equal_bits"], "K4 on shuffled runs gave other "
+                  "bits than on the runs in order")
 
         def run():
             return k4.conv2d_streams(x, wt, schedule=sched, **knobs)
@@ -1613,11 +1659,13 @@ def streams_signatures(device, sigs):
         def k1_run():
             return k1.conv2d_direct(x, wt, stride=st, padding=pad,
                                     bias=kw["bias"], relu=kw["relu"])
-        ms = cuda_ms(run, 30)
-        dev = device_ms_of(trace_device(lambda i: run(), 10,
-                                        {"conv2d_streams_kernel": k4},
-                                        sync_each=True),
-                           "conv2d_streams_kernel")
+        routed = [routed[0] + k4.launches, routed[1] + k4.launches_mma]
+        check(k4.launches == k4.launches_mma,
+              f"{k4.launches - k4.launches_mma} of {k4.launches} K4 launches "
+              f"at {key} took the SIMT route, expected none")
+        ms, dev = k4_times(run)
+        with returning(k4, "route", "simt"):
+            simt_ms, simt_dev = k4_times(run)
         plain_ms = cuda_ms(lambda: k4.conv2d_streams_plain(
             x, wt, schedule=sched, **knobs), 1)
         k1_ms = cuda_ms(k1_run, 30)
@@ -1632,29 +1680,55 @@ def streams_signatures(device, sigs):
         nbytes = 4.0 * (BATCH * h * w * c + r * s * c * k + k
                         + BATCH * p * q * k)
         bound_ms, bound_by = bound(flops, nbytes)
-        tile, _ = k4.tile_config(tile_m=min(blk.rb_p, p) * q, k_blk=blk.k_blk,
-                                 c_blk=blk.c_blk,
-                                 runs=len(run_starts(sched)))
+        mma_bound_ms, _ = roofline.bound_ms(3 * flops, nbytes,
+                                            roofline.TF32_PEAK_FLOPS)
+        tile = k4.MMA_TILES[k4.mma_tile_config(
+            tile_m=min(blk.rb_p, p) * q, k_blk=blk.k_blk,
+            runs=len(run_starts(sched)))[0]]
         rec = dict(h=h, w=w, c=c, k=k, r=r, s=s, stride=st, padding=pad,
                    relu=kw["relu"], count=count,
                    blocking=dict(rb_p=blk.rb_p, k_blk=blk.k_blk,
                                  c_blk=blk.c_blk, order=blk.order),
-                   tile=k4.TILES[tile][:2], steps=len(sched),
+                   route=path, tile=tile, steps=len(sched),
                    segments=len(sched.segments), max_abs_err=worst[0],
                    max_rel_err=worst[1], ms=ms, device_ms=dev,
+                   simt_ms=simt_ms, simt_device_ms=simt_dev,
                    plain_ms=plain_ms, k1_ms=k1_ms, k1_device_ms=k1_dev,
                    library_ms=library_ms, bound_ms=bound_ms,
+                   mma_bound_ms=mma_bound_ms,
                    bound_by=bound_by, flops=flops, shuffled=shuffled)
         rows.append(rec)
         print(f"{h:3d}{w:3d}{c:5d}{k:5d}{r:2d}{st:3d} {int(kw['relu']):4d}"
               f"{count:6d}{blk.rb_p:5d}{blk.k_blk:6d}{blk.c_blk:6d} "
-              f"{blk.order:5s} {rec['tile'][0]:3d}x{rec['tile'][1]:<3d}"
-              f"{len(sched):6d}{len(sched.segments):6d}  {worst[1]:.2e} "
-              f"{ms:7.4f} {dev:7.4f} {plain_ms:9.3f} {k1_ms:7.4f} "
-              f"{k1_dev:7.4f} {library_ms:8.4f} {bound_ms:6.4f} {bound_by}")
+              f"{blk.order:5s} {path:5s} {tile[0]:3d}x{tile[1]:<3d}"
+              f"{len(sched):7d}{len(sched.segments):6d}  {worst[1]:.2e} "
+              f"{ms:7.4f} {dev:7.4f} {simt_ms:7.4f} {simt_dev:8.4f} "
+              f"{plain_ms:9.3f} {k1_ms:7.4f} {k1_dev:7.4f} {library_ms:8.4f} "
+              f"{bound_ms:6.4f} {mma_bound_ms:9.4f} {bound_by}")
         del x, wt, kw, out, plain, sched
+    print(f"  K4 launches of the checks on the mma route (launches_mma): "
+          f"{routed[1]} of {routed[0]}")
+
+    def weighted_(key_):
+        return sum(r_[key_] * r_["count"] for r_ in rows)
+    print(f"  per forward (x count): K4 mma {weighted_('ms'):.4f} ms by "
+          f"events, {weighted_('device_ms'):.4f} device; SIMT forced "
+          f"{weighted_('simt_ms'):.4f} / {weighted_('simt_device_ms'):.4f}; "
+          f"K1 {weighted_('k1_ms'):.4f} / {weighted_('k1_device_ms'):.4f}; "
+          f"bounds {weighted_('bound_ms'):.4f} (f32 SIMT), "
+          f"{weighted_('mma_bound_ms'):.4f} (3xTF32)")
     print("  per-signature JSON:", json.dumps(rows))
     return rows
+
+
+def k4_times(run) -> tuple[float, float]:
+    """K4's time for ``run()``: CUDA events over 30 launches and profiler
+    device time over 10."""
+    from repro_torch.kernels import conv2d_streams as k4
+    ms = cuda_ms(run, 30)
+    dev = device_ms_of(trace_device(lambda i: run(), 10, {K4_NEEDLE: k4},
+                                    sync_each=True), K4_NEEDLE)
+    return ms, dev
 
 
 def tuned_replay(device, sigs, rows):
@@ -1671,6 +1745,7 @@ def tuned_replay(device, sigs, rows):
     import torch
     from repro_torch import tune
     from repro_torch.core.blocking import conv_blocking
+    from repro_torch.core.streams import run_starts
     from repro_torch.kernels import conv2d_streams as k4
     from repro_torch.tune import measure
 
@@ -1685,19 +1760,23 @@ def tuned_replay(device, sigs, rows):
     with tempfile.TemporaryDirectory() as tmp:
         os.environ["REPRO_TUNE_CACHE"] = os.path.join(tmp, "blockings.json")
         try:
-            k4.launches = measure.measurements = 0
+            k4.launches = k4.launches_mma = measure.measurements = 0
             t0 = time.perf_counter()
             report = tune.warmup_convs(shapes, minibatches=(BATCH,),
                                        kinds=("streams",), mode="tune",
                                        backend="cuda")
             torch.cuda.synchronize()
             tune_s = time.perf_counter() - t0
-            tuning = dict(launches=k4.launches, timed=measure.measurements,
-                          seconds=tune_s, shapes=len(shapes))
+            tuning = dict(launches=k4.launches, launches_mma=k4.launches_mma,
+                          timed=measure.measurements, seconds=tune_s,
+                          shapes=len(shapes))
             print(f"\ntuned replay: warmup_convs tuned {len(shapes)} shapes "
                   f"at batch {BATCH} in {tune_s:.2f}s wall: "
                   f"{measure.measurements} candidates timed, {k4.launches} K4 "
-                  f"launches")
+                  f"launches ({k4.launches_mma} on the mma route)")
+            check(k4.launches_mma == k4.launches,
+                  f"{k4.launches - k4.launches_mma} of the tuner's K4 "
+                  f"launches took the SIMT route, expected none")
             check(len(report) == len(shapes) and all(
                 e["cached"] and e["source"] == "measured" for e in report),
                 f"warmup did not leave a measured entry for every shape: "
@@ -1705,13 +1784,13 @@ def tuned_replay(device, sigs, rows):
             check(os.path.isfile(os.environ["REPRO_TUNE_CACHE"]),
                   "the tuned cache was not written")
 
-            k4.launches = measure.measurements = 0
+            k4.launches = k4.launches_mma = measure.measurements = 0
             outs = {}
             for key, (x, wt, kw) in inputs.items():
                 outs[key] = k4.conv2d_streams_auto(x, wt, autotune="cache",
                                                    **kw)
             torch.cuda.synchronize()
-            replay_launches = k4.launches
+            replay_launches, replay_mma = k4.launches, k4.launches_mma
             cache_timed = measure.measurements
             blocks = {key: conv_blocking(
                 **dict(zip(("h", "w", "c", "k", "r", "s", "stride",
@@ -1726,17 +1805,25 @@ def tuned_replay(device, sigs, rows):
         finally:
             del os.environ["REPRO_TUNE_CACHE"]
     print(f"  cache pass: {replay_launches} K4 launches for {len(sigs)} "
-          f"signatures, {cache_timed} candidates timed, {hits} cache hits")
+          f"signatures ({replay_mma} on the mma route), {cache_timed} "
+          f"candidates timed, {hits} cache hits")
     check(replay_launches == len(sigs),
           f"K4 launched {replay_launches} times in the cache pass, expected "
           f"{len(sigs)}")
+    check(replay_mma == replay_launches,
+          f"{replay_launches - replay_mma} of the cache pass's K4 launches "
+          f"took the SIMT route, expected none")
     check(cache_timed == 0, f"the cache pass timed {cache_timed} candidates")
     check(hits == len(sigs), f"{hits} of {len(sigs)} cache hits")
 
     analytic = dict(zip(sigs, rows))     # phase 12's rows, in sigs' order
     out_rows = []
-    print("  h  w    c    k r st count  tuned rb_p k_blk c_blk order  steps "
-          " max_rel  tuned_ev tuned_dev analytic_ev analytic_dev  plain_ms")
+    print("  tuned: the cached blocking on its route (mma) and with the SIMT "
+          "route forced; analytic: phase 12's mma route; k1: phase 12's K1 "
+          "with the same bias/ReLU")
+    print("  h  w    c    k r st count  tuned rb_p k_blk c_blk order route "
+          "tile      steps  max_rel  tuned_ev tuned_dev  simt_ev simt_dev "
+          "analytic_ev analytic_dev   k1_dev  plain_ms")
     for key, count in sigs.items():
         x, wt, kw = inputs[key]
         blk = blocks[key]
@@ -1753,30 +1840,40 @@ def tuned_replay(device, sigs, rows):
 
         def run():
             return k4.conv2d_streams_auto(x, wt, blocking=blk, **kw)
-        ms = cuda_ms(run, 30)
-        dev = device_ms_of(trace_device(lambda i: run(), 10,
-                                        {"conv2d_streams_kernel": k4},
-                                        sync_each=True),
-                           "conv2d_streams_kernel")
+        path = k4.route(x, wt, blk.c_blk, blk.k_blk)
+        p = (key[0] + 2 * key[7] - key[4]) // key[6] + 1
+        q = (key[1] + 2 * key[7] - key[5]) // key[6] + 1
+        tile = k4.MMA_TILES[k4.mma_tile_config(
+            tile_m=min(blk.rb_p, p) * q, k_blk=blk.k_blk,
+            runs=len(run_starts(sched)))[0]]
+        ms, dev = k4_times(run)
+        with returning(k4, "route", "simt"):
+            simt_ms, simt_dev = k4_times(run)
         plain_ms = cuda_ms(lambda: k4.conv2d_streams_plain(
             x, wt, schedule=sched, **knobs), 1)
         a = analytic[key]
         rec = dict(a, blocking=dict(rb_p=blk.rb_p, k_blk=blk.k_blk,
                                     c_blk=blk.c_blk, order=blk.order),
+                   route=path, tile=tile,
                    steps=len(sched), segments=len(sched.segments),
                    max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
-                   device_ms=dev, plain_ms=plain_ms,
+                   device_ms=dev, simt_ms=simt_ms, simt_device_ms=simt_dev,
+                   plain_ms=plain_ms,
                    analytic_ms=a["ms"], analytic_device_ms=a["device_ms"])
         out_rows.append(rec)
         h, w, c, k, r, s, st, pad, fused = key
         print(f"{h:3d}{w:3d}{c:5d}{k:5d}{r:2d}{st:3d}{count:6d}       "
-              f"{blk.rb_p:4d}{blk.k_blk:6d}{blk.c_blk:6d} {blk.order:5s}"
+              f"{blk.rb_p:4d}{blk.k_blk:6d}{blk.c_blk:6d} {blk.order:5s} "
+              f"{path:5s} {tile[0]:3d}x{tile[1]:<3d}"
               f"{len(sched):7d}  {max_rel:.2e} {ms:9.4f} {dev:9.4f} "
-              f"{a['ms']:11.4f} {a['device_ms']:12.4f} {plain_ms:9.3f}")
+              f"{simt_ms:8.4f} {simt_dev:8.4f} {a['ms']:11.4f} "
+              f"{a['device_ms']:12.4f} {a['k1_device_ms']:8.4f} "
+              f"{plain_ms:9.3f}")
         del plain, sched
     print("  per-signature JSON:", json.dumps(out_rows))
     return out_rows, dict(tuning, replay_launches=replay_launches,
-                          cache_timed=cache_timed, hits=hits)
+                          replay_mma=replay_mma, cache_timed=cache_timed,
+                          hits=hits)
 
 
 # ---------------------------------------------------------------------------
@@ -2933,19 +3030,13 @@ def _sig(r: dict) -> tuple:
             r["padding"], tuple(r.get("fused", ())))
 
 
-@contextlib.contextmanager
 def whole_split_forced(split: bool):
     """K10a's mma route with every reference block's rows cut into
     ``whole_slices`` slices (True) or none (False), in place of the rule
     ``conv2d_direct.whole_split``: the two sides of the CTA-floor
     question."""
     from repro_torch.kernels import conv2d_direct as k1
-    rule = k1.whole_split
-    k1.whole_split = lambda **kw: split
-    try:
-        yield
-    finally:
-        k1.whole_split = rule
+    return returning(k1, "whole_split", split)
 
 
 def whole_signatures(device, sigs, k1_rows):
@@ -3167,12 +3258,31 @@ def whole_serving(device, params):
     return launches, summary
 
 
+Q8_SIDES = ("uncut", "cut", "simt")     # phase 24's three ways to run K10c
+
+
+def q8_side_forced(side: str):
+    """K10c with each reference block whole in one CTA ("uncut") or cut
+    across CTAs as ``whole_k_cta`` and ``whole_rows_cta`` cut it ("cut") on
+    the mma route, or on the SIMT route ("simt"), in place of
+    ``conv2d_q8.whole_split`` and ``route_whole``."""
+    from repro_torch.kernels import conv2d_q8 as k3
+    if side == "simt":
+        return returning(k3, "route_whole", "simt")
+    return returning(k3, "whole_split", side == "cut")
+
+
 def whole_q8(device, sigs, q8_rows, q8_gxm, qparams):
     """Phase 24: K10c against its plain version and K3 on the 23 serving
-    signatures (max |diff| 0 each), then one int8 forward at batch 16 on
-    phase 6's quantized tree under ``whole``: 52 K10c launches, no K3,
-    logits equal bit for bit to the tiled int8 forward's.  Returns (the
-    records, K10c launches in that forward, its summary)."""
+    signatures (max |diff| 0 each), each run three ways (the mma route with
+    each reference block whole in one CTA and cut across CTAs, and the SIMT
+    route forced), twice each, all with the same bits, each timed by CUDA
+    events and profiler device time; the record's own time is that of the
+    mma route on the side ``conv2d_q8.whole_split`` takes.  Then one int8
+    forward at batch 16 on phase 6's quantized tree under ``whole``: 52
+    K10c launches, all on the mma route, no K3, logits equal bit for bit to
+    the tiled int8 forward's; that forward under the profiler.  Returns
+    (the records, K10c launches in that forward, its summary)."""
     import numpy as np
     import torch
     from repro_torch.backend import use_conv_tiling
@@ -3181,15 +3291,24 @@ def whole_q8(device, sigs, q8_rows, q8_gxm, qparams):
 
     gen = torch.Generator(device=device).manual_seed(SEED + 24)
     k3_by = {_sig(r): r for r in q8_rows}
-    needle = "conv2d_q8_whole_kernel"
+    needle = "conv2d_q8_whole_kernel"     # both routes' kernel names hold it
     counter = Counter(k3, "launches_whole")
     rows = []
     print(f"\nK10c vs plain and K3, ResNet-50 {IMAGE}x{IMAGE} batch {BATCH} "
           f"({len(sigs)} signatures), int8 operands, the reference's q8 "
-          f"blocking; library = torch._int_mm (phase 5, 1x1 only):")
-    print("  h  w    c    k r st fused         count rb_p k_blk tm rows   "
-          "smem blocks vs_plain vs_k3       ev      dev  plain_ms   k3_ms "
+          f"blocking; route: route_whole ('mma' for all); k_cta, rows: a "
+          f"cut CTA's output channels (whole_k_cta) and rows "
+          f"(whole_rows_cta); pass: rows of a pass, stages and smem: its "
+          f"ring under the rule; ctas: the reference grid's blocks, cut: "
+          f"the CTAs of the cut; ev = CUDA events, dev = profiler device "
+          f"time, uncut / cut on the mma route, simt: the __dp4a route "
+          f"forced; rule: the side whole_split takes; library = "
+          f"torch._int_mm (phase 5, 1x1 only):")
+    print("  h  w    c    k r st fused         count route rb_p k_blk k_cta "
+          "rows pass stg   smem ctas  cut vs_plain vs_k3 ev_uncut dev_uncut "
+          "  ev_cut  dev_cut  ev_simt dev_simt rule   plain_ms   k3_ms "
           "library_ms bound_ms")
+    k3.launches_whole = k3.launches_whole_mma = 0
     for key, count in sigs.items():
         h, w, c, k, r, s, st, pad, fused = key
         p = (h + 2 * pad - r) // st + 1
@@ -3211,43 +3330,94 @@ def whole_q8(device, sigs, q8_rows, q8_gxm, qparams):
         blk = whole_blocking((BATCH, h, w, c), (r, s, c, k), stride=st,
                              padding=pad, kind="q8")
         bk = dict(rb_p=blk.rb_p, k_blk=blk.k_blk)
-        plan = k3.whole_plan(p=p, q=q, k_blk=blk.k_blk,
-                             rb_p=min(blk.rb_p, p), r=r, s=s, stride=st,
-                             wp=w + 2 * pad, slice_bytes=32)
-        out = k3.conv2d_q8_whole(**args, **bk)
+        rb_p = min(blk.rb_p, p)
+        geo = dict(n=BATCH, p=p, q=q, k=k, rb_p=rb_p, k_blk=blk.k_blk)
+        path = k3.route_whole(x_q, w_q)
+        check(path == "mma", f"K10c at {key} takes the {path} route")
+        rule = k3.whole_split(**geo)
+        with q8_side_forced("cut"):     # the cut, taken or not
+            k_cta = k3.whole_k_cta(**geo)
+            rows_cta = k3.whole_rows_cta(**geo)
+        plan = k3.whole_mma_plan(
+            p=p, q=q, k_blk=k_cta if rule else blk.k_blk, rb_p=rb_p, r=r,
+            s=s, stride=st, rows_cta=rows_cta if rule else rb_p)
+        blocks = BATCH * (k // blk.k_blk) * -(-p // rb_p)
+        cut_ctas = BATCH * (k // k_cta) * -(-p // rb_p) * -(-rb_p // rows_cta)
+        timed, outs = {}, []
+        for side in Q8_SIDES:
+            with q8_side_forced(side):
+                outs.append(k3.conv2d_q8_whole(**args, **bk))
+                outs.append(k3.conv2d_q8_whole(**args, **bk))
+                torch.cuda.synchronize()
+                ev = cuda_ms(lambda: k3.conv2d_q8_whole(**args, **bk), 20)
+                dev = device_ms_of(trace_device(
+                    lambda i: k3.conv2d_q8_whole(**args, **bk), 10,
+                    {needle: counter}, sync_each=True), needle)
+            timed[side] = (ev, dev)
+        out = outs[0]
         plain = k3.conv2d_q8_whole_plain(**args, **bk)
         tiled = k3.conv2d_q8(**args)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out).all()), f"K10c non-finite at {key}")
+        check(all(torch.equal(out, o) for o in outs[1:]),
+              f"K10c gave other bits on a second run, with its rows cut "
+              f"across CTAs or on the SIMT route at {key}")
         vs_plain = float((out - plain).abs().max())
         vs_k3 = float((out - tiled).abs().max())
-        ms = cuda_ms(lambda: k3.conv2d_q8_whole(**args, **bk), 20)
-        dev = device_ms_of(trace_device(
-            lambda i: k3.conv2d_q8_whole(**args, **bk), 10,
-            {needle: counter}, sync_each=True), needle)
         plain_ms = cuda_ms(lambda: k3.conv2d_q8_whole_plain(**args, **bk), 3)
         ref = k3_by[key]
-        blocks = BATCH * (k // blk.k_blk) * -(-p // blk.rb_p)
+        side = "cut" if rule else "uncut"
         rec = dict(h=h, w=w, c=c, k=k, r=r, s=s, stride=st, padding=pad,
-                   fused=list(fused), count=count, rb_p=blk.rb_p,
-                   k_blk=blk.k_blk, tm=plan.tm, rows_pass=plan.rows_pass,
-                   smem=plan.smem, blocks=blocks, max_abs_err=vs_plain,
-                   k3_abs_err=vs_k3, ms=ms, device_ms=dev, plain_ms=plain_ms,
-                   k3_ms=ref["ms"], k3_device_ms=ref["k3_device_ms"],
+                   fused=list(fused), count=count, route=path,
+                   rb_p=blk.rb_p, k_blk=blk.k_blk, cut_k_blk=k_cta,
+                   cut_rows=rows_cta, rows_pass=plan.rows_pass,
+                   stages=plan.stages, smem=plan.smem, blocks=blocks,
+                   cut_blocks=cut_ctas, cut_taken=rule,
+                   max_abs_err=vs_plain, k3_abs_err=vs_k3,
+                   ms=timed[side][0], device_ms=timed[side][1],
+                   ms_uncut=timed["uncut"][0],
+                   device_ms_uncut=timed["uncut"][1],
+                   ms_cut=timed["cut"][0], device_ms_cut=timed["cut"][1],
+                   ms_simt=timed["simt"][0], device_ms_simt=timed["simt"][1],
+                   plain_ms=plain_ms, k3_ms=ref["ms"],
+                   k3_device_ms=ref["k3_device_ms"],
                    library_ms=ref["library_ms"], bound_ms=ref["bound_ms"],
                    bound_by=ref["bound_by"])
         rows.append(rec)
         lib = "—" if ref["library_ms"] is None else f"{ref['library_ms']:.4f}"
         print(f"{h:3d}{w:3d}{c:5d}{k:5d}{r:2d}{st:3d} "
-              f"{'+'.join(fused):14s}{count:5d}{blk.rb_p:5d}{blk.k_blk:6d}"
-              f"{plan.tm:3d}{plan.rows_pass:5d}{plan.smem:7d}{blocks:7d} "
-              f"{vs_plain:8.1e} {vs_k3:5.1e} {ms:8.4f} {dev:8.4f} "
-              f"{plain_ms:9.4f} {ref['ms']:7.4f} {lib:>10s} "
+              f"{'+'.join(fused):14s}{count:5d} {path:5s}{blk.rb_p:4d}"
+              f"{blk.k_blk:6d}{k_cta:6d}{rows_cta:5d}{plan.rows_pass:5d}"
+              f"{plan.stages:4d}{plan.smem:7d}{blocks:5d}{cut_ctas:5d} "
+              f"{vs_plain:8.1e} "
+              f"{vs_k3:5.1e} {timed['uncut'][0]:8.4f} {timed['uncut'][1]:9.4f}"
+              f" {timed['cut'][0]:8.4f} {timed['cut'][1]:8.4f} "
+              f"{timed['simt'][0]:8.4f} {timed['simt'][1]:8.4f} {side:5s}"
+              f"{plain_ms:10.4f} {ref['ms']:7.4f} {lib:>10s} "
               f"{ref['bound_ms']:8.4f}")
         check(vs_plain == 0.0 and vs_k3 == 0.0,
               f"K10c differs at {key}: max |diff| {vs_plain:.3e} from its "
               f"plain version, {vs_k3:.3e} from K3; not 0")
-        del x_q, w_q, args, out, plain, tiled
+        del x_q, w_q, args, out, outs, plain, tiled
+
+    def weighted_(key_, only=lambda r_: True):
+        return sum(r_[key_] * r_["count"] for r_ in rows if only(r_))
+
+    def one_by_one(r_):
+        return r_["r"] == r_["s"] == 1
+    print(f"  per forward (x count): K10c under the rule "
+          f"{weighted_('ms'):.4f} ms by events, {weighted_('device_ms'):.4f} "
+          f"device; mma uncut {weighted_('ms_uncut'):.4f} / "
+          f"{weighted_('device_ms_uncut'):.4f}; mma cut "
+          f"{weighted_('ms_cut'):.4f} / {weighted_('device_ms_cut'):.4f}; "
+          f"SIMT {weighted_('ms_simt'):.4f} / "
+          f"{weighted_('device_ms_simt'):.4f}; K3 {weighted_('k3_ms'):.4f}; "
+          f"bound {weighted_('bound_ms'):.4f}")
+    print(f"  the 1x1 convs (x count): K10c under the rule "
+          f"{weighted_('ms', one_by_one):.4f} ms by events, "
+          f"{weighted_('device_ms', one_by_one):.4f} device; torch._int_mm + "
+          f"epilogue {weighted_('library_ms', one_by_one):.4f}; K3 "
+          f"{weighted_('k3_ms', one_by_one):.4f}")
     print("  per-signature JSON:", json.dumps(rows))
 
     images = np.random.default_rng(SEED + 24).standard_normal(
@@ -3255,24 +3425,42 @@ def whole_q8(device, sigs, q8_rows, q8_gxm, qparams):
     x = torch.as_tensor(images, device=device)
     with torch.inference_mode():
         with use_conv_tiling("whole"):
-            k3.launches = k3.launches_whole = 0
+            k3.launches = k3.launches_whole = k3.launches_whole_mma = 0
             whole = q8_gxm.infer(qparams, x)
             torch.cuda.synchronize()
             launches, k3_launches = k3.launches_whole, k3.launches
+            mma = k3.launches_whole_mma
         with use_conv_tiling("tiled"):
             tiled = q8_gxm.infer(qparams, x)
     equal = bool(torch.equal(whole, tiled))
     print(f"  int8 forward at batch {BATCH} on phase 6's quantized tree under "
-          f"whole: K10c {launches} launches, K3 {k3_launches}; logits equal "
-          f"to the tiled int8 forward's bit for bit: {equal}")
+          f"whole: K10c {launches} launches ({mma} on the mma route), K3 "
+          f"{k3_launches}; logits equal to the tiled int8 forward's bit for "
+          f"bit: {equal}")
     check(launches == 52 and k3_launches == 0,
           f"K10c launched {launches} and K3 {k3_launches} times in one int8 "
           f"forward, expected 52 and 0")
+    check(mma == launches, f"{launches - mma} of the int8 forward's K10c "
+          f"launches took the SIMT route, expected none")
     check(equal, "whole-plane int8 logits differ from the tiled int8 "
           "forward's")
+    with torch.inference_mode(), use_conv_tiling("whole"):
+        trace = trace_device(lambda i: q8_gxm.infer(qparams, x), 3,
+                             {needle: counter, "conv2d_q8_kernel": k3})
+    prof = dict(wall_ms=trace["wall_ms"], device_ms=trace["device_ms"],
+                busy_share=trace["busy_share"],
+                k10c_ms=device_ms_of(trace, needle),
+                k3_ms=device_ms_of(trace, "conv2d_q8_kernel"))
+    busy = "n/a" if prof["busy_share"] is None else \
+        f"{prof['busy_share']:.4f}"
+    print(f"  that int8 forward under the profiler: {prof['wall_ms']:.3f} ms "
+          f"host clock, device {prof['device_ms']:.3f} ms (K10c "
+          f"{prof['k10c_ms']:.3f}, K3 {prof['k3_ms']:.3f}), busy share "
+          f"{busy}")
     return rows, launches, dict(k10c_launches=launches,
+                                k10c_launches_mma=mma,
                                 k3_launches=k3_launches,
-                                equal_to_tiled=equal)
+                                equal_to_tiled=equal, profile=prof)
 
 
 def whole_wu(device, wu, wu_rows):
@@ -3590,15 +3778,20 @@ def main() -> int:
         return sum(r_[key] * r_["count"] for r_ in rows_)
     print(f"  per {sum(sigs.values())}-conv forward (x count): tuned K4 "
           f"{k4_tuned['ms']:.3f} ms by events, "
-          f"{weighted(tuned_rows, 'device_ms'):.3f} device; analytic K4 "
+          f"{weighted(tuned_rows, 'device_ms'):.3f} device (SIMT route "
+          f"forced {weighted(tuned_rows, 'simt_ms'):.3f} / "
+          f"{weighted(tuned_rows, 'simt_device_ms'):.3f}); analytic K4 "
           f"{k4_analytic['ms']:.3f} / "
-          f"{weighted(k4_rows, 'device_ms'):.3f}; K1 with bias+ReLU "
+          f"{weighted(k4_rows, 'device_ms'):.3f} (SIMT route forced "
+          f"{weighted(k4_rows, 'simt_ms'):.3f} / "
+          f"{weighted(k4_rows, 'simt_device_ms'):.3f}); K1 with bias+ReLU "
           f"{weighted(k4_rows, 'k1_ms'):.3f} / "
           f"{weighted(k4_rows, 'k1_device_ms'):.3f}; cuDNN "
           f"{k4_analytic['library_ms']:.3f}; plain replay "
           f"{k4_tuned['plain_ms']:.3f} (tuned schedules), "
-          f"{k4_analytic['plain_ms']:.3f} (analytic); bound "
-          f"{k4_analytic['bound_ms']:.3f} ({k4_analytic['bound_by']})")
+          f"{k4_analytic['plain_ms']:.3f} (analytic); bounds "
+          f"{k4_analytic['bound_ms']:.3f} ({k4_analytic['bound_by']}, f32 "
+          f"SIMT), {weighted(k4_rows, 'mma_bound_ms'):.3f} (3xTF32)")
     torch.cuda.empty_cache()
 
     from repro_torch.configs import get_config
@@ -3767,12 +3960,24 @@ def main() -> int:
         "source": "src/repro_torch/csrc/conv2d_streams.cu",
         "replaces": "src/repro/kernels/conv2d_streams.py:104",
         "launches": tuned["replay_launches"],
+        "launches_mma": tuned["replay_mma"],
         "launches_by_path": {"replay": tuned["replay_launches"],
                              "tuning": tuned["launches"]},
         "max_abs_err": max(r_["max_abs_err"] for r_ in k4_rows + tuned_rows),
         "max_rel_err": max(r_["max_rel_err"] for r_ in k4_rows + tuned_rows),
         **timing(k4_tuned),
         "device_ms": weighted(tuned_rows, "device_ms"),
+        "mma_bound_ms": weighted(k4_rows, "mma_bound_ms"),
+        "bound_is": "f32 on the SIMT cores; mma_bound_ms: 3 x the FLOPs at "
+                    "the TF32 tensor-core rate, or the bytes",
+        "simt_forced": {"ms": weighted(tuned_rows, "simt_ms"),
+                        "device_ms": weighted(tuned_rows, "simt_device_ms"),
+                        "analytic_ms": weighted(k4_rows, "simt_ms"),
+                        "analytic_device_ms": weighted(k4_rows,
+                                                       "simt_device_ms")},
+        "routes": {"C, K, c_blk, k_blk multiples of 4, 16-byte aligned":
+                   "mma (3xTF32 on mma.sync m16n8k8, csrc/conv_tf32.cuh)",
+                   "the rest": "simt (f32 FMA)"},
         "analytic_ms": k4_analytic["ms"],
         "analytic_device_ms": weighted(k4_rows, "device_ms"),
         "k1_bias_relu_ms": weighted(k4_rows, "k1_ms"),
@@ -3977,11 +4182,26 @@ def main() -> int:
         "source": "src/repro_torch/csrc/conv2d_q8_whole.cu",
         "replaces": "src/repro/kernels/conv2d_q8.py:246",
         "launches": k10c_launches,
+        "launches_mma": k10c_summary["k10c_launches_mma"],
         "launches_by_path": {"whole_int8": k10c_launches},
         "max_abs_err": max(r_["max_abs_err"] for r_ in k10c_rows),
         **timing(k10c),
         "device_ms": dev_sum(k10c_rows),
+        "uncut": {"ms": weighted(k10c_rows, "ms_uncut"),
+                  "device_ms": weighted(k10c_rows, "device_ms_uncut")},
+        "cut": {"ms": weighted(k10c_rows, "ms_cut"),
+                "device_ms": weighted(k10c_rows, "device_ms_cut")},
+        "simt_forced": {"ms": weighted(k10c_rows, "ms_simt"),
+                        "device_ms": weighted(k10c_rows, "device_ms_simt")},
+        "one_by_one": {key_: sum(r_[key_] * r_["count"] for r_ in k10c_rows
+                                 if r_["r"] == r_["s"] == 1)
+                       for key_ in ("ms", "device_ms", "library_ms")},
+        "forward_device_ms": k10c_summary["profile"]["k10c_ms"],
         "k3_ms": weighted(k10c_rows, "k3_ms"),
+        "routes": {"C a multiple of 16": "mma (mma.sync m16n8k32 s8, "
+                   "csrc/q8_mma.cuh; the reference's grid cut across CTAs, "
+                   "by rows and output channels, where whole_split takes "
+                   "it)", "the other multiples of 8": "simt (__dp4a)"},
         "library_covers": "the 1x1 convs only (torch._int_mm + dequant and "
                           "epilogue in torch)",
         "per": per_fwd + " (K10c, int8, the reference's q8 blocking)",

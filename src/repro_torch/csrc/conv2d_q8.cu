@@ -34,11 +34,15 @@
 //   * Epilogue on the accumulators: __int2float_rn, then __fmul_rn by deq,
 //     then K1's non-contracting scale, shift, bias, residual, relu, and one
 //     store.  So the output equals the plain version bit for bit.
+//   * mma_s8 and the epilogue live in q8_mma.cuh, shared with K10c's mma
+//     route (conv2d_q8_whole.cu).
 // Offsets into x, out and residual are 64-bit.
 #include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "q8_mma.cuh"
 
 namespace {
 
@@ -63,14 +67,8 @@ struct Q8Args {
   int vec2;  // K even and out/residual 8-byte aligned
 };
 
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+using q8::dequant_epilogue;
+using q8::mma_s8;
 
 // VEC: C % 16 == 0, K % 4 == 0, x 16-byte and w 4-byte aligned, so input
 // channels load as whole vectors and weights as whole words; otherwise byte
@@ -315,16 +313,9 @@ conv2d_q8_kernel(const Q8Args a) {
         }
         float v[2];
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          float y = __int2float_rn(acc[i][j][half * 2 + u]);
-          y = __fmul_rn(y, dq[j][u]);
-          if (a.scale) y = __fmul_rn(y, sc[j][u]);
-          if (a.shift) y = __fadd_rn(y, sh[j][u]);
-          if (a.bias) y = __fadd_rn(y, bi[j][u]);
-          if (a.residual) y = __fadd_rn(y, res[u]);
-          if (a.relu) y = fmaxf(y, 0.f);
-          v[u] = y;
-        }
+        for (int u = 0; u < 2; ++u)
+          v[u] = dequant_epilogue(a, acc[i][j][half * 2 + u], dq[j][u], sc[j][u], sh[j][u],
+                                  bi[j][u], res[u]);
         if (a.vec2) {
           *reinterpret_cast<float2*>(a.out + off) = make_float2(v[0], v[1]);
         } else {

@@ -1,7 +1,8 @@
 // The 3xTF32 products mainloop shared by the convolutions' mma routes: K2's
-// weight gradient (conv2d_wu.cu), K1's tiled forward (conv2d_direct.cu) and
-// K10a's whole-plane forward (conv2d_direct_whole.cu); and the fused
-// epilogue of the two forwards.
+// weight gradient (conv2d_wu.cu), K1's tiled forward (conv2d_direct.cu),
+// K10a's whole-plane forward (conv2d_direct_whole.cu) and K4's stream
+// replay (conv2d_streams.cu); and the fused epilogue of K1's and K10a's
+// forwards.
 //
 // f32 products on the tensor cores without losing f32 parity: one-pass TF32
 // keeps 11 bits of each operand; the split v = hi + lo, hi = tf32(v), lo =
@@ -58,19 +59,21 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One stage of a warp's MT x NT m16n8 tiles, reduced over kStageK input
-// channels: acc[i][j] += the 3xTF32 products of the stage, summed in a
-// zeroed run accumulator first.
-//   a[i][h]: the staged row of 32 channels of output pixel g + 8h of the
+// One stage of a warp's MT x NT m16n8 tiles, reduced over KS input
+// channels (kStageK unless a caller stages fewer: 8 or 16): acc[i][j] +=
+// the 3xTF32 products of the stage, summed in a zeroed run accumulator
+// first.
+//   a[i][h]: the staged row of KS channels of output pixel g + 8h of the
 //            warp's m16 tile i (g = lane / 4), channels contiguous;
-//   b:       the stage's 32 x N weight rows (row stride b_stride floats),
+//   b:       the stage's KS x N weight rows (row stride b_stride floats),
 //            offset to this warp's first column plus g.
-// Fragment reads are conflict-free when a pixel row's stride is 4 (mod 32)
-// floats and b_stride is 8 (mod 32).
-template <int MT, int NT>
+// Fragment reads are conflict-free when a pixel row's stride is an odd
+// multiple of 4 (mod 32) floats and b_stride is 8 (mod 32).
+template <int MT, int NT, int KS = kStageK>
 __device__ __forceinline__ void stage_products(float (&acc)[MT][NT][4],
                                                const float* const (&a)[MT][2], const float* b,
                                                int b_stride) {
+  static_assert(KS % 8 == 0 && KS <= kStageK, "whole k-steps, at most 12 products a run");
   const int tig = (threadIdx.x % 32) % 4;
   float run[MT][NT][4];
 #pragma unroll
@@ -80,7 +83,7 @@ __device__ __forceinline__ void stage_products(float (&acc)[MT][NT][4],
 #pragma unroll
       for (int c = 0; c < 4; ++c) run[i][j][c] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < kStageK; kk += 8) {
+  for (int kk = 0; kk < KS; kk += 8) {
     uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
     for (int i = 0; i < MT; ++i) {

@@ -25,32 +25,57 @@ fallback between them.  ``launches`` counts the kernel's launches.
 K10c, the same function by the reference's legacy whole-plane strategy
 (``repro/kernels/conv2d_q8.py:_conv2d_q8_whole_plane``, ``pallas_call`` at
 :246), lives here too: ``conv2d_q8_whole``, its plain version
-``conv2d_q8_whole_plain`` and the kernel ``csrc/conv2d_q8_whole.cu``
-(K10a's structure with ``__dp4a`` products), counted by ``launches_whole``.
-The reference requires it to equal the tiled kernel bit for bit; here the
-int32 sums are exact in any order and the epilogue rounds as K3's, so
-K10c, K3 and both plain versions agree bit for bit.
+``conv2d_q8_whole_plain`` and the kernels of ``csrc/conv2d_q8_whole.cu``,
+counted by ``launches_whole`` (either route) and ``launches_whole_mma``.
+Its routes follow ``route_whole``: ``"mma"``, K3's ``mma.sync`` s8 products
+(``csrc/q8_mma.cuh``) on 32-channel slices of the band a pass reads, for C
+a multiple of 16 (every ResNet-50 int8 conv), the reference's grid cut
+across more CTAs where ``whole_split`` takes it (rows, ``whole_rows_cta``,
+and output channels, ``whole_k_cta``; ``whole_mma_plan`` plans passes and
+the ring); ``"simt"``, ``__dp4a`` on K10a's SIMT structure
+(``whole_plan``), for the other multiples of 8.  The reference requires
+K10c to equal the tiled kernel bit for bit; here the int32 sums are exact
+in any order, a cut keeps each pixel's sum whole in one CTA, and the
+epilogue rounds as K3's, so K10c on either route, K3 and both plain
+versions agree bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.conv2d_direct import (FuseSpec, _aligned, _check,
+from repro_torch.kernels.conv2d_direct import (SMEM_LIMIT, WHOLE_BN, WHOLE_TN,
+                                               FuseSpec, _aligned, _check,
                                                _check_whole_blocking,
                                                _epilogue, _out_hw, pad_input,
                                                whole_plan,
                                                whole_plane_products)
+from repro_torch.launch import roofline
 
 # Launches of the CUDA kernel since the last reset (set it to 0 to reset).
 launches = 0
 _fn = None
-# Launches of the whole-plane kernel K10c since the last reset.
+# Launches of the whole-plane kernel K10c since the last reset: both routes,
+# and the mma route's alone.
 launches_whole = 0
+launches_whole_mma = 0
 _fn_whole = None
+_fn_whole_mma = None
+# K10c's mma route: output pixels of a pass at most (4 warps x 32), 32-bit
+# words of a staged band pixel (8 words of 4 channels + 4) and past a staged
+# weight row of BN, the ring depths the kernel is built for (one 32-channel
+# slice of a pass a stage), and the shared memory of one of two blocks on
+# an SM (228 KB less 1 KB a block, halved).
+WHOLE_MMA_PASS = 128
+WHOLE_MMA_PIXEL_WORDS = 12
+WHOLE_MMA_WPAD = 8
+WHOLE_MMA_STAGES = (2, 3, 4, 6, 8)
+WHOLE_MMA_TWO_BLOCKS = 233472 // 2 - 1024
 
 
 def _check_overflow(r: int, s: int, c: int) -> None:
@@ -193,6 +218,152 @@ def conv2d_q8(x_q, w_q, *, x_scale, w_scale, stride: int = 1,
     return out
 
 
+def route_whole(x_q, w_q) -> str:
+    """Which kernel a CUDA call of ``conv2d_q8_whole(x_q, w_q, ...)``
+    launches, by channels: "mma" (K3's ``mma.sync`` s8 products) for C a
+    multiple of 16, "simt" (``__dp4a``) for the other multiples of 8.  The
+    kernels read the wrapper's padded copy of x_q and its re-laid weights,
+    so the operands' own alignment does not enter.  Raises ``ValueError``
+    for a C neither stages.  A dispatch by shape, not a fallback: each
+    route raises on failure."""
+    c = x_q.shape[-1]
+    if c % 8:
+        raise ValueError(f"C={c}: the whole-plane kernel stages input "
+                         f"channels 8 at a time")
+    return "mma" if c % 16 == 0 else "simt"
+
+
+@dataclasses.dataclass(frozen=True)
+class WholeMmaPlan:
+    """How K10c's mma route runs one conv: ``bn`` output channels per block
+    (k_blk rounded up as ``whole_plan`` does), ``rows_cta`` rows of a
+    reference block per block (rb_p itself when uncut), passes over C of
+    ``rows_pass`` rows by ``cols`` output columns (the full row Q when Q <=
+    WHOLE_MMA_PASS), the ``band_rows`` x ``band_cols`` window of the padded
+    plane a pass's band takes, the ring's ``stages`` and its dynamic shared
+    memory."""
+    bn: int
+    rows_cta: int
+    rows_pass: int
+    cols: int
+    band_rows: int
+    band_cols: int
+    stages: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=512)
+def whole_mma_plan(*, p: int, q: int, k_blk: int, rb_p: int, r: int, s: int,
+                   stride: int, rows_cta: int) -> WholeMmaPlan:
+    """A pure function of the shape.  A pass takes as many whole rows of
+    the block's ``rows_cta`` as fit WHOLE_MMA_PASS pixels and a ring of two
+    stages in the shared memory; a Q over WHOLE_MMA_PASS goes in row
+    segments of WHOLE_MMA_PASS columns, halved while one row's ring exceeds
+    it.  A ring stage holds a pass's band and the (R, S, 8 words, BN)
+    weights of one 32-channel slice.  The ring then takes the most stages
+    of WHOLE_MMA_STAGES that leave room for two blocks an SM
+    (WHOLE_MMA_TWO_BLOCKS), or where two stages do not, that fit
+    ``SMEM_LIMIT``: the more stages in flight, the more of each slice's
+    load latency hides behind the products.  Raises ``ValueError`` for a
+    k_blk off the multiples of 8 up to 128, or when a ring of two stages
+    for one output pixel exceeds ``SMEM_LIMIT``."""
+    bn = next((b for b in WHOLE_BN if b >= k_blk), None)
+    if bn is None or k_blk % WHOLE_TN:
+        raise ValueError(f"k_blk {k_blk}: the whole-plane kernels take "
+                         f"multiples of {WHOLE_TN} up to {WHOLE_BN[-1]}")
+    rows_cta = max(1, min(rows_cta, rb_p, p))
+
+    def stage(rows, cols):
+        band = ((rows - 1) * stride + r) * ((cols - 1) * stride + s)
+        return 4 * (band * WHOLE_MMA_PIXEL_WORDS
+                    + r * s * 8 * (bn + WHOLE_MMA_WPAD))
+    least = WHOLE_MMA_STAGES[0]
+    cols = min(q, WHOLE_MMA_PASS)
+    rows = min(rows_cta, WHOLE_MMA_PASS // cols)
+    while rows > 1 and least * stage(rows, cols) > SMEM_LIMIT:
+        rows -= 1
+    while cols > 1 and least * stage(rows, cols) > SMEM_LIMIT:
+        cols = -(-cols // 2)
+    if least * stage(rows, cols) > SMEM_LIMIT:
+        raise ValueError(f"the whole-plane int8 mma staging needs "
+                         f"{least * stage(rows, cols)} bytes of shared "
+                         f"memory, more than {SMEM_LIMIT}")
+    room = WHOLE_MMA_TWO_BLOCKS if least * stage(rows, cols) <= \
+        WHOLE_MMA_TWO_BLOCKS else SMEM_LIMIT
+    stages = max(n for n in WHOLE_MMA_STAGES if n * stage(rows, cols) <= room)
+    return WholeMmaPlan(bn=bn, rows_cta=rows_cta, rows_pass=rows, cols=cols,
+                        band_rows=(rows - 1) * stride + r,
+                        band_cols=(cols - 1) * stride + s, stages=stages,
+                        smem=stages * stage(rows, cols))
+
+
+@functools.lru_cache(maxsize=512)
+def whole_slices(*, n: int, p: int, k: int, rb_p: int, k_blk: int) -> int:
+    """Row slices per reference block that fill the card: the fewest whose
+    CTAs (blocks x slices, each slice ceil(rows / slices) rows but the
+    last) reach ``roofline.SMS``; as many as the block has rows where none
+    do, and 1 where the reference's grid fills the card already."""
+    rows = min(rb_p, p)
+    blocks = n * (k // k_blk) * -(-p // rows)
+    for rows_cta in range(rows, 0, -1):
+        if blocks * -(-rows // rows_cta) >= roofline.SMS:
+            return -(-rows // rows_cta)
+    return rows
+
+
+def _k_cut(*, n: int, p: int, q: int, k: int, rb_p: int, k_blk: int) -> bool:
+    """Whether a cut of K10c's reference grid halves k_blk: where the grid
+    fills at most half the card, a block holds at most two passes of
+    pixels, and k_blk / 2 stays a multiple of 8."""
+    rows = min(rb_p, p)
+    blocks = n * (k // k_blk) * -(-p // rows)
+    return (2 * blocks <= roofline.SMS and rows * q <= 2 * WHOLE_MMA_PASS
+            and k_blk % 16 == 0)
+
+
+def whole_split(*, n: int, p: int, q: int, k: int, rb_p: int,
+                k_blk: int) -> bool:
+    """Whether K10c's mma route cuts its reference grid across more CTAs
+    (``whole_k_cta``, ``whole_rows_cta``): where the grid has fewer blocks
+    than the card has SMs, and a block holds more than half a pass of
+    pixels or its k_blk is halved.  Each output channel's and pixel's int32
+    sum stays whole in one CTA, so a cut changes no bit.  On an H100
+    (``chip_smoke.py`` phase 24 times both sides) the cut ran 1.2x to 7x
+    faster on every ResNet-50 grid of 16 to 128 blocks at batch 16; cutting
+    the rows alone lost up to 1.9x on the 7x7 outputs' 49-pixel blocks,
+    where a slice of 3 rows keeps one of the 4 warp rows busy and each CTA
+    stages the whole weight slice again, and halving k_blk there won 1.2x
+    to 1.7x."""
+    rows = min(rb_p, p)
+    blocks = n * (k // k_blk) * -(-p // rows)
+    return blocks < roofline.SMS and (
+        rows * q > WHOLE_MMA_PASS // 2
+        or _k_cut(n=n, p=p, q=q, k=k, rb_p=rb_p, k_blk=k_blk))
+
+
+def whole_k_cta(*, n: int, p: int, q: int, k: int, rb_p: int,
+                k_blk: int) -> int:
+    """The output channels of a reference block one CTA of K10c's mma
+    route takes: k_blk, or half of it where ``whole_split`` cuts and the
+    grid fills at most half the card with blocks of at most two passes."""
+    geo = dict(n=n, p=p, q=q, k=k, rb_p=rb_p, k_blk=k_blk)
+    return k_blk // 2 if whole_split(**geo) and _k_cut(**geo) else k_blk
+
+
+def whole_rows_cta(*, n: int, p: int, q: int, k: int, rb_p: int,
+                   k_blk: int) -> int:
+    """The rows of a reference block one CTA of K10c's mma route takes:
+    rb_p, or where ``whole_split`` cuts and a block holds more than half a
+    pass of pixels, the ``whole_slices`` of the grid of ``whole_k_cta``
+    channels a block."""
+    rows = min(rb_p, p)
+    if not whole_split(n=n, p=p, q=q, k=k, rb_p=rb_p, k_blk=k_blk) or \
+            rows * q <= WHOLE_MMA_PASS // 2:
+        return rows
+    k_cta = whole_k_cta(n=n, p=p, q=q, k=k, rb_p=rb_p, k_blk=k_blk)
+    return -(-rows // whole_slices(n=n, p=p, k=k, rb_p=rb_p, k_blk=k_cta))
+
+
 def _kernel_fn_whole():
     global _fn_whole
     if _fn_whole is None:
@@ -239,19 +410,25 @@ def conv2d_q8_whole(x_q, w_q, *, x_scale, w_scale, stride: int = 1,
             raise ValueError(f"{name} must be float32, got {v.dtype}")
     n, h, wd, c = x_q.shape
     r, s = w_q.shape[:2]
-    if c % 8:
-        raise ValueError(f"C={c}: the whole-plane kernel stages input "
-                         f"channels 8 at a time")
+    path = route_whole(x_q, w_q)
     rb_p = min(rb_p, p)
     xp = pad_input(x_q, padding=padding, stride=stride, rb_p=rb_p, r=r, p=p)
     hp, wp = xp.shape[1], xp.shape[2]
+    # words of 4 input channels of one output channel: (R, S, C/4, K, 4)
+    wt = w_q.reshape(r, s, c // 4, 4, k).permute(0, 1, 2, 4, 3).contiguous()
+    if path == "mma":
+        geo = dict(n=n, p=p, q=q, k=k, rb_p=rb_p, k_blk=k_blk)
+        return _launch_whole_mma(xp, wt, x_scale, w_scale, p=p, q=q, r=r,
+                                 s=s, k=k, rb_p=rb_p,
+                                 k_blk=whole_k_cta(**geo),
+                                 rows_cta=whole_rows_cta(**geo), scale=scale,
+                                 shift=shift, bias=bias, residual=residual,
+                                 relu=relu, stride=stride)
     plan = whole_plan(p=p, q=q, k_blk=k_blk, rb_p=rb_p, r=r, s=s,
                       stride=stride, wp=wp, slice_bytes=32)
     out = torch.empty((n, p, q, k), dtype=torch.float32, device=x_q.device)
     if out.numel() == 0:
         return out
-    # words of 4 input channels of one output channel: (R, S, C/4, K, 4)
-    wt = w_q.reshape(r, s, c // 4, 4, k).permute(0, 1, 2, 4, 3).contiguous()
     residual = _aligned(residual)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     fn = _kernel_fn_whole()
@@ -267,6 +444,51 @@ def conv2d_q8_whole(x_q, w_q, *, x_scale, w_scale, stride: int = 1,
         raise RuntimeError(f"conv2d_q8_whole kernel launch failed: CUDA "
                            f"error {err} (x_q {tuple(x_q.shape)}, w_q "
                            f"{tuple(w_q.shape)}, {plan})")
+    return out
+
+
+def _kernel_fn_whole_mma():
+    global _fn_whole_mma
+    if _fn_whole_mma is None:
+        fn = _build.load("conv2d_q8_whole").repro_conv2d_q8_whole_mma
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 21 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn_whole_mma = fn
+    return _fn_whole_mma
+
+
+def _launch_whole_mma(xp, wt, x_scale, w_scale, *, p, q, r, s, k, rb_p,
+                      k_blk, rows_cta, scale, shift, bias, residual, relu,
+                      stride):
+    """K10c's mma route on the padded plane ``xp`` and the (R, S, C/4, K)
+    weight words ``wt`` (checked and made by ``conv2d_q8_whole``),
+    ``k_blk`` output channels and ``rows_cta`` rows of each reference block
+    a CTA."""
+    global launches_whole, launches_whole_mma
+    n, hp, wp, c = xp.shape
+    plan = whole_mma_plan(p=p, q=q, k_blk=k_blk, rb_p=rb_p, r=r, s=s,
+                          stride=stride, rows_cta=rows_cta)
+    out = torch.empty((n, p, q, k), dtype=torch.float32, device=xp.device)
+    if out.numel() == 0:
+        return out
+    residual = _aligned(residual)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    fn = _kernel_fn_whole_mma()
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream(xp.device).cuda_stream
+        launches_whole += 1
+        launches_whole_mma += 1
+        err = fn(xp.data_ptr(), wt.data_ptr(), x_scale.data_ptr(),
+                 w_scale.data_ptr(), ptr(scale), ptr(shift), ptr(bias),
+                 ptr(residual), out.data_ptr(), n, hp, wp, c, k, r, s,
+                 stride, p, q, rb_p, k_blk, plan.rows_cta, plan.rows_pass,
+                 plan.cols, plan.band_rows, plan.band_cols, plan.bn,
+                 plan.stages, plan.smem, int(relu), stream)
+    if err != 0:
+        raise RuntimeError(f"conv2d_q8_whole kernel launch failed (mma "
+                           f"route): CUDA error {err} (xp "
+                           f"{tuple(xp.shape)}, {plan})")
     return out
 
 

@@ -20,16 +20,26 @@ Two versions live here:
   reads the five streams from device memory and obeys every flag it reads.
 
 ``conv2d_streams`` takes the plain version for a CPU tensor and launches the
-kernel for a CUDA tensor; there is no fallback between them.  ``launches``
-counts the kernel's launches.  ``conv2d_streams_auto`` is dryrun plus
-replay, with the blocking from the caller, the tuner or the defaults.
+kernel of its route for a CUDA tensor; there is no fallback between them,
+nor between the routes (``route``): ``"mma"``, K1's mma route's products
+(``csrc/conv_tf32.cuh``: 3xTF32 on ``mma.sync`` m16n8k8, each stage of one
+(r, s) and 32 channels of the step's c-block, or 16 or 8 where c_blk is that
+small (``mma_stage_c``), summed in a zeroed run accumulator that then joins
+the run's f32 sums), for C, K, c_blk and k_blk
+multiples of 4 and 16-byte aligned operands, which is every ResNet-50
+signature under every blocking the tuner offers; ``"simt"``, K1's old
+register-tiled SIMT GEMM, for the rest.  ``launches`` counts the kernel's
+launches on either route, ``launches_mma`` those of the mma route.
+``conv2d_streams_auto`` is dryrun plus replay, with the blocking from the
+caller, the tuner or the defaults.
 
 What bounds it on an H100: K1's FLOPs, above the f32 ridge at ResNet-50's
-shapes, so the SIMT cores' f32 FMA rate.  Its inner product is K1's
-register-tiled SIMT GEMM; what the streams add is one read of each step's
-flag and c-block per 8 x r x s channel slices, and a CTA tile chosen per
-run (``tile_config``), since a tile of ``rb_p x Q`` pixels fixes the GEMM's
-M side: 56 pixels for one 56-wide row, 448 for eight.
+shapes, so operations: on the mma route three TF32 products per f32 one at
+the TF32 tensor-core rate (``MMA_PEAK_FLOPS``), on the SIMT route the f32
+FMA rate.  What the streams add is one read of each step's flag and c-block
+per stage, and a CTA tile chosen per run (``mma_tile_config``,
+``tile_config``), since a tile of ``rb_p x Q`` pixels fixes the GEMM's M
+side: 56 pixels for one 56-wide row, 448 for eight.
 """
 from __future__ import annotations
 
@@ -48,11 +58,16 @@ from repro_torch.core.streams import (FLAG_EPILOGUE, FLAG_INIT, FLAG_RELU,
                                       ConvSchedule, build_conv_schedule,
                                       run_starts)
 from repro_torch.kernels import _build
-from repro_torch.launch.roofline import SMS
+from repro_torch.kernels.conv2d_direct import (MMA_BLOCKS_PER_SM, MMA_STAGE_C,
+                                               MMA_TILES)
+from repro_torch.launch.roofline import F32_PEAK_FLOPS, SMS, TF32_PEAK_FLOPS
 
-# Launches of the CUDA kernel since the last reset (set it to 0 to reset).
+# Launches of the CUDA kernels since the last reset (set it to 0 to reset):
+# both routes, and the mma route's alone.
 launches = 0
+launches_mma = 0
 _fn = None
+_fn_mma = None
 
 # The dryrun is made once per layer and blocking, and its streams are
 # checked and copied to the card once per schedule: a replay then costs one
@@ -67,6 +82,14 @@ _prepared: collections.OrderedDict = collections.OrderedDict()
 # register tile.
 TILES = ((128, 128, 8, 8), (128, 64, 8, 4), (64, 64, 4, 4), (128, 32, 4, 4),
          (256, 16, 4, 4))
+
+
+# The mma route's CTA tiles are K1's (``conv2d_direct.MMA_TILES``, by the
+# code the switch in csrc/conv2d_streams.cu takes, with the blocks of each
+# an SM holds and the input channels of one ring stage); the f32 rate of
+# its 3xTF32 products is a third of the TF32 rate.
+MMA_PEAK_FLOPS = TF32_PEAK_FLOPS / 3
+ROUTE_PEAK_FLOPS = {"mma": MMA_PEAK_FLOPS, "simt": F32_PEAK_FLOPS}
 
 
 def _out_hw(h, w, r, s, stride, padding):
@@ -90,6 +113,61 @@ def tile_config(*, tile_m: int, k_blk: int, c_blk: int,
         fill = min(1.0, runs * m_sub * k_sub / SMS)
         reuse = tm * tn / (tm + tn) / 4.0
         best = max(best, (round(lanes * fill * reuse, 9), lanes, -idx))
+    return -best[2], best[0]
+
+
+def route_of(*, c: int, k: int, c_blk: int, k_blk: int) -> str:
+    """The route by channels and blocks alone, for aligned operands: "mma"
+    when C, K, c_blk and k_blk are multiples of 4, else "simt".  Raises
+    ``ValueError`` for blocks that do not divide the channels."""
+    if c_blk < 1 or k_blk < 1 or c % c_blk or k % k_blk:
+        raise ValueError(f"k_blk {k_blk} must divide K={k} and c_blk "
+                         f"{c_blk} divide C={c}")
+    return "mma" if c % 4 == k % 4 == c_blk % 4 == k_blk % 4 == 0 else "simt"
+
+
+def route(x, w, c_blk: int, k_blk: int) -> str:
+    """Which kernel a CUDA call of ``conv2d_streams(x, w, ...)`` with these
+    blocks launches: "mma" (3xTF32 on the tensor cores) when C, K, c_blk
+    and k_blk are multiples of 4 and x and w start on 16-byte boundaries
+    (every 4-channel group of a pixel row or weight row then lies on one),
+    else "simt".  Raises ``ValueError`` on blocks neither takes.  A
+    dispatch by shape, not a fallback: each route raises on failure."""
+    path = route_of(c=x.shape[-1], k=w.shape[-1], c_blk=c_blk, k_blk=k_blk)
+    if path == "mma" and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0:
+        return "mma"
+    return "simt"
+
+
+def mma_stage_c(c_blk: int) -> int:
+    """The input channels of one stage of the mma route: 32 (``MMA_STAGE_C``),
+    or 16 or 8 for a c_blk no larger, so that a step's stages hold as few
+    idle channels as the mainloop's depths allow."""
+    return next(depth for depth in (8, 16, MMA_STAGE_C)
+                if c_blk <= depth or depth == MMA_STAGE_C)
+
+
+def mma_tile_config(*, tile_m: int, k_blk: int,
+                    runs: int) -> tuple[int, float]:
+    """The CTA tile (a code of ``MMA_TILES``) the mma route cuts each run's
+    rb_p*Q x k_blk tile into, and the route's modeled share of its peak
+    under it, by K1's first-order model of the card
+    (``conv2d_direct._mma_cost``): the SM that runs the most CTAs
+    (ceil(CTAs / SMs)) does their products at its share of the rate, at a
+    share of that while it holds fewer than 8 warps; the share is the
+    useful products over that.  The largest share wins; on a tie, the
+    tile with fewer idle lanes, then the larger."""
+    best = None
+    for code, (bm, bn) in MMA_TILES.items():
+        m_sub, k_sub = math.ceil(tile_m / bm), math.ceil(k_blk / bn)
+        busiest = math.ceil(runs * m_sub * k_sub / SMS)
+        warps = min(busiest, MMA_BLOCKS_PER_SM[code]) * (bm * bn // 2048)
+        share = (runs * tile_m * k_blk / (SMS * busiest * bm * bn)
+                 * min(1.0, warps / 8))
+        lanes = tile_m / (m_sub * bm) * k_blk / (k_sub * bn)
+        key = (round(share, 9), round(lanes, 9), -code)
+        if best is None or key > best:
+            best = key
     return -best[2], best[0]
 
 
@@ -248,9 +326,10 @@ def conv2d_streams(x, w, *, schedule: ConvSchedule, stride: int = 1,
     """Replay ``schedule`` over x (N,H,W,C), w (R,S,C,K) -> (N,P,Q,K) f32.
 
     A CPU tensor takes ``conv2d_streams_plain``; a CUDA tensor launches the
-    sm_90a kernel on the current stream, or raises.  The schedule is
-    checked, and its streams copied to the card, at its first replay."""
-    global launches
+    sm_90a kernel of its ``route`` on the current stream, or raises.  The
+    schedule is checked, and its streams copied to the card, at its first
+    replay."""
+    global launches, launches_mma
     p, q, rb_p, k_blk, c_blk = _check(x, w, schedule, bias, stride, padding,
                                       rb_p, k_blk, c_blk)
     if x.device.type == "cpu":
@@ -273,24 +352,44 @@ def conv2d_streams(x, w, *, schedule: ConvSchedule, stride: int = 1,
     steps = len(schedule)
     packed = _device_streams(schedule, x.device)
     runs = packed.numel() - 5 * steps
-    tile, _ = tile_config(tile_m=rb_p * q, k_blk=k_blk, c_blk=c_blk,
-                          runs=runs)
     out = torch.empty((n, p, q, k), dtype=torch.float32, device=x.device)
-    fn = _kernel_fn()
+    if route(x, w, c_blk, k_blk) == "mma":
+        tile, _ = mma_tile_config(tile_m=rb_p * q, k_blk=k_blk, runs=runs)
+        fn, name, extra = _kernel_fn_mma(), "mma", (mma_stage_c(c_blk),)
+    else:
+        tile, _ = tile_config(tile_m=rb_p * q, k_blk=k_blk, c_blk=c_blk,
+                              runs=runs)
+        fn, name, extra = _kernel_fn(), "simt", ()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         launches += 1
+        if name == "mma":
+            launches_mma += 1
         err = fn(x.data_ptr(), w.data_ptr(),
                  None if bias is None else bias.data_ptr(),
                  packed.data_ptr(), steps,
                  packed.data_ptr() + 5 * steps * 4, runs,
                  out.data_ptr(), n, h, wd, c, k, r, s, stride, padding, rb_p,
-                 k_blk, c_blk, tile, stream)
+                 k_blk, c_blk, tile, *extra, stream)
     if err != 0:
-        raise RuntimeError(f"conv2d_streams kernel launch failed: CUDA error "
-                           f"{err} (x {tuple(x.shape)}, w {tuple(w.shape)}, "
-                           f"{steps} steps)")
+        raise RuntimeError(f"conv2d_streams kernel launch failed ({name} "
+                           f"route, tile {tile}): CUDA error {err} (x "
+                           f"{tuple(x.shape)}, w {tuple(w.shape)}, {steps} "
+                           f"steps)")
     return out
+
+
+def _kernel_fn_mma():
+    global _fn_mma
+    if _fn_mma is None:
+        fn = _build.load("conv2d_streams").repro_conv2d_streams_mma
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
+                       + [ctypes.c_void_p] + [ctypes.c_int]
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 14
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn_mma = fn
+    return _fn_mma
 
 
 def conv2d_streams_auto(x, w, *, stride=1, padding=0, bias=None, relu=False,

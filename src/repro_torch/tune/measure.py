@@ -6,20 +6,26 @@ candidates and each is timed by CUDA events over the real kernel, the
 paper's empirical specialization.  On the CPU a wall clock would time
 PyTorch's CPU kernels, so candidates are ranked by the model alone:
 
-  t_model = max(flops / (F32_PEAK_FLOPS * util), hbm_bytes / HBM_BYTES_PER_S)
+  t_model = max(flops / (peak * util), hbm_bytes / HBM_BYTES_PER_S)
 
 with the H100's constants from ``repro_torch.launch.roofline``.
 
 * ``flops`` and ``hbm_bytes`` come from ``conv_traffic``, the reference's
   schedule-resolved refetch model, unchanged: the same FLOPs and bytes for
   the same blocking.
-* ``util`` is K4's own occupancy for "streams"
-  (``kernels.conv2d_streams.tile_config``: the share of the CTA tile's
-  lanes that hold real pixels and channels, times the share of the SMs its
-  CTAs fill, times register reuse), in place of the reference's 128x128
-  MXU tile occupancy.  K1, K2 and K3 choose their tiles inside their
+* for "streams", ``util`` and the peak are those of the route K4 takes
+  under the blocking (``kernels.conv2d_streams.route_of``), in place of the
+  reference's 128x128 MXU tile occupancy: on the mma route
+  (``mma_tile_config``: the busiest SM's share of the products, its warps,
+  times the share of each stage, of ``mma_stage_c`` channels, that holds
+  real channels) at
+  the 3xTF32 rate, ``MMA_PEAK_FLOPS``; on the SIMT route (``tile_config``:
+  the share of the CTA tile's lanes that hold real pixels and channels,
+  times the share of the SMs its CTAs fill, times register reuse) at
+  ``F32_PEAK_FLOPS``.  K1, K2 and K3 choose their tiles inside their
   ``.cu`` files and take no blocking, so the other kinds are priced at
-  util 1, the bare roofline; there is nothing of theirs to time yet.
+  util 1 of the f32 peak, the bare roofline; there is nothing of theirs to
+  time yet.
 * No per-step overhead term: the TPU's grid-step pipeline fill has no
   counterpart in a kernel whose steps run in parallel CTAs.
 """
@@ -28,8 +34,11 @@ from __future__ import annotations
 import math
 
 from repro_torch.core.blocking import ConvBlocking
-from repro_torch.kernels.conv2d_streams import conv2d_streams_auto, tile_config
-from repro_torch.launch.roofline import kernel_roofline
+from repro_torch.kernels.conv2d_streams import (ROUTE_PEAK_FLOPS,
+                                                conv2d_streams_auto,
+                                                mma_stage_c, mma_tile_config,
+                                                route_of, tile_config)
+from repro_torch.launch.roofline import F32_PEAK_FLOPS, kernel_roofline
 from repro_torch.tune.space import out_dim
 
 # Kernel timings taken since the last reset (set to 0 to reset): a pass
@@ -170,15 +179,24 @@ def _wu_traffic(*, h, w, c, k, r, s, stride, p, q, hp, wp, n, blk,
     }
 
 
-def _streams_util(shape: dict, blk: ConvBlocking, *, minibatch: int) -> float:
-    """K4's modeled share of the f32 peak under `blk`
-    (``kernels.conv2d_streams.tile_config``)."""
+def _streams_util(shape: dict, blk: ConvBlocking, *,
+                  minibatch: int) -> tuple[float, float]:
+    """K4's modeled share of its route's peak under `blk`, and that peak
+    in FLOP/s: the model of the route K4 takes (``route_of``)."""
     p = out_dim(shape["h"], shape["r"], shape["stride"], shape["padding"])
     q = out_dim(shape["w"], shape["s"], shape["stride"], shape["padding"])
     rb_p = min(blk.rb_p, p)
     runs = minibatch * max(shape["k"] // blk.k_blk, 1) * math.ceil(p / rb_p)
+    path = route_of(c=shape["c"], k=shape["k"], c_blk=blk.c_blk,
+                    k_blk=blk.k_blk)
+    if path == "mma":
+        depth = mma_stage_c(blk.c_blk)
+        stage = blk.c_blk / (math.ceil(blk.c_blk / depth) * depth)
+        share = mma_tile_config(tile_m=rb_p * q, k_blk=blk.k_blk,
+                                runs=runs)[1]
+        return share * stage, ROUTE_PEAK_FLOPS[path]
     return tile_config(tile_m=rb_p * q, k_blk=blk.k_blk, c_blk=blk.c_blk,
-                       runs=runs)[1]
+                       runs=runs)[1], ROUTE_PEAK_FLOPS[path]
 
 
 def conv_cost_us(shape: dict, blk: ConvBlocking, *, minibatch: int = 1,
@@ -187,10 +205,10 @@ def conv_cost_us(shape: dict, blk: ConvBlocking, *, minibatch: int = 1,
     an H100 (see the module docstring)."""
     t = conv_traffic(shape, blk, minibatch=minibatch, kind=kind,
                      whole_plane=whole_plane)
-    util = (_streams_util(shape, blk, minibatch=minibatch)
-            if kind == "streams" else 1.0)
+    util, peak = (_streams_util(shape, blk, minibatch=minibatch)
+                  if kind == "streams" else (1.0, F32_PEAK_FLOPS))
     roof = kernel_roofline(flops=t["flops"], hbm_bytes=t["hbm_bytes"],
-                           util=util)
+                           util=util, peak=peak)
     return roof["cost_s"] * 1e6
 
 

@@ -20,7 +20,8 @@ decides them and what they compute are checked here:
   exactly and rounded to f32 under two models of the tensor cores' adder
   (to nearest, toward zero), each 32-channel stage's run added to the f32
   sums in the kernel's stage order ((r, s) outer, C inner for K1; C slice
-  outer, tap inner for K10a), a split's partials summed in split order.  It
+  outer, tap inner for K10a), a split's partials summed in split order
+  (the stage's products: ``tests/_tf32_emulation.stage_run``).  It
   is held to the kernels' limit, 1e-5 of max |out|, against the JAX
   package's ``repro.kernels.ref.conv2d`` (the ``xla`` path) on reduced
   ResNet-50's signatures and on four full-size ones, and prints its
@@ -33,6 +34,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from _tf32_emulation import stage_run
 from repro.kernels import ref as jax_ref
 from repro_torch.core import conv
 from repro_torch.core.duality import dual_conv_signatures
@@ -332,41 +334,6 @@ def test_whole_mma_plan_raises_like_whole_plan():
 
 
 # -- the emulation ------------------------------------------------------------
-
-def tf32(v: torch.Tensor) -> torch.Tensor:
-    """cvt.rna.tf32.f32 on f32 bits: round the 13 low mantissa bits to
-    nearest, ties away from zero (the sign is apart from the magnitude, so
-    adding half a step to the bits rounds the magnitude up on a tie)."""
-    bits = v.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def to_f32(x64: torch.Tensor, adder: str) -> torch.Tensor:
-    """An exact float64 sum rounded to f32: to nearest ("rn") or toward
-    zero ("rz")."""
-    r = x64.float()
-    if adder == "rz":
-        over = r.double().abs() > x64.abs()
-        r = torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
-    return r
-
-
-def stage_run(a, b, adder):
-    """One stage_products call: a (pixels, 32) and b (32, K) f32 -> the
-    run accumulator (pixels, K) after 4 steps of 8 channels, each step's
-    lo*hi, hi*lo, hi*hi mma summed exactly into the f32 run and rounded by
-    ``adder``."""
-    ah, bh = tf32(a), tf32(b)
-    al, bl = tf32(a - ah), tf32(b - bh)
-    pairs = [(x_.double(), y_.double()) for x_, y_ in
-             ((al, bh), (ah, bl), (ah, bh))]
-    run = torch.zeros((a.shape[0], b.shape[1]))
-    for kk in range(0, STAGE, 8):
-        for at, bt in pairs:
-            run = to_f32(run.double() + at[:, kk:kk + 8] @ bt[kk:kk + 8],
-                         adder)
-    return run
-
 
 def emulate(x, w, *, stride, padding, adder, order="k1", chunk=None,
             rows=4096):

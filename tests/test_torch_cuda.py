@@ -321,8 +321,9 @@ def test_streams_kernel_follows_shuffled_runs(cuda, case):
 
 @pytest.mark.parametrize("tile", range(len(k4.TILES)))
 def test_streams_kernel_every_tile(cuda, tile, monkeypatch):
-    """Each CTA tile of the kernel's switch, forced, on a case with a P
-    tail and ragged k_blk and c_blk edges."""
+    """Each CTA tile of the SIMT kernel's switch, forced (with its route),
+    on a case with a P tail and ragged k_blk and c_blk edges."""
+    monkeypatch.setattr(k4, "route", lambda *a: "simt")
     monkeypatch.setattr(k4, "tile_config", lambda **kw: (tile, 1.0))
     for case in (STREAM_CASES[6], STREAM_CASES[7]):
         args = _stream_args(case, cuda)
@@ -1432,3 +1433,123 @@ def test_conv_mma_dispatch_by_counters(cuda):
     torch.cuda.synchronize()
     delta = [a - b for a, b in zip(_k1_counts(), before)]
     assert delta[0] == delta[1] >= 2     # the forward and the dual convs
+
+
+# -- K10c's and K4's mma routes -----------------------------------------------
+
+# n, h, w, c, k, r, stride, pad and rb_p, k_blk: ragged P (rb_p not dividing
+# it), Q (odd, and over 128: row segments), k_blk below K, C with a half
+# slice (48), stride 2, a 1x1 conv
+Q8_MMA_CASES = [
+    ((2, 13, 11, 48, 24, 3, 1, 1), dict(rb_p=5, k_blk=8)),
+    ((1, 12, 150, 32, 16, 3, 1, 1), dict(rb_p=3, k_blk=16)),
+    ((3, 15, 15, 16, 40, 3, 2, 1), dict(rb_p=4, k_blk=8)),
+    ((2, 9, 9, 64, 64, 1, 1, 0), dict(rb_p=9, k_blk=32)),
+    ((16, 56, 56, 64, 64, 3, 1, 1), dict(rb_p=56, k_blk=64)),
+]
+
+
+@pytest.mark.parametrize("case,blk", Q8_MMA_CASES)
+@pytest.mark.parametrize("epi", [0, 3])
+def test_whole_q8_mma_route_equals_plain_cut_or_not(cuda, case, blk, epi,
+                                                     monkeypatch):
+    """K10c's mma route = its plain version = K3, bit for bit, with each
+    reference block's rows whole and cut across CTAs; one launch on each
+    counter."""
+    args = _q8_args(case, cuda, **EPILOGUES[epi])
+    assert k3.route_whole(args["x_q"], args["w_q"]) == "mma"
+    plain = k3.conv2d_q8_whole_plain(**args, **blk)
+    for split in (False, True):
+        monkeypatch.setattr(k3, "whole_split", lambda **kw: split)
+        before = (k3.launches_whole, k3.launches_whole_mma, k3.launches)
+        out = k3.conv2d_q8_whole(**args, **blk)
+        torch.cuda.synchronize()
+        assert (k3.launches_whole, k3.launches_whole_mma, k3.launches) == \
+            (before[0] + 1, before[1] + 1, before[2])
+        assert torch.equal(out, plain)
+    assert torch.equal(plain, k3.conv2d_q8(**args))
+
+
+def test_whole_q8_simt_route_for_c_off_16(cuda):
+    """C 8 and 24 take the __dp4a kernel: counted by launches_whole only."""
+    for case in ((2, 9, 9, 8, 16, 3, 1, 1), (1, 10, 10, 24, 8, 3, 2, 1)):
+        args = _q8_args(case, cuda, bias=True, relu=True)
+        blk = dict(rb_p=4, k_blk=8)
+        assert k3.route_whole(args["x_q"], args["w_q"]) == "simt"
+        before = (k3.launches_whole, k3.launches_whole_mma)
+        out = k3.conv2d_q8_whole(**args, **blk)
+        torch.cuda.synchronize()
+        assert (k3.launches_whole, k3.launches_whole_mma) == \
+            (before[0] + 1, before[1])
+        assert torch.equal(out, k3.conv2d_q8_whole_plain(**args, **blk))
+
+
+def test_whole_q8_mma_kernel_refuses_what_its_route_excludes(cuda):
+    """The C function itself refuses a C off the multiples of 16, a k_blk
+    off the multiples of 8 and a pass wider than 128 pixels."""
+    fn = k3._kernel_fn_whole_mma()
+    xp = torch.zeros((1, 10, 10, 16), dtype=torch.int8, device=cuda)
+    wt = torch.zeros((3, 3, 4, 16), dtype=torch.int32, device=cuda)
+    sc = torch.ones(16, device=cuda)
+    out = torch.empty((1, 8, 8, 16), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(c, k_blk, rows_pass, cols):
+        return fn(xp.data_ptr(), wt.data_ptr(), sc.data_ptr(), sc.data_ptr(),
+                  None, None, None, None, out.data_ptr(), 1, 10, 10, c, 16, 3,
+                  3, 1, 8, 8, 8, k_blk, 8, rows_pass, cols, 10, 10, 32, 3,
+                  96 * 1024, 0, stream)
+    assert call(16, 16, 8, 8) == 0
+    torch.cuda.synchronize()
+    assert call(8, 16, 8, 8) != 0
+    assert call(16, 12, 8, 8) != 0
+    assert call(16, 16, 8, 8 + 9) != 0
+
+
+STREAM_MMA_CASES = [c for c in STREAM_CASES
+                    if c[3] % 4 == c[4] % 4 == c[9] % 4 == c[10] % 4 == 0]
+
+
+@pytest.mark.parametrize("case", STREAM_MMA_CASES)
+@pytest.mark.parametrize("order", ["nkpc", "npkc"])
+def test_streams_mma_route_matches_plain(cuda, case, order):
+    """K4's mma route within 1e-5 of the plain replay, the same bits twice
+    and on shuffled runs; one launch on each counter."""
+    args = _stream_args(case, cuda, order)
+    assert k4.route(args["x"], args["w"], args["c_blk"],
+                    args["k_blk"]) == "mma"
+    before = (k4.launches, k4.launches_mma)
+    out = k4.conv2d_streams(**args)
+    torch.cuda.synchronize()
+    assert (k4.launches, k4.launches_mma) == (before[0] + 1, before[1] + 1)
+    assert _rel_err(out, k4.conv2d_streams_plain(**args)) <= 1e-5
+    assert torch.equal(out, k4.conv2d_streams(**args))
+    runs = len(streams.run_starts(args["schedule"]))
+    perm = torch.randperm(runs, generator=torch.Generator().manual_seed(2))
+    shuf = streams.permute_runs(args["schedule"], perm.tolist())
+    assert torch.equal(out, k4.conv2d_streams(**{**args, "schedule": shuf}))
+
+
+@pytest.mark.parametrize("tile", sorted(k4.MMA_TILES))
+def test_streams_mma_every_tile(cuda, tile, monkeypatch):
+    """Each CTA tile of the mma route, forced, on a P tail with ragged
+    c_blk (36: a stage of 32 channels and one of 4) and k_blk edges, and
+    at each stage depth (c_blk 8, 16 and 32)."""
+    monkeypatch.setattr(k4, "mma_tile_config", lambda **kw: (tile, 1.0))
+    for case in ((1, 10, 10, 72, 24, 3, 1, 1, 3, 12, 36), STREAM_CASES[7],
+                 STREAM_CASES[0], (1, 10, 10, 48, 24, 3, 1, 1, 3, 12, 16)):
+        args = _stream_args(case, cuda)
+        out = k4.conv2d_streams(**args)
+        torch.cuda.synchronize()
+        assert _rel_err(out, k4.conv2d_streams_plain(**args)) <= 1e-5
+
+
+def test_streams_simt_route_keeps_ragged_blocks(cuda):
+    """c_blk 6 and k_blk 10 take the SIMT kernel: counted by launches only."""
+    args = _stream_args(STREAM_CASES[6], cuda)
+    assert k4.route(args["x"], args["w"], 6, 10) == "simt"
+    before = (k4.launches, k4.launches_mma)
+    out = k4.conv2d_streams(**args)
+    torch.cuda.synchronize()
+    assert (k4.launches, k4.launches_mma) == (before[0] + 1, before[1])
+    assert _rel_err(out, k4.conv2d_streams_plain(**args)) <= 1e-5

@@ -151,15 +151,22 @@ def test_cost_model_uses_no_tpu_constant():
 
 
 def test_cost_is_the_h100_roofline_with_k4_occupancy():
+    """K4's occupancy and peak are those of the route it takes: every L4
+    candidate takes the mma route (3xTF32, a third of the TF32 rate)."""
     shape = dict(L4)
     for blk in tune.conv_candidates(**shape, kind="streams")[:10]:
         t = measure.conv_traffic(shape, blk, minibatch=16, kind="streams")
         p = q = 56
         rb_p = min(blk.rb_p, p)
         runs = 16 * (64 // blk.k_blk) * -(-p // rb_p)
-        _, util = k4.tile_config(tile_m=rb_p * q, k_blk=blk.k_blk,
-                                 c_blk=blk.c_blk, runs=runs)
-        want = max(t["flops"] / (67e12 * util), t["hbm_bytes"] / 3.35e12)
+        assert k4.route_of(c=64, k=64, c_blk=blk.c_blk,
+                           k_blk=blk.k_blk) == "mma"
+        _, util = k4.mma_tile_config(tile_m=rb_p * q, k_blk=blk.k_blk,
+                                     runs=runs)
+        depth = k4.mma_stage_c(blk.c_blk)
+        util *= blk.c_blk / (-(-blk.c_blk // depth) * depth)
+        want = max(t["flops"] / (494.7e12 / 3 * util),
+                   t["hbm_bytes"] / 3.35e12)
         got = measure.conv_cost_us(shape, blk, minibatch=16, kind="streams")
         assert got == pytest.approx(want * 1e6, rel=1e-12)
     fwd = blocking.conv_blocking_analytic(**shape)
