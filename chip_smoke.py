@@ -39,8 +39,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
    same top-1 on every image.
 5. K3 vs plain: the same 23 signatures at batch 16, int8 operands from
    ``quantize_conv_inputs`` on random f32, random BN scale, shift and
-   residual: K3 against its plain version, max |diff| = 0 on every one,
-   plus an integer-exact case; CUDA-event times of K3, the plain version,
+   residual: K3 against its plain version, max |diff| = 0 on every one on
+   both routes (``conv2d_q8.route``: "ring" for all of them, and "sync"
+   forced), the ring route the same bits twice, plus an integer-exact case
+   on both routes; per signature the route, ``ring_plan``'s tile, stage
+   channels, stages, splits and CTAs, and both routes' CUDA-event and
+   profiler device times; the 52-conv sums against the aims and the six
+   small-grid signatures' speedups; CUDA-event times of K3, the plain version,
    K1's f32 time from phase 2 and, on the 1x1 signatures, the library
    yardstick ``torch._int_mm`` with the dequant and epilogue in torch (for
    stride 2 on the strided slice); the bound is the larger of int8 ops /
@@ -50,7 +55,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    calibrates on the reference's default synthetic batches.  The window of
    phase 3 (64 untimed, then 512 in bursts), with images/s, p50 and p99
    beside phase 3's f32 figures; K3 must launch exactly 52 times per
-   forward and K1 not at all.  Then one batch-16 step by host clock (H2D,
+   forward, every one on the ring route (``launches_ring``), and K1 not at
+   all.  Then one batch-16 step by host clock (H2D,
    forward), K3's device time per forward, and the device time of the
    ``quantize_act`` glue on that forward's 53 conv inputs.
 7. int8 parity: a batch of 2 on the card against the port's CPU int8
@@ -173,8 +179,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
     batch 1, 512 at batch 8; the last two also on x read in place as the
     mixer passes it, half of a (B, L, 32768) projection, the layout the
     kernels line is timed on) and one tail case (2, 77, 1003), f32 and
-    bf16, with the limits of phase 14; K8 by CUDA events and profiler, the
-    plain version, cuDNN's depthwise ``F.conv1d`` as the yardstick, the
+    bf16, with the limits of phase 14, on both routes: the route taken
+    (``conv1d_causal.route``: "tile" for every D = 16384 shape, "thread"
+    for the tail) and the thread route forced; K8 by CUDA events and
+    profiler on each, the device time with ``act="none"`` on each at bf16,
+    the plain version, cuDNN's depthwise ``F.conv1d`` as the yardstick, the
     bound (bytes over 3.35 TB/s).
 18b. K9 vs plain: the grouped MoE matmul at (a) the cut's decode, 16
     routed rows of batch 8 spread over the 8 held experts in tiles of 16,
@@ -201,7 +210,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
 19. Hybrid serving, the slice's main path: ``jamba-1.5-large-398b-1chip``
     (one 8-layer period of Jamba-1.5-Large at full width, 8 of each MoE
     layer's 16 experts, bf16, 51.8 GB) through ``serve_continuous`` with
-    phase 16's lanes, lengths and window: K8's count must be 7 x 32, K7's
+    phase 16's lanes, lengths and window: K8's count must be 7 x 32, every
+    one on the tile route (``launches_tile``, and 7 a traced prefill by
+    kernel name), K7's
     1 x 32 and K9's 12 x the forward and decode_step calls the scheduler
     counted (3 per MoE layer, 4 MoE layers), K7's and K9's forward
     launches all through the wgmma route (every K9 call with bm >= 64,
@@ -670,6 +681,15 @@ def parity(engine):
     check(same_top1, "top-1 differs between the card and the CPU")
 
 
+# K3's aims for the ring route (PERF.md, PR 25): the 52-conv sums, and
+# the six small-grid signatures (h, w, c, k, r, s, stride) that lost most on
+# the sync route, each to run at least 2x faster on the device
+K3_AIM_DEVICE_MS, K3_AIM_EVENTS_MS = 1.0, 1.6
+K3_SMALL_GRID = [(14, 14, 256, 256, 3, 3, 1), (7, 7, 512, 512, 3, 3, 1),
+                 (14, 14, 1024, 256, 1, 1, 1), (14, 14, 512, 512, 3, 3, 2),
+                 (7, 7, 2048, 512, 1, 1, 1), (28, 28, 256, 256, 3, 3, 2)]
+
+
 def q8_signatures(device, sigs, k1_rows):
     """Phase 5: K3 against its plain version on every serving signature,
     bit for bit, with K1's f32 time from phase 2 beside it.  Returns
@@ -685,10 +705,13 @@ def q8_signatures(device, sigs, k1_rows):
     print(f"\nK3 vs plain, ResNet-50 {IMAGE}x{IMAGE} batch {BATCH} "
           f"({len(sigs)} signatures, {sum(sigs.values())} convs), int8 "
           f"operands; library = torch._int_mm + dequant/epilogue in torch "
-          f"(1x1 only); dev = kernel device time by the profiler:")
-    print("  h  w    c    k r st fused         count max_abs        ms"
-          "  plain_ms   k1_f32_ms  library_ms  bound_ms bound_by  k3_dev"
-          "  k1_dev")
+          f"(1x1 only); route: conv2d_q8.route, plan: ring_plan's BMxBN "
+          f"tile, BK channels a stage, stages, splits of the reduction and "
+          f"CTAs; ev = CUDA events, dev = kernel device time by the "
+          f"profiler, on the ring route and with the sync route forced:")
+    print("  h  w    c    k r st fused         count route tile    bk stg "
+          "spl ctas ring_abs sync_abs  ev_ring dev_ring  ev_sync dev_sync "
+          " plain_ms k1_f32_ms library_ms bound_ms bound_by   k1_dev")
     for key, count in sigs.items():
         h, w, c, k, r, s, st, pad, fused = key
         p = (h + 2 * pad - r) // st + 1
@@ -707,12 +730,22 @@ def q8_signatures(device, sigs, k1_rows):
             shift=randn(k, std=0.1),
             residual=randn(BATCH, p, q, k) if "add" in fused else None,
             relu="relu" in fused)
+        path = k3.route(x_q, w_q)
+        plan = k3.ring_plan(BATCH, p, q, c, k, r, s, st)
         out = k3.conv2d_q8(**args)
+        again = k3.conv2d_q8(**args)
+        with returning(k3, "route", "sync"):
+            sync_out = k3.conv2d_q8(**args)
         plain = k3.conv2d_q8_plain(**args)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out).all()), f"K3 non-finite at {h, c, k}")
+        check(torch.equal(out, again), f"K3 ({path} route) gave other bits "
+              f"on a second run at {key}")
         max_abs = float((out - plain).abs().max())
+        sync_abs = float((sync_out - plain).abs().max())
         ms = cuda_ms(lambda: k3.conv2d_q8(**args), 50)
+        with returning(k3, "route", "sync"):
+            ms_sync = cuda_ms(lambda: k3.conv2d_q8(**args), 50)
         plain_ms = cuda_ms(lambda: k3.conv2d_q8_plain(**args), 5)
         library_ms = library_exact = None
         if r == s == 1 and pad == 0:
@@ -735,6 +768,11 @@ def q8_signatures(device, sigs, k1_rows):
             lambda i: k3.conv2d_q8(**args), 20, {"conv2d_q8_kernel": k3},
             sync_each=True),
             "conv2d_q8_kernel")
+        with returning(k3, "route", "sync"):
+            k3_dev_sync = device_ms_of(trace_device(
+                lambda i: k3.conv2d_q8(**args), 20,
+                {"conv2d_q8_kernel": k3}, sync_each=True),
+                "conv2d_q8_kernel")
         f32 = dict(x=x_q.float(), w=w_q.float(), stride=st, padding=pad,
                    scale=args["scale"], shift=args["shift"],
                    residual=args["residual"], relu=args["relu"])
@@ -748,36 +786,71 @@ def q8_signatures(device, sigs, k1_rows):
                   + (4.0 * BATCH * p * q * k if "add" in fused else 0))
         bound_ms, bound_by = bound(ops, nbytes, int8=True)
         rec = dict(h=h, w=w, c=c, k=k, r=r, s=s, stride=st, padding=pad,
-                   fused=list(fused), count=count, max_abs_err=max_abs,
-                   ms=ms, plain_ms=plain_ms, k1_f32_ms=k1_ms[key],
+                   fused=list(fused), count=count, route=path,
+                   tile=f"{plan.bm}x{plan.bn}", bk=plan.bk,
+                   stages=plan.stages, splits=plan.splits, ctas=plan.ctas,
+                   max_abs_err=max_abs, sync_abs_err=sync_abs,
+                   ms=ms, ms_sync=ms_sync, plain_ms=plain_ms,
+                   k1_f32_ms=k1_ms[key],
                    library_ms=library_ms, library_exact=library_exact,
                    bound_ms=bound_ms, bound_by=bound_by, ops=ops,
-                   k3_device_ms=k3_dev, k1_device_ms=k1_dev)
+                   k3_device_ms=k3_dev, k3_device_ms_sync=k3_dev_sync,
+                   k1_device_ms=k1_dev)
         rows.append(rec)
         lib = "—" if library_ms is None else f"{library_ms:.4f}"
         print(f"{h:3d}{w:3d}{c:5d}{k:5d}{r:2d}{st:3d} "
-              f"{'+'.join(fused):14s}{count:5d}  {max_abs:.1e} {ms:9.4f} "
-              f"{plain_ms:9.4f} {k1_ms[key]:11.4f} {lib:>11s} "
-              f"{bound_ms:9.4f} {bound_by:10s}{k3_dev:7.4f} {k1_dev:7.4f}")
-        check(max_abs == 0.0,
+              f"{'+'.join(fused):14s}{count:5d} {path:5s}"
+              f"{rec['tile']:>8s}{plan.bk:5d}{plan.stages:4d}"
+              f"{plan.splits:4d}{plan.ctas:5d}  {max_abs:.1e}  "
+              f"{sync_abs:.1e} {ms:8.4f} {k3_dev:8.4f} {ms_sync:8.4f} "
+              f"{k3_dev_sync:8.4f} {plain_ms:9.4f} {k1_ms[key]:9.4f} "
+              f"{lib:>10s} {bound_ms:8.4f} {bound_by:10s}{k1_dev:7.4f}")
+        check(path == "ring", f"K3 takes the {path} route at {key}")
+        check(max_abs == 0.0 and sync_abs == 0.0,
               f"K3 differs from its plain version at {(h, c, k, r, st)}: "
-              f"max |diff| {max_abs:.3e}, not 0")
-        del x_q, w_q, args, out, plain, f32
-    # integer-valued inputs, unit scales, no epilogue: the exact conv
+              f"max |diff| {max_abs:.3e} (ring), {sync_abs:.3e} (sync), "
+              f"not 0")
+        del x_q, w_q, args, out, again, sync_out, plain, f32
+
+    def weighted_(key_, only=lambda r_: True):
+        return sum(r_[key_] * r_["count"] for r_ in rows if only(r_))
+    ring_dev, sync_dev = weighted_("k3_device_ms"), \
+        weighted_("k3_device_ms_sync")
+    print(f"  per {sum(sigs.values())}-conv forward (x count): ring "
+          f"{weighted_('ms'):.4f} ms by events, {ring_dev:.4f} device; "
+          f"sync route forced {weighted_('ms_sync'):.4f} / {sync_dev:.4f}; "
+          f"bound {weighted_('bound_ms'):.4f} (aims: <= "
+          f"{K3_AIM_EVENTS_MS} by events, <= {K3_AIM_DEVICE_MS} device)")
+    slower = [(_sig(r_), r_["k3_device_ms"], r_["k3_device_ms_sync"])
+              for r_ in rows if r_["k3_device_ms"] > r_["k3_device_ms_sync"]]
+    print(f"  signatures slower on the ring route than on sync (device): "
+          f"{slower if slower else 'none'}")
+    for sig in K3_SMALL_GRID:
+        r_ = next(r_ for r_ in rows if _sig(r_)[:7] == sig)
+        print(f"  small grid {sig}: device {r_['k3_device_ms_sync']:.4f} "
+              f"(sync) -> {r_['k3_device_ms']:.4f} (ring), "
+              f"{r_['k3_device_ms_sync'] / r_['k3_device_ms']:.2f}x "
+              f"(aim >= 2x)")
+    # integer-valued inputs, unit scales, no epilogue: the exact conv, on
+    # both routes
     xi = torch.randint(-127, 128, (BATCH, 14, 14, 256), generator=gen,
                        device=device, dtype=torch.int8)
     wi = torch.randint(-127, 128, (3, 3, 256, 256), generator=gen,
                        device=device, dtype=torch.int8)
-    out = k3.conv2d_q8(xi, wi, x_scale=torch.ones((), device=device),
-                       w_scale=torch.ones(256, device=device), padding=1)
     exact = torch.nn.functional.conv2d(
         xi.double().permute(0, 3, 1, 2), wi.double().permute(3, 2, 0, 1),
-        padding=1).permute(0, 2, 3, 1)
-    exact_ok = bool(torch.equal(out.double(), exact.to(torch.float32)
-                                .double()))
-    print(f"  integer-exact case (16x14x14x256, 3x3, values +-127, unit "
-          f"scales) equals the float64 conv: {exact_ok}")
-    check(exact_ok, "K3 is not exact on integer inputs with unit scales")
+        padding=1).permute(0, 2, 3, 1).to(torch.float32).double()
+    for path in ("ring", "sync"):
+        with returning(k3, "route", path):
+            out = k3.conv2d_q8(xi, wi, x_scale=torch.ones((), device=device),
+                               w_scale=torch.ones(256, device=device),
+                               padding=1)
+        exact_ok = bool(torch.equal(out.double(), exact))
+        print(f"  integer-exact case (16x14x14x256, 3x3, values +-127, unit "
+              f"scales) on the {path} route equals the float64 conv: "
+              f"{exact_ok}")
+        check(exact_ok, f"K3 ({path} route) is not exact on integer inputs "
+              f"with unit scales")
     print("  per-signature JSON:", json.dumps(rows))
     return rows
 
@@ -806,6 +879,7 @@ def int8_serving(device, params, f32_stats):
     # serve_window sets the K1 and K3 counts to 0 just before the window
     server, results = serve_window(engine, requests=REQUESTS, seed=SEED)
     launches, k1_launches = k3.launches, k1.launches
+    ring = k3.launches_ring
     st = server.stats()
     check(len(results) == REQUESTS, f"served {len(results)} of {REQUESTS}")
     check(all(0 <= c < 1000 and math.isfinite(v)
@@ -818,14 +892,16 @@ def int8_serving(device, params, f32_stats):
         print(f"  {name}: images/s {x['images_per_s']:.2f} over "
               f"{x['wall_s']:.3f} s wall  p50 {x['latency']['p50_ms']:.3f} "
               f"ms  p99 {x['latency']['p99_ms']:.3f} ms")
-    print(f"  K3 launches {launches} = {per_fwd} x {st['batches']} forwards; "
-          f"K1 launches {k1_launches}")
+    print(f"  K3 launches {launches} = {per_fwd} x {st['batches']} forwards "
+          f"({ring} on the ring route); K1 launches {k1_launches}")
     check(set(st["by_bucket"]) == set(engine.buckets),
           f"buckets served {sorted(st['by_bucket'])}, not {engine.buckets}")
     check(per_fwd == 52 and launches == per_fwd * st["batches"],
           f"K3 launched {launches} times, expected 52 x {st['batches']}")
     check(k1_launches == 0, f"K1 launched {k1_launches} times in the int8 "
           f"window, expected 0")
+    check(ring == launches, f"{launches - ring} of the window's K3 launches "
+          f"took the sync route, expected none")
     return engine, launches, st
 
 
@@ -2185,7 +2261,7 @@ def lm_prompts(n: int, vocab: int, seed: int):
 
 
 def lm_serving(device, arch: str, widths: tuple, kernels: dict,
-               wgmma: dict):
+               wgmma: dict, route_counts: dict | None = None):
     """Phase 16 (Qwen2-1.5B) and phase 19 (the Jamba cut), each a slice's
     main path: ``arch`` in bf16 (random weights from ``init_lm``, seed 0;
     ``widths`` = (n_layers, d_model, n_heads, n_kv_heads, head_dim, d_ff,
@@ -2199,7 +2275,10 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict,
     window (one forward per request).  ``wgmma`` maps a kernel's name to
     its wgmma-route launches per forward and per decode step, held the same
     way on ``launches_wgmma``; for K9 every call with bm >= 64 is counted
-    in the window and must have taken that route.  Then a batch-8 prefill
+    in the window and must have taken that route.  ``route_counts`` maps a
+    kernel's name to (its route's counter, the kernel-name suffix of that
+    route, launches per forward, launches per decode step), held the same
+    way (K8's tile route).  Then a batch-8 prefill
     at 512 tokens
     and 16 decode steps through ``forward`` / ``decode_step``, and both
     under ``torch.profiler`` (``trace_device``, each kernel's recorded
@@ -2246,6 +2325,9 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict,
         mod.launches = 0
     for name in wgmma:
         kernels[name][0].launches_wgmma = 0
+    route_counts = route_counts or {}
+    for name, (attr, _, _, _) in route_counts.items():
+        setattr(kernels[name][0], attr, 0)
     k9_calls = []      # (bm, route) of every K9 call in the window
     k9.launches_stream = 0
     gmm = k9.moe_gmm
@@ -2266,6 +2348,8 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict,
                 for name, (mod, _, _, _) in kernels.items()}
     launches_wgmma = {name: kernels[name][0].launches_wgmma
                       for name in wgmma}
+    launches_route = {name: getattr(kernels[name][0], attr)
+                      for name, (attr, _, _, _) in route_counts.items()}
     launches_stream = k9.launches_stream
     tokens = sum(len(r) for r in results.values())
     prompt_tokens = int(sum(len(p) for p in window))
@@ -2299,6 +2383,15 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict,
         check(launches_wgmma[name] == expected,
               f"{name} took the wgmma route {launches_wgmma[name]} times in "
               f"the window, expected {expected}")
+    for name, (attr, _, per_fwd, per_dec) in route_counts.items():
+        expected = per_fwd * calls["forward"] + per_dec * calls["decode_step"]
+        print(f"  {name} launches counted by {attr} in the window: "
+              f"{launches_route[name]} of {launches[name]} (expected "
+              f"{per_fwd} x {calls['forward']} + {per_dec} x "
+              f"{calls['decode_step']} = {expected})")
+        check(launches_route[name] == expected,
+              f"{name}'s {attr} counted {launches_route[name]} in the "
+              f"window, expected {expected}")
     if k9_calls:
         bms = [bm for bm, _ in k9_calls]
         big = sum(bm >= 64 for bm in bms)
@@ -2429,6 +2522,15 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict,
               f"(by kernel name; expected {per_fwd})")
         check(on_wgmma == per_fwd, f"{on_wgmma} {name} wgmma launches in the "
               f"traced prefill, expected {per_fwd}")
+    for name, (_, suffix, per_fwd, _) in route_counts.items():
+        needle = kernels[name][1]
+        on_route = sum(n for kname, n in pre_trace["launches"].items()
+                       if needle + suffix in kname)
+        print(f"  {name} launches in the traced prefill through "
+              f"{needle + suffix}: {on_route} (by kernel name; expected "
+              f"{per_fwd})")
+        check(on_route == per_fwd, f"{on_route} {name} launches of "
+              f"{needle + suffix} in the traced prefill, expected {per_fwd}")
     logits, _, cache = prefill()
     last = logits[:, -1:].argmax(dim=-1)
     del logits
@@ -2488,6 +2590,7 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict,
                     generated_tokens=tokens, wall_s=wall_s,
                     generated_tokens_per_s=tokens / wall_s,
                     launches=launches, launches_wgmma=launches_wgmma,
+                    launches_route=launches_route,
                     launches_stream=launches_stream),
         prefill=dict(batch=b, tokens=l, host_ms=prefill_ms,
                      event_ms=float(np.median(events)),
@@ -2647,9 +2750,14 @@ def conv1d_signatures(device):
     rows = []
     print(f"\nK8 vs plain ({len(CONV1D_SHAPES)} shapes x f32, bf16, SiLU "
           f"and bias; limits {KERNEL_REL_TOL} f32, {BF16_REL_TOL} bf16 of "
-          f"max |plain|):")
-    print("  dtype  b     l     d kw x        max_rel    max_abs        ms  "
-          "device_ms    plain_ms  library_ms  bound_ms bound_by   GB/s")
+          f"max |plain|); route: conv1d_causal.route, with tile_plan's "
+          f"threads and run; ev = CUDA events, dev = profiler device time, "
+          f"on the route taken and on the thread route forced; none: the "
+          f"device time with act='none' on each route (bf16, the "
+          f"arithmetic's share of the gap):")
+    print("  dtype  b     l     d kw x        route thr run   max_rel "
+          "thr_rel       ev      dev  ev_thr  dev_thr none_dev none_thr "
+          "   plain_ms  library_ms  bound_ms bound_by   GB/s")
     for dtype in (torch.float32, torch.bfloat16):
         for b, l, d, kw, in_place in CONV1D_SHAPES:
             x = torch.randn((b, l, 2 * d if in_place else d), generator=gen,
@@ -2659,12 +2767,17 @@ def conv1d_signatures(device):
             w = (torch.randn((kw, d), generator=gen, device=device)
                  * kw ** -0.5).to(dtype)
             bias = torch.randn((d,), generator=gen, device=device).to(dtype)
+            path = k8.route(x, w, bias)
+            plan = k8.tile_plan(b, l, d, kw, 16 // x.element_size())
             out = k8.conv1d_causal(x, w, bias=bias)
+            with returning(k8, "route", "thread"):
+                thread = k8.conv1d_causal(x, w, bias=bias)
             plain = k8.conv1d_causal_plain(x, w, bias=bias)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(out).all()),
                   f"K8 non-finite at {(b, l, d, kw)}")
             max_abs, max_rel = rel_err(out.float(), plain.float())
+            thread_rel = rel_err(thread.float(), plain.float())[1]
             tol = KERNEL_REL_TOL if dtype == torch.float32 else BF16_REL_TOL
             w_lib = w.t().unsqueeze(1).contiguous()            # (D,1,KW)
 
@@ -2677,6 +2790,22 @@ def conv1d_signatures(device):
             device_ms, recorded = kernel_device_ms(
                 lambda: k8.conv1d_causal(x, w, bias=bias),
                 "conv1d_causal_kernel", k8)
+            with returning(k8, "route", "thread"):
+                ms_thread = auto_ms(lambda: k8.conv1d_causal(x, w,
+                                                             bias=bias))
+                device_thread, _ = kernel_device_ms(
+                    lambda: k8.conv1d_causal(x, w, bias=bias),
+                    "conv1d_causal_kernel", k8)
+            none_ms = none_thread = None
+            if dtype == torch.bfloat16:
+                none_ms, _ = kernel_device_ms(
+                    lambda: k8.conv1d_causal(x, w, bias=bias, act="none"),
+                    "conv1d_causal_kernel", k8)
+                with returning(k8, "route", "thread"):
+                    none_thread, _ = kernel_device_ms(
+                        lambda: k8.conv1d_causal(x, w, bias=bias,
+                                                 act="none"),
+                        "conv1d_causal_kernel", k8)
             plain_ms = auto_ms(lambda: k8.conv1d_causal_plain(
                 x, w, bias=bias), 30.0)
             library_ms = auto_ms(library)
@@ -2685,23 +2814,37 @@ def conv1d_signatures(device):
             bound_ms, bound_by = bound_for(flops, nbytes, dtype)
             rec = dict(dtype=str(dtype).removeprefix("torch."), b=b, l=l, d=d,
                        kw=kw, x="in place" if in_place else "contiguous",
-                       count=1, max_abs_err=max_abs,
-                       max_rel_err=max_rel, ms=ms, device_ms=device_ms,
+                       count=1, route=path, threads=plan.threads,
+                       run=plan.run, max_abs_err=max_abs,
+                       max_rel_err=max_rel, thread_rel_err=thread_rel,
+                       ms=ms, device_ms=device_ms, ms_thread=ms_thread,
+                       device_ms_thread=device_thread,
+                       none_device_ms=none_ms,
+                       none_device_ms_thread=none_thread,
                        plain_ms=plain_ms, library_ms=library_ms,
                        library_rel_err=lib_rel, bound_ms=bound_ms,
                        bound_by=bound_by, gb_per_s=nbytes / ms / 1e6,
                        traced_launches=recorded)
             rows.append(rec)
+
+            def col(v):
+                return "       —" if v is None else f"{v:8.4f}"
             print(f"  {rec['dtype']:8s}{b:2d}{l:6d}{d:6d}{kw:3d} "
-                  f"{rec['x']:10s} {max_rel:.2e}  {max_abs:.2e} {ms:9.4f} "
-                  f"{device_ms:10.4f}"
-                  f" {plain_ms:11.4f} {library_ms:11.4f} {bound_ms:9.4f} "
+                  f"{rec['x']:10s} {path:6s}{plan.threads:4d}{plan.run:4d}"
+                  f"  {max_rel:.1e} {thread_rel:.1e} {ms:8.4f} "
+                  f"{device_ms:8.4f} {ms_thread:8.4f} {device_thread:8.4f}"
+                  f" {col(none_ms)} {col(none_thread)} {plain_ms:11.4f} "
+                  f"{library_ms:11.4f} {bound_ms:9.4f} "
                   f"{bound_by:9s}{rec['gb_per_s']:7.0f}  (library vs plain "
                   f"{lib_rel:.1e}; {recorded} of 5 launches traced)")
-            check(max_rel <= tol, f"K8 disagrees with its plain version at "
-                  f"{(b, l, d, kw, rec['dtype'])}: max_rel {max_rel:.3e} > "
+            check(max_rel <= tol and thread_rel <= tol,
+                  f"K8 disagrees with its plain version at "
+                  f"{(b, l, d, kw, rec['dtype'])}: max_rel {max_rel:.3e} "
+                  f"({path} route), {thread_rel:.3e} (thread route) > "
                   f"{tol}")
-            del x, w, bias, out, plain
+            check(path == ("tile" if d % 8 == 0 else "thread"),
+                  f"K8 takes the {path} route at {(b, l, d, kw)}")
+            del x, w, bias, out, thread, plain
     print("  per-shape JSON:", json.dumps(rows))
     return rows
 
@@ -3272,6 +3415,11 @@ def q8_side_forced(side: str):
     return returning(k3, "whole_split", side == "cut")
 
 
+# K10c's 52-conv sum by CUDA events in PR 24's final run on an H100
+# (PERF.md section 6), when its wrapper re-laid the weights on every call
+K10C_PR24_EVENTS_MS = 6.6261
+
+
 def whole_q8(device, sigs, q8_rows, q8_gxm, qparams):
     """Phase 24: K10c against its plain version and K3 on the 23 serving
     signatures (max |diff| 0 each), each run three ways (the mma route with
@@ -3406,8 +3554,9 @@ def whole_q8(device, sigs, q8_rows, q8_gxm, qparams):
     def one_by_one(r_):
         return r_["r"] == r_["s"] == 1
     print(f"  per forward (x count): K10c under the rule "
-          f"{weighted_('ms'):.4f} ms by events, {weighted_('device_ms'):.4f} "
-          f"device; mma uncut {weighted_('ms_uncut'):.4f} / "
+          f"{weighted_('ms'):.4f} ms by events (PR 24's final run, weights "
+          f"re-laid each call: {K10C_PR24_EVENTS_MS}), "
+          f"{weighted_('device_ms'):.4f} device; mma uncut {weighted_('ms_uncut'):.4f} / "
           f"{weighted_('device_ms_uncut'):.4f}; mma cut "
           f"{weighted_('ms_cut'):.4f} / {weighted_('device_ms_cut'):.4f}; "
           f"SIMT {weighted_('ms_simt'):.4f} / "
@@ -3822,7 +3971,8 @@ def main() -> int:
         {"conv1d_causal": (k8, "conv1d_causal_kernel", 7, 0),
          "flash_attention": (k7, "flash_attention_kernel", 1, 0),
          "moe_gmm": (k9, "moe_gmm_kernel", 12, 12)},
-        {"flash_attention": (1, 0), "moe_gmm": (12, 0)})
+        {"flash_attention": (1, 0), "moe_gmm": (12, 0)},
+        {"conv1d_causal": ("launches_tile", "_tile", 7, 0)})
     bf16 = decode_vs_forward(params, cfg)
     print(f"  bf16: {bf16['rel']:.3e} of max |logit|, printed and not held "
           f"to {BF16_DECODE_REL_TOL}: this random-weight model moves its "
@@ -3942,9 +4092,21 @@ def main() -> int:
         "source": "src/repro_torch/csrc/conv2d_q8.cu",
         "replaces": "src/repro/kernels/conv2d_q8.py:204",
         "launches": q8_launches,
+        "launches_ring": q8_launches,
         "launches_by_path": {"serving_int8": q8_launches},
-        "max_abs_err": max(r["max_abs_err"] for r in q8_rows),
-        "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+        "max_abs_err": max(max(r["max_abs_err"], r["sync_abs_err"])
+                           for r in q8_rows),
+        "ms": k3["ms"], "device_ms": weighted(q8_rows, "k3_device_ms"),
+        "sync_forced": {"ms": weighted(q8_rows, "ms_sync"),
+                        "device_ms": weighted(q8_rows, "k3_device_ms_sync")},
+        "routes": {"C % 16 == 0 and K % 8 == 0": "ring (weights laid out "
+                   "once as (R, S, K, C), a cp.async ring of (r, s) x 64 or "
+                   "128 channels, ldmatrix + mma.sync m16n8k32 s8, the "
+                   "reduction split across CTAs where ring_plan takes it, "
+                   "the output staged through shared memory)",
+                   "the rest": "sync (mma.sync m16n8k32 s8, one 32-channel "
+                   "step a barrier through registers)"},
+        "plain_ms": k3["plain_ms"],
         "library_ms": k3["library_ms"],
         "library_covers": "the 1x1 convs only (torch._int_mm + dequant and "
                           "epilogue in torch); K3 on the same convs: "
@@ -4060,11 +4222,23 @@ def main() -> int:
         "source": "src/repro_torch/csrc/conv1d_causal.cu",
         "replaces": "src/repro/kernels/conv1d_causal.py:43",
         "launches": hy_launches["conv1d_causal"],
+        "launches_tile": hy_summary["window"]["launches_route"][
+            "conv1d_causal"],
+        "thread_forced": {key: k8_row[key] for key in (
+            "ms_thread", "device_ms_thread")},
+        "act_none_device_ms": {"tile": k8_row["none_device_ms"],
+                               "thread": k8_row["none_device_ms_thread"]},
+        "routes": {"rows on 16-byte boundaries (f32, bf16)": "tile (a "
+                   "(run + KW - 1)-row tile through a cp.async ring in "
+                   "shared memory, packed bf16 conversions, SiLU with "
+                   "__expf and rcp.approx)", "the rest": "thread (a thread "
+                   "walks its channels' tokens from registers)"},
         "launches_by_path": {
             "hybrid_serving": hy_launches["conv1d_causal"],
             "decode_step": 0},
         "max_abs_err": max(r_["max_abs_err"] for r_ in conv_rows),
-        "max_rel_err": max(r_["max_rel_err"] for r_ in conv_rows),
+        "max_rel_err": max(max(r_["max_rel_err"], r_["thread_rel_err"])
+                           for r_ in conv_rows),
         **{key: k8_row[key] for key in ("ms", "plain_ms", "library_ms",
                                         "bound_ms", "bound_by",
                                         "device_ms")},

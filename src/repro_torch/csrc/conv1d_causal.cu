@@ -172,6 +172,207 @@ int launch(const Conv1dArgs& a, int kw, cudaStream_t s) {
   return vec ? launch_vec<T, kVec>(a, kw, s) : launch_vec<T, 1>(a, kw, s);
 }
 
+// ---------------------------------------------------------------------------
+// The "tile" route: conv1d_causal_kernel_tile.
+//
+// Replaces the same Pallas kernel (repro/kernels/conv1d_causal.py:_kernel)
+// where every row of x starts on a 16-byte boundary (D, both strides and
+// every pointer multiples of 16 bytes; the wrapper's route() picks it).
+// Same function and f32 accumulation as the kernel above.
+//
+// What bounds it: the same bytes, 2 * B*L*D * bytes / 3.35 TB/s.  The kernel
+// above reached 74-80 % of that bound in f32 but 43-48 % in bf16, where each
+// output carries twice the arithmetic per byte (a full expf and an IEEE
+// division for SiLU, the bf16 unpacking, the window shifts).  So:
+//   * A block's tile is (run + KW - 1) rows by blockDim.x x 16 bytes of
+//     channels, with run >= 15 (KW - 1) (kernels/conv1d_causal.py
+//     tile_plan), so halo rows are at most 1/16 of the rows read.  Each
+//     thread streams its own 16-byte column of the tile through a ring of
+//     kTileStages stages of kTileRows rows in shared memory, filled by
+//     cp.async (zero-filled before l = 0), so up to (kTileStages - 1) x
+//     kTileRows rows a thread are in flight without holding registers.  A
+//     thread reads back only what it copied itself, so no barrier is
+//     needed.  x's rows may lie any multiple of 16 bytes apart (the
+//     mixer's half of its input projection: 32,768 elements).
+//   * The window of KW inputs stays in registers as f32, unpacked from
+//     bf16 pairs (__bfloat1622float2) and packed back two outputs at a time
+//     (__floats2bfloat162_rn); sums in f32 in the order above.
+//   * SiLU is x * sigmoid(x) with __expf and rcp.approx: about 5
+//     instructions where expf and the IEEE division took over 20.
+//   * blockDim.x is 128, 64 or 32: the plan takes the widest block whose
+//     grid still reaches two blocks per SM (L 333 at batch 1 takes 32).
+constexpr int kTileRows = 8;     // rows of one ring stage
+constexpr int kTileStages = 3;   // ring stages
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float rcp_approx(float v) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// 16 bytes of T as f32 values, and back.
+__device__ __forceinline__ void unpack(const uint4& raw, float (&v)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(&raw);
+  v[0] = f.x;
+  v[1] = f.y;
+  v[2] = f.z;
+  v[3] = f.w;
+}
+
+__device__ __forceinline__ void unpack(const uint4& raw, float (&v)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack(const float (&v)[4]) {
+  uint4 raw;
+  *reinterpret_cast<float4*>(&raw) = make_float4(v[0], v[1], v[2], v[3]);
+  return raw;
+}
+
+__device__ __forceinline__ uint4 pack(const float (&v)[8]) {
+  uint4 raw;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  return raw;
+}
+
+// grid (ceil(D / (blockDim.x * VEC)), ceil(L / run), B); VEC = 16 /
+// sizeof(T); dynamic shared memory kTileStages * kTileRows * blockDim.x *
+// 16 bytes.
+template <typename T, int KW>
+__global__ void __launch_bounds__(128)
+conv1d_causal_kernel_tile(const Conv1dArgs a) {
+  constexpr int VEC = 16 / sizeof(T);
+  extern __shared__ __align__(16) uint4 ring[];
+  const int64_t c0 = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * VEC;
+  if (c0 >= a.d) return;
+  const int l0 = blockIdx.y * a.run;
+  const int l1 = min(l0 + a.run, a.l);
+  const T* x = static_cast<const T*>(a.x) + blockIdx.z * a.x_batch_stride + c0;
+  T* y = static_cast<T*>(a.y) + static_cast<int64_t>(blockIdx.z) * a.l * a.d + c0;
+  const T* w = static_cast<const T*>(a.w) + c0;
+
+  float wt[KW][VEC];
+#pragma unroll
+  for (int i = 0; i < KW; ++i)
+    unpack(__ldg(reinterpret_cast<const uint4*>(w + static_cast<int64_t>(i) * a.d)), wt[i]);
+  float bias[VEC];
+  if (a.bias != nullptr) {
+    unpack(__ldg(reinterpret_cast<const uint4*>(static_cast<const T*>(a.bias) + c0)), bias);
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) bias[j] = 0.f;
+  }
+
+  // Row j of the tile is token first + j: KW - 1 halo rows, then the run.
+  const int first = l0 - (KW - 1);
+  const int rows = l1 - first;
+  const int stages = (rows + kTileRows - 1) / kTileRows;
+  uint4* mine = ring + threadIdx.x;
+  auto load_stage = [&](int st) {
+    uint4* slot = mine + (st % kTileStages) * kTileRows * blockDim.x;
+#pragma unroll
+    for (int r = 0; r < kTileRows; ++r) {
+      const int j = st * kTileRows + r;
+      const int t = first + j;
+      const bool ok = j < rows && t >= 0;
+      cp_async16(slot + r * blockDim.x, ok ? x + static_cast<int64_t>(t) * a.x_row_stride : x,
+                 ok ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < kTileStages - 1; ++st) {
+    if (st < stages) load_stage(st);
+    cp_async_commit();
+  }
+
+  float win[KW][VEC];
+#pragma unroll
+  for (int i = 0; i < KW; ++i)
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) win[i][j] = 0.f;
+  for (int st = 0; st < stages; ++st) {
+    cp_async_wait<kTileStages - 2>();
+    if (st + kTileStages - 1 < stages) load_stage(st + kTileStages - 1);
+    cp_async_commit();
+    const uint4* slot = mine + (st % kTileStages) * kTileRows * blockDim.x;
+#pragma unroll
+    for (int r = 0; r < kTileRows; ++r) {
+      const int j = st * kTileRows + r;
+      if (j >= rows) break;
+#pragma unroll
+      for (int i = 0; i < KW - 1; ++i)
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) win[i][v] = win[i + 1][v];
+      unpack(slot[r * blockDim.x], win[KW - 1]);
+      if (j < KW - 1) continue;  // a halo row
+      float out[VEC];
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        float acc = 0.f;
+#pragma unroll
+        for (int i = 0; i < KW; ++i) acc += win[i][v] * wt[i][v];
+        acc += bias[v];
+        if (a.act == kSilu) acc *= rcp_approx(1.f + __expf(-acc));
+        out[v] = acc;
+      }
+      *reinterpret_cast<uint4*>(y + static_cast<int64_t>(first + j) * a.d) = pack(out);
+    }
+  }
+}
+
+template <typename T, int KW>
+int launch_tile_taps(const Conv1dArgs& a, int threads, cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int64_t threads_d = (a.d + kVec - 1) / kVec;
+  const dim3 grid(static_cast<unsigned>((threads_d + threads - 1) / threads),
+                  static_cast<unsigned>((a.l + a.run - 1) / a.run), static_cast<unsigned>(a.b));
+  const int smem = kTileStages * kTileRows * threads * 16;
+  conv1d_causal_kernel_tile<T, KW><<<grid, threads, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_tile(const Conv1dArgs& a, int kw, int threads, cudaStream_t s) {
+  switch (kw) {
+    case 1: return launch_tile_taps<T, 1>(a, threads, s);
+    case 2: return launch_tile_taps<T, 2>(a, threads, s);
+    case 3: return launch_tile_taps<T, 3>(a, threads, s);
+    case 4: return launch_tile_taps<T, 4>(a, threads, s);
+    case 5: return launch_tile_taps<T, 5>(a, threads, s);
+    case 6: return launch_tile_taps<T, 6>(a, threads, s);
+    case 7: return launch_tile_taps<T, 7>(a, threads, s);
+    case 8: return launch_tile_taps<T, 8>(a, threads, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // x: (B,L,D) with channel stride 1, batch and row strides in elements;
@@ -189,5 +390,29 @@ extern "C" int repro_conv1d_causal(const void* x, const void* w, const void* bia
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(a, kw, s);
   if (dtype == 1) return launch<__nv_bfloat16>(a, kw, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tile route: as repro_conv1d_causal, for rows that start on 16-byte
+// boundaries (x, w, bias and y 16-byte aligned; D and both strides
+// multiples of 16 bytes); run and threads (128, 64 or 32) from
+// kernels/conv1d_causal.py tile_plan.  Returns a cudaError_t (0 on
+// success).
+extern "C" int repro_conv1d_causal_tile(const void* x, const void* w, const void* bias,
+                                        void* y, long long x_batch_stride,
+                                        long long x_row_stride, int b, int l, int d, int kw,
+                                        int run, int threads, int act, int dtype,
+                                        void* stream) {
+  const int vec = dtype == 0 ? 4 : 8;
+  if (b <= 0 || l <= 0 || d <= 0 || run <= 0 || kw < 1 || kw > kMaxTaps || act < kNone ||
+      act > kSilu || b > 65535 || (l + run - 1) / run > 65535 ||
+      (threads != 32 && threads != 64 && threads != 128) || d % vec ||
+      x_batch_stride % vec || x_row_stride % vec || !aligned(x) || !aligned(w) ||
+      !aligned(bias) || !aligned(y))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Conv1dArgs a{x, w, bias, y, x_batch_stride, x_row_stride, b, l, d, run, act};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_tile<float>(a, kw, threads, s);
+  if (dtype == 1) return launch_tile<__nv_bfloat16>(a, kw, threads, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

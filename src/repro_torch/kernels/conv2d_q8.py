@@ -17,10 +17,20 @@ Two versions live here:
   implicit GEMM with the products on the tensor cores
   (``mma.sync.m16n8k32.s32.s8.s8.s32``).
 
+The kernel has two routes, picked by ``route`` from the shapes: ``"ring"``
+(``conv2d_q8_kernel_ring``) for C % 16 == 0 and K % 8 == 0, which covers
+every ResNet-50 and Inception-v3 int8 conv, reads the weights laid out once
+as (R, S, K, C) (``weight_words``, cached across calls), stages (r, s) x 64
+or 128 channels a barrier through a cp.async ring and splits the reduction
+across CTAs where the tiles leave the card under-filled (``ring_plan``);
+``"sync"``, the first kernel (one 32-channel step a barrier through
+registers), for the other shapes.
+
 int32 sums are associative and the epilogue rounds in the same places, so
-the two versions agree bit for bit.  ``conv2d_q8`` takes the plain version
+the versions agree bit for bit.  ``conv2d_q8`` takes the plain version
 for a CPU tensor and launches the kernel for a CUDA tensor; there is no
-fallback between them.  ``launches`` counts the kernel's launches.
+fallback between them.  ``launches`` counts the kernel's launches on
+either route, ``launches_ring`` the ring route's.
 
 K10c, the same function by the reference's legacy whole-plane strategy
 (``repro/kernels/conv2d_q8.py:_conv2d_q8_whole_plane``, ``pallas_call`` at
@@ -41,6 +51,7 @@ versions agree bit for bit.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -57,9 +68,25 @@ from repro_torch.kernels.conv2d_direct import (SMEM_LIMIT, WHOLE_BN, WHOLE_TN,
                                                whole_plane_products)
 from repro_torch.launch import roofline
 
-# Launches of the CUDA kernel since the last reset (set it to 0 to reset).
+# Launches of the CUDA kernel since the last reset (set it to 0 to reset):
+# both routes, and the ring route's alone.
 launches = 0
+launches_ring = 0
 _fn = None
+_fn_ring = None
+# The ring route: block tiles (BM, BN) in the order ring_plan tries them,
+# the 16-byte rows' padding in shared memory, the fewest (r, s, c) stages a
+# split of the reduction takes, and the shared memory of one of two blocks
+# an SM (the kernel's RingShape repeats these).
+RING_TILES = ((128, 64), (64, 64))
+RING_ROW_PAD = 16
+RING_MIN_SPLIT_STEPS = 2
+RING_MAX_STAGES = 4
+RING_TWO_BLOCKS = 233472 // 2 - 1024
+# weight_words: the most re-laid weight tensors kept across calls
+WORDS_CACHE = 256
+_words: collections.OrderedDict = collections.OrderedDict()
+_ring_scratch: dict = {}
 # Launches of the whole-plane kernel K10c since the last reset: both routes,
 # and the mma route's alone.
 launches_whole = 0
@@ -167,6 +194,192 @@ def _kernel_fn():
     return _fn
 
 
+def route(x_q, w_q) -> str:
+    """Which kernel a CUDA call of ``conv2d_q8(x_q, w_q, ...)`` launches,
+    by channels alone: "ring" (``conv2d_q8_kernel_ring``) for C % 16 == 0
+    and K % 8 == 0, "sync" (the first kernel) for the rest.  A dispatch by
+    shape, not a fallback: each route raises on what it cannot take."""
+    c, k = x_q.shape[-1], w_q.shape[-1]
+    return "ring" if c % 16 == 0 and k % 8 == 0 else "sync"
+
+
+def weight_words(w_q, layout: str):
+    """The int8 weights (R, S, C, K) re-laid for a kernel: "ring", (R, S,
+    K, C) with each output channel's C channels contiguous (K3's ring
+    route); "whole", (R, S, C/4, K, 4), words of 4 input channels of one
+    output channel (K10c).  Kept across calls in one LRU of at most
+    WORDS_CACHE entries, keyed by the tensor itself (held by its entry, so
+    its id is not reused), its version counter, its device and the layout:
+    an in-place edit or another tensor makes a fresh entry.  An inference
+    tensor has no version counter, so its words are made anew each call."""
+    r, s, c, k = w_q.shape
+    if layout == "ring":
+        make = lambda: w_q.permute(0, 1, 3, 2).contiguous()  # noqa: E731
+    elif layout == "whole":
+        if c % 4:
+            raise ValueError(f"C={c}: the whole layout takes words of 4 "
+                             f"input channels")
+        make = lambda: (w_q.reshape(r, s, c // 4, 4, k)  # noqa: E731
+                        .permute(0, 1, 2, 4, 3).contiguous())
+    else:
+        raise ValueError(f"layout {layout!r}; valid: ring, whole")
+    if w_q.is_inference():
+        return make()
+    key = (id(w_q), w_q._version, w_q.device, layout)
+    hit = _words.get(key)
+    if hit is not None and hit[0] is w_q:
+        _words.move_to_end(key)
+        return hit[1]
+    words = make()
+    _words[key] = (w_q, words)
+    while len(_words) > WORDS_CACHE:
+        _words.popitem(last=False)
+    return words
+
+
+@dataclasses.dataclass(frozen=True)
+class RingPlan:
+    """How the ring route runs one conv: a ``bm`` x ``bn`` output tile per
+    CTA, ring stages of one (r, s) and ``bk`` input channels, ``steps`` of
+    them over the whole reduction, ``stages`` deep, the reduction split
+    across ``splits`` CTAs of each tile, ``tiles`` output tiles, ``ctas``
+    = tiles x splits, and the dynamic shared memory ``smem``."""
+    bm: int
+    bn: int
+    bk: int
+    stages: int
+    splits: int
+    steps: int
+    tiles: int
+    ctas: int
+    smem: int
+
+
+def _ring_shape(bm: int, bn: int, bk: int, steps: int) -> tuple[int, int]:
+    """(stages, shared memory) of one kernel instance for a split of
+    ``steps`` steps, as its RingShape computes them: the most stages up to
+    RING_MAX_STAGES that leave room for two blocks an SM, and at least 3,
+    of which a split of fewer steps claims only as many; after the
+    mainloop the same memory holds the int32 tile (rows of bn + 8 words)
+    and four f32 factors a column."""
+    stage = (bm + bn) * (bk + RING_ROW_PAD)
+    stages = RING_MAX_STAGES
+    while stages > 3 and stages * stage > RING_TWO_BLOCKS:
+        stages -= 1
+    return stages, max(min(stages, steps) * stage,
+                       bm * (bn + 8) * 4 + 4 * bn * 4)
+
+
+@functools.lru_cache(maxsize=1024)
+def ring_plan(n: int, p: int, q: int, c: int, k: int, r: int, s: int,
+              stride: int) -> RingPlan:
+    """A pure function of the shape.  A stage takes 128 input channels
+    where C >= 128, else 64.  The tile is the first of RING_TILES
+    whose grid reaches ``roofline.SMS`` CTAs; where
+    none does, the smallest, with the reduction's steps split across as
+    many CTAs as bring the grid to SMS, each split keeping at least
+    RING_MIN_SPLIT_STEPS steps.  So the grid reaches SMS CTAs wherever
+    tiles x (steps // RING_MIN_SPLIT_STEPS) allows it.  ``stride`` is part
+    of the key (the shape it names) and enters through P and Q."""
+    del stride
+    if c % 16 or k % 8:
+        raise ValueError(f"the ring route takes C % 16 == 0 and K % 8 == 0, "
+                         f"got C={c}, K={k}")
+    bk = 128 if c >= 128 else 64
+    steps = r * s * -(-c // bk)
+    m = n * p * q
+    for bm, bn in RING_TILES:
+        tiles = -(-m // bm) * -(-k // bn)
+        if tiles >= roofline.SMS:
+            break
+    splits = 1
+    if tiles < roofline.SMS:
+        splits = max(1, min(steps // RING_MIN_SPLIT_STEPS,
+                            -(-roofline.SMS // tiles)))
+    stages, smem = _ring_shape(bm, bn, bk, -(-steps // splits))
+    return RingPlan(bm=bm, bn=bn, bk=bk, stages=stages, splits=splits,
+                    steps=steps, tiles=tiles, ctas=tiles * splits, smem=smem)
+
+
+def split_steps(steps: int, splits: int) -> list[tuple[int, int]]:
+    """The [begin, end) reduction steps of each split, as the kernel cuts
+    them: split z takes steps * z // splits up to steps * (z + 1) //
+    splits."""
+    return [(steps * z // splits, steps * (z + 1) // splits)
+            for z in range(splits)]
+
+
+def _scratch(device, stream: int, partial: int, tiles: int):
+    """The ring route's int32 partials (at least ``partial`` values) and
+    per-tile counters (at least ``tiles``, zero between launches), kept per
+    device and stream and grown on demand: a launch's last CTA of each
+    tile resets its counter, and launches on one stream run in order."""
+    key = (device, stream)
+    got = _ring_scratch.get(key)
+    if got is None or got[0].numel() < partial or got[1].numel() < tiles:
+        old = (0, 0) if got is None else (got[0].numel(), got[1].numel())
+        got = (torch.empty(max(partial, old[0]), dtype=torch.int32,
+                           device=device),
+               torch.zeros(max(tiles, old[1]), dtype=torch.int32,
+                           device=device))
+        _ring_scratch[key] = got
+    return got
+
+
+def _kernel_fn_ring():
+    global _fn_ring
+    if _fn_ring is None:
+        fn = _build.load("conv2d_q8").repro_conv2d_q8_ring
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 16 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn_ring = fn
+    return _fn_ring
+
+
+def _launch_ring(x_q, w_q, x_scale, w_scale, out, *, stride, padding, scale,
+                 shift, bias, residual, relu):
+    """K3's ring route into ``out`` (checked by ``conv2d_q8``)."""
+    global launches, launches_ring
+    n, h, wd, c = x_q.shape
+    r, s, _, k = w_q.shape
+    p, q = out.shape[1:3]
+    if x_q.data_ptr() % 16:
+        raise ValueError("the ring route reads x_q 16 bytes at a time: its "
+                         "data must start on a 16-byte boundary")
+    plan = ring_plan(n, p, q, c, k, r, s, stride)
+    words = weight_words(w_q, "ring")
+    residual = _aligned(residual)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    fn = _kernel_fn_ring()
+    device = x_q.device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    partial = counters = None
+    if plan.splits > 1:
+        partial, counters = _scratch(device, stream,
+                                     plan.ctas * plan.bm * plan.bn,
+                                     plan.tiles)
+    args = (x_q.data_ptr(), words.data_ptr(), x_scale.data_ptr(),
+            w_scale.data_ptr(), ptr(scale), ptr(shift), ptr(bias),
+            ptr(residual), out.data_ptr(), ptr(partial), ptr(counters), n, h,
+            wd, c, k, r, s, stride, padding, int(relu), plan.bm, plan.bn,
+            plan.bk, plan.stages, plan.splits, plan.smem, stream)
+    launches += 1
+    launches_ring += 1
+    # the kernel launches on the current device: switch only when x_q lies
+    # on another (the switch costs host time on every call of a forward)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"conv2d_q8 kernel launch failed (ring route): "
+                           f"CUDA error {err} (x_q {tuple(x_q.shape)}, w_q "
+                           f"{tuple(w_q.shape)}, {plan})")
+    return out
+
+
 def conv2d_q8(x_q, w_q, *, x_scale, w_scale, stride: int = 1,
               padding: int = 0, bias=None, scale=None, shift=None,
               residual=None, relu: bool = False):
@@ -175,7 +388,8 @@ def conv2d_q8(x_q, w_q, *, x_scale, w_scale, stride: int = 1,
     output channel) -> (N,P,Q,K) f32.  The optional bias / folded-BN
     scale+shift / residual / relu epilogue is applied in f32 after
     dequantization.  A CPU tensor takes ``conv2d_q8_plain``; a CUDA tensor
-    launches the sm_90a kernel on the current stream or raises."""
+    launches the sm_90a kernel of ``route`` on the current stream or
+    raises."""
     global launches
     p, q = _check_q8(x_q, w_q, x_scale, w_scale, bias, scale, shift,
                      residual, stride, padding)
@@ -202,6 +416,10 @@ def conv2d_q8(x_q, w_q, *, x_scale, w_scale, stride: int = 1,
     out = torch.empty((n, p, q, k), dtype=torch.float32, device=x_q.device)
     if out.numel() == 0:
         return out
+    if route(x_q, w_q) == "ring":
+        return _launch_ring(x_q, w_q, x_scale, w_scale, out, stride=stride,
+                            padding=padding, scale=scale, shift=shift,
+                            bias=bias, residual=residual, relu=relu)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     fn = _kernel_fn()
     with torch.cuda.device(x_q.device):
@@ -415,7 +633,7 @@ def conv2d_q8_whole(x_q, w_q, *, x_scale, w_scale, stride: int = 1,
     xp = pad_input(x_q, padding=padding, stride=stride, rb_p=rb_p, r=r, p=p)
     hp, wp = xp.shape[1], xp.shape[2]
     # words of 4 input channels of one output channel: (R, S, C/4, K, 4)
-    wt = w_q.reshape(r, s, c // 4, 4, k).permute(0, 1, 2, 4, 3).contiguous()
+    wt = weight_words(w_q, "whole")
     if path == "mma":
         geo = dict(n=n, p=p, q=q, k=k, rb_p=rb_p, k_blk=k_blk)
         return _launch_whole_mma(xp, wt, x_scale, w_scale, p=p, q=q, r=r,

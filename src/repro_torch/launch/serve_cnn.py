@@ -149,14 +149,15 @@ def serve_window(engine: CnnInferenceEngine, *, requests: int, seed: int = 0,
     throwaway server (untimed), then ``requests`` through a fresh one.  All
     images are made before either starts, and the launch counts of K1 and
     K3, and of their whole-plane forms K10a and K10c (with K1's and K10a's
-    mma-route counts), are set to 0 as the window opens.  Returns (server,
+    mma-route counts and K3's ring-route count), are set to 0 as the window
+    opens.  Returns (server,
     results)."""
     rng = np.random.default_rng(seed)
     image = engine.image_hw[0]
     warm = make_images(warm_requests, image, rng)
     window = make_images(requests, image, rng)
     serve_bursts(ImageServer(engine), warm, rng=rng)
-    k1.launches = k3.launches = k1.launches_mma = 0
+    k1.launches = k3.launches = k1.launches_mma = k3.launches_ring = 0
     k1.launches_whole = k3.launches_whole = k1.launches_whole_mma = 0
     server = ImageServer(engine)
     return server, serve_bursts(server, window, rng=rng)
@@ -201,6 +202,7 @@ def main(argv=None):
         "conv2d_direct_launches": k1.launches,
         "conv2d_direct_mma_launches": k1.launches_mma,
         "conv2d_q8_launches": k3.launches,
+        "conv2d_q8_ring_launches": k3.launches_ring,
         "conv2d_direct_whole_launches": k1.launches_whole,
         "conv2d_direct_whole_mma_launches": k1.launches_whole_mma,
         "conv2d_q8_whole_launches": k3.launches_whole,

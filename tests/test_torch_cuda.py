@@ -259,6 +259,97 @@ def test_q8_kernel_overflow_and_rejects(cuda):
     assert k3.launches == before
 
 
+
+# K3's two routes: n, h, w, c, k, r, stride, pad.  Grids the plan splits
+# (7x7 and 14x14 planes with long reductions, a batch of 1), tails of M and
+# K inside a tile (K 40, 200), 64-channel stages (C 16, 48, 64) and
+# 128-channel ones, stride 2
+Q8_RING_CASES = [
+    (16, 7, 7, 512, 512, 3, 1, 1), (1, 7, 7, 2048, 512, 1, 1, 0),
+    (2, 14, 14, 256, 256, 3, 1, 1), (3, 9, 11, 48, 40, 3, 2, 1),
+    (1, 13, 13, 16, 200, 5, 1, 2), (16, 56, 56, 64, 256, 1, 1, 0),
+    (2, 28, 28, 128, 128, 3, 2, 1), (1, 14, 14, 1024, 2048, 1, 2, 0),
+]
+
+
+@pytest.mark.parametrize("case", Q8_RING_CASES)
+@pytest.mark.parametrize("epi", [0, 2, 3])
+def test_q8_both_routes_match_plain_bit_for_bit(cuda, case, epi,
+                                                monkeypatch):
+    """The ring route (the plan's split where it takes one) and the sync
+    route forced on the same inputs: both equal the plain version, and a
+    second ring launch gives the same bits (the split's counters reset)."""
+    args = _q8_args(case, cuda, **EPILOGUES[epi])
+    exp = k3.conv2d_q8_plain(**args)
+    assert k3.route(args["x_q"], args["w_q"]) == "ring"
+    before, ring = k3.launches, k3.launches_ring
+    out = k3.conv2d_q8(**args)
+    again = k3.conv2d_q8(**args)
+    torch.cuda.synchronize()
+    assert (k3.launches, k3.launches_ring) == (before + 2, ring + 2)
+    assert torch.equal(out, exp), float((out - exp).abs().max())
+    assert torch.equal(again, exp)
+    monkeypatch.setattr(k3, "route", lambda x_q, w_q: "sync")
+    sync = k3.conv2d_q8(**args)
+    torch.cuda.synchronize()
+    assert (k3.launches, k3.launches_ring) == (before + 3, ring + 2)
+    assert torch.equal(sync, exp)
+
+
+@pytest.mark.parametrize("tile", k3.RING_TILES)
+@pytest.mark.parametrize("bk", [64, 128])
+@pytest.mark.parametrize("splits", [1, 3])
+def test_q8_ring_every_instance(cuda, tile, bk, splits, monkeypatch):
+    """Every (BM, BN, BK) instance the kernel is built for, split and not,
+    on a shape with M, K and C tails inside the tile."""
+    case = (2, 11, 9, 144, 200, 3, 1, 1)
+    args = _q8_args(case, cuda, bias=True, bn=True, residual=True, relu=True)
+    steps = 9 * -(-144 // bk)
+    stages, smem = k3._ring_shape(*tile, bk, -(-steps // splits))
+    tiles = -(-2 * 11 * 9 // tile[0]) * -(-200 // tile[1])
+    plan = k3.RingPlan(bm=tile[0], bn=tile[1], bk=bk, stages=stages,
+                       splits=splits, steps=steps, tiles=tiles,
+                       ctas=tiles * splits, smem=smem)
+    monkeypatch.setattr(k3, "ring_plan", lambda *a: plan)
+    out = k3.conv2d_q8(**args)
+    assert torch.equal(out, k3.conv2d_q8_plain(**args))
+
+
+def test_q8_ring_refuses_what_its_route_excludes(cuda, monkeypatch):
+    args = _q8_args(CASES[0], cuda)             # C 8: the sync route
+    assert k3.route(args["x_q"], args["w_q"]) == "sync"
+    monkeypatch.setattr(k3, "route", lambda x_q, w_q: "ring")
+    before = k3.launches
+    with pytest.raises(ValueError, match="C % 16"):
+        k3.conv2d_q8(**args)
+    args = _q8_args(Q8_RING_CASES[2], cuda)
+    buf = torch.empty(args["x_q"].numel() + 1, dtype=torch.int8,
+                      device=cuda)
+    shifted = buf[1:].view(args["x_q"].shape)
+    shifted.copy_(args["x_q"])
+    with pytest.raises(ValueError, match="16-byte"):
+        k3.conv2d_q8(**{**args, "x_q": shifted})
+    assert k3.launches == before
+
+
+def test_q8_weight_words_cached_across_calls(cuda):
+    """One re-layout per weight tensor: the same words on a second call,
+    fresh ones after an in-place edit (and the output follows it), and
+    for another tensor of the same shape."""
+    args = _q8_args(Q8_RING_CASES[0], cuda, bn=True)
+    first = k3.weight_words(args["w_q"], "ring")
+    k3.conv2d_q8(**args)
+    assert k3.weight_words(args["w_q"], "ring") is first
+    assert torch.equal(first.cpu(), args["w_q"].permute(0, 1, 3, 2).cpu())
+    args["w_q"][0, 0, 0].neg_()
+    edited = k3.weight_words(args["w_q"], "ring")
+    assert edited is not first
+    assert torch.equal(k3.conv2d_q8(**args), k3.conv2d_q8_plain(**args))
+    other = args["w_q"].clone()
+    assert k3.weight_words(other, "ring") is not edited
+    assert torch.equal(k3.weight_words(other, "whole").cpu(),
+                       k3.weight_words(args["w_q"], "whole").cpu())
+
 # n, h, w, c, k, r, stride, pad, rb_p, k_blk, c_blk: the CPU cases of
 # tests/test_torch_streams.py, a ragged c_blk, and two ResNet-50 layers
 STREAM_CASES = [
@@ -646,6 +737,60 @@ def test_conv1d_kernel_rejects_what_it_does_not_take(cuda):
         k8.conv1d_causal(strided, w)
     assert k8.launches == before
 
+
+
+# K8's tile route: the served widths, every tap count, rows in place
+CONV1D_TILE_CASES = [
+    (1, 1, 16384, 4), (1, 333, 16384, 4), (1, 1024, 16384, 4),
+    (8, 512, 2048, 4), (2, 77, 1000, 4), (1, 64, 8, 8), (2, 17, 256, 1),
+    (4, 130, 136, 5), (2, 70, 48, 6), (1, 200, 4096, 3),
+]
+
+
+@pytest.mark.parametrize("case", CONV1D_TILE_CASES)
+@pytest.mark.parametrize("act", ["silu", "none"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv1d_both_routes_match_plain(cuda, case, act, dtype,
+                                        monkeypatch):
+    """The tile route where the rows allow it, and the thread route forced
+    on the same inputs, both within the limits of max |plain|."""
+    x, w, bias = _conv1d_args(case, cuda, dtype)
+    if dtype == torch.float32 or case[2] % 8 == 0:
+        assert k8.route(x, w, bias) == "tile"
+    exp = k8.conv1d_causal_plain(x, w, bias=bias, act=act)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    before, tile = k8.launches, k8.launches_tile
+    out = k8.conv1d_causal(x, w, bias=bias, act=act)
+    torch.cuda.synchronize()
+    assert (k8.launches, k8.launches_tile) == (before + 1, tile + 1)
+    assert _rel_err(out.float(), exp.float()) <= tol
+    monkeypatch.setattr(k8, "route", lambda *a: "thread")
+    thread = k8.conv1d_causal(x, w, bias=bias, act=act)
+    torch.cuda.synchronize()
+    assert (k8.launches, k8.launches_tile) == (before + 2, tile + 1)
+    assert _rel_err(thread.float(), exp.float()) <= tol
+
+
+def test_conv1d_tile_route_on_rows_in_place(cuda):
+    """The mixer's input, half of a (B, L, 2 D) projection: the tile route
+    reads its rows 2 D apart in place."""
+    d = 4096
+    xz = torch.randn((2, 300, 2 * d), device=cuda).bfloat16()
+    x = xz.chunk(2, dim=-1)[0]
+    w = torch.randn((4, d), device=cuda).bfloat16()
+    bias = torch.randn((d,), device=cuda).bfloat16()
+    assert k8.route(x, w, bias) == "tile"
+    out = k8.conv1d_causal(x, w, bias=bias)
+    exp = k8.conv1d_causal_plain(x.contiguous(), w, bias=bias)
+    assert _rel_err(out.float(), exp.float()) <= 1e-2
+
+
+def test_conv1d_tile_route_refuses_what_it_excludes(cuda, monkeypatch):
+    x, w, bias = _conv1d_args((2, 77, 1003, 4), cuda, torch.bfloat16)
+    assert k8.route(x, w, bias) == "thread"
+    monkeypatch.setattr(k8, "route", lambda *a: "tile")
+    with pytest.raises(RuntimeError, match="tile route"):
+        k8.conv1d_causal(x, w, bias=bias)
 
 def test_hybrid_smoke_forward_and_serving_match_the_cpu(cuda):
     """The smoke Jamba period (7 Mamba + 1 attention, MoE on odd layers):
