@@ -26,7 +26,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    rate, or the bytes).
 3. Serving: full ResNet-50 (1000 classes, 224x224) with random BN running
    statistics through ``CnnInferenceEngine`` and ``ImageServer`` at
-   max_batch 16: an untimed pass of 64 requests, then a window of 512
+   max_batch 16 (warmup with ``autotune="off"``, the requests under the
+   engine's "cache" scope on a cold plan cache: every launch takes the
+   kernel's default plan, as in phases 6, 7b, 10 and 23): an untimed pass
+   of 64 requests, then a window of 512
    requests in bursts that reach every bucket (1 to 16), with every image
    made before the window opens.  Images/s is over the window's wall time;
    p50/p99 are enqueue-to-result.  K1's launch count is reset just before
@@ -65,6 +68,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
    activations differ by one step between the two, and the int8-vs-f32
    logit gap and top-1 agreement on the card (printed, not gated: a
    property of the quantization scheme).
+7b. Inception-v3 serving: Inception-v3 (1000 classes, 299x299, random
+    weights and BN statistics from seed 7) through the same engine and
+    window as phase 3, f32 and then int8 (its own calibration), tiled:
+    images/s and p50/p99 beside ResNet-50's from phases 3 and 6; K1 (f32)
+    or K3 (int8) exactly 23 launches per forward, all on the mma or ring
+    route, the other kernel none; a batch of 2 on the card against the
+    port's CPU forward (int8: the card's quantized tree) within 1e-4 (f32)
+    or 1e-3 (int8) * max |logit|, the same top-1.
 8. K1 in training: every distinct lane-aligned signature one ResNet-50
    training step at batch 32 launches on K1, the bare forwards and the
    backward-data dual convs of ``dual_conv_signatures`` (31 distinct, 61
@@ -129,6 +140,23 @@ Phases, each of which fails the run (nonzero exit, no result line):
     per signature the route, the tile, the tuned times on the mma route
     and with the SIMT route forced, the analytic ones and K1's, and per
     52-conv forward.
+13b. The plan tuner (§II-D over K1, K2 and K3), into a cache in a
+    temporary directory: ``CnnInferenceEngine.warmup(autotune="tune")``
+    on an f32 and an int8 ResNet-50 engine (kinds "fwd" and "q8", every
+    bucket) and ``warmup_cnn_train`` at batch 32 (kinds "fwd", "bwd" on
+    the 31 distinct dual convs, "wu" on the 22 weight updates); at most 8
+    plans timed a signature by device time (``tune.measure.device_us``),
+    the kernel's default among them, every launch on the mma or ring
+    route.  Per signature at batch 16 (serving) and 32 (training): the
+    tuned launch against the plain version (K1, K2 <= 1e-5; K3 the same
+    bits), the tuning pass's default and tuned times and candidates timed,
+    and both plans timed again in turns on one set of inputs, the tuned
+    no more than 3 % above the default; the sums per 52-conv forward (f32,
+    int8) and per step (forward, dual, weight update).  Then the f32 and
+    int8 windows of phases 3 and 6 and ten training steps, each with the
+    default plans (autotune "off") and under "cache" in turns: images/s,
+    p50/p99, step ms, 52 K1 or K3 launches a forward and 113 K1 + 52 K2 a
+    step on the mma or ring route, no candidate timed.
 14. K7 vs plain: flash attention at Qwen2-1.5B's prefill shapes (12 query
     and 2 KV heads, Dh 128; L 128, 333 and 1024 at batch 1 and 8; causal,
     and one non-causal case) and one SmolLM-360M shape (15 / 5 heads, Dh
@@ -303,9 +331,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
     (max |diff| 0); the times of K5 (events, profiler), the plain version
     and ``F.max_pool2d`` at the stem pool against the bytes bound (51.4 MB
     read, 12.8 MB written: 0.0192 ms at 3.35 TB/s).
-28. The whole-plane, LM and hybrid serving summary lines, the int8 serving
-    and training summary lines, the kernels line (K1, K2, K3, K4, K7, K6,
-    K8, K9, K10a, K10b, K10c, K5), then the device line last.
+28. The whole-plane, Inception-v3, plan-tuning, LM and hybrid serving
+    summary lines, the int8 serving and training summary lines, the
+    kernels line (K1, K2, K3, K4, K7, K6, K8, K9, K10a, K10b, K10c, K5;
+    K1, K2 and K3 with their launches under tuned plans), then the device
+    line last.
 
 Device times by kernel come from ``trace_device``: a ``torch.profiler``
 trace with one warm-up step, whose recorded launches of each port kernel
@@ -324,6 +354,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 T_IMPORT = time.perf_counter()
@@ -584,7 +615,7 @@ def serving(device):
     engine = CnnInferenceEngine(gxm, params, image_hw=(image, image),
                                 max_batch=BATCH)
     t0 = time.perf_counter()
-    report = engine.warmup()
+    report = engine.warmup(autotune="off")
     print(f"\nserving: warmup of buckets {report['buckets']} in "
           f"{time.perf_counter() - t0:.2f}s "
           f"({report['kernel_path_signatures']} of "
@@ -869,7 +900,7 @@ def int8_serving(device, params, f32_stats):
                                 max_batch=BATCH, quantized=True)
     check(gxm.quantized and engine.quantized, "the int8 engine is not int8")
     t0 = time.perf_counter()
-    report = engine.warmup()
+    report = engine.warmup(autotune="off")
     print(f"\nint8 serving: warmup (calibration of "
           f"{len(engine.act_scales)} activation scales on the default "
           f"synthetic batches, then buckets {report['buckets']}) in "
@@ -1833,6 +1864,7 @@ def tuned_replay(device, sigs, rows):
             shapes.append(sh)
     gen = torch.Generator(device=device).manual_seed(SEED + 13)
     inputs = {key: stream_inputs(device, gen, key) for key in sigs}
+    prev = os.environ.get("REPRO_TUNE_CACHE")
     with tempfile.TemporaryDirectory() as tmp:
         os.environ["REPRO_TUNE_CACHE"] = os.path.join(tmp, "blockings.json")
         try:
@@ -1879,7 +1911,10 @@ def tuned_replay(device, sigs, rows):
                 kind="streams", backend="cuda", minibatch=BATCH) is not None
                 for key in sigs)
         finally:
-            del os.environ["REPRO_TUNE_CACHE"]
+            if prev is None:
+                del os.environ["REPRO_TUNE_CACHE"]
+            else:
+                os.environ["REPRO_TUNE_CACHE"] = prev
     print(f"  cache pass: {replay_launches} K4 launches for {len(sigs)} "
           f"signatures ({replay_mma} on the mma route), {cache_timed} "
           f"candidates timed, {hits} cache hits")
@@ -1950,6 +1985,449 @@ def tuned_replay(device, sigs, rows):
     return out_rows, dict(tuning, replay_launches=replay_launches,
                           replay_mma=replay_mma, cache_timed=cache_timed,
                           hits=hits)
+
+
+# ---------------------------------------------------------------------------
+# Phase 7b: Inception-v3 served on the card; phase 13b: the plan tuner
+# ---------------------------------------------------------------------------
+
+INCEPTION_IMAGE = 299
+GEO = ("h", "w", "c", "k", "r", "s", "stride", "padding")
+
+
+def inception_serving(device, f32_stats, q8_stats) -> dict:
+    """Phase 7b: Inception-v3 (1000 classes, 299x299, random weights and BN
+    statistics from seed 7) through ``CnnInferenceEngine`` and
+    ``ImageServer`` at max_batch 16, f32 and then int8 (its own
+    calibration), with the tiled kernels and default plans (warmup
+    autotune "off"): phase 3's window (64 untimed, then 512 requests in
+    bursts), images/s and p50/p99 beside ResNet-50's from phases 3 and 6;
+    K1 (f32) or K3 (int8) exactly 23 launches per forward, every one on
+    the mma or ring route; then a batch of 2 on the card against the
+    port's CPU forward (the int8 one on the card's quantized tree): max
+    |diff| <= 1e-4 (f32) or 1e-3 (int8) * max |logit| and the same
+    top-1."""
+    import numpy as np
+    import torch
+    from repro_torch.core.conv import lane_ok
+    from repro_torch.graph import GxM, inception_v3
+    from repro_torch.graph.serving import CnnInferenceEngine
+    from repro_torch.kernels import conv2d_direct as k1
+    from repro_torch.kernels import conv2d_q8 as k3
+    from repro_torch.launch.serve_cnn import build_model, serve_window
+
+    gxm, image = build_model(smoke=False, device=device, arch="inception")
+    check(image == INCEPTION_IMAGE and gxm.num_classes == 1000,
+          f"Inception-v3 image {image}, {gxm.num_classes} classes")
+    gen = torch.Generator().manual_seed(SEED + 7)
+    params = gxm.init(gen)
+    random_bn_stats(params, gen)
+    per_fwd = sum(1 for t in gxm.etg.tasks if t.op == "conv"
+                  and lane_ok(t.attrs["c"], t.attrs["k"]))
+    convs = sum(1 for t in gxm.etg.tasks if t.op == "conv")
+    check(per_fwd == 23, f"{per_fwd} lane-aligned Inception-v3 convs, not 23")
+    images = np.random.default_rng(SEED + 1).standard_normal(
+        (PARITY_BATCH, image, image, 3), dtype=np.float32)
+    out = {}
+    for quantized, resnet in ((False, f32_stats), (True, q8_stats)):
+        name = "int8" if quantized else "f32"
+        net = build_model(smoke=False, device=device, arch="inception")[0] \
+            if quantized else gxm
+        engine = CnnInferenceEngine(net, params, image_hw=(image, image),
+                                    max_batch=BATCH, quantized=quantized)
+        t0 = time.perf_counter()
+        report = engine.warmup(autotune="off")
+        warm_s = time.perf_counter() - t0
+        server, results = serve_window(engine, requests=REQUESTS, seed=SEED)
+        launches = k3.launches if quantized else k1.launches
+        routed = k3.launches_ring if quantized else k1.launches_mma
+        other = k1.launches if quantized else k3.launches
+        st = server.stats()
+        print(f"\nInception-v3 {name} serving: {image}x{image}, warmup of "
+              f"buckets {report['buckets']} in {warm_s:.2f}s; {REQUESTS} "
+              f"requests in {st['batches']} batches {st['by_bucket']}")
+        print(f"  images/s {st['images_per_s']:.2f}  p50 "
+              f"{st['latency']['p50_ms']:.3f} ms  p99 "
+              f"{st['latency']['p99_ms']:.3f} ms; ResNet-50 {name} (phase "
+              f"{6 if quantized else 3}): images/s "
+              f"{resnet['images_per_s']:.2f}  p50 "
+              f"{resnet['latency']['p50_ms']:.3f} ms  p99 "
+              f"{resnet['latency']['p99_ms']:.3f} ms")
+        kname, rname = ("K3", "ring") if quantized else ("K1", "mma")
+        print(f"  {kname} launches {launches} = {per_fwd} of {convs} convs x "
+              f"{st['batches']} forwards, {routed} on the {rname} route; "
+              f"{'K1' if quantized else 'K3'} {other}")
+        check(len(results) == REQUESTS and all(
+            0 <= c < 1000 and math.isfinite(v) for c, v in results.values()),
+            f"Inception-v3 {name}: bad results")
+        check(set(st["by_bucket"]) == set(engine.buckets),
+              f"buckets served {sorted(st['by_bucket'])}")
+        check(launches == per_fwd * st["batches"] and routed == launches
+              and other == 0,
+              f"Inception-v3 {name}: {kname} {launches} launches ({routed} "
+              f"on the {rname} route), expected {per_fwd} x "
+              f"{st['batches']} all on it")
+        run = engine.qparams if quantized else params
+        card = engine.infer(images).cpu()
+        cpu_run = {n_: {leaf: v.cpu() for leaf, v in p.items()}
+                   for n_, p in run.items()}
+        t0 = time.perf_counter()
+        cpu = GxM(inception_v3(), device="cpu", quantized=quantized).infer(
+            cpu_run, torch.from_numpy(images))
+        cpu_s = time.perf_counter() - t0
+        max_abs = float((card - cpu).abs().max())
+        scale = float(cpu.abs().max())
+        top1 = bool((card.argmax(-1) == cpu.argmax(-1)).all())
+        tol = INT8_LOGIT_REL_TOL if quantized else LOGIT_REL_TOL
+        print(f"  parity: card vs CPU (batch {PARITY_BATCH}, {cpu_s:.1f}s on "
+              f"CPU): max|diff| {max_abs:.3e}, max|logit| {scale:.3e}, ratio "
+              f"{max_abs / scale:.3e} (limit {tol}), same top-1 {top1}")
+        check(card.shape == (PARITY_BATCH, 1000)
+              and bool(torch.isfinite(card).all()), "logits not finite")
+        check(max_abs <= tol * scale, f"Inception-v3 {name} logits differ "
+              f"by {max_abs:.3e} > {tol} * {scale:.3e}")
+        check(top1, f"Inception-v3 {name} top-1 differs from the CPU")
+        out[name] = dict(images_per_s=st["images_per_s"],
+                         p50_ms=st["latency"]["p50_ms"],
+                         p99_ms=st["latency"]["p99_ms"],
+                         launches=launches, batches=st["batches"],
+                         parity_ratio=max_abs / scale, same_top1=top1,
+                         resnet50_images_per_s=resnet["images_per_s"],
+                         resnet50_p50_ms=resnet["latency"]["p50_ms"])
+        del engine, net
+    torch.cuda.empty_cache()
+    return out
+
+
+PLAN_REL_TOL = 1.03     # a tuned plan's device time against its default's
+
+
+def plan_row(kind: str, geo: tuple, n: int, count: int, cache) -> dict:
+    """One tuned signature: its cache entry (the tuning pass's default and
+    tuned times, candidates timed), the tuned launch against the kernel's
+    plain version (K1, K2 <= 1e-5; K3 the same bits), and both plans timed
+    again on one set of inputs, in turns (default, tuned, tuned, default,
+    twice over; device time, ``tune.measure.device_us``)."""
+    import numpy as np
+    import torch
+    from repro_torch import tune
+    from repro_torch.kernels import conv2d_direct as k1
+    from repro_torch.kernels import conv2d_q8 as k3
+    from repro_torch.kernels import conv2d_wu as k2
+    from repro_torch.tune import measure, space
+
+    sh = dict(zip(GEO, geo))
+    db = tune.plan_dtype_bytes(kind)
+    entry = cache.lookup(tune.conv_key(kind=kind, **sh, dtype_bytes=db,
+                                       backend="cuda", minibatch=n))
+    plan = tune.lookup_plan(kind=kind, **sh, minibatch=n, cache=cache)
+    default = space.default_plan(kind, n=n, **sh)
+    check(plan is not None and entry["source"] == "measured",
+          f"no measured {kind} plan for {geo} at batch {n}: {entry}")
+    check(entry["timed"] <= 8 and entry["default_us"] >= entry["score_us"],
+          f"{kind} {geo}: {entry['timed']} timed, tuned "
+          f"{entry['score_us']} us against the default's "
+          f"{entry['default_us']}")
+    args = measure.conv_inputs(kind, sh, n)
+    out = measure.kernel_call(kind, sh, args, plan)()
+    torch.cuda.synchronize()
+    if kind == "q8":
+        exp = k3.conv2d_q8_plain(**args, stride=sh["stride"],
+                                 padding=sh["padding"])
+        err = float((out - exp).abs().max())
+        check(err == 0, f"tuned K3 {plan} at {geo}: max |diff| {err}")
+    else:
+        if kind == "wu":
+            exp = k2.conv2d_wu_plain(**args, stride=sh["stride"],
+                                     padding=sh["padding"],
+                                     filter_rs=(sh["r"], sh["s"]))
+        else:
+            exp = k1.conv2d_direct_plain(**args, stride=sh["stride"],
+                                         padding=sh["padding"])
+        err = float((out - exp).abs().max()) / float(exp.abs().max())
+        check(err <= KERNEL_REL_TOL, f"tuned {kind} {plan} at {geo}: "
+              f"max_rel {err:.3e}")
+    del out, exp
+    run_d = measure.kernel_call(kind, sh, args, default)
+    run_t = measure.kernel_call(kind, sh, args, plan)
+    if plan == default:         # one plan: one series of readings
+        d_us = t_us = float(np.median([measure.device_us(run_d)
+                                       for _ in range(4)]))
+    else:
+        ds, ts = [], []
+        for _ in range(2):
+            ds.append(measure.device_us(run_d))
+            ts.append(measure.device_us(run_t))
+            ts.append(measure.device_us(run_t))
+            ds.append(measure.device_us(run_d))
+        d_us, t_us = float(np.median(ds)), float(np.median(ts))
+    check(t_us <= PLAN_REL_TOL * d_us,
+          f"tuned {kind} plan {plan} at {geo}, batch {n}: {t_us:.2f} us "
+          f"against the default's {d_us:.2f} us")
+    del args
+    return dict(kind=kind, geo=geo, n=n, count=count,
+                default=dataclasses.asdict(default),
+                plan=dataclasses.asdict(plan), same=plan == default,
+                tuning_default_us=entry["default_us"],
+                tuning_tuned_us=entry["score_us"], timed=entry["timed"],
+                candidates=entry["candidates"], default_us=d_us,
+                tuned_us=t_us, err=err)
+
+
+def _plan_text(kind: str, p: dict) -> str:
+    if kind == "q8":
+        return f"{p['bm']}x{p['bn']}/{p['bk']} s{p['splits']}"
+    return f"t{p['tile']} s{p['splits']} c{p['chunk']}"
+
+
+def serve_window_timed(engine, label: str) -> dict:
+    """``serve_window`` (64 untimed, then REQUESTS) with the K1 and K3
+    counts read just after and ``tune.measure.measurements`` held at 0
+    over both passes."""
+    from repro_torch.kernels import conv2d_direct as k1
+    from repro_torch.kernels import conv2d_q8 as k3
+    from repro_torch.launch.serve_cnn import serve_window
+    from repro_torch.tune import measure
+
+    measure.measurements = 0
+    server, results = serve_window(engine, requests=REQUESTS, seed=SEED)
+    st = server.stats()
+    check(len(results) == REQUESTS, f"{label}: served {len(results)}")
+    check(measure.measurements == 0, f"{label}: the serving window timed "
+          f"{measure.measurements} candidates")
+    return dict(images_per_s=st["images_per_s"],
+                p50_ms=st["latency"]["p50_ms"],
+                p99_ms=st["latency"]["p99_ms"], batches=st["batches"],
+                k1=k1.launches, k1_mma=k1.launches_mma, k3=k3.launches,
+                k3_ring=k3.launches_ring)
+
+
+def plan_tuning(device, sigs, fwd, dual, wu, serve_params) -> dict:
+    """Phase 13b: the §II-D tuner over K1's, K2's and K3's plans, into a
+    cache in a temporary directory (``REPRO_TUNE_CACHE``).
+
+    ``CnnInferenceEngine.warmup(autotune="tune")`` tunes ResNet-50's
+    serving signatures at every bucket ("fwd" on an f32 engine, "q8" at 1
+    byte on an int8 one), ``warmup_cnn_train`` its training signatures at
+    batch 32 ("fwd", "bwd" on the 31 distinct dual convs, "wu" on the 22
+    weight updates): at most 8 plans timed a signature, the kernel's
+    default among them, every launch on the mma or ring route.  Per
+    signature at batch 16 (serving) and 32 (training): the tuned launch
+    against the plain version, the default and tuned plans with the
+    tuning pass's times and the candidates timed, and both timed again in
+    turns on one set of inputs (the tuned no more than 3 % above the
+    default); the sums per 52-conv forward and per step.  Then the f32 and
+    int8 windows of phases 3 and 6 (two each way) and ten training steps,
+    each with the default plans (autotune "off") and under "cache", in
+    turns: images/s, p50 and step ms, the launch counts, no candidate
+    timed."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import tune
+    from repro_torch.graph.serving import CnnInferenceEngine
+    from repro_torch.kernels import conv2d_direct as k1
+    from repro_torch.kernels import conv2d_q8 as k3
+    from repro_torch.kernels import conv2d_wu as k2
+    from repro_torch.launch.serve_cnn import build_model
+    from repro_torch.launch.train_cnn import build_trainer
+    from repro_torch.train.step import make_cnn_train_step, warmup_cnn_train
+    from repro_torch.tune import measure
+
+    serve_geo: dict[tuple, int] = {}
+    for key, count in sigs.items():
+        serve_geo[key[:8]] = serve_geo.get(key[:8], 0) + count
+    prev = os.environ.get("REPRO_TUNE_CACHE")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["REPRO_TUNE_CACHE"] = os.path.join(tmp, "plans.json")
+        try:
+            cache = tune.default_cache()
+            k1.launches = k1.launches_mma = k2.launches = 0
+            k2.launches_mma = k3.launches = k3.launches_ring = 0
+            measure.measurements = 0
+            t0 = time.perf_counter()
+            engines = {}
+            for quantized in (False, True):
+                gxm = build_model(smoke=False, device=device)[0]
+                eng = CnnInferenceEngine(gxm, serve_params,
+                                         image_hw=(IMAGE, IMAGE),
+                                         max_batch=BATCH,
+                                         quantized=quantized)
+                rep = eng.warmup(autotune="tune")
+                engines["int8" if quantized else "f32"] = (eng, rep)
+            serve_s = time.perf_counter() - t0
+            gxm_t, params_t, step_cache, data = build_trainer(
+                full=True, num_classes=1000, image=IMAGE, batch=TRAIN_BATCH,
+                lr=TRAIN_LR, device=device, seed=SEED, autotune="cache")
+            t1 = time.perf_counter()
+            rep_t = warmup_cnn_train(gxm_t, image_hw=(IMAGE, IMAGE),
+                                     minibatch=TRAIN_BATCH)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t1
+            tuning = dict(serve_seconds=serve_s, train_seconds=train_s,
+                          timed=measure.measurements,
+                          k1=k1.launches, k1_mma=k1.launches_mma,
+                          k2=k2.launches, k2_mma=k2.launches_mma,
+                          k3=k3.launches, k3_ring=k3.launches_ring,
+                          entries=len(cache))
+            print(f"\nplan tuning: serving warmups (f32 'fwd' "
+                  f"{engines['f32'][1]['tune_entries']} entries, int8 'q8' "
+                  f"{engines['int8'][1]['tune_entries']}, buckets "
+                  f"{engines['f32'][1]['buckets']}) in {serve_s:.2f}s, "
+                  f"warmup_cnn_train ({len({e['key'] for e in rep_t if e['cached']})} "
+                  f"distinct plans of {len(rep_t)} keys) in {train_s:.2f}s; "
+                  f"{measure.measurements} candidates timed; launches K1 "
+                  f"{k1.launches} ({k1.launches_mma} mma), K2 {k2.launches} "
+                  f"({k2.launches_mma} mma), K3 {k3.launches} "
+                  f"({k3.launches_ring} ring)")
+            check(k1.launches == k1.launches_mma and k2.launches ==
+                  k2.launches_mma and k3.launches == k3.launches_ring,
+                  "a tuning launch left the mma or ring route")
+            cached = len({e["key"] for e in rep_t if e["cached"]})
+            check(cached == len(fwd) + len(dual) + len(wu),
+                  f"warmup_cnn_train cached {cached} distinct plans, "
+                  f"expected {len(fwd) + len(dual) + len(wu)}")
+
+            rows = []
+            for kind, table, n in (("fwd", serve_geo, BATCH),
+                                   ("q8", serve_geo, BATCH),
+                                   ("fwd", fwd, TRAIN_BATCH),
+                                   ("bwd", dual, TRAIN_BATCH),
+                                   ("wu", wu, TRAIN_BATCH)):
+                for geo, count in table.items():
+                    rows.append(plan_row(kind, geo, n, count, cache))
+            print("  per signature: the tuning pass's default and tuned "
+                  "device us, candidates timed; then both plans timed again "
+                  "in turns (device us); plans: K1/K2 tile code, splits, "
+                  "chunk; K3 tile/stage channels, splits")
+            print("  kind  n   h   w    c    k r st count  timed  tuning: "
+                  "default -> tuned   again: default   tuned   default plan"
+                  "       tuned plan")
+            for r_ in rows:
+                h, w, c, k, r, s, st, pd = r_["geo"]
+                print(f"  {r_['kind']:4s}{r_['n']:3d}{h:4d}{w:4d}{c:5d}"
+                      f"{k:5d}{r:2d}{st:3d}{r_['count']:6d}{r_['timed']:4d}/"
+                      f"{r_['candidates']:<4d}{r_['tuning_default_us']:9.2f}"
+                      f" ->{r_['tuning_tuned_us']:9.2f}  "
+                      f"{r_['default_us']:9.2f}{r_['tuned_us']:9.2f}   "
+                      f"{_plan_text(r_['kind'], r_['default']):18s} "
+                      f"{'same' if r_['same'] else _plan_text(r_['kind'], r_['plan'])}")
+
+            def total(pick, key):
+                return sum(r_[key] * r_["count"] for r_ in rows
+                           if pick(r_)) / 1e3
+            sums = {}
+            for name, pick in (
+                    ("forward_f32", lambda r_: r_["kind"] == "fwd"
+                     and r_["n"] == BATCH),
+                    ("forward_int8", lambda r_: r_["kind"] == "q8"),
+                    ("step_forward", lambda r_: r_["kind"] == "fwd"
+                     and r_["n"] == TRAIN_BATCH),
+                    ("step_dual", lambda r_: r_["kind"] == "bwd"),
+                    ("step_wu", lambda r_: r_["kind"] == "wu")):
+                sums[name] = dict(default_ms=total(pick, "default_us"),
+                                  tuned_ms=total(pick, "tuned_us"),
+                                  changed=sum(1 for r_ in rows if pick(r_)
+                                              and not r_["same"]),
+                                  signatures=sum(1 for r_ in rows
+                                                 if pick(r_)))
+            sums["step"] = {key: sum(sums[p][key] for p in (
+                "step_forward", "step_dual", "step_wu"))
+                for key in ("default_ms", "tuned_ms", "changed",
+                            "signatures")}
+            for name, v in sums.items():
+                print(f"  {name}: default plans {v['default_ms']:.4f} ms, "
+                      f"tuned {v['tuned_ms']:.4f} ms device (x count); "
+                      f"{v['changed']} of {v['signatures']} signatures "
+                      f"changed plan")
+
+            # the main paths with the default plans and under "cache"
+            for name in ("f32", "int8"):
+                eng, _ = engines[name]
+                off = CnnInferenceEngine(eng.gxm, serve_params,
+                                         image_hw=(IMAGE, IMAGE),
+                                         max_batch=BATCH,
+                                         quantized=eng.quantized,
+                                         autotune="off")
+                off.qparams, off.act_scales = eng.qparams, eng.act_scales
+                off.warmup(autotune="off")
+                # in turns (off, cache, cache, off): the host a call gets
+                # moves a window's images/s by more than the plans do
+                runs = {"off": [], "cache": []}
+                for mode in ("off", "cache", "cache", "off"):
+                    runs[mode].append(serve_window_timed(
+                        off if mode == "off" else eng, f"{name} {mode}"))
+                res = {mode: dict(v[-1], **{key: float(np.mean(
+                    [x[key] for x in v])) for key in (
+                        "images_per_s", "p50_ms", "p99_ms")},
+                    windows=[x["images_per_s"] for x in v])
+                    for mode, v in runs.items()}
+                for mode, v in res.items():
+                    n_ = v["k3"] if name == "int8" else v["k1"]
+                    on = v["k3_ring"] if name == "int8" else v["k1_mma"]
+                    other = v["k1"] if name == "int8" else v["k3"]
+                    print(f"  {name} serving, plans {mode:5s}: images/s "
+                          f"{v['images_per_s']:.2f} (windows "
+                          f"{', '.join(f'{x:.2f}' for x in v['windows'])})"
+                          f"  p50 {v['p50_ms']:.3f} ms  p99 "
+                          f"{v['p99_ms']:.3f} ms (means of two); "
+                          f"{'K3' if name == 'int8' else 'K1'} {n_} "
+                          f"launches ({on} on the "
+                          f"{'ring' if name == 'int8' else 'mma'} route)")
+                    check(n_ == 52 * v["batches"] and on == n_
+                          and other == 0, f"{name} serving under {mode}: "
+                          f"{n_} launches, {on} routed, {other} other")
+                out[f"serving_{name}"] = res
+                del off
+            engines.clear()
+            torch.cuda.empty_cache()
+
+            step_off = make_cnn_train_step(gxm_t, lr=TRAIN_LR,
+                                           autotune="off")
+            batches = [data.batch_at(i) for i in range(4)]
+            batches = [{key: torch.as_tensor(v, device=device)
+                        for key, v in b.items()} for b in batches]
+            for st_ in (step_off, step_cache):
+                for b in batches[:2]:
+                    st_(params_t, b)
+            times = {"off": [], "cache": []}
+            measure.measurements = 0
+            pair = (("off", step_off), ("cache", step_cache))
+            for i in range(10):     # in turns, the order reversed each round
+                for mode, st_ in (pair if i % 2 == 0 else pair[::-1]):
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    _, loss = st_(params_t, batches[2 + i % 2])
+                    torch.cuda.synchronize()
+                    times[mode].append((time.perf_counter() - t2) * 1e3)
+                    check(math.isfinite(float(loss)), "non-finite loss")
+            check(measure.measurements == 0, "a cache step timed candidates")
+            k1.launches = k1.launches_mma = k2.launches = 0
+            k2.launches_mma = 0
+            step_cache(params_t, batches[2])
+            torch.cuda.synchronize()
+            counts = dict(k1=k1.launches, k1_mma=k1.launches_mma,
+                          k2=k2.launches, k2_mma=k2.launches_mma)
+            check(counts == dict(k1=113, k1_mma=113, k2=52, k2_mma=52),
+                  f"one cache step launched {counts}")
+            train = {mode: float(np.median(v)) for mode, v in times.items()}
+            for mode in ("off", "cache"):
+                print(f"  training, plans {mode:5s}: {train[mode]:.3f} ms a "
+                      f"step (median of 10, in turns), "
+                      f"{TRAIN_BATCH / train[mode] * 1e3:.2f} images/s")
+            print(f"  one cache step: K1 {counts['k1']} ({counts['k1_mma']} "
+                  f"mma), K2 {counts['k2']} ({counts['k2_mma']} mma)")
+            out["training"] = dict(step_ms=train, counts=counts)
+        finally:
+            if prev is None:
+                del os.environ["REPRO_TUNE_CACHE"]
+            else:
+                os.environ["REPRO_TUNE_CACHE"] = prev
+    out.update(tuning=tuning, sums=sums, rows=rows)
+    print("  per-signature JSON:", json.dumps(rows))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3326,7 +3804,7 @@ def whole_serving(device, params):
                                 max_batch=BATCH)
     with use_conv_tiling("whole"):
         t0 = time.perf_counter()
-        report = engine.warmup()
+        report = engine.warmup(autotune="off")
         print(f"\nwhole-plane serving: warmup of buckets {report['buckets']} "
               f"in {time.perf_counter() - t0:.2f}s, conv_tiling "
               f"{report['conv_tiling']!r}")
@@ -3878,6 +4356,11 @@ def main() -> int:
         return 1
     from repro_torch.graph import build_etg, resnet50
 
+    # every phase reads a cold plan cache of its own (a phase that tunes
+    # points REPRO_TUNE_CACHE elsewhere and back), so the main paths run
+    # the kernels' default plans
+    cold = tempfile.TemporaryDirectory()
+    os.environ["REPRO_TUNE_CACHE"] = os.path.join(cold.name, "cold.json")
     t_start = time.perf_counter()
     card, device = header()
     sigs = serving_signatures()
@@ -3901,6 +4384,7 @@ def main() -> int:
     q8_gxm, qparams = engine.gxm, engine.qparams
     del engine
     torch.cuda.empty_cache()
+    inception = inception_serving(device, f32_stats, q8_stats)
 
     fwd, dual, wu = training_signatures(build_etg(resnet50()))
     check((sum(fwd.values()), sum(dual.values()), len(dual), len(wu)) ==
@@ -3941,6 +4425,8 @@ def main() -> int:
           f"{k4_analytic['plain_ms']:.3f} (analytic); bounds "
           f"{k4_analytic['bound_ms']:.3f} ({k4_analytic['bound_by']}, f32 "
           f"SIMT), {weighted(k4_rows, 'mma_bound_ms'):.3f} (3xTF32)")
+    torch.cuda.empty_cache()
+    planned = plan_tuning(device, sigs, fwd, dual, wu, serve_params)
     torch.cuda.empty_cache()
 
     from repro_torch.configs import get_config
@@ -4064,6 +4550,13 @@ def main() -> int:
                      "per": f"one ResNet-50 training step, batch "
                             f"{TRAIN_BATCH}: 52 bare forwards and 61 dual "
                             f"convs"},
+        "launches_tuned": {
+            "serving": planned["serving_f32"]["cache"]["k1"],
+            "training_step": planned["training"]["counts"]["k1"]},
+        "tuned_plans": {key: planned["sums"][key] for key in (
+            "forward_f32", "step_forward", "step_dual")},
+        "launches_by_path_inception": {
+            "serving": inception["f32"]["launches"]},
         "card": card,
     }, {
         "name": "conv2d_wu",
@@ -4085,6 +4578,9 @@ def main() -> int:
         "per": f"the 52 K2 launches of one ResNet-50 training step, batch "
                f"{TRAIN_BATCH}, by CUDA events (device_ms: profiler, the "
                f"reduction pass included)",
+        "launches_tuned": {
+            "training_step": planned["training"]["counts"]["k2"]},
+        "tuned_plans": {"step_wu": planned["sums"]["step_wu"]},
         "card": card,
     }, {
         "name": "conv2d_q8",
@@ -4115,6 +4611,11 @@ def main() -> int:
         "k1_f32_ms": serve["ms"],
         "per": f"the 52 K3 convs of one int8 ResNet-50 forward, batch "
                f"{BATCH}, {IMAGE}x{IMAGE}",
+        "launches_tuned": {
+            "serving_int8": planned["serving_int8"]["cache"]["k3"]},
+        "tuned_plans": {"forward_int8": planned["sums"]["forward_int8"]},
+        "launches_by_path_inception": {
+            "serving_int8": inception["int8"]["launches"]},
         "card": card,
     }, {
         "name": "conv2d_streams",
@@ -4403,6 +4904,9 @@ def main() -> int:
             "step_ms", "images_per_s", "losses", "profile", "parity")},
         "tiled_training_step_ms": summary["step_ms"],
         "tiled_serving_images_per_s": f32_stats["images_per_s"]}}))
+    print(json.dumps({"inception_serving": inception}))
+    print(json.dumps({"plan_tuning": {key: v for key, v in planned.items()
+                                      if key != "rows"}}))
     print(json.dumps({"lm_serving": lm_summary}))
     print(json.dumps({"hybrid_serving": hy_summary}))
     print(json.dumps({"serving_int8": {

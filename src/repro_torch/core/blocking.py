@@ -188,11 +188,14 @@ def conv_blocking(*, h: int, w: int, c: int, k: int, r: int, s: int,
     runs on ("cuda" or "cpu"; None resolves the default device, which
     raises without a GPU); it is part of the cache key, as are ``kind`` and
     ``minibatch``.  A budget other than the default never consults the
-    cache: the key has no budget coordinate.
+    cache: the key has no budget coordinate.  Only the "streams" kind
+    consults it: K4 is the one port kernel that runs a ``ConvBlocking``;
+    K1, K2 and K3 are tuned over their own plans
+    (``repro_torch.tune.resolve_plan``), whose entries share the key.
     """
     mode = be.resolve_autotune(autotune)
     kind = kind or ("wu" if require_divisor else "fwd")
-    if mode != "off" and vmem_budget == VMEM_BUDGET:
+    if mode != "off" and vmem_budget == VMEM_BUDGET and kind == "streams":
         if backend is None:
             backend = be.resolve_device(None).type
         blk = _tuned_conv(mode, h=h, w=w, c=c, k=k, r=r, s=s, stride=stride,

@@ -3,23 +3,30 @@
 
 * **Bucketed batching** — requests are padded to a small fixed ladder of
   batch sizes, so the set of shapes every kernel sees is finite.
-* **Warmup** — ``CnnInferenceEngine.warmup`` runs one forward per bucket, so
-  the kernels build and load before the first request arrives.
+* **Warmup** — ``CnnInferenceEngine.warmup`` tunes the kernel plan of
+  every lane-aligned conv signature x bucket batch into the persistent
+  cache (``repro_torch.tune``: K1's under "fwd", K3's under "q8"), then
+  runs one forward per bucket, so the kernels build and load before the
+  first request arrives.
+* **Tuned plans** — every request runs under the engine's ``autotune``
+  mode ("cache" by default, as in the reference): each K1 or K3 launch
+  takes the plan warmup tuned for its shape and bucket, or the kernel's
+  default plan on a miss.
 * **int8** (§II-K) — a quantized engine calibrates per-conv activation
   scales at warmup and serves the int8 params tree through K3.
 
-No mesh yet, and no tuned blockings: K1 and K3 choose their tiles inside
-their ``.cu`` files (the autotuner, ``repro_torch.tune``, serves K4).
-``launch/serve_cnn.py`` builds the request queue on top.
+No mesh yet.  ``launch/serve_cnn.py`` builds the request queue on top.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import backend as be
+from repro_torch import tune
 from repro_torch.core.conv import lane_ok
 from repro_torch.core.quantize import calibrate_network, quantize_gxm_params
 from repro_torch.graph.etg import quantize_etg
@@ -142,11 +149,20 @@ class CnnInferenceEngine:
     in place.  ``params`` stays the f32 tree, on which calibration runs;
     the quantized tree the request path serves (``qparams``) is derived by
     ``calibrate``, which ``warmup`` calls first.
+
+    ``autotune`` is the mode scoped around every forward (``infer`` and
+    warmup's forwards): "cache" (default) takes the plans warmup persisted,
+    the kernels' default plans on a miss; None defers to the global
+    ``REPRO_AUTOTUNE`` knob.
     """
 
     def __init__(self, gxm, params, *, image_hw=(224, 224),
                  max_batch: int = 32, buckets=None,
-                 quantized: bool | None = None):
+                 quantized: bool | None = None,
+                 autotune: str | None = "cache"):
+        if autotune is not None:
+            be.resolve_autotune(autotune)           # validate
+        self.autotune = autotune
         self.gxm = gxm
         self.params = params
         self.device = gxm.device
@@ -195,12 +211,30 @@ class CnnInferenceEngine:
                                            self.act_scales)
         return self.act_scales
 
-    def warmup(self) -> dict:
-        """Calibrate first when the engine is quantized and not calibrated
-        yet, then one forward per bucket, so every kernel the request path
-        launches is built and loaded.  Returns a report: signature counts,
-        the conv input strategy (``backend.get_conv_tiling``), whether the
-        engine serves int8, and the warmup seconds per bucket."""
+    def _autotune_scope(self):
+        if self.autotune is None:
+            return contextlib.nullcontext()
+        return be.use_autotune(self.autotune)
+
+    def warmup(self, *, autotune: str = "tune", cache=None) -> dict:
+        """Pre-fill what a request would otherwise fall into:
+
+        1. the persistent plan cache (``repro_torch.tune``) for every
+           distinct conv signature x bucket batch, under kind "fwd", or
+           "q8" at 1 byte an element on a quantized engine (calibrated
+           first), by ``tune.warmup_convs`` in mode ``autotune`` ("tune":
+           tune on a miss; "cache": report what is there; "off": skip);
+           only lane-aligned signatures are tuned, the rest reported;
+        2. one forward per bucket under the engine's own ``autotune``
+           scope, which the request path runs under, so every kernel and
+           plan it launches is built and loaded.
+
+        ``cache`` overrides the tuning store (tests, inspection); the
+        forwards read the process default cache (``REPRO_TUNE_CACHE``).
+        Returns a report: signature counts, ``tune_entries`` (the cached
+        plans), the conv input strategy (``backend.get_conv_tiling``),
+        whether the engine serves int8, and the warmup seconds per
+        bucket."""
         if self.quantized and self.qparams is None:
             self.calibrate()          # deterministic synthetic batches
         sigs = distinct_conv_signatures(self.conv_shapes())
@@ -210,14 +244,23 @@ class CnnInferenceEngine:
                 sum(1 for s in sigs if lane_ok(s["c"], s["k"])),
             "kernel_cache_entries": len(self.gxm.etg.kernel_cache),
             "buckets": list(self.buckets),
+            "tune_entries": 0,
             "conv_tiling": be.get_conv_tiling(),
             "quantized": self.quantized,
             "warmup_s": {},
         }
+        if be.resolve_autotune(autotune) != "off":
+            kind = "q8" if self.quantized else "fwd"
+            entries = tune.warmup_convs(
+                sigs, minibatches=tuple(self.buckets), kinds=(kind,),
+                mode=autotune, backend=self.device.type, cache=cache,
+                dtype_bytes=tune.plan_dtype_bytes(kind))
+            report["tune_entries"] = sum(1 for e in entries if e["cached"])
         for bucket in self.buckets:
             t0 = time.perf_counter()
             x = torch.zeros((bucket, *self.image_hw, 3), device=self.device)
-            self.gxm.infer(self._run_params, x)
+            with self._autotune_scope():
+                self.gxm.infer(self._run_params, x)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             report["warmup_s"][bucket] = time.perf_counter() - t0
@@ -226,11 +269,12 @@ class CnnInferenceEngine:
     def infer(self, images):
         """Logits for ``images`` (n, H, W, 3), numpy or tensor; pads n up to
         the minimal bucket and returns the (n, classes) real lanes on the
-        engine's device."""
+        engine's device, under the engine's ``autotune`` scope."""
         x = torch.as_tensor(images, dtype=torch.float32,
                             device=self.device)
         n = x.shape[0]
         bucket = pick_bucket(n, self.buckets)
         if n < bucket:
             x = torch.cat([x, x.new_zeros((bucket - n, *x.shape[1:]))])
-        return self.gxm.infer(self._run_params, x.contiguous())[:n]
+        with self._autotune_scope():
+            return self.gxm.infer(self._run_params, x.contiguous())[:n]

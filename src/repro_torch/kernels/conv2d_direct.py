@@ -163,7 +163,7 @@ def mma_plan(*, n: int, p: int, q: int, c: int, k: int, r: int,
     ``MMA_MIN_CHUNK`` whole steps, none empty; their f32 partials a second
     pass sums in split order) whose estimated time is least
     (``_mma_cost``); on a tie the fewer splits, then the larger tile."""
-    return _mma_plan(n * p * q, k, r * s * -(-c // MMA_STAGE_C))
+    return _mma_plan(n * p * q, k, mma_steps(c=c, r=r, s=s))
 
 
 def _mma_cost(m: int, k: int, tile: int, splits: int, chunk: int) -> float:
@@ -182,6 +182,52 @@ def _mma_cost(m: int, k: int, tile: int, splits: int, chunk: int) -> float:
     rate = roofline.TF32_PEAK_FLOPS / roofline.SMS * min(1.0, warps / 8)
     traffic = 0 if splits == 1 else (2 * splits + 1) * m * k * 4
     return flops / rate + traffic / roofline.HBM_BYTES_PER_S
+
+
+def mma_steps(*, c: int, r: int, s: int) -> int:
+    """The mma route's reduction steps: one (r, s) and ``MMA_STAGE_C``
+    input channels each."""
+    return r * s * -(-c // MMA_STAGE_C)
+
+
+def make_mma_plan(*, n: int, p: int, q: int, k: int, tile: int,
+                  splits: int, chunk: int) -> MmaPlan:
+    """The plan of a tile and a split, with its grid's blocks."""
+    bm, bn = MMA_TILES[tile]
+    return MmaPlan(tile=tile, splits=splits, chunk=chunk,
+                   blocks=-(-(n * p * q) // bm) * -(-k // bn) * splits)
+
+
+def check_mma_plan(plan, *, n: int, p: int, q: int, c: int, k: int, r: int,
+                   s: int) -> None:
+    """Raises ``ValueError`` unless the mma route can run ``plan`` on this
+    shape: a tile code of ``MMA_TILES``, 1 to ``MAX_GRID_Z`` splits whose
+    chunks of whole steps cover the reduction and leave none empty, and
+    the grid's blocks counted right."""
+    _check_mma_plan(plan, n * p * q, k, mma_steps(c=c, r=r, s=s))
+
+
+@functools.lru_cache(maxsize=2048)
+def _check_mma_plan(plan, m: int, k: int, steps: int) -> None:
+    if not isinstance(plan, MmaPlan):
+        raise ValueError(f"K1's mma route takes an MmaPlan, not {plan!r}")
+    if plan.tile not in MMA_TILES:
+        raise ValueError(f"tile code {plan.tile} is not one of MMA_TILES "
+                         f"{sorted(MMA_TILES)}")
+    if not 1 <= plan.splits <= MAX_GRID_Z:
+        raise ValueError(f"{plan.splits} splits: the route takes 1 to "
+                         f"{MAX_GRID_Z}")
+    if plan.chunk < 1 or plan.splits * plan.chunk < steps:
+        raise ValueError(f"{plan.splits} chunks of {plan.chunk} steps do not "
+                         f"cover the {steps} reduction steps")
+    if (plan.splits - 1) * plan.chunk >= steps:
+        raise ValueError(f"{plan.splits} chunks of {plan.chunk} steps leave "
+                         f"the last of the {steps} steps' splits empty")
+    bm, bn = MMA_TILES[plan.tile]
+    blocks = -(-m // bm) * -(-k // bn) * plan.splits
+    if plan.blocks != blocks:
+        raise ValueError(f"plan says {plan.blocks} blocks, its tile and "
+                         f"splits make {blocks}")
 
 
 @functools.lru_cache(maxsize=512)
@@ -455,12 +501,24 @@ def _kernel_fn():
 
 
 def conv2d_direct(x, w, *, stride: int = 1, padding: int = 0, bias=None,
-                  scale=None, shift=None, residual=None, relu: bool = False):
+                  scale=None, shift=None, residual=None, relu: bool = False,
+                  plan: MmaPlan | None = None):
     """Direct conv fwd + fused epilogue.  x: (N,H,W,C), w: (R,S,C,K) ->
     (N,P,Q,K).  A CPU tensor takes ``conv2d_direct_plain``; a CUDA tensor
-    launches the sm_90a kernel on the current stream or raises."""
+    launches the sm_90a kernel on the current stream or raises.
+
+    ``plan`` (an ``MmaPlan``, e.g. a tuned one) replaces ``mma_plan``'s on
+    the mma route; None keeps ``mma_plan``'s.  A plan the mma route cannot
+    run on this shape, or any plan for a call ``route`` sends to the SIMT
+    route, raises ``ValueError`` on either device."""
     global launches
     p, q = _check(x, w, bias, scale, shift, residual, stride, padding)
+    if plan is not None:
+        if route(x, w) != "mma":
+            raise ValueError("a plan applies to K1's mma route only; this "
+                             "call takes the simt route")
+        check_mma_plan(plan, n=x.shape[0], p=p, q=q, c=x.shape[3],
+                       k=w.shape[3], r=w.shape[0], s=w.shape[1])
     if x.device.type == "cpu":
         return conv2d_direct_plain(x, w, stride=stride, padding=padding,
                                    bias=bias, scale=scale, shift=shift,
@@ -483,7 +541,7 @@ def conv2d_direct(x, w, *, stride: int = 1, padding: int = 0, bias=None,
         return out
     if route(x, w) == "mma":
         return _launch_mma(x, w, out, scale, shift, bias, residual, relu,
-                           stride, padding)
+                           stride, padding, plan)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     fn = _kernel_fn()
     with torch.cuda.device(x.device):

@@ -79,6 +79,8 @@ _fn_ring = None
 # split of the reduction takes, and the shared memory of one of two blocks
 # an SM (the kernel's RingShape repeats these).
 RING_TILES = ((128, 64), (64, 64))
+RING_BK = (64, 128)         # input channels of a stage, as instantiated
+MAX_GRID_Z = 65535          # splits share the grid's z dimension
 RING_ROW_PAD = 16
 RING_MIN_SPLIT_STEPS = 2
 RING_MAX_STAGES = 4
@@ -301,6 +303,77 @@ def ring_plan(n: int, p: int, q: int, c: int, k: int, r: int, s: int,
                     steps=steps, tiles=tiles, ctas=tiles * splits, smem=smem)
 
 
+def make_ring_plan(*, n: int, p: int, q: int, c: int, k: int, r: int,
+                   s: int, bm: int, bn: int, bk: int,
+                   splits: int) -> RingPlan:
+    """The plan of a tile, a stage depth and a split, with its steps, tiles,
+    CTAs, stages and shared memory as the kernel's RingShape derives
+    them."""
+    steps = r * s * -(-c // bk)
+    tiles = -(-(n * p * q) // bm) * -(-k // bn)
+    stages, smem = _ring_shape(bm, bn, bk, -(-steps // splits))
+    return RingPlan(bm=bm, bn=bn, bk=bk, stages=stages, splits=splits,
+                    steps=steps, tiles=tiles, ctas=tiles * splits, smem=smem)
+
+
+def ring_cost(plan: RingPlan) -> float:
+    """Seconds a ring plan takes by a first-order model of the card: the
+    SM that runs the most CTAs (ceil(ctas / SMS)) does their s8 products,
+    2 x bm x bn x bk ops a step over ceil(steps / splits) steps, at its
+    share of the int8 rate, at half that share while it holds one CTA of
+    8 warps (two fit an SM); a split adds its int32 partials' bytes
+    (written, then read by the last CTA of each tile) at the HBM rate.  A
+    ranking of plans, not a prediction of the time."""
+    busiest = -(-plan.ctas // roofline.SMS)
+    ops = busiest * 2 * plan.bm * plan.bn * plan.bk \
+        * -(-plan.steps // plan.splits)
+    rate = roofline.INT8_PEAK_OPS / roofline.SMS * min(1.0, busiest / 2)
+    traffic = 0 if plan.splits == 1 else \
+        2 * plan.ctas * plan.bm * plan.bn * 4
+    return ops / rate + traffic / roofline.HBM_BYTES_PER_S
+
+
+def check_ring_plan(plan, *, n: int, p: int, q: int, c: int, k: int, r: int,
+                    s: int) -> None:
+    """Raises ``ValueError`` unless the ring route can run ``plan`` on this
+    shape: a (bm, bn) of ``RING_TILES`` and a bk of ``RING_BK`` (the
+    instances ``csrc/conv2d_q8.cu`` builds), a bk of 128 only where C
+    reaches 128, 1 to min(steps, ``MAX_GRID_Z``) splits (none empty), and
+    steps, tiles, CTAs, stages and shared memory as ``make_ring_plan``
+    derives them, within ``SMEM_LIMIT``."""
+    _check_ring_plan(plan, n * p * q, c, k, r * s)
+
+
+@functools.lru_cache(maxsize=2048)
+def _check_ring_plan(plan, m: int, c: int, k: int, taps: int) -> None:
+    if not isinstance(plan, RingPlan):
+        raise ValueError(f"K3's ring route takes a RingPlan, not {plan!r}")
+    if (plan.bm, plan.bn) not in RING_TILES:
+        raise ValueError(f"tile {plan.bm}x{plan.bn} is not one of "
+                         f"RING_TILES {RING_TILES}")
+    if plan.bk not in RING_BK:
+        raise ValueError(f"stage of {plan.bk} channels: the ring stages "
+                         f"{RING_BK}")
+    if plan.bk > c and plan.bk > min(RING_BK):
+        raise ValueError(f"stage of {plan.bk} channels over C={c}: the "
+                         f"stage's rows would hold zeros past C")
+    steps = taps * -(-c // plan.bk)
+    if not 1 <= plan.splits <= min(steps, MAX_GRID_Z):
+        raise ValueError(f"{plan.splits} splits of {steps} steps: the route "
+                         f"takes 1 to {min(steps, MAX_GRID_Z)}")
+    want = dict(steps=steps, tiles=-(-m // plan.bm) * -(-k // plan.bn))
+    want["ctas"] = want["tiles"] * plan.splits
+    want["stages"], want["smem"] = _ring_shape(plan.bm, plan.bn, plan.bk,
+                                               -(-steps // plan.splits))
+    for field, value in want.items():
+        if getattr(plan, field) != value:
+            raise ValueError(f"plan has {field}={getattr(plan, field)}, the "
+                             f"shape and its tile make {value}")
+    if plan.smem > SMEM_LIMIT:
+        raise ValueError(f"{plan.smem} bytes of shared memory exceed "
+                         f"{SMEM_LIMIT}")
+
+
 def split_steps(steps: int, splits: int) -> list[tuple[int, int]]:
     """The [begin, end) reduction steps of each split, as the kernel cuts
     them: split z takes steps * z // splits up to steps * (z + 1) //
@@ -338,8 +411,9 @@ def _kernel_fn_ring():
 
 
 def _launch_ring(x_q, w_q, x_scale, w_scale, out, *, stride, padding, scale,
-                 shift, bias, residual, relu):
-    """K3's ring route into ``out`` (checked by ``conv2d_q8``)."""
+                 shift, bias, residual, relu, plan=None):
+    """K3's ring route into ``out`` (checked by ``conv2d_q8``), with
+    ``ring_plan``'s plan unless ``plan`` gives another."""
     global launches, launches_ring
     n, h, wd, c = x_q.shape
     r, s, _, k = w_q.shape
@@ -347,7 +421,7 @@ def _launch_ring(x_q, w_q, x_scale, w_scale, out, *, stride, padding, scale,
     if x_q.data_ptr() % 16:
         raise ValueError("the ring route reads x_q 16 bytes at a time: its "
                          "data must start on a 16-byte boundary")
-    plan = ring_plan(n, p, q, c, k, r, s, stride)
+    plan = plan or ring_plan(n, p, q, c, k, r, s, stride)
     words = weight_words(w_q, "ring")
     residual = _aligned(residual)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -382,17 +456,29 @@ def _launch_ring(x_q, w_q, x_scale, w_scale, out, *, stride, padding, scale,
 
 def conv2d_q8(x_q, w_q, *, x_scale, w_scale, stride: int = 1,
               padding: int = 0, bias=None, scale=None, shift=None,
-              residual=None, relu: bool = False):
+              residual=None, relu: bool = False,
+              plan: RingPlan | None = None):
     """Quantized direct conv fwd.  x_q: (N,H,W,C) int8; w_q: (R,S,C,K) int8;
     x_scale: one f32 (per-tensor activation scale); w_scale: (K,) f32 (per
     output channel) -> (N,P,Q,K) f32.  The optional bias / folded-BN
     scale+shift / residual / relu epilogue is applied in f32 after
     dequantization.  A CPU tensor takes ``conv2d_q8_plain``; a CUDA tensor
     launches the sm_90a kernel of ``route`` on the current stream or
-    raises."""
+    raises.
+
+    ``plan`` (a ``RingPlan``, e.g. a tuned one) replaces ``ring_plan``'s on
+    the ring route; None keeps it.  A plan the ring route cannot run on
+    this shape, or any plan for a call ``route`` sends to "sync", raises
+    ``ValueError`` on either device."""
     global launches
     p, q = _check_q8(x_q, w_q, x_scale, w_scale, bias, scale, shift,
                      residual, stride, padding)
+    if plan is not None:
+        if route(x_q, w_q) != "ring":
+            raise ValueError("a plan applies to K3's ring route only; this "
+                             "call takes the sync route")
+        check_ring_plan(plan, n=x_q.shape[0], p=p, q=q, c=x_q.shape[3],
+                        k=w_q.shape[3], r=w_q.shape[0], s=w_q.shape[1])
     kw = dict(x_scale=x_scale, w_scale=w_scale, stride=stride,
               padding=padding, bias=bias, scale=scale, shift=shift,
               residual=residual, relu=relu)
@@ -419,7 +505,8 @@ def conv2d_q8(x_q, w_q, *, x_scale, w_scale, stride: int = 1,
     if route(x_q, w_q) == "ring":
         return _launch_ring(x_q, w_q, x_scale, w_scale, out, stride=stride,
                             padding=padding, scale=scale, shift=shift,
-                            bias=bias, residual=residual, relu=relu)
+                            bias=bias, residual=residual, relu=relu,
+                            plan=plan)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     fn = _kernel_fn()
     with torch.cuda.device(x_q.device):

@@ -131,8 +131,8 @@ def plan(*, n: int, p: int, q: int, c: int, k: int, r: int, s: int,
     m = n * p * q
     if route == "mma":
         tile = (0 if k >= 128 else 1) if c >= 128 else (2 if k >= 128 else 3)
-        bm, bn = MMA_TILES[tile]
-        splits, chunk = _mma_plan(m, -(-c // bm) * -(-k // bn) * r * s,
+        splits, chunk = _mma_plan(m, mma_tiles(c=c, k=k, r=r, s=s,
+                                               tile=tile),
                                   roofline.SMS * MMA_BLOCKS_PER_SM[tile])
     else:
         tile = 0 if c >= 128 and k >= 128 else 1 if c >= 128 else 2
@@ -148,6 +148,70 @@ def plan(*, n: int, p: int, q: int, c: int, k: int, r: int, s: int,
         raise ValueError(f"{splits} splits x {r}x{s} filter taps exceed the "
                          f"grid's z limit {MAX_GRID_Z}")
     return WuPlan(tile=tile, splits=splits, chunk=chunk, route=route)
+
+
+_default_plan = plan     # conv2d_wu's ``plan`` argument shadows the name
+
+
+def mma_tiles(*, c: int, k: int, r: int, s: int, tile: int) -> int:
+    """Output tiles of the mma route's grid under a tile code: C x K tiles
+    of each filter tap."""
+    bm, bn = MMA_TILES[tile]
+    return -(-c // bm) * -(-k // bn) * r * s
+
+
+def mma_cost(plan: WuPlan, *, n: int, p: int, q: int, c: int, k: int,
+             r: int, s: int) -> float:
+    """Seconds a plan takes by the first-order model ``plan`` ranks splits
+    with, made comparable across tiles: its rounds of blocks over the card
+    (ceil(tiles x splits / (SMS x MMA_BLOCKS_PER_SM))) times its chunk, a
+    round costing the products of the blocks an SM holds (3 TF32 products
+    of 2 FLOPs a pixel and output) at the SM's share of the TF32 rate; a
+    split adds its partials' bytes (written, then read with dW written) at
+    the HBM rate.  A ranking of plans, not a prediction of the time."""
+    bm, bn = MMA_TILES[plan.tile]
+    per_sm = MMA_BLOCKS_PER_SM[plan.tile]
+    tiles = mma_tiles(c=c, k=k, r=r, s=s, tile=plan.tile)
+    rounds = -(-tiles * plan.splits // (roofline.SMS * per_sm))
+    flops = rounds * plan.chunk * per_sm * bm * bn * 6
+    rate = roofline.TF32_PEAK_FLOPS / roofline.SMS
+    traffic = 0 if plan.splits == 1 else \
+        (2 * plan.splits + 1) * r * s * c * k * 4
+    return flops / rate + traffic / roofline.HBM_BYTES_PER_S
+
+
+def check_wu_plan(plan, *, n: int, p: int, q: int, c: int, k: int, r: int,
+                  s: int) -> None:
+    """Raises ``ValueError`` unless the mma route can run ``plan`` on this
+    shape: a ``WuPlan`` of route "mma" (a plan applies to that route
+    only), a tile code of ``MMA_TILES``, chunks of whole ``MMA_PIX_STEP``
+    stages that cover the N*P*Q pixels and leave none empty, and splits x
+    R x S within ``MAX_GRID_Z``."""
+    _check_wu_plan(plan, n * p * q, r * s)
+
+
+@functools.lru_cache(maxsize=2048)
+def _check_wu_plan(plan, m: int, taps: int) -> None:
+    if not isinstance(plan, WuPlan):
+        raise ValueError(f"K2's mma route takes a WuPlan, not {plan!r}")
+    if plan.route != "mma":
+        raise ValueError(f"a plan applies to K2's mma route only, not "
+                         f"{plan.route!r}")
+    if plan.tile not in MMA_TILES:
+        raise ValueError(f"tile code {plan.tile} is not one of MMA_TILES "
+                         f"{sorted(MMA_TILES)}")
+    if plan.chunk < MMA_PIX_STEP or plan.chunk % MMA_PIX_STEP:
+        raise ValueError(f"chunk {plan.chunk}: the route sums whole stages "
+                         f"of {MMA_PIX_STEP} pixels")
+    if plan.splits < 1 or plan.splits * taps > MAX_GRID_Z:
+        raise ValueError(f"{plan.splits} splits x {taps} filter taps: the "
+                         f"grid's z dimension takes 1 to {MAX_GRID_Z}")
+    if plan.splits * plan.chunk < m:
+        raise ValueError(f"{plan.splits} chunks of {plan.chunk} pixels do "
+                         f"not cover the {m} pixels")
+    if (plan.splits - 1) * plan.chunk >= m:
+        raise ValueError(f"{plan.splits} chunks of {plan.chunk} pixels leave "
+                         f"the last of the {m} pixels' splits empty")
 
 
 @functools.lru_cache(maxsize=256)
@@ -322,12 +386,25 @@ def _kernel_fn_mma():
     return _fn_mma
 
 
-def conv2d_wu(x, do, *, stride: int = 1, padding: int = 0, filter_rs):
+def conv2d_wu(x, do, *, stride: int = 1, padding: int = 0, filter_rs,
+              plan: WuPlan | None = None):
     """dW (R,S,C,K) from x (N,H,W,C) and dO (N,P,Q,K).  A CPU tensor takes
     ``conv2d_wu_plain``; a CUDA tensor launches the sm_90a kernel of its
-    ``route`` on the current stream or raises."""
+    ``route`` on the current stream or raises.
+
+    ``plan`` (a ``WuPlan`` of route "mma", e.g. a tuned one) replaces
+    ``plan(..., route="mma")``'s on the mma route; None keeps it.  A plan
+    the mma route cannot run on this shape, or any plan for a call
+    ``route`` sends to the SIMT route, raises ``ValueError`` on either
+    device."""
     global launches, launches_mma
     r, s = _check(x, do, stride, padding, filter_rs)
+    if plan is not None:
+        if route(x, do) != "mma":
+            raise ValueError("a plan applies to K2's mma route only; this "
+                             "call takes the simt route")
+        check_wu_plan(plan, n=x.shape[0], p=do.shape[1], q=do.shape[2],
+                      c=x.shape[3], k=do.shape[3], r=r, s=s)
     if x.device.type == "cpu":
         return conv2d_wu_plain(x, do, stride=stride, padding=padding,
                                filter_rs=filter_rs)
@@ -351,7 +428,8 @@ def conv2d_wu(x, do, *, stride: int = 1, padding: int = 0, filter_rs):
     if n == 0:
         return dw.zero_()
     path = route(x, do)
-    pl = plan(n=n, p=p, q=q, c=c, k=k, r=r, s=s, route=path)
+    pl = plan or _default_plan(n=n, p=p, q=q, c=c, k=k, r=r, s=s,
+                               route=path)
     part = dw if pl.splits == 1 else torch.empty(
         (pl.splits, r, s, c, k), dtype=torch.float32, device=x.device)
     fn = _kernel_fn_mma() if path == "mma" else _kernel_fn()

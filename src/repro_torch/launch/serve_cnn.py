@@ -3,7 +3,15 @@ the counterpart of ``repro/launch/serve_cnn.py`` on one GPU.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_cnn              # full ResNet-50, cuda
   PYTHONPATH=src python -m repro_torch.launch.serve_cnn --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve_cnn --arch inception
   REPRO_QUANTIZE=int8 PYTHONPATH=src python -m repro_torch.launch.serve_cnn
+  PYTHONPATH=src python -m repro_torch.launch.serve_cnn --autotune off
+
+``--autotune`` is warmup's plan-cache mode, as in the reference's CLI:
+"tune" (default) tunes the kernel plan of every conv signature x bucket
+into the cache (``REPRO_TUNE_CACHE``) before the window, "cache" only
+reads it, "off" skips it; the requests then run under the engine's
+"cache" scope, the tuned plans or the kernels' defaults on a miss.
 
 ``REPRO_QUANTIZE=int8`` serves the §II-K int8 path, as the reference's CLI
 does: warmup calibrates the activation scales first, and every lane-aligned
@@ -12,8 +20,9 @@ kernels (K10a, or K10c for int8) in place of K1 and K3.
 
 Requests (single images) land in a queue; the scheduler drains it in
 batches, each padded up to the minimal bucket of a fixed ladder
-(``graph/serving.py``).  Startup warmup runs one forward per bucket, so the
-kernels are built before the first request; an untimed pass of bursts then
+(``graph/serving.py``).  Startup warmup tunes the plans, then runs one
+forward per bucket, so the kernels are built before the first request; an
+untimed pass of bursts then
 serves every bucket once more before the measured window opens.  The
 weights are random, drawn from seed 0, and the request images are made
 before the window opens, so the load generator costs the window nothing.
@@ -28,7 +37,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.graph import GxM, resnet50
+from repro_torch.graph import GxM, inception_v3, resnet50
 from repro_torch.graph.serving import CnnInferenceEngine, pick_bucket
 from repro_torch.kernels import conv2d_direct as k1
 from repro_torch.kernels import conv2d_q8 as k3
@@ -111,13 +120,22 @@ class ImageServer:
         return st
 
 
-def build_model(*, smoke: bool, device=None):
+def build_model(*, smoke: bool, device=None, arch: str = "resnet50"):
     """Full ResNet-50 (1000 classes, 224x224), or with ``smoke`` the tiny one
-    (one block per stage, 10 classes, 32x32).  Returns (GxM, image size)."""
-    if smoke:
-        return GxM(resnet50(10, stages=(1, 1, 1, 1)), device=device,
-                   num_classes=10), 32
-    return GxM(resnet50(1000), device=device, num_classes=1000), 224
+    (one block per stage, 10 classes, 32x32); ``arch="inception"``:
+    Inception-v3 (1000 classes, 299x299, its native size), or with
+    ``smoke`` 10 classes at 48x48.  Returns (GxM, image size)."""
+    classes = 10 if smoke else 1000
+    if arch == "resnet50":
+        net = resnet50(classes, stages=(1, 1, 1, 1)) if smoke \
+            else resnet50(classes)
+        image = 32 if smoke else 224
+    elif arch == "inception":
+        net, image = inception_v3(classes), 48 if smoke else 299
+    else:
+        raise ValueError(f"unknown arch {arch!r}; valid: resnet50, "
+                         f"inception")
+    return GxM(net, device=device, num_classes=classes), image
 
 
 def make_images(n: int, image: int, rng: np.random.Generator) -> np.ndarray:
@@ -165,30 +183,38 @@ def serve_window(engine: CnnInferenceEngine, *, requests: int, seed: int = 0,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=("resnet50", "inception"),
+                    default="resnet50")
     ap.add_argument("--smoke", action="store_true",
-                    help="tiny ResNet-50 (one block per stage, 32x32)")
+                    help="tiny topology (ResNet-50: one block per stage, "
+                         "32x32; Inception-v3: 48x48), 10 classes")
+    ap.add_argument("--autotune", choices=("off", "cache", "tune"),
+                    default="tune", help="warmup's plan-cache mode")
     ap.add_argument("--requests", type=int, default=512)
     ap.add_argument("--max-batch", type=int, default=16)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without a GPU)")
     args = ap.parse_args(argv)
 
-    m, image = build_model(smoke=args.smoke, device=args.device)
+    m, image = build_model(smoke=args.smoke, device=args.device,
+                           arch=args.arch)
     params = m.init(torch.Generator().manual_seed(0))
     engine = CnnInferenceEngine(m, params, image_hw=(image, image),
                                 max_batch=args.max_batch)
     t0 = time.perf_counter()
-    report = engine.warmup()
+    report = engine.warmup(autotune=args.autotune)
     warm_s = time.perf_counter() - t0
     print(f"warmup: {report['conv_signatures']} conv signatures "
           f"({report['kernel_path_signatures']} on the kernel path), "
-          f"buckets {report['buckets']}, "
+          f"{report['tune_entries']} plan-cache entries "
+          f"({args.autotune}), buckets {report['buckets']}, "
           f"{'int8' if report['quantized'] else 'f32'}, in {warm_s:.1f}s")
 
     server, results = serve_window(engine, requests=args.requests)
     st = server.stats()
     summary = {
-        "device": str(m.device), "image": image,
+        "device": str(m.device), "arch": args.arch, "image": image,
+        "autotune": args.autotune, "tune_entries": report["tune_entries"],
         "quantized": engine.quantized,
         "requests": len(results), "batches": st["batches"],
         "pad_fraction": st["padded_lanes"]

@@ -61,6 +61,13 @@ class TuneCache:
     """In-memory dict over a versioned JSON file.  Thread-safe; loaded on
     first use."""
 
+    # bumped by every change this process makes to any instance's entries
+    # (a store, a save, which also merges what other processes saved), so
+    # a memo of what a cache file answered, keyed by the file's path, knows
+    # when to ask again; a first load fills an instance with what its file
+    # holds and bumps nothing
+    changes = 0
+
     def __init__(self, path: str | None = None):
         self.path = path or default_cache_path()
         self._entries: dict[str, dict] | None = None
@@ -89,6 +96,7 @@ class TuneCache:
             merged = self._read_file()
             merged.update(self._load_locked())
             self._entries = merged
+            TuneCache.changes += 1
             blob = {"version": CACHE_VERSION, "entries": merged}
             d = os.path.dirname(self.path) or "."
             os.makedirs(d, exist_ok=True)
@@ -111,16 +119,19 @@ class TuneCache:
 
     def store(self, key: str, blocking: dict, *, source: str,
               score_us: float, budget: int | None = None,
-              persist: bool = True) -> None:
-        """Record a winner.  ``budget`` is the working-set budget it was
-        chosen under (``lookup_conv`` checks it)."""
+              persist: bool = True, extra: dict | None = None) -> None:
+        """Record a winner: a blocking, or a kernel plan's fields.
+        ``budget`` is the working-set budget it was chosen under
+        (``lookup_conv`` checks it); ``extra`` adds fields to the entry
+        (a plan's default-plan time and candidates timed)."""
         entry = {"blocking": dict(blocking), "source": source,
                  "score_us": float(score_us), "version": CACHE_VERSION,
-                 "tuned_at": time.time()}
+                 "tuned_at": time.time(), **(extra or {})}
         if budget is not None:
             entry["budget"] = int(budget)
         with self._lock:
             self._load_locked()[key] = entry
+            TuneCache.changes += 1
         if persist:
             try:
                 self.save()

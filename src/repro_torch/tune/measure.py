@@ -1,10 +1,20 @@
-"""Candidate scoring: CUDA events on the card, a cost model everywhere
+"""Candidate scoring: device time on the card, a cost model everywhere
 else — the port's counterpart of ``repro/tune/measure.py`` for convs.
 
 On the card (backend "cuda") the model shortlists ``measure_top``
-candidates and each is timed by CUDA events over the real kernel, the
-paper's empirical specialization.  On the CPU a wall clock would time
-PyTorch's CPU kernels, so candidates are ranked by the model alone:
+candidates and each is timed over the real kernel, the paper's empirical
+specialization.  The time is device time: ``device_us`` queues a
+``torch.cuda._sleep`` busy kernel ahead of the timed launches, so the host
+has queued them all before the card reaches the first, and CUDA events
+around each launch then read the kernel alone, not the wrapper's host
+time (about 50 us a call beside K3's 1.0 ms of device time a 52-conv
+forward on an NVIDIA H100 80GB HBM3 at 700 W, ``PERF.md``: more than most
+of these kernels take on the device).  It checks that the events found no gap
+between launches, and lengthens the sleep where they did.  On the CPU a
+wall clock would time PyTorch's CPU kernels, so candidates are ranked by
+the model alone.
+
+For "streams" (K4, which takes a ``ConvBlocking``) the model is
 
   t_model = max(flops / (peak * util), hbm_bytes / HBM_BYTES_PER_S)
 
@@ -22,18 +32,28 @@ with the H100's constants from ``repro_torch.launch.roofline``.
   the 3xTF32 rate, ``MMA_PEAK_FLOPS``; on the SIMT route (``tile_config``:
   the share of the CTA tile's lanes that hold real pixels and channels,
   times the share of the SMs its CTAs fill, times register reuse) at
-  ``F32_PEAK_FLOPS``.  K1, K2 and K3 choose their tiles inside their
-  ``.cu`` files and take no blocking, so the other kinds are priced at
-  util 1 of the f32 peak, the bare roofline; there is nothing of theirs to
-  time yet.
+  ``F32_PEAK_FLOPS``.  ``conv_cost_us`` prices a ``ConvBlocking`` of the
+  other kinds at util 1 of the f32 peak, the bare roofline: no port kernel
+  runs one.
 * No per-step overhead term: the TPU's grid-step pipeline fill has no
   counterpart in a kernel whose steps run in parallel CTAs.
+
+The kinds "fwd" and "bwd" (K1), "wu" (K2) and "q8" (K3) are tuned over the
+kernels' own plans (``space.plan_candidates``), and ``plan_cost_us``
+scores a plan by the kernel's own model: K1's ``_mma_cost``, K2's rounds
+x chunk (``conv2d_wu.mma_cost``), K3's ring estimate
+(``conv2d_q8.ring_cost``).  ``rank_plans`` always times the kernel's
+default plan, and keeps it unless another plan measured at least
+``MIN_GAIN`` faster.
 """
 from __future__ import annotations
 
 import math
 
 from repro_torch.core.blocking import ConvBlocking
+from repro_torch.kernels import conv2d_direct as k1
+from repro_torch.kernels import conv2d_q8 as k3
+from repro_torch.kernels import conv2d_wu as k2
 from repro_torch.kernels.conv2d_streams import (ROUTE_PEAK_FLOPS,
                                                 conv2d_streams_auto,
                                                 mma_stage_c, mma_tile_config,
@@ -44,6 +64,14 @@ from repro_torch.tune.space import out_dim
 # Kernel timings taken since the last reset (set to 0 to reset): a pass
 # that should only read the cache must leave it unchanged.
 measurements = 0
+# A tuned plan replaces the kernel's default only when it measured at
+# least this share faster: closer than that, a device-time reading of the
+# same kernel varies by as much from one run to the next.
+MIN_GAIN = 0.02
+# Events around queued launches read under this many ms apart when the
+# card runs them back to back; a wider gap means the host fell behind.
+_GAP_MS = 0.01
+_sleep_cycles_per_ms: float | None = None
 
 
 def _refetches(dep_positions: list[int], extents: tuple[int, ...]) -> int:
@@ -212,49 +240,155 @@ def conv_cost_us(shape: dict, blk: ConvBlocking, *, minibatch: int = 1,
     return roof["cost_s"] * 1e6
 
 
+def plan_cost_us(kind: str, shape: dict, plan, *,
+                 minibatch: int = 1) -> float:
+    """Modeled microseconds of one launch under a kernel plan of ``kind``:
+    the kernel's own model (see the module docstring)."""
+    n = minibatch
+    p = out_dim(shape["h"], shape["r"], shape["stride"], shape["padding"])
+    q = out_dim(shape["w"], shape["s"], shape["stride"], shape["padding"])
+    c, k, r, s = shape["c"], shape["k"], shape["r"], shape["s"]
+    if kind in ("fwd", "bwd"):
+        sec = k1._mma_cost(n * p * q, k, plan.tile, plan.splits, plan.chunk)
+    elif kind == "wu":
+        sec = k2.mma_cost(plan, n=n, p=p, q=q, c=c, k=k, r=r, s=s)
+    elif kind == "q8":
+        sec = k3.ring_cost(plan)
+    else:
+        raise ValueError(f"kind {kind!r} takes no kernel plan")
+    return sec * 1e6
+
+
 def can_measure(backend: str) -> bool:
     """Timings mean something only on the card: backend "cuda"."""
     return backend == "cuda"
 
 
-def measure_conv_us(shape: dict, blk: ConvBlocking, *, kind: str = "fwd",
-                    minibatch: int = 1, warmup: int = 2,
-                    iters: int = 5) -> float:
-    """Median microseconds of one launch of the real kernel under `blk`, by
-    CUDA events around each of ``iters`` launches after ``warmup``, on
-    inputs made on the card from seed 0.  Only "streams" (K4) takes a
-    blocking in the port; the other kinds raise."""
-    global measurements
-    if kind != "streams":
-        raise NotImplementedError(
-            f"kind {kind!r}: K1, K2 and K3 choose their tiles inside their "
-            f".cu files; tuning them is the tile-tuning slice's work")
-    import torch
+def _cycles_per_ms() -> float:
+    """``torch.cuda._sleep`` cycles a millisecond on this card, read once
+    by CUDA events around one sleep."""
+    global _sleep_cycles_per_ms
+    if _sleep_cycles_per_ms is None:
+        import torch
+        cycles = 10_000_000
+        torch.cuda._sleep(cycles // 10)         # the kernel's first launch
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        _sleep_cycles_per_ms = cycles / start.elapsed_time(end)
+    return _sleep_cycles_per_ms
 
+
+def device_us(run, *, warmup: int = 2, iters: int = 5) -> float:
+    """Median device microseconds of one call of ``run`` (its launches on
+    the current stream), by CUDA events around each of ``iters`` calls
+    queued behind a ``torch.cuda._sleep`` busy kernel long enough for the
+    host to queue them all first.  Where the events show the card waited
+    between calls (the host fell behind), the sleep is made four times
+    longer and the reading taken again, up to four times; then it raises."""
+    import time
+
+    import torch
+    for _ in range(warmup):
+        run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    sleep_ms = 2 * (iters + 1) * (time.perf_counter() - t0) * 1e3 + 1.0
+    for _ in range(4):
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(iters)]
+        torch.cuda._sleep(int(sleep_ms * _cycles_per_ms()))
+        for start, end in events:
+            start.record()
+            run()
+            end.record()
+        torch.cuda.synchronize()
+        gaps = [events[i][1].elapsed_time(events[i + 1][0])
+                for i in range(iters - 1)]
+        if max(gaps, default=0.0) <= _GAP_MS:
+            ts = sorted(start.elapsed_time(end) for start, end in events)
+            return ts[len(ts) // 2] * 1e3
+        sleep_ms *= 4
+    raise RuntimeError(f"the host fell behind the card while timing: "
+                       f"{max(gaps):.4f} ms between launches behind a "
+                       f"{sleep_ms / 4:.1f} ms sleep")
+
+
+def conv_inputs(kind: str, shape: dict, minibatch: int) -> dict:
+    """The timed kernel's operands, made on the card from seed 0: x and w
+    (K1, K4), x and dO (K2), int8 x_q and w_q with their scales (K3)."""
+    import torch
     h, w, c, k = shape["h"], shape["w"], shape["c"], shape["k"]
     r, s = shape["r"], shape["s"]
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if kind == "q8":
+        def i8(*size):
+            return torch.randint(-127, 128, size, generator=gen,
+                                 device="cuda", dtype=torch.int8)
+        return dict(x_q=i8(minibatch, h, w, c), w_q=i8(r, s, c, k),
+                    x_scale=torch.full((), 0.02, device="cuda"),
+                    w_scale=torch.rand(k, generator=gen, device="cuda")
+                    * 0.01 + 0.001)
     x = torch.randn((minibatch, h, w, c), generator=gen, device="cuda")
-    wt = torch.randn((r, s, c, k), generator=gen, device="cuda") * 0.1
+    if kind == "wu":
+        p = out_dim(h, r, shape["stride"], shape["padding"])
+        q = out_dim(w, s, shape["stride"], shape["padding"])
+        return dict(x=x, do=torch.randn((minibatch, p, q, k), generator=gen,
+                                        device="cuda"))
+    return dict(x=x, w=torch.randn((r, s, c, k), generator=gen,
+                                   device="cuda") * 0.1)
 
-    def run():
+
+def kernel_call(kind: str, shape: dict, args: dict, blk):
+    """A call of the real kernel of ``kind`` on ``args`` (``conv_inputs``)
+    without an epilogue: K4 under the ``ConvBlocking`` ``blk``
+    ("streams"), or K1 ("fwd", "bwd"), K2 ("wu") or K3 ("q8") under the
+    plan ``blk``."""
+    stride, padding = shape["stride"], shape["padding"]
+    if kind == "streams":
         # blocking= pins all four knobs and skips the autotune consult:
         # re-entering the tuner here would recurse on the same key
-        return conv2d_streams_auto(x, wt, stride=shape["stride"],
-                                   padding=shape["padding"], blocking=blk)
+        return lambda: conv2d_streams_auto(args["x"], args["w"],
+                                           stride=stride, padding=padding,
+                                           blocking=blk)
+    if kind == "wu":
+        return lambda: k2.conv2d_wu(**args, stride=stride, padding=padding,
+                                    filter_rs=(shape["r"], shape["s"]),
+                                    plan=blk)
+    if kind == "q8":
+        return lambda: k3.conv2d_q8(**args, stride=stride, padding=padding,
+                                    plan=blk)
+    if kind in ("fwd", "bwd"):
+        return lambda: k1.conv2d_direct(**args, stride=stride,
+                                        padding=padding, plan=blk)
+    raise ValueError(f"kind {kind!r}")
 
+
+def measure_conv_us(shape: dict, blk, *, kind: str = "fwd",
+                    minibatch: int = 1, warmup: int = 2,
+                    iters: int = 10) -> float:
+    """Median device microseconds of one launch of the real kernel of
+    ``kind`` (``kernel_call``, timed by ``device_us``) on inputs made on
+    the card from seed 0 (``conv_inputs``).  Needs the card: on the CPU it
+    raises for every kind."""
+    global measurements
+    import torch
+    if kind not in ("streams", "fwd", "bwd", "wu", "q8"):
+        raise ValueError(f"kind {kind!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"measure_conv_us({kind!r}) times the kernel on "
+                           f"the card, and no GPU is present")
+    args = conv_inputs("fwd" if kind == "streams" else kind, shape,
+                       minibatch)
     measurements += 1
-    for _ in range(warmup):
-        run()
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    for start, end in events:
-        start.record()
-        run()
-        end.record()
-    torch.cuda.synchronize()
-    ts = sorted(start.elapsed_time(end) for start, end in events)
-    return ts[len(ts) // 2] * 1e3
+    return device_us(kernel_call(kind, shape, args, blk), warmup=warmup,
+                     iters=iters)
 
 
 def rank_conv(shape: dict, candidates: list[ConvBlocking], *,
@@ -273,4 +407,32 @@ def rank_conv(shape: dict, candidates: list[ConvBlocking], *,
     timed = [(measure_conv_us(shape, b, kind=kind, minibatch=minibatch), b)
              for _, b in scored[:measure_top]]
     timed.sort(key=lambda t: t[0])
+    return timed
+
+
+def rank_plans(kind: str, shape: dict, candidates: list, *,
+               backend: str = "cuda", minibatch: int = 1,
+               measure_top: int = 8) -> list[tuple[float, object]]:
+    """Score kernel plans; returns (score_us, plan) sorted best-first.
+    ``candidates[0]`` is the kernel's default plan.
+
+    The model (``plan_cost_us``) scores all.  On the card the shortlist is
+    the default plan and the model's ``measure_top - 1`` best of the rest;
+    each is timed (``measure_conv_us``), and the list is sorted by time,
+    except that the default stays first unless another plan measured at
+    least ``MIN_GAIN`` faster.  A candidate that fails on the card raises."""
+    default = candidates[0]
+    scored = sorted(((plan_cost_us(kind, shape, pl, minibatch=minibatch), i,
+                      pl) for i, pl in enumerate(candidates)),
+                    key=lambda t: t[:2])
+    if not can_measure(backend):
+        return [(score, pl) for score, _, pl in scored]
+    short = [default] + [pl for _, _, pl in scored
+                         if pl != default][:measure_top - 1]
+    timed = [(measure_conv_us(shape, pl, kind=kind, minibatch=minibatch), pl)
+             for pl in short]
+    base = timed[0][0]
+    timed.sort(key=lambda t: t[0])
+    if timed[0][1] != default and timed[0][0] > (1 - MIN_GAIN) * base:
+        timed.sort(key=lambda t: t[1] != default)
     return timed

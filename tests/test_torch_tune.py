@@ -187,11 +187,17 @@ def test_roofline_bound():
     assert r["efficiency"] == pytest.approx(0.5)
 
 
-def test_measurement_needs_the_card_and_a_k4_kind():
+@pytest.mark.parametrize("kind", KINDS)
+def test_measurement_needs_the_card(kind, monkeypatch):
+    """Every kind is timed on the card, K4's blocking and K1's, K2's and
+    K3's plans alike; without a card each raises, never times the CPU."""
     assert tune.can_measure("cuda") and not tune.can_measure("cpu")
-    blk = blocking.conv_blocking_analytic(**L4)
-    with pytest.raises(NotImplementedError, match="tile-tuning slice"):
-        measure.measure_conv_us(dict(L4), blk, kind="fwd")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    blk = blocking.conv_blocking_analytic(**L4, whole_plane=True,
+                                          kind="streams") \
+        if kind == "streams" else tune.default_plan(kind, n=2, **L4)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        measure.measure_conv_us(dict(L4), blk, kind=kind, minibatch=2)
 
 
 # -- cache --------------------------------------------------------------------------
