@@ -308,6 +308,35 @@ Phases, each of which fails the run (nonzero exit, no result line):
     quantized tree under ``whole``: 52 K10c launches, all on the mma route
     (``launches_whole_mma``), no K3, logits equal bit for bit to the tiled
     int8 forward's, and that forward under the profiler.
+24b. Chains (``REPRO_CHAIN_FUSION``, ``chains_phase``): full ResNet-50 at
+    batch 16 on phase 3's params, the knob on against off under both
+    tilings, at the default chain budget (16 MiB: all 16 chains fused, one
+    band each) and at the reference's 1 MiB (``chain_budget_forced``: its 7
+    chains in 4-10 bands, the other 9 layer by layer), each from one
+    forward with the counts set to 0 just before it and read just after:
+    the logits bit for bit, the chains fused and unfused, K1's (K10a's)
+    launches, all on the mma route; each fused chain run again fused and
+    layer by layer on its recorded input (bit for bit, one launch a band
+    and lane-aligned layer, all mma), with its rb, bands, largest hand-off
+    band and intermediate activation beside the 50 MB L2; tiled, the
+    forward off, on and on at 1 MiB timed in turns by host clock and once
+    each under the profiler.  Then phase 6's int8 tree with the knob on (no
+    chain fuses: the same bits, 52 K3 launches on the ring) and
+    Inception-v3 at 299x299 (phase 7b's params) at both budgets: 7 and 5
+    chains fused; the stem chain's C=3 layer takes cuDNN on each band, so
+    it and the logits are held to the f32 limits (1e-5 of max |out|, 1e-4
+    of max |logit|, the same top-1) where the bits differ.
+24c. The whole-plane blockings tuned (``whole_plan_tuning``), phase 13b
+    under ``whole``: the serving warmups ("fwd_whole", "q8_whole" at every
+    bucket) and ``warmup_cnn_train`` ("fwd_whole", "bwd_whole",
+    "wu_whole" at batch 32) into a temporary cache, at most 8 blockings
+    timed a signature, the analytic one among them; per signature the
+    tuned launch against its plain version (K10a, K10b <= 1e-5, K10c the
+    same bits) and the analytic and tuned blockings timed again in turns
+    (the tuned at most 1.03x the analytic), the sums per forward and per
+    step; whole serving (f32, int8) and the whole training step with the
+    analytic blockings and under "cache", in turns, and once each under
+    the profiler.
 25. K10b vs plain and vs K2 on the 22 weight-update signatures at batch 32,
     b_p from ``conv_blocking(require_divisor=True, kind="wu")`` (<= 1e-5),
     run twice on the same inputs (the same bits), with each signature's
@@ -331,8 +360,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
     (max |diff| 0); the times of K5 (events, profiler), the plain version
     and ``F.max_pool2d`` at the stem pool against the bytes bound (51.4 MB
     read, 12.8 MB written: 0.0192 ms at 3.35 TB/s).
-28. The whole-plane, Inception-v3, plan-tuning, LM and hybrid serving
-    summary lines, the int8 serving and training summary lines, the
+28. The whole-plane, Inception-v3, plan-tuning, chains, whole-plane
+    tuning, LM and hybrid serving summary lines, the int8 serving and training summary lines, the
     kernels line (K1, K2, K3, K4, K7, K6, K8, K9, K10a, K10b, K10c, K5;
     K1, K2 and K3 with their launches under tuned plans), then the device
     line last.
@@ -2105,9 +2134,11 @@ PLAN_REL_TOL = 1.03     # a tuned plan's device time against its default's
 def plan_row(kind: str, geo: tuple, n: int, count: int, cache) -> dict:
     """One tuned signature: its cache entry (the tuning pass's default and
     tuned times, candidates timed), the tuned launch against the kernel's
-    plain version (K1, K2 <= 1e-5; K3 the same bits), and both plans timed
-    again on one set of inputs, in turns (default, tuned, tuned, default,
-    twice over; device time, ``tune.measure.device_us``)."""
+    plain version (K1, K2, K10a, K10b <= 1e-5; K3, K10c the same bits), and
+    both plans timed again on one set of inputs, in turns (default, tuned,
+    tuned, default, twice over; device time, ``tune.measure.device_us``).
+    A whole-plane kind's plan is its ``ConvBlocking``, its default the
+    analytic blocking."""
     import numpy as np
     import torch
     from repro_torch import tune
@@ -2128,22 +2159,26 @@ def plan_row(kind: str, geo: tuple, n: int, count: int, cache) -> dict:
           f"{kind} {geo}: {entry['timed']} timed, tuned "
           f"{entry['score_us']} us against the default's "
           f"{entry['default_us']}")
-    args = measure.conv_inputs(kind, sh, n)
+    whole = kind in space.WHOLE_KINDS
+    base = space.whole_base(kind) if whole else kind
+    args = measure.conv_inputs(base, sh, n)
     out = measure.kernel_call(kind, sh, args, plan)()
     torch.cuda.synchronize()
-    if kind == "q8":
-        exp = k3.conv2d_q8_plain(**args, stride=sh["stride"],
-                                 padding=sh["padding"])
+    geo_kw = dict(stride=sh["stride"], padding=sh["padding"])
+    blk_kw = {} if not whole else dict(b_p=plan.rb_p, k_blk=plan.k_blk) \
+        if base == "wu" else dict(rb_p=plan.rb_p, k_blk=plan.k_blk)
+    if base == "q8":
+        exp = (k3.conv2d_q8_whole_plain if whole else k3.conv2d_q8_plain)(
+            **args, **geo_kw, **blk_kw)
         err = float((out - exp).abs().max())
-        check(err == 0, f"tuned K3 {plan} at {geo}: max |diff| {err}")
+        check(err == 0, f"tuned {kind} {plan} at {geo}: max |diff| {err}")
     else:
-        if kind == "wu":
-            exp = k2.conv2d_wu_plain(**args, stride=sh["stride"],
-                                     padding=sh["padding"],
-                                     filter_rs=(sh["r"], sh["s"]))
+        if base == "wu":
+            exp = (k2.conv2d_wu_whole_plain if whole else k2.conv2d_wu_plain)(
+                **args, **geo_kw, filter_rs=(sh["r"], sh["s"]), **blk_kw)
         else:
-            exp = k1.conv2d_direct_plain(**args, stride=sh["stride"],
-                                         padding=sh["padding"])
+            exp = (k1.conv2d_direct_whole_plain if whole
+                   else k1.conv2d_direct_plain)(**args, **geo_kw, **blk_kw)
         err = float((out - exp).abs().max()) / float(exp.abs().max())
         check(err <= KERNEL_REL_TOL, f"tuned {kind} {plan} at {geo}: "
               f"max_rel {err:.3e}")
@@ -2175,31 +2210,38 @@ def plan_row(kind: str, geo: tuple, n: int, count: int, cache) -> dict:
 
 
 def _plan_text(kind: str, p: dict) -> str:
+    if kind.endswith("_whole"):
+        return f"rb_p {p['rb_p']} k_blk {p['k_blk']}"
     if kind == "q8":
         return f"{p['bm']}x{p['bn']}/{p['bk']} s{p['splits']}"
     return f"t{p['tile']} s{p['splits']} c{p['chunk']}"
 
 
-def serve_window_timed(engine, label: str) -> dict:
-    """``serve_window`` (64 untimed, then REQUESTS) with the K1 and K3
-    counts read just after and ``tune.measure.measurements`` held at 0
-    over both passes."""
+def serve_window_timed(engine, label: str, requests: int = REQUESTS,
+                       warm_requests: int = 64) -> dict:
+    """``serve_window`` (``warm_requests`` untimed, then ``requests``) with
+    the counts of K1, K3 and their whole-plane forms K10a and K10c read
+    just after and ``tune.measure.measurements`` held at 0 over both
+    passes."""
     from repro_torch.kernels import conv2d_direct as k1
     from repro_torch.kernels import conv2d_q8 as k3
     from repro_torch.launch.serve_cnn import serve_window
     from repro_torch.tune import measure
 
     measure.measurements = 0
-    server, results = serve_window(engine, requests=REQUESTS, seed=SEED)
+    server, results = serve_window(engine, requests=requests, seed=SEED,
+                                   warm_requests=warm_requests)
     st = server.stats()
-    check(len(results) == REQUESTS, f"{label}: served {len(results)}")
+    check(len(results) == requests, f"{label}: served {len(results)}")
     check(measure.measurements == 0, f"{label}: the serving window timed "
           f"{measure.measurements} candidates")
     return dict(images_per_s=st["images_per_s"],
                 p50_ms=st["latency"]["p50_ms"],
                 p99_ms=st["latency"]["p99_ms"], batches=st["batches"],
                 k1=k1.launches, k1_mma=k1.launches_mma, k3=k3.launches,
-                k3_ring=k3.launches_ring)
+                k3_ring=k3.launches_ring, k10a=k1.launches_whole,
+                k10a_mma=k1.launches_whole_mma, k10c=k3.launches_whole,
+                k10c_mma=k3.launches_whole_mma)
 
 
 def plan_tuning(device, sigs, fwd, dual, wu, serve_params) -> dict:
@@ -4090,6 +4132,612 @@ def whole_q8(device, sigs, q8_rows, q8_gxm, qparams):
                                 equal_to_tiled=equal, profile=prof)
 
 
+# ---------------------------------------------------------------------------
+# Phases 24b and 24c: depth-first chains; the whole-plane blockings tuned
+# ---------------------------------------------------------------------------
+
+CHAIN_PRESSURE = 1 << 20    # the reference's pressure budget (its CI, bench)
+L2_BYTES = 50 * 10 ** 6       # the H100 SXM's L2 (NVIDIA: 50 MB)
+CHAIN_TIMED = 6             # forwards timed a way, in turns, by host clock
+# the ResNet-50 chains the reference fuses at 1 MiB, batch 16: (rb, bands)
+RESNET_PRESSURE_PLAN = {"s0b0_c1": (14, 4), "s0b1_c1": (9, 7),
+                        "s0b2_c1": (9, 7), "s1b0_c1": (3, 10),
+                        "s1b1_c1": (7, 4), "s1b2_c1": (7, 4),
+                        "s1b3_c1": (7, 4)}
+WHOLE_TUNE_STEPS = 10       # whole training steps timed a way, in turns
+
+
+@contextlib.contextmanager
+def chain_budget_forced(budget):
+    """``core.blocking.CHAIN_BUDGET``, which ``chain_blocking`` reads at each
+    call, set to ``budget`` for the block (None: left as it is): the
+    reference's 1 MiB pressure budget forced, as ``whole_split_forced``
+    forces a rule."""
+    from repro_torch.core import blocking
+    prev = blocking.CHAIN_BUDGET
+    if budget is not None:
+        blocking.CHAIN_BUDGET = budget
+    try:
+        yield
+    finally:
+        blocking.CHAIN_BUDGET = prev
+
+
+def conv_counts(reset: bool = False) -> dict:
+    """The launch counts of K1, K10a, K3 and K10c (each with its tensor-core
+    route's) and the executor's chain counts; with ``reset``, all set to 0
+    first."""
+    from repro_torch.graph import executor
+    from repro_torch.kernels import conv2d_direct as k1
+    from repro_torch.kernels import conv2d_q8 as k3
+    if reset:
+        k1.launches = k1.launches_mma = k1.launches_whole = 0
+        k1.launches_whole_mma = k3.launches = k3.launches_ring = 0
+        k3.launches_whole = k3.launches_whole_mma = 0
+        executor.chains_fused = executor.chains_unfused = 0
+    return dict(k1=k1.launches, k1_mma=k1.launches_mma,
+                k10a=k1.launches_whole, k10a_mma=k1.launches_whole_mma,
+                k3=k3.launches, k3_ring=k3.launches_ring,
+                k10c=k3.launches_whole, k10c_mma=k3.launches_whole_mma,
+                fused=executor.chains_fused, unfused=executor.chains_unfused)
+
+
+def chain_forward(gxm, params, x, mode: str):
+    """One inference forward under ``REPRO_CHAIN_FUSION`` ``mode``, the
+    counts set to 0 just before it and read just after.  Returns (logits,
+    counts, the chains it ran fused as (x, layers, rb), the arguments the
+    executor passed ``conv2d_chain_fwd``)."""
+    import torch
+    from repro_torch.backend import use_chain_fusion
+    from repro_torch.graph import executor
+
+    ran, fused_fn = [], executor.conv2d_chain_fwd
+
+    def recording(x_, layers, *, rb, **kw):
+        ran.append((x_, layers, rb))
+        return fused_fn(x_, layers, rb=rb, **kw)
+    executor.conv2d_chain_fwd = recording
+    try:
+        torch.cuda.synchronize()
+        conv_counts(reset=True)
+        with use_chain_fusion(mode):
+            out = gxm.infer(params, x)
+        torch.cuda.synchronize()
+        counts = conv_counts()
+    finally:
+        executor.conv2d_chain_fwd = fused_fn
+    return out, counts, ran
+
+
+def chain_rows(gxm, params, image: int, ran, tiling: str) -> list[dict]:
+    """Each chain of ``gxm`` under the chain budget in force: its plan
+    (``tune.measure.chain_traffic`` at batch ``BATCH``: fused, rb, bands),
+    its largest hand-off band (N x band rows x Q x K x 4 bytes) and
+    intermediate activation (N x P x Q x K x 4); for each chain the forward
+    ran fused, its recorded input run again fused, its launches counted
+    (K1's, or K10a's under ``whole``, all on the mma route, one a band and
+    lane-aligned layer), then layer by layer (``core.conv.conv2d_fwd``),
+    and the two compared: the same bits, or max |diff| / max |out|."""
+    import torch
+    from repro_torch.core.conv import conv2d_chain_fwd, conv2d_fwd, lane_ok
+    from repro_torch.core.streams import FLAG_HANDOFF, build_chain_schedule
+    from repro_torch.graph.serving import conv_shapes
+    from repro_torch.tune.measure import chain_traffic
+
+    by = {sh["name"]: sh for sh in conv_shapes(gxm.etg, (image, image))}
+    key = "k1" if tiling == "tiled" else "k10a"
+    rows = []
+    for ch in gxm.etg.chains:
+        shapes = [{f: by[name][f] for f in GEO} for name in ch.names]
+        t = chain_traffic(shapes, minibatch=BATCH)
+        outs = [(((sh["h"] + 2 * sh["padding"] - sh["r"]) // sh["stride"]
+                  + 1), (sh["w"] + 2 * sh["padding"] - sh["s"])
+                 // sh["stride"] + 1, sh["k"]) for sh in shapes]
+        sched = build_chain_schedule(
+            rs=[(sh["r"], sh["stride"], sh["padding"]) for sh in shapes],
+            h_in=shapes[0]["h"], rb=t["rb"])
+        handoff = max(BATCH * int(o1 - o0) * outs[l][1] * outs[l][2] * 4
+                      for l, o0, o1, f in zip(sched.layer_ids, sched.o0,
+                                              sched.o1, sched.flags)
+                      if f & FLAG_HANDOFF)
+        lanes = sum(lane_ok(sh["c"], sh["k"]) for sh in shapes)
+        row = dict(name=ch.names[0], layers=len(shapes), lanes=lanes,
+                   fused=t["fused"], fits=t["fits_vmem"], rb=t["rb"],
+                   bands=t["n_bands"], handoff_bytes=handoff,
+                   intermediate_bytes=max(BATCH * p * q * k * 4
+                                          for p, q, k in outs[:-1]))
+        rec = [r_ for r_ in ran if r_[1][0]["w"] is params[ch.names[0]]["w"]]
+        check(len(rec) == int(t["fused"]), f"chain {ch.names[0]}: planned "
+              f"fused={t['fused']}, the forward ran it fused {len(rec)} "
+              f"times")
+        if rec:
+            x_, layers, rb = rec[0]
+            check(rb == t["rb"], f"chain {ch.names[0]} ran at rb {rb}, "
+                  f"planned {t['rb']}")
+            conv_counts(reset=True)
+            got = conv2d_chain_fwd(x_, layers, rb=rb)
+            torch.cuda.synchronize()
+            c = conv_counts()
+            want = x_
+            for L in layers:
+                want = conv2d_fwd(want, L["w"], stride=L["stride"],
+                                  padding=L["padding"], bias=L.get("bias"),
+                                  scale=L.get("scale"), shift=L.get("shift"),
+                                  residual=L.get("residual"),
+                                  relu=L.get("relu", False))
+            row.update(equal=bool(torch.equal(got, want)),
+                       rel=float((got - want).abs().max())
+                       / float(want.abs().max()),
+                       launches=c[key], launches_mma=c[f"{key}_mma"])
+            check(c[key] == c[f"{key}_mma"] == lanes * t["n_bands"],
+                  f"chain {ch.names[0]} under {tiling}: {c[key]} launches, "
+                  f"{c[f'{key}_mma']} on the mma route, expected "
+                  f"{lanes} x {t['n_bands']} bands")
+            # a chain of lane-aligned layers runs only the port's kernels:
+            # the same bits; a ref-path layer runs cuDNN on each band
+            check(row["equal"] or (lanes < len(shapes)
+                                   and row["rel"] <= KERNEL_REL_TOL),
+                  f"chain {ch.names[0]} under {tiling}, rb {rb}: fused "
+                  f"differs from unfused by {row['rel']:.3e} of max |out|")
+            del got, want
+        rows.append(row)
+    return rows
+
+
+def _chain_table(rows: list[dict]) -> None:
+    print("    chain      layers fused   rb bands hand-off MB intermediate MB"
+          "  same bits (max rel)  launches (mma)")
+    for r_ in rows:
+        if not r_["fused"]:         # layer by layer: no band, no hand-off
+            print(f"    {r_['name']:11s}{r_['layers']:4d}  False"
+                  f"{'-':>5s}{'-':>6s}{'-':>12s}"
+                  f"{r_['intermediate_bytes'] / 1e6:15.3f}")
+            continue
+        print(f"    {r_['name']:11s}{r_['layers']:4d}  True "
+              f"{r_['rb']:5d}{r_['bands']:6d}{r_['handoff_bytes'] / 1e6:12.3f}"
+              f"{r_['intermediate_bytes'] / 1e6:15.3f}  {str(r_['equal']):5s}"
+              f" ({r_['rel']:.3e})       {r_['launches']} "
+              f"({r_['launches_mma']})")
+
+
+def chains_phase(device, serve_params, q8_gxm, qparams) -> dict:
+    """Phase 24b: depth-first chains (``REPRO_CHAIN_FUSION``).
+
+    Full ResNet-50 (224x224, batch 16, phase 3's params): the knob on
+    against off under both tilings, at the default chain budget (16 MiB:
+    all 16 chains fused, one band each) and at the reference's 1 MiB
+    (``chain_budget_forced``: the 7 chains the reference fuses, 3 to 14 rows
+    a band, the other 9 layer by layer): logits by ``torch.equal``, the
+    launches by kernel (K1 or K10a, all on the mma route) and chain counts
+    from one forward each, every chain run again fused and layer by layer
+    (``chain_rows``) with its rb, bands and hand-off bytes beside the 50 MB
+    L2; tiled, the three ways (off, on, on at 1 MiB) timed in turns by host
+    clock and once each under the profiler.  Then phase 6's int8 tree with
+    the knob on (no chain fuses: the same bits and launches as off), and
+    Inception-v3 (299x299, batch 16, phase 7b's params) at both budgets:
+    the stem chain's first layer (C=3) takes cuDNN on each band, so its
+    chain and the logits are held to the f32 limits where the bits differ.
+    Returns the summary."""
+    import numpy as np
+    import torch
+    from repro_torch.backend import use_chain_fusion, use_conv_tiling
+    from repro_torch.kernels import conv2d_direct as k1
+    from repro_torch.launch.serve_cnn import build_model
+
+    gxm, image = build_model(smoke=False, device=device)
+    check(len(gxm.etg.chains) == 16, f"ResNet-50 has {len(gxm.etg.chains)} "
+          f"chains, expected 16")
+    x = torch.as_tensor(np.random.default_rng(SEED + 24).standard_normal(
+        (BATCH, image, image, 3), dtype=np.float32), device=device)
+    print(f"\nchains: ResNet-50 {image}x{image}, batch {BATCH}, phase 3's "
+          f"params; {len(gxm.etg.chains)} chains of 3 convs; L2 "
+          f"{L2_BYTES / 1e6:.1f} MB")
+    out = {"resnet50": {}}
+    for tiling in ("tiled", "whole"):
+        key = "k1" if tiling == "tiled" else "k10a"
+        other = "k10a" if tiling == "tiled" else "k1"
+        for label, budget in (("16MiB", None), ("1MiB", CHAIN_PRESSURE)):
+            with use_conv_tiling(tiling), chain_budget_forced(budget):
+                off, c_off, _ = chain_forward(gxm, serve_params, x, "off")
+                on, c_on, ran = chain_forward(gxm, serve_params, x, "on")
+                rows = chain_rows(gxm, serve_params, image, ran, tiling)
+            del ran
+            fused = {r_["name"]: (r_["rb"], r_["bands"]) for r_ in rows
+                     if r_["fused"]}
+            want = RESNET_PRESSURE_PLAN if budget else {
+                r_["name"]: (r_["rb"], 1) for r_ in rows}
+            check(fused == want, f"{tiling} {label}: fused chains {fused}, "
+                  f"expected the reference's plan {want}")
+            launches = 4 + sum(r_["layers"] * (r_["bands"] if r_["fused"]
+                                               else 1) for r_ in rows)
+            same = bool(torch.equal(on, off))
+            print(f"  {tiling}, chain budget {label}: knob on vs off, the "
+                  f"same bits {same}; chains fused {c_on['fused']}, unfused "
+                  f"{c_on['unfused']}; {key.upper()} launches on "
+                  f"{c_on[key]} ({c_on[key + '_mma']} mma), off "
+                  f"{c_off[key]} ({c_off[key + '_mma']} mma)")
+            _chain_table(rows)
+            check(same, f"{tiling} {label}: logits with the chain knob on "
+                  f"differ from off by {float((on - off).abs().max()):.3e}")
+            check((c_on["fused"], c_on["unfused"]) == (len(fused),
+                                                       16 - len(fused)),
+                  f"{tiling} {label}: counted {c_on['fused']} fused, "
+                  f"{c_on['unfused']} unfused chains")
+            check(c_on[key] == c_on[key + "_mma"] == launches
+                  and c_off[key] == c_off[key + "_mma"] == 52
+                  and c_on[other] == c_off[other] == 0,
+                  f"{tiling} {label}: launches on {c_on}, off {c_off}; "
+                  f"expected {launches} on, 52 off, all mma")
+            out["resnet50"][f"{tiling}_{label}"] = dict(
+                same_bits=same, launches_on=c_on[key], launches_off=52,
+                chains_fused=c_on["fused"], chains_unfused=c_on["unfused"],
+                rows=rows)
+
+    # tiled: off, on, on at 1 MiB, timed in turns, then each traced
+    ways = (("off", "off", None), ("on", "on", None),
+            ("on_1MiB", "on", CHAIN_PRESSURE))
+    times = {name: [] for name, _, _ in ways}
+    with use_conv_tiling("tiled"):
+        for i in range(CHAIN_TIMED):
+            for name, mode, budget in (ways if i % 2 == 0 else ways[::-1]):
+                with use_chain_fusion(mode), chain_budget_forced(budget):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    gxm.infer(serve_params, x)
+                    torch.cuda.synchronize()
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+        timing = {}
+        for name, mode, budget in ways:
+            with use_chain_fusion(mode), chain_budget_forced(budget):
+                trace = trace_device(lambda i: gxm.infer(serve_params, x), 3,
+                                     {K1_NEEDLE: k1})
+            k1_ms = device_ms_of(trace, K1_NEEDLE) + device_ms_of(
+                trace, K1_SPLIT_SUM)
+            timing[name] = dict(wall_ms=float(np.median(times[name])),
+                                walls=times[name],
+                                device_ms=trace["device_ms"], k1_ms=k1_ms,
+                                other_ms=trace["device_ms"] - k1_ms,
+                                busy_share=trace["busy_share"],
+                                k1_launches=sum(
+                                    n for name_, n in trace["launches"].items()
+                                    if K1_NEEDLE in name_) / 3)
+            print(f"  tiled forward, chains {name:8s}: wall {timing[name]['wall_ms']:.3f} "
+                  f"ms (median of {CHAIN_TIMED}, in turns), device "
+                  f"{trace['device_ms']:.4f} ms (K1 {k1_ms:.4f} in "
+                  f"{timing[name]['k1_launches']:.0f} launches, the rest "
+                  f"{timing[name]['other_ms']:.4f}: the stem, pools, fc, "
+                  f"glue and the bands' pad copies), busy share "
+                  f"{trace['busy_share'] or 0:.4f}")
+    out["resnet50"]["timing"] = timing
+
+    # int8: chains never fuse over w_q
+    with use_conv_tiling("tiled"):
+        off, c_off, _ = chain_forward(q8_gxm, qparams, x, "off")
+        on, c_on, ran = chain_forward(q8_gxm, qparams, x, "on")
+    same = bool(torch.equal(on, off))
+    print(f"  int8 (phase 6's tree), knob on vs off: the same bits {same}; "
+          f"K3 launches on {c_on['k3']} ({c_on['k3_ring']} ring), off "
+          f"{c_off['k3']}; chains fused {c_on['fused']}, unfused "
+          f"{c_on['unfused']}")
+    check(same and not ran and c_on == dict(c_off, unfused=16)
+          and c_on["k3"] == c_on["k3_ring"] == 52,
+          f"int8 with the chain knob on: same bits {same}, counts on "
+          f"{c_on}, off {c_off}")
+    out["int8"] = dict(same_bits=same, k3_launches=c_on["k3"],
+                       chains_unfused=c_on["unfused"])
+    del gxm, off, on, x
+    torch.cuda.empty_cache()
+
+    # Inception-v3: 7 chains, the stem chain's first layer on cuDNN
+    inc, image = build_model(smoke=False, device=device, arch="inception")
+    gen = torch.Generator().manual_seed(SEED + 7)
+    params = inc.init(gen)
+    random_bn_stats(params, gen)
+    x = torch.as_tensor(np.random.default_rng(SEED + 25).standard_normal(
+        (BATCH, image, image, 3), dtype=np.float32), device=device)
+    check(len(inc.etg.chains) == 7, f"Inception-v3 has {len(inc.etg.chains)}"
+          f" chains, expected 7")
+    out["inception"] = {}
+    for label, budget in (("16MiB", None), ("1MiB", CHAIN_PRESSURE)):
+        with use_conv_tiling("tiled"), chain_budget_forced(budget):
+            off, c_off, _ = chain_forward(inc, params, x, "off")
+            on, c_on, ran = chain_forward(inc, params, x, "on")
+            rows = chain_rows(inc, params, image, ran, "tiled")
+        del ran
+        same = bool(torch.equal(on, off))
+        rel = float((on - off).abs().max()) / float(off.abs().max())
+        top1 = bool((on.argmax(-1) == off.argmax(-1)).all())
+        n_fused = sum(r_["fused"] for r_ in rows)
+        print(f"  Inception-v3 {image}x{image}, chain budget {label}: knob on "
+              f"vs off, the same bits {same} (max rel {rel:.3e}, limit "
+              f"{LOGIT_REL_TOL}), same top-1 {top1}; chains fused "
+              f"{c_on['fused']}, unfused {c_on['unfused']}; K1 launches on "
+              f"{c_on['k1']} ({c_on['k1_mma']} mma), off {c_off['k1']}")
+        _chain_table(rows)
+        check(n_fused == (7 if budget is None else 5)
+              and c_on["fused"] == n_fused
+              and c_on["unfused"] == 7 - n_fused,
+              f"Inception-v3 {label}: {n_fused} chains planned fused, "
+              f"counted {c_on['fused']} fused, {c_on['unfused']} unfused")
+        check(c_on["k1"] == c_on["k1_mma"] and c_off["k1"] == c_off["k1_mma"],
+              f"Inception-v3 {label}: a K1 launch left the mma route")
+        check(same or (rel <= LOGIT_REL_TOL and top1),
+              f"Inception-v3 {label}: logits with the knob on differ from "
+              f"off by {rel:.3e} of max |logit| (limit {LOGIT_REL_TOL}), "
+              f"same top-1 {top1}")
+        out["inception"][label] = dict(same_bits=same, rel=rel, top1=top1,
+                                       chains_fused=c_on["fused"], rows=rows)
+    del inc, params, x, off, on
+    torch.cuda.empty_cache()
+    return out
+
+
+def whole_plan_tuning(device, sigs, fwd, dual, wu, serve_params) -> dict:
+    """Phase 24c: the §II-D tuner over the whole-plane blockings, phase
+    13b's shape under ``use_conv_tiling("whole")``, into a cache in a
+    temporary directory.
+
+    ``CnnInferenceEngine.warmup(autotune="tune")`` tunes "fwd_whole" (f32)
+    and "q8_whole" (int8) on ResNet-50's serving signatures at every
+    bucket, ``warmup_cnn_train`` "fwd_whole", "bwd_whole" (the 31 distinct
+    dual convs) and "wu_whole" (the 22 weight updates) at batch 32: at most
+    8 blockings timed a signature, the analytic one among them and kept
+    unless another measured ``tune.measure.MIN_GAIN`` faster; K10a and
+    K10c on the mma route.  Per signature at batch 16 (serving) and 32
+    (training): the tuned launch against its plain version (``plan_row``:
+    K10a, K10b <= 1e-5, K10c the same bits), the analytic and tuned
+    blockings timed again in turns (the tuned no more than 3 % above the
+    analytic); the sums per forward and per step.  Then whole serving
+    (f32 and int8, WHOLE_REQUESTS after WHOLE_WARM_REQUESTS) and the whole
+    training step, each with the analytic blockings (autotune "off") and
+    under "cache", in turns, and once each under the profiler (device ms
+    a batch-16 forward and a step, K10a, K10b and K10c's shares)."""
+    import numpy as np
+    import torch
+    from repro_torch import tune
+    from repro_torch.backend import use_conv_tiling
+    from repro_torch.graph.serving import CnnInferenceEngine
+    from repro_torch.kernels import conv2d_direct as k1
+    from repro_torch.kernels import conv2d_q8 as k3
+    from repro_torch.kernels import conv2d_wu as k2
+    from repro_torch.launch.serve_cnn import build_model
+    from repro_torch.launch.train_cnn import build_trainer
+    from repro_torch.train.step import make_cnn_train_step, warmup_cnn_train
+    from repro_torch.tune import measure
+
+    serve_geo: dict[tuple, int] = {}
+    for key, count in sigs.items():
+        serve_geo[key[:8]] = serve_geo.get(key[:8], 0) + count
+    prev = os.environ.get("REPRO_TUNE_CACHE")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, use_conv_tiling("whole"):
+        os.environ["REPRO_TUNE_CACHE"] = os.path.join(tmp, "whole.json")
+        try:
+            cache = tune.default_cache()
+            conv_counts(reset=True)
+            k2.launches = k2.launches_whole = 0
+            measure.measurements = 0
+            t0 = time.perf_counter()
+            engines = {}
+            for quantized in (False, True):
+                gxm = build_model(smoke=False, device=device)[0]
+                eng = CnnInferenceEngine(gxm, serve_params,
+                                         image_hw=(IMAGE, IMAGE),
+                                         max_batch=BATCH,
+                                         quantized=quantized)
+                rep = eng.warmup(autotune="tune")
+                engines["int8" if quantized else "f32"] = (eng, rep)
+            serve_s = time.perf_counter() - t0
+            gxm_t, params_t, step_cache, data = build_trainer(
+                full=True, num_classes=1000, image=IMAGE, batch=TRAIN_BATCH,
+                lr=TRAIN_LR, device=device, seed=SEED, autotune="cache")
+            t1 = time.perf_counter()
+            rep_t = warmup_cnn_train(gxm_t, image_hw=(IMAGE, IMAGE),
+                                     minibatch=TRAIN_BATCH)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t1
+            c = conv_counts()
+            tuning = dict(serve_seconds=serve_s, train_seconds=train_s,
+                          timed=measure.measurements, k10a=c["k10a"],
+                          k10a_mma=c["k10a_mma"], k10c=c["k10c"],
+                          k10c_mma=c["k10c_mma"], k10b=k2.launches_whole,
+                          tiled=c["k1"] + c["k3"] + k2.launches,
+                          entries=len(cache))
+            cached = len({e["key"] for e in rep_t if e["cached"]})
+            print(f"\nwhole-plane blockings tuned: serving warmups (f32 "
+                  f"'fwd_whole' {engines['f32'][1]['tune_entries']} entries, "
+                  f"int8 'q8_whole' {engines['int8'][1]['tune_entries']}, "
+                  f"buckets {engines['f32'][1]['buckets']}) in {serve_s:.2f}s,"
+                  f" warmup_cnn_train ({cached} distinct blockings of "
+                  f"{len(rep_t)} keys) in {train_s:.2f}s; "
+                  f"{measure.measurements} candidates timed; launches K10a "
+                  f"{c['k10a']} ({c['k10a_mma']} mma), K10c {c['k10c']} "
+                  f"({c['k10c_mma']} mma), K10b {k2.launches_whole}; K1, K2, "
+                  f"K3 {tuning['tiled']}")
+            check(c["k10a"] == c["k10a_mma"] and c["k10c"] == c["k10c_mma"]
+                  and tuning["tiled"] == 0, "a whole-plane tuning launch left "
+                  "the mma route, or a tiled kernel ran under whole")
+            check(cached == len(fwd) + len(dual) + len(wu),
+                  f"warmup_cnn_train cached {cached} distinct blockings, "
+                  f"expected {len(fwd) + len(dual) + len(wu)}")
+
+            rows = []
+            for kind, table, n in (("fwd_whole", serve_geo, BATCH),
+                                   ("q8_whole", serve_geo, BATCH),
+                                   ("fwd_whole", fwd, TRAIN_BATCH),
+                                   ("bwd_whole", dual, TRAIN_BATCH),
+                                   ("wu_whole", wu, TRAIN_BATCH)):
+                for geo, count in table.items():
+                    rows.append(plan_row(kind, geo, n, count, cache))
+            print("  per signature: the tuning pass's analytic and tuned "
+                  "device us, candidates timed; then both timed again in "
+                  "turns (device us)")
+            print("  kind       n   h   w    c    k r st count  timed  "
+                  "tuning: analytic -> tuned   again: analytic   tuned   "
+                  "analytic blocking   tuned")
+            for r_ in rows:
+                h, w, c_, k, r, s, st, pd = r_["geo"]
+                print(f"  {r_['kind']:9s}{r_['n']:3d}{h:4d}{w:4d}{c_:5d}"
+                      f"{k:5d}{r:2d}{st:3d}{r_['count']:6d}{r_['timed']:4d}/"
+                      f"{r_['candidates']:<4d}{r_['tuning_default_us']:9.2f}"
+                      f" ->{r_['tuning_tuned_us']:9.2f}  "
+                      f"{r_['default_us']:9.2f}{r_['tuned_us']:9.2f}   "
+                      f"{_plan_text(r_['kind'], r_['default']):18s} "
+                      f"{'same' if r_['same'] else _plan_text(r_['kind'], r_['plan'])}")
+
+            def total(pick, key):
+                return sum(r_[key] * r_["count"] for r_ in rows
+                           if pick(r_)) / 1e3
+            sums = {}
+            for name, pick in (
+                    ("forward_f32", lambda r_: r_["kind"] == "fwd_whole"
+                     and r_["n"] == BATCH),
+                    ("forward_int8", lambda r_: r_["kind"] == "q8_whole"),
+                    ("step_forward", lambda r_: r_["kind"] == "fwd_whole"
+                     and r_["n"] == TRAIN_BATCH),
+                    ("step_dual", lambda r_: r_["kind"] == "bwd_whole"),
+                    ("step_wu", lambda r_: r_["kind"] == "wu_whole")):
+                sums[name] = dict(analytic_ms=total(pick, "default_us"),
+                                  tuned_ms=total(pick, "tuned_us"),
+                                  changed=sum(1 for r_ in rows if pick(r_)
+                                              and not r_["same"]),
+                                  signatures=sum(1 for r_ in rows
+                                                 if pick(r_)))
+            sums["step"] = {key: sum(sums[p][key] for p in (
+                "step_forward", "step_dual", "step_wu"))
+                for key in ("analytic_ms", "tuned_ms", "changed",
+                            "signatures")}
+            for name, v in sums.items():
+                print(f"  {name}: analytic {v['analytic_ms']:.4f} ms, tuned "
+                      f"{v['tuned_ms']:.4f} ms device (x count); "
+                      f"{v['changed']} of {v['signatures']} signatures "
+                      f"changed blocking")
+
+            for name in ("f32", "int8"):
+                eng, _ = engines[name]
+                off = CnnInferenceEngine(eng.gxm, serve_params,
+                                         image_hw=(IMAGE, IMAGE),
+                                         max_batch=BATCH,
+                                         quantized=eng.quantized,
+                                         autotune="off")
+                off.qparams, off.act_scales = eng.qparams, eng.act_scales
+                off.warmup(autotune="off")
+                runs = {"off": [], "cache": []}
+                for mode in ("off", "cache", "cache", "off"):
+                    runs[mode].append(serve_window_timed(
+                        off if mode == "off" else eng, f"whole {name} {mode}",
+                        requests=WHOLE_REQUESTS,
+                        warm_requests=WHOLE_WARM_REQUESTS))
+                res = {mode: dict(v[-1], **{key: float(np.mean(
+                    [x_[key] for x_ in v])) for key in (
+                        "images_per_s", "p50_ms", "p99_ms")},
+                    windows=[x_["images_per_s"] for x_ in v])
+                    for mode, v in runs.items()}
+                key = "k10c" if name == "int8" else "k10a"
+                # one batch-16 forward each way under the profiler: the
+                # device time the tuned blockings take off a forward
+                x = torch.as_tensor(np.random.default_rng(SEED + 26)
+                                    .standard_normal((BATCH, IMAGE, IMAGE, 3),
+                                                     dtype=np.float32),
+                                    device=device)
+                needle = "conv2d_q8_whole_kernel" if name == "int8" \
+                    else "conv2d_direct_whole_kernel"
+                mod = k3 if name == "int8" else k1
+                for mode, e in (("off", off), ("cache", eng)):
+                    trace = trace_device(
+                        lambda i: e.infer(x), 3,
+                        {needle: Counter(mod, "launches_whole")})
+                    res[mode].update(device_ms=trace["device_ms"],
+                                     kernel_ms=device_ms_of(trace, needle),
+                                     busy_share=trace["busy_share"],
+                                     traced_wall_ms=trace["wall_ms"])
+                for mode, v in res.items():
+                    print(f"  whole {name} serving, blockings {mode:5s}: "
+                          f"images/s {v['images_per_s']:.2f} (windows "
+                          f"{', '.join(f'{x_:.2f}' for x_ in v['windows'])})"
+                          f"  p50 {v['p50_ms']:.3f} ms  p99 "
+                          f"{v['p99_ms']:.3f} ms (means of two); "
+                          f"{key.upper()} {v[key]} launches ({v[key + '_mma']}"
+                          f" on the mma route), K1 {v['k1']}, K3 {v['k3']}; "
+                          f"a traced batch-{BATCH} forward: device "
+                          f"{v['device_ms']:.4f} ms ({key.upper()} "
+                          f"{v['kernel_ms']:.4f}), busy share "
+                          f"{v['busy_share'] or 0:.4f}")
+                    check(v[key] == 52 * v["batches"] == v[key + "_mma"]
+                          and v["k1"] == v["k3"] == 0,
+                          f"whole {name} serving under {mode}: {v}")
+                out[f"serving_{name}"] = res
+                del off
+            engines.clear()
+            torch.cuda.empty_cache()
+
+            step_off = make_cnn_train_step(gxm_t, lr=TRAIN_LR,
+                                           autotune="off")
+            batches = [data.batch_at(i) for i in range(4)]
+            batches = [{key: torch.as_tensor(v, device=device)
+                        for key, v in b.items()} for b in batches]
+            for st_ in (step_off, step_cache):
+                for b in batches[:2]:
+                    st_(params_t, b)
+            times = {"off": [], "cache": []}
+            measure.measurements = 0
+            pair = (("off", step_off), ("cache", step_cache))
+            for i in range(WHOLE_TUNE_STEPS):
+                for mode, st_ in (pair if i % 2 == 0 else pair[::-1]):
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    _, loss = st_(params_t, batches[2 + i % 2])
+                    torch.cuda.synchronize()
+                    times[mode].append((time.perf_counter() - t2) * 1e3)
+                    check(math.isfinite(float(loss)), "non-finite loss")
+            check(measure.measurements == 0, "a cache step timed candidates")
+            traced = {}
+            for mode, st_ in pair:
+                trace = trace_device(
+                    lambda i: st_(params_t, batches[2 + i % 2]), 2,
+                    {"conv2d_direct_whole_kernel": Counter(k1,
+                                                           "launches_whole"),
+                     "conv2d_wu_whole_kernel": Counter(k2, "launches_whole")})
+                traced[mode] = dict(
+                    wall_ms=trace["wall_ms"], device_ms=trace["device_ms"],
+                    busy_share=trace["busy_share"],
+                    k10a_ms=device_ms_of(trace, "conv2d_direct_whole_kernel"),
+                    k10b_ms=device_ms_of(trace, "conv2d_wu_whole_kernel")
+                    + device_ms_of(trace, WU_WHOLE_SUM))
+            conv_counts(reset=True)
+            k2.launches = k2.launches_whole = 0
+            step_cache(params_t, batches[2])
+            torch.cuda.synchronize()
+            c = conv_counts()
+            counts = dict(k10a=c["k10a"], k10a_mma=c["k10a_mma"],
+                          k10b=k2.launches_whole, k1=c["k1"], k2=k2.launches)
+            check(counts == dict(k10a=113, k10a_mma=113, k10b=52, k1=0, k2=0),
+                  f"one whole cache step launched {counts}")
+            train = {mode: float(np.median(v)) for mode, v in times.items()}
+            for mode in ("off", "cache"):
+                print(f"  whole training, blockings {mode:5s}: "
+                      f"{train[mode]:.3f} ms a step (median of "
+                      f"{WHOLE_TUNE_STEPS}, in turns), "
+                      f"{TRAIN_BATCH / train[mode] * 1e3:.2f} images/s; "
+                      f"traced: device {traced[mode]['device_ms']:.3f} ms a "
+                      f"step (K10a {traced[mode]['k10a_ms']:.3f}, K10b "
+                      f"{traced[mode]['k10b_ms']:.3f}), busy share "
+                      f"{traced[mode]['busy_share'] or 0:.4f}")
+            print(f"  one cache step: K10a {counts['k10a']} "
+                  f"({counts['k10a_mma']} mma), K10b {counts['k10b']}, K1 "
+                  f"{counts['k1']}, K2 {counts['k2']}")
+            out["training"] = dict(step_ms=train, steps=times, counts=counts,
+                                   traced=traced)
+        finally:
+            if prev is None:
+                del os.environ["REPRO_TUNE_CACHE"]
+            else:
+                os.environ["REPRO_TUNE_CACHE"] = prev
+    out.update(tuning=tuning, sums=sums, rows=rows)
+    print("  per-signature JSON:", json.dumps(rows))
+    return out
+
+
 def whole_wu(device, wu, wu_rows):
     """Phase 25: K10b against its plain version and K2 on the 22 weight-
     update signatures at batch 32, b_p from the reference's
@@ -4484,6 +5132,9 @@ def main() -> int:
     whole_launches, whole_summary = whole_serving(device, serve_params)
     k10c_rows, k10c_launches, k10c_summary = whole_q8(device, sigs, q8_rows,
                                                       q8_gxm, qparams)
+    chains = chains_phase(device, serve_params, q8_gxm, qparams)
+    whole_planned = whole_plan_tuning(device, sigs, fwd, dual, wu,
+                                      serve_params)
     del serve_params, q8_gxm, qparams
     torch.cuda.empty_cache()
     k10b_rows = whole_wu(device, wu, wu_rows)
@@ -4512,15 +5163,22 @@ def main() -> int:
     def timing(d):
         return {key: d[key] for key in ("ms", "plain_ms", "library_ms",
                                         "bound_ms", "bound_by")}
+    chain_k1 = chains["resnet50"]["tiled_16MiB"]["launches_on"]
+    chain_k10a = chains["resnet50"]["whole_16MiB"]["launches_on"]
     kernels = [{
         "name": "conv2d_direct",
         "route": "cuda",
         "source": "src/repro_torch/csrc/conv2d_direct.cu",
         "replaces": "src/repro/kernels/conv2d_direct.py:295",
-        "launches": serve_launches + train_counts["conv2d_direct"],
-        "launches_mma": serve_launches + train_counts["conv2d_direct_mma"],
+        "launches": serve_launches + train_counts["conv2d_direct"]
+        + chain_k1,
+        "launches_mma": serve_launches + train_counts["conv2d_direct_mma"]
+        + chain_k1,
         "launches_by_path": {"serving": serve_launches,
-                             "training_step": train_counts["conv2d_direct"]},
+                             "training_step": train_counts["conv2d_direct"],
+                             "chains": chain_k1},
+        "launches_by_path_chains_1MiB": chains["resnet50"][
+            "tiled_1MiB"]["launches_on"],
         "max_abs_err": max(r["max_abs_err"] for r in rows + k1_rows),
         "max_rel_err": max(r["max_rel_err"] for r in rows + k1_rows),
         **timing(serve),
@@ -4805,12 +5463,18 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/conv2d_direct_whole.cu",
         "replaces": "src/repro/kernels/conv2d_direct.py:338",
-        "launches": whole_launches + whole_counts["conv2d_direct_whole"],
+        "launches": whole_launches + whole_counts["conv2d_direct_whole"]
+        + chain_k10a,
         "launches_mma": whole_launches
-        + whole_counts["conv2d_direct_whole_mma"],
+        + whole_counts["conv2d_direct_whole_mma"] + chain_k10a,
         "launches_by_path": {
             "whole_serving": whole_launches,
-            "whole_training": whole_counts["conv2d_direct_whole"]},
+            "whole_training": whole_counts["conv2d_direct_whole"],
+            "chains": chain_k10a},
+        "launches_by_path_chains_1MiB": chains["resnet50"][
+            "whole_1MiB"]["launches_on"],
+        "tuned_blockings": {key: whole_planned["sums"][key] for key in (
+            "forward_f32", "step_forward", "step_dual")},
         "max_abs_err": max(r_["max_abs_err"] for r_ in whole_rows),
         "max_rel_err": max(r_["max_rel_err"] for r_ in whole_rows),
         **timing(k10a),
@@ -4838,6 +5502,7 @@ def main() -> int:
         "launches": whole_counts["conv2d_wu_whole"],
         "launches_by_path": {
             "whole_training": whole_counts["conv2d_wu_whole"]},
+        "tuned_blockings": {"step_wu": whole_planned["sums"]["step_wu"]},
         "max_abs_err": max(r_["max_abs_err"] for r_ in k10b_rows),
         "max_rel_err": max(r_["max_rel_err"] for r_ in k10b_rows),
         **timing(k10b),
@@ -4859,6 +5524,8 @@ def main() -> int:
         "launches": k10c_launches,
         "launches_mma": k10c_summary["k10c_launches_mma"],
         "launches_by_path": {"whole_int8": k10c_launches},
+        "tuned_blockings": {
+            "forward_int8": whole_planned["sums"]["forward_int8"]},
         "max_abs_err": max(r_["max_abs_err"] for r_ in k10c_rows),
         **timing(k10c),
         "device_ms": dev_sum(k10c_rows),
@@ -4907,6 +5574,9 @@ def main() -> int:
     print(json.dumps({"inception_serving": inception}))
     print(json.dumps({"plan_tuning": {key: v for key, v in planned.items()
                                       if key != "rows"}}))
+    print(json.dumps({"chains": chains}))
+    print(json.dumps({"whole_plan_tuning": {
+        key: v for key, v in whole_planned.items() if key != "rows"}}))
     print(json.dumps({"lm_serving": lm_summary}))
     print(json.dumps({"hybrid_serving": hy_summary}))
     print(json.dumps({"serving_int8": {

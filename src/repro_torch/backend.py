@@ -5,8 +5,9 @@ The reference's ``repro.backend`` selects a kernel implementation
 CPU tensor takes each kernel's plain PyTorch version, a CUDA tensor launches
 the hand-written kernel.  What remains to decide is the device itself,
 whether inference runs the int8 path (``REPRO_QUANTIZE``), where
-blockings come from (``REPRO_AUTOTUNE``), and which input strategy the
-conv kernels take (``REPRO_CONV_TILING``).
+blockings come from (``REPRO_AUTOTUNE``), which input strategy the
+conv kernels take (``REPRO_CONV_TILING``), and whether inference runs
+conv->conv chains depth-first (``REPRO_CHAIN_FUSION``).
 """
 from __future__ import annotations
 
@@ -18,8 +19,10 @@ import torch
 VALID_QUANTIZE = ("off", "int8")
 VALID_AUTOTUNE = ("off", "cache", "tune")
 VALID_CONV_TILING = ("tiled", "whole")
+VALID_CHAIN_FUSION = ("off", "on")
 _autotune: str | None = None     # set_autotune's value; None reads the env
 _conv_tiling: str | None = None  # set_conv_tiling's value; None reads the env
+_chain_fusion: str | None = None  # set_chain_fusion's value; None: the env
 
 
 def get_quantize() -> str:
@@ -115,6 +118,45 @@ def use_conv_tiling(mode: str):
         yield
     finally:
         _conv_tiling = prev
+
+
+def _valid_chain_fusion(mode: str, source: str) -> str:
+    if mode not in VALID_CHAIN_FUSION:
+        raise ValueError(f"{source}={mode!r}; valid: "
+                         f"{', '.join(VALID_CHAIN_FUSION)}")
+    return mode
+
+
+def get_chain_fusion() -> str:
+    """Depth-first chain fusion: "off" (default) = every conv task runs
+    layer by layer; "on" = the GxM inference forward runs each detected
+    single-consumer conv->conv chain band by band
+    (``kernels.conv2d_chain``), falling back per chain to layer by layer
+    where the band does not fit the chain budget or fusion is not
+    profitable (``tune.measure.chain_traffic``).  ``set_chain_fusion``
+    overrides ``REPRO_CHAIN_FUSION``, which is read at each call
+    otherwise.  An invalid value raises."""
+    if _chain_fusion is not None:
+        return _chain_fusion
+    return _valid_chain_fusion(os.environ.get("REPRO_CHAIN_FUSION", "off"),
+                               "REPRO_CHAIN_FUSION")
+
+
+def set_chain_fusion(mode: str) -> None:
+    """Pin chain fusion for this process, over ``REPRO_CHAIN_FUSION``."""
+    global _chain_fusion
+    _chain_fusion = _valid_chain_fusion(mode, "chain_fusion")
+
+
+@contextmanager
+def use_chain_fusion(mode: str):
+    global _chain_fusion
+    prev = _chain_fusion
+    set_chain_fusion(mode)
+    try:
+        yield
+    finally:
+        _chain_fusion = prev
 
 
 def resolve_device(device=None) -> torch.device:

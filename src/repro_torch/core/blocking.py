@@ -22,6 +22,10 @@ budget shapes what the tuner searches, and the card's timings decide.
 ``REPRO_VMEM_BUDGET`` sets another budget.  Called with the reference's
 budget, every function here returns exactly what the reference returns.
 
+Depth-first chains: ``chain_working_set`` and ``chain_blocking`` size the
+band of a conv->conv chain against ``CHAIN_BUDGET``, the reference's 16
+MiB, since the hand-off band lives in L2 between two launches.
+
 Two selection paths:
 
   * ``conv_blocking_analytic`` — the closed-form heuristic; always
@@ -45,6 +49,11 @@ VMEM_BUDGET = int(os.environ.get("REPRO_VMEM_BUDGET", 232448))
 # K10a-c take their blocking at: their plane stays in L2 (50 MB), not in a
 # CTA's shared memory, and this budget gives the reference's rb_p and k_blk
 WHOLE_PLANE_BUDGET = 16 * 1024 * 1024
+# the budget of a depth-first chain's band (``chain_blocking``): the
+# reference's 16 MiB, for the reason K10a-c take it: a hand-off band stays
+# in L2 between the producer's launch and the consumer's, not in a CTA's
+# shared memory.  Read at each call, so a caller may set another.
+CHAIN_BUDGET = WHOLE_PLANE_BUDGET
 LANE = 128          # widest feature block
 SUBLANE = 8         # feature blocks are multiples of 8 (``lane_ok``)
 M_TILE = 128        # pixels per tile the analytic heuristic aims for
@@ -224,3 +233,92 @@ def _tuned_conv(mode: str, **kw) -> ConvBlocking | None:
     if mode == "tune":
         return tune.autotune_conv(**kw)
     return tune.lookup_conv(**kw)
+
+
+# -- depth-first chains (the reference's DESIGN.md §16) ----------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainBlocking:
+    """Band split of a depth-first conv->conv chain: ``rb`` final-layer
+    output rows per band (upstream band heights follow by the halo
+    recurrence), ``n_bands`` bands, the peak working set at ``rb``, and
+    ``fits`` False when even a one-row band exceeds the budget (the chain
+    then runs layer by layer)."""
+    rb: int            # final-layer output rows per band step
+    n_bands: int
+    vmem_bytes: int    # peak per-step working set at this rb
+    fits: bool
+
+
+def chain_layer_blocking(L: dict, dtype_bytes: int) -> ConvBlocking:
+    """The analytic blocking of one chain layer at the reference's
+    default budget, as the reference's chain functions take it."""
+    return conv_blocking_analytic(h=L["h"], w=L["w"], c=L["c"], k=L["k"],
+                                  r=L["r"], s=L["s"], stride=L["stride"],
+                                  padding=L["padding"],
+                                  dtype_bytes=dtype_bytes,
+                                  vmem_budget=WHOLE_PLANE_BUDGET)
+
+
+def chain_working_set(layers, *, rows_out: int, dtype_bytes: int = 4,
+                      blockings=None) -> int:
+    """Peak per-band-step bytes of a depth-first chain.
+
+    ``layers``: one dict per conv, producers first, with its input plane
+    (h, w, c) and geometry (k, r, s, stride, padding).  ``rows_out`` is
+    the final layer's output rows per band; each upstream band height
+    follows by the halo recurrence (``fusion.chain_band_rows``).  Bands
+    are handed off eagerly, so while layer l computes only its input band,
+    weight block and output band with its accumulator are live: the peak
+    is the max over layers of ``conv_working_set`` at that layer's band
+    height, under ``blockings`` (default: each layer's analytic blocking
+    at the reference's budget)."""
+    from repro_torch.core.fusion import chain_band_rows
+    rs = [(L["r"], L["stride"], L["padding"]) for L in layers]
+    rows = chain_band_rows(rs, rows_out)
+    peak = 0
+    for l, L in enumerate(layers):
+        p = _out_p(L["h"], L["r"], L["stride"], L["padding"])
+        q = _out_p(L["w"], L["s"], L["stride"], L["padding"])
+        blk = blockings[l] if blockings is not None else \
+            chain_layer_blocking(L, dtype_bytes)
+        ws = conv_working_set(h=L["h"], w=L["w"], c=L["c"], k_blk=blk.k_blk,
+                              r=L["r"], s=L["s"], q=q,
+                              rb_p=min(rows[l + 1], p),
+                              padding=L["padding"], dtype_bytes=dtype_bytes,
+                              stride=L["stride"], c_blk=blk.c_blk,
+                              rb_q=blk.rb_q)
+        peak = max(peak, ws)
+    return peak
+
+
+def chain_blocking(layers, *, vmem_budget: int | None = None,
+                   dtype_bytes: int = 4, blockings=None) -> ChainBlocking:
+    """The largest final-layer band whose chain working set fits
+    ``vmem_budget`` (None: ``CHAIN_BUDGET``, read now).  The working set
+    grows with the band, so a binary search finds it; rb = P of the last
+    layer is one band.  When even one row does not fit, ``fits=False``."""
+    vmem_budget = CHAIN_BUDGET if vmem_budget is None else vmem_budget
+    last = layers[-1]
+    p_final = _out_p(last["h"], last["r"], last["stride"], last["padding"])
+    if blockings is None:
+        blockings = [chain_layer_blocking(L, dtype_bytes) for L in layers]
+
+    def ws(rb):
+        return chain_working_set(layers, rows_out=rb, dtype_bytes=dtype_bytes,
+                                 blockings=blockings)
+
+    best = 0
+    lo, hi = 1, p_final
+    while lo <= hi:
+        mid = (lo + hi) // 2
+        if ws(mid) <= vmem_budget:
+            best, lo = mid, mid + 1
+        else:
+            hi = mid - 1
+    if best == 0:
+        return ChainBlocking(rb=1, n_bands=p_final, vmem_bytes=ws(1),
+                             fits=False)
+    return ChainBlocking(rb=best, n_bands=math.ceil(p_final / best),
+                         vmem_bytes=ws(best), fits=True)

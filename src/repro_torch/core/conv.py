@@ -6,8 +6,9 @@ paper's pipeline: dI by the §II-I duality (``core.duality``), every dual
 forward through K1, and dW through the update-pass kernel K2 (§II-J).
 int8 inference (§II-K): ``conv2d_q8_fwd`` quantizes the activation and
 runs the int8 kernel K3.  Convs whose (C, K) fail the lane rule take the
-``kernels.ref`` oracles, as in the reference.  Chains come with a later
-slice.
+``kernels.ref`` oracles, as in the reference.  ``conv2d_chain_fwd`` runs
+a conv->conv chain band by band (``kernels.conv2d_chain``), each band
+through the same dispatch.
 
 Each tiled launch takes the kernel plan ``tune.resolve_plan`` gives for
 its kind, shape and batch under the autotune mode (``autotune=``, else
@@ -23,7 +24,10 @@ each call) every lane-aligned conv takes the reference's legacy
 whole-plane kernels instead, with the reference's blocking
 (``repro/core/conv.py:56-64, 162-178``): K10a for each forward and dual
 conv, K10c for each int8 forward, K10b for each weight gradient.  There is
-no fallback from one strategy to the other.
+no fallback from one strategy to the other.  Their blocking is the
+reference's analytic one with autotuning off, and the tuned one of the
+kind "fwd_whole", "bwd_whole", "q8_whole" or "wu_whole" under "cache" or
+"tune" (``whole_blocking``).
 """
 from __future__ import annotations
 
@@ -32,7 +36,6 @@ import torch
 from repro_torch import backend as be
 from repro_torch import tune
 from repro_torch.core import duality
-from repro_torch.core.blocking import WHOLE_PLANE_BUDGET, conv_blocking
 from repro_torch.core.quantize import quantize_act
 from repro_torch.kernels import conv2d_direct as k1
 from repro_torch.kernels import conv2d_q8 as k3
@@ -50,20 +53,27 @@ def lane_ok(c: int, k: int) -> bool:
     return c % 8 == 0 and k % 8 == 0
 
 
-def whole_blocking(x_shape, w_shape, *, stride, padding, kind):
-    """The reference's blocking of a whole-plane launch: ``conv_blocking``
-    at the reference's budget with ``minibatch`` N, as
-    ``repro/core/conv.py`` picks it.  ``kind`` is "fwd", "bwd" (a dual
-    conv), "q8" (one byte an element) or "wu" (the update pass, whose
-    rb_p, then b_p, must divide P)."""
+def whole_blocking(x_shape, w_shape, *, stride, padding, kind, backend=None,
+                   autotune=None):
+    """The blocking of a whole-plane launch, as ``repro/core/conv.py``
+    asks ``conv_blocking`` for it at the reference's budget with
+    ``minibatch`` N.  ``kind`` is "fwd", "bwd" (a dual conv), "q8" (one
+    byte an element) or "wu" (the update pass, whose rb_p, then b_p, must
+    divide P).  Under ``autotune`` (None: the knob) "off", the reference's
+    analytic blocking (``tune.default_plan`` of the kind + "_whole");
+    under "cache" or "tune" the blocking ``tune.resolve_plan`` gives for
+    that kind, memoised (``backend`` None: the default device)."""
     n, h, wd, c = x_shape
     r, s, _, k = w_shape
-    return conv_blocking(h=h, w=wd, c=c, k=k, r=r, s=s, stride=stride,
-                         padding=padding,
-                         dtype_bytes=1 if kind == "q8" else 4,
-                         vmem_budget=WHOLE_PLANE_BUDGET,
-                         require_divisor=(kind == "wu"), kind=kind,
-                         minibatch=n)
+    shape = dict(h=h, w=wd, c=c, k=k, r=r, s=s, stride=stride,
+                 padding=padding)
+    mode = be.resolve_autotune(autotune)
+    if mode == "off":
+        return tune.default_plan(f"{kind}_whole", n=n, **shape)
+    if backend is None:
+        backend = be.resolve_device(None).type
+    return tune.resolve_plan(f"{kind}_whole", n=n, **shape, backend=backend,
+                             autotune=mode)
 
 
 def _plan(kind, x, w_shape, stride, padding, autotune):
@@ -91,12 +101,22 @@ def conv2d_fwd(x, w, *, stride=1, padding=1, bias=None, scale=None,
         return ref.conv2d_fused(x, w, **kw)
     if be.get_conv_tiling() == "whole":
         blk = whole_blocking(x.shape, w.shape, stride=stride,
-                             padding=padding, kind=kind)
+                             padding=padding, kind=kind,
+                             backend=x.device.type, autotune=autotune)
         return conv2d_direct_whole(x, w, rb_p=blk.rb_p, k_blk=blk.k_blk,
                                    **kw)
     plan = _plan(kind, x, w.shape, stride, padding, autotune) \
         if k1.route(x, w) == "mma" else None
     return conv2d_direct(x, w, plan=plan, **kw)
+
+
+def conv2d_chain_fwd(x, layers, *, rb, autotune=None):
+    """A single-consumer conv->conv chain run depth-first, band by band
+    (``kernels.conv2d_chain``): each band takes the dispatch of
+    ``conv2d_fwd`` with its layer's full-shape plan or blocking, so the
+    result equals the layer-by-layer one bit for bit."""
+    from repro_torch.kernels.conv2d_chain import conv2d_chain
+    return conv2d_chain(x, layers, rb=rb, autotune=autotune)
 
 
 def conv2d_q8_fwd(x, w_q, *, x_scale, w_scale, stride=1, padding=1,
@@ -120,7 +140,8 @@ def conv2d_q8_fwd(x, w_q, *, x_scale, w_scale, stride=1, padding=1,
                   residual=residual, relu=relu)
         if be.get_conv_tiling() == "whole":
             blk = whole_blocking(x.shape, w_q.shape, stride=stride,
-                                 padding=padding, kind="q8")
+                                 padding=padding, kind="q8",
+                                 backend=x.device.type, autotune=autotune)
             return conv2d_q8_whole(x_q, w_q, rb_p=blk.rb_p, k_blk=blk.k_blk,
                                    **kw)
         plan = _plan("q8", x_q, w_q.shape, stride, padding, autotune) \
@@ -170,7 +191,8 @@ def conv2d_bwd_weights(x, do, *, stride, padding, filter_rs, autotune=None):
     if be.get_conv_tiling() == "whole":
         r, s = filter_rs
         blk = whole_blocking(x.shape, (r, s, c, k), stride=stride,
-                             padding=padding, kind="wu")
+                             padding=padding, kind="wu",
+                             backend=x.device.type, autotune=autotune)
         return conv2d_wu_whole(x, do, stride=stride, padding=padding,
                                filter_rs=filter_rs, b_p=blk.rb_p,
                                k_blk=blk.k_blk)

@@ -24,8 +24,8 @@ import numpy as np
 FLAG_INIT = 1       # first visit of this output tile: zero the accumulator
 FLAG_EPILOGUE = 2   # last visit: apply the fused L() and write back
 FLAG_RELU = 4       # L() includes ReLU
-FLAG_HANDOFF = 8    # depth-first hand-off between chain layers (the chains
-                    # slice; no conv schedule sets it)
+FLAG_HANDOFF = 8    # depth-first hand-off between chain layers
+                    # (``build_chain_schedule``)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +73,79 @@ def build_conv_schedule(*, n: int, k_b: int, p_b: int, c_b: int,
         n_ids=cols["n"].astype(np.int32), kb_ids=cols["k"].astype(np.int32),
         pb_ids=cols["p"].astype(np.int32), cb_ids=cb.astype(np.int32),
         flags=flags, segments=tuple(segments), grid=(n, k_b, p_b, c_b))
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainSchedule:
+    """Interleaved depth-first replay schedule of a conv->conv chain: per
+    final-layer output band, one step for each layer, producers first.
+    Every step is a complete band micro-conv (INIT|EPILOGUE); every step
+    but the last layer's carries FLAG_HANDOFF: its output band is the next
+    step's input and is not part of the chain's output.
+
+    ``o0``/``o1`` are each step's output-row range at its layer (real,
+    clipped coordinates): the band driver computes exactly these rows, so
+    the band arithmetic lives here."""
+    layer_ids: np.ndarray   # chain-layer index per step
+    band_ids: np.ndarray    # final-layer band index per step
+    o0: np.ndarray          # first output row of this step's band
+    o1: np.ndarray          # one past its last output row
+    flags: np.ndarray
+    segments: tuple         # RLE segments: (flags, start, length)
+    grid: tuple             # (n_layers, n_bands)
+
+    def __len__(self):
+        return len(self.layer_ids)
+
+
+def build_chain_schedule(*, rs, h_in: int, rb: int) -> ChainSchedule:
+    """Dryrun of a depth-first chain: one interleaved schedule.
+
+    ``rs`` is the per-layer (r, stride, padding) list, producers first;
+    ``h_in`` the chain input's height; ``rb`` the final layer's output
+    rows per band.  Per band, the output rows each layer must compute
+    follow back from the final band by the halo recurrence (out rows
+    [o0, o1) of layer l+1 need rows [o0*s - pad, (o1-1)*s + r - pad) of
+    its input, clipped at the plane's edges); the steps are emitted
+    producer first.  Consecutive bands of a non-final layer overlap by
+    the halo, and those rows are computed again."""
+    rs = [tuple(t) for t in rs]
+    n_layers = len(rs)
+    p = []                          # per-layer output rows
+    h = h_in
+    for r, stride, pad in rs:
+        h = (h + 2 * pad - r) // stride + 1
+        p.append(h)
+    n_bands = -(-p[-1] // rb)
+
+    layer_ids, band_ids, o0s, o1s, flags = [], [], [], [], []
+    for b in range(n_bands):
+        o = [None] * n_layers
+        o[-1] = (b * rb, min((b + 1) * rb, p[-1]))
+        for l in range(n_layers - 2, -1, -1):
+            lo, hi = o[l + 1]
+            r, stride, pad = rs[l + 1]
+            o[l] = (max(lo * stride - pad, 0),
+                    min((hi - 1) * stride + r - pad, p[l]))
+        for l in range(n_layers):
+            assert o[l][1] > o[l][0], (b, l, o)
+            layer_ids.append(l)
+            band_ids.append(b)
+            o0s.append(o[l][0])
+            o1s.append(o[l][1])
+            f = FLAG_INIT | FLAG_EPILOGUE
+            if l < n_layers - 1:
+                f |= FLAG_HANDOFF
+            flags.append(f)
+
+    flags = np.asarray(flags, dtype=np.int32)
+    return ChainSchedule(
+        layer_ids=np.asarray(layer_ids, dtype=np.int32),
+        band_ids=np.asarray(band_ids, dtype=np.int32),
+        o0=np.asarray(o0s, dtype=np.int32),
+        o1=np.asarray(o1s, dtype=np.int32),
+        flags=flags, segments=tuple(rle_segments(flags)),
+        grid=(n_layers, n_bands))
 
 
 def rle_segments(flags: np.ndarray):

@@ -14,22 +14,49 @@ for a q8-marked task whose params hold int8 weights, through K3
 (``core.conv.conv2d_q8_fwd``, §II-K).  ``forward(tap=)`` shows every conv
 input to a callback: the calibration pass of ``core.quantize``.
 
-Depth-first chain fusion comes with a later slice and raises here.
+Depth-first chain fusion (``REPRO_CHAIN_FUSION=on``,
+``backend.get_chain_fusion``): an inference forward without a tap runs
+each conv->conv chain of the ETG (``core.fusion.detect_chains``) band by
+band through ``core.conv.conv2d_chain_fwd`` where
+``tune.measure.chain_traffic`` fuses it, and layer by layer where it does
+not, or where a layer holds int8 weights (``w_q``).  ``chains_fused`` and
+``chains_unfused`` count the two.
 """
 from __future__ import annotations
 
+import functools
 import math
-import os
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.backend import get_quantize, resolve_device
-from repro_torch.core.conv import conv2d_fwd, conv2d_q8_fwd, conv2d_train
+from repro_torch.backend import get_chain_fusion, get_quantize, resolve_device
+from repro_torch.core import blocking
+from repro_torch.core.conv import (conv2d_chain_fwd, conv2d_fwd,
+                                   conv2d_q8_fwd, conv2d_train)
 from repro_torch.graph.etg import ETG, build_etg
 
 # BN leaves that are running statistics: buffers, not trained by SGD.
 RUNNING_STATS = ("mean", "var")
+# Chains run band by band, and chains that fell back to layer by layer,
+# since the last reset (set to 0 to reset).
+chains_fused = 0
+chains_unfused = 0
+_CHAIN_GEO = ("h", "w", "c", "k", "r", "s", "stride", "padding",
+              "dtype_bytes")
+
+
+@functools.lru_cache(maxsize=1024)
+def _chain_rb(shapes: tuple, minibatch: int, budget: int):
+    """The final layer's rows per band of a chain of conv ``shapes`` (one
+    ``_CHAIN_GEO`` tuple a layer), or None to run it layer by layer:
+    ``tune.measure.chain_traffic``'s decision at ``budget``.  A pure
+    function of its arguments, so it is kept, as the reference's decision
+    is fixed once per traced shape."""
+    from repro_torch.tune.measure import chain_traffic
+    t = chain_traffic([dict(zip(_CHAIN_GEO, sh)) for sh in shapes],
+                      minibatch=minibatch, vmem_budget=budget)
+    return t["rb"] if t["fused"] else None
 
 
 @torch.no_grad()
@@ -115,6 +142,53 @@ class GxM:
                                   "b": const(a["k"], 0.0)}
         return params
 
+    # -- depth-first chains (the reference's DESIGN.md §16) -----------------
+    def _task(self, name):
+        by_name = getattr(self, "_task_by_name", None)
+        if by_name is None:
+            by_name = self._task_by_name = {t.name: t for t in self.etg.tasks}
+        return by_name[name]
+
+    def _plan_chain(self, ch, params, x):
+        """Fuse or not, decided once per chain at its entry task, where
+        the input's plane is known: the band plan ``{"rb": rows}``, or None
+        to run the chain layer by layer.  A chain with an int8 layer stays
+        unfused (K3 has its own banding), as does one whose band does not
+        fit the chain budget or whose fused bytes exceed the unfused sum
+        (``tune.measure.chain_traffic`` at ``core.blocking.CHAIN_BUDGET``,
+        read now)."""
+        if any("w_q" in params[name] for name in ch.names):
+            return None
+        h, w = int(x.shape[1]), int(x.shape[2])
+        shapes = []
+        for name in ch.names:
+            a = self._task(name).attrs
+            shapes.append((h, w, a["c"], a["k"], a["r"], a["s"], a["stride"],
+                           a["padding"], x.dtype.itemsize))
+            h = (h + 2 * a["padding"] - a["r"]) // a["stride"] + 1
+            w = (w + 2 * a["padding"] - a["s"]) // a["stride"] + 1
+        rb = _chain_rb(tuple(shapes), int(x.shape[0]), blocking.CHAIN_BUDGET)
+        return None if rb is None else {"rb": rb}
+
+    def _chain_layer(self, name, params, get, folded):
+        """One chain layer's weights and epilogue: the BN fold, bias,
+        residual and relu the unfused inference branch passes to
+        ``conv2d_fwd``."""
+        t = self._task(name)
+        p = params[name]
+        layer = dict(w=p["w"], stride=t.attrs["stride"],
+                     padding=t.attrs["padding"])
+        for kind, attrs in t.fused:
+            if kind == "bn":
+                layer["scale"], layer["shift"] = folded(p)
+            elif kind == "bias":
+                layer["bias"] = p["bias"]
+            elif kind == "relu":
+                layer["relu"] = True
+            elif kind == "add":
+                layer["residual"] = get(attrs["residual"])
+        return layer
+
     # -- forward ------------------------------------------------------------
     def forward(self, params, x, *, train: bool = True,
                 collect_stats: bool = False, tap=None):
@@ -126,12 +200,10 @@ class GxM:
         §II-G fused BN.  ``tap(name, x)``, if given, sees the input of
         every conv task (the calibration pass of ``core.quantize``).  A
         q8-marked conv whose params hold ``w_q`` runs the int8 path, one
-        with f32 params the f32 path."""
-        if (not train and self.etg.chains
-                and os.environ.get("REPRO_CHAIN_FUSION") == "on"):
-            raise NotImplementedError(
-                "REPRO_CHAIN_FUSION=on: depth-first chain fusion arrives "
-                "with the chains slice")
+        with f32 params the f32 path.  Under ``REPRO_CHAIN_FUSION=on`` an
+        inference forward without a tap runs the ETG's chains depth-first
+        (the module docstring); training and tapped forwards never do."""
+        global chains_fused, chains_unfused
         tensors = {"input": x}
         stats = {}
 
@@ -146,10 +218,37 @@ class GxM:
             inv = 1.0 / torch.sqrt(p["var"] + 1e-5)
             return p["scale"] * inv, p["shift"] - p["scale"] * p["mean"] * inv
 
+        chain_of, chain_plans = {}, {}
+        if (not train and tap is None and self.etg.chains
+                and get_chain_fusion() == "on"):
+            for ch in self.etg.chains:
+                for pos, name in enumerate(ch.names):
+                    chain_of[name] = (ch, pos)
+
         for t in self.etg.tasks:
             a = t.attrs
             if t.op == "input":
                 continue
+            if t.name in chain_of:
+                ch, pos = chain_of[t.name]
+                if pos == 0:
+                    plan = chain_plans[ch.names] = self._plan_chain(
+                        ch, params, get(t.inputs[0]))
+                    if plan is None:
+                        chains_unfused += 1
+                plan = chain_plans[ch.names]
+                if plan is not None:
+                    if pos < len(ch.names) - 1:
+                        continue        # its band is handed on in the chain
+                    out = conv2d_chain_fwd(
+                        get(self._task(ch.names[0]).inputs[0]),
+                        [self._chain_layer(name, params, get, folded)
+                         for name in ch.names], rb=plan["rb"])
+                    chains_fused += 1
+                    tensors[t.name] = out
+                    if "output_name" in a:
+                        tensors[a["output_name"]] = out
+                    continue
             if t.op == "conv":
                 inp = get(t.inputs[0])
                 if tap is not None:

@@ -222,7 +222,9 @@ class CnnInferenceEngine:
         1. the persistent plan cache (``repro_torch.tune``) for every
            distinct conv signature x bucket batch, under kind "fwd", or
            "q8" at 1 byte an element on a quantized engine (calibrated
-           first), by ``tune.warmup_convs`` in mode ``autotune`` ("tune":
+           first), and under ``REPRO_CONV_TILING=whole`` the whole-plane
+           blockings of "fwd_whole" or "q8_whole" in their place, by
+           ``tune.warmup_convs`` in mode ``autotune`` ("tune":
            tune on a miss; "cache": report what is there; "off": skip);
            only lane-aligned signatures are tuned, the rest reported;
         2. one forward per bucket under the engine's own ``autotune``
@@ -251,6 +253,8 @@ class CnnInferenceEngine:
         }
         if be.resolve_autotune(autotune) != "off":
             kind = "q8" if self.quantized else "fwd"
+            if report["conv_tiling"] == "whole":
+                kind += "_whole"
             entries = tune.warmup_convs(
                 sigs, minibatches=tuple(self.buckets), kinds=(kind,),
                 mode=autotune, backend=self.device.type, cache=cache,

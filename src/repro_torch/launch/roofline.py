@@ -49,3 +49,53 @@ def kernel_roofline(*, flops: float, hbm_bytes: float, util: float = 1.0,
         "dominant": "compute" if t_comp >= t_mem else "memory",
         "efficiency": flops / peak / cost if cost > 0 else 0.0,
     }
+
+
+def composite_roofline(parts: list[dict], *, extra_hbm_bytes: float = 0.0,
+                       peak: float = F32_PEAK_FLOPS) -> dict:
+    """Roofline of a pipeline of launches, e.g. a chain's band steps: each
+    part is a ``tune.measure.conv_traffic`` dict (flops, hbm_bytes, util,
+    n_steps); launches serialize, so the cost is the sum of each launch's
+    ``kernel_roofline`` cost, plus ``extra_hbm_bytes`` moved between
+    launches at the HBM rate.  No per-step term (see
+    ``tune.measure``)."""
+    cost = extra_hbm_bytes / HBM_BYTES_PER_S
+    flops = 0.0
+    hbm = extra_hbm_bytes
+    steps = 0
+    for t in parts:
+        cost += kernel_roofline(flops=t["flops"], hbm_bytes=t["hbm_bytes"],
+                                util=t.get("util", 1.0), peak=peak)["cost_s"]
+        flops += t["flops"]
+        hbm += t["hbm_bytes"]
+        steps += t.get("n_steps", 0)
+    return {
+        "cost_s": cost,
+        "flops": flops,
+        "hbm_bytes": hbm,
+        "n_steps": steps,
+        "launches": len(parts),
+        "efficiency": flops / peak / cost if cost > 0 else 0.0,
+    }
+
+
+def chain_roofline(chain_t: dict, *, peak: float = F32_PEAK_FLOPS) -> dict:
+    """Roofline of a depth-first conv chain from its
+    ``tune.measure.chain_traffic`` dict: the fused cost composites the
+    band steps (hand-off bands at 0 bytes), the unfused cost the layer
+    launches; a chain that fell back has the same two, a speedup of 1."""
+    fused = composite_roofline(chain_t["parts"], peak=peak)
+    unfused = composite_roofline(chain_t["unfused_parts"], peak=peak)
+    cost = fused["cost_s"]
+    return {
+        "cost_s": cost,
+        "unfused_cost_s": unfused["cost_s"],
+        "speedup": unfused["cost_s"] / cost if cost > 0 else 0.0,
+        "flops": fused["flops"],
+        "hbm_bytes": chain_t["hbm_bytes"],
+        "unfused_hbm_bytes": chain_t["unfused_hbm_bytes"],
+        "intermediate_bytes": chain_t["intermediate_bytes"],
+        "launches": fused["launches"],
+        "efficiency": fused["efficiency"],
+        "fused": chain_t["fused"],
+    }

@@ -166,10 +166,9 @@ def serve_window(engine: CnnInferenceEngine, *, requests: int, seed: int = 0,
     """The measured serving window: ``warm_requests`` in bursts through a
     throwaway server (untimed), then ``requests`` through a fresh one.  All
     images are made before either starts, and the launch counts of K1 and
-    K3, and of their whole-plane forms K10a and K10c (with K1's and K10a's
-    mma-route counts and K3's ring-route count), are set to 0 as the window
-    opens.  Returns (server,
-    results)."""
+    K3, and of their whole-plane forms K10a and K10c (with K1's, K10a's
+    and K10c's mma-route counts and K3's ring-route count), are set to 0
+    as the window opens.  Returns (server, results)."""
     rng = np.random.default_rng(seed)
     image = engine.image_hw[0]
     warm = make_images(warm_requests, image, rng)
@@ -177,6 +176,7 @@ def serve_window(engine: CnnInferenceEngine, *, requests: int, seed: int = 0,
     serve_bursts(ImageServer(engine), warm, rng=rng)
     k1.launches = k3.launches = k1.launches_mma = k3.launches_ring = 0
     k1.launches_whole = k3.launches_whole = k1.launches_whole_mma = 0
+    k3.launches_whole_mma = 0
     server = ImageServer(engine)
     return server, serve_bursts(server, window, rng=rng)
 

@@ -51,14 +51,19 @@ def warmup_cnn_train(gxm, *, image_hw=(224, 224), minibatch: int = 1,
     """Pre-tune every plan one training step of ``gxm`` at batch
     ``minibatch`` launches: kind "fwd" for each distinct conv, "bwd" for
     the dual conv(s) of its backward-data pass (under ``bwd_mode``, else
-    ``REPRO_BWD_DUALITY``) and "wu" for its weight gradient; the training
-    counterpart of ``CnnInferenceEngine.warmup``.  ``backend`` None is the
-    GxM's device type.  Returns the ``tune.warmup_convs`` report."""
+    ``REPRO_BWD_DUALITY``) and "wu" for its weight gradient, or under
+    ``REPRO_CONV_TILING=whole`` the whole-plane blockings of "fwd_whole",
+    "bwd_whole" and "wu_whole"; the training counterpart of
+    ``CnnInferenceEngine.warmup``.  ``backend`` None is the GxM's device
+    type.  Returns the ``tune.warmup_convs`` report."""
     from repro_torch import tune
     from repro_torch.graph.serving import (conv_shapes,
                                            distinct_conv_signatures)
     sigs = distinct_conv_signatures(conv_shapes(gxm.etg, image_hw))
+    kinds = ("fwd", "bwd", "wu")
+    if be.get_conv_tiling() == "whole":
+        kinds = tuple(f"{kind}_whole" for kind in kinds)
     return tune.warmup_convs(sigs, minibatches=(minibatch,),
-                             kinds=("fwd", "bwd", "wu"), mode=mode,
+                             kinds=kinds, mode=mode,
                              backend=backend or gxm.device.type, cache=cache,
                              bwd_mode=bwd_mode)

@@ -17,7 +17,11 @@ What is tuned is what each port kernel takes:
   ``lookup_plan`` / ``autotune_plan`` and, per launch, ``resolve_plan``,
   which ``core.conv`` consults.  The kernel's default plan is always a
   candidate and always timed; an entry the kernel cannot run on its shape
-  misses, and the miss takes the default plan.
+  misses, and the miss takes the default plan;
+* "fwd_whole", "bwd_whole" (K10a), "q8_whole" (K10c) and "wu_whole"
+  (K10b): the whole-plane kernels' ``ConvBlocking`` (rb_p, k_blk), the
+  same way (``space.WHOLE_KINDS``), consulted per launch by
+  ``core.conv.whole_blocking``; the analytic blocking is the default.
 
   mode "off"    the analytic blocking / the kernel's default plan (default)
   mode "cache"  consult the cache, fall back to those on a miss
@@ -48,11 +52,13 @@ from repro_torch.tune.cache import (CACHE_VERSION, TuneCache,  # noqa: F401
                                     conv_key, default_cache, device_kind)
 from repro_torch.tune.measure import (can_measure, conv_cost_us,  # noqa: F401
                                       plan_cost_us, rank_conv, rank_plans)
-from repro_torch.tune.space import (PLAN_KINDS, check_plan,  # noqa: F401
+from repro_torch.tune.space import (PLAN_KINDS,  # noqa: F401
+                                    WHOLE_KINDS, check_plan,
                                     conv_candidates, default_plan, out_dim,
                                     plan_applies, plan_candidates)
 
-PLAN_TYPES = {"fwd": MmaPlan, "bwd": MmaPlan, "wu": WuPlan, "q8": RingPlan}
+PLAN_TYPES = {"fwd": MmaPlan, "bwd": MmaPlan, "wu": WuPlan, "q8": RingPlan,
+              **dict.fromkeys(WHOLE_KINDS, ConvBlocking)}
 # resolve_plan's memo: (kind, shape, batch, backend, mode, and for a mode
 # that reads the cache REPRO_TUNE_CACHE and TuneCache.changes) -> plan;
 # emptied when it reaches this size
@@ -106,7 +112,7 @@ def autotune_conv(*, h, w, c, k, r, s, stride, padding, dtype_bytes=4,
     (backend "cuda"), "model" otherwise.  Only K4 ("streams") runs a
     ``ConvBlocking``: the plan kinds raise (``autotune_plan`` tunes
     them)."""
-    if kind in PLAN_KINDS:
+    if kind in PLAN_KINDS + WHOLE_KINDS:
         raise ValueError(f"kind {kind!r} is tuned as a kernel plan "
                          f"(autotune_plan), not a ConvBlocking")
     cache = default_cache() if cache is None else cache
@@ -138,8 +144,9 @@ def autotune_conv(*, h, w, c, k, r, s, stride, padding, dtype_bytes=4,
 
 
 def plan_dtype_bytes(kind: str) -> int:
-    """The element bytes of a plan kind's cache key: 1 for "q8", else 4."""
-    return 1 if kind == "q8" else 4
+    """The element bytes of a plan kind's cache key: 1 for "q8" and
+    "q8_whole", else 4."""
+    return 1 if kind in ("q8", "q8_whole") else 4
 
 
 def _to_plan(kind: str, entry: dict, *, n: int, shape: dict):
@@ -153,7 +160,7 @@ def _to_plan(kind: str, entry: dict, *, n: int, shape: dict):
     except (KeyError, TypeError):
         return None
     for f in dataclasses.fields(cls):
-        want = str if f.name == "route" else int
+        want = str if f.name in ("route", "order") else int
         if type(values[f.name]) is not want:
             return None
     plan = cls(**values)
@@ -256,11 +263,12 @@ def warmup_convs(shapes, *, minibatches=(1,), kinds=("fwd",), mode="tune",
 
     ``shapes``: dicts with h/w/c/k/r/s/stride/padding (for example from
     ``graph.serving.conv_shapes``).  One entry per shape x ``kinds`` x
-    ``minibatches`` (the batch is part of the key).  "bwd" expands each
-    layer into the dual forward-conv signature(s) its backward-data pass
-    launches (``duality.dual_conv_signatures``, under ``bwd_mode``).
-    "streams" tunes K4's ``ConvBlocking``; "fwd", "bwd", "wu" and "q8"
-    tune the kernel plan of K1, K2 or K3 (``autotune_plan``), on the shapes
+    ``minibatches`` (the batch is part of the key).  "bwd" and "bwd_whole"
+    expand each layer into the dual forward-conv signature(s) its
+    backward-data pass launches (``duality.dual_conv_signatures``, under
+    ``bwd_mode``).  "streams" tunes K4's ``ConvBlocking``; "fwd", "bwd",
+    "wu" and "q8" tune the kernel plan of K1, K2 or K3, the whole-plane
+    kinds the blocking of K10a-c (``autotune_plan``), on the shapes
     whose launches take one (``space.plan_applies``): the others (a C=3
     stem, a "q8" C off the multiples of 16) are reported, not tuned.
     ``mode`` "tune" searches and persists on a miss, "cache" only reports
@@ -282,14 +290,14 @@ def warmup_convs(shapes, *, minibatches=(1,), kinds=("fwd",), mode="tune",
                                    "stride", "padding")}
         db = sh.get("dtype_bytes", dtype_bytes)
         for kind in kinds:
-            if kind == "bwd":
+            if kind in ("bwd", "bwd_whole"):
                 targets = duality.dual_conv_signatures(
                     r=base["r"], s=base["s"], c=base["c"], k=base["k"],
                     stride=base["stride"], padding=base["padding"],
                     input_hw=(base["h"], base["w"]), mode=bwd_mode)
             else:
                 targets = [base]
-            planned = kind in PLAN_KINDS
+            planned = kind in PLAN_KINDS + WHOLE_KINDS
             for tgt in targets:
                 takes = planned and plan_applies(kind, c=tgt["c"],
                                                  k=tgt["k"])

@@ -44,7 +44,11 @@ scores a plan by the kernel's own model: K1's ``_mma_cost``, K2's rounds
 x chunk (``conv2d_wu.mma_cost``), K3's ring estimate
 (``conv2d_q8.ring_cost``).  ``rank_plans`` always times the kernel's
 default plan, and keeps it unless another plan measured at least
-``MIN_GAIN`` faster.
+``MIN_GAIN`` faster.  The whole-plane kinds ("fwd_whole", "bwd_whole",
+"q8_whole", "wu_whole") rank their ``ConvBlocking`` candidates the same
+way: the model is ``conv_cost_us`` of the base kind with the whole plane
+shipped per step (the reference's bytes of the legacy kernels), and the
+card times K10a, K10c or K10b under each.
 """
 from __future__ import annotations
 
@@ -59,8 +63,13 @@ from repro_torch.kernels.conv2d_streams import (ROUTE_PEAK_FLOPS,
                                                 mma_stage_c, mma_tile_config,
                                                 route_of, tile_config)
 from repro_torch.launch.roofline import F32_PEAK_FLOPS, kernel_roofline
-from repro_torch.tune.space import out_dim
+from repro_torch.tune.space import WHOLE_KINDS, out_dim, whole_base
 
+# Stable keys of the ``chain_traffic`` decision dict (the reference's).
+CHAIN_TRAFFIC_KEYS = ("fused", "fits_vmem", "rb", "n_bands", "vmem_bytes",
+                      "flops", "x_bytes", "w_bytes", "o_bytes", "hbm_bytes",
+                      "intermediate_bytes", "unfused_hbm_bytes",
+                      "unfused_intermediate_bytes", "n_steps", "n_layers")
 # Kernel timings taken since the last reset (set to 0 to reset): a pass
 # that should only read the cache must leave it unchanged.
 measurements = 0
@@ -207,6 +216,92 @@ def _wu_traffic(*, h, w, c, k, r, s, stride, p, q, hp, wp, n, blk,
     }
 
 
+def chain_traffic(shapes: list, *, minibatch: int = 1,
+                  vmem_budget: int | None = None) -> dict:
+    """Price a depth-first conv->conv chain against its unfused run and
+    decide whether to fuse it, the reference's model unchanged.
+
+    ``shapes``: one conv shape dict per layer, producers first.  The fused
+    price walks the chain's band schedule (``streams.build_chain_schedule``)
+    and charges each band step the ``conv_traffic`` of that band under the
+    layer's full-shape analytic blocking (at the reference's budget):
+    layer 0's input bands come from memory, halo rows again for each band;
+    a hand-off band (FLAG_HANDOFF) is neither written nor read back; each
+    step reads its weights; only the final layer's bands are written.
+
+    Fuse iff the chain's band fits ``vmem_budget``
+    (``core.blocking.chain_blocking``; None: ``CHAIN_BUDGET``) and the
+    fused bytes do not exceed the unfused sum.  On fallback the reported
+    traffic is the unfused sum.  Returns ``CHAIN_TRAFFIC_KEYS`` plus
+    ``parts``/``unfused_parts`` (the per-launch ``conv_traffic`` dicts,
+    for ``launch.roofline.chain_roofline``)."""
+    from repro_torch.core.blocking import chain_blocking, chain_layer_blocking
+    from repro_torch.core.streams import FLAG_HANDOFF, build_chain_schedule
+
+    n = minibatch
+    dtype_bytes = shapes[0].get("dtype_bytes", 4)
+    blks, unfused_parts, dims = [], [], []
+    for sh in shapes:
+        blk = chain_layer_blocking(sh, sh.get("dtype_bytes", 4))
+        blks.append(blk)
+        unfused_parts.append(conv_traffic(sh, blk, minibatch=n))
+        dims.append((out_dim(sh["h"], sh["r"], sh["stride"], sh["padding"]),
+                     out_dim(sh["w"], sh["s"], sh["stride"], sh["padding"])))
+    unfused_hbm = sum(p["hbm_bytes"] for p in unfused_parts)
+    # unfused, every intermediate activation is written and read back
+    unfused_inter = sum(2.0 * dims[l][0] * dims[l][1] * shapes[l]["k"]
+                        * shapes[l].get("dtype_bytes", 4) * n
+                        for l in range(len(shapes) - 1))
+
+    cb = chain_blocking(shapes, vmem_budget=vmem_budget,
+                        dtype_bytes=dtype_bytes, blockings=blks)
+    sched = build_chain_schedule(
+        rs=[(sh["r"], sh["stride"], sh["padding"]) for sh in shapes],
+        h_in=shapes[0]["h"], rb=cb.rb)
+
+    fused = dict.fromkeys(("flops", "x_bytes", "w_bytes", "o_bytes",
+                           "hbm_bytes", "n_steps"), 0.0)
+    parts = []
+    for i in range(len(sched)):
+        l = int(sched.layer_ids[i])
+        o0, o1 = int(sched.o0[i]), int(sched.o1[i])
+        sh = shapes[l]
+        # the padded band: its halo rows, W padded, no padding of its own
+        band = dict(sh, h=(o1 - o0 - 1) * sh["stride"] + sh["r"],
+                    w=sh["w"] + 2 * sh["padding"], padding=0)
+        t = conv_traffic(band, blks[l], minibatch=n)
+        handoff = bool(sched.flags[i] & FLAG_HANDOFF)
+        x_hbm = t["x_bytes"] if l == 0 else 0.0
+        o_hbm = 0.0 if handoff else t["o_bytes"]
+        part = dict(t, x_bytes=x_hbm, o_bytes=o_hbm,
+                    hbm_bytes=x_hbm + t["w_bytes"] + o_hbm)
+        parts.append(part)
+        for key in ("flops", "x_bytes", "w_bytes", "o_bytes", "hbm_bytes",
+                    "n_steps"):
+            fused[key] += part[key]
+
+    fuse = cb.fits and fused["hbm_bytes"] <= unfused_hbm
+    out = {
+        "fused": fuse,
+        "fits_vmem": cb.fits,
+        "rb": cb.rb,
+        "n_bands": cb.n_bands,
+        "vmem_bytes": cb.vmem_bytes,
+        "n_layers": len(shapes),
+        "unfused_hbm_bytes": unfused_hbm,
+        "unfused_intermediate_bytes": unfused_inter,
+        "unfused_parts": unfused_parts,
+    }
+    if fuse:
+        out.update(fused, intermediate_bytes=0.0, parts=parts)
+    else:       # the chain runs layer by layer: priced as such
+        for key in ("flops", "x_bytes", "w_bytes", "o_bytes", "n_steps"):
+            out[key] = sum(p[key] for p in unfused_parts)
+        out.update(hbm_bytes=unfused_hbm, intermediate_bytes=unfused_inter,
+                   parts=unfused_parts)
+    return out
+
+
 def _streams_util(shape: dict, blk: ConvBlocking, *,
                   minibatch: int) -> tuple[float, float]:
     """K4's modeled share of its route's peak under `blk`, and that peak
@@ -254,6 +349,11 @@ def plan_cost_us(kind: str, shape: dict, plan, *,
         sec = k2.mma_cost(plan, n=n, p=p, q=q, c=c, k=k, r=r, s=s)
     elif kind == "q8":
         sec = k3.ring_cost(plan)
+    elif kind in WHOLE_KINDS:
+        base = whole_base(kind)
+        return conv_cost_us(dict(shape, dtype_bytes=1 if base == "q8" else 4),
+                            plan, minibatch=minibatch, kind=base,
+                            whole_plane=True)
     else:
         raise ValueError(f"kind {kind!r} takes no kernel plan")
     return sec * 1e6
@@ -348,9 +448,23 @@ def conv_inputs(kind: str, shape: dict, minibatch: int) -> dict:
 def kernel_call(kind: str, shape: dict, args: dict, blk):
     """A call of the real kernel of ``kind`` on ``args`` (``conv_inputs``)
     without an epilogue: K4 under the ``ConvBlocking`` ``blk``
-    ("streams"), or K1 ("fwd", "bwd"), K2 ("wu") or K3 ("q8") under the
-    plan ``blk``."""
+    ("streams"), K1 ("fwd", "bwd"), K2 ("wu") or K3 ("q8") under the
+    plan ``blk``, or K10a ("fwd_whole", "bwd_whole"), K10c ("q8_whole")
+    or K10b ("wu_whole") under the blocking ``blk``."""
     stride, padding = shape["stride"], shape["padding"]
+    if kind in ("fwd_whole", "bwd_whole"):
+        return lambda: k1.conv2d_direct_whole(
+            **args, stride=stride, padding=padding, rb_p=blk.rb_p,
+            k_blk=blk.k_blk)
+    if kind == "q8_whole":
+        return lambda: k3.conv2d_q8_whole(
+            **args, stride=stride, padding=padding, rb_p=blk.rb_p,
+            k_blk=blk.k_blk)
+    if kind == "wu_whole":
+        return lambda: k2.conv2d_wu_whole(
+            **args, stride=stride, padding=padding,
+            filter_rs=(shape["r"], shape["s"]), b_p=blk.rb_p,
+            k_blk=blk.k_blk)
     if kind == "streams":
         # blocking= pins all four knobs and skips the autotune consult:
         # re-entering the tuner here would recurse on the same key
@@ -379,12 +493,13 @@ def measure_conv_us(shape: dict, blk, *, kind: str = "fwd",
     raises for every kind."""
     global measurements
     import torch
-    if kind not in ("streams", "fwd", "bwd", "wu", "q8"):
+    if kind not in ("streams", "fwd", "bwd", "wu", "q8") + WHOLE_KINDS:
         raise ValueError(f"kind {kind!r}")
     if not torch.cuda.is_available():
         raise RuntimeError(f"measure_conv_us({kind!r}) times the kernel on "
                            f"the card, and no GPU is present")
-    args = conv_inputs("fwd" if kind == "streams" else kind, shape,
+    base = whole_base(kind) if kind in WHOLE_KINDS else kind
+    args = conv_inputs("fwd" if base == "streams" else base, shape,
                        minibatch)
     measurements += 1
     return device_us(kernel_call(kind, shape, args, blk), warmup=warmup,

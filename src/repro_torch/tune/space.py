@@ -22,11 +22,23 @@ own (tile, split of the reduction, chunk; K3 also the stage depth), which
 tile the kernel's ``.cu`` file instantiates, crossed with the splits whose
 chunks keep the kernel's own least chunk, with the kernel's default plan
 first.
+
+The whole-plane kernels K10a, K10b and K10c take the reference's
+``ConvBlocking`` (rb_p output rows by the full row, k_blk output
+channels), which the kinds "fwd_whole" and "bwd_whole" (K10a's forward
+and dual convs), "q8_whole" (K10c) and "wu_whole" (K10b, whose rb_p is
+its b_p) tune: ``plan_candidates`` lists the (rb_p, k_blk) pairs of
+``conv_candidates`` at the reference's budget ``WHOLE_PLANE_BUDGET``
+whose k_blk divides K (and, for "wu_whole", rb_p divides P), the
+analytic blocking (what ``core.conv.whole_blocking`` takes with
+autotuning off) first.  Each kernel's cut of a block across CTAs
+(``whole_split``, ``plan_whole``) stays a function of the blocking.
 """
 from __future__ import annotations
 
 from repro_torch.core.blocking import (LANE, SUBLANE, VMEM_BUDGET,
-                                       ConvBlocking, conv_blocking_analytic,
+                                       WHOLE_PLANE_BUDGET, ConvBlocking,
+                                       conv_blocking_analytic,
                                        conv_working_set, divisors)
 from repro_torch.kernels import conv2d_direct as k1
 from repro_torch.kernels import conv2d_q8 as k3
@@ -35,6 +47,14 @@ from repro_torch.kernels import conv2d_wu as k2
 ORDERS = ("nkpc", "npkc", "knpc", "pknc")
 MAX_CANDIDATES = 128
 PLAN_KINDS = ("fwd", "bwd", "wu", "q8")
+WHOLE_KINDS = ("fwd_whole", "bwd_whole", "q8_whole", "wu_whole")
+
+
+def whole_base(kind: str) -> str:
+    """The blocking kind of a whole-plane kind: "fwd_whole" -> "fwd"."""
+    if kind not in WHOLE_KINDS:
+        raise ValueError(f"kind {kind!r} is not one of {WHOLE_KINDS}")
+    return kind[:-len("_whole")]
 
 
 def out_dim(h: int, r: int, stride: int, padding: int) -> int:
@@ -139,10 +159,11 @@ def plan_applies(kind: str, *, c: int, k: int) -> bool:
     """Whether a conv of channels (C, K) launches a kernel that takes a
     plan of ``kind``: a lane-aligned conv (``core.conv.lane_ok``; the rest
     take the reference path) on K1's or K2's mma route (C, K multiples of
-    4) or K3's ring route (C % 16, K % 8)."""
-    if kind not in PLAN_KINDS:
+    4) or K3's ring route (C % 16, K % 8); for a whole-plane kind, every
+    lane-aligned conv (K10a-c take a blocking on either route)."""
+    if kind not in PLAN_KINDS + WHOLE_KINDS:
         raise ValueError(f"kind {kind!r} takes no kernel plan; plan kinds: "
-                         f"{PLAN_KINDS}")
+                         f"{PLAN_KINDS + WHOLE_KINDS}")
     if c % SUBLANE or k % SUBLANE:
         return False
     return c % 16 == 0 if kind == "q8" else True
@@ -151,7 +172,16 @@ def plan_applies(kind: str, *, c: int, k: int) -> bool:
 def default_plan(kind: str, *, n: int, h: int, w: int, c: int, k: int,
                  r: int, s: int, stride: int, padding: int):
     """The kernel's own plan for the shape: ``mma_plan`` (K1),
-    ``plan(route="mma")`` (K2) or ``ring_plan`` (K3)."""
+    ``plan(route="mma")`` (K2) or ``ring_plan`` (K3); for a whole-plane
+    kind the analytic blocking at ``WHOLE_PLANE_BUDGET`` (``n`` plays no
+    part in it)."""
+    if kind in WHOLE_KINDS:
+        base = whole_base(kind)
+        return conv_blocking_analytic(
+            h=h, w=w, c=c, k=k, r=r, s=s, stride=stride, padding=padding,
+            dtype_bytes=1 if base == "q8" else 4,
+            vmem_budget=WHOLE_PLANE_BUDGET, require_divisor=base == "wu",
+            kind=base)
     p, q = out_dim(h, r, stride, padding), out_dim(w, s, stride, padding)
     if kind in ("fwd", "bwd"):
         return k1.mma_plan(n=n, p=p, q=q, c=c, k=k, r=r, s=s)
@@ -167,11 +197,65 @@ def check_plan(kind: str, plan, *, n: int, h: int, w: int, c: int, k: int,
     """The kernel's own validation of ``plan`` for the shape (raises
     ``ValueError``)."""
     p, q = out_dim(h, r, stride, padding), out_dim(w, s, stride, padding)
+    if kind in WHOLE_KINDS:
+        _check_whole(whole_base(kind), plan, n=n, p=p, q=q, c=c, k=k, r=r,
+                     s=s, stride=stride)
+        return
     check = {"fwd": k1.check_mma_plan, "bwd": k1.check_mma_plan,
              "wu": k2.check_wu_plan, "q8": k3.check_ring_plan}.get(kind)
     if check is None:
         raise ValueError(f"kind {kind!r} takes no kernel plan")
     check(plan, n=n, p=p, q=q, c=c, k=k, r=r, s=s)
+
+
+def _check_whole(base: str, blk, *, n, p, q, c, k, r, s, stride) -> None:
+    """A whole-plane blocking the kernel of ``base`` runs on the shape: a
+    ``ConvBlocking`` with rb_p >= 1 (dividing P for "wu") and a k_blk of
+    the multiples of 8 up to 128 that divides K, which the kernel's own
+    plan of its main route takes (K10a's and K10c's ``whole_mma_plan``
+    with their row and channel cuts, K10b's ``plan_whole``)."""
+    if not isinstance(blk, ConvBlocking):
+        raise ValueError(f"a whole-plane kind takes a ConvBlocking, not "
+                         f"{blk!r}")
+    if blk.rb_p < 1 or blk.k_blk < 1 or k % blk.k_blk or blk.k_blk % 8 \
+            or blk.k_blk > LANE:
+        raise ValueError(f"whole-plane blocking rb_p {blk.rb_p}, k_blk "
+                         f"{blk.k_blk} for K={k}: k_blk must be a multiple "
+                         f"of 8 up to {LANE} dividing K")
+    geo = dict(n=n, p=p, q=q, k=k, rb_p=blk.rb_p, k_blk=blk.k_blk)
+    if base == "wu":
+        k2.plan_whole(n=n, p=p, q=q, c=c, k=k, r=r, s=s, b_p=blk.rb_p,
+                      k_blk=blk.k_blk)
+    elif base == "q8":
+        k3.whole_mma_plan(p=p, q=q, k_blk=k3.whole_k_cta(**geo),
+                          rb_p=blk.rb_p, r=r, s=s, stride=stride,
+                          rows_cta=k3.whole_rows_cta(**geo))
+    else:
+        k1.whole_mma_plan(p=p, q=q, k_blk=blk.k_blk, rb_p=blk.rb_p, r=r,
+                          s=s, stride=stride,
+                          rows_cta=k1.whole_rows_cta(**geo))
+
+
+def _whole_blockings(kind, *, n, h, w, c, k, r, s, stride, padding):
+    """The (rb_p, k_blk) pairs of ``conv_candidates`` at
+    ``WHOLE_PLANE_BUDGET``, one blocking each, that the kernel runs."""
+    base = whole_base(kind)
+    p, q = out_dim(h, r, stride, padding), out_dim(w, s, stride, padding)
+    out, seen = [], set()
+    for blk in conv_candidates(h=h, w=w, c=c, k=k, r=r, s=s, stride=stride,
+                               padding=padding,
+                               dtype_bytes=1 if base == "q8" else 4,
+                               kind=base, vmem_budget=WHOLE_PLANE_BUDGET):
+        if (blk.rb_p, blk.k_blk) in seen:
+            continue
+        seen.add((blk.rb_p, blk.k_blk))
+        try:
+            _check_whole(base, blk, n=n, p=p, q=q, c=c, k=k, r=r, s=s,
+                         stride=stride)
+        except ValueError:
+            continue
+        out.append(blk)
+    return out
 
 
 def _mma_plans(*, n, p, q, c, k, r, s):
@@ -240,14 +324,21 @@ def plan_candidates(kind: str, *, h: int, w: int, c: int, k: int, r: int,
     """Every plan of ``kind`` the kernel can run on the shape at batch
     ``minibatch``, the kernel's default plan first (it is always a
     candidate), deduplicated, capped at ``MAX_CANDIDATES`` by spread
-    sampling of the rest.  A pure function of (kind, shape, minibatch)."""
+    sampling of the rest.  A pure function of (kind, shape, minibatch).
+    A whole-plane kind's list holds one blocking per (rb_p, k_blk)."""
     n = minibatch
     p, q = out_dim(h, r, stride, padding), out_dim(w, s, stride, padding)
     shape = dict(n=n, p=p, q=q, c=c, k=k, r=r, s=s)
     default = default_plan(kind, n=n, h=h, w=w, c=c, k=k, r=r, s=s,
                            stride=stride, padding=padding)
-    pool = {"fwd": _mma_plans, "bwd": _mma_plans, "wu": _wu_plans,
-            "q8": _ring_plans}[kind](**shape)
+    if kind in WHOLE_KINDS:
+        pool = [blk for blk in _whole_blockings(
+            kind, n=n, h=h, w=w, c=c, k=k, r=r, s=s, stride=stride,
+            padding=padding)
+            if (blk.rb_p, blk.k_blk) != (default.rb_p, default.k_blk)]
+    else:
+        pool = {"fwd": _mma_plans, "bwd": _mma_plans, "wu": _wu_plans,
+                "q8": _ring_plans}[kind](**shape)
     pool = [pl for pl in pool if pl != default]
     if len(pool) > MAX_CANDIDATES - 1:
         step = len(pool) / (MAX_CANDIDATES - 1)

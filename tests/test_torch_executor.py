@@ -104,10 +104,10 @@ def test_params_from_jax_copies_layouts():
     assert ported["conv1"]["w"][0, 0, 0, 0] != tree["conv1"]["w"][0, 0, 0, 0]
 
 
-def test_later_slices_raise(monkeypatch):
-    """Chain fusion is a later slice and raises; the int8 slice is in, so
-    a tap runs and a training forward over int8 weights raises as the
-    reference's does (inference-only)."""
+def test_later_slices_raise():
+    """The int8 slice is in, so a tap runs and a training forward over
+    int8 weights raises as the reference's does (inference-only).  Chain
+    fusion is in too: ``tests/test_torch_chain.py``."""
     ours, _, _, image = _pair("resnet50")
     params = ours.init()
     x = torch.zeros((1, image, image, 3))
@@ -118,9 +118,6 @@ def test_later_slices_raise(monkeypatch):
     params["conv1"]["w_q"] = params["conv1"]["w"]
     with pytest.raises(ValueError, match="inference-only"):
         ours.forward(params, x)
-    monkeypatch.setenv("REPRO_CHAIN_FUSION", "on")
-    with pytest.raises(NotImplementedError, match="chain"):
-        ours.infer(ours.init(), x)
 
 
 @pytest.mark.parametrize("hw,window,stride,padding", [
