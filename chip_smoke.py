@@ -7,8 +7,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. Header: the card's name and power limit, torch and CUDA versions, the
    TF32 flags, and the build of every CUDA kernel from ``src/repro_torch/csrc``
-   (twelve sources: K1-K4, K7, K6, K8, K9, K10a-c, K5; one ``nvcc`` per
-   source, all started together; K1, K2, K4 and K10a include the shared
+   (thirteen sources: K1-K4, K7, K6, K8, K9, K10a-c, K5 and K7's backward;
+   one ``nvcc`` per source, all started together; K1, K2, K4 and K10a include the shared
    3xTF32 products mainloop ``csrc/conv_tf32.cuh``, K3 and K10c the int8
    products and epilogue ``csrc/q8_mma.cuh``), with each build's seconds and
    its ptxas register and spill lines, each under its kernel's name.
@@ -360,9 +360,47 @@ Phases, each of which fails the run (nonzero exit, no result line):
     (max |diff| 0); the times of K5 (events, profiler), the plain version
     and ``F.max_pool2d`` at the stem pool against the bytes bound (51.4 MB
     read, 12.8 MB written: 0.0192 ms at 3.35 TB/s).
-28. The whole-plane, Inception-v3, plan-tuning, chains, whole-plane
-    tuning, LM and hybrid serving summary lines, the int8 serving and training summary lines, the
-    kernels line (K1, K2, K3, K4, K7, K6, K8, K9, K10a, K10b, K10c, K5;
+28. K7's backward (``flash_attention_bwd``, ``csrc/flash_attention_bwd.cu``)
+    against ``flash_attention_bwd_plain`` at Qwen2-1.5B's training shape
+    (batch 8, 512 tokens, Hq 12, Hkv 2, Dh 128, causal), SmolLM-360M's
+    (Hq 15, Hkv 5, Dh 64), a tail (L 333), a non-causal case and the
+    smoke configs' Dh 16, each in f32 and bf16: max |diff| / max |plain|
+    of dq, dk and dv (<= 1e-5 f32, <= 1e-2 bf16), the same bits on a second
+    call; CUDA-event and profiler device times (both kernels of a call;
+    the dk/dv kernel's records held to ``launches_bwd``), the plain
+    version, the library yardstick (the backward of
+    ``F.scaled_dot_product_attention`` with K and V expanded, used only
+    here) and both bounds (the FLOPs at 989 TFLOP/s bf16 and at 67 f32
+    SIMT, or the bytes).
+29. LM training, this slice's main path: ``qwen2-1.5b`` (bf16, uncut,
+    remat as configured) through ``launch.train.build`` (AdamW, f32 state,
+    clip 1.0) on 8 x 512 ``SyntheticLMData`` tokens: one untimed step in
+    which every attention layer's wq, wk and wv gradient must hold a
+    nonzero, then 5 timed steps on the same batch with K7's counts set to
+    0 just before and read just after (forward 56 a step under remat,
+    backward 28, every forward on wgmma), step ms p50 and max, tokens/s,
+    each loss (finite, the last below the first), one step under the
+    profiler (K7's backward device ms, matmuls, the rest, busy share) and
+    the peak memory; then the Qwen2 family in f32 at Dh 64, 2 layers,
+    vocab 1024, one step card vs CPU with ``accum_steps`` 1 and 2 through
+    ``make_train_step`` with plain SGD at lr 1 (an update far above one
+    f32 ulp of the params): the loss within 1e-4 relative,
+    every update within 1e-3 * max |CPU update| (as phase 11's SGD step;
+    AdamW's step printed beside, not held: it divides each element by
+    its own gradient, so a nearly cancelling gradient's rounding sets the
+    sign of its update).
+30. RWKV-6 served: ``rwkv6-1.6b`` (bf16, uncut) through
+    ``serve_continuous`` (8 lanes, 8 untimed then 16 requests of 128-512
+    tokens, 32 new each; no port kernel on its path, K7 held to 0), a
+    batch-8 prefill at 512 tokens and 16 decode steps with their
+    profiles; then an f32 RWKV at d_model 1024, Dh 64, 2 layers, vocab
+    1024, its bonus ``u`` drawn: card vs CPU prefill and 4 decode steps
+    within 1e-4 * max |logit|, decode vs forward within 1e-3, and one
+    training step within phase 29's limits.
+31. The whole-plane, Inception-v3, plan-tuning, chains, whole-plane
+    tuning, LM serving, LM training, RWKV and hybrid serving summary
+    lines, the int8 serving and training summary lines, the kernels line
+    (K1, K2, K3, K4, K7, K6, K7's backward, K8, K9, K10a, K10b, K10c, K5;
     K1, K2 and K3 with their launches under tuned plans), then the device
     line last.
 
@@ -370,7 +408,8 @@ Device times by kernel come from ``trace_device``: a ``torch.profiler``
 trace with one warm-up step, whose recorded launches of each port kernel
 must equal the wrapper's count over the traced iterations (a short trace
 fails the run).  Each model is freed before the next is built: Qwen2-1.5B
-3.1 GB, the Jamba cut 51.8 GB, the parity pair 45.7 GB.
+3.1 GB (with its training state 18.5 GB), the Jamba cut 51.8 GB, the
+parity pair 45.7 GB, RWKV-6 3.0 GB.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -2771,23 +2810,26 @@ def matmul_signatures(device):
     return rows, launches, ragged
 
 
-def lm_prompts(n: int, vocab: int, seed: int):
-    """``n`` prompts with lengths uniform in LM_PROMPT_LEN and random token
-    ids, from ``numpy.random.default_rng(seed)``."""
+def lm_prompts(n: int, vocab: int, seed: int, lengths=LM_PROMPT_LEN):
+    """``n`` prompts with lengths uniform in ``lengths`` (both ends
+    included) and random token ids, from
+    ``numpy.random.default_rng(seed)``."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    lengths = rng.integers(LM_PROMPT_LEN[0], LM_PROMPT_LEN[1] + 1, size=n)
+    lengths = rng.integers(lengths[0], lengths[1] + 1, size=n)
     return [rng.integers(0, vocab, size=int(m)) for m in lengths]
 
 
 def lm_serving(device, arch: str, widths: tuple, kernels: dict,
-               wgmma: dict, route_counts: dict | None = None):
-    """Phase 16 (Qwen2-1.5B) and phase 19 (the Jamba cut), each a slice's
+               wgmma: dict, route_counts: dict | None = None, *,
+               requests: int = LM_REQUESTS, prompt_len=LM_PROMPT_LEN):
+    """Phase 16 (Qwen2-1.5B), phase 19 (the Jamba cut) and phase 30
+    (RWKV-6), each a slice's
     main path: ``arch`` in bf16 (random weights from ``init_lm``, seed 0;
     ``widths`` = (n_layers, d_model, n_heads, n_kv_heads, head_dim, d_ff,
     vocab, dtype) are checked) through ``serve_continuous``: an untimed
-    pass of LM_WARM_REQUESTS requests, then a window of LM_REQUESTS, every
-    prompt made before it opens.  ``kernels`` maps a kernel's name to
+    pass of LM_WARM_REQUESTS requests, then a window of ``requests`` with
+    prompts of ``prompt_len`` tokens, every prompt made before it opens.  ``kernels`` maps a kernel's name to
     (module, kernel-name needle, launches per forward, launches per decode
     step): each count is set to 0 just before the window and read just
     after, and must be its launches per forward and per decode step times
@@ -2831,9 +2873,9 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict,
           f"{cfg.dtype} ({param_bytes / 1e9:.2f} GB), random from seed "
           f"{SEED} in {time.perf_counter() - t0:.1f}s; lanes {LM_LANES}, "
           f"max_len {LM_MAX_LEN}, max_new {LM_MAX_NEW}, prompts of "
-          f"{LM_PROMPT_LEN[0]}-{LM_PROMPT_LEN[1]} tokens")
-    window = lm_prompts(LM_REQUESTS, cfg.vocab, SEED)
-    warm = lm_prompts(LM_WARM_REQUESTS, cfg.vocab, SEED + 1)
+          f"{prompt_len[0]}-{prompt_len[1]} tokens")
+    window = lm_prompts(requests, cfg.vocab, SEED, prompt_len)
+    warm = lm_prompts(LM_WARM_REQUESTS, cfg.vocab, SEED + 1, prompt_len)
     kw = dict(lanes=LM_LANES, max_len=LM_MAX_LEN, max_new=LM_MAX_NEW, eos=-1)
     t0 = time.perf_counter()
     serve_continuous(params, cfg, warm, **kw)
@@ -2873,19 +2915,19 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict,
     launches_stream = k9.launches_stream
     tokens = sum(len(r) for r in results.values())
     prompt_tokens = int(sum(len(p) for p in window))
-    print(f"  window: {LM_REQUESTS} requests ({prompt_tokens} prompt "
+    print(f"  window: {requests} requests ({prompt_tokens} prompt "
           f"tokens), {tokens} generated in {wall_s:.3f}s: "
           f"{tokens / wall_s:.2f} generated tokens/s, "
           f"{(tokens + prompt_tokens) / wall_s:.2f} tokens/s with the "
           f"prompts")
-    check(len(results) == LM_REQUESTS and all(
+    check(len(results) == requests and all(
         len(r) == LM_MAX_NEW for r in results.values()),
-        f"served {len(results)} requests, not {LM_REQUESTS} x {LM_MAX_NEW} "
+        f"served {len(results)} requests, not {requests} x {LM_MAX_NEW} "
         f"tokens")
     print(f"  the scheduler's calls in the window: {calls['forward']} "
           f"forward, {calls['decode_step']} decode_step")
-    check(calls["forward"] == LM_REQUESTS,
-          f"{calls['forward']} prefills for {LM_REQUESTS} requests")
+    check(calls["forward"] == requests,
+          f"{calls['forward']} prefills for {requests} requests")
     for name, (_, _, per_fwd, per_dec) in kernels.items():
         expected = per_fwd * calls["forward"] + per_dec * calls["decode_step"]
         print(f"  {name} launches in the window: {launches[name]} (expected "
@@ -3106,7 +3148,7 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict,
     summary = dict(
         arch=arch, params=n_params, param_bytes=param_bytes,
         max_memory_allocated=peak,
-        window=dict(requests=LM_REQUESTS, prompt_tokens=prompt_tokens,
+        window=dict(requests=requests, prompt_tokens=prompt_tokens,
                     generated_tokens=tokens, wall_s=wall_s,
                     generated_tokens_per_s=tokens / wall_s,
                     launches=launches, launches_wgmma=launches_wgmma,
@@ -4976,6 +5018,483 @@ def pool_phase(device):
                 bound_by=bound_by), launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 28-30: LM training on the card (K7's backward) and RWKV-6
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_WIDTHS = (28, 1536, 12, 2, 128, 8960, 151936, "bfloat16")
+TRAIN_LM_BATCH = (8, 512)       # sequences x tokens of phase 29's batch
+TRAIN_LM_STEPS = 5              # timed steps, after one untimed
+TRAIN_LM_LR = 3e-4
+TRAIN_PARITY_BATCH = (4, 128)
+# the SGD parity steps' learning rate: at 3e-4 an update moves a param of
+# 0.1 by about 40 f32 ulps, so the rounding of p - lr g alone would read
+# 2.5 % of an update; at 1.0 it reads under 1e-6
+PARITY_LR = 1.0
+TRAIN_PARITY = dict(n_layers=2, vocab=1024, d_head=64, dtype="float32")
+# K7's backward: b, hq, hkv, l, dh, causal
+BWD_SHAPES = [(8, 12, 2, 512, 128, True),    # Qwen2-1.5B's training shape
+              (8, 15, 5, 512, 64, True),     # SmolLM-360M's
+              (2, 12, 2, 333, 128, True),    # a tail
+              (1, 12, 2, 512, 128, False),   # non-causal
+              (8, 4, 2, 128, 16, True)]      # the smoke configs' Dh 16
+K7_BWD_NEEDLE = "flash_attention_bwd_dkdv"   # one a call; the dq kernel too
+K7_BWD_DQ = "flash_attention_bwd_dq"
+RWKV_ARCH = "rwkv6-1.6b"
+RWKV_WIDTHS = (24, 2048, 32, 32, 64, 7168, 65536, "bfloat16")
+RWKV_REQUESTS = 16
+RWKV_PROMPT_LEN = (128, 512)
+RWKV_PARITY = dict(n_layers=2, d_model=1024, n_heads=16, n_kv_heads=16,
+                   d_head=64, d_ff=3584, vocab=1024, dtype="float32")
+RWKV_PARITY_PROMPTS = [(2, 100)]    # a chunk of 64 tokens and a ragged one
+RWKV_TRAIN_BATCH = (2, 96)
+
+
+class _BwdCount:
+    """K7's backward counter (``attention.launches_bwd``) under the name
+    ``trace_device`` reads."""
+
+    @property
+    def launches(self):
+        from repro_torch.kernels import attention as k7
+        return k7.launches_bwd
+
+
+K7_BWD = _BwdCount()
+
+
+class Sgd:
+    """Plain SGD (p -= lr g, in place), the optimizer of the card-vs-CPU
+    step parities: an update linear in the gradient, so "updates within
+    1e-3 * max |CPU update|" means what it means for phase 11's SGD step.
+    AdamW divides each element by its own gradient's size, which turns the
+    rounding of a nearly cancelling gradient (Qwen2's key bias, added
+    before RoPE at theta 1e6; RWKV's group norm near zero variance) into
+    updates of either sign; its step is printed beside, not held
+    (PERF.md section 2)."""
+
+    def init(self, params) -> dict:
+        return {}
+
+    def update(self, grads, state, params, lr):
+        import torch
+        from repro_torch.optim.adamw import tree_map
+        with torch.no_grad():
+            tree_map(lambda g, p: p.sub_(lr * g.float()), grads, params)
+        return params, state
+
+
+def attention_bwd_signatures(device):
+    """Phase 28: K7's backward (``flash_attention_bwd``) against
+    ``flash_attention_bwd_plain`` at BWD_SHAPES in f32 and bf16: max |diff|
+    / max |plain| of dq, dk and dv (<= 1e-5 f32, <= 1e-2 bf16), the same
+    bits on a second call, CUDA-event and profiler device times (both
+    kernels of a call), the plain version's time, the library yardstick (the
+    backward of ``F.scaled_dot_product_attention`` with K and V expanded to
+    Hq heads; used only here) and the bounds: the FLOPs (10 Dh per unmasked
+    (query, key) pair and query head) at the bf16 tensor cores' 989 TFLOP/s
+    and at the SIMT cores' 67, or the bytes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention as k7
+    from repro_torch.launch import roofline
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 28)
+    rows = []
+    print(f"\nK7 backward vs plain ({len(BWD_SHAPES)} shapes x f32, bf16; "
+          f"limits {KERNEL_REL_TOL} f32, {BF16_REL_TOL} bf16 of max |plain| "
+          f"on each of dq, dk, dv; the SIMT route):")
+    print("  dtype     b  hq hkv    l  dh causal  dq_rel   dk_rel   dv_rel  "
+          "same      ms  device_ms   plain_ms  sdpa_bwd_ms  bound_bf16  "
+          "bound_simt")
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, hq, hkv, l, dh, causal in BWD_SHAPES:
+            def rnd(*shape):
+                return torch.randn(shape, generator=gen,
+                                   device=device).to(dtype)
+            q, k, v = rnd(b, hq, l, dh), rnd(b, hkv, l, dh), rnd(b, hkv, l, dh)
+            do = rnd(b, hq, l, dh)
+            o = k7.flash_attention(q, k, v, causal=causal)
+            before = k7.launches_bwd
+
+            def run():
+                return k7.flash_attention_bwd(q, k, v, o, do, causal=causal)
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            check(k7.launches_bwd == before + 2, f"{k7.launches_bwd - before} "
+                  f"backward launches for 2 calls")
+            same = all(bool(torch.equal(a, a2)) for a, a2 in zip(got, again))
+            plain = k7.flash_attention_bwd_plain(q, k, v, o, do,
+                                                 causal=causal)
+            rels = [rel_err(g.float(), p.float())[1]
+                    for g, p in zip(got, plain)]
+            abss = [rel_err(g.float(), p.float())[0]
+                    for g, p in zip(got, plain)]
+            ok_finite = all(bool(torch.isfinite(g).all()) for g in got)
+            ms = auto_ms(run)
+            device_ms, recorded = kernel_device_ms(run, K7_BWD_NEEDLE, K7_BWD,
+                                                   also=(K7_BWD_DQ,))
+            plain_ms = auto_ms(lambda: k7.flash_attention_bwd_plain(
+                q, k, v, o, do, causal=causal), 30.0)
+            rep = hq // hkv
+            leaves = [q.detach().requires_grad_(),
+                      k.repeat_interleave(rep, 1).requires_grad_(),
+                      v.repeat_interleave(rep, 1).requires_grad_()]
+            lib_out = F.scaled_dot_product_attention(*leaves,
+                                                     is_causal=causal)
+            library_ms = auto_ms(lambda: torch.autograd.grad(
+                lib_out, leaves, do, retain_graph=True))
+            library_device_ms = trace_device(
+                lambda i: torch.autograd.grad(lib_out, leaves, do,
+                                              retain_graph=True), 5, {},
+                sync_each=True)["device_ms"]
+            pairs = l * (l + 1) / 2 if causal else float(l * l)
+            flops = 10.0 * dh * pairs * b * hq
+            nbytes = q.element_size() * (4 * b * hq + 4 * b * hkv) * l * dh
+            bound_ms, bound_by = roofline.bound_ms(
+                flops, nbytes, roofline.BF16_PEAK_FLOPS)
+            simt_ms, simt_by = roofline.bound_ms(flops, nbytes,
+                                                 roofline.F32_PEAK_FLOPS)
+            tol = KERNEL_REL_TOL if dtype == torch.float32 else BF16_REL_TOL
+            rec = dict(dtype=str(dtype).removeprefix("torch."), b=b, hq=hq,
+                       hkv=hkv, l=l, dh=dh, causal=causal,
+                       route=k7.route_bwd(q, k, v),
+                       rel_err=dict(zip(("dq", "dk", "dv"), rels)),
+                       max_rel_err=max(rels), max_abs_err=max(abss),
+                       same_bits=same, ms=ms, device_ms=device_ms,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       library_device_ms=library_device_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       simt_bound_ms=simt_ms, simt_bound_by=simt_by,
+                       flops=flops, tflops=flops / ms / 1e9,
+                       traced_launches=recorded)
+            rows.append(rec)
+            print(f"  {rec['dtype']:8s}{b:2d}{hq:4d}{hkv:4d}{l:5d}{dh:4d} "
+                  f"{causal!s:6s} {rels[0]:.2e} {rels[1]:.2e} {rels[2]:.2e} "
+                  f"{same!s:5s} {ms:8.4f} {device_ms:10.4f} {plain_ms:10.4f} "
+                  f"{library_ms:12.4f} {bound_ms:11.4f} {simt_ms:11.4f}  "
+                  f"({rec['tflops']:.2f} TFLOP/s; {recorded} of 5 calls "
+                  f"traced; SDPA backward device {library_device_ms:.4f} "
+                  f"ms)")
+            check(ok_finite, f"K7 backward non-finite at {(b, hq, l, dh)}")
+            check(same, f"K7 backward gave other bits on a second call at "
+                  f"{(b, hq, hkv, l, dh, causal, rec['dtype'])}")
+            check(max(rels) <= tol, f"K7 backward disagrees with its plain "
+                  f"version at {(b, hq, hkv, l, dh, causal, rec['dtype'])}: "
+                  f"{rels} > {tol}")
+            del q, k, v, do, o, got, again, plain, leaves, lib_out
+    print("  per-shape JSON:", json.dumps(rows))
+    return rows
+
+
+def _attention_grads_seen(cfg, seen):
+    """An ``AdamW.update`` stand-in that records, in its first call, for
+    each attention position's wq, wk and wv gradient whether each layer's
+    slice holds a nonzero, then updates as ever."""
+    from repro_torch.optim.adamw import AdamW
+    update = AdamW.update
+
+    def recording(self, grads, state, params, lr):
+        if not seen:
+            for pos, (mixer, _) in enumerate(cfg.block_pattern):
+                if mixer != "attn":
+                    continue
+                for name in ("wq", "wk", "wv"):
+                    g = grads["blocks"][str(pos)]["mixer"][name]
+                    seen[f"{pos}/{name}"] = (
+                        g.float().flatten(1).abs().amax(1) > 0).tolist()
+        return update(self, grads, state, params, lr)
+    return recording
+
+
+def lm_training(device):
+    """Phase 29, this slice's main path: ``qwen2-1.5b`` (bf16, uncut,
+    ``cfg.remat`` as configured) through ``launch.train.build`` (AdamW with
+    f32 state, clip 1.0) on a batch of TRAIN_LM_BATCH ``SyntheticLMData``
+    tokens: one untimed step (every attention layer's wq, wk and wv
+    gradient must hold a nonzero), then TRAIN_LM_STEPS timed steps on the
+    same batch with K7's counts set to 0 just before and read just after
+    (K7 forward 28 a step, twice that under remat, which runs each forward
+    again in the backward; K7's backward 28), step ms (p50, max), tokens/s
+    and the loss of each step (finite, the last below the first); one step
+    under the profiler (K7's and its backward's recorded launches held to
+    the counts; device time by kernel, grouped into attention, matmuls and
+    the rest; the busy share) and the peak memory.  Returns (K7 forward and
+    backward launches in the timed steps, summary)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import attention as k7
+    from repro_torch.launch.train import build
+    from repro_torch.optim.adamw import AdamW
+
+    cfg = get_config(TRAIN_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.dtype) == TRAIN_WIDTHS,
+          f"{TRAIN_ARCH} does not have the widths {TRAIN_WIDTHS}")
+    b, l = TRAIN_LM_BATCH
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, step = build(cfg, lr=TRAIN_LM_LR, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    print(f"\nLM training: {cfg.name}, {n_params / 1e9:.3f} B params in "
+          f"{cfg.dtype}, remat {cfg.remat}, AdamW f32 state, clip 1.0, lr "
+          f"{TRAIN_LM_LR}; batch {b} x {l} SyntheticLMData tokens; built in "
+          f"{time.perf_counter() - t0:.1f}s")
+    batch = SyntheticLMData(cfg.vocab, l, b, seed=SEED).batch_at(0)
+    seen = {}
+    update = AdamW.update
+    AdamW.update = _attention_grads_seen(cfg, seen)
+    try:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        first_loss = float(metrics["loss"])
+    finally:
+        AdamW.update = update
+    print(f"  untimed step: loss {first_loss:.4f}, grad norm "
+          f"{float(metrics['grad_norm']):.4f}, "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    layers = cfg.pattern_repeats
+    zero = {name: [i for i, nz in enumerate(flags) if not nz]
+            for name, flags in seen.items()}
+    print(f"  first step's attention gradients: wq, wk, wv of "
+          f"{len(seen) // 3} position(s) x {layers} layers, layers with an "
+          f"all-zero gradient: "
+          f"{ {name: z for name, z in zero.items() if z} or 'none'}")
+    check(len(seen) == 3 and all(len(f) == layers for f in seen.values())
+          and not any(zero.values()), f"an attention layer's wq, wk or wv "
+          f"gradient is all zero in the first step: {zero}")
+    per_fwd = 28 * (2 if cfg.remat else 1)
+    k7.launches = k7.launches_bwd = k7.launches_wgmma = 0
+    losses, step_ms = [], []
+    for _ in range(TRAIN_LM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    fwd, bwd, fwd_wgmma = k7.launches, k7.launches_bwd, k7.launches_wgmma
+    p50 = float(np.median(step_ms))
+    print(f"  {TRAIN_LM_STEPS} timed steps: p50 {p50:.3f} ms, max "
+          f"{max(step_ms):.3f} ms ({[f'{x:.1f}' for x in step_ms]}); "
+          f"{b * l / p50 * 1e3:.0f} tokens/s; losses "
+          f"{[f'{x:.4f}' for x in losses]}")
+    print(f"  K7 launches in the timed steps: {fwd} forward ({fwd_wgmma} "
+          f"through wgmma; expected {per_fwd} x {TRAIN_LM_STEPS}), {bwd} "
+          f"backward (expected 28 x {TRAIN_LM_STEPS})")
+    check(fwd == fwd_wgmma == per_fwd * TRAIN_LM_STEPS,
+          f"K7 launched {fwd} times ({fwd_wgmma} wgmma) in "
+          f"{TRAIN_LM_STEPS} steps, expected {per_fwd} a step")
+    check(bwd == 28 * TRAIN_LM_STEPS, f"K7's backward launched {bwd} times "
+          f"in {TRAIN_LM_STEPS} steps, expected 28 a step")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall over "
+          f"{TRAIN_LM_STEPS} steps on one batch: {losses}")
+    trace = trace_device(lambda i: step(state, batch), 1,
+                         {"flash_attention_kernel": k7,
+                          K7_BWD_NEEDLE: K7_BWD})
+    bwd_ms = device_ms_of(trace, "flash_attention_bwd_")
+    fwd_ms = device_ms_of(trace, "flash_attention_kernel")
+    gemm_ms = sum(ms for ms, _, name in trace["by_name"]
+                  if any(key in name.lower() for key in (
+                      "gemm", "xmma", "nvjet", "cutlass", "sm90_")))
+    device_ms = trace["device_ms"]
+    peak = torch.cuda.max_memory_allocated()
+    rest_ms = device_ms - bwd_ms - fwd_ms - gemm_ms
+    print(f"  profile of one step: {trace['wall_ms']:.3f} ms by host clock, "
+          f"device {device_ms:.3f} ms in "
+          f"{sum(trace['launches'].values())} kernel launches, busy "
+          f"{trace['busy_share']:.4f}; K7 backward {bwd_ms:.3f} ms (28 "
+          f"calls), K7 forward {fwd_ms:.3f} ms, matmuls (cuBLAS) "
+          f"{gemm_ms:.3f} ms, the rest {rest_ms:.3f} ms; "
+          f"torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB")
+    for ms, n, name in trace["by_name"][:12]:
+        print(f"    {ms:9.3f} ms  x{n:6.1f}  {name[:100]}")
+    summary = dict(
+        arch=cfg.name, params=n_params, remat=cfg.remat, batch=b, tokens=l,
+        lr=TRAIN_LM_LR, first_step_loss=first_loss, losses=losses,
+        step_ms=step_ms, step_p50_ms=p50, step_max_ms=max(step_ms),
+        tokens_per_s=b * l / p50 * 1e3,
+        k7_launches_per_step=fwd / TRAIN_LM_STEPS,
+        k7_bwd_launches_per_step=bwd / TRAIN_LM_STEPS,
+        attention_grads_nonzero=seen,
+        profile=dict(wall_ms=trace["wall_ms"], device_ms=device_ms,
+                     busy_share=trace["busy_share"], k7_bwd_ms=bwd_ms,
+                     k7_fwd_ms=fwd_ms, matmul_ms=gemm_ms,
+                     rest_ms=rest_ms,
+                     top=[dict(ms=ms, launches=n, name=name[:120])
+                          for ms, n, name in trace["by_name"][:12]]),
+        max_memory_allocated=peak)
+    del state, step
+    torch.cuda.empty_cache()
+    return (fwd, bwd), summary
+
+
+def _draw_bonus(params, cfg) -> None:
+    """RWKV's bonus ``u`` drawn uniform in [0.5, 1.5) from a numpy seed, in
+    place: at init it is 0, which puts the group norm at zero variance on
+    the first token and rank one on the second, where the f32 gradients of
+    the CPU and of the JAX reference alike sit about 1e-3 from a float64
+    evaluation (``tests/test_torch_lm_train.py``)."""
+    import numpy as np
+    import torch
+    for pos, (mixer, _) in enumerate(cfg.block_pattern):
+        if mixer == "rwkv":
+            u = params["blocks"][str(pos)]["mixer"]["u"]
+            u.copy_(torch.from_numpy(np.random.default_rng(SEED).uniform(
+                0.5, 1.5, tuple(u.shape))))
+
+
+def twin_step(cfg, base, batch, opt, *, lr: float,
+              accum_steps: int = 1) -> dict:
+    """One ``make_train_step`` step (clip 1.0) of ``cfg`` from a copy of
+    ``base`` on the card and another on the CPU, on the same batch:
+    {"card", "cpu"} -> (metrics as floats, the params after the step).
+    Phases 29 and 30 and ``tests/test_torch_lm_train_cuda.py`` take it."""
+    import torch
+    from repro_torch.convert import params_to
+    from repro_torch.train.step import make_train_step
+
+    out = {}
+    for side, device in (("card", "cuda"), ("cpu", "cpu")):
+        p = params_to(base, device)
+        state = {"params": p, "opt": opt.init(p),
+                 "step": torch.zeros((), dtype=torch.int32,
+                                     device=p["embed"].device)}
+        step = make_train_step(cfg, opt, lr=lr, clip=1.0,
+                               accum_steps=accum_steps)
+        state, m = step(state, batch)
+        out[side] = ({key: float(v) for key, v in m.items()},
+                     state["params"])
+    return out
+
+
+def lm_train_parity(cfg, batch_shape, *, rwkv_bonus: bool = False) -> dict:
+    """One train step of ``cfg`` (f32) on the card against the same step on
+    the CPU (the plain versions, autograd), from the same params (drawn on
+    the card, copied) and the same ``SyntheticLMData`` batch, with
+    ``accum_steps`` 1 and 2, through ``make_train_step`` with ``Sgd`` at
+    PARITY_LR: the
+    loss within LOSS_REL_TOL relative, the gradient norm printed, and
+    every updated param within UPDATE_REL_TOL * max |CPU update| (the
+    largest over the tree, as in phase 11); the worst leaf is named.  Then
+    accum 1 with AdamW (its defaults, lr TRAIN_LM_LR), printed and not
+    held."""
+    import torch
+    from repro_torch.convert import params_to
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.nn import transformer as T
+    from repro_torch.optim.adamw import AdamW
+
+    device = torch.device("cuda")
+    base = T.init_lm(cfg, torch.Generator(device=device).manual_seed(SEED),
+                     device=device)
+    if rwkv_bonus:
+        _draw_bonus(base, cfg)
+    base_cpu = params_to(base, "cpu")
+    b, l = batch_shape
+    batch = SyntheticLMData(cfg.vocab, l, b, seed=SEED + 29).batch_at(0)
+    print(f"\ntraining step, card vs CPU: {cfg.name} in f32 at d_model "
+          f"{cfg.d_model}, Dh {cfg.head_dim}, {cfg.n_layers} layers, vocab "
+          f"{cfg.vocab}; batch {b} x {l}")
+    out = []
+    for accum, opt, lr, held in ((1, Sgd(), PARITY_LR, True),
+                                 (2, Sgd(), PARITY_LR, True),
+                                 (1, AdamW(), TRAIN_LM_LR, False)):
+        t0 = time.perf_counter()
+        twins = twin_step(cfg, base, batch, opt, lr=lr, accum_steps=accum)
+        metrics = {side: m for side, (m, _) in twins.items()}
+        new = {side: p for side, (_, p) in twins.items()}
+        del twins
+        loss_rel = abs(metrics["card"]["loss"] - metrics["cpu"]["loss"]) \
+            / abs(metrics["cpu"]["loss"])
+        gn_rel = abs(metrics["card"]["grad_norm"]
+                     - metrics["cpu"]["grad_norm"]) \
+            / metrics["cpu"]["grad_norm"]
+        diffs, upds = {}, {}
+        for (name, g), c, c0 in zip(_named(new["card"]), _leaves(new["cpu"]),
+                                    _leaves(base_cpu)):
+            diffs[name] = float((g.detach().cpu() - c.detach()).abs().max())
+            upds[name] = float((c.detach() - c0).abs().max())
+        max_upd = max(upds.values())
+        worst = max(diffs, key=diffs.get)
+        rel = diffs[worst] / max_upd
+        name_opt = type(opt).__name__
+        print(f"  accum_steps {accum}, {name_opt}, lr {lr:g}: loss card "
+              f"{metrics['card']['loss']:.6f} CPU {metrics['cpu']['loss']:.6f}"
+              f" ({loss_rel:.3e} relative), grad norm {gn_rel:.3e} "
+              f"relative; max |update diff| / max |CPU update| {rel:.3e} "
+              f"(worst leaf {worst}: {diffs[worst]:.3e}, its own max CPU "
+              f"update {upds[worst]:.3e}) in "
+              f"{time.perf_counter() - t0:.1f}s"
+              + ("" if held else "; printed, not held"))
+        if held:
+            check(loss_rel <= LOSS_REL_TOL, f"card vs CPU training loss "
+                  f"{loss_rel:.3e} > {LOSS_REL_TOL} relative")
+            check(rel <= UPDATE_REL_TOL, f"card vs CPU update {rel:.3e} > "
+                  f"{UPDATE_REL_TOL} of max |CPU update| (leaf {worst})")
+        out.append(dict(accum_steps=accum, optimizer=name_opt, lr=lr,
+                        held=held,
+                        loss_card=metrics["card"]["loss"],
+                        loss_cpu=metrics["cpu"]["loss"], loss_rel=loss_rel,
+                        grad_norm_rel=gn_rel, update_rel=rel,
+                        worst_leaf=worst))
+        del new
+    del base, base_cpu
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, d_model=cfg.d_model, head_dim=cfg.head_dim,
+                layers=cfg.n_layers, vocab=cfg.vocab, batch=[b, l],
+                steps=out)
+
+
+def _named(tree, prefix=""):
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named(v, f"{prefix}/{key}")
+        else:
+            yield f"{prefix}/{key}", v
+
+
+def rwkv_phase(device) -> dict:
+    """Phase 30: ``rwkv6-1.6b`` (bf16, uncut) through ``serve_continuous``
+    (phase 16's lanes and lengths, RWKV_REQUESTS requests of
+    RWKV_PROMPT_LEN tokens; no port kernel on its path: K7 held to 0), the
+    batch-8 prefill and decode steps with their profiles; then a reduced
+    f32 RWKV (RWKV_PARITY) card vs CPU: prefill and 4 decode steps within
+    1e-4 * max |logit|, decode vs forward within 1e-3, and one training
+    step within the step limits."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention as k7
+
+    launches, summary, params, _ = lm_serving(
+        device, RWKV_ARCH, RWKV_WIDTHS,
+        {"flash_attention": (k7, "flash_attention_kernel", 0, 0)}, {},
+        requests=RWKV_REQUESTS, prompt_len=RWKV_PROMPT_LEN)
+    del params
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(RWKV_ARCH), **RWKV_PARITY)
+    params = init_on_card(cfg)
+    _draw_bonus(params, cfg)
+    summary["parity"] = lm_parity(params, cfg, RWKV_PARITY_PROMPTS)
+    dvf = decode_vs_forward(params, cfg)
+    check(dvf["rel"] <= DECODE_REL_TOL, f"RWKV f32 decode differs from "
+          f"forward by {dvf['rel']:.3e} > {DECODE_REL_TOL} of max |logit|")
+    summary["decode_vs_forward"] = dvf
+    del params
+    torch.cuda.empty_cache()
+    summary["train_parity"] = lm_train_parity(cfg, RWKV_TRAIN_BATCH,
+                                              rwkv_bonus=True)
+    return summary
+
+
 def totals(rows) -> dict:
     """Per-pass sums over signature records (each time x its count; a
     library time only where one exists), and what bounds most of the
@@ -5143,6 +5662,14 @@ def main() -> int:
     whole_train["parity"] = train_parity(device, "whole")
     torch.cuda.empty_cache()
     pool, pool_launches = pool_phase(device)
+    torch.cuda.empty_cache()
+
+    bwd_rows = attention_bwd_signatures(device)
+    (train_fwd, train_bwd), lm_train = lm_training(device)
+    lm_train["parity"] = lm_train_parity(
+        dataclasses.replace(get_config(TRAIN_ARCH), **TRAIN_PARITY),
+        TRAIN_PARITY_BATCH)
+    rwkv = rwkv_phase(device)
     k10a = totals(whole_rows)
     k10b = totals(k10b_rows)
     k10c = totals(k10c_rows)
@@ -5328,12 +5855,13 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/attention.py:87",
         "launches": lm_launches["flash_attention"]
-        + hy_launches["flash_attention"],
+        + hy_launches["flash_attention"] + train_fwd,
         "launches_wgmma": lm_wgmma["flash_attention"]
-        + hy_wgmma["flash_attention"],
+        + hy_wgmma["flash_attention"] + train_fwd,
         "launches_by_path": {
             "lm_serving": lm_launches["flash_attention"],
-            "hybrid_serving": hy_launches["flash_attention"]},
+            "hybrid_serving": hy_launches["flash_attention"],
+            "lm_training": train_fwd},
         "max_abs_err": max(r_["max_abs_err"] for r_ in attn_rows),
         "max_rel_err": max(r_["max_rel_err"] for r_ in attn_rows),
         **{key: k7_row[key] for key in ("ms", "plain_ms", "library_ms",
@@ -5372,6 +5900,47 @@ def main() -> int:
                f"modules use plain matmuls), so its launches are phase 15's",
         "card": card,
     }]
+    bwd_key = ("bfloat16",) + BWD_SHAPES[0]
+    k7_bwd = next(r_ for r_ in bwd_rows if (r_["dtype"], r_["b"], r_["hq"],
+                                             r_["hkv"], r_["l"], r_["dh"],
+                                             r_["causal"]) == bwd_key)
+    k7_bwd_f32 = next(r_ for r_ in bwd_rows if (
+        r_["dtype"], r_["b"], r_["hq"], r_["hkv"], r_["l"], r_["dh"],
+        r_["causal"]) == ("float32",) + BWD_SHAPES[0])
+    kernels.append({
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/ref.py:173",
+        "replaces_is": "no pallas_call: the JAX package trains through "
+                       "XLA's autodiff of ref.attention_chunked "
+                       "(src/repro/kernels/ref.py:173), the function K7 "
+                       "(src/repro/kernels/attention.py:87) computes",
+        "launches": train_bwd,
+        "launches_by_path": {"lm_training": train_bwd,
+                             "per_training_step": 28},
+        "max_abs_err": max(r_["max_abs_err"] for r_ in bwd_rows),
+        "max_rel_err": max(r_["max_rel_err"] for r_ in bwd_rows),
+        **{key: k7_bwd[key] for key in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by", "device_ms",
+                                        "simt_bound_ms")},
+        "training_step_device_ms": lm_train["profile"]["k7_bwd_ms"],
+        "f32": {key: k7_bwd_f32[key] for key in (
+            "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")},
+        "routes": {"float32 and bfloat16, Dh 16, 64 or 128": "simt (f32 "
+                   "FMA: a dq kernel that writes each row's log-sum-exp "
+                   "and delta, then a dk/dv kernel)"},
+        "bound_is": "bound_ms: the FLOPs at the bf16 tensor cores' 989 "
+                    "TFLOP/s, or the bytes; simt_bound_ms: at the SIMT "
+                    "cores' 67 TFLOP/s",
+        "per": "one call (two kernels) at Qwen2-1.5B's training shape: "
+               "batch 8, 512 tokens, 12 query / 2 KV heads, Dh 128, causal, "
+               "bf16 (28 calls per training step); library: the backward of "
+               "F.scaled_dot_product_attention with K and V expanded to 12 "
+               "heads",
+        "card": card,
+    })
     k8_row = next(r_ for r_ in conv_rows if (r_["dtype"], r_["b"], r_["l"],
                                              r_["x"])
                   == ("bfloat16", 1, 1024, "in place"))
@@ -5578,6 +6147,8 @@ def main() -> int:
     print(json.dumps({"whole_plan_tuning": {
         key: v for key, v in whole_planned.items() if key != "rows"}}))
     print(json.dumps({"lm_serving": lm_summary}))
+    print(json.dumps({"lm_training": lm_train}))
+    print(json.dumps({"rwkv_serving": rwkv}))
     print(json.dumps({"hybrid_serving": hy_summary}))
     print(json.dumps({"serving_int8": {
         "images_per_s": q8_stats["images_per_s"],

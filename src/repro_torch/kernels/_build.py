@@ -20,6 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -27,9 +29,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("conv2d_direct", "conv2d_wu", "conv2d_q8", "conv2d_streams",
            "flash_attention", "matmul_fused", "conv1d_causal", "moe_gmm",
            "conv2d_direct_whole", "conv2d_wu_whole", "conv2d_q8_whole",
-           "pool2d")
+           "pool2d", "flash_attention_bwd")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+
+NO_BACKWARD = ("ROADMAP Queue 1 item 14: the K8 and K9 backward kernels, "
+               "hybrid and MoE training on the card")
+
+
+def no_grad_inputs(name: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` when grad mode is on and one of
+    ``tensors`` (None entries are skipped) requires grad: the CUDA kernel
+    ``name`` has no backward, and its output, written by the kernel, would
+    carry no ``grad_fn``, so every gradient through it would be lost
+    without a word.  Each CUDA wrapper without a backward calls this before
+    it launches; K7's gradient is its backward kernel instead."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel, so on the card it refuses "
+            f"inputs that require grad under grad mode (a gradient through "
+            f"it would be lost silently): {NO_BACKWARD}")
 
 
 def nvcc() -> str:

@@ -28,6 +28,21 @@ the route's kernel for a CUDA tensor; there is no fallback between them,
 nor between the routes: a launch that fails raises.  ``launches`` counts
 the launches of both kernels, ``launches_wgmma`` those of the wgmma route.
 
+Its gradient.  The reference's Pallas kernel has no ``custom_vjp``: its
+training step differentiates ``ref.attention_chunked`` with XLA's
+autodiff.  On the CPU autograd differentiates the plain version the same
+way.  On the card, where q, k or v requires grad under grad mode,
+``flash_attention`` runs the forward kernel inside a
+``torch.autograd.Function`` whose backward is K7's backward kernel,
+``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``: a dq kernel that
+also writes each row's log-sum-exp and delta = rowsum(dout o), then a dk/dv
+kernel that sums the query heads of each KV head inside its block; f32
+FMA on the SIMT cores, no atomics).  ``flash_attention_bwd_plain`` is the
+same backward in plain f32 PyTorch, written out; the tests and
+``chip_smoke.py`` hold the kernel against it.  ``launches_bwd`` counts the
+backward's calls (two kernels each); ``route_bwd`` raises on what the
+kernel cannot take.
+
 Unlike the Pallas kernel, whose blocks must divide L, the CUDA kernels mask
 their query and key tails and take every L >= 1 (a one-token prompt gives
 L = 1).  They take Dh of 16 (simt), 64 or 128 (the smoke configs' 16, the
@@ -52,11 +67,13 @@ import torch
 from repro_torch.kernels import _build, ref
 
 # Launches of the CUDA kernels since the last reset (set it to 0 to reset):
-# both routes, and the wgmma route's alone.
+# both forward routes, the wgmma route's alone, and the backward's.
 launches = 0
 launches_wgmma = 0
+launches_bwd = 0
 _fn = None
 _fn_wgmma = None
+_fn_bwd = None
 
 HEAD_DIMS = (16, 64, 128)   # the SIMT kernel's template instances
 WGMMA_HEAD_DIMS = (64, 128)
@@ -138,31 +155,11 @@ def _kernel_fn():
     return _fn
 
 
-def flash_attention(q, k, v, *, causal: bool = True, scale=None):
-    """q: (B,Hq,L,Dh), k/v: (B,Hkv,L,Dh) -> (B,Hq,L,Dh) in q's dtype.  A CPU
-    tensor takes ``flash_attention_plain``; a CUDA tensor launches the
-    sm_90a kernel of its ``route`` on the current stream or raises."""
+def _launch_forward(q, k, v, causal: bool, scale: float):
+    """The route's forward kernel on q's device and current stream; the
+    checks are the caller's."""
     global launches, launches_wgmma
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not "
-                         f"{q.device}")
     b, hq, l, dh = q.shape
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes Dh in {HEAD_DIMS}, got {dh}")
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
-        if t.dtype != q.dtype:
-            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if scale is None:
-        scale = dh ** -0.5
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -185,3 +182,177 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None):
                            f"route): CUDA error {err} (q {tuple(q.shape)}, "
                            f"k {tuple(k.shape)}, {q.dtype})")
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K7 forward with K7's backward kernel as its gradient: the forward
+    saves q, k, v and its output, the backward launches
+    ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out = _launch_forward(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale=None):
+    """q: (B,Hq,L,Dh), k/v: (B,Hkv,L,Dh) -> (B,Hq,L,Dh) in q's dtype.  A CPU
+    tensor takes ``flash_attention_plain`` (autograd differentiates it); a
+    CUDA tensor launches the sm_90a kernel of its ``route`` on the current
+    stream or raises.  On the card, with grad enabled and q, k or v
+    requiring grad, the output's gradient is K7's backward kernel
+    (``flash_attention_bwd``)."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    _check_cuda(q, k, v)
+    _check_head(q)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, float(scale))
+    return _launch_forward(q, k, v, causal, scale)
+
+
+def _check_head(q, what: str = "the kernel"):
+    """What the SIMT kernels of both directions take: f32 or bf16, Dh in
+    ``HEAD_DIMS``."""
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"{what} takes float32 or bfloat16, got {q.dtype}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{what} takes Dh in {HEAD_DIMS}, got "
+                         f"{q.shape[-1]}")
+
+
+def _check_cuda(*ts):
+    """What the CUDA kernels need of q, k, v (and of o and dout in the
+    backward): one CUDA device and dtype, contiguous."""
+    q = ts[0]
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    for name, t in zip(("q", "k", "v", "o", "dout"), ts):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+# ---------------------------------------------------------------------------
+# K7's backward
+# ---------------------------------------------------------------------------
+
+def flash_attention_bwd_plain(q, k, v, o, dout, *, causal: bool = True,
+                              scale=None):
+    """The backward kernel's function in plain f32 PyTorch, written out (not
+    autograd), chunked like ``flash_attention_plain``: per query chunk,
+    P = softmax(scale q kᵀ [-1e30 causal mask]), dv += Pᵀ dout, dS =
+    P (dout vᵀ - delta) with delta = rowsum(dout o), dq = scale dS k, dk +=
+    scale dSᵀ q; k and v repeated over the query heads of their group and
+    dk, dv summed back.  Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    rep = _check(q, k, v)
+    b, hq, l, dh = q.shape
+    if o.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and dout {tuple(dout.shape)} "
+                         f"must have q's shape {tuple(q.shape)}")
+    if scale is None:
+        scale = dh ** -0.5
+    chunk = PLAIN_CHUNK if l >= 1024 else l
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    delta = (dout.float() * o.float()).sum(dim=-1)            # (B,Hq,L)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(vf.shape, dtype=torch.float32, device=q.device)
+    kpos = torch.arange(l, device=q.device)
+    for q0 in range(0, l, chunk):
+        qi = q[:, :, q0:q0 + chunk].float()
+        di = dout[:, :, q0:q0 + chunk].float()
+        logits = torch.einsum("bhqd,bhkd->bhqk", qi, kf) * scale
+        if causal:
+            qpos = q0 + torch.arange(qi.shape[2], device=q.device)
+            logits = torch.where(qpos[:, None] >= kpos[None, :], logits,
+                                 -1e30)
+        p = torch.softmax(logits, dim=-1)
+        dv += torch.einsum("bhqk,bhqd->bhkd", p, di)
+        dp = torch.einsum("bhqd,bhkd->bhqk", di, vf)
+        ds = p * (dp - delta[:, :, q0:q0 + chunk, None])
+        dq[:, :, q0:q0 + chunk] = torch.einsum("bhqk,bhkd->bhqd", ds,
+                                               kf) * scale
+        dk += torch.einsum("bhqk,bhqd->bhkd", ds, qi) * scale
+    hkv = k.shape[1]
+    dk = dk.reshape(b, hkv, rep, l, dh).sum(dim=2)
+    dv = dv.reshape(b, hkv, rep, l, dh).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def route_bwd(q, k, v) -> str:
+    """Which kernel a CUDA call of ``flash_attention_bwd`` launches: "simt"
+    (f32 FMA, ``csrc/flash_attention_bwd.cu``) for f32 or bf16 with Dh in
+    ``HEAD_DIMS``; anything else raises ``ValueError``: there is no other
+    route and no fallback."""
+    _check_head(q, "the backward kernel")
+    return "simt"
+
+
+def _kernel_fn_bwd():
+    global _fn_bwd
+    if _fn_bwd is None:
+        fn = _build.load("flash_attention_bwd").repro_flash_attention_bwd
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 \
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn_bwd = fn
+    return _fn_bwd
+
+
+def flash_attention_bwd(q, k, v, o, dout, *, causal: bool = True,
+                        scale=None):
+    """(dq, dk, dv) of ``flash_attention(q, k, v)`` whose output was ``o``,
+    for the output gradient ``dout``, in the inputs' dtypes.  A CPU tensor
+    takes ``flash_attention_bwd_plain``; a CUDA tensor launches the sm_90a
+    backward kernels (two, counted as one launch in ``launches_bwd``) on the
+    current stream or raises."""
+    global launches_bwd
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, dout, causal=causal,
+                                         scale=scale)
+    dout = dout.contiguous()
+    route_bwd(q, k, v)
+    _check_cuda(q, k, v, o, dout)
+    if o.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and dout {tuple(dout.shape)} "
+                         f"must have q's shape {tuple(q.shape)}")
+    b, hq, l, dh = q.shape
+    if scale is None:
+        scale = dh ** -0.5
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk, dv
+    lse, delta = (torch.empty((b, hq, l), dtype=torch.float32,
+                              device=q.device) for _ in range(2))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        fn = _kernel_fn_bwd()
+        launches_bwd += 1
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), b, hq, k.shape[1],
+                 l, dh, float(scale), int(causal), _DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {err} (q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)}, {q.dtype})")
+    return dq, dk, dv

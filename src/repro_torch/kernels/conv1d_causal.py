@@ -206,6 +206,7 @@ def conv1d_causal(x, w, *, bias=None, act: str = "silu"):
     if x.device.type != "cuda":
         raise ValueError(f"conv1d_causal runs on cpu or cuda, not "
                          f"{x.device}")
+    _build.no_grad_inputs("conv1d_causal (K8)", x, w, bias)
     if x.dtype not in _DTYPES:
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
     kw = w.shape[0]

@@ -338,6 +338,7 @@ def conv2d_streams(x, w, *, schedule: ConvSchedule, stride: int = 1,
                                     k_blk=k_blk, c_blk=c_blk)
     if x.device.type != "cuda":
         raise ValueError(f"conv2d_streams runs on cpu or cuda, not {x.device}")
+    _build.no_grad_inputs("conv2d_streams (K4)", x, w, bias)
     for name, v in (("x", x), ("w", w), ("bias", bias)):
         if v is None:
             continue

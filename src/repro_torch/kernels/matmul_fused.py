@@ -124,6 +124,7 @@ def matmul_fused(a, b, *, bias=None, act: str = "none", residual=None):
         return matmul_fused_plain(a, b, bias=bias, act=act, residual=residual)
     if a.device.type != "cuda":
         raise ValueError(f"matmul_fused runs on cpu or cuda, not {a.device}")
+    _build.no_grad_inputs("matmul_fused (K6)", a, b, bias, residual)
     if a.dtype not in _DTYPES:
         raise ValueError(f"a must be float32 or bfloat16, got {a.dtype}")
     for name, t in (("a", a), ("b", b), ("bias", bias),

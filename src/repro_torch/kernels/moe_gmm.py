@@ -288,6 +288,7 @@ def moe_gmm(tokens, weights, tile_eid, *, bm: int = 128):
         return moe_gmm_plain(tokens, weights, tile_eid, bm=bm)
     if tokens.device.type != "cuda":
         raise ValueError(f"moe_gmm runs on cpu or cuda, not {tokens.device}")
+    _build.no_grad_inputs("moe_gmm (K9)", tokens, weights)
     if tokens.dtype not in _DTYPES:
         raise ValueError(f"tokens must be float32 or bfloat16, got "
                          f"{tokens.dtype}")

@@ -97,6 +97,7 @@ def maxpool2d(x, *, window: int = 3, stride: int = 2, padding: int = 1):
         return maxpool2d_plain(x, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"maxpool2d runs on cpu or cuda, not {x.device}")
+    _build.no_grad_inputs("maxpool2d (K5)", x)
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     out = torch.empty((n, p, q, c), dtype=x.dtype, device=x.device)

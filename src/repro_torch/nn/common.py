@@ -1,8 +1,8 @@
 """Shared NN primitives: RMS norm, rotary embeddings, init helpers.
 
-The counterpart of ``repro/nn/common.py``.  Params are plain dicts of
-tensors; the reference's logical-axis specs have no counterpart on one
-device.  ``softmax_xent`` waits for the LM training slice.
+The counterpart of ``repro/nn/common.py``, with the LM loss
+``softmax_xent``.  Params are plain dicts of tensors; the reference's
+logical-axis specs have no counterpart on one device.
 """
 from __future__ import annotations
 
@@ -43,3 +43,18 @@ def apply_rope(x, positions, *, theta: float = 1e4):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def softmax_xent(logits, labels, *, z_loss: float = 0.0):
+    """Mean token cross-entropy of ``logits`` (..., V) against ``labels``
+    (...) ints, over the labels >= 0 (-1 masks a position out); logsumexp
+    in f32; with ``z_loss``, plus z_loss * logsumexp² per kept token
+    (``common.py:48``)."""
+    mask = (labels >= 0).float()
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long().clamp_min(0)[..., None])[..., 0]
+    loss = (logz - gold) * mask
+    if z_loss:
+        loss = loss + z_loss * logz ** 2 * mask
+    return loss.sum() / mask.sum().clamp_min(1.0)

@@ -72,8 +72,18 @@ def _scan_pairs(a, b):
     """Inclusive scan along axis 1 of the pairs (a_t, b_t) under
     (a1, b1) then (a2, b2) = (a1 a2, a2 b1 + b2), by doubling: after the
     step of stride k each position holds the combination of the 2k pairs
-    ending there.  Returns (prod a, h with h_{-1} = 0), both f32."""
+    ending there.  Returns (prod a, h with h_{-1} = 0), both f32.  Where
+    autograd records (training on the CPU), the same products run out of
+    place: ``out=`` buffers cannot carry a gradient."""
     n = a.shape[1]
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        k = 1
+        while k < n:
+            b = torch.cat([b[:, :k], torch.addcmul(b[:, k:], a[:, k:],
+                                                   b[:, :-k])], dim=1)
+            a = torch.cat([a[:, :k], a[:, k:] * a[:, :-k]], dim=1)
+            k *= 2
+        return a, b
     a2, b2 = torch.empty_like(a), torch.empty_like(b)
     k = 1
     while k < n:

@@ -231,12 +231,3 @@ def test_init_lm_layout_and_dtype():
                for t in jax.tree_util.tree_leaves(p))
     again = T.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
     assert torch.equal(p["embed"], again["embed"])
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b"])
-def test_unported_patterns_raise(arch):
-    cfg = smoke_config(get_config(arch))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        T.init_lm(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        T.forward({}, cfg, tokens=torch.zeros((1, 4), dtype=torch.long))
