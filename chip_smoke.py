@@ -170,7 +170,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
     wgmma kernel, f32 through the SIMT one, with one wgmma launch for each
     bf16 call; each bf16 shape is also timed (profiler device time) at
     both key blocks of the wgmma kernel, 64 and 128, the measurement
-    behind ``attention.wgmma_key_block``, and SDPA by device time too.
+    behind ``attention.wgmma_key_block``, and SDPA by device time too;
+    each bf16 shape's output must be the same bits when the kernel also
+    writes each row's log-sum-exp for the backward (its lse against
+    ``attention.lse_plain`` printed).
 15. K6 vs plain: the fused matmul at Qwen2-1.5B's projections at M = 4096
     tokens (1536->1536 + bias, 1536->256 + bias, 1536->8960 silu,
     8960->1536 + residual, one gelu and one relu case), f32 and bf16, and
@@ -366,19 +369,29 @@ Phases, each of which fails the run (nonzero exit, no result line):
     (Hq 15, Hkv 5, Dh 64), a tail (L 333), a non-causal case and the
     smoke configs' Dh 16, each in f32 and bf16: max |diff| / max |plain|
     of dq, dk and dv (<= 1e-5 f32, <= 1e-2 bf16), the same bits on a second
-    call; CUDA-event and profiler device times (both kernels of a call;
-    the dk/dv kernel's records held to ``launches_bwd``), the plain
-    version, the library yardstick (the backward of
-    ``F.scaled_dot_product_attention`` with K and V expanded, used only
-    here) and both bounds (the FLOPs at 989 TFLOP/s bf16 and at 67 f32
-    SIMT, or the bytes).
+    call; each row's route (``attention.route_bwd``, held: bf16 at Dh 64
+    and 128 on the TMA + wgmma kernels, the rest on SIMT) and, on the wgmma
+    route, its plan (``attention.wgmma_bwd_plan``: splits of the query
+    heads, queries a step); each call made as training makes it, with the
+    forward's log-sum-exp; CUDA-event and profiler device times (every
+    kernel of a call, the dq, dk/dv and split-sum kernels apart; the dk/dv
+    kernel's records held to ``launches_bwd``), the plain version, the
+    library yardstick (the backward of ``F.scaled_dot_product_attention``
+    with K and V expanded, used only here) and both bounds (the FLOPs at
+    989 TFLOP/s bf16 and at 67 f32 SIMT, or the bytes).  At each wgmma
+    shape three more ways, each within the limit and the same bits twice,
+    by profiler device time: the dk/dv kernel unsplit (when the plan
+    splits), the dq kernel rebuilding lse (no lse given), the SIMT route
+    forced (``returning``), and every (splits, queries a step) plan of the
+    dk/dv kernel, behind ``attention.wgmma_bwd_plan``'s rule.
 29. LM training, this slice's main path: ``qwen2-1.5b`` (bf16, uncut,
     remat as configured) through ``launch.train.build`` (AdamW, f32 state,
     clip 1.0) on 8 x 512 ``SyntheticLMData`` tokens: one untimed step in
     which every attention layer's wq, wk and wv gradient must hold a
     nonzero, then 5 timed steps on the same batch with K7's counts set to
     0 just before and read just after (forward 56 a step under remat,
-    backward 28, every forward on wgmma), step ms p50 and max, tokens/s,
+    backward 28, every forward and backward on wgmma), step ms p50 and max,
+    tokens/s,
     each loss (finite, the last below the first), one step under the
     profiler (K7's backward device ms, matmuls, the rest, busy share) and
     the peak memory; then the Qwen2 family in f32 at Dh 64, 2 layers,
@@ -2613,6 +2626,20 @@ def attention_signatures(device):
             wgmma = k7.launches_wgmma - before
             check(wgmma == (path == "wgmma"), f"{wgmma} wgmma launches for "
                   f"one {path} call at {(b, hq, l, dh)}")
+            lse_rec = {}
+            if path == "wgmma":
+                # the forward as training calls it: each row's log-sum-exp
+                # written beside the output, whose bits must not change
+                out_lse, lse = k7._launch_forward(q, k, v, causal,
+                                                  dh ** -0.5, want_lse=True)
+                torch.cuda.synchronize()
+                lse_rec = dict(
+                    lse_same_bits=bool(torch.equal(out_lse, out)),
+                    lse_max_abs_err=float((lse - k7.lse_plain(
+                        q, k, causal=causal)).abs().max()))
+                check(lse_rec["lse_same_bits"], f"K7's output changes when "
+                      f"it writes lse at {(b, hq, hkv, l, dh, causal)}")
+                del out_lse, lse
             plain = k7.flash_attention_plain(q, k, v, causal=causal)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(out).all()),
@@ -2664,7 +2691,7 @@ def attention_signatures(device):
                        library_device_ms=library_device_ms,
                        key_block=(k7.wgmma_key_block(b, hq, l, causal)
                                   if path == "wgmma" else None),
-                       device_ms_by_key_block=by_block)
+                       device_ms_by_key_block=by_block, **lse_rec)
             rows.append(rec)
             print(f"  {rec['dtype']:8s}{b:2d}{hq:4d}{hkv:4d}{l:5d}{dh:4d} "
                   f"{causal!s:6s} {path:6s}{max_rel:.2e}  {max_abs:.2e} "
@@ -2676,7 +2703,11 @@ def attention_signatures(device):
                   + (f"; key block {rec['key_block']}, device ms by key "
                      f"block " + ", ".join(f"{kb_}: {ms_:.4f}" for kb_, ms_
                                           in by_block.items())
-                     if by_block else "") + ")")
+                     if by_block else "")
+                  + (f"; the same bits with lse written: "
+                     f"{lse_rec['lse_same_bits']}, lse vs lse_plain max "
+                     f"|diff| {lse_rec['lse_max_abs_err']:.3e}"
+                     if lse_rec else "") + ")")
             check(max_rel <= tol, f"K7 disagrees with its plain version at "
                   f"{(b, hq, hkv, l, dh, causal, rec['dtype'])}: max_rel "
                   f"{max_rel:.3e} > {tol}")
@@ -5039,8 +5070,9 @@ BWD_SHAPES = [(8, 12, 2, 512, 128, True),    # Qwen2-1.5B's training shape
               (2, 12, 2, 333, 128, True),    # a tail
               (1, 12, 2, 512, 128, False),   # non-causal
               (8, 4, 2, 128, 16, True)]      # the smoke configs' Dh 16
-K7_BWD_NEEDLE = "flash_attention_bwd_dkdv"   # one a call; the dq kernel too
-K7_BWD_DQ = "flash_attention_bwd_dq"
+K7_BWD_NEEDLE = "flash_attention_bwd_dkdv"   # one a call on either route
+K7_BWD_DQ = "flash_attention_bwd_dq"         # the dq kernel, either route
+K7_BWD_SUM = "flash_attention_bwd_split_sum"  # the wgmma route's split sum
 RWKV_ARCH = "rwkv6-1.6b"
 RWKV_WIDTHS = (24, 2048, 32, 32, 64, 7168, 65536, "bfloat16")
 RWKV_REQUESTS = 16
@@ -5085,16 +5117,39 @@ class Sgd:
         return params, state
 
 
+def _bwd_device(run) -> dict:
+    """Device ms per call of K7's backward by profiler (``trace_device``,
+    its dk/dv kernel's records held to ``launches_bwd``): all its kernels,
+    and the dq, dk/dv and split-sum kernels apart."""
+    trace = trace_device(lambda i: run(), 5, {K7_BWD_NEEDLE: K7_BWD},
+                         sync_each=True)
+    parts = {key: device_ms_of(trace, needle) for key, needle in (
+        ("dq_ms", K7_BWD_DQ), ("dkdv_ms", K7_BWD_NEEDLE),
+        ("sum_ms", K7_BWD_SUM))}
+    recorded = sum(n for name, n in trace["launches"].items()
+                   if K7_BWD_NEEDLE in name)
+    return dict(device_ms=sum(parts.values()), traced_launches=recorded,
+                **parts)
+
+
 def attention_bwd_signatures(device):
     """Phase 28: K7's backward (``flash_attention_bwd``) against
-    ``flash_attention_bwd_plain`` at BWD_SHAPES in f32 and bf16: max |diff|
-    / max |plain| of dq, dk and dv (<= 1e-5 f32, <= 1e-2 bf16), the same
-    bits on a second call, CUDA-event and profiler device times (both
-    kernels of a call), the plain version's time, the library yardstick (the
-    backward of ``F.scaled_dot_product_attention`` with K and V expanded to
-    Hq heads; used only here) and the bounds: the FLOPs (10 Dh per unmasked
-    (query, key) pair and query head) at the bf16 tensor cores' 989 TFLOP/s
-    and at the SIMT cores' 67, or the bytes."""
+    ``flash_attention_bwd_plain`` at BWD_SHAPES in f32 and bf16: each row's
+    route (``route_bwd``, held: bf16 at Dh 64/128 on wgmma, the rest on
+    SIMT) and, on wgmma, its plan; the call made as training makes it,
+    with the forward's lse on the wgmma route; max |diff| / max |plain| of
+    dq, dk and dv (<= 1e-5 f32, <= 1e-2 bf16), the same bits on a second
+    call, CUDA-event and profiler device times (every kernel of a call, and
+    the dq, dk/dv and split-sum kernels apart), the plain version's time,
+    the library yardstick (the backward of ``F.scaled_dot_product_attention``
+    with K and V expanded to Hq heads; used only here) and the bounds: the
+    FLOPs (10 Dh per unmasked (query, key) pair and query head) at the bf16
+    tensor cores' 989 TFLOP/s and at the SIMT cores' 67, or the bytes.  At
+    each wgmma shape, also by device time and each held to the same limit
+    and to the same bits twice: the dk/dv kernel unsplit where the plan
+    splits, the dq kernel rebuilding lse (none given), the SIMT route
+    forced; and every (splits, qb) plan of the dk/dv kernel, the
+    measurement behind ``wgmma_bwd_plan``'s rule."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import attention as k7
@@ -5104,10 +5159,11 @@ def attention_bwd_signatures(device):
     rows = []
     print(f"\nK7 backward vs plain ({len(BWD_SHAPES)} shapes x f32, bf16; "
           f"limits {KERNEL_REL_TOL} f32, {BF16_REL_TOL} bf16 of max |plain| "
-          f"on each of dq, dk, dv; the SIMT route):")
-    print("  dtype     b  hq hkv    l  dh causal  dq_rel   dk_rel   dv_rel  "
-          "same      ms  device_ms   plain_ms  sdpa_bwd_ms  bound_bf16  "
-          "bound_simt")
+          f"on each of dq, dk, dv; route by route_bwd, the wgmma route with "
+          f"the forward's lse; device ms: dq + dk/dv + split sum):")
+    print("  dtype     b  hq hkv    l  dh causal route plan     dq_rel   "
+          "dk_rel   dv_rel  same      ms  device_ms (dq, dkdv, sum)   "
+          "plain_ms  sdpa_bwd_ms  bound_bf16  bound_simt")
     for dtype in (torch.float32, torch.bfloat16):
         for b, hq, hkv, l, dh, causal in BWD_SHAPES:
             def rnd(*shape):
@@ -5115,26 +5171,76 @@ def attention_bwd_signatures(device):
                                    device=device).to(dtype)
             q, k, v = rnd(b, hq, l, dh), rnd(b, hkv, l, dh), rnd(b, hkv, l, dh)
             do = rnd(b, hq, l, dh)
-            o = k7.flash_attention(q, k, v, causal=causal)
-            before = k7.launches_bwd
-
-            def run():
-                return k7.flash_attention_bwd(q, k, v, o, do, causal=causal)
-            got, again = run(), run()
-            torch.cuda.synchronize()
-            check(k7.launches_bwd == before + 2, f"{k7.launches_bwd - before} "
-                  f"backward launches for 2 calls")
-            same = all(bool(torch.equal(a, a2)) for a, a2 in zip(got, again))
+            tol = KERNEL_REL_TOL if dtype == torch.float32 else BF16_REL_TOL
+            path = k7.route_bwd(q, k, v)
+            want = ("wgmma" if dtype == torch.bfloat16
+                    and dh in k7.WGMMA_HEAD_DIMS else "simt")
+            check(path == want, f"K7's backward takes the {path} route at "
+                  f"{(b, hq, hkv, l, dh)} {dtype}, expected {want}")
+            if path == "wgmma":
+                o, lse = k7._launch_forward(q, k, v, causal, dh ** -0.5,
+                                            want_lse=True)
+            else:
+                o, lse = k7.flash_attention(q, k, v, causal=causal), None
+            plan = k7.wgmma_bwd_plan(b, hq, hkv, l, dh) \
+                if path == "wgmma" else None
             plain = k7.flash_attention_bwd_plain(q, k, v, o, do,
                                                  causal=causal)
-            rels = [rel_err(g.float(), p.float())[1]
-                    for g, p in zip(got, plain)]
-            abss = [rel_err(g.float(), p.float())[0]
-                    for g, p in zip(got, plain)]
-            ok_finite = all(bool(torch.isfinite(g).all()) for g in got)
+            shape = (b, hq, hkv, l, dh, causal, str(dtype))
+
+            def held(run, what):
+                """Two calls: their errors against plain (held to the
+                limit) and whether their bits agree (held)."""
+                got, again = run(), run()
+                torch.cuda.synchronize()
+                rels = [rel_err(g.float(), p_.float())[1]
+                        for g, p_ in zip(got, plain)]
+                abss = [rel_err(g.float(), p_.float())[0]
+                        for g, p_ in zip(got, plain)]
+                same = all(bool(torch.equal(a, a2))
+                           for a, a2 in zip(got, again))
+                check(all(bool(torch.isfinite(g).all()) for g in got),
+                      f"K7 backward ({what}) non-finite at {shape}")
+                check(same, f"K7 backward ({what}) gave other bits on a "
+                      f"second call at {shape}")
+                check(max(rels) <= tol, f"K7 backward ({what}) disagrees "
+                      f"with its plain version at {shape}: {rels} > {tol}")
+                return rels, abss, same
+
+            def run():
+                return k7.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                              lse=lse)
+            before = (k7.launches_bwd, k7.launches_bwd_wgmma)
+            rels, abss, same = held(run, path)
+            check((k7.launches_bwd - before[0],
+                   k7.launches_bwd_wgmma - before[1])
+                  == (2, 2 if path == "wgmma" else 0),
+                  f"{k7.launches_bwd - before[0]} backward launches "
+                  f"({k7.launches_bwd_wgmma - before[1]} wgmma) for 2 "
+                  f"{path} calls")
             ms = auto_ms(run)
-            device_ms, recorded = kernel_device_ms(run, K7_BWD_NEEDLE, K7_BWD,
-                                                   also=(K7_BWD_DQ,))
+            dev = _bwd_device(run)
+            variants, by_plan = {}, {}
+            if path == "wgmma":
+                # every plan of the dk/dv kernel: the measurement behind
+                # wgmma_bwd_plan's rule
+                for other in [(d, qb) for d in range(1, hq // hkv + 1)
+                              if (hq // hkv) % d == 0 for qb in (32, 64)]:
+                    with returning(k7, "wgmma_bwd_plan", other):
+                        held(run, f"plan {other}")
+                        by_plan[f"{other[0]},{other[1]}"] = _bwd_device(run)
+                if plan[0] > 1:
+                    variants["unsplit"] = dict(
+                        plan=[1, plan[1]], **by_plan[f"1,{plan[1]}"])
+
+                def run_no_lse():
+                    return k7.flash_attention_bwd(q, k, v, o, do,
+                                                  causal=causal)
+                held(run_no_lse, "no lse")
+                variants["no_lse"] = _bwd_device(run_no_lse)
+                with returning(k7, "route_bwd", "simt"):
+                    held(run, "simt forced")
+                    variants["simt"] = _bwd_device(run)
             plain_ms = auto_ms(lambda: k7.flash_attention_bwd_plain(
                 q, k, v, o, do, causal=causal), 30.0)
             rep = hq // hkv
@@ -5156,34 +5262,43 @@ def attention_bwd_signatures(device):
                 flops, nbytes, roofline.BF16_PEAK_FLOPS)
             simt_ms, simt_by = roofline.bound_ms(flops, nbytes,
                                                  roofline.F32_PEAK_FLOPS)
-            tol = KERNEL_REL_TOL if dtype == torch.float32 else BF16_REL_TOL
             rec = dict(dtype=str(dtype).removeprefix("torch."), b=b, hq=hq,
-                       hkv=hkv, l=l, dh=dh, causal=causal,
-                       route=k7.route_bwd(q, k, v),
+                       hkv=hkv, l=l, dh=dh, causal=causal, route=path,
+                       plan=list(plan) if plan else None,
+                       lse_given=lse is not None,
                        rel_err=dict(zip(("dq", "dk", "dv"), rels)),
                        max_rel_err=max(rels), max_abs_err=max(abss),
-                       same_bits=same, ms=ms, device_ms=device_ms,
+                       same_bits=same, ms=ms, **dev,
                        plain_ms=plain_ms, library_ms=library_ms,
                        library_device_ms=library_device_ms,
                        bound_ms=bound_ms, bound_by=bound_by,
                        simt_bound_ms=simt_ms, simt_bound_by=simt_by,
-                       flops=flops, tflops=flops / ms / 1e9,
-                       traced_launches=recorded)
+                       flops=flops, tflops=flops / dev["device_ms"] / 1e9,
+                       variants=variants, device_ms_by_plan=by_plan)
             rows.append(rec)
+            plan_s = f"{plan[0]},{plan[1]}" if plan else "-"
             print(f"  {rec['dtype']:8s}{b:2d}{hq:4d}{hkv:4d}{l:5d}{dh:4d} "
-                  f"{causal!s:6s} {rels[0]:.2e} {rels[1]:.2e} {rels[2]:.2e} "
-                  f"{same!s:5s} {ms:8.4f} {device_ms:10.4f} {plain_ms:10.4f} "
-                  f"{library_ms:12.4f} {bound_ms:11.4f} {simt_ms:11.4f}  "
-                  f"({rec['tflops']:.2f} TFLOP/s; {recorded} of 5 calls "
-                  f"traced; SDPA backward device {library_device_ms:.4f} "
-                  f"ms)")
-            check(ok_finite, f"K7 backward non-finite at {(b, hq, l, dh)}")
-            check(same, f"K7 backward gave other bits on a second call at "
-                  f"{(b, hq, hkv, l, dh, causal, rec['dtype'])}")
-            check(max(rels) <= tol, f"K7 backward disagrees with its plain "
-                  f"version at {(b, hq, hkv, l, dh, causal, rec['dtype'])}: "
-                  f"{rels} > {tol}")
-            del q, k, v, do, o, got, again, plain, leaves, lib_out
+                  f"{causal!s:6s} {path:5s} {plan_s:6s} {rels[0]:.2e} "
+                  f"{rels[1]:.2e} {rels[2]:.2e} {same!s:5s} {ms:8.4f} "
+                  f"{dev['device_ms']:10.4f} ({dev['dq_ms']:.4f}, "
+                  f"{dev['dkdv_ms']:.4f}, {dev['sum_ms']:.4f}) "
+                  f"{plain_ms:10.4f} {library_ms:12.4f} {bound_ms:11.4f} "
+                  f"{simt_ms:11.4f}  ({rec['tflops']:.2f} TFLOP/s by "
+                  f"device time; {dev['traced_launches']} of 5 calls traced; "
+                  f"SDPA backward device {library_device_ms:.4f} ms)")
+            for name, var in variants.items():
+                print(f"      {name:8s} device {var['device_ms']:.4f} ms (dq "
+                      f"{var['dq_ms']:.4f}, dk/dv {var['dkdv_ms']:.4f}, sum "
+                      f"{var['sum_ms']:.4f})"
+                      + (f", plan {var['plan']}" if "plan" in var else "")
+                      + "; within the limit, the same bits twice")
+            if by_plan:
+                print("      device ms by plan (splits,qb: all, dk/dv): "
+                      + "; ".join(f"{key}: {var['device_ms']:.4f}, "
+                                  f"{var['dkdv_ms']:.4f}"
+                                  for key, var in by_plan.items())
+                      + "; each within the limit, the same bits twice")
+            del q, k, v, do, o, lse, plain, leaves, lib_out
     print("  per-shape JSON:", json.dumps(rows))
     return rows
 
@@ -5270,6 +5385,7 @@ def lm_training(device):
           f"gradient is all zero in the first step: {zero}")
     per_fwd = 28 * (2 if cfg.remat else 1)
     k7.launches = k7.launches_bwd = k7.launches_wgmma = 0
+    k7.launches_bwd_wgmma = 0
     losses, step_ms = [], []
     for _ in range(TRAIN_LM_STEPS):
         torch.cuda.synchronize()
@@ -5279,6 +5395,7 @@ def lm_training(device):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     fwd, bwd, fwd_wgmma = k7.launches, k7.launches_bwd, k7.launches_wgmma
+    bwd_wgmma = k7.launches_bwd_wgmma
     p50 = float(np.median(step_ms))
     print(f"  {TRAIN_LM_STEPS} timed steps: p50 {p50:.3f} ms, max "
           f"{max(step_ms):.3f} ms ({[f'{x:.1f}' for x in step_ms]}); "
@@ -5286,12 +5403,14 @@ def lm_training(device):
           f"{[f'{x:.4f}' for x in losses]}")
     print(f"  K7 launches in the timed steps: {fwd} forward ({fwd_wgmma} "
           f"through wgmma; expected {per_fwd} x {TRAIN_LM_STEPS}), {bwd} "
-          f"backward (expected 28 x {TRAIN_LM_STEPS})")
+          f"backward ({bwd_wgmma} through wgmma; expected 28 x "
+          f"{TRAIN_LM_STEPS})")
     check(fwd == fwd_wgmma == per_fwd * TRAIN_LM_STEPS,
           f"K7 launched {fwd} times ({fwd_wgmma} wgmma) in "
           f"{TRAIN_LM_STEPS} steps, expected {per_fwd} a step")
-    check(bwd == 28 * TRAIN_LM_STEPS, f"K7's backward launched {bwd} times "
-          f"in {TRAIN_LM_STEPS} steps, expected 28 a step")
+    check(bwd == bwd_wgmma == 28 * TRAIN_LM_STEPS, f"K7's backward launched "
+          f"{bwd} times ({bwd_wgmma} wgmma) in {TRAIN_LM_STEPS} steps, "
+          f"expected 28 a step, all on the wgmma route")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(losses[-1] < losses[0], f"the loss did not fall over "
           f"{TRAIN_LM_STEPS} steps on one batch: {losses}")
@@ -5322,6 +5441,7 @@ def lm_training(device):
         tokens_per_s=b * l / p50 * 1e3,
         k7_launches_per_step=fwd / TRAIN_LM_STEPS,
         k7_bwd_launches_per_step=bwd / TRAIN_LM_STEPS,
+        k7_bwd_wgmma_launches=bwd_wgmma,
         attention_grads_nonzero=seen,
         profile=dict(wall_ms=trace["wall_ms"], device_ms=device_ms,
                      busy_share=trace["busy_share"], k7_bwd_ms=bwd_ms,
@@ -5917,26 +6037,36 @@ def main() -> int:
                        "(src/repro/kernels/ref.py:173), the function K7 "
                        "(src/repro/kernels/attention.py:87) computes",
         "launches": train_bwd,
+        "launches_wgmma": lm_train["k7_bwd_wgmma_launches"],
         "launches_by_path": {"lm_training": train_bwd,
                              "per_training_step": 28},
         "max_abs_err": max(r_["max_abs_err"] for r_ in bwd_rows),
         "max_rel_err": max(r_["max_rel_err"] for r_ in bwd_rows),
         **{key: k7_bwd[key] for key in ("ms", "plain_ms", "library_ms",
                                         "bound_ms", "bound_by", "device_ms",
-                                        "simt_bound_ms")},
+                                        "simt_bound_ms", "plan", "dq_ms",
+                                        "dkdv_ms", "sum_ms",
+                                        "library_device_ms", "variants")},
+        "kernel_route": k7_bwd["route"],
         "training_step_device_ms": lm_train["profile"]["k7_bwd_ms"],
-        "f32": {key: k7_bwd_f32[key] for key in (
-            "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by")},
-        "routes": {"float32 and bfloat16, Dh 16, 64 or 128": "simt (f32 "
-                   "FMA: a dq kernel that writes each row's log-sum-exp "
-                   "and delta, then a dk/dv kernel)"},
+        "f32": {"kernel_route": k7_bwd_f32["route"],
+                **{key: k7_bwd_f32[key] for key in (
+                    "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by")}},
+        "routes": {"bfloat16, Dh 64 and 128": "wgmma (TMA + wgmma bf16: a "
+                   "dq kernel reading the forward's log-sum-exp, a dk/dv "
+                   "kernel, a split sum where wgmma_bwd_plan splits)",
+                   "float32; bfloat16 at Dh 16": "simt (f32 FMA: a dq "
+                   "kernel that writes each row's log-sum-exp and delta, "
+                   "then a dk/dv kernel)"},
         "bound_is": "bound_ms: the FLOPs at the bf16 tensor cores' 989 "
                     "TFLOP/s, or the bytes; simt_bound_ms: at the SIMT "
                     "cores' 67 TFLOP/s",
-        "per": "one call (two kernels) at Qwen2-1.5B's training shape: "
-               "batch 8, 512 tokens, 12 query / 2 KV heads, Dh 128, causal, "
-               "bf16 (28 calls per training step); library: the backward of "
+        "per": "one call at Qwen2-1.5B's training shape: batch 8, 512 "
+               "tokens, 12 query / 2 KV heads, Dh 128, causal, bf16 through "
+               "the wgmma route with the forward's lse (28 calls per "
+               "training step); variants: unsplit dk/dv, no lse, SIMT "
+               "forced (device ms); library: the backward of "
                "F.scaled_dot_product_attention with K and V expanded to 12 "
                "heads",
         "card": card,

@@ -340,6 +340,7 @@ constexpr int kBQ = 64;              // queries per block: one consumer warpgrou
 constexpr int kStages = 2;           // the K/V ring
 constexpr int kBox = 64 * 64 * 2;    // one 64 x 64 bf16 box of q or out, 8 KB
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // D: the head width (64 or 128); KB: keys per block of the loop (64 or 128;
 // kernels/attention.wgmma_key_block picks it).
@@ -361,6 +362,7 @@ struct Args {
   int bh;            // B * Hq
   float scale_log2;  // scale * log2(e)
   int causal;
+  float* lse;        // (B*Hq, L) f32 log-sum-exp of each row, or null
 };
 
 // One block: 64 queries of one (batch, query head).  Block i takes query
@@ -524,6 +526,15 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
   }
   const float inv[2] = {1.f / lsum[0], 1.f / lsum[1]};
   const int r0 = (t / 32) * 16 + (t % 32) / 4;
+  if (a.lse != nullptr && t % 4 == 0) {
+    // logsumexp(scale q k^T [mask]) in natural-log units, from the log2
+    // domain's running max and sum; the output below does not read it
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row_a + 8 * h < a.l)
+        a.lse[static_cast<int64_t>(bh) * a.l + row_a + 8 * h] =
+            (m[h] + log2f(lsum[h])) * kLn2;
+  }
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
@@ -540,8 +551,8 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
 }
 
 template <int D, int KB>
-int launch(const void* q, const void* k, const void* v, void* out, int b, int hq, int hkv, int l,
-           float scale, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int b, int hq,
+           int hkv, int l, float scale, int causal, cudaStream_t stream) {
   using C = Cfg<D, KB>;
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -558,7 +569,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int hq
   const int nqb = (l + kBQ - 1) / kBQ;
   const int64_t blocks = static_cast<int64_t>(nqb) * b * hq;
   if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{l, hq, hkv, nqb, b * hq, scale * kLog2e, causal};
+  const Args a{l, hq, hkv, nqb, b * hq, scale * kLog2e, causal, lse};
   flash_attention_kernel_wgmma<D, KB><<<static_cast<unsigned>(blocks), C::kThreads, C::kSmem,
                                         stream>>>(map_q, map_k, map_v, map_out, a);
   return static_cast<int>(cudaGetLastError());
@@ -593,25 +604,28 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
 // The bf16 route: q (B,Hq,L,Dh), k and v (B,Hkv,L,Dh), out like q, all bf16,
 // contiguous and 16-byte aligned, with d 64 or 128 (kernels/attention.route);
 // kb, the keys per block of the loop, 64 or 128
-// (kernels/attention.wgmma_key_block).  Returns a cudaError_t:
-// cudaErrorInvalidValue for arguments off that rule or a tensor map
-// cuTensorMapEncodeTiled refuses, cudaErrorNotSupported when libcuda has no
-// cuTensorMapEncodeTiled.
+// (kernels/attention.wgmma_key_block); lse, null or f32 (B*Hq, L): each
+// row's log-sum-exp of scale * q k^T over its unmasked keys, natural log,
+// which K7's backward reads (writing it changes no bit of out).  Returns a
+// cudaError_t: cudaErrorInvalidValue for arguments off that rule or a
+// tensor map cuTensorMapEncodeTiled refuses, cudaErrorNotSupported when
+// libcuda has no cuTensorMapEncodeTiled.
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const void* v, void* out,
-                                           int b, int hq, int hkv, int l, int d, float scale,
-                                           int causal, int kb, void* stream) {
+                                           float* lse, int b, int hq, int hkv, int l, int d,
+                                           float scale, int causal, int kb, void* stream) {
   if (b <= 0 || hq <= 0 || hkv <= 0 || l <= 0 || hq % hkv != 0 || q == nullptr ||
       k == nullptr || v == nullptr || out == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
     return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64 && kb == 64) return wg::launch<64, 64>(q, k, v, out, b, hq, hkv, l, scale, causal, s);
+  if (d == 64 && kb == 64)
+    return wg::launch<64, 64>(q, k, v, out, lse, b, hq, hkv, l, scale, causal, s);
   if (d == 64 && kb == 128)
-    return wg::launch<64, 128>(q, k, v, out, b, hq, hkv, l, scale, causal, s);
+    return wg::launch<64, 128>(q, k, v, out, lse, b, hq, hkv, l, scale, causal, s);
   if (d == 128 && kb == 64)
-    return wg::launch<128, 64>(q, k, v, out, b, hq, hkv, l, scale, causal, s);
+    return wg::launch<128, 64>(q, k, v, out, lse, b, hq, hkv, l, scale, causal, s);
   if (d == 128 && kb == 128)
-    return wg::launch<128, 128>(q, k, v, out, b, hq, hkv, l, scale, causal, s);
+    return wg::launch<128, 128>(q, k, v, out, lse, b, hq, hkv, l, scale, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -18,10 +18,61 @@
 // causal (twice that without the mask): a recomputed S, dP = dout v^T, the
 // dv and dk products, and dq; far above the ridge, so the arithmetic rate:
 // 989 TFLOP/s on the bf16 tensor cores, 67 TFLOP/s f32 on the SIMT cores.
-// This first kernel is the simple one, f32 FMA on the SIMT cores: tensor
-// cores, TMA and a log-sum-exp saved by the forward are later work.  It
-// needs no atomics and gives the same bits run to run.  Two kernels, one
-// after the other on the caller's stream:
+// No route uses atomics: two calls give the same bits.  Two routes, chosen
+// in the wrapper (kernels/attention.route_bwd, the forward's rule):
+//
+// The wgmma route, bf16 with Dh 64 or 128, contiguous and 16-byte aligned:
+// the forward's TMA + wgmma skeleton (flash_attention.cu) with the
+// backward's products, every one on the bf16 tensor cores with f32 sums,
+// and the rows' log-sum-exp that the forward saved (lse), so no kernel
+// rebuilds the softmax's max and sum (without it the dq kernel does, in a
+// first pass over the key blocks: a template flag, not a fallback).
+//
+// flash_attention_bwd_dq_kernel_wgmma, one block per (b*Hq + h, 64-query
+// tile), heaviest causal tiles first; one consumer warpgroup and a producer
+// warp whose one thread loads the q and dout tiles once and keeps TMA loads
+// of k and v blocks (64 keys) in flight in a 2-stage ring on mbarriers, to
+// the diagonal when causal:
+//   * the prologue computes delta = rowsum(dout o) (the 4 lanes of a
+//     quad, one row) while the tiles land, and writes it for the dk/dv
+//     kernel;
+//   * S = Q K^T and dP = dout V^T (wgmma m64n64k16, all four K-major);
+//     P = exp2(scale log2(e) s - lse log2(e)), 0 where masked; dS =
+//     P (dP - delta) rounded to bf16 stays in registers as the A fragment
+//     (the S fragment, pair for pair, as the forward's P); dQ += dS K with
+//     k read MN-major through the transpose bit (m64n128k16 or m64n64k16);
+//   * dq = scale * acc, once, in bf16 through the q tile and TMA stores.
+//   154 registers at Dh 128 and 122 at Dh 64, no spill (-Xptxas -v); two
+//   blocks an SM (97 KB of shared memory at Dh 128).
+//
+// flash_attention_bwd_dkdv_kernel_wgmma, one block per (key block of 64,
+// split, b*Hkv + g), key block 0 (the heaviest when causal) first: k and v
+// loaded once; the ring streams the (q, dout) tiles of QB queries of the
+// group's query heads (the split's share), from the diagonal on when
+// causal, and the producer warp's lanes put the step's lse and delta in
+// shared memory beside them (read from device memory by the consumer,
+// they held 32 registers and put their latency on every step's chain).
+// Per step:
+//   * S^T = K Q^T and dP^T = V dout^T (k, v as A from shared memory, q and
+//     dout as K-major B);
+//   * P^T = exp2(...), 0 where masked (causal, a key or a query >= L);
+//     dV += P^T dout (P^T in registers as A, dout MN-major);
+//   * dS^T = P^T (dP^T - delta); dK += dS^T Q (dS^T in registers, q
+//     MN-major).  One shared-memory tile of q and one of dout serve as both
+//     K-major and MN-major operands.
+//   dk and dv (64 keys x Dh f32) stay in registers over the whole loop:
+//   128 a thread at Dh 128.  QB is 64 there (235 registers, no spill; one
+//   block an SM; at QB 32 ptxas spills 144 bytes at the 2-blocks bound) and
+//   32 at Dh 64 (130 registers, no spill; QB 64 takes 179), picked by the
+//   wrapper's wgmma_bwd_plan from the times of every plan (PERF.md).  With
+//   splits > 1 each block writes f32 partial dk and dv and
+//   flash_attention_bwd_split_sum_kernel adds the splits in a fixed order
+//   (the GQA sum of a causal grid that is one uneven wave spread over more
+//   blocks); with 1 the block writes dk = scale * dk and dv in bf16 through
+//   the k and v tiles and TMA stores.
+//
+// The SIMT route: f32 (held to 1e-5) and bf16 off that rule (Dh 16), f32
+// FMA on the CUDA cores, the first kernels of this file:
 //
 // flash_attention_bwd_dq_kernel, one block of 256 threads per (b*Hq + h,
 // 64-query block), heaviest causal blocks first:
@@ -55,6 +106,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"  // TMA, mbarriers, wgmma, the tensor-map encoder
 
 namespace {
 
@@ -535,6 +588,643 @@ int launch(const BwdArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the bf16 route: TMA + wgmma ----------------------------------------
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int kStages = 2;             // the ring of both kernels
+constexpr int kBox = 64 * 128;         // one 64-row x 64-column bf16 box, 8 KB
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+// The dq kernel: 64 queries of one (batch, query head) a block, key blocks
+// of 64.
+template <int D>
+struct DqCfg {
+  static constexpr int kBoxes = D / 64;
+  static constexpr int kTile = 64 * D * 2;       // 64 rows of q, dout, k or v
+  static constexpr int kStageBytes = 2 * kTile;  // k, then v
+  static constexpr int kSmem = 2 * kTile + kStages * kStageBytes + 1024;  // + 1 KB alignment
+  static constexpr int kThreads = 128 + 32;      // one consumer warpgroup + a producer warp
+};
+
+struct DqArgs {
+  const void* o;
+  const void* dout;
+  float* lse;    // (B*Hq, L): read when given, else written by pass 1
+  float* delta;  // (B*Hq, L): written for the dk/dv kernel
+  int l, hq, hkv, nqb, bh;
+  float scale, scale_log2;
+  int causal;
+};
+
+// One block: 64 queries of one (batch, query head); block i takes query
+// tile nqb - 1 - i / bh of head i % bh (heaviest causal tiles first).
+// kLseGiven: read each row's log-sum-exp (the forward's); else rebuild it
+// in a first pass over the key blocks, for which the ring streams k alone.
+template <int D, bool kLseGiven>
+__global__ void __launch_bounds__(DqCfg<D>::kThreads, 2)
+flash_attention_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
+                                    const __grid_constant__ CUtensorMap map_k,
+                                    const __grid_constant__ CUtensorMap map_v,
+                                    const __grid_constant__ CUtensorMap map_do,
+                                    const __grid_constant__ CUtensorMap map_dq,
+                                    const DqArgs a) {
+  using C = DqCfg<D>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full;
+  __shared__ __align__(8) uint64_t full[kStages];   // the stage's k (and v) landed
+  __shared__ __align__(8) uint64_t empty[kStages];  // the consumer is done with it
+  uint8_t* qs = align1024(smem_raw);
+  uint8_t* dos = qs + C::kTile;
+  uint8_t* ring = dos + C::kTile;
+  const int bh = static_cast<int>(blockIdx.x) % a.bh;
+  const int q0 = (a.nqb - 1 - static_cast<int>(blockIdx.x) / a.bh) * 64;
+  const int kvh = bh / (a.hq / a.hkv);
+  const int nkb = (a.l + 63) / 64;
+  const int kb_end = a.causal ? min(nkb, q0 / 64 + 1) : nkb;
+  const int n_it = (kLseGiven ? 1 : 2) * kb_end;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // the producer warp: one thread keeps the ring full
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(&q_full, 2 * C::kTile);
+#pragma unroll
+      for (int x = 0; x < C::kBoxes; ++x) {
+        tma_load_3d(qs + x * kBox, &map_q, &q_full, x * 64, q0, bh);
+        tma_load_3d(dos + x * kBox, &map_do, &q_full, x * 64, q0, bh);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kStages;
+        const bool with_v = it >= n_it - kb_end;  // pass 1 reads k alone
+        const int kb = with_v ? it - (n_it - kb_end) : it;
+        mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);  // the first round passes
+        uint8_t* ks = ring + s * C::kStageBytes;
+        mbar_expect_tx(&full[s], with_v ? 2 * C::kTile : C::kTile);
+#pragma unroll
+        for (int x = 0; x < C::kBoxes; ++x) {
+          tma_load_3d(ks + x * kBox, &map_k, &full[s], x * 64, kb * 64, kvh);
+          if (with_v)
+            tma_load_3d(ks + C::kTile + x * kBox, &map_v, &full[s], x * 64, kb * 64, kvh);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: this thread's rows are row_a and row_a + 8
+  const int t = threadIdx.x;
+  const int r0 = (t / 32) * 16 + (t % 32) / 4;
+  const int row_a = q0 + r0;
+  const int64_t base = static_cast<int64_t>(bh) * a.l;
+  // delta = rowsum(dout o) in f32 while the loads fly: the 4 lanes of a
+  // quad share a row, D/4 columns each
+  float delta[2], lse2[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_a + 8 * h;
+    float sum = 0.f;
+    if (row < a.l) {
+      const int64_t off = (base + row) * D + (t % 4) * (D / 4);
+      const uint4* x =
+          reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(a.dout) + off);
+      const uint4* y = reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(a.o) + off);
+#pragma unroll
+      for (int c = 0; c < D / 32; ++c) {
+        const uint4 xv = x[c], yv = y[c];
+        const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&xv);
+        const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&yv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 fx = __bfloat1622float2(xp[e]), fy = __bfloat1622float2(yp[e]);
+          sum = fmaf(fx.x, fy.x, sum);
+          sum = fmaf(fx.y, fy.y, sum);
+        }
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    delta[h] = sum;
+    if (t % 4 == 0 && row < a.l) a.delta[base + row] = sum;
+    if constexpr (kLseGiven) lse2[h] = row < a.l ? a.lse[base + row] * kLog2e : 0.f;
+  }
+  const uint32_t q_addr = smem_u32(qs);
+  const uint32_t do_addr = smem_u32(dos);
+  mbar_wait(&q_full, 0);
+
+  int it = 0;
+  if constexpr (!kLseGiven) {
+    // pass 1: each row's log-sum-exp by the forward's online max and sum
+    float m[2] = {-1e30f, -1e30f}, lsum[2] = {0.f, 0.f};
+    for (int kb = 0; kb < kb_end; ++kb, ++it) {
+      const int s = it % kStages;
+      const int k0 = kb * 64;
+      mbar_wait(&full[s], (it / kStages) & 1);
+      const uint32_t k_addr = smem_u32(ring + s * C::kStageBytes);
+      float sc[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+        wgmma_bf16_kk(sc, desc_sw128(q_addr + off, 16, 1024), desc_sw128(k_addr + off, 16, 1024),
+                      kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (t == 0) mbar_arrive(&empty[s]);
+      const bool edge = k0 + 64 > a.l || (a.causal && k0 + 63 > q0);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float x = sc[4 * j + 2 * h + c] * a.scale_log2;
+            if (edge) {
+              const int key = k0 + 8 * j + 2 * (t % 4) + c;
+              if (key >= a.l || (a.causal && key > row_a + 8 * h)) x = __int_as_float(0xff800000);
+            }
+            sc[4 * j + 2 * h + c] = x;
+            mx[h] = fmaxf(mx[h], x);
+          }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          rs += exp2f(sc[4 * j + 2 * h] - mx[h]) + exp2f(sc[4 * j + 2 * h + 1] - mx[h]);
+        lsum[h] = lsum[h] * exp2f(m[h] - mx[h]) + rs;
+        m[h] = mx[h];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 1);
+      lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 2);
+      lse2[h] = m[h] + log2f(lsum[h]);
+      if (t % 4 == 0 && row_a + 8 * h < a.l) a.lse[base + row_a + 8 * h] = lse2[h] * kLn2;
+    }
+  }
+
+  // pass 2: S = Q K^T, dP = dout V^T, dS = P (dP - delta), dQ += dS K
+  float acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  for (int kb = 0; kb < kb_end; ++kb, ++it) {
+    const int s = it % kStages;
+    const int k0 = kb * 64;
+    mbar_wait(&full[s], (it / kStages) & 1);
+    const uint32_t k_addr = smem_u32(ring + s * C::kStageBytes);
+    const uint32_t v_addr = k_addr + C::kTile;
+    float sc[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+      wgmma_bf16_kk(sc, desc_sw128(q_addr + off, 16, 1024), desc_sw128(k_addr + off, 16, 1024),
+                    kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+      wgmma_bf16_kk(dp, desc_sw128(do_addr + off, 16, 1024), desc_sw128(v_addr + off, 16, 1024),
+                    kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
+    // P = exp(scale s - lse), 0 where masked (causal, or a key >= L)
+    const bool edge = k0 + 64 > a.l || (a.causal && k0 + 63 > q0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float p = exp2f(sc[4 * j + 2 * h + c] * a.scale_log2 - lse2[h]);
+          if (edge) {
+            const int key = k0 + 8 * j + 2 * (t % 4) + c;
+            if (key >= a.l || (a.causal && key > row_a + 8 * h)) p = 0.f;
+          }
+          sc[4 * j + 2 * h + c] = p;
+        }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    // dS in bf16: the S fragment is the A fragment of dS K, pair for pair
+    uint32_t pa[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        pa[2 * j + h] = pack_bf16(sc[4 * j + 2 * h] * (dp[4 * j + 2 * h] - delta[h]),
+                                  sc[4 * j + 2 * h + 1] * (dp[4 * j + 2 * h + 1] - delta[h]));
+    // dQ += dS K: k read MN-major through the transpose bit
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t frag[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
+      wgmma_bf16_rs(acc, frag, desc_sw128(k_addr + kk * 16 * 128, kBox, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(pa);
+    if (t == 0) mbar_arrive(&empty[s]);
+  }
+
+  // dq = scale * acc in bf16, through the q tile (no wgmma reads it now) in
+  // the 128-byte swizzle, and TMA stores that drop rows >= L
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(qs + sw128_at(r0 + 8 * h, j * 8 + (t % 4) * 2, kBox)) =
+          pack_bf16(acc[4 * j + 2 * h] * a.scale, acc[4 * j + 2 * h + 1] * a.scale);
+  fence_async_smem();
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  if (t == 0) {
+#pragma unroll
+    for (int x = 0; x < C::kBoxes; ++x) tma_store_3d(&map_dq, qs + x * kBox, x * 64, q0, bh);
+    tma_store_wait();
+  }
+}
+
+// The dk/dv kernel: 64 keys of one (batch, KV head) a block, the group's
+// query heads (a split's share of them) in steps of QB queries.
+template <int D, int QB>
+struct KvCfg {
+  static constexpr int kBoxes = D / 64;
+  static constexpr int kKV = 64 * D * 2;         // k or v: 64 keys
+  static constexpr int kQ = QB * D * 2;          // q or dout: QB queries
+  static constexpr int kQBox = QB * 128;         // one 64-column box of it
+  static constexpr int kStageBytes = 2 * kQ;     // q, then dout
+  static constexpr int kSmem = 2 * kKV + kStages * kStageBytes + 1024;
+  static constexpr int kThreads = 128 + 32;
+  static constexpr int kBlocksPerSm = QB == 32 ? 2 : 1;  // what the registers allow
+};
+
+struct KvArgs {
+  const float* lse;    // (B*Hq, L)
+  const float* delta;  // (B*Hq, L)
+  float* part;         // splits > 1: (splits, 2, B*Hkv, L, D) f32 partial dk, dv
+  int l, hq, hkv, bkv, splits;
+  float scale, scale_log2;
+  int causal;
+};
+
+// One block: 64 keys of (batch, KV head) g = i % bkv and the split sp of
+// its query heads; block i takes key block i / (bkv * splits), so key block
+// 0, the heaviest when causal, goes first.
+template <int D, int QB>
+__global__ void __launch_bounds__(KvCfg<D, QB>::kThreads, KvCfg<D, QB>::kBlocksPerSm)
+flash_attention_bwd_dkdv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
+                                      const __grid_constant__ CUtensorMap map_k,
+                                      const __grid_constant__ CUtensorMap map_v,
+                                      const __grid_constant__ CUtensorMap map_do,
+                                      const __grid_constant__ CUtensorMap map_dk,
+                                      const __grid_constant__ CUtensorMap map_dv,
+                                      const KvArgs a) {
+  using C = KvCfg<D, QB>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t kv_full;
+  __shared__ __align__(8) uint64_t full[kStages];   // the stage's q and dout landed
+  __shared__ __align__(8) uint64_t empty[kStages];  // the consumer is done with it
+  __shared__ float lse_s[kStages][QB];  // the stage's rows' lse * log2(e)
+  __shared__ float dl_s[kStages][QB];   // and delta; 0 past L
+  uint8_t* ks = align1024(smem_raw);
+  uint8_t* vs = ks + C::kKV;
+  uint8_t* ring = vs + C::kKV;
+  const int i = static_cast<int>(blockIdx.x);
+  const int g = i % a.bkv;
+  const int sp = (i / a.bkv) % a.splits;
+  const int k0 = (i / (a.bkv * a.splits)) * 64;
+  const int rep = a.hq / a.hkv;
+  const int per = rep / a.splits;             // query heads of this block
+  const int bh0 = (g / a.hkv) * a.hq + (g % a.hkv) * rep + sp * per;
+  const int nqt = (a.l + QB - 1) / QB;
+  const int qt0 = a.causal ? k0 / QB : 0;     // causal: from the diagonal on
+  const int steps = nqt - qt0;                // a head's
+  const int n_it = per * steps;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&kv_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // the producer warp: lane 0 keeps the ring full
+    const int lane = threadIdx.x - 128;
+    if (lane == 0) {
+      mbar_expect_tx(&kv_full, 2 * C::kKV);
+#pragma unroll
+      for (int x = 0; x < C::kBoxes; ++x) {
+        tma_load_3d(ks + x * kBox, &map_k, &kv_full, x * 64, k0, g);
+        tma_load_3d(vs + x * kBox, &map_v, &kv_full, x * 64, k0, g);
+      }
+    }
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % kStages;
+      const int bh = bh0 + it / steps;
+      const int q0 = (qt0 + it % steps) * QB;
+      mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+      // the step's lse and delta through shared memory, not 2 x QB/4
+      // registers a consumer thread; lane 0's arrival on full[s] releases
+      // the warp's stores (ordered before it by __syncwarp)
+      const int64_t row0 = static_cast<int64_t>(bh) * a.l;
+#pragma unroll
+      for (int c = lane; c < QB; c += 32) {
+        const bool in = q0 + c < a.l;
+        lse_s[s][c] = in ? a.lse[row0 + q0 + c] * kLog2e : 0.f;
+        dl_s[s][c] = in ? a.delta[row0 + q0 + c] : 0.f;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        uint8_t* st = ring + s * C::kStageBytes;
+        mbar_expect_tx(&full[s], C::kStageBytes);
+#pragma unroll
+        for (int x = 0; x < C::kBoxes; ++x) {
+          tma_load_3d(st + x * C::kQBox, &map_q, &full[s], x * 64, q0, bh);
+          tma_load_3d(st + C::kQ + x * C::kQBox, &map_do, &full[s], x * 64, q0, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: this thread's keys are key_a and key_a + 8; its
+  // query columns in a step are q0 + 8j + 2 (t % 4) + c
+  const int t = threadIdx.x;
+  const int r0 = (t / 32) * 16 + (t % 32) / 4;
+  const int key_a = k0 + r0;
+  const uint32_t k_addr = smem_u32(ks);
+  const uint32_t v_addr = smem_u32(vs);
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
+  mbar_wait(&kv_full, 0);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kStages;
+    const int q0 = (qt0 + it % steps) * QB;
+    mbar_wait(&full[s], (it / kStages) & 1);
+    const uint32_t q_addr = smem_u32(ring + s * C::kStageBytes);
+    const uint32_t do_addr = q_addr + C::kQ;
+    // k's and v's descriptors are the same every step: made anew here, so
+    // the compiler does not keep 16 of them in registers across the loop
+    uint32_t k_at = k_addr, v_at = v_addr;
+    asm volatile("" : "+r"(k_at), "+r"(v_at));
+    // S^T = K Q^T and dP^T = V dout^T, all four K-major
+    float st[QB / 2], dpt[QB / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_bf16_kk(st, desc_sw128(k_at + (kk / 4) * kBox + (kk % 4) * 32, 16, 1024),
+                    desc_sw128(q_addr + (kk / 4) * C::kQBox + (kk % 4) * 32, 16, 1024), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_bf16_kk(dpt, desc_sw128(v_at + (kk / 4) * kBox + (kk % 4) * 32, 16, 1024),
+                    desc_sw128(do_addr + (kk / 4) * C::kQBox + (kk % 4) * 32, 16, 1024), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(st);
+    // P^T = exp(scale s - lse), 0 where masked (causal, a key or a query >= L)
+    const bool edge = q0 + QB > a.l || k0 + 64 > a.l || (a.causal && k0 + 63 > q0);
+    uint32_t pa[QB / 4];
+#pragma unroll
+    for (int j = 0; j < QB / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float p = exp2f(st[4 * j + 2 * h + c] * a.scale_log2 -
+                          lse_s[s][8 * j + 2 * (t % 4) + c]);
+          if (edge) {
+            const int qi = q0 + 8 * j + 2 * (t % 4) + c, key = key_a + 8 * h;
+            if (qi >= a.l || key >= a.l || (a.causal && key > qi)) p = 0.f;
+          }
+          st[4 * j + 2 * h + c] = p;
+        }
+        pa[2 * j + h] = pack_bf16(st[4 * j + 2 * h], st[4 * j + 2 * h + 1]);
+      }
+    // dV += P^T dout: P^T in registers, dout read MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < QB / 16; ++kk) {
+      const uint32_t frag[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
+      wgmma_bf16_rs(dv, frag, desc_sw128(do_addr + kk * 16 * 128, C::kQBox, 1024));
+    }
+    wgmma_commit();
+    // dP^T and the dV product: waiting for both frees P^T's bf16 copy, which
+    // keeps the dk and dv accumulators, S^T, dP^T and dS^T in 255 registers
+    // without a spill
+    wgmma_wait<0>();
+    fence_regs(dpt);
+    fence_regs(dv);
+    fence_regs(pa);
+    // dS^T = P^T (dP^T - delta) in bf16; dK += dS^T Q, q read MN-major
+    uint32_t pb[QB / 4];
+#pragma unroll
+    for (int j = 0; j < QB / 8; ++j) {
+      const float d0 = dl_s[s][8 * j + 2 * (t % 4)], d1 = dl_s[s][8 * j + 2 * (t % 4) + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        pb[2 * j + h] = pack_bf16(st[4 * j + 2 * h] * (dpt[4 * j + 2 * h] - d0),
+                                  st[4 * j + 2 * h + 1] * (dpt[4 * j + 2 * h + 1] - d1));
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < QB / 16; ++kk) {
+      const uint32_t frag[4] = {pb[4 * kk], pb[4 * kk + 1], pb[4 * kk + 2], pb[4 * kk + 3]};
+      wgmma_bf16_rs(dk, frag, desc_sw128(q_addr + kk * 16 * 128, C::kQBox, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dk);
+    fence_regs(pb);
+    if (t == 0) mbar_arrive(&empty[s]);
+  }
+
+  if (a.splits == 1) {
+    // dk = scale * dk and dv in bf16, through the k and v tiles (no wgmma
+    // reads them now) and TMA stores that drop rows >= L
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int at = sw128_at(r0 + 8 * h, j * 8 + (t % 4) * 2, kBox);
+        *reinterpret_cast<uint32_t*>(ks + at) =
+            pack_bf16(dk[4 * j + 2 * h] * a.scale, dk[4 * j + 2 * h + 1] * a.scale);
+        *reinterpret_cast<uint32_t*>(vs + at) = pack_bf16(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+      }
+    fence_async_smem();
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+    if (t == 0) {
+#pragma unroll
+      for (int x = 0; x < C::kBoxes; ++x) {
+        tma_store_3d(&map_dk, ks + x * kBox, x * 64, k0, g);
+        tma_store_3d(&map_dv, vs + x * kBox, x * 64, k0, g);
+      }
+      tma_store_wait();
+    }
+  } else {
+    // this split's f32 partial sums; flash_attention_bwd_split_sum_kernel
+    // adds the splits in order
+    const int64_t plane = static_cast<int64_t>(a.bkv) * a.l * D;
+    float* pk = a.part + (2 * sp) * plane + static_cast<int64_t>(g) * a.l * D;
+    float* pv = pk + plane;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = key_a + 8 * h;
+      if (key >= a.l) continue;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int64_t at = static_cast<int64_t>(key) * D + j * 8 + (t % 4) * 2;
+        *reinterpret_cast<float2*>(pk + at) =
+            make_float2(dk[4 * j + 2 * h], dk[4 * j + 2 * h + 1]);
+        *reinterpret_cast<float2*>(pv + at) =
+            make_float2(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// dk = scale * the sum of the splits' partial dk, dv = the sum of their dv,
+// added in split order (the same bits every run), in bf16; n = B*Hkv*L*D, a
+// multiple of 4.
+__global__ void __launch_bounds__(256)
+flash_attention_bwd_split_sum_kernel(const float* part, __nv_bfloat16* dk, __nv_bfloat16* dv,
+                                     int64_t n, int splits, float scale) {
+  const int64_t e = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  if (e >= n) return;
+  float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+  for (int s = 0; s < splits; ++s) {
+    const float4 x = *reinterpret_cast<const float4*>(part + (2 * s) * n + e);
+    const float4 y = *reinterpret_cast<const float4*>(part + (2 * s + 1) * n + e);
+    sk.x += x.x; sk.y += x.y; sk.z += x.z; sk.w += x.w;
+    sv.x += y.x; sv.y += y.y; sv.z += y.z; sv.w += y.w;
+  }
+  uint2 uk, uv;
+  uk.x = pack_bf16(sk.x * scale, sk.y * scale);
+  uk.y = pack_bf16(sk.z * scale, sk.w * scale);
+  uv.x = pack_bf16(sv.x, sv.y);
+  uv.y = pack_bf16(sv.z, sv.w);
+  *reinterpret_cast<uint2*>(dk + e) = uk;
+  *reinterpret_cast<uint2*>(dv + e) = uv;
+}
+
+struct Ptrs {
+  const void *q, *k, *v, *o, *dout;
+  void *dq, *dk, *dv;
+  float *lse, *delta, *part;
+};
+
+template <int D, bool kLseGiven>
+int launch_dq(const Ptrs& p, EncodeTiled fn, int b, int hq, int hkv, int l, float scale,
+              int causal, cudaStream_t stream) {
+  using C = DqCfg<D>;
+  CUtensorMap map_q, map_k, map_v, map_do, map_dq;
+  const int64_t bq = static_cast<int64_t>(b) * hq, bk = static_cast<int64_t>(b) * hkv;
+  if (!encode_3d(fn, &map_q, p.q, bq, l, D, 64, 64) ||
+      !encode_3d(fn, &map_k, p.k, bk, l, D, 64, 64) ||
+      !encode_3d(fn, &map_v, p.v, bk, l, D, 64, 64) ||
+      !encode_3d(fn, &map_do, p.dout, bq, l, D, 64, 64) ||
+      !encode_3d(fn, &map_dq, p.dq, bq, l, D, 64, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_attention_bwd_dq_kernel_wgmma<D, kLseGiven>;
+  // per call: the attribute belongs to the current device
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nqb = (l + 63) / 64;
+  const int64_t blocks = static_cast<int64_t>(nqb) * bq;
+  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  const DqArgs a{p.o, p.dout, p.lse, p.delta, l, hq, hkv, nqb, b * hq, scale, scale * kLog2e,
+                 causal};
+  kernel<<<static_cast<unsigned>(blocks), C::kThreads, C::kSmem, stream>>>(map_q, map_k, map_v,
+                                                                           map_do, map_dq, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int QB>
+int launch_dkdv(const Ptrs& p, EncodeTiled fn, int b, int hq, int hkv, int l, float scale,
+                int causal, int splits, cudaStream_t stream) {
+  using C = KvCfg<D, QB>;
+  CUtensorMap map_q, map_k, map_v, map_do, map_dk, map_dv;
+  const int64_t bq = static_cast<int64_t>(b) * hq, bk = static_cast<int64_t>(b) * hkv;
+  if (!encode_3d(fn, &map_q, p.q, bq, l, D, QB, 64) ||
+      !encode_3d(fn, &map_k, p.k, bk, l, D, 64, 64) ||
+      !encode_3d(fn, &map_v, p.v, bk, l, D, 64, 64) ||
+      !encode_3d(fn, &map_do, p.dout, bq, l, D, QB, 64) ||
+      !encode_3d(fn, &map_dk, p.dk, bk, l, D, 64, 64) ||
+      !encode_3d(fn, &map_dv, p.dv, bk, l, D, 64, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_attention_bwd_dkdv_kernel_wgmma<D, QB>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nkb = (l + 63) / 64;
+  const int64_t blocks = static_cast<int64_t>(nkb) * bk * splits;
+  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  const KvArgs a{p.lse, p.delta, p.part, l, hq, hkv, b * hkv, splits, scale, scale * kLog2e,
+                 causal};
+  kernel<<<static_cast<unsigned>(blocks), C::kThreads, C::kSmem, stream>>>(
+      map_q, map_k, map_v, map_do, map_dk, map_dv, a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const int64_t n = bk * l * D;
+  const int64_t sum_blocks = (n / 4 + 255) / 256;
+  flash_attention_bwd_split_sum_kernel<<<static_cast<unsigned>(sum_blocks), 256, 0, stream>>>(
+      p.part, static_cast<__nv_bfloat16*>(p.dk), static_cast<__nv_bfloat16*>(p.dv), n, splits,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(const Ptrs& p, int lse_given, int b, int hq, int hkv, int l, float scale, int causal,
+           int splits, int qb, cudaStream_t stream) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const int e = lse_given ? launch_dq<D, true>(p, fn, b, hq, hkv, l, scale, causal, stream)
+                          : launch_dq<D, false>(p, fn, b, hq, hkv, l, scale, causal, stream);
+  if (e != 0) return e;
+  return qb == 64 ? launch_dkdv<D, 64>(p, fn, b, hq, hkv, l, scale, causal, splits, stream)
+                  : launch_dkdv<D, 32>(p, fn, b, hq, hkv, l, scale, causal, splits, stream);
+}
+
+}  // namespace wg
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 }  // namespace
@@ -560,6 +1250,37 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
     case 16: return dtype == 0 ? launch<float, 16>(a, s) : launch<__nv_bfloat16, 16>(a, s);
     case 64: return dtype == 0 ? launch<float, 64>(a, s) : launch<__nv_bfloat16, 64>(a, s);
     case 128: return dtype == 0 ? launch<float, 128>(a, s) : launch<__nv_bfloat16, 128>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The bf16 route (kernels/attention.route_bwd): q, o, dout, dq (B,Hq,L,Dh) and
+// k, v, dk, dv (B,Hkv,L,Dh) bf16, contiguous and 16-byte aligned, d 64 or
+// 128; lse f32 (B*Hq, L): the forward's rows' log-sum-exp when lse_given,
+// else scratch that the dq kernel fills in a first pass; delta f32 scratch
+// (B*Hq, L); part, when splits > 1, f32 scratch of splits * 2 * B*Hkv*L*d;
+// splits divides Hq/Hkv; qb, the dk/dv kernel's queries a step, 32 or 64.
+// Launches the dq kernel, the dk/dv kernel and, with splits > 1, the split
+// sum, on `stream`.  Returns a cudaError_t (0 on success).
+extern "C" int repro_flash_attention_bwd_wgmma(const void* q, const void* k, const void* v,
+                                               const void* o, const void* dout, void* dq,
+                                               void* dk, void* dv, float* lse, int lse_given,
+                                               float* delta, float* part, int b, int hq, int hkv,
+                                               int l, int d, float scale, int causal, int splits,
+                                               int qb, void* stream) {
+  if (b <= 0 || hq <= 0 || hkv <= 0 || l <= 0 || hq % hkv != 0 || splits < 1 ||
+      (hq / hkv) % splits != 0 || (splits > 1 && part == nullptr) || (qb != 32 && qb != 64) ||
+      lse == nullptr || delta == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* ptrs[] = {q, k, v, o, dout, dq, dk, dv, lse, delta};
+  for (const void* p : ptrs)
+    if (p == nullptr || !aligned16(p)) return static_cast<int>(cudaErrorMisalignedAddress);
+  if (splits > 1 && !aligned16(part)) return static_cast<int>(cudaErrorMisalignedAddress);
+  const wg::Ptrs p{q, k, v, o, dout, dq, dk, dv, lse, delta, part};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64: return wg::launch<64>(p, lse_given, b, hq, hkv, l, scale, causal, splits, qb, s);
+    case 128: return wg::launch<128>(p, lse_given, b, hq, hkv, l, scale, causal, splits, qb, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

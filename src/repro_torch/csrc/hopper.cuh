@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the port's TMA + wgmma kernels (K6's bf16
-// route in matmul_fused.cu, K7's in flash_attention.cu, K9's prefill route
-// in moe_gmm.cu): mbarriers, TMA loads and stores, 128-byte-swizzle
+// route in matmul_fused.cu, K7's in flash_attention.cu and its backward's in
+// flash_attention_bwd.cu, K9's prefill route in moe_gmm.cu): mbarriers, TMA loads and stores, 128-byte-swizzle
 // shared-memory descriptors, the wgmma instances the kernels use, and the
 // host-side tensor-map encoder.  Every source that includes it builds into
 // its own library (kernels/_build.py hashes it with the source), so nothing
@@ -247,9 +247,29 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[128], uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (64 x 32 f32) = (accumulate ? d : 0) + a (64 x 16, K-major) x b (16 x
+// 32, K-major).  K7's backward: S^T = K Q^T and dP^T = V dout^T over a step
+// of 32 queries.
+__device__ __forceinline__ void wgmma_bf16_kk(float (&d)[16], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},\n"
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (64 x 64 f32) = (accumulate ? d : 0) + a (64 x 16, K-major) x b (16 x
 // 64, K-major: b's rows are the 64 output columns, the k innermost).  K7's
-// S = Q K^T over a block of 64 keys.
+// S = Q K^T over a block of 64 keys; its backward's S, dP = dout V^T and
+// their transposes over 64 queries.
 __device__ __forceinline__ void wgmma_bf16_kk(float (&d)[32], uint64_t da, uint64_t db,
                                               int accumulate) {
   asm volatile(
@@ -281,7 +301,8 @@ __device__ __forceinline__ void wgmma_bf16_kk(float (&d)[64], uint64_t da, uint6
 
 // d (64 x 128 f32) += a (64 x 16 bf16 in registers, the fragment of
 // mma.sync m16n8k16's A on each warp's 16 rows) x b (16 x 128, MN-major).
-// K7's O += P V at Dh 128.
+// K7's O += P V at Dh 128; its backward's dQ += dS K, dV += P^T dout and
+// dK += dS^T Q.
 __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[64], const uint32_t (&a)[4],
                                               uint64_t db) {
   asm volatile(

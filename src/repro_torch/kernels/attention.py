@@ -33,15 +33,20 @@ training step differentiates ``ref.attention_chunked`` with XLA's
 autodiff.  On the CPU autograd differentiates the plain version the same
 way.  On the card, where q, k or v requires grad under grad mode,
 ``flash_attention`` runs the forward kernel inside a
-``torch.autograd.Function`` whose backward is K7's backward kernel,
-``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``: a dq kernel that
+``torch.autograd.Function`` whose backward is K7's backward,
+``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``), on the route
+``route_bwd`` picks by the forward's rule: ``"wgmma"`` (bf16, Dh 64/128)
+runs a dq kernel and a dk/dv kernel on TMA + ``wgmma``, reading each row's
+log-sum-exp that the wgmma forward saved (``lse_plain`` is its plain
+version) and, where ``wgmma_bwd_plan`` splits a KV head's query heads
+across blocks, a third kernel that adds their partial dk and dv in a fixed
+order; ``"simt"`` (f32, Dh 16) runs the f32 FMA kernels, a dq kernel that
 also writes each row's log-sum-exp and delta = rowsum(dout o), then a dk/dv
-kernel that sums the query heads of each KV head inside its block; f32
-FMA on the SIMT cores, no atomics).  ``flash_attention_bwd_plain`` is the
-same backward in plain f32 PyTorch, written out; the tests and
-``chip_smoke.py`` hold the kernel against it.  ``launches_bwd`` counts the
-backward's calls (two kernels each); ``route_bwd`` raises on what the
-kernel cannot take.
+kernel that sums the query heads of each KV head inside its block.  No
+atomics on either route.  ``flash_attention_bwd_plain`` is the same
+backward in plain f32 PyTorch, written out; the tests and
+``chip_smoke.py`` hold the kernels against it.  ``launches_bwd`` counts
+the backward's calls, ``launches_bwd_wgmma`` those on the wgmma route.
 
 Unlike the Pallas kernel, whose blocks must divide L, the CUDA kernels mask
 their query and key tails and take every L >= 1 (a one-token prompt gives
@@ -67,13 +72,16 @@ import torch
 from repro_torch.kernels import _build, ref
 
 # Launches of the CUDA kernels since the last reset (set it to 0 to reset):
-# both forward routes, the wgmma route's alone, and the backward's.
+# both forward routes, the wgmma route's alone, the backward's calls on both
+# routes and on the wgmma route alone.
 launches = 0
 launches_wgmma = 0
 launches_bwd = 0
+launches_bwd_wgmma = 0
 _fn = None
 _fn_wgmma = None
 _fn_bwd = None
+_fn_bwd_wgmma = None
 
 HEAD_DIMS = (16, 64, 128)   # the SIMT kernel's template instances
 WGMMA_HEAD_DIMS = (64, 128)
@@ -97,13 +105,46 @@ def _check(q, k, v):
     return hq // k.shape[1]
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, scale=None):
+def flash_attention_plain(q, k, v, *, causal: bool = True, scale=None,
+                          return_lse: bool = False):
     """The kernel's function in plain PyTorch: ``ref.attention_chunked``,
-    one chunk below L = 1024 and ``PLAIN_CHUNK`` queries from there."""
+    one chunk below L = 1024 and ``PLAIN_CHUNK`` queries from there.  With
+    ``return_lse`` also each row's log-sum-exp (``lse_plain``), as the
+    wgmma forward writes it for the backward: (out, lse)."""
     _check(q, k, v)
     l = q.shape[2]
-    return ref.attention_chunked(q, k, v, causal=causal, scale=scale,
-                                 chunk=PLAIN_CHUNK if l >= 1024 else l)
+    out = ref.attention_chunked(q, k, v, causal=causal, scale=scale,
+                                chunk=PLAIN_CHUNK if l >= 1024 else l)
+    if return_lse:
+        return out, lse_plain(q, k, causal=causal, scale=scale)
+    return out
+
+
+def _logits(qi, kf, q0: int, causal: bool, scale: float):
+    """f32 scale * qi kᵀ of the query chunk starting at q0, with the
+    finite -1e30 causal mask of ``ref.attention_chunked``."""
+    logits = torch.einsum("bhqd,bhkd->bhqk", qi.float(), kf) * scale
+    if causal:
+        qpos = q0 + torch.arange(qi.shape[2], device=qi.device)
+        kpos = torch.arange(kf.shape[2], device=qi.device)
+        logits = torch.where(qpos[:, None] >= kpos[None, :], logits, -1e30)
+    return logits
+
+
+def lse_plain(q, k, *, causal: bool = True, scale=None):
+    """(B, Hq, L) f32: each query row's log-sum-exp of its logits, scale *
+    q kᵀ over its unmasked keys, in natural-log units; chunked like
+    ``flash_attention_plain``.  What the wgmma forward saves for the
+    backward (``flash_attention(..)`` under autograd)."""
+    rep = _check(q, k, k)
+    l, dh = q.shape[2], q.shape[3]
+    if scale is None:
+        scale = dh ** -0.5
+    chunk = PLAIN_CHUNK if l >= 1024 else l
+    kf = k.float().repeat_interleave(rep, dim=1)
+    return torch.cat([torch.logsumexp(_logits(q[:, :, q0:q0 + chunk], kf, q0,
+                                              causal, scale), dim=-1)
+                      for q0 in range(0, l, chunk)], dim=2)
 
 
 def route(q, k, v) -> str:
@@ -137,7 +178,7 @@ def _kernel_fn_wgmma():
     global _fn_wgmma
     if _fn_wgmma is None:
         fn = _build.load("flash_attention").repro_flash_attention_wgmma
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn_wgmma = fn
@@ -155,51 +196,65 @@ def _kernel_fn():
     return _fn
 
 
-def _launch_forward(q, k, v, causal: bool, scale: float):
+def _launch_forward(q, k, v, causal: bool, scale: float,
+                    want_lse: bool = False):
     """The route's forward kernel on q's device and current stream; the
-    checks are the caller's."""
+    checks are the caller's.  With ``want_lse`` (the wgmma route only) it
+    also writes each row's log-sum-exp: returns (out, lse), else out."""
     global launches, launches_wgmma
     b, hq, l, dh = q.shape
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
     path = route(q, k, v)
+    if want_lse and path != "wgmma":
+        raise ValueError(f"only the wgmma forward writes lse, not the "
+                         f"{path} route")
+    lse = torch.empty((b, hq, l), dtype=torch.float32,
+                      device=q.device) if want_lse else None
+    if out.numel() == 0:
+        return (out, lse) if want_lse else out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                hq, k.shape[1], l, dh, float(scale), int(causal))
+        args = (b, hq, k.shape[1], l, dh, float(scale), int(causal))
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
         if path == "wgmma":
             fn = _kernel_fn_wgmma()
             launches += 1
             launches_wgmma += 1
-            err = fn(*args, wgmma_key_block(b, hq, l, causal), stream)
+            err = fn(*ptrs, lse.data_ptr() if want_lse else None, *args,
+                     wgmma_key_block(b, hq, l, causal), stream)
         else:
             fn = _kernel_fn()
             launches += 1
-            err = fn(*args, _DTYPES[q.dtype], stream)
+            err = fn(*ptrs, *args, _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed ({path} "
                            f"route): CUDA error {err} (q {tuple(q.shape)}, "
                            f"k {tuple(k.shape)}, {q.dtype})")
-    return out
+    return (out, lse) if want_lse else out
 
 
 class _FlashAttention(torch.autograd.Function):
     """K7 forward with K7's backward kernel as its gradient: the forward
-    saves q, k, v and its output, the backward launches
-    ``flash_attention_bwd``."""
+    saves q, k, v, its output and, on the wgmma route, each row's
+    log-sum-exp (which the backward's wgmma dq kernel reads instead of
+    rebuilding it); the backward launches ``flash_attention_bwd``.  Under
+    ``cfg.remat`` the forward that ``torch.utils.checkpoint`` runs again
+    saves them again."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        out = _launch_forward(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, out)
+        if route(q, k, v) == "wgmma":
+            out, lse = _launch_forward(q, k, v, causal, scale, want_lse=True)
+        else:
+            out, lse = _launch_forward(q, k, v, causal, scale), None
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout,
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse=lse,
                                          causal=ctx.causal, scale=ctx.scale)
         return dq, dk, dv, None, None
 
@@ -254,18 +309,22 @@ def _check_cuda(*ts):
 # ---------------------------------------------------------------------------
 
 def flash_attention_bwd_plain(q, k, v, o, dout, *, causal: bool = True,
-                              scale=None):
+                              scale=None, lse=None):
     """The backward kernel's function in plain f32 PyTorch, written out (not
     autograd), chunked like ``flash_attention_plain``: per query chunk,
     P = softmax(scale q kᵀ [-1e30 causal mask]), dv += Pᵀ dout, dS =
     P (dout vᵀ - delta) with delta = rowsum(dout o), dq = scale dS k, dk +=
     scale dSᵀ q; k and v repeated over the query heads of their group and
-    dk, dv summed back.  Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    dk, dv summed back.  With ``lse`` ((B, Hq, L) f32, ``lse_plain``'s) P =
+    exp(logits - lse), as the wgmma kernels take it.  Returns (dq, dk, dv)
+    in q's, k's and v's dtypes."""
     rep = _check(q, k, v)
     b, hq, l, dh = q.shape
     if o.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and dout {tuple(dout.shape)} "
                          f"must have q's shape {tuple(q.shape)}")
+    if lse is not None and tuple(lse.shape) != (b, hq, l):
+        raise ValueError(f"lse {tuple(lse.shape)} must be {(b, hq, l)}")
     if scale is None:
         scale = dh ** -0.5
     chunk = PLAIN_CHUNK if l >= 1024 else l
@@ -275,16 +334,14 @@ def flash_attention_bwd_plain(q, k, v, o, dout, *, causal: bool = True,
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
     dv = torch.zeros(vf.shape, dtype=torch.float32, device=q.device)
-    kpos = torch.arange(l, device=q.device)
     for q0 in range(0, l, chunk):
         qi = q[:, :, q0:q0 + chunk].float()
         di = dout[:, :, q0:q0 + chunk].float()
-        logits = torch.einsum("bhqd,bhkd->bhqk", qi, kf) * scale
-        if causal:
-            qpos = q0 + torch.arange(qi.shape[2], device=q.device)
-            logits = torch.where(qpos[:, None] >= kpos[None, :], logits,
-                                 -1e30)
-        p = torch.softmax(logits, dim=-1)
+        logits = _logits(qi, kf, q0, causal, scale)
+        if lse is None:
+            p = torch.softmax(logits, dim=-1)
+        else:
+            p = torch.exp(logits - lse[:, :, q0:q0 + chunk, None].float())
         dv += torch.einsum("bhqk,bhqd->bhkd", p, di)
         dp = torch.einsum("bhqd,bhkd->bhqk", di, vf)
         ds = p * (dp - delta[:, :, q0:q0 + chunk, None])
@@ -298,12 +355,33 @@ def flash_attention_bwd_plain(q, k, v, o, dout, *, causal: bool = True,
 
 
 def route_bwd(q, k, v) -> str:
-    """Which kernel a CUDA call of ``flash_attention_bwd`` launches: "simt"
-    (f32 FMA, ``csrc/flash_attention_bwd.cu``) for f32 or bf16 with Dh in
-    ``HEAD_DIMS``; anything else raises ``ValueError``: there is no other
-    route and no fallback."""
+    """Which kernels a CUDA call of ``flash_attention_bwd`` launches, by the
+    forward's rule (``route``: dtype, head width, layout and alignment
+    alone): "wgmma" for bf16 q, k and v with Dh 64 or 128, contiguous and
+    16-byte aligned (the TMA + ``wgmma`` kernels); else "simt" (f32 FMA) for
+    f32 or bf16 with Dh in ``HEAD_DIMS``; anything else raises
+    ``ValueError``.  A dispatch by shape, not a fallback: each route raises
+    on failure."""
     _check_head(q, "the backward kernel")
-    return "simt"
+    return "wgmma" if route(q, k, v) == "wgmma" else "simt"
+
+
+def wgmma_bwd_plan(b: int, hq: int, hkv: int, l: int,
+                   dh: int) -> tuple[int, int]:
+    """(splits, qb) of the wgmma dk/dv kernel.  ``splits``: each KV head's
+    query heads split across that many blocks, whose partial dk and dv a
+    second kernel adds in a fixed order; the least divisor of Hq / Hkv that
+    makes the grid (64-key blocks x B*Hkv x splits) more than one wave of
+    ``SMS`` blocks, else Hq / Hkv.  ``qb``: queries a step, 64 at Dh 128 (dk
+    and dv take 128 registers a thread: one block an SM; at 32 the kernel
+    spills), 32 at Dh 64.  The rule follows the device times of every
+    (splits, qb) at the bf16 shapes of ``chip_smoke.py``'s phase 28
+    (PERF.md), which times the plan's pick beside the unsplit kernel."""
+    rep = hq // hkv
+    blocks = -(-l // 64) * b * hkv
+    splits = next((d for d in range(1, rep + 1)
+                   if rep % d == 0 and blocks * d > SMS), rep)
+    return splits, 32 if dh == 64 else 64
 
 
 def _kernel_fn_bwd():
@@ -317,42 +395,82 @@ def _kernel_fn_bwd():
     return _fn_bwd
 
 
+def _kernel_fn_bwd_wgmma():
+    global _fn_bwd_wgmma
+    if _fn_bwd_wgmma is None:
+        fn = _build.load("flash_attention_bwd").repro_flash_attention_bwd_wgmma
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] \
+            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 \
+            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn_bwd_wgmma = fn
+    return _fn_bwd_wgmma
+
+
 def flash_attention_bwd(q, k, v, o, dout, *, causal: bool = True,
-                        scale=None):
+                        scale=None, lse=None):
     """(dq, dk, dv) of ``flash_attention(q, k, v)`` whose output was ``o``,
     for the output gradient ``dout``, in the inputs' dtypes.  A CPU tensor
-    takes ``flash_attention_bwd_plain``; a CUDA tensor launches the sm_90a
-    backward kernels (two, counted as one launch in ``launches_bwd``) on the
-    current stream or raises."""
-    global launches_bwd
+    takes ``flash_attention_bwd_plain``; a CUDA tensor launches the
+    sm_90a backward kernels of its ``route_bwd`` on the current stream or
+    raises.  ``lse``, each row's log-sum-exp as the wgmma forward writes it
+    ((B, Hq, L) f32), lets the wgmma dq kernel make one pass over the key
+    blocks; without it that kernel rebuilds lse first; the SIMT route
+    always does.  ``launches_bwd`` counts the calls on either route (two or
+    three kernels each), ``launches_bwd_wgmma`` those on the wgmma route."""
+    global launches_bwd, launches_bwd_wgmma
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, dout, causal=causal,
-                                         scale=scale)
+                                         scale=scale, lse=lse)
     dout = dout.contiguous()
-    route_bwd(q, k, v)
+    path = route_bwd(q, k, v)
     _check_cuda(q, k, v, o, dout)
     if o.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and dout {tuple(dout.shape)} "
                          f"must have q's shape {tuple(q.shape)}")
     b, hq, l, dh = q.shape
+    hkv = k.shape[1]
+    if lse is not None and (tuple(lse.shape) != (b, hq, l)
+                            or lse.dtype != torch.float32
+                            or lse.device != q.device
+                            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be contiguous f32 {(b, hq, l)} on "
+                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)} on "
+                         f"{lse.device}")
     if scale is None:
         scale = dh ** -0.5
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv
-    lse, delta = (torch.empty((b, hq, l), dtype=torch.float32,
-                              device=q.device) for _ in range(2))
+    delta = torch.empty((b, hq, l), dtype=torch.float32, device=q.device)
+    given = lse is not None and path == "wgmma"
+    if not given:
+        lse = torch.empty((b, hq, l), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        fn = _kernel_fn_bwd()
-        launches_bwd += 1
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), b, hq, k.shape[1],
-                 l, dh, float(scale), int(causal), _DTYPES[q.dtype], stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                lse.data_ptr())
+        if path == "wgmma":
+            splits, qb = wgmma_bwd_plan(b, hq, hkv, l, dh)
+            part = torch.empty((splits, 2, b * hkv, l, dh),
+                               dtype=torch.float32,
+                               device=q.device) if splits > 1 else None
+            fn = _kernel_fn_bwd_wgmma()
+            launches_bwd += 1
+            launches_bwd_wgmma += 1
+            err = fn(*ptrs, int(given), delta.data_ptr(),
+                     None if part is None else part.data_ptr(), b, hq, hkv,
+                     l, dh, float(scale), int(causal), splits, qb, stream)
+        else:
+            fn = _kernel_fn_bwd()
+            launches_bwd += 1
+            err = fn(*ptrs, delta.data_ptr(), b, hq, hkv, l, dh,
+                     float(scale), int(causal), _DTYPES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
-                           f"error {err} (q {tuple(q.shape)}, k "
-                           f"{tuple(k.shape)}, {q.dtype})")
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed "
+                           f"({path} route): CUDA error {err} (q "
+                           f"{tuple(q.shape)}, k {tuple(k.shape)}, "
+                           f"{q.dtype})")
     return dq, dk, dv

@@ -4,11 +4,15 @@ of ``flash_attention_plain`` and against ``jax.grad`` of the reference's
 ``repro.kernels.ref.attention_chunked`` (the function K7 computes, whose
 gradient the reference's training takes from XLA), causal and not, with
 GQA and ragged L; the CPU dispatch of ``flash_attention_bwd`` and
-``route_bwd``; and ``_build.no_grad_inputs``, which the CUDA wrappers
-without a backward call.
+``route_bwd`` (its rule on CPU tensors) and ``wgmma_bwd_plan``; the rows'
+log-sum-exp that the wgmma forward saves (``lse_plain``, ``return_lse``)
+against ``jax.nn.logsumexp`` of the reference's masked logits, and the
+plain backward given it; and ``_build.no_grad_inputs``, which the CUDA
+wrappers without a backward call.
 
 Tolerance: max |diff| <= 1e-5 * max |ref| per gradient (f32; the sums run
-in other orders).
+in other orders); lse within 1e-5 relative; the backward with lse within
+1e-6 of max |plain| of the one without (exp(s - lse) against the softmax).
 """
 import jax
 import jax.numpy as jnp
@@ -117,3 +121,79 @@ def test_no_grad_inputs():
         _build.no_grad_inputs("some_kernel (Kx)", y, None, x)
     assert "some_kernel (Kx)" in str(err.value)
     _build.no_grad_inputs("k", x.detach())
+
+
+def test_route_bwd_rule_on_cpu_tensors():
+    """``route_bwd`` is the forward's rule: bf16 at Dh 64 or 128, contiguous
+    and 16-byte aligned takes "wgmma"; f32, Dh 16 or a non-contiguous view
+    "simt"; what no route takes raises."""
+    def qkv(dtype, dh, l=8):
+        return [torch.zeros(1, 2, l, dh, dtype=dtype) for _ in range(3)]
+    for dh in (64, 128):
+        assert k7.route_bwd(*qkv(torch.bfloat16, dh)) == "wgmma"
+        assert k7.route_bwd(*qkv(torch.float32, dh)) == "simt"
+        q, k, v = qkv(torch.bfloat16, dh)
+        q = torch.zeros(1, 8, 2, dh, dtype=torch.bfloat16).transpose(1, 2)
+        assert not q.is_contiguous()
+        assert k7.route_bwd(q, k, v) == "simt"
+    assert k7.route_bwd(*qkv(torch.bfloat16, 16)) == "simt"
+    assert k7.route_bwd(*qkv(torch.float32, 16)) == "simt"
+    with pytest.raises(ValueError):
+        k7.route_bwd(*qkv(torch.float64, 64))
+    with pytest.raises(ValueError):
+        k7.route_bwd(*qkv(torch.bfloat16, 12))
+
+
+@pytest.mark.parametrize("shape,plan", [
+    ((8, 12, 2, 512, 128), (2, 64)),     # Qwen2-1.5B's training shape
+    ((8, 15, 5, 512, 64), (1, 32)),      # SmolLM-360M's
+    ((2, 12, 2, 333, 128), (6, 64)),     # a small grid: every head apart
+    ((1, 4, 4, 77, 64), (1, 32)),        # one query head a KV head
+])
+def test_wgmma_bwd_plan(shape, plan):
+    assert k7.wgmma_bwd_plan(*shape) == plan
+    splits, _ = plan
+    assert (shape[1] // shape[2]) % splits == 0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", [(2, 6, 2, 37, 16), (1, 2, 1, 1029, 16)])
+def test_lse_plain_matches_reference_logsumexp(case, causal):
+    """Each row's log-sum-exp of scale q kᵀ over its unmasked keys, ragged
+    L and a chunked one, against ``jax.nn.logsumexp`` of the reference's
+    logits with its -1e30 causal mask."""
+    q, k, _, _ = _inputs(case, 3)
+    b, hq, hkv, l, dh = case
+    kr = jnp.repeat(jnp.asarray(k), hq // hkv, axis=1)
+    logits = jnp.einsum("bhqd,bhkd->bhqk", jnp.asarray(q), kr) * dh ** -0.5
+    if causal:
+        pos = jnp.arange(l)
+        logits = jnp.where(pos[:, None] >= pos[None, :], logits, -1e30)
+    exp = np.asarray(jax.nn.logsumexp(logits, axis=-1))
+    got = k7.lse_plain(torch.from_numpy(q), torch.from_numpy(k),
+                       causal=causal)
+    assert got.shape == (b, hq, l) and got.dtype == torch.float32
+    assert float(np.abs(got.numpy() - exp).max() / np.abs(exp).max()) <= TOL
+    qt, kt, vt = (torch.from_numpy(t) for t in _inputs(case, 3)[:3])
+    out, lse = k7.flash_attention_plain(qt, kt, vt, causal=causal,
+                                        return_lse=True)
+    assert torch.equal(out, k7.flash_attention_plain(qt, kt, vt,
+                                                     causal=causal))
+    assert torch.equal(lse, got)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", CASES)
+def test_plain_backward_with_lse_equals_without(case, causal):
+    q, k, v, do = (torch.from_numpy(t) for t in _inputs(case, 4))
+    o, lse = k7.flash_attention_plain(q, k, v, causal=causal,
+                                      return_lse=True)
+    without = k7.flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
+    given = k7.flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                         lse=lse)
+    via = k7.flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
+    for name, a, b_, c in zip(("dq", "dk", "dv"), given, without, via):
+        assert _rel(a, b_.numpy()) <= 1e-6, name
+        assert torch.equal(a, c), name
+    with pytest.raises(ValueError):
+        k7.flash_attention_bwd_plain(q, k, v, o, do, lse=lse[:, :1])

@@ -82,7 +82,8 @@ def test_library_name_keys_on_the_headers_the_source_includes(tmp_path,
         includes = '#include "hopper.cuh"' in (csrc / f"{name}.cu").read_text()
         assert (_build.library_path(name) != names[name]) == includes, name
     assert {n for n in _build.KERNELS if _build.library_path(n) != names[n]} \
-        == {"flash_attention", "matmul_fused", "moe_gmm"}
+        == {"flash_attention", "flash_attention_bwd", "matmul_fused",
+            "moe_gmm"}
     (csrc / "k.cu").write_text('#include "a.cuh"\n')
     (csrc / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
     (csrc / "b.cuh").write_text("// one\n")
@@ -96,13 +97,15 @@ def test_library_name_keys_on_the_headers_the_source_includes(tmp_path,
 
 @pytest.mark.parametrize("kernel,symbol", [
     ("flash_attention", "repro_flash_attention_wgmma"),
+    ("flash_attention_bwd", "repro_flash_attention_bwd_wgmma"),
     ("moe_gmm", "repro_moe_gmm_wgmma"),
     ("matmul_fused", "repro_matmul_fused_wgmma")])
 def test_wgmma_route_symbol_matches_its_binding(kernel, symbol):
     src = (_build.CSRC / f"{kernel}.cu").read_text()
     assert f'extern "C" int {symbol}(' in src
     assert '#include "hopper.cuh"' in src
-    wrapper = {"flash_attention": "attention"}.get(kernel, kernel)
+    wrapper = {"flash_attention": "attention",
+               "flash_attention_bwd": "attention"}.get(kernel, kernel)
     binding = (PORT / "kernels" / f"{wrapper}.py").read_text()
     assert f".{symbol}" in binding
 

@@ -24,9 +24,11 @@ KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 LOSS_REL_TOL = 1e-4
 UPDATE_REL_TOL = 1e-3
 
-# b, hq, hkv, l, dh, causal: GQA with a ragged L at Qwen2-1.5B's Dh, and a
-# non-causal smoke-width case with one query head a KV head
-BWD_CASES = [(2, 6, 2, 333, 128, True), (1, 4, 4, 77, 16, False)]
+# b, hq, hkv, l, dh, causal: GQA with a ragged L at Qwen2-1.5B's Dh, a
+# non-causal smoke-width case with one query head a KV head, and the
+# training shapes of Qwen2-1.5B (Dh 128) and SmolLM-360M (Dh 64)
+BWD_CASES = [(2, 6, 2, 333, 128, True), (1, 4, 4, 77, 16, False),
+             (8, 12, 2, 512, 128, True), (8, 15, 5, 512, 64, True)]
 
 
 @pytest.fixture
@@ -52,38 +54,76 @@ def _rel(out, exp) -> float:
                  / exp.float().abs().max())
 
 
+def _divisors(n):
+    return [d for d in range(1, n + 1) if n % d == 0]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", BWD_CASES)
-def test_flash_bwd_kernel_matches_plain(cuda, case, dtype):
-    causal = case[-1]
+def test_flash_bwd_kernel_matches_plain(cuda, case, dtype, monkeypatch):
+    """Each route against the plain version, the same bits twice: the
+    route ``route_bwd`` picks; for bf16 at Dh 64/128 the wgmma route with
+    the forward's lse (at every split of the query heads and both query
+    steps of the dk/dv kernel) and without it, and the SIMT route forced."""
+    b, hq, hkv, l, dh, causal = case
     q, k, v, do = _qkv(case, dtype, cuda)
     o = k7.flash_attention(q, k, v, causal=causal)
-    before = k7.launches_bwd
-    got = k7.flash_attention_bwd(q, k, v, o, do, causal=causal)
-    torch.cuda.synchronize()
-    assert k7.launches_bwd == before + 1
     exp = k7.flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
-    for name, a, e in zip(("dq", "dk", "dv"), got, exp):
-        assert a.dtype == dtype and a.shape == e.shape
-        assert _rel(a, e) <= KERNEL_TOL[dtype], (name, _rel(a, e))
-    again = k7.flash_attention_bwd(q, k, v, o, do, causal=causal)
-    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    path = k7.route_bwd(q, k, v)
+    wgmma = dtype == torch.bfloat16 and dh in k7.WGMMA_HEAD_DIMS
+    assert path == ("wgmma" if wgmma else "simt")
+    runs = [(path, None, None)]
+    if wgmma:
+        o_lse, lse = k7._launch_forward(q, k, v, causal, dh ** -0.5,
+                                        want_lse=True)
+        assert torch.equal(o_lse, o)
+        runs += [("wgmma", lse, plan) for plan in (
+            (splits, qb) for splits in _divisors(hq // hkv) for qb in (32, 64))]
+        runs.append(("simt", None, None))
+    for want, lse, plan in runs:
+        with monkeypatch.context() as m:
+            if want == "simt":
+                m.setattr(k7, "route_bwd", lambda *_: "simt")
+            if plan is not None:
+                m.setattr(k7, "wgmma_bwd_plan", lambda *_, p_=plan: p_)
+
+            def run():
+                return k7.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                              lse=lse)
+            before = (k7.launches_bwd, k7.launches_bwd_wgmma)
+            got = run()
+            torch.cuda.synchronize()
+            assert (k7.launches_bwd - before[0],
+                    k7.launches_bwd_wgmma - before[1]) == (
+                        1, int(want == "wgmma"))
+            for name, a, e in zip(("dq", "dk", "dv"), got, exp):
+                assert a.dtype == dtype and a.shape == e.shape
+                assert _rel(a, e) <= KERNEL_TOL[dtype], (
+                    want, lse is not None, plan, name, _rel(a, e))
+            again = run()
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), (
+                want, lse is not None, plan)
 
 
-def test_flash_autograd_on_card_runs_the_backward_kernel(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_on_card_runs_the_backward_kernel(cuda, dtype):
+    """f32 takes the SIMT backward; bf16 the wgmma one, with the lse that
+    the wgmma forward saved."""
     case = (1, 6, 2, 200, 64, True)
-    q, k, v, do = _qkv(case, torch.float32, cuda, seed=1)
+    q, k, v, do = _qkv(case, dtype, cuda, seed=1)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     fwd, bwd = k7.launches, k7.launches_bwd
+    bwd_wgmma = k7.launches_bwd_wgmma
     out = k7.flash_attention(*leaves, causal=True)
     assert out.grad_fn is not None
     out.backward(do)
     torch.cuda.synchronize()
     assert (k7.launches - fwd, k7.launches_bwd - bwd) == (1, 1)
+    assert k7.launches_bwd_wgmma - bwd_wgmma == int(dtype == torch.bfloat16)
     exp = k7.flash_attention_bwd_plain(q, k, v, out.detach(), do,
                                        causal=True)
     for t, e in zip(leaves, exp):
-        assert _rel(t.grad, e) <= KERNEL_TOL[torch.float32]
+        assert _rel(t.grad, e) <= KERNEL_TOL[dtype]
 
 
 def test_flash_bwd_rejects_what_it_does_not_take(cuda):
