@@ -61,10 +61,11 @@
 //     MN-major).  One shared-memory tile of q and one of dout serve as both
 //     K-major and MN-major operands.
 //   dk and dv (64 keys x Dh f32) stay in registers over the whole loop:
-//   128 a thread at Dh 128.  QB is 64 there (235 registers, no spill; one
-//   block an SM; at QB 32 ptxas spills 144 bytes at the 2-blocks bound) and
-//   32 at Dh 64 (130 registers, no spill; QB 64 takes 179), picked by the
-//   wrapper's wgmma_bwd_plan from the times of every plan (PERF.md).  With
+//   128 a thread at Dh 128.  QB is fixed by Dh: 64 at Dh 128 (235
+//   registers, no spill; one block an SM; at QB 32 ptxas spilled 144 bytes
+//   at the 2-blocks bound) and 32 at Dh 64 (130 registers, no spill; QB 64
+//   took 179 and was slower), from the times of every (splits, QB) that
+//   PERF.md records.  With
 //   splits > 1 each block writes f32 partial dk and dv and
 //   flash_attention_bwd_split_sum_kernel adds the splits in a fixed order
 //   (the GQA sum of a causal grid that is one uneven wave spread over more
@@ -876,17 +877,18 @@ flash_attention_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
 }
 
 // The dk/dv kernel: 64 keys of one (batch, KV head) a block, the group's
-// query heads (a split's share of them) in steps of QB queries.
-template <int D, int QB>
+// query heads (a split's share of them) in steps of kQB queries.
+template <int D>
 struct KvCfg {
+  static constexpr int kQB = D == 128 ? 64 : 32;  // queries a step
   static constexpr int kBoxes = D / 64;
   static constexpr int kKV = 64 * D * 2;         // k or v: 64 keys
-  static constexpr int kQ = QB * D * 2;          // q or dout: QB queries
-  static constexpr int kQBox = QB * 128;         // one 64-column box of it
+  static constexpr int kQ = kQB * D * 2;         // q or dout: kQB queries
+  static constexpr int kQBox = kQB * 128;        // one 64-column box of it
   static constexpr int kStageBytes = 2 * kQ;     // q, then dout
   static constexpr int kSmem = 2 * kKV + kStages * kStageBytes + 1024;
   static constexpr int kThreads = 128 + 32;
-  static constexpr int kBlocksPerSm = QB == 32 ? 2 : 1;  // what the registers allow
+  static constexpr int kBlocksPerSm = kQB == 32 ? 2 : 1;  // what the registers allow
 };
 
 struct KvArgs {
@@ -901,8 +903,8 @@ struct KvArgs {
 // One block: 64 keys of (batch, KV head) g = i % bkv and the split sp of
 // its query heads; block i takes key block i / (bkv * splits), so key block
 // 0, the heaviest when causal, goes first.
-template <int D, int QB>
-__global__ void __launch_bounds__(KvCfg<D, QB>::kThreads, KvCfg<D, QB>::kBlocksPerSm)
+template <int D>
+__global__ void __launch_bounds__(KvCfg<D>::kThreads, KvCfg<D>::kBlocksPerSm)
 flash_attention_bwd_dkdv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                                       const __grid_constant__ CUtensorMap map_k,
                                       const __grid_constant__ CUtensorMap map_v,
@@ -910,7 +912,8 @@ flash_attention_bwd_dkdv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                                       const __grid_constant__ CUtensorMap map_dk,
                                       const __grid_constant__ CUtensorMap map_dv,
                                       const KvArgs a) {
-  using C = KvCfg<D, QB>;
+  using C = KvCfg<D>;
+  constexpr int QB = C::kQB;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t kv_full;
   __shared__ __align__(8) uint64_t full[kStages];   // the stage's q and dout landed
@@ -1177,20 +1180,20 @@ int launch_dq(const Ptrs& p, EncodeTiled fn, int b, int hq, int hkv, int l, floa
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int QB>
+template <int D>
 int launch_dkdv(const Ptrs& p, EncodeTiled fn, int b, int hq, int hkv, int l, float scale,
                 int causal, int splits, cudaStream_t stream) {
-  using C = KvCfg<D, QB>;
+  using C = KvCfg<D>;
   CUtensorMap map_q, map_k, map_v, map_do, map_dk, map_dv;
   const int64_t bq = static_cast<int64_t>(b) * hq, bk = static_cast<int64_t>(b) * hkv;
-  if (!encode_3d(fn, &map_q, p.q, bq, l, D, QB, 64) ||
+  if (!encode_3d(fn, &map_q, p.q, bq, l, D, C::kQB, 64) ||
       !encode_3d(fn, &map_k, p.k, bk, l, D, 64, 64) ||
       !encode_3d(fn, &map_v, p.v, bk, l, D, 64, 64) ||
-      !encode_3d(fn, &map_do, p.dout, bq, l, D, QB, 64) ||
+      !encode_3d(fn, &map_do, p.dout, bq, l, D, C::kQB, 64) ||
       !encode_3d(fn, &map_dk, p.dk, bk, l, D, 64, 64) ||
       !encode_3d(fn, &map_dv, p.dv, bk, l, D, 64, 64))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = flash_attention_bwd_dkdv_kernel_wgmma<D, QB>;
+  auto kernel = flash_attention_bwd_dkdv_kernel_wgmma<D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1213,14 +1216,13 @@ int launch_dkdv(const Ptrs& p, EncodeTiled fn, int b, int hq, int hkv, int l, fl
 
 template <int D>
 int launch(const Ptrs& p, int lse_given, int b, int hq, int hkv, int l, float scale, int causal,
-           int splits, int qb, cudaStream_t stream) {
+           int splits, cudaStream_t stream) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const int e = lse_given ? launch_dq<D, true>(p, fn, b, hq, hkv, l, scale, causal, stream)
                           : launch_dq<D, false>(p, fn, b, hq, hkv, l, scale, causal, stream);
   if (e != 0) return e;
-  return qb == 64 ? launch_dkdv<D, 64>(p, fn, b, hq, hkv, l, scale, causal, splits, stream)
-                  : launch_dkdv<D, 32>(p, fn, b, hq, hkv, l, scale, causal, splits, stream);
+  return launch_dkdv<D>(p, fn, b, hq, hkv, l, scale, causal, splits, stream);
 }
 
 }  // namespace wg
@@ -1259,7 +1261,7 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
 // 128; lse f32 (B*Hq, L): the forward's rows' log-sum-exp when lse_given,
 // else scratch that the dq kernel fills in a first pass; delta f32 scratch
 // (B*Hq, L); part, when splits > 1, f32 scratch of splits * 2 * B*Hkv*L*d;
-// splits divides Hq/Hkv; qb, the dk/dv kernel's queries a step, 32 or 64.
+// splits divides Hq/Hkv.
 // Launches the dq kernel, the dk/dv kernel and, with splits > 1, the split
 // sum, on `stream`.  Returns a cudaError_t (0 on success).
 extern "C" int repro_flash_attention_bwd_wgmma(const void* q, const void* k, const void* v,
@@ -1267,9 +1269,9 @@ extern "C" int repro_flash_attention_bwd_wgmma(const void* q, const void* k, con
                                                void* dk, void* dv, float* lse, int lse_given,
                                                float* delta, float* part, int b, int hq, int hkv,
                                                int l, int d, float scale, int causal, int splits,
-                                               int qb, void* stream) {
+                                               void* stream) {
   if (b <= 0 || hq <= 0 || hkv <= 0 || l <= 0 || hq % hkv != 0 || splits < 1 ||
-      (hq / hkv) % splits != 0 || (splits > 1 && part == nullptr) || (qb != 32 && qb != 64) ||
+      (hq / hkv) % splits != 0 || (splits > 1 && part == nullptr) ||
       lse == nullptr || delta == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const void* ptrs[] = {q, k, v, o, dout, dq, dk, dv, lse, delta};
@@ -1279,8 +1281,8 @@ extern "C" int repro_flash_attention_bwd_wgmma(const void* q, const void* k, con
   const wg::Ptrs p{q, k, v, o, dout, dq, dk, dv, lse, delta, part};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return wg::launch<64>(p, lse_given, b, hq, hkv, l, scale, causal, splits, qb, s);
-    case 128: return wg::launch<128>(p, lse_given, b, hq, hkv, l, scale, causal, splits, qb, s);
+    case 64: return wg::launch<64>(p, lse_given, b, hq, hkv, l, scale, causal, splits, s);
+    case 128: return wg::launch<128>(p, lse_given, b, hq, hkv, l, scale, causal, splits, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

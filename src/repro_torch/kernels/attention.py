@@ -366,22 +366,19 @@ def route_bwd(q, k, v) -> str:
     return "wgmma" if route(q, k, v) == "wgmma" else "simt"
 
 
-def wgmma_bwd_plan(b: int, hq: int, hkv: int, l: int,
-                   dh: int) -> tuple[int, int]:
-    """(splits, qb) of the wgmma dk/dv kernel.  ``splits``: each KV head's
-    query heads split across that many blocks, whose partial dk and dv a
-    second kernel adds in a fixed order; the least divisor of Hq / Hkv that
-    makes the grid (64-key blocks x B*Hkv x splits) more than one wave of
-    ``SMS`` blocks, else Hq / Hkv.  ``qb``: queries a step, 64 at Dh 128 (dk
-    and dv take 128 registers a thread: one block an SM; at 32 the kernel
-    spills), 32 at Dh 64.  The rule follows the device times of every
-    (splits, qb) at the bf16 shapes of ``chip_smoke.py``'s phase 28
-    (PERF.md), which times the plan's pick beside the unsplit kernel."""
+def wgmma_bwd_plan(b: int, hq: int, hkv: int, l: int, dh: int) -> int:
+    """Splits of the wgmma dk/dv kernel: each KV head's query heads split
+    across that many blocks, whose partial dk and dv a second kernel adds
+    in a fixed order; the least divisor of Hq / Hkv that makes the grid
+    (64-key blocks x B*Hkv x splits) more than one wave of ``SMS`` blocks,
+    else Hq / Hkv.  (The kernel's queries a step are fixed by Dh.)  The rule
+    follows the device times of every split at the bf16 shapes of
+    ``chip_smoke.py``'s phase 28 (PERF.md), which times the plan's pick
+    beside the unsplit kernel."""
     rep = hq // hkv
     blocks = -(-l // 64) * b * hkv
-    splits = next((d for d in range(1, rep + 1)
-                   if rep % d == 0 and blocks * d > SMS), rep)
-    return splits, 32 if dh == 64 else 64
+    return next((d for d in range(1, rep + 1)
+                 if rep % d == 0 and blocks * d > SMS), rep)
 
 
 def _kernel_fn_bwd():
@@ -401,7 +398,7 @@ def _kernel_fn_bwd_wgmma():
         fn = _build.load("flash_attention_bwd").repro_flash_attention_bwd_wgmma
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] \
             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 \
-            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn_bwd_wgmma = fn
     return _fn_bwd_wgmma
@@ -453,7 +450,7 @@ def flash_attention_bwd(q, k, v, o, dout, *, causal: bool = True,
                 dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 lse.data_ptr())
         if path == "wgmma":
-            splits, qb = wgmma_bwd_plan(b, hq, hkv, l, dh)
+            splits = wgmma_bwd_plan(b, hq, hkv, l, dh)
             part = torch.empty((splits, 2, b * hkv, l, dh),
                                dtype=torch.float32,
                                device=q.device) if splits > 1 else None
@@ -462,7 +459,7 @@ def flash_attention_bwd(q, k, v, o, dout, *, causal: bool = True,
             launches_bwd_wgmma += 1
             err = fn(*ptrs, int(given), delta.data_ptr(),
                      None if part is None else part.data_ptr(), b, hq, hkv,
-                     l, dh, float(scale), int(causal), splits, qb, stream)
+                     l, dh, float(scale), int(causal), splits, stream)
         else:
             fn = _kernel_fn_bwd()
             launches_bwd += 1

@@ -54,17 +54,13 @@ def _rel(out, exp) -> float:
                  / exp.float().abs().max())
 
 
-def _divisors(n):
-    return [d for d in range(1, n + 1) if n % d == 0]
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_flash_bwd_kernel_matches_plain(cuda, case, dtype, monkeypatch):
     """Each route against the plain version, the same bits twice: the
     route ``route_bwd`` picks; for bf16 at Dh 64/128 the wgmma route with
-    the forward's lse (at every split of the query heads and both query
-    steps of the dk/dv kernel) and without it, and the SIMT route forced."""
+    the forward's lse (at the plan's split of the query heads and
+    unsplit) and without it, and the SIMT route forced."""
     b, hq, hkv, l, dh, causal = case
     q, k, v, do = _qkv(case, dtype, cuda)
     o = k7.flash_attention(q, k, v, causal=causal)
@@ -77,8 +73,7 @@ def test_flash_bwd_kernel_matches_plain(cuda, case, dtype, monkeypatch):
         o_lse, lse = k7._launch_forward(q, k, v, causal, dh ** -0.5,
                                         want_lse=True)
         assert torch.equal(o_lse, o)
-        runs += [("wgmma", lse, plan) for plan in (
-            (splits, qb) for splits in _divisors(hq // hkv) for qb in (32, 64))]
+        runs += [("wgmma", lse, None), ("wgmma", lse, 1)]
         runs.append(("simt", None, None))
     for want, lse, plan in runs:
         with monkeypatch.context() as m:
