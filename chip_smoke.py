@@ -7,8 +7,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. Header: the card's name and power limit, torch and CUDA versions, the
    TF32 flags, and the build of every CUDA kernel from ``src/repro_torch/csrc``
-   (thirteen sources: K1-K4, K7, K6, K8, K9, K10a-c, K5 and K7's backward;
-   one ``nvcc`` per source, all started together; K1, K2, K4 and K10a include the shared
+   (fifteen sources: K1-K4, K7, K6, K8, K9, K10a-c, K5 and the backwards
+   of K7, K8 and K9; one ``nvcc`` per source, all started together; K9 and
+   K9's backward include the shared bf16 ``mma.sync`` staging
+   ``csrc/mma_bf16.cuh``; K1, K2, K4 and K10a include the shared
    3xTF32 products mainloop ``csrc/conv_tf32.cuh``, K3 and K10c the int8
    products and epilogue ``csrc/q8_mma.cuh``), with each build's seconds and
    its ptxas register and spill lines, each under its kernel's name.
@@ -409,19 +411,57 @@ Phases, each of which fails the run (nonzero exit, no result line):
     1024, its bonus ``u`` drawn: card vs CPU prefill and 4 decode steps
     within 1e-4 * max |logit|, decode vs forward within 1e-3, and one
     training step within phase 29's limits.
-31. The whole-plane, Inception-v3, plan-tuning, chains, whole-plane
-    tuning, LM serving, LM training, RWKV and hybrid serving summary
-    lines, the int8 serving and training summary lines, the kernels line
-    (K1, K2, K3, K4, K7, K6, K7's backward, K8, K9, K10a, K10b, K10c, K5;
-    K1, K2 and K3 with their launches under tuned plans), then the device
-    line last.
+31. Hybrid and MoE training, this slice's main path.  (a) K8's backward
+    (``conv1d_causal_bwd``, ``csrc/conv1d_causal_bwd.cu``) against
+    ``conv1d_causal_bwd_plain`` on dx, dw and db at the training cut's
+    Mamba shape (2, 512, 16384), x read in place from the input
+    projection, SiLU and "none", with and without a bias, bf16, and on a
+    reduced f32 shape and a ragged D in f32 and bf16 (the thread route):
+    <= 1e-2 (bf16), <= 1e-5 (f32) of max |plain|, the same bits twice;
+    events and device ms, the plain version, autograd of cuDNN's depthwise
+    ``F.conv1d`` + SiLU and the bytes bound.  (b) K9's backward
+    (``moe_gmm_bwd``, ``csrc/moe_gmm_bwd.cu``) against
+    ``moe_gmm_bwd_plain`` on dtokens and dweights with the ``tile_eid``
+    ``nn/moe.replay_plan`` gives one MoE layer of the cut for a 2 x 512
+    batch (-1 tiles and a held expert without rows, forced if none), at
+    the gate/up and down shapes in bf16, a reduced f32 shape and K9's tail
+    case: the same limits, -1 rows and the empty expert exactly zero;
+    events and device ms (dtokens and dweights kernels apart), the plain
+    version, ``torch.bmm`` over capacity-padded experts and the bound (the
+    larger of 4 x routed rows x D x F at 989 TFLOP/s and the bytes).  (c)
+    ``jamba-1.5-large-398b-train-1chip`` (bf16, 2 layers at the published
+    widths, 4 of 16 experts held, remat) through ``launch.train.build``
+    (factored AdamW, bf16 ``m``) on 2 x 512 ``SyntheticLMData`` tokens: one
+    untimed step (the Mamba layer's conv_w and conv_b gradients and every
+    held expert's with rows nonzero), 3 timed steps with K7, K8, K9 and
+    their backwards' counts set to 0 just before and read just after (K8
+    3 and K9 9 forward launches a step, K7 2: the forward, the block's
+    checkpoint and, but for the period's last block, the period's; K8' 1,
+    K9' 3 and K7's backward 1; K8 on its tile route, K8' on vec, K9 on
+    wgmma, K9' on mma, K7 and its backward on wgmma), step ms p50 and max,
+    tokens/s, losses finite and falling; one step under the profiler (each
+    kernel's records held to its count; device ms by kernel group, busy
+    share) and the peak memory (at most 72 GB).  (d) f32 card-vs-CPU steps
+    of Jamba (its Mamba + MoE and attention + dense period) and
+    Phi-3.5-MoE reduced to 2 layers at d_model 256 through ``twin_step``
+    with plain SGD at lr 1, the CPU taking the card's MoE routing (the
+    overridden decisions printed and held to at most PIN_MAX_OVERRIDDEN,
+    2): loss within 1e-4 relative, updates
+    within 1e-3 of max |CPU update|.
+32. The whole-plane, Inception-v3, plan-tuning, chains, whole-plane
+    tuning, LM serving, LM training, RWKV serving, hybrid training and
+    hybrid serving summary lines, the int8 serving and training summary
+    lines, the kernels line (K1, K2, K3, K4, K7, K6, K7's backward, K8,
+    K9, K8's and K9's backwards, K10a, K10b, K10c, K5; K1, K2 and K3 with
+    their launches under tuned plans), then the device line last.
 
 Device times by kernel come from ``trace_device``: a ``torch.profiler``
 trace with one warm-up step, whose recorded launches of each port kernel
 must equal the wrapper's count over the traced iterations (a short trace
 fails the run).  Each model is freed before the next is built: Qwen2-1.5B
 3.1 GB (with its training state 18.5 GB), the Jamba cut 51.8 GB, the
-parity pair 45.7 GB, RWKV-6 3.0 GB.
+parity pair 45.7 GB, RWKV-6 3.0 GB, the Jamba training cut 9.3 GB (with
+its gradients, AdamW state and activations at most 72 GB).
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -5070,6 +5110,10 @@ TRAIN_PARITY_BATCH = (4, 128)
 # 0.1 by about 40 f32 ulps, so the rounding of p - lr g alone would read
 # 2.5 % of an update; at 1.0 it reads under 1e-6
 PARITY_LR = 1.0
+# routing decisions of the card's step that the CPU's may override: near-
+# ties only (phase 31's f32 Jamba and Phi-3.5-MoE steps overrode none of
+# their 768 and 1024)
+PIN_MAX_OVERRIDDEN = 2
 TRAIN_PARITY = dict(n_layers=2, vocab=1024, d_head=64, dtype="float32")
 # K7's backward: b, hq, hkv, l, dh, causal
 BWD_SHAPES = [(8, 12, 2, 512, 128, True),    # Qwen2-1.5B's training shape
@@ -5470,12 +5514,21 @@ def twin_step(cfg, base, batch, opt, *, lr: float,
     """One ``make_train_step`` step (clip 1.0) of ``cfg`` from a copy of
     ``base`` on the card and another on the CPU, on the same batch:
     {"card", "cpu"} -> (metrics as floats, the params after the step).
-    Phases 29 and 30 and ``tests/test_torch_lm_train_cuda.py`` take it."""
+    For a config with MoE layers every routing decision of the card's step
+    is recorded and the CPU's step takes them
+    (``launch/decode_parity.Router``, as ``--pin-routing`` does), so a
+    near-tied top-k choice cannot flip between the two; "routing" then
+    holds (decisions the pin overrode, decisions), and the overridden
+    decisions must stay at or below PIN_MAX_OVERRIDDEN, so that the pin
+    absorbs near-ties and cannot hide a routing fault of the card.  Phases
+    29-31 and ``tests/test_torch_lm_train_cuda.py`` take it."""
     import torch
     from repro_torch.convert import params_to
+    from repro_torch.launch.decode_parity import Router, _with_router
     from repro_torch.train.step import make_train_step
 
-    out = {}
+    out = {"routing": None}
+    router = Router() if cfg.moe is not None else None
     for side, device in (("card", "cuda"), ("cpu", "cpu")):
         p = params_to(base, device)
         state = {"params": p, "opt": opt.init(p),
@@ -5483,23 +5536,38 @@ def twin_step(cfg, base, batch, opt, *, lr: float,
                                      device=p["embed"].device)}
         step = make_train_step(cfg, opt, lr=lr, clip=1.0,
                                accum_steps=accum_steps)
-        state, m = step(state, batch)
+        if router is None:
+            state, m = step(state, batch)
+        else:
+            if side == "cpu":
+                router = Router([r.cpu() for r in router.recorded])
+            state, m = _with_router(router, lambda: step(state, batch))
         out[side] = ({key: float(v) for key, v in m.items()},
                      state["params"])
+    if router is not None:
+        out["routing"] = (router.differ, router.decisions)
+        check(router.differ <= PIN_MAX_OVERRIDDEN, f"the CPU's step took "
+              f"the card's routing in {router.differ} of {router.decisions} "
+              f"decisions, more than the {PIN_MAX_OVERRIDDEN} near-ties "
+              f"allowed")
     return out
 
 
-def lm_train_parity(cfg, batch_shape, *, rwkv_bonus: bool = False) -> dict:
+PARITY_RUNS = ((1, "sgd"), (2, "sgd"), (1, "adamw"))
+
+
+def lm_train_parity(cfg, batch_shape, *, rwkv_bonus: bool = False,
+                    runs=PARITY_RUNS) -> dict:
     """One train step of ``cfg`` (f32) on the card against the same step on
     the CPU (the plain versions, autograd), from the same params (drawn on
-    the card, copied) and the same ``SyntheticLMData`` batch, with
-    ``accum_steps`` 1 and 2, through ``make_train_step`` with ``Sgd`` at
-    PARITY_LR: the
+    the card, copied) and the same ``SyntheticLMData`` batch, for each of
+    ``runs`` (accum_steps, optimizer): through ``make_train_step`` with
+    ``Sgd`` at PARITY_LR, the
     loss within LOSS_REL_TOL relative, the gradient norm printed, and
     every updated param within UPDATE_REL_TOL * max |CPU update| (the
-    largest over the tree, as in phase 11); the worst leaf is named.  Then
-    accum 1 with AdamW (its defaults, lr TRAIN_LM_LR), printed and not
-    held."""
+    largest over the tree, as in phase 11); the worst leaf is named; with
+    AdamW (its defaults, lr TRAIN_LM_LR), printed and not held.  An MoE
+    config's CPU step takes the card's routing (``twin_step``)."""
     import torch
     from repro_torch.convert import params_to
     from repro_torch.data import SyntheticLMData
@@ -5518,11 +5586,12 @@ def lm_train_parity(cfg, batch_shape, *, rwkv_bonus: bool = False) -> dict:
           f"{cfg.d_model}, Dh {cfg.head_dim}, {cfg.n_layers} layers, vocab "
           f"{cfg.vocab}; batch {b} x {l}")
     out = []
-    for accum, opt, lr, held in ((1, Sgd(), PARITY_LR, True),
-                                 (2, Sgd(), PARITY_LR, True),
-                                 (1, AdamW(), TRAIN_LM_LR, False)):
+    for accum, kind in runs:
+        opt, lr, held = ((Sgd(), PARITY_LR, True) if kind == "sgd"
+                         else (AdamW(), TRAIN_LM_LR, False))
         t0 = time.perf_counter()
         twins = twin_step(cfg, base, batch, opt, lr=lr, accum_steps=accum)
+        routing = twins.pop("routing")
         metrics = {side: m for side, (m, _) in twins.items()}
         new = {side: p for side, (_, p) in twins.items()}
         del twins
@@ -5547,6 +5616,9 @@ def lm_train_parity(cfg, batch_shape, *, rwkv_bonus: bool = False) -> dict:
               f"(worst leaf {worst}: {diffs[worst]:.3e}, its own max CPU "
               f"update {upds[worst]:.3e}) in "
               f"{time.perf_counter() - t0:.1f}s"
+              + ("" if routing is None else
+                 f"; the CPU took the card's routing: {routing[0]} of "
+                 f"{routing[1]} decisions overridden")
               + ("" if held else "; printed, not held"))
         if held:
             check(loss_rel <= LOSS_REL_TOL, f"card vs CPU training loss "
@@ -5558,7 +5630,7 @@ def lm_train_parity(cfg, batch_shape, *, rwkv_bonus: bool = False) -> dict:
                         loss_card=metrics["card"]["loss"],
                         loss_cpu=metrics["cpu"]["loss"], loss_rel=loss_rel,
                         grad_norm_rel=gn_rel, update_rel=rel,
-                        worst_leaf=worst))
+                        worst_leaf=worst, routing_pinned=routing))
         del new
     del base, base_cpu
     torch.cuda.empty_cache()
@@ -5608,6 +5680,577 @@ def rwkv_phase(device) -> dict:
     summary["train_parity"] = lm_train_parity(cfg, RWKV_TRAIN_BATCH,
                                               rwkv_bonus=True)
     return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 31: hybrid and MoE training on the card (K8' and K9')
+# ---------------------------------------------------------------------------
+
+HYBRID_TRAIN_ARCH = "jamba-1.5-large-398b-train-1chip"
+HYBRID_TRAIN_WIDTHS = (2, 8192, 64, 8, 128, 24576, 65536, "bfloat16")
+HYBRID_TRAIN_BATCH = (2, 512)       # sequences x tokens
+HYBRID_TRAIN_STEPS = 3              # timed steps, after one untimed
+HYBRID_PEAK_GB = 72.0
+# a step's forward launches of K7, K8 and K9.  Under cfg.remat the period
+# runs under one checkpoint and each of its blocks under another
+# (nn/transformer.forward): a block runs in the forward, in its own
+# checkpoint's recompute and, unless it is the period's last block, in the
+# period's recompute, which stops once the inputs it saved for the inner
+# checkpoints exist again; so the Mamba + MoE block (K8 once, K9 three
+# times) runs 3 times and the attention block (K7) twice
+HYBRID_FORWARDS = {"k7": 2, "k8": 3, "k9": 9}
+# K8': b, l, d, kw, x read in place (the mixer's half of its projection),
+# act, bias, dtype
+CONV1D_BWD_CASES = [(2, 512, 16384, 4, True, "silu", True, "bfloat16"),
+                    (2, 512, 16384, 4, True, "silu", False, "bfloat16"),
+                    (2, 512, 16384, 4, True, "none", True, "bfloat16"),
+                    (2, 512, 16384, 4, True, "none", False, "bfloat16"),
+                    (2, 100, 1024, 4, True, "silu", True, "float32"),
+                    (2, 77, 1002, 4, False, "silu", True, "float32"),
+                    (1, 77, 1002, 4, False, "none", True, "bfloat16")]
+K8_BWD_NEEDLE = "conv1d_causal_bwd_kernel"   # one a call on either route
+K8_BWD_SUM = "conv1d_causal_bwd_sum"         # its second pass
+K9_BWD_NEEDLE = "moe_gmm_bwd_dx_kernel"      # one a call on either route
+K9_BWD_DW = "moe_gmm_bwd_dw_kernel"          # its second kernel
+MOE_TRAIN_HELD = 4                           # the cut holds 4 of 16 experts
+MOE_TRAIN_SMALL = (256, 512)                 # D, F of the f32 case
+JAMBA_TRAIN_PERIOD = (("mamba", "moe"), ("attn", "dense"))
+HYBRID_PARITY = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
+                     d_head=64, d_ff=512, vocab=1024, dtype="float32")
+HYBRID_PARITY_ARCHS = (("jamba-1.5-large-398b",
+                        dict(block_pattern=JAMBA_TRAIN_PERIOD)),
+                       ("phi3.5-moe-42b-a6.6b", {}))
+HYBRID_PARITY_BATCH = (2, 128)
+
+
+def _held_twice(run, plain, tol, what):
+    """Two calls of ``run``: finite, within ``tol`` of ``plain`` on every
+    gradient (max |diff| / max |plain|), and the same bits.  Returns (first
+    result, each gradient's relative error, each one's max |diff|)."""
+    import torch
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"{what}: a non-finite gradient")
+    check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+          f"{what}: other bits on a second call")
+    errs = [rel_err(g.float(), p.float()) for g, p in zip(got, plain)]
+    abss, rels = [e[0] for e in errs], [e[1] for e in errs]
+    check(max(rels) <= tol, f"{what} disagrees with its plain version: "
+          f"{[f'{r:.3e}' for r in rels]} > {tol}")
+    return got, rels, abss
+
+
+def conv1d_bwd_signatures(device):
+    """Phase 31a: K8' (``conv1d_causal_bwd``) against
+    ``conv1d_causal_bwd_plain`` on dx, dw and db (max |diff| / max |plain|
+    <= 1e-2 bf16, <= 1e-5 f32; the same bits on a second call): the cut's
+    training shape (2, 512, 16384), x read in place from the mixer's
+    projection, SiLU and "none", with and without a bias, bf16; a reduced
+    f32 shape on the vec route and a ragged D (1002) in f32 and bf16 on the
+    thread route (``route_bwd``, held).  At the first shape: CUDA-event ms,
+    profiler device ms (both kernels), the plain version's ms, the library
+    yardstick (autograd of cuDNN's depthwise ``F.conv1d`` and SiLU; used
+    only here) and the bound: x and dy read and dx written once, w, bias,
+    dw and db, over 3.35 TB/s, or (6 KW + 8) operations an element over the
+    dtype's peak."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import conv1d_causal as k8
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    counter = Counter(k8, "launches_bwd")
+    rows = []
+    print(f"\nK8' (conv1d_causal_bwd) vs plain (limits {BF16_REL_TOL} bf16, "
+          f"{KERNEL_REL_TOL} f32 of max |plain| on dx, dw, db; the same bits "
+          f"twice; route by route_bwd):")
+    print("  dtype     b    l     d kw x        act  bias route  run  dx_rel "
+          "  dw_rel   db_rel        ms  device_ms   plain_ms  library_ms "
+          " bound_ms bound_by")
+    for b, l, d, kw, in_place, act, with_bias, dname in CONV1D_BWD_CASES:
+        dtype = getattr(torch, dname)
+        x = torch.randn((b, l, 2 * d if in_place else d), generator=gen,
+                        device=device).to(dtype)
+        if in_place:
+            x = x.chunk(2, dim=-1)[0]
+        w = (torch.randn((kw, d), generator=gen, device=device)
+             * kw ** -0.5).to(dtype)
+        bias = torch.randn((d,), generator=gen, device=device).to(dtype) \
+            if with_bias else None
+        dy = torch.randn((b, l, d), generator=gen, device=device).to(dtype)
+        path = k8.route_bwd(x, w, bias, dy)
+        want = "vec" if d % k8.BWD_VEC == 0 else "thread"
+        check(path == want, f"K8' takes the {path} route at {(b, l, d)}, "
+              f"expected {want}")
+        tol = BF16_REL_TOL if dtype == torch.bfloat16 else KERNEL_REL_TOL
+        shape = (b, l, d, kw, act, with_bias, dname)
+        plain = k8.conv1d_causal_bwd_plain(x, w, dy, bias=bias, act=act)
+        plain = [p for p in plain if p is not None]
+
+        def run():
+            out = k8.conv1d_causal_bwd(x, w, dy, bias=bias, act=act)
+            return [o for o in out if o is not None]
+        before = (k8.launches_bwd, k8.launches_bwd_vec)
+        got, rels, abss = _held_twice(run, plain, tol, f"K8' at {shape}")
+        check((k8.launches_bwd - before[0], k8.launches_bwd_vec - before[1])
+              == (2, 2 if path == "vec" else 0), "K8' launch counts")
+        rec = dict(dtype=dname, b=b, l=l, d=d, kw=kw,
+                   x="in place" if in_place else "contiguous", act=act,
+                   bias=with_bias, route=path,
+                   run=k8.bwd_run_length(b, l, d, k8.BWD_VEC
+                                         if path == "vec" else 1),
+                   rel_err=dict(zip(("dx", "dw", "db"), rels)),
+                   max_rel_err=max(rels), max_abs_err=max(abss),
+                   same_bits=True)
+        timed = not rows
+        if timed:
+            rec["ms"] = auto_ms(run)
+            rec["device_ms"], rec["traced_launches"] = kernel_device_ms(
+                run, K8_BWD_NEEDLE, counter, also=(K8_BWD_SUM,))
+            rec["plain_ms"] = auto_ms(lambda: k8.conv1d_causal_bwd_plain(
+                x, w, dy, bias=bias, act=act), 30.0)
+            xl = x.transpose(1, 2).contiguous().requires_grad_()
+            wl = w.t().unsqueeze(1).contiguous().requires_grad_()
+            leaves = [xl, wl] + ([bias.detach().clone().requires_grad_()]
+                                 if with_bias else [])
+            y = F.conv1d(xl, wl, leaves[2] if with_bias else None,
+                         padding=kw - 1, groups=d)[..., :l]
+            y = F.silu(y) if act == "silu" else y
+            dyl = dy.transpose(1, 2)
+            lib = torch.autograd.grad(y, leaves, dyl, retain_graph=True)
+            rec["library_rel_err"] = rel_err(
+                lib[0].transpose(1, 2).float(), plain[0].float())[1]
+            rec["library_ms"] = auto_ms(lambda: torch.autograd.grad(
+                y, leaves, dyl, retain_graph=True))
+            nbytes = x.element_size() * (3 * b * l * d + (2 * kw + 2) * d)
+            flops = (6.0 * kw + 8.0) * b * l * d
+            rec["bound_ms"], rec["bound_by"] = bound_for(flops, nbytes,
+                                                         dtype)
+            rec["gb_per_s"] = nbytes / rec["device_ms"] / 1e6
+            del xl, wl, leaves, y, dyl, lib
+        rows.append(rec)
+
+        def col(key, fmt="10.4f"):
+            return format(rec[key], fmt) if key in rec else " " * 9 + "—"
+        print(f"  {dname:8s}{b:2d}{l:5d}{d:6d}{kw:3d} {rec['x']:10s}"
+              f"{act:5s}{with_bias!s:6s}{path:6s}{rec['run']:4d}  "
+              + "  ".join(f"{r:.1e}" for r in rels).ljust(26)
+              + f" {col('ms')} {col('device_ms')} {col('plain_ms')} "
+              f"{col('library_ms')} {col('bound_ms')} "
+              f"{rec.get('bound_by', '')}"
+              + (f"  ({rec['gb_per_s']:.0f} GB/s by device time; cuDNN's "
+                 f"dx vs plain {rec['library_rel_err']:.1e}; "
+                 f"{rec['traced_launches']} of 5 calls traced)"
+                 if timed else ""))
+        del x, w, bias, dy, plain, got
+    print("  per-shape JSON:", json.dumps(rows))
+    return rows
+
+
+def moe_train_plan(device, gen):
+    """K9's rows of one MoE layer of the cut at HYBRID_TRAIN_BATCH: random
+    activations through a random router over 16 experts, the layer's
+    groups, capacity and drops, ``replay_plan`` for the held 4.  Where
+    every held expert receives rows, the last one's choices go to the first
+    expert not held, so one held expert has none.  Returns (x (T, D) f32,
+    bm, tile_eid, source, the forced expert or None)."""
+    import torch
+    from repro_torch.nn import moe
+
+    b, l = HYBRID_TRAIN_BATCH
+    s = min(moe.GROUP_SIZE, l)
+    x = torch.randn((b * l, MOE_D), generator=gen, device=device)
+    router = torch.randn((MOE_D, MOE_E), generator=gen, device=device) \
+        * MOE_D ** -0.5
+    _, gate_idx = moe.route(torch.softmax(x @ router, dim=-1)
+                            .reshape(b * l // s, s, MOE_E), MOE_K)
+    forced = None
+    if all(bool((gate_idx == h).any()) for h in range(MOE_TRAIN_HELD)):
+        forced = MOE_TRAIN_HELD - 1
+        gate_idx = torch.where(gate_idx == forced, MOE_TRAIN_HELD, gate_idx)
+    cap = max(int(1.25 * s * MOE_K / MOE_E), 1)
+    bm, tile_eid, _, source = moe.replay_plan(
+        gate_idx, moe.kept(gate_idx, MOE_E, cap), 0, MOE_TRAIN_HELD, cap)
+    x_rows = torch.where((source > 0)[:, None],
+                         x[(source - 1).clamp_min(0)], 0)
+    return x_rows, bm, tile_eid, source, forced
+
+
+def moe_bwd_signatures(device):
+    """Phase 31b: K9' (``moe_gmm_bwd``) against ``moe_gmm_bwd_plain`` on
+    dtokens and dweights (limits as K8'; the same bits twice) with the
+    ``tile_eid`` that ``nn/moe.replay_plan`` gives one MoE layer of the cut
+    for a random 2 x 512 batch (``moe_train_plan``: -1 tail tiles and an
+    expert with no rows, forced where the batch has none), at the cut's
+    gate/up shape (D 8192 -> F 24576; gate and up share it) and down shape
+    (24576 -> 8192) in bf16, at D 256 -> F 512 in f32, and at K9's tail
+    case (T, D, F multiples of no block, bm 16, a -1 tile) in both dtypes:
+    route (``route_bwd``, held), rows of -1 tiles and the empty expert's
+    dweights exactly zero.  At the cut's shapes: CUDA-event ms, profiler
+    device ms (the dtokens and dweights kernels apart), the plain version,
+    the library yardstick (``torch.bmm`` over the capacity-padded experts
+    for both products, (E, C, F) x (E, F, D) and (E, D, C) x (E, C, F);
+    used only here) and the bound: 4 x routed rows x D x F operations at
+    989 TFLOP/s, or the bytes (tokens and dout read on the rows of tiles
+    with an expert, dtokens written on every row, the weights of the
+    experts that have tiles read, every expert's dweights written), whichever
+    is larger."""
+    import torch
+    from repro_torch.kernels import moe_gmm as k9
+    from repro_torch.nn import moe
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 32)
+    x_rows, bm, tile_eid, source, forced = moe_train_plan(device, gen)
+    ids = tile_eid.tolist()
+    t = x_rows.shape[0]
+    routed = int((source > 0).sum())
+    empty = [h for h in range(MOE_TRAIN_HELD) if h not in ids]
+    print(f"\nK9' (moe_gmm_bwd) vs plain: one MoE layer of the cut at batch "
+          f"{HYBRID_TRAIN_BATCH[0]} x {HYBRID_TRAIN_BATCH[1]}, "
+          f"{MOE_TRAIN_HELD} of {MOE_E} experts held: {t} rows in tiles of "
+          f"{bm}, tile_eid {ids}, {routed} routed rows; experts without rows "
+          f"{empty}" + (f" (expert {forced}'s choices moved to expert "
+                        f"{MOE_TRAIN_HELD} to make one)" if forced is not None
+                        else "") + f"; limits {BF16_REL_TOL} bf16, "
+          f"{KERNEL_REL_TOL} f32 of max |plain| on dtokens and dweights:")
+    check(-1 in ids and bool(empty), f"the plan has no -1 tile or no empty "
+          f"expert: {ids}")
+    counter = Counter(k9, "launches_bwd")
+    cases = [("gate/up", t, MOE_D, MOE_F, MOE_TRAIN_HELD, bm, tile_eid,
+              torch.bfloat16),
+             ("down", t, MOE_F, MOE_D, MOE_TRAIN_HELD, bm, tile_eid,
+              torch.bfloat16),
+             ("small", t, *MOE_TRAIN_SMALL, MOE_TRAIN_HELD, bm, tile_eid,
+              torch.float32)]
+    tt, td, tf, te, tbm, tids = MOE_TAIL
+    tail_eid = torch.tensor(tids, dtype=torch.int32, device=device)
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append(("tail", tt, td, tf, te, tbm, tail_eid, dtype))
+    rows = []
+    print("  case      dtype     route shape (T x D -> F)     bm  dtok_rel "
+          " dw_rel        ms  device_ms (dx, dw)       plain_ms  library_ms "
+          " bound_ms bound_by")
+    for name, t_, d, f, e, bm_, eid, dtype in cases:
+        keep = (source > 0)[:, None] if name != "tail" else torch.ones(
+            (t_, 1), dtype=torch.bool, device=device)
+        tokens = (x_rows if d == MOE_D and name != "tail" else torch.randn(
+            (t_, d), generator=gen, device=device)) * keep
+        tokens = tokens.to(dtype)
+        weights = (torch.randn((e, d, f), generator=gen, device=device)
+                   * d ** -0.5).to(dtype)
+        dout = (torch.randn((t_, f), generator=gen, device=device)
+                * keep).to(dtype)
+        path = k9.route_bwd(tokens, weights)
+        want = "mma" if dtype == torch.bfloat16 else "simt"
+        check(path == want, f"K9' takes the {path} route at {name} {dtype}")
+        tol = BF16_REL_TOL if dtype == torch.bfloat16 else KERNEL_REL_TOL
+        what = f"K9' at {name} {dtype}"
+        plain = k9.moe_gmm_bwd_plain(tokens, weights, eid, dout, bm=bm_)
+
+        def run():
+            return k9.moe_gmm_bwd(tokens, weights, eid, dout, bm=bm_)
+        before = (k9.launches_bwd, k9.launches_bwd_mma)
+        got, rels, abss = _held_twice(run, plain, tol, what)
+        check((k9.launches_bwd - before[0], k9.launches_bwd_mma - before[1])
+              == (2, 2 if path == "mma" else 0), "K9' launch counts")
+        eid_l = eid.tolist()
+        dead = [r for r in range(t_) if eid_l[r // bm_] < 0]
+        check(not bool(got[0][dead].any()) if dead else True,
+              f"{what}: rows of -1 tiles got a nonzero dtokens")
+        for h in range(e):
+            if h not in eid_l:
+                check(not bool(got[1][h].any()), f"{what}: expert {h} has "
+                      f"no rows but a nonzero dweights")
+        rec = dict(case=name, dtype=str(dtype).removeprefix("torch."), t=t_,
+                   d=d, f=f, e=e, bm=bm_, route=path, tile_eid=eid_l,
+                   rel_err=dict(dtokens=rels[0], dweights=rels[1]),
+                   max_rel_err=max(rels), max_abs_err=max(abss),
+                   same_bits=True)
+        if name in ("gate/up", "down"):
+            rec["ms"] = auto_ms(run)
+            trace = trace_device(lambda i: run(), 5, {K9_BWD_NEEDLE: counter},
+                                 sync_each=True)
+            rec["dx_ms"] = device_ms_of(trace, K9_BWD_NEEDLE)
+            rec["dw_ms"] = device_ms_of(trace, K9_BWD_DW)
+            rec["device_ms"] = rec["dx_ms"] + rec["dw_ms"]
+            rec["plain_ms"] = auto_ms(lambda: k9.moe_gmm_bwd_plain(
+                tokens, weights, eid, dout, bm=bm_), 30.0)
+            # the layer's groups of min(GROUP_SIZE, L) tokens, 2 of them
+            s = min(moe.GROUP_SIZE, HYBRID_TRAIN_BATCH[1])
+            cap_rows = HYBRID_TRAIN_BATCH[0] * HYBRID_TRAIN_BATCH[1] // s \
+                * max(int(1.25 * s * MOE_K / MOE_E), 1)
+            tok_p = torch.randn((e, cap_rows, d), generator=gen,
+                                device=device).to(dtype)
+            dout_p = torch.randn((e, cap_rows, f), generator=gen,
+                                 device=device).to(dtype)
+
+            def library():
+                return (torch.bmm(dout_p, weights.transpose(1, 2)),
+                        torch.bmm(tok_p.transpose(1, 2), dout_p))
+            rec["library_ms"] = auto_ms(library)
+            rec["library_capacity"] = cap_rows
+            flops = 4.0 * routed * d * f
+            # tokens and dout read on the rows of tiles with an expert,
+            # dtokens written on every row, the weights of the experts
+            # that have tiles read and every expert's dweights written
+            live = bm_ * sum(0 <= h < e for h in eid_l)
+            used = len({h for h in eid_l if 0 <= h < e})
+            nbytes = tokens.element_size() * (live * (d + f) + t_ * d
+                                              + (used + e) * d * f)
+            rec["bound_ms"], rec["bound_by"] = bound_for(flops, nbytes, dtype)
+            rec["ops_bound_ms"] = flops / 989e12 * 1e3
+            rec["bytes_bound_ms"] = nbytes / 3.35e12 * 1e3
+            rec["routed_rows"] = routed
+            rec["tflops"] = flops / rec["device_ms"] / 1e9
+            del tok_p, dout_p
+        rows.append(rec)
+
+        def col(key):
+            return f"{rec[key]:10.4f}" if key in rec else " " * 9 + "—"
+        dev = (f"{rec['device_ms']:9.4f} ({rec['dx_ms']:.4f}, "
+               f"{rec['dw_ms']:.4f})" if "device_ms" in rec
+               else " " * 8 + "—".ljust(19))
+        print(f"  {name:9s} {rec['dtype']:9s} {path:5s} "
+              f"{t_:5d} x {d:5d} -> {f:5d} {bm_:4d}  {rels[0]:.1e}  "
+              f"{rels[1]:.1e} {col('ms')} {dev} {col('plain_ms')} "
+              f"{col('library_ms')} {col('bound_ms')} "
+              f"{rec.get('bound_by', '')}"
+              + (f"  (operations {rec['ops_bound_ms']:.4f} ms, bytes "
+                 f"{rec['bytes_bound_ms']:.4f} ms; {rec['tflops']:.1f} "
+                 f"TFLOP/s by device time on {routed} routed rows)"
+                 if "ms" in rec else ""))
+        del tokens, weights, dout, plain, got
+    print("  per-case JSON:", json.dumps(rows))
+    return rows
+
+
+def _hybrid_grads_seen(cfg, seen):
+    """An ``AdamW.update`` stand-in that records, in its first call, for
+    each Mamba layer whether its conv_w and conv_b gradients hold a nonzero
+    and, for each MoE layer, which held experts' w_gate, w_up and w_down
+    gradients do.  Then it updates as ever."""
+    from repro_torch.optim.adamw import AdamW
+    update = AdamW.update
+
+    def recording(self, grads, state, params, lr):
+        if not seen:
+            for pos, (mixer, mlp) in enumerate(cfg.block_pattern):
+                blk = grads["blocks"][str(pos)]
+                if mixer == "mamba":
+                    for name in ("conv_w", "conv_b"):
+                        seen[f"{pos}/{name}"] = (
+                            blk["mixer"][name].flatten(1).abs().amax(1)
+                            > 0).tolist()
+                if mlp == "moe":
+                    for name in ("w_gate", "w_up", "w_down"):
+                        g = blk["mlp"][name]            # (layers, E, ...)
+                        seen[f"{pos}/{name}"] = (
+                            g.flatten(2).abs().amax(2) > 0).tolist()
+        return update(self, grads, state, params, lr)
+    return recording
+
+
+def hybrid_training(device):
+    """Phase 31c, this slice's main path: ``jamba-1.5-large-398b-train-1chip``
+    (bf16, remat) through ``launch.train.build`` (factored AdamW with bf16
+    ``m``, clip 1.0) on HYBRID_TRAIN_BATCH ``SyntheticLMData`` tokens: one
+    untimed step (every Mamba layer's conv_w and conv_b gradient and every
+    gradient of each held expert that received rows must hold a nonzero),
+    then HYBRID_TRAIN_STEPS timed steps on the same batch with the counts of
+    K7, K8, K9 and their backwards set to 0 just before and read just after
+    (the forwards HYBRID_FORWARDS times a step under remat, each backward
+    once a call; K9 on its wgmma route, K7 and its backward on theirs, K8
+    on its tile route, K8' on its vec route, K9' on its mma route), step
+    ms (p50, max), tokens/s and each loss (finite, the last below the
+    first); one
+    step under the profiler (each kernel's recorded launches held to its
+    count; device ms by kernel group, the busy share) and the peak memory
+    (at most HYBRID_PEAK_GB).  Returns (launches in the timed steps by
+    kernel, summary)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import attention as k7
+    from repro_torch.kernels import conv1d_causal as k8
+    from repro_torch.kernels import moe_gmm as k9
+    from repro_torch.launch.train import build
+    from repro_torch.nn import moe
+    from repro_torch.optim.adamw import AdamW
+
+    cfg = get_config(HYBRID_TRAIN_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.dtype)
+          == HYBRID_TRAIN_WIDTHS, f"{HYBRID_TRAIN_ARCH} does not have the "
+          f"widths {HYBRID_TRAIN_WIDTHS}")
+    b, l = HYBRID_TRAIN_BATCH
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, step = build(cfg, lr=TRAIN_LM_LR, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    e0, e1 = cfg.moe.held_experts()
+    print(f"\nhybrid training: {cfg.name}, {n_params / 1e9:.3f} B params in "
+          f"{cfg.dtype} (experts {e0}-{e1 - 1} of {cfg.moe.n_experts} held), "
+          f"remat {cfg.remat}, AdamW factored with bf16 m, clip 1.0, lr "
+          f"{TRAIN_LM_LR}; batch {b} x {l} SyntheticLMData tokens; built in "
+          f"{time.perf_counter() - t0:.1f}s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+    batch = SyntheticLMData(cfg.vocab, l, b, seed=SEED).batch_at(0)
+    seen, received = {}, set()
+    plan = moe.replay_plan
+
+    def recording_plan(*args, **kwargs):
+        out = plan(*args, **kwargs)
+        received.update(i for i in out[1].tolist() if i >= 0)
+        return out
+    update = AdamW.update
+    AdamW.update = _hybrid_grads_seen(cfg, seen)
+    moe.replay_plan = recording_plan
+    try:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        first_loss = float(metrics["loss"])
+    finally:
+        AdamW.update = update
+        moe.replay_plan = plan
+    print(f"  untimed step: loss {first_loss:.4f}, grad norm "
+          f"{float(metrics['grad_norm']):.4f}, "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    print(f"  first step's gradients, nonzero per layer (and per held "
+          f"expert): {seen}; held experts that received rows: "
+          f"{sorted(received)}")
+    for key, flags in seen.items():
+        name = key.split("/")[1]
+        if name.startswith("conv"):
+            check(all(flags), f"a Mamba layer's {name} gradient is all zero")
+        else:
+            for layer in flags:
+                check(all(layer[h] for h in received), f"a held expert "
+                      f"with rows has an all-zero {name} gradient: {layer}")
+    check(any(k.endswith("conv_w") for k in seen) and any(
+        k.endswith("w_gate") for k in seen) and received,
+        "no Mamba or MoE gradient was seen")
+    mods = {"k7": k7, "k8": k8, "k9": k9}
+    names = ("launches", "launches_bwd", "launches_wgmma",
+             "launches_bwd_wgmma", "launches_tile", "launches_bwd_vec",
+             "launches_bwd_mma")
+    for mod in mods.values():
+        for name in names:
+            if hasattr(mod, name):
+                setattr(mod, name, 0)
+    losses, step_ms = [], []
+    for _ in range(HYBRID_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {f"{key}.{name}": getattr(mod, name)
+              for key, mod in mods.items() for name in names
+              if hasattr(mod, name)}
+    n = HYBRID_TRAIN_STEPS
+    want = {}
+    for key, fwd in HYBRID_FORWARDS.items():
+        want[f"{key}.launches"] = fwd * n
+        want[f"{key}.launches_bwd"] = (3 if key == "k9" else 1) * n
+    want["k7.launches_wgmma"] = want["k7.launches"]
+    want["k7.launches_bwd_wgmma"] = want["k7.launches_bwd"]
+    want["k8.launches_tile"] = want["k8.launches"]
+    want["k8.launches_bwd_vec"] = want["k8.launches_bwd"]
+    want["k9.launches_wgmma"] = want["k9.launches"]
+    want["k9.launches_bwd_mma"] = want["k9.launches_bwd"]
+    p50 = float(np.median(step_ms))
+    print(f"  {n} timed steps: p50 {p50:.3f} ms, max {max(step_ms):.3f} ms "
+          f"({[f'{x:.1f}' for x in step_ms]}); {b * l / p50 * 1e3:.0f} "
+          f"tokens/s; losses {[f'{x:.4f}' for x in losses]}")
+    print(f"  launches in the timed steps (expected a step: forward "
+          f"{HYBRID_FORWARDS} under remat, backward K7 1, K8 1, K9 3): "
+          f"{counts}")
+    for key, value in want.items():
+        check(counts[key] == value, f"{key} counted {counts[key]} in {n} "
+              f"steps, expected {value}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall over {n} steps on "
+          f"one batch: {losses}")
+    trace = trace_device(lambda i: step(state, batch), 1, {
+        "conv1d_causal_kernel": k8,
+        K8_BWD_NEEDLE: Counter(k8, "launches_bwd"),
+        "moe_gmm_kernel": k9,
+        K9_BWD_NEEDLE: Counter(k9, "launches_bwd"),
+        "flash_attention_kernel": k7,
+        K7_BWD_NEEDLE: K7_BWD})
+    groups = {"k8_fwd": device_ms_of(trace, "conv1d_causal_kernel"),
+              "k8_bwd": device_ms_of(trace, "conv1d_causal_bwd"),
+              "k9_fwd": device_ms_of(trace, "moe_gmm_kernel"),
+              "k9_bwd": device_ms_of(trace, "moe_gmm_bwd_"),
+              "k7_fwd": device_ms_of(trace, "flash_attention_kernel"),
+              "k7_bwd": device_ms_of(trace, "flash_attention_bwd_")}
+    groups["matmuls"] = sum(ms for ms, _, name in trace["by_name"]
+                            if any(key in name.lower() for key in (
+                                "gemm", "xmma", "nvjet", "cutlass", "sm90_")))
+    device_ms = trace["device_ms"]
+    groups["rest"] = device_ms - sum(groups.values())
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  profile of one step: {trace['wall_ms']:.3f} ms by host clock, "
+          f"device {device_ms:.3f} ms in {sum(trace['launches'].values())} "
+          f"kernel launches, busy {trace['busy_share']:.4f}; by group (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in groups.items())
+          + f"; the Mamba scan's range {trace['ranges'].get('mamba.scan', 0):.3f}"
+          f", the experts' range {trace['ranges'].get('moe.experts', 0):.3f};"
+          f" torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB")
+    for ms, cnt, name in trace["by_name"][:12]:
+        print(f"    {ms:9.3f} ms  x{cnt:6.1f}  {name[:100]}")
+    check(peak <= HYBRID_PEAK_GB * 1e9, f"peak memory {peak / 1e9:.3f} GB > "
+          f"{HYBRID_PEAK_GB} GB")
+    summary = dict(
+        arch=cfg.name, params=n_params, held_experts=[e0, e1], remat=cfg.remat,
+        batch=b, tokens=l, lr=TRAIN_LM_LR, first_step_loss=first_loss,
+        losses=losses, step_ms=step_ms, step_p50_ms=p50,
+        step_max_ms=max(step_ms), tokens_per_s=b * l / p50 * 1e3,
+        launches=counts, launches_per_step={k: v / n for k, v in
+                                            counts.items()},
+        grads_nonzero=seen, experts_with_rows=sorted(received),
+        profile=dict(wall_ms=trace["wall_ms"], device_ms=device_ms,
+                     busy_share=trace["busy_share"], groups_ms=groups,
+                     ranges=trace["ranges"],
+                     top=[dict(ms=ms, launches=cnt, name=name[:120])
+                          for ms, cnt, name in trace["by_name"][:12]]),
+        max_memory_allocated=peak)
+    del state, step
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
+def hybrid_training_phase(device) -> dict:
+    """Phase 31: K8' and K9' against their plain versions (31a, 31b), the
+    cut's training steps (31c), and (31d) an f32 step card vs CPU for
+    Jamba and Phi-3.5-MoE reduced (HYBRID_PARITY: 2 layers, d_model 256,
+    Jamba's period of one Mamba + MoE and one attention + dense block)
+    through ``twin_step`` with plain SGD at lr 1, the CPU's MoE routing
+    pinned to the card's (``twin_step``; the overridden decisions printed
+    and held to at most PIN_MAX_OVERRIDDEN): loss within 1e-4 relative,
+    updates within 1e-3 of max |CPU update|."""
+    import torch
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    conv_rows = conv1d_bwd_signatures(device)
+    moe_rows = moe_bwd_signatures(device)
+    torch.cuda.empty_cache()
+    counts, summary = hybrid_training(device)
+    parity = []
+    for arch, extra in HYBRID_PARITY_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), **HYBRID_PARITY, **extra)
+        parity.append(lm_train_parity(cfg, HYBRID_PARITY_BATCH,
+                                      runs=((1, "sgd"),)))
+    summary["parity"] = parity
+    summary["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 31 in {summary['phase_s']:.1f}s")
+    return dict(conv_rows=conv_rows, moe_rows=moe_rows, counts=counts,
+                summary=summary)
 
 
 def totals(rows) -> dict:
@@ -5785,6 +6428,8 @@ def main() -> int:
         dataclasses.replace(get_config(TRAIN_ARCH), **TRAIN_PARITY),
         TRAIN_PARITY_BATCH)
     rwkv = rwkv_phase(device)
+    hybrid_train = hybrid_training_phase(device)
+    hy_train = hybrid_train["counts"]
     k10a = totals(whole_rows)
     k10b = totals(k10b_rows)
     k10c = totals(k10c_rows)
@@ -5970,13 +6615,16 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/attention.py:87",
         "launches": lm_launches["flash_attention"]
-        + hy_launches["flash_attention"] + train_fwd,
+        + hy_launches["flash_attention"] + train_fwd
+        + hy_train["k7.launches"],
         "launches_wgmma": lm_wgmma["flash_attention"]
-        + hy_wgmma["flash_attention"] + train_fwd,
+        + hy_wgmma["flash_attention"] + train_fwd
+        + hy_train["k7.launches_wgmma"],
         "launches_by_path": {
             "lm_serving": lm_launches["flash_attention"],
             "hybrid_serving": hy_launches["flash_attention"],
-            "lm_training": train_fwd},
+            "lm_training": train_fwd,
+            "hybrid_training": hy_train["k7.launches"]},
         "max_abs_err": max(r_["max_abs_err"] for r_ in attn_rows),
         "max_rel_err": max(r_["max_rel_err"] for r_ in attn_rows),
         **{key: k7_row[key] for key in ("ms", "plain_ms", "library_ms",
@@ -6031,10 +6679,12 @@ def main() -> int:
                        "XLA's autodiff of ref.attention_chunked "
                        "(src/repro/kernels/ref.py:173), the function K7 "
                        "(src/repro/kernels/attention.py:87) computes",
-        "launches": train_bwd,
-        "launches_wgmma": lm_train["k7_bwd_wgmma_launches"],
+        "launches": train_bwd + hy_train["k7.launches_bwd"],
+        "launches_wgmma": lm_train["k7_bwd_wgmma_launches"]
+        + hy_train["k7.launches_bwd_wgmma"],
         "launches_by_path": {"lm_training": train_bwd,
-                             "per_training_step": 28},
+                             "per_training_step": 28,
+                             "hybrid_training": hy_train["k7.launches_bwd"]},
         "max_abs_err": max(r_["max_abs_err"] for r_ in bwd_rows),
         "max_rel_err": max(r_["max_rel_err"] for r_ in bwd_rows),
         **{key: k7_bwd[key] for key in ("ms", "plain_ms", "library_ms",
@@ -6074,9 +6724,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/conv1d_causal.cu",
         "replaces": "src/repro/kernels/conv1d_causal.py:43",
-        "launches": hy_launches["conv1d_causal"],
+        "launches": hy_launches["conv1d_causal"] + hy_train["k8.launches"],
         "launches_tile": hy_summary["window"]["launches_route"][
-            "conv1d_causal"],
+            "conv1d_causal"] + hy_train["k8.launches_tile"],
         "thread_forced": {key: k8_row[key] for key in (
             "ms_thread", "device_ms_thread")},
         "act_none_device_ms": {"tile": k8_row["none_device_ms"],
@@ -6088,7 +6738,8 @@ def main() -> int:
                    "walks its channels' tokens from registers)"},
         "launches_by_path": {
             "hybrid_serving": hy_launches["conv1d_causal"],
-            "decode_step": 0},
+            "decode_step": 0,
+            "hybrid_training": hy_train["k8.launches"]},
         "max_abs_err": max(r_["max_abs_err"] for r_ in conv_rows),
         "max_rel_err": max(max(r_["max_rel_err"], r_["thread_rel_err"])
                            for r_ in conv_rows),
@@ -6110,12 +6761,13 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm.py:61",
-        "launches": hy_launches["moe_gmm"],
-        "launches_wgmma": hy_wgmma["moe_gmm"],
+        "launches": hy_launches["moe_gmm"] + hy_train["k9.launches"],
+        "launches_wgmma": hy_wgmma["moe_gmm"] + hy_train["k9.launches_wgmma"],
         "launches_stream": hy_summary["window"]["launches_stream"],
         "launches_by_path": {
             "hybrid_serving": hy_launches["moe_gmm"],
-            "per_forward": 12, "per_decode_step": 12},
+            "per_forward": 12, "per_decode_step": 12,
+            "hybrid_training": hy_train["k9.launches"]},
         "max_abs_err": max(r_["max_abs_err"] for r_ in moe_rows),
         "max_rel_err": max(r_["max_rel_err"] for r_ in moe_rows),
         **{key: k9_decode[key] for key in ("ms", "plain_ms", "library_ms",
@@ -6145,6 +6797,79 @@ def main() -> int:
                f"batch 8 x 512 at the same shape and at the down shape, the "
                f"wgmma route; library: torch.bmm over the "
                f"capacity-padded (E, C, D) x (E, D, F)",
+        "card": card,
+    })
+    hy_sum = hybrid_train["summary"]
+    k8_bwd = hybrid_train["conv_rows"][0]
+    kernels.append({
+        "name": "conv1d_causal_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/conv1d_causal_bwd.cu",
+        "replaces": "src/repro/kernels/ref.py:134",
+        "replaces_is": "no pallas_call: the JAX package trains through "
+                       "XLA's autodiff of ref.conv1d_causal "
+                       "(src/repro/kernels/ref.py:134), the function K8 "
+                       "(src/repro/kernels/conv1d_causal.py:43) computes",
+        "launches": hy_train["k8.launches_bwd"],
+        "launches_vec": hy_train["k8.launches_bwd_vec"],
+        "launches_by_path": {"hybrid_training": hy_train["k8.launches_bwd"],
+                             "per_training_step": 1},
+        "max_abs_err": max(r_["max_abs_err"]
+                           for r_ in hybrid_train["conv_rows"]),
+        "max_rel_err": max(r_["max_rel_err"]
+                           for r_ in hybrid_train["conv_rows"]),
+        **{key: k8_bwd[key] for key in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by",
+                                        "device_ms")},
+        "training_step_device_ms": hy_sum["profile"]["groups_ms"]["k8_bwd"],
+        "routes": {"D and x's strides multiples of 4, operands aligned":
+                   "vec (4 channels a thread)", "the rest": "thread (one "
+                   "channel a thread)"},
+        "per": "one call at the training cut's Mamba shape: batch 2, 512 "
+               "tokens, d_inner 16384, 4 taps, bias and SiLU, bf16, x read "
+               "in place from the input projection (both kernels: the walk "
+               "and the fixed-order sum of dw and db; 1 call per training "
+               "step); library: autograd of cuDNN's depthwise F.conv1d and "
+               "SiLU",
+        "card": card,
+    })
+    k9_bwd = {r_["case"]: r_ for r_ in hybrid_train["moe_rows"]
+              if r_["dtype"] == "bfloat16"}
+    kernels.append({
+        "name": "moe_gmm_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/moe_gmm_bwd.cu",
+        "replaces": "src/repro/kernels/ref.py:217",
+        "replaces_is": "no pallas_call: the JAX package trains through "
+                       "XLA's autodiff of ref.moe_gmm "
+                       "(src/repro/kernels/ref.py:217), the function K9 "
+                       "(src/repro/kernels/moe_gmm.py:61) computes",
+        "launches": hy_train["k9.launches_bwd"],
+        "launches_mma": hy_train["k9.launches_bwd_mma"],
+        "launches_by_path": {"hybrid_training": hy_train["k9.launches_bwd"],
+                             "per_training_step": 3},
+        "max_abs_err": max(r_["max_abs_err"]
+                           for r_ in hybrid_train["moe_rows"]),
+        "max_rel_err": max(r_["max_rel_err"]
+                           for r_ in hybrid_train["moe_rows"]),
+        **{key: k9_bwd["gate/up"][key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "device_ms", "dx_ms", "dw_ms", "ops_bound_ms", "bytes_bound_ms",
+            "routed_rows")},
+        "down": {key: k9_bwd["down"][key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "device_ms", "dx_ms", "dw_ms")},
+        "training_step_device_ms": hy_sum["profile"]["groups_ms"]["k9_bwd"],
+        "routes": {"bfloat16": "mma (mma.sync m16n8k16 bf16: a dtokens "
+                   "kernel reading the weights as they lie, a dweights "
+                   "kernel walking each expert's tiles)",
+                   "float32": "simt (f32 FMA)"},
+        "per": "one call at the training cut's gate/up shape: the rows of "
+               "one MoE layer for a 2 x 512 batch (tiles of 128, 4 of 16 "
+               "experts held, -1 tiles and an expert with no rows), D 8192 "
+               "-> F 24576, bf16, dtokens and dweights (3 calls per training "
+               "step: gate, up, down); library: torch.bmm over the "
+               "capacity-padded experts for both products",
         "card": card,
     })
     def dev_sum(rows_):
@@ -6274,6 +6999,7 @@ def main() -> int:
     print(json.dumps({"lm_serving": lm_summary}))
     print(json.dumps({"lm_training": lm_train}))
     print(json.dumps({"rwkv_serving": rwkv}))
+    print(json.dumps({"hybrid_training": hybrid_train["summary"]}))
     print(json.dumps({"hybrid_serving": hy_summary}))
     print(json.dumps({"serving_int8": {
         "images_per_s": q8_stats["images_per_s"],

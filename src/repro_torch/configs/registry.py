@@ -1,15 +1,18 @@
 """Architecture registry: ``--arch <id>`` -> ModelCfg, + reduced smoke
 configs for CPU tests.  The port's copy of ``repro/configs/registry.py``:
-the same ten configs, data only, and one of the port's own,
-``jamba-1.5-large-398b-1chip`` (one chip's share of Jamba-1.5-Large)."""
+the same ten configs, data only, and two of the port's own,
+``jamba-1.5-large-398b-1chip`` (one chip's share of Jamba-1.5-Large, served)
+and ``jamba-1.5-large-398b-train-1chip`` (a two-layer cut of it that trains
+on one card)."""
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs import (dbrx_132b, internlm2_1p8b, internvl2_2b,
                            jamba_1p5_large, jamba_1p5_large_chip,
-                           musicgen_large, phi35_moe, qwen2_1p5b, qwen3_8b,
-                           rwkv6_1p6b, smollm_360m)
+                           jamba_1p5_large_train_chip, musicgen_large,
+                           phi35_moe, qwen2_1p5b, qwen3_8b, rwkv6_1p6b,
+                           smollm_360m)
 from repro_torch.nn.config import ModelCfg, MoECfg
 
 ARCHS: dict[str, ModelCfg] = {
@@ -18,6 +21,7 @@ ARCHS: dict[str, ModelCfg] = {
         smollm_360m.CONFIG, phi35_moe.CONFIG, dbrx_132b.CONFIG,
         musicgen_large.CONFIG, rwkv6_1p6b.CONFIG, internvl2_2b.CONFIG,
         jamba_1p5_large.CONFIG, jamba_1p5_large_chip.CONFIG,
+        jamba_1p5_large_train_chip.CONFIG,
     ]
 }
 

@@ -29,12 +29,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("conv2d_direct", "conv2d_wu", "conv2d_q8", "conv2d_streams",
            "flash_attention", "matmul_fused", "conv1d_causal", "moe_gmm",
            "conv2d_direct_whole", "conv2d_wu_whole", "conv2d_q8_whole",
-           "pool2d", "flash_attention_bwd")
+           "pool2d", "flash_attention_bwd", "conv1d_causal_bwd",
+           "moe_gmm_bwd")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
-NO_BACKWARD = ("ROADMAP Queue 1 item 14: the K8 and K9 backward kernels, "
-               "hybrid and MoE training on the card")
+NO_BACKWARD = ("K4, K5 and K6 have no backward kernel: no model trains "
+               "through them, in the reference either")
 
 
 def no_grad_inputs(name: str, *tensors) -> None:
@@ -42,8 +43,9 @@ def no_grad_inputs(name: str, *tensors) -> None:
     ``tensors`` (None entries are skipped) requires grad: the CUDA kernel
     ``name`` has no backward, and its output, written by the kernel, would
     carry no ``grad_fn``, so every gradient through it would be lost
-    without a word.  Each CUDA wrapper without a backward calls this before
-    it launches; K7's gradient is its backward kernel instead."""
+    without a word.  Each CUDA wrapper without a backward (K4, K5, K6)
+    calls this before it launches; K7's, K8's and K9's gradients are their
+    backward kernels instead."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(

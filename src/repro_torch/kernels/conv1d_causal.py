@@ -32,6 +32,27 @@ What bounds it on an H100: KW multiply-adds per output against one read
 of x and one write of y, so HBM bandwidth, 2 * B*L*D * bytes / 3.35 TB/s.
 The kernel walks each channel's tokens in one thread with the last KW - 1
 inputs in registers, so it reads x once, 16 bytes a thread along D.
+
+Its gradient, K8'.  The reference's Pallas kernel has no ``custom_vjp``:
+its training step differentiates ``ref.conv1d_causal`` with XLA's
+autodiff.  On the CPU autograd differentiates the plain version the same
+way.  On the card, where x, w or bias requires grad under grad mode,
+``conv1d_causal`` runs the forward kernel inside ``_Conv1dCausal``, a
+``torch.autograd.Function`` that saves x (as given: the mixer's strided
+half of its input projection, no copy), w and bias, and whose backward is
+``conv1d_causal_bwd`` (``csrc/conv1d_causal_bwd.cu``): it recomputes the
+pre-activation z from x, forms dz = dy * silu'(z), and writes dx, dw and
+db, every sum in f32 and each output rounded once (dx in x's dtype, dw and
+db in w's).  ``route_bwd`` picks its instance by shape and alignment:
+``"vec"``, four channels a thread (D and x's strides multiples of 4, every
+operand aligned to 4 elements), else ``"thread"``, one channel a thread.
+Per-run f32 partials of dw and db are summed by a second kernel in a fixed
+order: no atomics, the same bits on every call.
+``conv1d_causal_bwd_plain`` is the same backward in plain f32 PyTorch,
+written out; the tests and ``chip_smoke.py`` hold the kernel against it.
+``launches_bwd`` counts the backward's calls, ``launches_bwd_vec`` those on
+the vec route.  It is bound by bytes too: a read of x and of dy and a write
+of dx, 3 * B*L*D * bytes / 3.35 TB/s.
 """
 from __future__ import annotations
 
@@ -44,12 +65,16 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.launch import roofline
 
-# Launches of the CUDA kernel since the last reset (set it to 0 to reset):
-# both routes, and the tile route's alone.
+# Launches of the CUDA kernels since the last reset (set it to 0 to reset):
+# the forward on both routes and on the tile route alone; the backward's
+# calls on both routes and on the vec route alone.
 launches = 0
 launches_tile = 0
+launches_bwd = 0
+launches_bwd_vec = 0
 _fn = None
 _fn_tile = None
+_fn_bwd = None
 
 ACTS = {"none": 0, "silu": 1}
 MAX_TAPS = 8                # the kernel's instances: KW = 1 .. 8
@@ -65,6 +90,12 @@ TILE_THREADS = (128, 64, 32)
 TILE_BLOCKS_PER_SM = 2
 TILE_ROWS, TILE_STAGES = 8, 3
 TILE_HALO_SHARE = 1 / 16
+# The backward: channels a thread on the vec route, and the tokens a thread
+# walks, BWD_MAX_RUN halved down to BWD_MIN_RUN while the grid has fewer
+# than BWD_TARGET_BLOCKS blocks of THREADS threads.
+BWD_VEC = 4
+BWD_MAX_RUN, BWD_MIN_RUN = 64, 16
+BWD_TARGET_BLOCKS = 1024
 
 
 def _check(x, w, bias, act):
@@ -195,18 +226,13 @@ def _kernel_fn():
     return _fn
 
 
-def conv1d_causal(x, w, *, bias=None, act: str = "silu"):
-    """x: (B,L,D), w: (KW,D), bias: (D,) or None -> (B,L,D) in x's dtype.
-    A CPU tensor takes ``conv1d_causal_plain``; a CUDA tensor launches the
-    sm_90a kernel of ``route`` on the current stream or raises."""
-    global launches
-    _check(x, w, bias, act)
-    if x.device.type == "cpu":
-        return conv1d_causal_plain(x, w, bias=bias, act=act)
+def _check_cuda(x, w, bias):
+    """What the CUDA kernels of both directions take: x on a CUDA device,
+    f32 or bf16, channels contiguous; w and bias on its device, of its
+    dtype, contiguous; 1 to MAX_TAPS taps."""
     if x.device.type != "cuda":
         raise ValueError(f"conv1d_causal runs on cpu or cuda, not "
                          f"{x.device}")
-    _build.no_grad_inputs("conv1d_causal (K8)", x, w, bias)
     if x.dtype not in _DTYPES:
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
     kw = w.shape[0]
@@ -223,6 +249,51 @@ def conv1d_causal(x, w, *, bias=None, act: str = "silu"):
             raise ValueError(f"{name} must be contiguous")
     if x.stride(2) != 1:
         raise ValueError("x's channels must be contiguous (stride 1)")
+
+
+class _Conv1dCausal(torch.autograd.Function):
+    """K8 forward with K8' as its gradient: the forward saves x (as given,
+    strided rows and all), w and bias, and the backward launches
+    ``conv1d_causal_bwd``, which recomputes the pre-activation.  Under
+    ``cfg.remat`` the forward that ``torch.utils.checkpoint`` runs again
+    saves them again."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, act):
+        ctx.save_for_backward(x, w, bias)
+        ctx.act = act
+        return _launch_forward(x, w, bias, act)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, bias = ctx.saved_tensors
+        dx, dw, db = conv1d_causal_bwd(x, w, dy.contiguous(), bias=bias,
+                                       act=ctx.act)
+        return dx, dw, db, None
+
+
+def conv1d_causal(x, w, *, bias=None, act: str = "silu"):
+    """x: (B,L,D), w: (KW,D), bias: (D,) or None -> (B,L,D) in x's dtype.
+    A CPU tensor takes ``conv1d_causal_plain`` (autograd differentiates
+    it); a CUDA tensor launches the sm_90a kernel of ``route`` on the
+    current stream or raises.  On the card, with grad enabled and x, w or
+    bias requiring grad, the output's gradient is K8'
+    (``conv1d_causal_bwd``)."""
+    _check(x, w, bias, act)
+    if x.device.type == "cpu":
+        return conv1d_causal_plain(x, w, bias=bias, act=act)
+    _check_cuda(x, w, bias)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, bias)):
+        return _Conv1dCausal.apply(x, w, bias, act)
+    return _launch_forward(x, w, bias, act)
+
+
+def _launch_forward(x, w, bias, act):
+    """The forward kernel of ``route`` on x's device and current stream;
+    the checks are the caller's."""
+    global launches
+    kw = w.shape[0]
     b, l, d = x.shape
     y = torch.empty((b, l, d), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
@@ -243,3 +314,126 @@ def conv1d_causal(x, w, *, bias=None, act: str = "silu"):
                            f"{err} (x {tuple(x.shape)}, stride "
                            f"{tuple(x.stride())}, {kw} taps, {x.dtype})")
     return y
+
+
+def conv1d_causal_bwd_plain(x, w, dy, *, bias=None, act: str = "silu"):
+    """K8' in plain PyTorch: (dx, dw, db) of ``conv1d_causal`` given dy,
+    written out in f32 (z recomputed as the forward sums it, dz = dy *
+    silu'(z) or dy, dx[t] = sum_i w[i] dz[t + KW - 1 - i], dw[i] =
+    sum_{b,t} x[t - KW + 1 + i] dz[t], db = sum_{b,t} dz[t]), each rounded
+    once: dx to x's dtype, dw and db to w's; db is None without a bias."""
+    _check(x, w, bias, act)
+    if tuple(dy.shape) != tuple(x.shape):
+        raise ValueError(f"dy must be {tuple(x.shape)}, got "
+                         f"{tuple(dy.shape)}")
+    kw, l = w.shape[0], x.shape[1]
+    xp = torch.nn.functional.pad(x.float(), (0, 0, kw - 1, 0))
+    wf = w.float()
+    z = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(kw):
+        z = z + xp[:, i:i + l] * wf[i]
+    if bias is not None:
+        z = z + bias.float()
+    dz = dy.float()
+    if act == "silu":
+        sg = torch.sigmoid(z)
+        dz = dz * (sg * (1 + z * (1 - sg)))
+    dzp = torch.nn.functional.pad(dz, (0, 0, 0, kw - 1))
+    dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(kw):
+        dx = dx + wf[i] * dzp[:, kw - 1 - i:kw - 1 - i + l]
+    dw = torch.stack([(xp[:, i:i + l] * dz).sum(dim=(0, 1))
+                      for i in range(kw)])
+    db = None if bias is None else dz.sum(dim=(0, 1)).to(bias.dtype)
+    return dx.to(x.dtype), dw.to(w.dtype), db
+
+
+def route_bwd(x, w=None, bias=None, dy=None) -> str:
+    """Which instance a CUDA call of ``conv1d_causal_bwd`` launches: "vec"
+    (BWD_VEC channels a thread) for f32 or bf16 when D and both of x's row
+    strides are multiples of BWD_VEC, x's channels contiguous and every
+    given operand's data aligned to BWD_VEC elements; else "thread" (one
+    channel a thread: an odd D, unaligned rows).  A pure function of
+    shape, dtype and alignment; a dispatch, not a fallback: each raises on
+    what it cannot take."""
+    if x.dtype not in _DTYPES or x.dim() != 3:
+        return "thread"
+    align = BWD_VEC * x.element_size()
+    if (x.stride(2) == 1 and x.shape[2] % BWD_VEC == 0
+            and x.stride(0) % BWD_VEC == 0 and x.stride(1) % BWD_VEC == 0
+            and all(t.data_ptr() % align == 0 for t in (x, w, bias, dy)
+                    if t is not None)):
+        return "vec"
+    return "thread"
+
+
+def bwd_run_length(b: int, l: int, d: int, vec: int) -> int:
+    """Tokens a thread of the backward walks: BWD_MAX_RUN, halved down to
+    BWD_MIN_RUN while the grid has fewer than BWD_TARGET_BLOCKS blocks, so
+    the card stays full (each run adds KW - 1 halo rows and a partial)."""
+    blocks_d = _cdiv(_cdiv(d, vec), THREADS)
+    run = BWD_MAX_RUN
+    while run > BWD_MIN_RUN and blocks_d * b * _cdiv(l, run) \
+            < BWD_TARGET_BLOCKS:
+        run //= 2
+    return run
+
+
+def _kernel_fn_bwd():
+    global _fn_bwd
+    if _fn_bwd is None:
+        fn = _build.load("conv1d_causal_bwd").repro_conv1d_causal_bwd
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 \
+            + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn_bwd = fn
+    return _fn_bwd
+
+
+def conv1d_causal_bwd(x, w, dy, *, bias=None, act: str = "silu"):
+    """K8' on the card: x (B,L,D) as the forward took it, w (KW,D), bias
+    (D,) or None, dy (B,L,D) contiguous -> (dx (B,L,D) in x's dtype, dw
+    (KW,D) and db (D,) in w's, db None without a bias), on the current
+    stream, or raises.  A CPU tensor takes ``conv1d_causal_bwd_plain``."""
+    global launches_bwd, launches_bwd_vec
+    _check(x, w, bias, act)
+    if x.device.type == "cpu":
+        return conv1d_causal_bwd_plain(x, w, dy, bias=bias, act=act)
+    _check_cuda(x, w, bias)
+    if tuple(dy.shape) != tuple(x.shape) or dy.dtype != x.dtype \
+            or dy.device != x.device or not dy.is_contiguous():
+        raise ValueError(f"dy must be a contiguous {tuple(x.shape)} "
+                         f"{x.dtype} tensor on {x.device}, got "
+                         f"{tuple(dy.shape)} {dy.dtype} on {dy.device}")
+    b, l, d = x.shape
+    kw = w.shape[0]
+    dx = torch.empty((b, l, d), dtype=x.dtype, device=x.device)
+    dw = torch.empty_like(w)
+    db = None if bias is None else torch.empty_like(bias)
+    if dx.numel() == 0:
+        dw.zero_()
+        if db is not None:
+            db.zero_()
+        return dx, dw, db
+    path = route_bwd(x, w, bias, dy)
+    vec = BWD_VEC if path == "vec" else 1
+    run = bwd_run_length(b, l, d, vec)
+    part = torch.empty((b * _cdiv(l, run), kw + 1, d), dtype=torch.float32,
+                       device=x.device)
+    fn = _kernel_fn_bwd()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        launches_bwd += 1
+        launches_bwd_vec += int(path == "vec")
+        err = fn(x.data_ptr(), w.data_ptr(),
+                 None if bias is None else bias.data_ptr(), dy.data_ptr(),
+                 dx.data_ptr(), dw.data_ptr(),
+                 None if db is None else db.data_ptr(), part.data_ptr(),
+                 x.stride(0), x.stride(1), b, l, d, kw, run, ACTS[act],
+                 int(path == "vec"), _DTYPES[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"conv1d_causal_bwd kernel launch failed ({path} "
+                           f"route): CUDA error {err} (x {tuple(x.shape)}, "
+                           f"stride {tuple(x.stride())}, {kw} taps, "
+                           f"{x.dtype})")
+    return dx, dw, db

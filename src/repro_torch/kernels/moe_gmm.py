@@ -52,6 +52,24 @@ prefill each expert has hundreds of rows and the bf16 products bound it
 (tensor cores).  The "stream" and "mma" kernels' bf16 products run
 ``mma.sync`` m16n8k16 on the tensor cores; the "mma" kernel's f32 instance
 runs true f32 products on the SIMT cores, with no TF32.
+
+Its gradient, K9'.  The reference's Pallas kernel has no ``custom_vjp``:
+its training step differentiates the einsum dispatch (``ref.moe_gmm``)
+with XLA's autodiff.  On the CPU autograd differentiates the plain version.
+On the card, where tokens or weights require grad under grad mode,
+``moe_gmm`` runs the forward kernel inside ``_MoeGmm``, a
+``torch.autograd.Function`` that saves tokens, weights and tile_eid and
+whose backward is ``moe_gmm_bwd`` (``csrc/moe_gmm_bwd.cu``): dtokens[r] =
+dout[r] @ W[e(r)]ᵀ (zero on tiles outside [0, E)) and dweights[e] = the
+sum over e's tiles of tokensᵀ @ dout (zero for an expert with no tile),
+two tiled kernels on the "mma" skeleton, f32 sums, no atomics, the same
+bits on every call; the weights are read as they lie (no transposed copy)
+and ``tile_eid`` is read on the card.  ``route_bwd``: "mma" for bf16
+(``mma.sync`` m16n8k16), "simt" for f32.  ``moe_gmm_bwd_plain`` is the
+same backward in plain f32 PyTorch; the tests and ``chip_smoke.py`` hold
+the kernels against it.  ``launches_bwd`` counts the backward's calls,
+``launches_bwd_mma`` those on the mma route.  Bound: 4 * rows * D * F
+operations (rows: those of tiles in [0, E)) on the tensor cores.
 """
 from __future__ import annotations
 
@@ -66,9 +84,13 @@ from repro_torch.kernels import _build
 launches = 0
 launches_wgmma = 0
 launches_stream = 0
+# the backward's calls, and those on its mma route
+launches_bwd = 0
+launches_bwd_mma = 0
 _fn = None
 _fn_wgmma = None
 _fn_stream = None
+_fn_bwd = None
 
 BLOCK_ROWS = (128, 64, 16)   # the kernel's block heights; bm is a multiple
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -276,19 +298,12 @@ def _kernel_fn():
     return _fn
 
 
-def moe_gmm(tokens, weights, tile_eid, *, bm: int = 128):
-    """tokens (T, D), weights (E, D, F), tile_eid (⌈T/bm⌉,) int32 -> (T, F)
-    in the tokens' dtype.  A CPU tensor takes ``moe_gmm_plain``; a CUDA
-    tensor launches the sm_90a kernel of its ``route`` on the current
-    stream or raises.  On the card an id outside [0, E) gives zero rows (the
-    kernel cannot raise), and bm must be a multiple of 16."""
-    global launches, launches_wgmma, launches_stream
-    _check(tokens, weights, tile_eid, bm)
-    if tokens.device.type == "cpu":
-        return moe_gmm_plain(tokens, weights, tile_eid, bm=bm)
+def _check_cuda(tokens, weights, tile_eid, bm: int):
+    """What the CUDA kernels of both directions take: tokens on a CUDA
+    device, f32 or bf16, weights of their dtype, every operand on that
+    device and contiguous, bm a multiple of 16."""
     if tokens.device.type != "cuda":
         raise ValueError(f"moe_gmm runs on cpu or cuda, not {tokens.device}")
-    _build.no_grad_inputs("moe_gmm (K9)", tokens, weights)
     if tokens.dtype not in _DTYPES:
         raise ValueError(f"tokens must be float32 or bfloat16, got "
                          f"{tokens.dtype}")
@@ -306,6 +321,50 @@ def moe_gmm(tokens, weights, tile_eid, *, bm: int = 128):
                     ("tile_eid", tile_eid)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+class _MoeGmm(torch.autograd.Function):
+    """K9 forward with K9' as its gradient: the forward saves tokens,
+    weights and tile_eid (the weights are the param itself, no copy), and
+    the backward launches ``moe_gmm_bwd``.  Under ``cfg.remat`` the forward
+    that ``torch.utils.checkpoint`` runs again saves them again."""
+
+    @staticmethod
+    def forward(ctx, tokens, weights, tile_eid, bm):
+        ctx.save_for_backward(tokens, weights, tile_eid)
+        ctx.bm = bm
+        return _launch_forward(tokens, weights, tile_eid, bm)
+
+    @staticmethod
+    def backward(ctx, dout):
+        tokens, weights, tile_eid = ctx.saved_tensors
+        dtok, dw = moe_gmm_bwd(tokens, weights, tile_eid, dout.contiguous(),
+                               bm=ctx.bm)
+        return dtok, dw, None, None
+
+
+def moe_gmm(tokens, weights, tile_eid, *, bm: int = 128):
+    """tokens (T, D), weights (E, D, F), tile_eid (⌈T/bm⌉,) int32 -> (T, F)
+    in the tokens' dtype.  A CPU tensor takes ``moe_gmm_plain`` (autograd
+    differentiates it); a CUDA tensor launches the sm_90a kernel of its
+    ``route`` on the current stream or raises.  On the card an id outside
+    [0, E) gives zero rows (the kernel cannot raise), and bm must be a
+    multiple of 16; with grad enabled and tokens or weights requiring grad,
+    the output's gradient is K9' (``moe_gmm_bwd``)."""
+    _check(tokens, weights, tile_eid, bm)
+    if tokens.device.type == "cpu":
+        return moe_gmm_plain(tokens, weights, tile_eid, bm=bm)
+    _check_cuda(tokens, weights, tile_eid, bm)
+    if torch.is_grad_enabled() and (tokens.requires_grad
+                                    or weights.requires_grad):
+        return _MoeGmm.apply(tokens, weights, tile_eid, bm)
+    return _launch_forward(tokens, weights, tile_eid, bm)
+
+
+def _launch_forward(tokens, weights, tile_eid, bm: int):
+    """The forward kernel of ``route`` on the tokens' device and current
+    stream; the checks are the caller's."""
+    global launches, launches_wgmma, launches_stream
     t, d = tokens.shape
     e, _, f = weights.shape
     out = torch.empty((t, f), dtype=tokens.dtype, device=tokens.device)
@@ -341,3 +400,96 @@ def moe_gmm(tokens, weights, tile_eid, *, bm: int = 128):
                            f"{tuple(weights.shape)}, bm {bm}, "
                            f"{tokens.dtype})")
     return out
+
+
+def moe_gmm_bwd_plain(tokens, weights, tile_eid, dout, *, bm: int):
+    """K9' in plain PyTorch: (dtokens (T, D), dweights (E, D, F)) of
+    ``moe_gmm`` given dout (T, F), in f32 and each rounded once to its
+    operand's dtype.  For each run of tiles with one id in [0, E): its rows'
+    dout @ that expert's weightᵀ, and the run's tokensᵀ @ dout added into
+    the expert's dweights in run order; rows of a negative id get zero, an
+    expert with no row a zero dweights.  Reads ``tile_eid`` on the host."""
+    _check(tokens, weights, tile_eid, bm)
+    t = tokens.shape[0]
+    e, d, f = weights.shape
+    if tuple(dout.shape) != (t, f):
+        raise ValueError(f"dout must be ({t}, {f}), got {tuple(dout.shape)}")
+    ids = tile_eid.tolist()
+    if any(i >= e for i in ids):
+        raise ValueError(f"tile_eid holds an id >= E = {e}: {ids}")
+    dtok = torch.zeros((t, d), dtype=torch.float32, device=tokens.device)
+    dw = torch.zeros((e, d, f), dtype=torch.float32, device=tokens.device)
+    i0 = 0
+    while i0 < len(ids):
+        i1 = i0 + 1
+        while i1 < len(ids) and ids[i1] == ids[i0]:
+            i1 += 1
+        if ids[i0] >= 0:
+            r0, r1 = i0 * bm, min(i1 * bm, t)
+            g = dout[r0:r1].float()
+            dtok[r0:r1] = g @ weights[ids[i0]].float().T
+            dw[ids[i0]] += tokens[r0:r1].float().T @ g
+        i0 = i1
+    return dtok.to(tokens.dtype), dw.to(weights.dtype)
+
+
+def route_bwd(tokens, weights) -> str:
+    """Which instance a CUDA call of ``moe_gmm_bwd`` launches: "mma"
+    (``mma.sync`` m16n8k16 on the bf16 tensor cores) for bf16, "simt"
+    (true f32 products) for f32.  Ragged D or F and unaligned operands take
+    the same route with per-element staging instead of cp.async."""
+    if tokens.dtype not in _DTYPES:
+        raise ValueError(f"the backward takes float32 or bfloat16, got "
+                         f"{tokens.dtype}")
+    return "mma" if tokens.dtype == torch.bfloat16 else "simt"
+
+
+def _kernel_fn_bwd():
+    global _fn_bwd
+    if _fn_bwd is None:
+        fn = _build.load("moe_gmm_bwd").repro_moe_gmm_bwd
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn_bwd = fn
+    return _fn_bwd
+
+
+def moe_gmm_bwd(tokens, weights, tile_eid, dout, *, bm: int = 128):
+    """K9' on the card: tokens (T, D), weights (E, D, F), tile_eid
+    (⌈T/bm⌉,) int32 and dout (T, F), contiguous -> (dtokens (T, D) in the
+    tokens' dtype, dweights (E, D, F) in the weights'), launched on the
+    current stream (the dtokens kernel, then the dweights kernel), or
+    raises.  A CPU tensor takes ``moe_gmm_bwd_plain``."""
+    global launches_bwd, launches_bwd_mma
+    _check(tokens, weights, tile_eid, bm)
+    if tokens.device.type == "cpu":
+        return moe_gmm_bwd_plain(tokens, weights, tile_eid, dout, bm=bm)
+    _check_cuda(tokens, weights, tile_eid, bm)
+    t, d = tokens.shape
+    e, _, f = weights.shape
+    if tuple(dout.shape) != (t, f) or dout.dtype != tokens.dtype \
+            or dout.device != tokens.device or not dout.is_contiguous():
+        raise ValueError(f"dout must be a contiguous ({t}, {f}) "
+                         f"{tokens.dtype} tensor on {tokens.device}, got "
+                         f"{tuple(dout.shape)} {dout.dtype} on {dout.device}")
+    dtok = torch.empty((t, d), dtype=tokens.dtype, device=tokens.device)
+    dw = torch.empty_like(weights)
+    if t == 0 or d == 0 or f == 0:
+        return dtok.zero_(), dw.zero_()
+    path = route_bwd(tokens, weights)
+    fn = _kernel_fn_bwd()
+    with torch.cuda.device(tokens.device):
+        stream = torch.cuda.current_stream(tokens.device).cuda_stream
+        launches_bwd += 1
+        launches_bwd_mma += int(path == "mma")
+        err = fn(tokens.data_ptr(), weights.data_ptr(), tile_eid.data_ptr(),
+                 dout.data_ptr(), dtok.data_ptr(), dw.data_ptr(), t, d, f, e,
+                 bm, _DTYPES[tokens.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"moe_gmm_bwd kernel launch failed ({path} "
+                           f"route): CUDA error {err} (tokens "
+                           f"{tuple(tokens.shape)}, weights "
+                           f"{tuple(weights.shape)}, bm {bm}, "
+                           f"{tokens.dtype})")
+    return dtok, dw

@@ -6,11 +6,18 @@ microbatches) -> a loop over the data pipeline -> metrics.
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --steps 5 --seq-len 512
 
 On the card every attention forward is K7 and its gradient K7's backward
-kernel (``kernels/attention.flash_attention_bwd``); the Mamba and MoE
-kernels have no backward yet, so a hybrid or MoE arch trains on the CPU
-only and raises on the card (ROADMAP Queue 1 item 14).  The weights are
-random, drawn from seed 0 (``build(seed=)``); batches come from
-``data.pipeline.make_pipeline`` (synthetic tokens, or ``--data-path``).
+kernel (``kernels/attention.flash_attention_bwd``), every Mamba conv1d K8
+with K8' (``kernels/conv1d_causal.conv1d_causal_bwd``) and every MoE
+grouped matmul K9 with K9' (``kernels/moe_gmm.moe_gmm_bwd``), so hybrid
+and MoE archs train there too; Jamba-1.5-Large trains on one card as
+``jamba-1.5-large-398b-train-1chip`` (two layers at the published widths,
+4 of 16 experts held):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-1.5-large-398b-train-1chip --steps 3 --seq-len 512 --global-batch 2
+
+The weights are random, drawn from seed 0 (``build(seed=)``); batches come
+from ``data.pipeline.make_pipeline`` (synthetic tokens, or
+``--data-path``).
 
 The reference's mesh, checkpoint and chaos flags (``--production-mesh``,
 ``--model-parallel``, ``--ckpt-dir``, ``--ckpt-every``, ``--chaos-seed``,
@@ -29,7 +36,7 @@ from repro_torch.backend import resolve_device
 from repro_torch.configs import get_config, list_archs, smoke_config
 from repro_torch.data import make_pipeline
 from repro_torch.launch.serve import _sync
-from repro_torch.optim.adamw import AdamW
+from repro_torch.optim.adamw import AdamW, tree_leaves
 from repro_torch.train.step import init_train_state, make_train_step
 
 
@@ -67,10 +74,13 @@ def main(argv=None) -> dict:
     if args.smoke:
         cfg = smoke_config(cfg)
     device = resolve_device(args.device)
-    print(f"arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
-          f"device={device}")
     state, step = build(cfg, lr=args.lr, accum_steps=args.accum_steps,
                         device=device)
+    # params counts every expert of the config; held, what this device
+    # holds (a share of them under ``MoECfg.expert_share``)
+    held = sum(p.numel() for p in tree_leaves(state["params"]))
+    print(f"arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
+          f"held={held / 1e6:.1f}M device={device}")
     data = make_pipeline(cfg, seq_len=args.seq_len,
                          global_batch=args.global_batch,
                          path=args.data_path)

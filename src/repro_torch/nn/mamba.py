@@ -1,8 +1,9 @@
 """Mamba selective-SSM mixer (Jamba's attention-free layer), the counterpart
 of ``repro/nn/mamba.py``.
 
-The depthwise causal conv1d goes through ``ops.conv1d``: K8 on the card,
-its plain version on the CPU.  The selective scan h_t = a_t * h_{t-1} + b_t
+The depthwise causal conv1d goes through ``ops.conv1d``: K8 on the card
+(with K8' as its gradient where autograd records), its plain version on
+the CPU.  The selective scan h_t = a_t * h_{t-1} + b_t
 (data-dependent a_t, b_t of shape (d_inner, d_state)) is plain torch, as it
 is plain JAX in the reference: sequential over chunks of ``cfg.scan_chunk``
 tokens carrying h (B, d_inner, d_state) in f32, and inside a chunk a
@@ -73,8 +74,8 @@ def _scan_pairs(a, b):
     (a1, b1) then (a2, b2) = (a1 a2, a2 b1 + b2), by doubling: after the
     step of stride k each position holds the combination of the 2k pairs
     ending there.  Returns (prod a, h with h_{-1} = 0), both f32.  Where
-    autograd records (training on the CPU), the same products run out of
-    place: ``out=`` buffers cannot carry a gradient."""
+    autograd records (training, on the CPU or the card), the same products
+    run out of place: ``out=`` buffers cannot carry a gradient."""
     n = a.shape[1]
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         k = 1

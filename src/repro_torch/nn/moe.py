@@ -17,7 +17,9 @@ last used one; the SwiGLU runs as three K9 products over those rows, and
 each token sums its k weighted rows in slot order.  Only the experts that
 received tokens are read.  The rows buffer is sized on the host from the
 shapes alone, so the layer reads no device value on the host.  On a CPU
-tensor K9 is its plain version.  The function is the reference's einsum
+tensor K9 is its plain version; on the card, where autograd records, each
+product's gradient is K9' (``moe_gmm_bwd``), and the gathers of the rows
+and the combine stay plain torch, as they are plain JAX in the reference.  The function is the reference's einsum
 replay's; the gate values are rounded to the activation dtype before the
 combine, as the reference's ``combine.astype(x.dtype)`` does.
 

@@ -5,10 +5,10 @@
 ``lm_loss_embeds`` for a batch with "embeds") and its gradients by
 autograd, the reference's ``jax.value_and_grad``, over ``accum_steps``
 microbatches summed in f32; the global-norm clip; the optimizer.  On the
-card every attention forward is K7 and its gradient K7's backward kernel;
-a mixer whose kernels have no backward (Mamba's K8, the MoE's K9) raises
-rather than lose its gradients.  The reference's ``train_state_specs``
-waits for data parallelism (ROADMAP Queue 1 item 10).
+card every attention forward is K7 and its gradient K7's backward kernel,
+every Mamba conv1d K8 with K8' as its gradient and every MoE grouped
+matmul K9 with K9'.  The reference's ``train_state_specs`` waits for data
+parallelism (ROADMAP Queue 1 item 10).
 
 ``make_cnn_train_step`` routes every conv through
 ``core.conv.conv2d_train``: the forward is K1, dI comes from the §II-I

@@ -246,9 +246,11 @@ def test_lm_kernel_symbols_and_argtypes(monkeypatch, name, symbol, module):
 def test_moe_gmm_kernel_uses_the_bf16_tensor_cores():
     """K9's bf16 instance multiplies with mma.sync bf16 -> f32, reads its B
     fragments by ldmatrix.trans from the (D, F) weights, and picks its block
-    height from the heights the wrapper names."""
+    height from the heights the wrapper names.  The source is read with the
+    headers it includes (the helpers live in ``csrc/mma_bf16.cuh``)."""
     from repro_torch.kernels import moe_gmm as k9
-    src = (_build.CSRC / "moe_gmm.cu").read_text()
+    src = "".join(p.read_text() for p in _build._sources(
+        _build.CSRC / "moe_gmm.cu", []))
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
     assert "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16" in src
     heights = [int(h) for h in re.findall(r"bm % (\d+) == 0", src)]

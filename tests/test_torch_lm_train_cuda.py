@@ -1,7 +1,8 @@
 """LM training on the card: K7's backward kernel against its plain version,
 the attention gradient through autograd, the wrappers that have no
-backward refusing inputs that require grad, a reduced f32 train step and
-RWKV-6 card against CPU, and a hybrid step that must raise.
+backward (K6, K5) refusing inputs that require grad while K8 and K9 carry a
+``grad_fn``, a reduced f32 train step and RWKV-6 card against CPU, and
+smoke hybrid (Jamba) and MoE (Phi-3.5-MoE) steps card against CPU.
 
 These need an NVIDIA GPU with the CUDA toolkit (``nvcc``): a CUDA kernel has
 no CPU mode, so elsewhere they skip.  On the card:
@@ -132,21 +133,28 @@ def test_flash_bwd_rejects_what_it_does_not_take(cuda):
 
 
 def test_wrappers_without_backward_refuse_grad(cuda):
+    """K6 and K5 have no backward and refuse; K8 and K9 give outputs whose
+    ``grad_fn`` is their backward kernel."""
     from repro_torch.kernels import conv1d_causal as k8
     from repro_torch.kernels import matmul_fused as k6
     from repro_torch.kernels import moe_gmm as k9
+    from repro_torch.kernels import pool2d as k5
     a = torch.randn(64, 64, device=cuda, requires_grad=True)
     b = torch.randn(64, 64, device=cuda)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="no model trains"):
         k6.matmul_fused(a, b)
+    with pytest.raises(NotImplementedError, match="no model trains"):
+        k5.maxpool2d(torch.randn(1, 8, 8, 4, device=cuda,
+                                 requires_grad=True))
     x = torch.randn(1, 8, 64, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        k8.conv1d_causal(x, torch.randn(4, 64, device=cuda))
+    assert k8.conv1d_causal(x, torch.randn(4, 64, device=cuda)).grad_fn \
+        is not None
     tid = torch.zeros(1, dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        k9.moe_gmm(a, b[None], tid, bm=64)
+    assert k9.moe_gmm(a, b[None], tid, bm=64).grad_fn is not None
     with torch.no_grad():
         k6.matmul_fused(a, b)
+        assert k8.conv1d_causal(x, torch.randn(4, 64, device=cuda)) \
+            .grad_fn is None
 
 
 def _chip_smoke():
@@ -160,8 +168,10 @@ def _chip_smoke():
 def _twin_step(cfg, batch, *, accum_steps=1, bonus=False):
     """One train step of ``cfg`` (f32) on the card and on the CPU from the
     same params (drawn on the CPU), through ``chip_smoke.twin_step`` with
-    its SGD at lr 1 (an update far above one f32 ulp of the params):
-    (loss card, loss CPU, max |update diff| / max |CPU update|)."""
+    its SGD at lr 1 (an update far above one f32 ulp of the params) and,
+    for an MoE config, the CPU taking the card's routing (at most
+    ``PIN_MAX_OVERRIDDEN`` decisions overridden): (loss card, loss CPU,
+    max |update diff| / max |CPU update|)."""
     from repro_torch.nn import transformer as T
     from repro_torch.optim.adamw import tree_leaves
 
@@ -171,6 +181,8 @@ def _twin_step(cfg, batch, *, accum_steps=1, bonus=False):
         smoke._draw_bonus(base, cfg)
     twins = smoke.twin_step(cfg, base, batch, smoke.Sgd(),
                             lr=smoke.PARITY_LR, accum_steps=accum_steps)
+    if twins["routing"] is not None:
+        assert twins["routing"][0] <= smoke.PIN_MAX_OVERRIDDEN
     (m_g, new_g), (m_c, new_c) = twins["card"], twins["cpu"]
     upd = max(float((c.detach() - b).abs().max())
               for c, b in zip(tree_leaves(new_c), tree_leaves(base)))
@@ -225,14 +237,28 @@ def test_rwkv_reduced_card_vs_cpu(cuda):
     assert rel <= UPDATE_REL_TOL
 
 
-def test_hybrid_train_step_raises_on_the_card(cuda):
-    """Jamba's Mamba (K8) and MoE (K9) kernels have no backward: a step on
-    the card raises instead of losing their gradients."""
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_hybrid_train_step_card_vs_cpu(cuda, arch):
+    """Jamba's Mamba (K8) and MoE (K9) kernels, and Phi-3.5-MoE's, train on
+    the card through K8' and K9': a smoke step (f32, Jamba's period of a
+    Mamba + MoE and an attention + dense block) raises nothing, launches
+    both backwards and matches the CPU step."""
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.data import SyntheticLMData
-    from repro_torch.launch.train import build
-    cfg = smoke_config(get_config("jamba-1.5-large-398b"))
-    state, step = build(cfg, device=cuda)
+    from repro_torch.kernels import conv1d_causal as k8
+    from repro_torch.kernels import moe_gmm as k9
+    cfg = smoke_config(get_config(arch))
+    if arch.startswith("jamba"):
+        cfg = dataclasses.replace(cfg, n_layers=2, block_pattern=(
+            ("mamba", "moe"), ("attn", "dense")))
     batch = SyntheticLMData(cfg.vocab, 16, 2).batch_at(0)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        step(state, batch)
+    before = (k8.launches_bwd, k9.launches_bwd)
+    loss_g, loss_c, rel = _twin_step(cfg, batch)
+    mamba = sum(m == "mamba" for m, _ in cfg.block_pattern) \
+        * cfg.pattern_repeats
+    moe = sum(f == "moe" for _, f in cfg.block_pattern) * cfg.pattern_repeats
+    assert (k8.launches_bwd - before[0], k9.launches_bwd - before[1]) == (
+        mamba, 3 * moe)
+    assert abs(loss_g - loss_c) <= LOSS_REL_TOL * abs(loss_c)
+    assert rel <= UPDATE_REL_TOL
