@@ -418,17 +418,25 @@ Phases, each of which fails the run (nonzero exit, no result line):
     projection, SiLU and "none", with and without a bias, bf16, and on a
     reduced f32 shape and a ragged D in f32 and bf16 (the thread route):
     <= 1e-2 (bf16), <= 1e-5 (f32) of max |plain|, the same bits twice;
-    events and device ms, the plain version, autograd of cuDNN's depthwise
-    ``F.conv1d`` + SiLU and the bytes bound.  (b) K9's backward
+    each shape's route held ("tile" where rows start on 16-byte
+    boundaries) and, on each tile case, the vec route forced on the same
+    inputs and held the same way; events and device ms on both routes, the
+    plain version, autograd of cuDNN's depthwise ``F.conv1d`` + SiLU and
+    the bytes bound, with the tile route's share of it.  (b) K9's backward
     (``moe_gmm_bwd``, ``csrc/moe_gmm_bwd.cu``) against
     ``moe_gmm_bwd_plain`` on dtokens and dweights with the ``tile_eid``
     ``nn/moe.replay_plan`` gives one MoE layer of the cut for a 2 x 512
     batch (-1 tiles and a held expert without rows, forced if none), at
-    the gate/up and down shapes in bf16, a reduced f32 shape and K9's tail
-    case: the same limits, -1 rows and the empty expert exactly zero;
-    events and device ms (dtokens and dweights kernels apart), the plain
-    version, ``torch.bmm`` over capacity-padded experts and the bound (the
-    larger of 4 x routed rows x D x F at 989 TFLOP/s and the bytes).  (c)
+    the gate/up and down shapes in bf16, the same rows in tiles of 64
+    (bf16, D 1032 -> F 1544), a reduced f32 shape and K9's tail case: the
+    same limits, -1 rows and the empty expert exactly zero; each case's
+    route held ("wgmma" for bf16 at bm 64 and 128, "mma" for the bf16
+    tail, "simt" for f32) and, on each wgmma case, the mma route forced on
+    the same inputs and held the same way; events and device ms on both
+    routes (dtokens and dweights kernels apart), the plain version,
+    ``torch.bmm`` over capacity-padded experts and the bound (the larger
+    of 4 x routed rows x D x F at 989 TFLOP/s and the bytes), with the
+    wgmma route's share of it and its verdict against its aim.  (c)
     ``jamba-1.5-large-398b-train-1chip`` (bf16, 2 layers at the published
     widths, 4 of 16 experts held, remat) through ``launch.train.build``
     (factored AdamW, bf16 ``m``) on 2 x 512 ``SyntheticLMData`` tokens: one
@@ -437,8 +445,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
     their backwards' counts set to 0 just before and read just after (K8
     3 and K9 9 forward launches a step, K7 2: the forward, the block's
     checkpoint and, but for the period's last block, the period's; K8' 1,
-    K9' 3 and K7's backward 1; K8 on its tile route, K8' on vec, K9 on
-    wgmma, K9' on mma, K7 and its backward on wgmma), step ms p50 and max,
+    K9' 3 and K7's backward 1; K8 and K8' on their tile routes, K9 and
+    K9' on wgmma, K7 and its backward on wgmma), step ms p50 and max,
     tokens/s, losses finite and falling; one step under the profiler (each
     kernel's records held to its count; device ms by kernel group, busy
     share) and the peak memory (at most 72 GB).  (d) f32 card-vs-CPU steps
@@ -451,9 +459,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
 32. The whole-plane, Inception-v3, plan-tuning, chains, whole-plane
     tuning, LM serving, LM training, RWKV serving, hybrid training and
     hybrid serving summary lines, the int8 serving and training summary
-    lines, the kernels line (K1, K2, K3, K4, K7, K6, K7's backward, K8,
-    K9, K8's and K9's backwards, K10a, K10b, K10c, K5; K1, K2 and K3 with
-    their launches under tuned plans), then the device line last.
+    lines, every phase's seconds and the run's against its 1200 s budget
+    (each phase's also printed as it ends), the kernels line (K1, K2, K3,
+    K4, K7, K6, K7's backward, K8, K9, K8's and K9's backwards, K10a, K10b,
+    K10c, K5; K1, K2 and K3 with their launches under tuned plans), then
+    the device line last.
 
 Device times by kernel come from ``trace_device``: a ``torch.profiler``
 trace with one warm-up step, whose recorded launches of each port kernel
@@ -515,6 +525,22 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+RUN_BUDGET_S = 1200          # the whole run, the kernels' builds included
+PHASE_SECONDS = {}           # phase -> seconds, in the order they ran
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Times the block as phase ``name``: its seconds go into
+    PHASE_SECONDS and on a line of their own as it ends."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[name] = time.perf_counter() - t0
+        print(f"  phase {name} in {PHASE_SECONDS[name]:.1f}s", flush=True)
 
 
 @contextlib.contextmanager
@@ -5708,12 +5734,15 @@ CONV1D_BWD_CASES = [(2, 512, 16384, 4, True, "silu", True, "bfloat16"),
                     (2, 100, 1024, 4, True, "silu", True, "float32"),
                     (2, 77, 1002, 4, False, "silu", True, "float32"),
                     (1, 77, 1002, 4, False, "none", True, "bfloat16")]
-K8_BWD_NEEDLE = "conv1d_causal_bwd_kernel"   # one a call on either route
+K8_BWD_NEEDLE = "conv1d_causal_bwd_kernel"   # one a call on every route
 K8_BWD_SUM = "conv1d_causal_bwd_sum"         # its second pass
-K9_BWD_NEEDLE = "moe_gmm_bwd_dx_kernel"      # one a call on either route
+K8_BWD_TILE = "conv1d_causal_bwd_kernel_tile"  # the tile route's alone
+K9_BWD_NEEDLE = "moe_gmm_bwd_dx_kernel"      # one a call on every route
 K9_BWD_DW = "moe_gmm_bwd_dw_kernel"          # its second kernel
+K9_BWD_WGMMA = "moe_gmm_bwd_dw_kernel_wgmma"   # the wgmma route's alone
 MOE_TRAIN_HELD = 4                           # the cut holds 4 of 16 experts
 MOE_TRAIN_SMALL = (256, 512)                 # D, F of the f32 case
+MOE_TRAIN_BM64 = (1032, 1544)                # D, F of the bf16 case at bm 64
 JAMBA_TRAIN_PERIOD = (("mamba", "moe"), ("attn", "dense"))
 HYBRID_PARITY = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
                      d_head=64, d_ff=512, vocab=1024, dtype="float32")
@@ -5747,13 +5776,17 @@ def conv1d_bwd_signatures(device):
     <= 1e-2 bf16, <= 1e-5 f32; the same bits on a second call): the cut's
     training shape (2, 512, 16384), x read in place from the mixer's
     projection, SiLU and "none", with and without a bias, bf16; a reduced
-    f32 shape on the vec route and a ragged D (1002) in f32 and bf16 on the
-    thread route (``route_bwd``, held).  At the first shape: CUDA-event ms,
-    profiler device ms (both kernels), the plain version's ms, the library
+    f32 shape and a ragged D (1002) in f32 and bf16 (``route_bwd``, held:
+    "tile" wherever rows start on 16-byte boundaries, "thread" at D 1002).
+    On every tile case the vec route it took over is forced on the same
+    inputs and held the same way.  At the first shape, on both routes:
+    CUDA-event ms, profiler device ms (each route's kernel and the sum
+    pass), the share of the bound; then the plain version's ms, the library
     yardstick (autograd of cuDNN's depthwise ``F.conv1d`` and SiLU; used
     only here) and the bound: x and dy read and dx written once, w, bias,
     dw and db, over 3.35 TB/s, or (6 KW + 8) operations an element over the
-    dtype's peak."""
+    dtype's peak.  The tile route's verdict against its aim (at least half
+    its bound) is printed, not held."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import conv1d_causal as k8
@@ -5763,7 +5796,7 @@ def conv1d_bwd_signatures(device):
     rows = []
     print(f"\nK8' (conv1d_causal_bwd) vs plain (limits {BF16_REL_TOL} bf16, "
           f"{KERNEL_REL_TOL} f32 of max |plain| on dx, dw, db; the same bits "
-          f"twice; route by route_bwd):")
+          f"twice; route by route_bwd, vec forced beside each tile case):")
     print("  dtype     b    l     d kw x        act  bias route  run  dx_rel "
           "  dw_rel   db_rel        ms  device_ms   plain_ms  library_ms "
           " bound_ms bound_by")
@@ -5779,7 +5812,7 @@ def conv1d_bwd_signatures(device):
             if with_bias else None
         dy = torch.randn((b, l, d), generator=gen, device=device).to(dtype)
         path = k8.route_bwd(x, w, bias, dy)
-        want = "vec" if d % k8.BWD_VEC == 0 else "thread"
+        want = "tile" if d % (16 // x.element_size()) == 0 else "thread"
         check(path == want, f"K8' takes the {path} route at {(b, l, d)}, "
               f"expected {want}")
         tol = BF16_REL_TOL if dtype == torch.bfloat16 else KERNEL_REL_TOL
@@ -5790,23 +5823,42 @@ def conv1d_bwd_signatures(device):
         def run():
             out = k8.conv1d_causal_bwd(x, w, dy, bias=bias, act=act)
             return [o for o in out if o is not None]
-        before = (k8.launches_bwd, k8.launches_bwd_vec)
+        before = (k8.launches_bwd, k8.launches_bwd_vec, k8.launches_bwd_tile)
         got, rels, abss = _held_twice(run, plain, tol, f"K8' at {shape}")
-        check((k8.launches_bwd - before[0], k8.launches_bwd_vec - before[1])
-              == (2, 2 if path == "vec" else 0), "K8' launch counts")
+        check((k8.launches_bwd - before[0], k8.launches_bwd_vec - before[1],
+               k8.launches_bwd_tile - before[2])
+              == (2, 0, 2 if path == "tile" else 0), "K8' launch counts")
+        if path == "tile":
+            plan = k8.bwd_tile_plan(b, l, d, kw, 16 // x.element_size())
+            run_len = plan.run
+        else:
+            run_len = k8.bwd_run_length(b, l, d, 1)
         rec = dict(dtype=dname, b=b, l=l, d=d, kw=kw,
                    x="in place" if in_place else "contiguous", act=act,
-                   bias=with_bias, route=path,
-                   run=k8.bwd_run_length(b, l, d, k8.BWD_VEC
-                                         if path == "vec" else 1),
+                   bias=with_bias, route=path, run=run_len,
                    rel_err=dict(zip(("dx", "dw", "db"), rels)),
                    max_rel_err=max(rels), max_abs_err=max(abss),
                    same_bits=True)
+        if path == "tile":
+            rec["plan"] = dataclasses.asdict(plan)
+            with returning(k8, "route_bwd", "vec"):
+                before = k8.launches_bwd_vec
+                _, vrels, vabss = _held_twice(run, plain, tol,
+                                              f"K8' vec forced at {shape}")
+                check(k8.launches_bwd_vec - before == 2,
+                      "K8' vec forced: launch counts")
+            rec["vec_rel_err"] = dict(zip(("dx", "dw", "db"), vrels))
+            rec["max_rel_err"] = max(max(rels), max(vrels))
+            rec["max_abs_err"] = max(max(abss), max(vabss))
         timed = not rows
         if timed:
             rec["ms"] = auto_ms(run)
             rec["device_ms"], rec["traced_launches"] = kernel_device_ms(
                 run, K8_BWD_NEEDLE, counter, also=(K8_BWD_SUM,))
+            with returning(k8, "route_bwd", "vec"):
+                rec["vec_ms"] = auto_ms(run)
+                rec["vec_device_ms"], _ = kernel_device_ms(
+                    run, K8_BWD_NEEDLE, counter, also=(K8_BWD_SUM,))
             rec["plain_ms"] = auto_ms(lambda: k8.conv1d_causal_bwd_plain(
                 x, w, dy, bias=bias, act=act), 30.0)
             xl = x.transpose(1, 2).contiguous().requires_grad_()
@@ -5826,7 +5878,10 @@ def conv1d_bwd_signatures(device):
             flops = (6.0 * kw + 8.0) * b * l * d
             rec["bound_ms"], rec["bound_by"] = bound_for(flops, nbytes,
                                                          dtype)
+            rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+            rec["vec_bound_share"] = rec["bound_ms"] / rec["vec_device_ms"]
             rec["gb_per_s"] = nbytes / rec["device_ms"] / 1e6
+            rec["aim_met"] = rec["bound_share"] >= 0.5
             del xl, wl, leaves, y, dyl, lib
         rows.append(rec)
 
@@ -5838,10 +5893,20 @@ def conv1d_bwd_signatures(device):
               + f" {col('ms')} {col('device_ms')} {col('plain_ms')} "
               f"{col('library_ms')} {col('bound_ms')} "
               f"{rec.get('bound_by', '')}"
+              + (f"  (vec forced {'  '.join(f'{r:.1e}' for r in vrels)})"
+                 if path == "tile" else "")
               + (f"  ({rec['gb_per_s']:.0f} GB/s by device time; cuDNN's "
                  f"dx vs plain {rec['library_rel_err']:.1e}; "
                  f"{rec['traced_launches']} of 5 calls traced)"
                  if timed else ""))
+        if timed:
+            print(f"    tile {rec['plan']}: {rec['ms']:.4f} ms by events, "
+                  f"{rec['device_ms']:.4f} device, {rec['bound_share']:.3f} "
+                  f"of the bound; vec forced {rec['vec_ms']:.4f} / "
+                  f"{rec['vec_device_ms']:.4f}, {rec['vec_bound_share']:.3f}"
+                  f"; aim (at least half the bound, <= "
+                  f"{2 * rec['bound_ms']:.4f} ms device): "
+                  f"{'met' if rec['aim_met'] else 'not met'}")
         del x, w, bias, dy, plain, got
     print("  per-shape JSON:", json.dumps(rows))
     return rows
@@ -5883,18 +5948,25 @@ def moe_bwd_signatures(device):
     for a random 2 x 512 batch (``moe_train_plan``: -1 tail tiles and an
     expert with no rows, forced where the batch has none), at the cut's
     gate/up shape (D 8192 -> F 24576; gate and up share it) and down shape
-    (24576 -> 8192) in bf16, at D 256 -> F 512 in f32, and at K9's tail
-    case (T, D, F multiples of no block, bm 16, a -1 tile) in both dtypes:
-    route (``route_bwd``, held), rows of -1 tiles and the empty expert's
-    dweights exactly zero.  At the cut's shapes: CUDA-event ms, profiler
-    device ms (the dtokens and dweights kernels apart), the plain version,
-    the library yardstick (``torch.bmm`` over the capacity-padded experts
-    for both products, (E, C, F) x (E, F, D) and (E, D, C) x (E, C, F);
-    used only here) and the bound: 4 x routed rows x D x F operations at
-    989 TFLOP/s, or the bytes (tokens and dout read on the rows of tiles
-    with an expert, dtokens written on every row, the weights of the
-    experts that have tiles read, every expert's dweights written), whichever
-    is larger."""
+    (24576 -> 8192) in bf16, at the same rows in tiles of 64 (each tile of
+    128 halved; D 1032 -> F 1544, ragged against the dweights boxes), at D
+    256 -> F 512 in f32, and at K9's tail case (T, D, F multiples of no
+    block, bm 16, a -1 tile) in both dtypes: route (``route_bwd``, held:
+    "wgmma" for the bf16 cases at bm 64 and 128, "mma" for the bf16 tail,
+    "simt" for f32), rows of -1 tiles and the empty expert's dweights
+    exactly zero.  On every wgmma case the mma route it took over is forced
+    on the same inputs and held the same way.  At the cut's shapes, on both
+    routes: CUDA-event ms and profiler device ms (the dtokens and dweights
+    kernels apart) and the share of the bound; then the plain version, the
+    library yardstick (``torch.bmm`` over the capacity-padded experts for
+    both products, (E, C, F) x (E, F, D) and (E, D, C) x (E, C, F); used
+    only here) and the bound: 4 x routed rows x D x F operations at 989
+    TFLOP/s, or the bytes (tokens and dout read on the rows of tiles with
+    an expert, dtokens written on every row, the weights of the experts
+    that have tiles read, every expert's dweights written), whichever is
+    larger.  The wgmma route's verdict at gate/up against its aim (no
+    slower than ``torch.bmm``, at least half its bound) is printed, not
+    held."""
     import torch
     from repro_torch.kernels import moe_gmm as k9
     from repro_torch.nn import moe
@@ -5912,13 +5984,18 @@ def moe_bwd_signatures(device):
           f"{empty}" + (f" (expert {forced}'s choices moved to expert "
                         f"{MOE_TRAIN_HELD} to make one)" if forced is not None
                         else "") + f"; limits {BF16_REL_TOL} bf16, "
-          f"{KERNEL_REL_TOL} f32 of max |plain| on dtokens and dweights:")
+          f"{KERNEL_REL_TOL} f32 of max |plain| on dtokens and dweights; "
+          f"mma forced beside each wgmma case:")
     check(-1 in ids and bool(empty), f"the plan has no -1 tile or no empty "
           f"expert: {ids}")
+    check(bm == 128, f"the plan's tiles are of {bm} rows, not 128")
     counter = Counter(k9, "launches_bwd")
+    halved = tile_eid.repeat_interleave(2)[:-(-t // (bm // 2))]
     cases = [("gate/up", t, MOE_D, MOE_F, MOE_TRAIN_HELD, bm, tile_eid,
               torch.bfloat16),
              ("down", t, MOE_F, MOE_D, MOE_TRAIN_HELD, bm, tile_eid,
+              torch.bfloat16),
+             ("bm64", t, *MOE_TRAIN_BM64, MOE_TRAIN_HELD, bm // 2, halved,
               torch.bfloat16),
              ("small", t, *MOE_TRAIN_SMALL, MOE_TRAIN_HELD, bm, tile_eid,
               torch.float32)]
@@ -5940,39 +6017,64 @@ def moe_bwd_signatures(device):
                    * d ** -0.5).to(dtype)
         dout = (torch.randn((t_, f), generator=gen, device=device)
                 * keep).to(dtype)
-        path = k9.route_bwd(tokens, weights)
-        want = "mma" if dtype == torch.bfloat16 else "simt"
-        check(path == want, f"K9' takes the {path} route at {name} {dtype}")
+        path = k9.route_bwd(tokens, weights, bm_, dout)
+        want = "simt" if dtype == torch.float32 else \
+            "mma" if name == "tail" else "wgmma"
+        check(path == want, f"K9' takes the {path} route at {name} {dtype}, "
+              f"expected {want}")
         tol = BF16_REL_TOL if dtype == torch.bfloat16 else KERNEL_REL_TOL
         what = f"K9' at {name} {dtype}"
         plain = k9.moe_gmm_bwd_plain(tokens, weights, eid, dout, bm=bm_)
+        eid_l = eid.tolist()
+        dead = [r for r in range(t_) if eid_l[r // bm_] < 0]
 
         def run():
             return k9.moe_gmm_bwd(tokens, weights, eid, dout, bm=bm_)
-        before = (k9.launches_bwd, k9.launches_bwd_mma)
-        got, rels, abss = _held_twice(run, plain, tol, what)
-        check((k9.launches_bwd - before[0], k9.launches_bwd_mma - before[1])
-              == (2, 2 if path == "mma" else 0), "K9' launch counts")
-        eid_l = eid.tolist()
-        dead = [r for r in range(t_) if eid_l[r // bm_] < 0]
-        check(not bool(got[0][dead].any()) if dead else True,
-              f"{what}: rows of -1 tiles got a nonzero dtokens")
-        for h in range(e):
-            if h not in eid_l:
-                check(not bool(got[1][h].any()), f"{what}: expert {h} has "
-                      f"no rows but a nonzero dweights")
+
+        def held(label, route):
+            before = (k9.launches_bwd, k9.launches_bwd_mma,
+                      k9.launches_bwd_wgmma)
+            got_, rels_, abss_ = _held_twice(run, plain, tol, label)
+            check((k9.launches_bwd - before[0],
+                   k9.launches_bwd_mma - before[1],
+                   k9.launches_bwd_wgmma - before[2])
+                  == (2, 2 * (route == "mma"), 2 * (route == "wgmma")),
+                  f"{label}: launch counts")
+            check(not bool(got_[0][dead].any()) if dead else True,
+                  f"{label}: rows of -1 tiles got a nonzero dtokens")
+            for h in range(e):
+                if h not in eid_l:
+                    check(not bool(got_[1][h].any()), f"{label}: expert {h} "
+                          f"has no rows but a nonzero dweights")
+            return got_, rels_, abss_
+        got, rels, abss = held(what, path)
         rec = dict(case=name, dtype=str(dtype).removeprefix("torch."), t=t_,
                    d=d, f=f, e=e, bm=bm_, route=path, tile_eid=eid_l,
                    rel_err=dict(dtokens=rels[0], dweights=rels[1]),
                    max_rel_err=max(rels), max_abs_err=max(abss),
                    same_bits=True)
+        if path == "wgmma":
+            with returning(k9, "route_bwd", "mma"):
+                _, mrels, mabss = held(f"{what}, mma forced", "mma")
+            rec["mma_rel_err"] = dict(dtokens=mrels[0], dweights=mrels[1])
+            rec["max_rel_err"] = max(max(rels), max(mrels))
+            rec["max_abs_err"] = max(max(abss), max(mabss))
+
+        def traced(key):
+            trace = trace_device(lambda i: run(), 5, {
+                K9_BWD_NEEDLE: counter,
+                K9_BWD_DW: Counter(k9, key)}, sync_each=True)
+            dx_ms = device_ms_of(trace, K9_BWD_NEEDLE)
+            dw_ms = device_ms_of(trace, K9_BWD_DW)
+            return dx_ms + dw_ms, dx_ms, dw_ms
         if name in ("gate/up", "down"):
             rec["ms"] = auto_ms(run)
-            trace = trace_device(lambda i: run(), 5, {K9_BWD_NEEDLE: counter},
-                                 sync_each=True)
-            rec["dx_ms"] = device_ms_of(trace, K9_BWD_NEEDLE)
-            rec["dw_ms"] = device_ms_of(trace, K9_BWD_DW)
-            rec["device_ms"] = rec["dx_ms"] + rec["dw_ms"]
+            rec["device_ms"], rec["dx_ms"], rec["dw_ms"] = traced(
+                "launches_bwd")
+            with returning(k9, "route_bwd", "mma"):
+                rec["mma_ms"] = auto_ms(run)
+                rec["mma_device_ms"], rec["mma_dx_ms"], rec["mma_dw_ms"] = \
+                    traced("launches_bwd_mma")
             rec["plain_ms"] = auto_ms(lambda: k9.moe_gmm_bwd_plain(
                 tokens, weights, eid, dout, bm=bm_), 30.0)
             # the layer's groups of min(GROUP_SIZE, L) tokens, 2 of them
@@ -6002,6 +6104,10 @@ def moe_bwd_signatures(device):
             rec["bytes_bound_ms"] = nbytes / 3.35e12 * 1e3
             rec["routed_rows"] = routed
             rec["tflops"] = flops / rec["device_ms"] / 1e9
+            rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+            rec["mma_bound_share"] = rec["bound_ms"] / rec["mma_device_ms"]
+            rec["aim_met"] = (rec["device_ms"] <= rec["library_ms"]
+                              and rec["bound_share"] >= 0.5)
             del tok_p, dout_p
         rows.append(rec)
 
@@ -6015,10 +6121,24 @@ def moe_bwd_signatures(device):
               f"{rels[1]:.1e} {col('ms')} {dev} {col('plain_ms')} "
               f"{col('library_ms')} {col('bound_ms')} "
               f"{rec.get('bound_by', '')}"
+              + (f"  (mma forced {mrels[0]:.1e}  {mrels[1]:.1e})"
+                 if path == "wgmma" else "")
               + (f"  (operations {rec['ops_bound_ms']:.4f} ms, bytes "
                  f"{rec['bytes_bound_ms']:.4f} ms; {rec['tflops']:.1f} "
                  f"TFLOP/s by device time on {routed} routed rows)"
                  if "ms" in rec else ""))
+        if "ms" in rec:
+            print(f"    wgmma {rec['ms']:.4f} ms by events, "
+                  f"{rec['device_ms']:.4f} device, {rec['bound_share']:.3f} "
+                  f"of the bound; mma forced {rec['mma_ms']:.4f} / "
+                  f"{rec['mma_device_ms']:.4f} (dtokens "
+                  f"{rec['mma_dx_ms']:.4f}, dweights {rec['mma_dw_ms']:.4f})"
+                  f", {rec['mma_bound_share']:.3f}"
+                  + (f"; aim (no slower than torch.bmm's "
+                     f"{rec['library_ms']:.4f} ms, at least half the bound: "
+                     f"<= {2 * rec['bound_ms']:.4f} ms device): "
+                     f"{'met' if rec['aim_met'] else 'not met'}"
+                     if name == "gate/up" else ""))
         del tokens, weights, dout, plain, got
     print("  per-case JSON:", json.dumps(rows))
     return rows
@@ -6060,7 +6180,7 @@ def hybrid_training(device):
     K7, K8, K9 and their backwards set to 0 just before and read just after
     (the forwards HYBRID_FORWARDS times a step under remat, each backward
     once a call; K9 on its wgmma route, K7 and its backward on theirs, K8
-    on its tile route, K8' on its vec route, K9' on its mma route), step
+    on its tile route, K8' on its tile route, K9' on its wgmma route), step
     ms (p50, max), tokens/s and each loss (finite, the last below the
     first); one
     step under the profiler (each kernel's recorded launches held to its
@@ -6135,7 +6255,7 @@ def hybrid_training(device):
     mods = {"k7": k7, "k8": k8, "k9": k9}
     names = ("launches", "launches_bwd", "launches_wgmma",
              "launches_bwd_wgmma", "launches_tile", "launches_bwd_vec",
-             "launches_bwd_mma")
+             "launches_bwd_tile", "launches_bwd_mma")
     for mod in mods.values():
         for name in names:
             if hasattr(mod, name):
@@ -6159,9 +6279,11 @@ def hybrid_training(device):
     want["k7.launches_wgmma"] = want["k7.launches"]
     want["k7.launches_bwd_wgmma"] = want["k7.launches_bwd"]
     want["k8.launches_tile"] = want["k8.launches"]
-    want["k8.launches_bwd_vec"] = want["k8.launches_bwd"]
+    want["k8.launches_bwd_tile"] = want["k8.launches_bwd"]
+    want["k8.launches_bwd_vec"] = 0
     want["k9.launches_wgmma"] = want["k9.launches"]
-    want["k9.launches_bwd_mma"] = want["k9.launches_bwd"]
+    want["k9.launches_bwd_wgmma"] = want["k9.launches_bwd"]
+    want["k9.launches_bwd_mma"] = 0
     p50 = float(np.median(step_ms))
     print(f"  {n} timed steps: p50 {p50:.3f} ms, max {max(step_ms):.3f} ms "
           f"({[f'{x:.1f}' for x in step_ms]}); {b * l / p50 * 1e3:.0f} "
@@ -6178,8 +6300,10 @@ def hybrid_training(device):
     trace = trace_device(lambda i: step(state, batch), 1, {
         "conv1d_causal_kernel": k8,
         K8_BWD_NEEDLE: Counter(k8, "launches_bwd"),
+        K8_BWD_TILE: Counter(k8, "launches_bwd_tile"),
         "moe_gmm_kernel": k9,
         K9_BWD_NEEDLE: Counter(k9, "launches_bwd"),
+        K9_BWD_WGMMA: Counter(k9, "launches_bwd_wgmma"),
         "flash_attention_kernel": k7,
         K7_BWD_NEEDLE: K7_BWD})
     groups = {"k8_fwd": device_ms_of(trace, "conv1d_causal_kernel"),
@@ -6248,7 +6372,6 @@ def hybrid_training_phase(device) -> dict:
                                       runs=((1, "sgd"),)))
     summary["parity"] = parity
     summary["phase_s"] = time.perf_counter() - t0
-    print(f"  phase 31 in {summary['phase_s']:.1f}s")
     return dict(conv_rows=conv_rows, moe_rows=moe_rows, counts=counts,
                 summary=summary)
 
@@ -6287,48 +6410,63 @@ def main() -> int:
     cold = tempfile.TemporaryDirectory()
     os.environ["REPRO_TUNE_CACHE"] = os.path.join(cold.name, "cold.json")
     t_start = time.perf_counter()
-    card, device = header()
+    with phase("1 (header, kernel builds)"):
+        card, device = header()
     sigs = serving_signatures()
-    rows = kernel_signatures(device, sigs)
-    engine, serve_launches, f32_stats = serving(device)
-    serve = totals(rows)
-    breakdown(engine, serve["ms"])
-    parity(engine)
+    with phase("2 (K1 serving signatures)"):
+        rows = kernel_signatures(device, sigs)
+    with phase("3 (ResNet-50 serving)"):
+        engine, serve_launches, f32_stats = serving(device)
+        serve = totals(rows)
+        breakdown(engine, serve["ms"])
+    with phase("4 (serving parity)"):
+        parity(engine)
     params = serve_params = engine.params
     del engine
     torch.cuda.empty_cache()
 
-    q8_rows = q8_signatures(device, sigs, rows)
+    with phase("5 (K3 signatures)"):
+        q8_rows = q8_signatures(device, sigs, rows)
     k3 = totals(q8_rows)
     k3_lib_convs_ms = sum(r["ms"] * r["count"] for r in q8_rows
                           if r["library_ms"] is not None)
-    engine, q8_launches, q8_stats = int8_serving(device, params, f32_stats)
-    q8_step = int8_breakdown(engine, k3["ms"])
-    q8_parity = int8_parity(engine)
+    with phase("6 (int8 serving)"):
+        engine, q8_launches, q8_stats = int8_serving(device, params,
+                                                     f32_stats)
+        q8_step = int8_breakdown(engine, k3["ms"])
+    with phase("7 (int8 parity)"):
+        q8_parity = int8_parity(engine)
     # phase 3's params and phase 6's quantized tree serve phases 23 and 24
     q8_gxm, qparams = engine.gxm, engine.qparams
     del engine
     torch.cuda.empty_cache()
-    inception = inception_serving(device, f32_stats, q8_stats)
+    with phase("7b (Inception-v3 serving)"):
+        inception = inception_serving(device, f32_stats, q8_stats)
 
     fwd, dual, wu = training_signatures(build_etg(resnet50()))
     check((sum(fwd.values()), sum(dual.values()), len(dual), len(wu)) ==
           (52, 61, 31, 22), "ResNet-50's training signatures are not the "
           "52 forward, 61 (31 distinct) dual and 22 weight-update ones")
-    k1_rows = train_k1_signatures(device, fwd, dual)
-    wu_rows = wu_signatures(device, wu)
-    train_counts, summary = training(device, fwd, dual, wu)
+    with phase("8 (K1 training signatures)"):
+        k1_rows = train_k1_signatures(device, fwd, dual)
+    with phase("9 (K2 signatures)"):
+        wu_rows = wu_signatures(device, wu)
+    with phase("10 (ResNet-50 training)"):
+        train_counts, summary = training(device, fwd, dual, wu)
     k1_fwd = totals([r for r in k1_rows if r["role"] == "fwd"])
     k1_dual = totals([r for r in k1_rows if r["role"] == "dual"])
     k2 = totals(wu_rows)
     print(f"  per step from the CUDA-event times x launches: K1 forward "
           f"{k1_fwd['ms']:.3f} ms + dual {k1_dual['ms']:.3f} ms, K2 "
           f"{k2['ms']:.3f} ms; of a {summary['step_ms']:.3f} ms step")
-    summary["parity"] = train_parity(device)
+    with phase("11 (training parity)"):
+        summary["parity"] = train_parity(device)
     torch.cuda.empty_cache()
 
-    k4_rows = streams_signatures(device, sigs)
-    tuned_rows, tuned = tuned_replay(device, sigs, k4_rows)
+    with phase("12 (K4 signatures)"):
+        k4_rows = streams_signatures(device, sigs)
+    with phase("13 (tuned replay)"):
+        tuned_rows, tuned = tuned_replay(device, sigs, k4_rows)
     k4_analytic = totals(k4_rows)
     k4_tuned = totals(tuned_rows)
 
@@ -6351,7 +6489,8 @@ def main() -> int:
           f"{k4_analytic['bound_ms']:.3f} ({k4_analytic['bound_by']}, f32 "
           f"SIMT), {weighted(k4_rows, 'mma_bound_ms'):.3f} (3xTF32)")
     torch.cuda.empty_cache()
-    planned = plan_tuning(device, sigs, fwd, dual, wu, serve_params)
+    with phase("13b (plan tuning)"):
+        planned = plan_tuning(device, sigs, fwd, dual, wu, serve_params)
     torch.cuda.empty_cache()
 
     from repro_torch.configs import get_config
@@ -6359,76 +6498,99 @@ def main() -> int:
     from repro_torch.kernels import conv1d_causal as k8
     from repro_torch.kernels import moe_gmm as k9
 
-    attn_rows = attention_signatures(device)
-    mm_rows, mm_launches, mm_ragged = matmul_signatures(device)
-    lm_launches, lm_summary, params, _ = lm_serving(
-        device, LM_ARCH, (28, 1536, 12, 2, 128, 8960, 151936, "bfloat16"),
-        {"flash_attention": (k7, "flash_attention_kernel", 28, 0)},
-        {"flash_attention": (28, 0)})
-    del params
+    with phase("14 (K7 signatures)"):
+        attn_rows = attention_signatures(device)
+    with phase("15 (K6 signatures)"):
+        mm_rows, mm_launches, mm_ragged = matmul_signatures(device)
+    with phase("16 (Qwen2-1.5B serving)"):
+        lm_launches, lm_summary, params, _ = lm_serving(
+            device, LM_ARCH,
+            (28, 1536, 12, 2, 128, 8960, 151936, "bfloat16"),
+            {"flash_attention": (k7, "flash_attention_kernel", 28, 0)},
+            {"flash_attention": (28, 0)})
+        del params
     torch.cuda.empty_cache()
-    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
-    lm_summary["parity"] = lm_parity(init_on_card(cfg), cfg,
-                                     LM_PARITY_PROMPTS)
+    with phase("17 (Qwen2-1.5B parity)"):
+        cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+        lm_summary["parity"] = lm_parity(init_on_card(cfg), cfg,
+                                         LM_PARITY_PROMPTS)
     torch.cuda.empty_cache()
 
-    conv_rows = conv1d_signatures(device)
-    moe_rows, one_expert_ratio = moe_signatures(device)
+    with phase("18 (K8 signatures)"):
+        conv_rows = conv1d_signatures(device)
+    with phase("18b (K9 signatures)"):
+        moe_rows, one_expert_ratio = moe_signatures(device)
     torch.cuda.empty_cache()
     # the cut's period: 7 Mamba + 1 attention mixers, 4 MoE MLPs of 3 K9
     # products each, in every forward and every decode step
-    hy_launches, hy_summary, params, cfg = lm_serving(
-        device, HYBRID_ARCH, HYBRID_WIDTHS,
-        {"conv1d_causal": (k8, "conv1d_causal_kernel", 7, 0),
-         "flash_attention": (k7, "flash_attention_kernel", 1, 0),
-         "moe_gmm": (k9, "moe_gmm_kernel", 12, 12)},
-        {"flash_attention": (1, 0), "moe_gmm": (12, 0)},
-        {"conv1d_causal": ("launches_tile", "_tile", 7, 0)})
-    bf16 = decode_vs_forward(params, cfg)
-    print(f"  bf16: {bf16['rel']:.3e} of max |logit|, printed and not held "
-          f"to {BF16_DECODE_REL_TOL}: this random-weight model moves its "
-          f"logits by more than that under any other rounding of its bf16 "
-          f"activations (PERF.md section 5); the f32 model below is held "
-          f"to {DECODE_REL_TOL}")
-    del params
-    torch.cuda.empty_cache()
-    cfg, available_gb = hybrid_parity_cfg()
-    params = init_on_card(cfg)
-    f32 = decode_vs_forward(params, cfg)
-    check(f32["rel"] <= DECODE_REL_TOL,
-          f"f32 decode differs from forward by {f32['rel']:.3e} > "
-          f"{DECODE_REL_TOL} of max |logit|")
+    with phase("19 (hybrid serving)"):
+        hy_launches, hy_summary, params, cfg = lm_serving(
+            device, HYBRID_ARCH, HYBRID_WIDTHS,
+            {"conv1d_causal": (k8, "conv1d_causal_kernel", 7, 0),
+             "flash_attention": (k7, "flash_attention_kernel", 1, 0),
+             "moe_gmm": (k9, "moe_gmm_kernel", 12, 12)},
+            {"flash_attention": (1, 0), "moe_gmm": (12, 0)},
+            {"conv1d_causal": ("launches_tile", "_tile", 7, 0)})
+    with phase("20 (decode vs forward)"):
+        bf16 = decode_vs_forward(params, cfg)
+        print(f"  bf16: {bf16['rel']:.3e} of max |logit|, printed and not "
+              f"held to {BF16_DECODE_REL_TOL}: this random-weight model "
+              f"moves its logits by more than that under any other rounding "
+              f"of its bf16 activations (PERF.md section 5); the f32 model "
+              f"below is held to {DECODE_REL_TOL}")
+        del params
+        torch.cuda.empty_cache()
+        cfg, available_gb = hybrid_parity_cfg()
+        params = init_on_card(cfg)
+        f32 = decode_vs_forward(params, cfg)
+        check(f32["rel"] <= DECODE_REL_TOL,
+              f"f32 decode differs from forward by {f32['rel']:.3e} > "
+              f"{DECODE_REL_TOL} of max |logit|")
     hy_summary["decode_vs_forward"] = dict(bfloat16=bf16, float32=f32)
-    hy_summary["parity"] = dict(lm_parity(params, cfg, HYBRID_PARITY_PROMPTS),
-                                expert_share=cfg.moe.expert_share,
-                                host_available_gb=available_gb)
-    del params
+    with phase("21 (hybrid parity)"):
+        hy_summary["parity"] = dict(
+            lm_parity(params, cfg, HYBRID_PARITY_PROMPTS),
+            expert_share=cfg.moe.expert_share,
+            host_available_gb=available_gb)
+        del params
     torch.cuda.empty_cache()
 
-    whole_rows = whole_signatures(device, sigs, rows)
-    whole_launches, whole_summary = whole_serving(device, serve_params)
-    k10c_rows, k10c_launches, k10c_summary = whole_q8(device, sigs, q8_rows,
-                                                      q8_gxm, qparams)
-    chains = chains_phase(device, serve_params, q8_gxm, qparams)
-    whole_planned = whole_plan_tuning(device, sigs, fwd, dual, wu,
-                                      serve_params)
+    with phase("22 (K10a signatures)"):
+        whole_rows = whole_signatures(device, sigs, rows)
+    with phase("23 (whole-plane serving)"):
+        whole_launches, whole_summary = whole_serving(device, serve_params)
+    with phase("24 (K10c signatures)"):
+        k10c_rows, k10c_launches, k10c_summary = whole_q8(
+            device, sigs, q8_rows, q8_gxm, qparams)
+    with phase("24b (chains)"):
+        chains = chains_phase(device, serve_params, q8_gxm, qparams)
+    with phase("24c (whole blockings tuned)"):
+        whole_planned = whole_plan_tuning(device, sigs, fwd, dual, wu,
+                                          serve_params)
     del serve_params, q8_gxm, qparams
     torch.cuda.empty_cache()
-    k10b_rows = whole_wu(device, wu, wu_rows)
-    whole_counts, whole_train = whole_training(device, fwd, dual, wu,
-                                               summary)
-    whole_train["parity"] = train_parity(device, "whole")
+    with phase("25 (K10b signatures)"):
+        k10b_rows = whole_wu(device, wu, wu_rows)
+    with phase("26 (whole-plane training)"):
+        whole_counts, whole_train = whole_training(device, fwd, dual, wu,
+                                                   summary)
+        whole_train["parity"] = train_parity(device, "whole")
     torch.cuda.empty_cache()
-    pool, pool_launches = pool_phase(device)
+    with phase("27 (K5)"):
+        pool, pool_launches = pool_phase(device)
     torch.cuda.empty_cache()
 
-    bwd_rows = attention_bwd_signatures(device)
-    (train_fwd, train_bwd), lm_train = lm_training(device)
-    lm_train["parity"] = lm_train_parity(
-        dataclasses.replace(get_config(TRAIN_ARCH), **TRAIN_PARITY),
-        TRAIN_PARITY_BATCH)
-    rwkv = rwkv_phase(device)
-    hybrid_train = hybrid_training_phase(device)
+    with phase("28 (K7 backward signatures)"):
+        bwd_rows = attention_bwd_signatures(device)
+    with phase("29 (Qwen2-1.5B training)"):
+        (train_fwd, train_bwd), lm_train = lm_training(device)
+        lm_train["parity"] = lm_train_parity(
+            dataclasses.replace(get_config(TRAIN_ARCH), **TRAIN_PARITY),
+            TRAIN_PARITY_BATCH)
+    with phase("30 (RWKV-6)"):
+        rwkv = rwkv_phase(device)
+    with phase("31 (hybrid and MoE training)"):
+        hybrid_train = hybrid_training_phase(device)
     hy_train = hybrid_train["counts"]
     k10a = totals(whole_rows)
     k10b = totals(k10b_rows)
@@ -6445,7 +6607,11 @@ def main() -> int:
           f"kernel-start minus launch-call time {TRACES[0][2]} ms in the "
           f"first ({TRACES[0][0]:.0f} s in), {TRACES[-1][2]} ms in the last "
           f"({TRACES[-1][0]:.0f} s in), {min(lags)} ms at least")
-    print(f"all phases in {time.perf_counter() - t_start:.1f}s")
+    total_s = time.perf_counter() - t_start
+    print(f"all phases in {total_s:.1f}s of the {RUN_BUDGET_S} s budget "
+          f"({total_s / RUN_BUDGET_S:.3f}); by phase: "
+          + ", ".join(f"{name} {sec:.1f}s"
+                      for name, sec in PHASE_SECONDS.items()))
 
     def timing(d):
         return {key: d[key] for key in ("ms", "plain_ms", "library_ms",
@@ -6811,6 +6977,7 @@ def main() -> int:
                        "(src/repro/kernels/ref.py:134), the function K8 "
                        "(src/repro/kernels/conv1d_causal.py:43) computes",
         "launches": hy_train["k8.launches_bwd"],
+        "launches_tile": hy_train["k8.launches_bwd_tile"],
         "launches_vec": hy_train["k8.launches_bwd_vec"],
         "launches_by_path": {"hybrid_training": hy_train["k8.launches_bwd"],
                              "per_training_step": 1},
@@ -6820,17 +6987,26 @@ def main() -> int:
                            for r_ in hybrid_train["conv_rows"]),
         **{key: k8_bwd[key] for key in ("ms", "plain_ms", "library_ms",
                                         "bound_ms", "bound_by",
-                                        "device_ms")},
+                                        "device_ms", "bound_share",
+                                        "plan")},
+        "kernel_route": k8_bwd["route"],
+        "vec_forced": {"ms": k8_bwd["vec_ms"],
+                       "device_ms": k8_bwd["vec_device_ms"]},
         "training_step_device_ms": hy_sum["profile"]["groups_ms"]["k8_bwd"],
-        "routes": {"D and x's strides multiples of 4, operands aligned":
-                   "vec (4 channels a thread)", "the rest": "thread (one "
-                   "channel a thread)"},
+        "routes": {"rows on 16-byte boundaries (f32, bf16)": "tile (32 "
+                   "threads along D x warps along L, each warp's walk "
+                   "streamed through a cp.async ring, the warps' dw and db "
+                   "added in shared memory in warp order)", "D and x's "
+                   "strides multiples of 4, operands aligned": "vec (4 "
+                   "channels a thread)", "the rest": "thread (one channel a "
+                   "thread)"},
         "per": "one call at the training cut's Mamba shape: batch 2, 512 "
                "tokens, d_inner 16384, 4 taps, bias and SiLU, bf16, x read "
-               "in place from the input projection (both kernels: the walk "
-               "and the fixed-order sum of dw and db; 1 call per training "
-               "step); library: autograd of cuDNN's depthwise F.conv1d and "
-               "SiLU",
+               "in place from the input projection, the tile route (both "
+               "kernels: the walk and the fixed-order sum of dw and db; 1 "
+               "call per training step); vec_forced: the first kernel on "
+               "the same inputs; library: autograd of cuDNN's depthwise "
+               "F.conv1d and SiLU",
         "card": card,
     })
     k9_bwd = {r_["case"]: r_ for r_ in hybrid_train["moe_rows"]
@@ -6845,6 +7021,7 @@ def main() -> int:
                        "(src/repro/kernels/ref.py:217), the function K9 "
                        "(src/repro/kernels/moe_gmm.py:61) computes",
         "launches": hy_train["k9.launches_bwd"],
+        "launches_wgmma": hy_train["k9.launches_bwd_wgmma"],
         "launches_mma": hy_train["k9.launches_bwd_mma"],
         "launches_by_path": {"hybrid_training": hy_train["k9.launches_bwd"],
                              "per_training_step": 3},
@@ -6855,21 +7032,31 @@ def main() -> int:
         **{key: k9_bwd["gate/up"][key] for key in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "device_ms", "dx_ms", "dw_ms", "ops_bound_ms", "bytes_bound_ms",
-            "routed_rows")},
+            "routed_rows", "bound_share", "aim_met")},
+        "kernel_route": k9_bwd["gate/up"]["route"],
+        "mma_forced": {key: k9_bwd["gate/up"][f"mma_{key}"] for key in (
+            "ms", "device_ms", "dx_ms", "dw_ms")},
         "down": {key: k9_bwd["down"][key] for key in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "device_ms", "dx_ms", "dw_ms")},
+            "device_ms", "dx_ms", "dw_ms", "mma_ms", "mma_device_ms")},
         "training_step_device_ms": hy_sum["profile"]["groups_ms"]["k9_bwd"],
-        "routes": {"bfloat16": "mma (mma.sync m16n8k16 bf16: a dtokens "
-                   "kernel reading the weights as they lie, a dweights "
-                   "kernel walking each expert's tiles)",
+        "routes": {"bfloat16, bm a multiple of 64, D and F multiples of 8, "
+                   "16-byte aligned": "wgmma (TMA + wgmma bf16: a dtokens "
+                   "kernel reading the weights K-major through a 3-D tensor "
+                   "map, a persistent dweights kernel walking (expert, D "
+                   "box, F box) items built on the card, its TMA stores "
+                   "overlapping the next item)",
+                   "other bfloat16": "mma (mma.sync m16n8k16 bf16: a "
+                   "dtokens kernel reading the weights as they lie, a "
+                   "dweights kernel walking each expert's tiles)",
                    "float32": "simt (f32 FMA)"},
         "per": "one call at the training cut's gate/up shape: the rows of "
                "one MoE layer for a 2 x 512 batch (tiles of 128, 4 of 16 "
                "experts held, -1 tiles and an expert with no rows), D 8192 "
-               "-> F 24576, bf16, dtokens and dweights (3 calls per training "
-               "step: gate, up, down); library: torch.bmm over the "
-               "capacity-padded experts for both products",
+               "-> F 24576, bf16, the wgmma route, dtokens and dweights (3 "
+               "calls per training step: gate, up, down); mma_forced: the "
+               "first kernels on the same inputs; library: torch.bmm over "
+               "the capacity-padded experts for both products",
         "card": card,
     })
     def dev_sum(rows_):
@@ -7014,6 +7201,8 @@ def main() -> int:
         "profile": {key: v for key, v in summary["profile"].items()
                     if key != "top"},
         "parity": summary["parity"]}))
+    print(json.dumps({"phases_s": PHASE_SECONDS, "total_s": total_s,
+                      "budget_s": RUN_BUDGET_S}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,6 +31,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "conv1d_tile.cuh"  // 16-byte cp.async staging, bf16 packing, rcp.approx
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -203,64 +205,6 @@ int launch(const Conv1dArgs& a, int kw, cudaStream_t s) {
 //     grid still reaches two blocks per SM (L 333 at batch 1 takes 32).
 constexpr int kTileRows = 8;     // rows of one ring stage
 constexpr int kTileStages = 3;   // ring stages
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ float rcp_approx(float v) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-// 16 bytes of T as f32 values, and back.
-__device__ __forceinline__ void unpack(const uint4& raw, float (&v)[4]) {
-  const float4 f = *reinterpret_cast<const float4*>(&raw);
-  v[0] = f.x;
-  v[1] = f.y;
-  v[2] = f.z;
-  v[3] = f.w;
-}
-
-__device__ __forceinline__ void unpack(const uint4& raw, float (&v)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ uint4 pack(const float (&v)[4]) {
-  uint4 raw;
-  *reinterpret_cast<float4*>(&raw) = make_float4(v[0], v[1], v[2], v[3]);
-  return raw;
-}
-
-__device__ __forceinline__ uint4 pack(const float (&v)[8]) {
-  uint4 raw;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  return raw;
-}
 
 // grid (ceil(D / (blockDim.x * VEC)), ceil(L / run), B); VEC = 16 /
 // sizeof(T); dynamic shared memory kTileStages * kTileRows * blockDim.x *

@@ -35,10 +35,39 @@
 //     conv1d_causal_bwd_sum_kernel adds each channel's partials in run
 //     order and rounds them to w's dtype.
 // Offsets are 64-bit.
+//
+// The "tile" route (conv1d_causal_bwd_kernel_tile), where every row of x,
+// w, bias and dy starts on a 16-byte boundary (kernels/conv1d_causal
+// .route_bwd, the forward's tile rule).  Same function, same order of each
+// sum within a thread.  The kernel above reached 34 % of its bytes bound at
+// the cut's shape (B 2, L 512, D 16384, KW 4, bf16): a thread had one 8-byte
+// load in flight, and its runs of 32 tokens wrote an f32 partial of 10.5
+// MB that the second pass read back (21 MB against the 100 MB the bound
+// counts).  So:
+//   * A block is 32 threads along D (16 bytes of channels each: a warp
+//     reads 512 contiguous bytes of a row) by `warps` warps along L; warp y
+//     walks its own sub-run of `sub` tokens of the block's run (warps x
+//     sub tokens), so the card holds many short walks while the partial
+//     has one row a block and run.  Each thread streams the x rows (with
+//     the KW - 1 halo rows on each side) and the dy rows of its walk
+//     through a ring of kBwdTileStages stages of kBwdTileRows rows in shared
+//     memory by 16-byte cp.async (zero-filled outside [0, L) and for the dy
+//     rows before the walk), so up to (kBwdTileStages - 1) x kBwdTileRows
+//     rows of each are in flight a thread; a thread reads back only what it
+//     copied, so the ring needs no barrier.
+//   * z is recomputed from the window in the forward's order; SiLU' takes
+//     __expf and rcp.approx (the forward's tile route); dx is written as
+//     packed bf16, 16 bytes a thread.
+//   * At the end the warps' dw and db sums meet in shared memory and are
+//     added in warp order (a fixed order) into the block's partial row;
+//     conv1d_causal_bwd_sum_kernel adds the rows in run order as above.
+//   Sub-runs and warps come from kernels/conv1d_causal.bwd_tile_plan.
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "conv1d_tile.cuh"  // 16-byte cp.async staging, bf16 packing, rcp.approx
 
 namespace {
 
@@ -242,6 +271,216 @@ conv1d_causal_bwd_sum_kernel(const float* part, T* dw, T* db, int kw, int d, int
   }
 }
 
+// ---- the "tile" route --------------------------------------------------------
+
+constexpr int kBwdTileThreads = 32;  // threads along D a block: one warp
+constexpr int kBwdTileRows = 4;      // rows of one ring stage
+constexpr int kBwdTileStages = 3;    // ring stages
+
+// grid (ceil(D / (32 * VEC)), ceil(L / (warps * sub)), B), block (32,
+// warps); VEC = 16 / sizeof(T); dynamic shared memory the larger of the
+// ring, kBwdTileStages * kBwdTileRows * 2 * 32 * warps * 16 bytes, and the
+// warps' sums, warps * (KW + 1) * 32 * VEC * 4 bytes.
+template <typename T, int KW>
+__global__ void __launch_bounds__(256)
+conv1d_causal_bwd_kernel_tile(const BwdArgs a, int sub) {
+  constexpr int VEC = 16 / sizeof(T);
+  extern __shared__ __align__(16) uint4 ring[];
+  const int tx = threadIdx.x, warp = threadIdx.y, warps = blockDim.y;
+  const int nthreads = kBwdTileThreads * warps;
+  const int tid = warp * kBwdTileThreads + tx;
+  const int64_t c0 = (static_cast<int64_t>(blockIdx.x) * kBwdTileThreads + tx) * VEC;
+  const bool live = c0 < a.d;
+  const int l0 = (blockIdx.y * warps + warp) * sub;  // this warp's walk
+  const int l1 = min(l0 + sub, a.l);
+  const T* x = static_cast<const T*>(a.x) + blockIdx.z * a.x_batch_stride + (live ? c0 : 0);
+  const int64_t plane = static_cast<int64_t>(blockIdx.z) * a.l * a.d + (live ? c0 : 0);
+  const T* dy = static_cast<const T*>(a.dy) + plane;
+  T* dx = static_cast<T*>(a.dx) + plane;
+
+  float wt[KW][VEC], bias[VEC];
+#pragma unroll
+  for (int i = 0; i < KW; ++i) {
+    if (live) {
+      unpack(__ldg(reinterpret_cast<const uint4*>(static_cast<const T*>(a.w) +
+                                                  static_cast<int64_t>(i) * a.d + c0)),
+             wt[i]);
+    } else {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) wt[i][v] = 0.f;
+    }
+  }
+  if (live && a.bias != nullptr) {
+    unpack(__ldg(reinterpret_cast<const uint4*>(static_cast<const T*>(a.bias) + c0)), bias);
+  } else {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) bias[v] = 0.f;
+  }
+
+  // Row j of the walk is token first + j: KW - 1 halo rows, the sub-run,
+  // KW - 1 halo rows; x for every row, dy from row KW - 1 on (token l0).
+  const int first = l0 - (KW - 1);
+  const int rows = l1 > l0 ? l1 + (KW - 1) - first : 0;
+  const int stages = (rows + kBwdTileRows - 1) / kBwdTileRows;
+  uint4* mine = ring + tid;
+  auto slot = [&](int st, int r, int which) {  // which: 0 x, 1 dy
+    return mine + ((st % kBwdTileStages) * kBwdTileRows * 2 + r * 2 + which) * nthreads;
+  };
+  auto load_stage = [&](int st) {
+#pragma unroll
+    for (int r = 0; r < kBwdTileRows; ++r) {
+      const int j = st * kBwdTileRows + r;
+      const int t = first + j;
+      const bool in = live && j < rows && t >= 0 && t < a.l;
+      cp_async16(slot(st, r, 0), in ? x + static_cast<int64_t>(t) * a.x_row_stride : x,
+                 in ? 16 : 0);
+      const bool in_dy = in && j >= KW - 1;
+      cp_async16(slot(st, r, 1), in_dy ? dy + static_cast<int64_t>(t) * a.d : dy,
+                 in_dy ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < kBwdTileStages - 1; ++st) {
+    if (st < stages) load_stage(st);
+    cp_async_commit();
+  }
+
+  // xw[i] holds x[s - KW + 1 + i], dzw[i] holds dz[s - KW + 1 + i]; entry
+  // KW - 1 is filled each step, then both shift by one.
+  float xw[KW][VEC], dzw[KW][VEC], dw[KW][VEC], db[VEC];
+#pragma unroll
+  for (int i = 0; i < KW; ++i)
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      xw[i][v] = 0.f;
+      dzw[i][v] = 0.f;
+      dw[i][v] = 0.f;
+    }
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) db[v] = 0.f;
+  for (int st = 0; st < stages; ++st) {
+    cp_async_wait<kBwdTileStages - 2>();  // stage st has landed
+    if (st + kBwdTileStages - 1 < stages) load_stage(st + kBwdTileStages - 1);
+    cp_async_commit();
+#pragma unroll
+    for (int r = 0; r < kBwdTileRows; ++r) {
+      const int j = st * kBwdTileRows + r;
+      if (j >= rows) break;
+#pragma unroll
+      for (int i = 0; i < KW - 1; ++i)
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          xw[i][v] = xw[i + 1][v];
+          dzw[i][v] = dzw[i + 1][v];
+        }
+      unpack(*slot(st, r, 0), xw[KW - 1]);
+      if (j < KW - 1) continue;  // a halo row before the walk
+      const int s = first + j;
+      float g[VEC];
+      unpack(*slot(st, r, 1), g);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        float dz = g[v];
+        if (a.act == kSilu) {
+          float z = 0.f;
+#pragma unroll
+          for (int i = 0; i < KW; ++i) z += xw[i][v] * wt[i][v];
+          z += bias[v];
+          const float sg = rcp_approx(1.f + __expf(-z));
+          dz = g[v] * (sg * (1.f + z * (1.f - sg)));
+        }
+        dzw[KW - 1][v] = dz;
+      }
+      if (s < l1) {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+#pragma unroll
+          for (int i = 0; i < KW; ++i) dw[i][v] += xw[i][v] * dzw[KW - 1][v];
+          db[v] += dzw[KW - 1][v];
+        }
+      }
+      const int t = s - (KW - 1);
+      if (t >= l0 && live) {
+        float out[VEC];
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          float acc = 0.f;
+#pragma unroll
+          for (int i = 0; i < KW; ++i) acc += wt[i][v] * dzw[KW - 1 - i][v];
+          out[v] = acc;
+        }
+        *reinterpret_cast<uint4*>(dx + static_cast<int64_t>(t) * a.d) = pack(out);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every thread is done with the ring
+
+  // the warps' sums in shared memory: (warp, row of KW + 1, column of
+  // 32 * VEC), then added in warp order into the block's partial row
+  constexpr int kCols = kBwdTileThreads * VEC;
+  float* sums = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int i = 0; i <= KW; ++i)
+#pragma unroll
+    for (int v = 0; v < VEC; ++v)
+      sums[(warp * (KW + 1) + i) * kCols + tx * VEC + v] = i < KW ? dw[i][v] : db[v];
+  __syncthreads();
+  const int64_t p = static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y;
+  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * kCols;
+  for (int k = tid; k < (KW + 1) * kCols; k += nthreads) {
+    const int i = k / kCols, col = k % kCols;
+    if (col0 + col >= a.d) continue;
+    float sum = 0.f;
+    for (int y = 0; y < warps; ++y) sum += sums[(y * (KW + 1) + i) * kCols + col];
+    a.part[(p * (KW + 1) + i) * a.d + col0 + col] = sum;
+  }
+}
+
+template <typename T, int KW>
+int launch_tile_taps(const BwdArgs& a, int sub, int warps, cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int64_t threads_d = (a.d + kVec - 1) / kVec;
+  const dim3 grid(static_cast<unsigned>((threads_d + kBwdTileThreads - 1) / kBwdTileThreads),
+                  static_cast<unsigned>((a.l + sub * warps - 1) / (sub * warps)),
+                  static_cast<unsigned>(a.b));
+  const int ring = kBwdTileStages * kBwdTileRows * 2 * kBwdTileThreads * warps * 16;
+  const int sums = warps * (KW + 1) * kBwdTileThreads * kVec * 4;
+  const int smem = ring > sums ? ring : sums;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        conv1d_causal_bwd_kernel_tile<T, KW>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  conv1d_causal_bwd_kernel_tile<T, KW><<<grid, dim3(kBwdTileThreads, warps), smem, s>>>(a, sub);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_tile(const BwdArgs& a, int kw, int sub, int warps, cudaStream_t s) {
+  switch (kw) {
+    case 1: return launch_tile_taps<T, 1>(a, sub, warps, s);
+    case 2: return launch_tile_taps<T, 2>(a, sub, warps, s);
+    case 3: return launch_tile_taps<T, 3>(a, sub, warps, s);
+    case 4: return launch_tile_taps<T, 4>(a, sub, warps, s);
+    case 5: return launch_tile_taps<T, 5>(a, sub, warps, s);
+    case 6: return launch_tile_taps<T, 6>(a, sub, warps, s);
+    case 7: return launch_tile_taps<T, 7>(a, sub, warps, s);
+    case 8: return launch_tile_taps<T, 8>(a, sub, warps, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int launch_sum(const BwdArgs& a, int kw, int parts, void* dw, void* db, cudaStream_t s) {
+  const int64_t outs = static_cast<int64_t>(kw + (a.bias != nullptr ? 1 : 0)) * a.d;
+  conv1d_causal_bwd_sum_kernel<T><<<static_cast<unsigned>((outs + kSumThreads - 1) / kSumThreads),
+                                    kSumThreads, 0, s>>>(
+      a.part, static_cast<T*>(dw), a.bias != nullptr ? static_cast<T*>(db) : nullptr, kw, a.d,
+      parts);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int VEC, int KW>
 int launch_taps(const BwdArgs& a, cudaStream_t s) {
   const int64_t threads_d = (a.d + VEC - 1) / VEC;
@@ -280,13 +519,7 @@ int launch(const BwdArgs& a, int kw, bool vec, void* dw, void* db, cudaStream_t 
     return static_cast<int>(cudaErrorInvalidValue);
   const int err = vec ? launch_vec<T, kVec>(a, kw, s) : launch_vec<T, 1>(a, kw, s);
   if (err != 0) return err;
-  const int parts = a.b * ((a.l + a.run - 1) / a.run);
-  const int64_t outs = static_cast<int64_t>(kw + (a.bias != nullptr ? 1 : 0)) * a.d;
-  conv1d_causal_bwd_sum_kernel<T><<<static_cast<unsigned>((outs + kSumThreads - 1) / kSumThreads),
-                                    kSumThreads, 0, s>>>(
-      a.part, static_cast<T*>(dw), a.bias != nullptr ? static_cast<T*>(db) : nullptr, kw, a.d,
-      parts);
-  return static_cast<int>(cudaGetLastError());
+  return launch_sum<T>(a, kw, a.b * ((a.l + a.run - 1) / a.run), dw, db, s);
 }
 
 }  // namespace
@@ -314,5 +547,42 @@ extern "C" int repro_conv1d_causal_bwd(const void* x, const void* w, const void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(a, kw, vec != 0, dw, db, s);
   if (dtype == 1) return launch<__nv_bfloat16>(a, kw, vec != 0, dw, db, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The "tile" route: as repro_conv1d_causal_bwd, for rows that start on
+// 16-byte boundaries (x, w, bias and dy 16-byte aligned, D and both of x's
+// strides multiples of 16 bytes; dx and part 16-byte aligned); part is
+// (B * ceil(L / (warps * sub)), KW + 1, D).  sub: tokens a warp walks;
+// warps: warps a block along L (1 to 8), from kernels/conv1d_causal
+// .bwd_tile_plan.  Launches the tile kernel and the sum kernel on `stream`
+// without synchronising; returns a cudaError_t (0 on success).
+extern "C" int repro_conv1d_causal_bwd_tile(const void* x, const void* w, const void* bias,
+                                            const void* dy, void* dx, void* dw, void* db,
+                                            float* part, long long x_batch_stride,
+                                            long long x_row_stride, int b, int l, int d, int kw,
+                                            int sub, int warps, int act, int dtype,
+                                            void* stream) {
+  const int vec = dtype == 0 ? 4 : 8;
+  if (b <= 0 || l <= 0 || d <= 0 || sub <= 0 || warps < 1 || warps > 8 || kw < 1 ||
+      kw > kMaxTaps || act < kNone || act > kSilu || b > 65535 ||
+      (l + sub * warps - 1) / (sub * warps) > 65535 || x == nullptr || w == nullptr ||
+      dy == nullptr || dx == nullptr || dw == nullptr || part == nullptr ||
+      (bias != nullptr && db == nullptr) || d % vec || x_batch_stride % vec ||
+      x_row_stride % vec || !aligned(x, 16) || !aligned(w, 16) || !aligned(bias, 16) ||
+      !aligned(dy, 16) || !aligned(dx, 16) || !aligned(part, 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdArgs a{x, w, bias, dy, dx, part, x_batch_stride, x_row_stride, b, l, d, sub, act};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int parts = b * ((l + sub * warps - 1) / (sub * warps));
+  int err;
+  if (dtype == 0) {
+    err = launch_tile<float>(a, kw, sub, warps, s);
+    return err != 0 ? err : launch_sum<float>(a, kw, parts, dw, db, s);
+  }
+  if (dtype == 1) {
+    err = launch_tile<__nv_bfloat16>(a, kw, sub, warps, s);
+    return err != 0 ? err : launch_sum<__nv_bfloat16>(a, kw, parts, dw, db, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

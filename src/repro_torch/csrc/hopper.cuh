@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the port's TMA + wgmma kernels (K6's bf16
 // route in matmul_fused.cu, K7's in flash_attention.cu and its backward's in
-// flash_attention_bwd.cu, K9's prefill route in moe_gmm.cu): mbarriers, TMA loads and stores, 128-byte-swizzle
+// flash_attention_bwd.cu, K9's prefill route in moe_gmm.cu and its
+// backward's in moe_gmm_bwd.cu): mbarriers, TMA loads and stores, 128-byte-swizzle
 // shared-memory descriptors, the wgmma instances the kernels use, and the
 // host-side tensor-map encoder.  Every source that includes it builds into
 // its own library (kernels/_build.py hashes it with the source), so nothing
@@ -114,11 +115,23 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// Commits this thread's TMA stores as a group; a store that overlaps later
+// work is committed here and waited for by tma_store_wait_read ...
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// ... before its shared memory is written again or the block ends: until
+// every committed group has read it.
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // Commits this thread's TMA stores and waits until they have read shared
 // memory (before it is reused or the block ends).
 __device__ __forceinline__ void tma_store_wait() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  tma_store_commit();
+  tma_store_wait_read();
 }
 
 // Byte offset, inside a run of 64-column boxes in the 128-byte swizzle, of
@@ -213,6 +226,29 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da, uint64_t
   wgmma_bf16(d, da, db, 1);
 }
 
+#define REPRO_WGMMA_D128                                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "          \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "          \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "          \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "          \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "          \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "           \
+  "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "      \
+  "%124, %125, %126, %127}"
+#define REPRO_WGMMA_OUT128(d)                                                                     \
+  REPRO_WGMMA_OUT64(d), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]),      \
+      "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),           \
+      "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]),           \
+      "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]),           \
+      "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]),           \
+      "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]),           \
+      "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),      \
+      "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]),     \
+      "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]),     \
+      "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]),     \
+      "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+
 // d (64 x 256 f32) = (accumulate ? d : 0) + a (64 x 16, K-major) x b (16 x
 // 256, MN-major).  K9's mainloop at bm a multiple of 128.
 __device__ __forceinline__ void wgmma_bf16(float (&d)[128], uint64_t da, uint64_t db,
@@ -221,29 +257,46 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[128], uint64_t da, uint64_
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16\n"
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
-      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
-      "%124, %125, %126, %127},\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16\n" REPRO_WGMMA_D128
+      ",\n"
       "%128, %129, p, 1, 1, 0, 1;\n"
       "}\n"
-      : REPRO_WGMMA_OUT64(d), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]),
-        "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]),
-        "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]),
-        "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]),
-        "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]),
-        "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]),
-        "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]),
-        "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]),
-        "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : REPRO_WGMMA_OUT128(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 256 f32) = (accumulate ? d : 0) + a (64 x 16, K-major) x b (16 x
+// 256, K-major: b's rows are the 256 output columns, the k innermost).
+// K9' (dtokens): dout x W[e]^T, W[e] read as it lies.
+__device__ __forceinline__ void wgmma_bf16_kk(float (&d)[128], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16\n" REPRO_WGMMA_D128
+      ",\n"
+      "%128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : REPRO_WGMMA_OUT128(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 256 f32) = (accumulate ? d : 0) + a (64 x 16, M-major: the
+// transpose bit is set) x b (16 x 256, MN-major).  K9' (dweights): tokens^T
+// x dout, both read as they lie (64 rows of tokens by 64 of D, 64 rows of
+// dout by 256 of F), in the MN-major layout of the 128-byte swizzle.
+__device__ __forceinline__ void wgmma_bf16_tt(float (&d)[128], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16\n" REPRO_WGMMA_D128
+      ",\n"
+      "%128, %129, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : REPRO_WGMMA_OUT128(d)
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -332,10 +385,12 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[32], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+#undef REPRO_WGMMA_D128
 #undef REPRO_WGMMA_D64
 #undef REPRO_WGMMA_D32
 #undef REPRO_WGMMA_OUT32
 #undef REPRO_WGMMA_OUT64
+#undef REPRO_WGMMA_OUT128
 
 // ---- host: tensor maps ---------------------------------------------------
 

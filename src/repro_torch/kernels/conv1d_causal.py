@@ -43,16 +43,22 @@ half of its input projection, no copy), w and bias, and whose backward is
 ``conv1d_causal_bwd`` (``csrc/conv1d_causal_bwd.cu``): it recomputes the
 pre-activation z from x, forms dz = dy * silu'(z), and writes dx, dw and
 db, every sum in f32 and each output rounded once (dx in x's dtype, dw and
-db in w's).  ``route_bwd`` picks its instance by shape and alignment:
-``"vec"``, four channels a thread (D and x's strides multiples of 4, every
-operand aligned to 4 elements), else ``"thread"``, one channel a thread.
-Per-run f32 partials of dw and db are summed by a second kernel in a fixed
-order: no atomics, the same bits on every call.
+db in w's).  ``route_bwd`` picks its kernel by shape, dtype and
+alignment: ``"tile"`` where every row of x, w, bias and dy starts on a
+16-byte boundary (the forward's tile rule), a block of 32 threads along D
+(16 bytes of channels each) by ``warps`` warps along L, each warp walking
+its own sub-run with the x and dy rows streamed through a ``cp.async``
+ring in shared memory, the warps' dw and db sums added in shared memory in
+warp order (``bwd_tile_plan``); ``"vec"``, four channels a thread walking
+its run from registers (D and x's strides multiples of 4, every operand
+aligned to 4 elements); else ``"thread"``, one channel a thread.  The f32
+partials of dw and db (a row a block and run) are summed by a second
+kernel in a fixed order: no atomics, the same bits on every call.
 ``conv1d_causal_bwd_plain`` is the same backward in plain f32 PyTorch,
 written out; the tests and ``chip_smoke.py`` hold the kernel against it.
-``launches_bwd`` counts the backward's calls, ``launches_bwd_vec`` those on
-the vec route.  It is bound by bytes too: a read of x and of dy and a write
-of dx, 3 * B*L*D * bytes / 3.35 TB/s.
+``launches_bwd`` counts the backward's calls, ``launches_bwd_vec`` and
+``launches_bwd_tile`` those on their routes.  It is bound by bytes too: a
+read of x and of dy and a write of dx, 3 * B*L*D * bytes / 3.35 TB/s.
 """
 from __future__ import annotations
 
@@ -67,14 +73,16 @@ from repro_torch.launch import roofline
 
 # Launches of the CUDA kernels since the last reset (set it to 0 to reset):
 # the forward on both routes and on the tile route alone; the backward's
-# calls on both routes and on the vec route alone.
+# calls on every route and on the vec and tile routes alone.
 launches = 0
 launches_tile = 0
 launches_bwd = 0
 launches_bwd_vec = 0
+launches_bwd_tile = 0
 _fn = None
 _fn_tile = None
 _fn_bwd = None
+_fn_bwd_tile = None
 
 ACTS = {"none": 0, "silu": 1}
 MAX_TAPS = 8                # the kernel's instances: KW = 1 .. 8
@@ -96,6 +104,18 @@ TILE_HALO_SHARE = 1 / 16
 BWD_VEC = 4
 BWD_MAX_RUN, BWD_MIN_RUN = 64, 16
 BWD_TARGET_BLOCKS = 1024
+# The backward's tile route (csrc/conv1d_causal_bwd.cu): threads along D a
+# block (one warp), the rows of a ring stage and the stages (kBwdTile*),
+# the least tokens a warp walks, the warps a block may have along L (most
+# first) and the blocks per SM its grid should reach.  At the Jamba
+# training cut's shape (bf16, KW 4: 226 registers a thread, two blocks of
+# 4 warps an SM) walks of 64 tokens fill an H100 in one wave; walks of 32
+# took two and 20 % more time, rings of 8 rows or 4 stages no less.
+BWD_TILE_THREADS = 32
+BWD_TILE_ROWS, BWD_TILE_STAGES = 4, 3
+BWD_TILE_SUB = 64
+BWD_TILE_WARPS = (8, 4, 2, 1)
+BWD_TILE_BLOCKS_PER_SM = 1
 
 
 def _check(x, w, bias, act):
@@ -349,15 +369,24 @@ def conv1d_causal_bwd_plain(x, w, dy, *, bias=None, act: str = "silu"):
 
 
 def route_bwd(x, w=None, bias=None, dy=None) -> str:
-    """Which instance a CUDA call of ``conv1d_causal_bwd`` launches: "vec"
-    (BWD_VEC channels a thread) for f32 or bf16 when D and both of x's row
-    strides are multiples of BWD_VEC, x's channels contiguous and every
-    given operand's data aligned to BWD_VEC elements; else "thread" (one
-    channel a thread: an odd D, unaligned rows).  A pure function of
-    shape, dtype and alignment; a dispatch, not a fallback: each raises on
-    what it cannot take."""
+    """Which kernel a CUDA call of ``conv1d_causal_bwd`` launches: "tile"
+    for f32 or bf16 when every row of x and dy starts on a 16-byte boundary
+    (D and both of x's row strides multiples of 16 bytes, x's channels
+    contiguous, every given operand's data 16-byte aligned: the forward's
+    tile rule); else "vec" (BWD_VEC channels a thread) when D and both of
+    x's row strides are multiples of BWD_VEC and every given operand's data
+    is aligned to BWD_VEC elements (in f32 the tile rule takes all of
+    these); else "thread" (one channel a thread: an odd D, unaligned rows).
+    A pure function of shape, dtype and alignment; a dispatch, not a
+    fallback: each raises on what it cannot take."""
     if x.dtype not in _DTYPES or x.dim() != 3:
         return "thread"
+    vec = 16 // x.element_size()
+    if (x.stride(2) == 1 and x.shape[2] % vec == 0
+            and x.stride(0) % vec == 0 and x.stride(1) % vec == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, w, bias, dy)
+                    if t is not None)):
+        return "tile"
     align = BWD_VEC * x.element_size()
     if (x.stride(2) == 1 and x.shape[2] % BWD_VEC == 0
             and x.stride(0) % BWD_VEC == 0 and x.stride(1) % BWD_VEC == 0
@@ -379,6 +408,61 @@ def bwd_run_length(b: int, l: int, d: int, vec: int) -> int:
     return run
 
 
+@dataclasses.dataclass(frozen=True)
+class BwdTilePlan:
+    """How the backward's tile route runs one call: blocks of ``threads``
+    = BWD_TILE_THREADS along D x ``warps`` warps along L, each warp walking
+    ``sub`` tokens, so a block's ``run`` is warps x sub tokens; a ring of
+    ``stages`` x ``rows`` rows of x and of dy a thread; ``smem`` bytes of
+    shared memory a block (the ring, or the warps' sums where larger); the
+    grid's ``blocks`` and the partial's ``parts`` rows."""
+    threads: int
+    warps: int
+    sub: int
+    run: int
+    rows: int
+    stages: int
+    smem: int
+    blocks: int
+    parts: int
+
+
+@functools.lru_cache(maxsize=512)
+def bwd_tile_plan(b: int, l: int, d: int, kw: int, vec: int) -> BwdTilePlan:
+    """A pure function of the shape.  A warp walks ``sub`` tokens: the
+    fewest whole ring stages of rows with at least BWD_TILE_SUB and 16 (KW
+    - 1) of them, so its 3 (KW - 1) halo rows of x and dy stay under a
+    tenth of what it reads.  The block takes the most of BWD_TILE_WARPS
+    warps whose grid still reaches BWD_TILE_BLOCKS_PER_SM blocks per SM,
+    else one: more warps a block make fewer partial rows (one a block and
+    run) for the second pass to read."""
+    least = max(BWD_TILE_SUB, 16 * (kw - 1))
+    sub = -(-least // BWD_TILE_ROWS) * BWD_TILE_ROWS
+    blocks_d = _cdiv(_cdiv(d, vec), BWD_TILE_THREADS)
+    for warps in BWD_TILE_WARPS:
+        blocks = blocks_d * _cdiv(l, warps * sub) * b
+        if blocks >= BWD_TILE_BLOCKS_PER_SM * roofline.SMS:
+            break
+    threads = BWD_TILE_THREADS * warps
+    ring = BWD_TILE_STAGES * BWD_TILE_ROWS * 2 * threads * 16
+    sums = warps * (kw + 1) * BWD_TILE_THREADS * vec * 4
+    return BwdTilePlan(threads=threads, warps=warps, sub=sub,
+                       run=warps * sub, rows=BWD_TILE_ROWS,
+                       stages=BWD_TILE_STAGES, smem=max(ring, sums),
+                       blocks=blocks, parts=b * _cdiv(l, warps * sub))
+
+
+def _kernel_fn_bwd_tile():
+    global _fn_bwd_tile
+    if _fn_bwd_tile is None:
+        fn = _build.load("conv1d_causal_bwd").repro_conv1d_causal_bwd_tile
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 \
+            + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn_bwd_tile = fn
+    return _fn_bwd_tile
+
+
 def _kernel_fn_bwd():
     global _fn_bwd
     if _fn_bwd is None:
@@ -395,7 +479,7 @@ def conv1d_causal_bwd(x, w, dy, *, bias=None, act: str = "silu"):
     (D,) or None, dy (B,L,D) contiguous -> (dx (B,L,D) in x's dtype, dw
     (KW,D) and db (D,) in w's, db None without a bias), on the current
     stream, or raises.  A CPU tensor takes ``conv1d_causal_bwd_plain``."""
-    global launches_bwd, launches_bwd_vec
+    global launches_bwd, launches_bwd_vec, launches_bwd_tile
     _check(x, w, bias, act)
     if x.device.type == "cpu":
         return conv1d_causal_bwd_plain(x, w, dy, bias=bias, act=act)
@@ -416,21 +500,33 @@ def conv1d_causal_bwd(x, w, dy, *, bias=None, act: str = "silu"):
             db.zero_()
         return dx, dw, db
     path = route_bwd(x, w, bias, dy)
-    vec = BWD_VEC if path == "vec" else 1
-    run = bwd_run_length(b, l, d, vec)
-    part = torch.empty((b * _cdiv(l, run), kw + 1, d), dtype=torch.float32,
+    if path == "tile":
+        plan = bwd_tile_plan(b, l, d, kw, 16 // x.element_size())
+        parts = plan.parts
+    else:
+        run = bwd_run_length(b, l, d, BWD_VEC if path == "vec" else 1)
+        parts = b * _cdiv(l, run)
+    part = torch.empty((parts, kw + 1, d), dtype=torch.float32,
                        device=x.device)
-    fn = _kernel_fn_bwd()
+    args = (x.data_ptr(), w.data_ptr(),
+            None if bias is None else bias.data_ptr(), dy.data_ptr(),
+            dx.data_ptr(), dw.data_ptr(),
+            None if db is None else db.data_ptr(), part.data_ptr(),
+            x.stride(0), x.stride(1), b, l, d, kw)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        launches_bwd += 1
-        launches_bwd_vec += int(path == "vec")
-        err = fn(x.data_ptr(), w.data_ptr(),
-                 None if bias is None else bias.data_ptr(), dy.data_ptr(),
-                 dx.data_ptr(), dw.data_ptr(),
-                 None if db is None else db.data_ptr(), part.data_ptr(),
-                 x.stride(0), x.stride(1), b, l, d, kw, run, ACTS[act],
-                 int(path == "vec"), _DTYPES[x.dtype], stream)
+        if path == "tile":
+            fn = _kernel_fn_bwd_tile()
+            launches_bwd += 1
+            launches_bwd_tile += 1
+            err = fn(*args, plan.sub, plan.warps, ACTS[act],
+                     _DTYPES[x.dtype], stream)
+        else:
+            fn = _kernel_fn_bwd()
+            launches_bwd += 1
+            launches_bwd_vec += int(path == "vec")
+            err = fn(*args, run, ACTS[act], int(path == "vec"),
+                     _DTYPES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"conv1d_causal_bwd kernel launch failed ({path} "
                            f"route): CUDA error {err} (x {tuple(x.shape)}, "

@@ -62,14 +62,25 @@ On the card, where tokens or weights require grad under grad mode,
 whose backward is ``moe_gmm_bwd`` (``csrc/moe_gmm_bwd.cu``): dtokens[r] =
 dout[r] @ W[e(r)]ᵀ (zero on tiles outside [0, E)) and dweights[e] = the
 sum over e's tiles of tokensᵀ @ dout (zero for an expert with no tile),
-two tiled kernels on the "mma" skeleton, f32 sums, no atomics, the same
-bits on every call; the weights are read as they lie (no transposed copy)
-and ``tile_eid`` is read on the card.  ``route_bwd``: "mma" for bf16
-(``mma.sync`` m16n8k16), "simt" for f32.  ``moe_gmm_bwd_plain`` is the
-same backward in plain f32 PyTorch; the tests and ``chip_smoke.py`` hold
-the kernels against it.  ``launches_bwd`` counts the backward's calls,
-``launches_bwd_mma`` those on the mma route.  Bound: 4 * rows * D * F
-operations (rows: those of tiles in [0, E)) on the tensor cores.
+f32 sums, no atomics, the same bits on every call; the weights are read as
+they lie (no transposed copy) and ``tile_eid`` is read on the card.
+``route_bwd`` picks one of three routes by dtype, tile height, shape and
+alignment: ``"wgmma"`` for bf16 under the forward's prefill rule (bm a
+multiple of 64, D and F multiples of 8, every operand 16-byte aligned, at
+most ``BWD_MAX_TILES`` tiles and ``BWD_MAX_EXPERTS`` experts), a TMA +
+``wgmma`` dtokens kernel on the forward's skeleton (the weights read
+K-major through a 3-D tensor map) and a persistent dweights kernel whose
+blocks walk a work list of (expert, D box, F box) items built on the card
+(``bwd_work`` is its plan in Python) and store each item by TMA while the
+next one's products run; ``"mma"`` for the other bf16 calls, two tiled
+kernels on the "mma" skeleton (``mma.sync`` m16n8k16); ``"simt"`` for f32.
+``moe_gmm_bwd_plain`` is the same backward in plain f32 PyTorch; the tests
+and ``chip_smoke.py`` hold the kernels against it.  ``launches_bwd``
+counts the backward's calls, ``launches_bwd_mma`` and
+``launches_bwd_wgmma`` those on their routes.  Bound: the larger of 4 *
+rows * D * F operations on the tensor cores (rows: those of tiles in [0,
+E)) and the bytes (the used experts' weights read, every expert's
+dweights written): bytes at the MoE layers' widths.
 """
 from __future__ import annotations
 
@@ -84,13 +95,15 @@ from repro_torch.kernels import _build
 launches = 0
 launches_wgmma = 0
 launches_stream = 0
-# the backward's calls, and those on its mma route
+# the backward's calls, and those on its mma and wgmma routes
 launches_bwd = 0
 launches_bwd_mma = 0
+launches_bwd_wgmma = 0
 _fn = None
 _fn_wgmma = None
 _fn_stream = None
 _fn_bwd = None
+_fn_bwd_wgmma = None
 
 BLOCK_ROWS = (128, 64, 16)   # the kernel's block heights; bm is a multiple
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -104,6 +117,13 @@ STREAM_BK = 64
 STREAM_MAX_TILES = 2048
 STREAM_MAX_SPLITS = 8
 STREAM_PART_BYTES = 64 << 20
+# The backward's wgmma route (csrc/moe_gmm_bwd.cu, namespace wg): a
+# dweights item is BWD_BM rows of D by BWD_BN columns of F of one expert;
+# a block lists at most BWD_MAX_TILES tiles and BWD_MAX_EXPERTS experts.
+BWD_BM = 128
+BWD_BN = 256
+BWD_MAX_TILES = 1024
+BWD_MAX_EXPERTS = 64
 
 
 def route_dryrun(expert_of_token, num_experts: int, capacity: int, bm: int):
@@ -433,15 +453,57 @@ def moe_gmm_bwd_plain(tokens, weights, tile_eid, dout, *, bm: int):
     return dtok.to(tokens.dtype), dw.to(weights.dtype)
 
 
-def route_bwd(tokens, weights) -> str:
-    """Which instance a CUDA call of ``moe_gmm_bwd`` launches: "mma"
-    (``mma.sync`` m16n8k16 on the bf16 tensor cores) for bf16, "simt"
-    (true f32 products) for f32.  Ragged D or F and unaligned operands take
-    the same route with per-element staging instead of cp.async."""
+def route_bwd(tokens, weights, bm: int, dout=None) -> str:
+    """Which kernels a CUDA call of ``moe_gmm_bwd(tokens, weights,
+    tile_eid, dout, bm=bm)`` launches, by dtype, tile height, shape and
+    alignment alone: "wgmma" for bf16 tokens and weights with bm a positive
+    multiple of 64, D and F positive multiples of 8, tokens, weights and
+    (where given) dout 16-byte aligned, at most ``BWD_MAX_TILES`` tiles and
+    ``BWD_MAX_EXPERTS`` experts (the forward's prefill rule, so every
+    training call at the cut); "mma" for the other bf16 calls (bm 16,
+    ragged D or F, unaligned views: ``mma.sync`` m16n8k16, per-element
+    staging where cp.async cannot go); "simt" (true f32 products) for f32.
+    A dispatch, not a fallback: each route raises on failure."""
     if tokens.dtype not in _DTYPES:
         raise ValueError(f"the backward takes float32 or bfloat16, got "
                          f"{tokens.dtype}")
-    return "mma" if tokens.dtype == torch.bfloat16 else "simt"
+    if tokens.dtype == torch.float32:
+        return "simt"
+    e, d, f = weights.shape
+    if (weights.dtype == torch.bfloat16 and bm > 0 and bm % 64 == 0
+            and d > 0 and d % 8 == 0 and f > 0 and f % 8 == 0
+            and -(-tokens.shape[0] // bm) <= BWD_MAX_TILES
+            and e <= BWD_MAX_EXPERTS
+            and all(t.data_ptr() % 16 == 0 for t in (tokens, weights, dout)
+                    if t is not None)):
+        return "wgmma"
+    return "mma"
+
+
+def bwd_work(tile_eid, *, e: int, d: int, f: int,
+             grid: int) -> list[list[tuple]]:
+    """The wgmma route's dweights work list as each of ``grid`` persistent
+    blocks walks it (``moe_gmm_bwd_dw_kernel_wgmma``): item w = block + i *
+    grid of the E x ⌈D/BWD_BM⌉ x ⌈F/BWD_BN⌉ (expert, D box, F box) items,
+    expert-major and F fastest, each as (expert, first row of D, last + 1,
+    first column of F, last + 1, the expert's tiles in id-stream order).
+    An expert with no tile keeps its items, with no tiles: they load
+    nothing and store zeros.  A tile whose id lies outside [0, E) is in no
+    item.  ``tile_eid`` is a list of ints."""
+    tiles = [[i for i, eid in enumerate(tile_eid) if eid == x]
+             for x in range(e)]
+    n_d, n_f = -(-d // BWD_BM), -(-f // BWD_BN)
+    items = e * n_d * n_f
+    work = []
+    for block in range(grid):
+        mine = []
+        for w in range(block, items, grid):
+            x, rem = divmod(w, n_d * n_f)
+            d0, f0 = rem // n_f * BWD_BM, rem % n_f * BWD_BN
+            mine.append((x, d0, min(d0 + BWD_BM, d), f0,
+                         min(f0 + BWD_BN, f), tuple(tiles[x])))
+        work.append(mine)
+    return work
 
 
 def _kernel_fn_bwd():
@@ -455,13 +517,24 @@ def _kernel_fn_bwd():
     return _fn_bwd
 
 
+def _kernel_fn_bwd_wgmma():
+    global _fn_bwd_wgmma
+    if _fn_bwd_wgmma is None:
+        fn = _build.load("moe_gmm_bwd").repro_moe_gmm_bwd_wgmma
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn_bwd_wgmma = fn
+    return _fn_bwd_wgmma
+
+
 def moe_gmm_bwd(tokens, weights, tile_eid, dout, *, bm: int = 128):
     """K9' on the card: tokens (T, D), weights (E, D, F), tile_eid
     (⌈T/bm⌉,) int32 and dout (T, F), contiguous -> (dtokens (T, D) in the
     tokens' dtype, dweights (E, D, F) in the weights'), launched on the
-    current stream (the dtokens kernel, then the dweights kernel), or
-    raises.  A CPU tensor takes ``moe_gmm_bwd_plain``."""
-    global launches_bwd, launches_bwd_mma
+    current stream (the dtokens kernel, then the dweights kernel, of
+    ``route_bwd``), or raises.  A CPU tensor takes ``moe_gmm_bwd_plain``."""
+    global launches_bwd, launches_bwd_mma, launches_bwd_wgmma
     _check(tokens, weights, tile_eid, bm)
     if tokens.device.type == "cpu":
         return moe_gmm_bwd_plain(tokens, weights, tile_eid, dout, bm=bm)
@@ -477,15 +550,21 @@ def moe_gmm_bwd(tokens, weights, tile_eid, dout, *, bm: int = 128):
     dw = torch.empty_like(weights)
     if t == 0 or d == 0 or f == 0:
         return dtok.zero_(), dw.zero_()
-    path = route_bwd(tokens, weights)
-    fn = _kernel_fn_bwd()
+    path = route_bwd(tokens, weights, bm, dout)
+    args = (tokens.data_ptr(), weights.data_ptr(), tile_eid.data_ptr(),
+            dout.data_ptr(), dtok.data_ptr(), dw.data_ptr(), t, d, f, e, bm)
     with torch.cuda.device(tokens.device):
         stream = torch.cuda.current_stream(tokens.device).cuda_stream
-        launches_bwd += 1
-        launches_bwd_mma += int(path == "mma")
-        err = fn(tokens.data_ptr(), weights.data_ptr(), tile_eid.data_ptr(),
-                 dout.data_ptr(), dtok.data_ptr(), dw.data_ptr(), t, d, f, e,
-                 bm, _DTYPES[tokens.dtype], stream)
+        if path == "wgmma":
+            fn = _kernel_fn_bwd_wgmma()
+            launches_bwd += 1
+            launches_bwd_wgmma += 1
+            err = fn(*args, stream)
+        else:
+            fn = _kernel_fn_bwd()
+            launches_bwd += 1
+            launches_bwd_mma += int(path == "mma")
+            err = fn(*args, _DTYPES[tokens.dtype], stream)
     if err != 0:
         raise RuntimeError(f"moe_gmm_bwd kernel launch failed ({path} "
                            f"route): CUDA error {err} (tokens "

@@ -58,14 +58,20 @@ def composite_roofline(parts: list[dict], *, extra_hbm_bytes: float = 0.0,
     n_steps); launches serialize, so the cost is the sum of each launch's
     ``kernel_roofline`` cost, plus ``extra_hbm_bytes`` moved between
     launches at the HBM rate.  No per-step term (see
-    ``tune.measure``)."""
+    ``tune.measure``).  ``efficiency`` is the ideal compute time over the
+    cost, each summed launch by launch in one order: a launch's ideal time
+    is at most its cost (``util`` <= 1) and rounded sums keep that order,
+    so it never exceeds 1 (the reference divides the summed flops by the
+    peak, which can round above the summed costs)."""
     cost = extra_hbm_bytes / HBM_BYTES_PER_S
+    ideal = 0.0
     flops = 0.0
     hbm = extra_hbm_bytes
     steps = 0
     for t in parts:
         cost += kernel_roofline(flops=t["flops"], hbm_bytes=t["hbm_bytes"],
                                 util=t.get("util", 1.0), peak=peak)["cost_s"]
+        ideal += t["flops"] / peak
         flops += t["flops"]
         hbm += t["hbm_bytes"]
         steps += t.get("n_steps", 0)
@@ -75,7 +81,7 @@ def composite_roofline(parts: list[dict], *, extra_hbm_bytes: float = 0.0,
         "hbm_bytes": hbm,
         "n_steps": steps,
         "launches": len(parts),
-        "efficiency": flops / peak / cost if cost > 0 else 0.0,
+        "efficiency": ideal / cost if cost > 0 else 0.0,
     }
 
 

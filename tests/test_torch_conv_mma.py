@@ -34,7 +34,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from _tf32_emulation import stage_run
+from _tf32_emulation import single_thread, split, stage_run
 from repro.kernels import ref as jax_ref
 from repro_torch.core import conv
 from repro_torch.core.duality import dual_conv_signatures
@@ -343,7 +343,7 @@ def emulate(x, w, *, stride, padding, adder, order="k1", chunk=None,
     stage's run joins the f32 sums (to nearest) in that order; with
     ``chunk``, every ``chunk`` stages start a new partial from zero and
     the partials are summed in split order.  Pixels are independent, so
-    they go ``rows`` at a time."""
+    they go ``rows`` at a time, on one torch thread."""
     n, h, wd, c = x.shape
     r, s, _, k = w.shape
     p, q = _out(h, wd, r, s, stride, padding)
@@ -359,22 +359,25 @@ def emulate(x, w, *, stride, padding, adder, order="k1", chunk=None,
     stages = ([(t, sc) for t in taps for sc in range(cs)] if order == "k1"
               else [(t, sc) for sc in range(cs) for t in taps])
     chunk = chunk or len(stages)
+    # each stage's weights split once, for every run of pixels
+    w_split = {(t, sc): split(wz[t[0], t[1], sc * STAGE:(sc + 1) * STAGE])
+               for t, sc in stages}
     out = torch.empty((m, k))
-    for m0 in range(0, m, rows):
-        parts, acc = [], None
-        for i, (t, sc) in enumerate(stages):
-            if i % chunk == 0:
-                if acc is not None:
-                    parts.append(acc)
-                acc = torch.zeros((min(rows, m - m0), k))
-            a = a_tap[t][m0:m0 + rows, sc * STAGE:(sc + 1) * STAGE]
-            acc = acc + stage_run(a, wz[t[0], t[1], sc * STAGE:
-                                        (sc + 1) * STAGE], adder)
-        parts.append(acc)
-        total = parts[0]
-        for part in parts[1:]:
-            total = total + part
-        out[m0:m0 + rows] = total
+    with single_thread():
+        for m0 in range(0, m, rows):
+            parts, acc = [], None
+            for i, (t, sc) in enumerate(stages):
+                if i % chunk == 0:
+                    if acc is not None:
+                        parts.append(acc)
+                    acc = torch.zeros((min(rows, m - m0), k))
+                a = a_tap[t][m0:m0 + rows, sc * STAGE:(sc + 1) * STAGE]
+                acc = acc + stage_run(a, w_split[t, sc], adder)
+            parts.append(acc)
+            total = parts[0]
+            for part in parts[1:]:
+                total = total + part
+            out[m0:m0 + rows] = total
     return out.reshape(n, p, q, k)
 
 

@@ -145,19 +145,26 @@ def test_moe_gmm_bwd_plain_matches_reference(bm, ids, t):
 
 
 def test_conv1d_route_bwd_and_run_length():
-    """"vec" where D and x's strides are multiples of 4 and every operand
-    aligned to 4 elements (the mixer's strided half included), "thread"
-    otherwise; the run halves until the grid is full, down to 16."""
+    """"tile" where every row of x and dy starts on a 16-byte boundary (the
+    mixer's strided half included), "vec" where D and x's strides are
+    multiples of 4 and every operand aligned to 4 elements but a row is off
+    the 16-byte rule (bf16 at D 20), "thread" otherwise; the vec and thread
+    routes' run halves until the grid is full, down to 16."""
     w = torch.zeros(4, 24)
     proj = torch.zeros(2, 13, 48)
-    assert k8.route_bwd(proj[..., :24], w) == "vec"
-    assert k8.route_bwd(proj[..., :24].bfloat16(), w.bfloat16()) == "vec"
+    assert k8.route_bwd(proj[..., :24], w) == "tile"
+    assert k8.route_bwd(proj[..., :24].bfloat16(), w.bfloat16()) == "tile"
+    assert k8.route_bwd(proj[..., :20].bfloat16(),
+                        torch.zeros(4, 20).bfloat16()) == "vec"
     assert k8.route_bwd(torch.zeros(2, 13, 6), torch.zeros(4, 6)) == "thread"
     assert k8.route_bwd(proj[..., 1:25], w) == "thread"      # unaligned
     assert k8.route_bwd(torch.zeros(2, 13, 24, dtype=torch.float64),
                         w) == "thread"
     dy = torch.zeros(2, 13, 25)[..., 1:]                      # unaligned dy
     assert k8.route_bwd(proj[..., :24], w, None, dy) == "thread"
+    dy = torch.zeros(2, 13, 28).bfloat16()[..., 4:]           # 8-byte dy
+    assert k8.route_bwd(proj[..., :24].bfloat16(), w.bfloat16(), None,
+                        dy) == "vec"
     assert k8.bwd_run_length(2, 512, 16384, 4) == 32          # the cut
     assert k8.bwd_run_length(64, 4096, 16384, 4) == k8.BWD_MAX_RUN
     assert k8.bwd_run_length(1, 64, 64, 1) == k8.BWD_MIN_RUN
@@ -166,26 +173,55 @@ def test_conv1d_route_bwd_and_run_length():
 
 
 def test_moe_route_bwd():
+    """"wgmma" for bf16 at bm 64 and 128 with D and F multiples of 8 and
+    16-byte aligned operands (the cut's gate/up and down shapes included),
+    "mma" for bf16 off that rule (bm 16, ragged F, an unaligned view, too
+    many tiles or experts), "simt" for f32 at any bm."""
     tid = torch.zeros(1, dtype=torch.int32)
-    assert k9.route_bwd(torch.zeros(4, 8).bfloat16(),
-                        torch.zeros(1, 8, 8).bfloat16()) == "mma"
-    assert k9.route_bwd(torch.zeros(4, 8), torch.zeros(1, 8, 8)) == "simt"
+    tok, wts = torch.zeros(4, 8).bfloat16(), torch.zeros(1, 8, 8).bfloat16()
+    assert k9.route_bwd(tok, wts, 64) == "wgmma"
+    assert k9.route_bwd(tok, wts, 128, torch.zeros(4, 8).bfloat16()) \
+        == "wgmma"
+    one = torch.zeros((1, 1, 1), dtype=torch.bfloat16)   # shapes, no storage
+    for d, f in ((8192, 24576), (24576, 8192)):               # the cut's
+        assert k9.route_bwd(one[0].expand(1152, d),
+                            one.expand(4, d, f), 128) == "wgmma"
+    assert k9.route_bwd(tok, wts, 16) == "mma"
+    assert k9.route_bwd(tok, torch.zeros(1, 8, 12).bfloat16(), 64) == "mma"
+    assert k9.route_bwd(torch.zeros(5, 9).bfloat16()[:4, 1:], wts,
+                        64) == "mma"                         # unaligned
+    dout = torch.zeros(4, 9).bfloat16()[:, 1:]                # unaligned
+    assert k9.route_bwd(tok, wts, 64, dout) == "mma"
+    many = torch.zeros(64 * (k9.BWD_MAX_TILES + 1), 8).bfloat16()
+    assert k9.route_bwd(many, wts, 64) == "mma"
+    assert k9.route_bwd(tok, torch.zeros(k9.BWD_MAX_EXPERTS + 1, 8,
+                                         8).bfloat16(), 64) == "mma"
+    for bm in (16, 64, 128):
+        assert k9.route_bwd(torch.zeros(4, 8), torch.zeros(1, 8, 8),
+                            bm) == "simt"
     with pytest.raises(ValueError):
-        k9.route_bwd(torch.zeros(4, 8).half(), torch.zeros(1, 8, 8).half())
+        k9.route_bwd(torch.zeros(4, 8).half(), torch.zeros(1, 8, 8).half(),
+                     64)
     with pytest.raises(ValueError):                 # dout of another shape
         k9.moe_gmm_bwd_plain(torch.zeros(4, 8), torch.zeros(1, 8, 6), tid,
                              torch.zeros(4, 5), bm=4)
 
 
-@pytest.mark.parametrize("name,module", [("conv1d_causal_bwd", k8),
-                                         ("moe_gmm_bwd", k9)])
-def test_bwd_kernel_symbols_and_argtypes(monkeypatch, name, module):
-    """K8's and K9's backward ctypes bindings: one argtype per parameter
-    of the C function, pointers as c_void_p, 64-bit ints as c_longlong,
-    ints as c_int; both sources are among the kernels ``build_all``
-    builds."""
+@pytest.mark.parametrize("name,module,route", [
+    pytest.param("conv1d_causal_bwd", k8, "",
+                 id="conv1d_causal_bwd-repro_torch.kernels.conv1d_causal"),
+    pytest.param("moe_gmm_bwd", k9, "",
+                 id="moe_gmm_bwd-repro_torch.kernels.moe_gmm"),
+    pytest.param("conv1d_causal_bwd", k8, "tile", id="conv1d_causal_bwd-tile"),
+    pytest.param("moe_gmm_bwd", k9, "wgmma", id="moe_gmm_bwd-wgmma")])
+def test_bwd_kernel_symbols_and_argtypes(monkeypatch, name, module, route):
+    """K8's and K9's backward ctypes bindings, the first kernels' and the
+    tile and wgmma routes': one argtype per parameter of the C function,
+    pointers as c_void_p, 64-bit ints as c_longlong, ints as c_int; both
+    sources are among the kernels ``build_all`` builds."""
+    symbol = f"repro_{name}" + (f"_{route}" if route else "")
     src = (_build.CSRC / f"{name}.cu").read_text()
-    sig = re.search(rf'extern "C" int repro_{name}\((.*?)\)\s*\{{', src,
+    sig = re.search(rf'extern "C" int {symbol}\((.*?)\)\s*\{{', src,
                     re.S)
     params = [p.strip() for p in sig.group(1).split(",")]
 
@@ -193,9 +229,10 @@ def test_bwd_kernel_symbols_and_argtypes(monkeypatch, name, module):
         argtypes = restype = None
 
     monkeypatch.setattr(_build, "load", lambda n: {
-        name: type("Lib", (), {f"repro_{name}": Fn()})()}[n])
-    monkeypatch.setattr(module, "_fn_bwd", None)
-    fn = module._kernel_fn_bwd()
+        name: type("Lib", (), {symbol: Fn()})()}[n])
+    suffix = f"_{route}" if route else ""
+    monkeypatch.setattr(module, f"_fn_bwd{suffix}", None)
+    fn = getattr(module, f"_kernel_fn_bwd{suffix}")()
     assert fn.restype is ctypes.c_int
     assert len(fn.argtypes) == len(params)
     for ty, param in zip(fn.argtypes, params):
@@ -243,3 +280,62 @@ def test_train_main_trains_the_cut_on_cpu(capsys):
     assert np.isfinite(summary["first"]["loss"])
     assert np.isfinite(summary["last"]["loss"])
     assert "tokens/s=" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("ids,e,d,f,grid", [
+    ([0, 1, 2, 2, -1, -1, -1, -1, -1], 4, 8192, 24576, 132),   # the cut
+    ([0, 1, 2, 2, -1, -1, -1, -1, -1], 4, 24576, 8192, 132),
+    ([1, -1, 0, 2, 2, 0], 4, 520, 392, 7),                     # tails
+    ([-1, -1], 3, 256, 512, 5)])                              # no rows
+def test_moe_bwd_work_covers_every_box_once(ids, e, d, f, grid):
+    """K9''s dweights work list (``bwd_work``): every (expert, D box, F box)
+    exactly once across the blocks, block b taking items b, b + grid, ...
+    of the expert-major list (F fastest); each item lists its expert's
+    tiles in id-stream order, an expert with no tile its items with none,
+    and no -1 tile is in any item."""
+    work = k9.bwd_work(ids, e=e, d=d, f=f, grid=grid)
+    assert len(work) == grid
+    n_d, n_f = -(-d // k9.BWD_BM), -(-f // k9.BWD_BN)
+    flat = sorted((w, item) for b, items in enumerate(work)
+                  for i, item in enumerate(items)
+                  for w in [b + i * grid])
+    assert [w for w, _ in flat] == list(range(e * n_d * n_f))
+    boxes = [item[:5] for _, item in flat]
+    assert boxes == [(x, i * k9.BWD_BM, min((i + 1) * k9.BWD_BM, d),
+                      j * k9.BWD_BN, min((j + 1) * k9.BWD_BN, f))
+                     for x in range(e) for i in range(n_d)
+                     for j in range(n_f)]
+    for _, (x, *_, tiles) in flat:
+        assert tiles == tuple(i for i, h in enumerate(ids) if h == x)
+        assert all(ids[i] >= 0 for i in tiles)
+    empty = [x for x in range(e) if x not in ids]
+    assert all(not item[5] for _, item in flat if item[0] in empty)
+    assert {item[0] for _, item in flat} == set(range(e))
+
+
+@pytest.mark.parametrize("b,l,d,kw,vec,want", [
+    (2, 512, 16384, 4, 8, (128, 4, 64, 4)),     # the cut, bf16
+    (2, 512, 16384, 4, 4, (256, 8, 64, 2)),     # the cut, f32
+    (2, 100, 1024, 4, 4, (32, 1, 64, 4)),       # a small grid: one warp
+    (1, 77, 1000, 3, 8, (32, 1, 64, 2)),        # ragged L and D
+    (2, 300, 16384, 4, 8, (128, 4, 64, 4)),     # short and empty walks
+    (1, 4096, 4096, 8, 8, (128, 4, 112, 10))])  # 8 taps: a longer walk
+def test_conv1d_bwd_tile_plan(b, l, d, kw, vec, want):
+    """K8''s tile route (``bwd_tile_plan``): threads, warps, a warp's walk
+    and the partial's rows; the walk a whole number of ring stages with at
+    least 16 (KW - 1) tokens, the runs cover L once, the grid reaches a
+    block an SM unless one warp a block cannot, and the shared memory holds
+    the ring and the warps' sums."""
+    plan = k8.bwd_tile_plan(b, l, d, kw, vec)
+    assert (plan.threads, plan.warps, plan.sub, plan.parts) == want
+    assert plan.threads == k8.BWD_TILE_THREADS * plan.warps
+    assert plan.warps in k8.BWD_TILE_WARPS
+    assert plan.run == plan.warps * plan.sub
+    assert plan.sub % plan.rows == 0 and plan.sub >= 16 * (kw - 1)
+    assert plan.parts == b * -(-l // plan.run)
+    blocks_d = -(-d // (vec * k8.BWD_TILE_THREADS))
+    assert plan.blocks == blocks_d * -(-l // plan.run) * b
+    assert plan.blocks >= k8.BWD_TILE_BLOCKS_PER_SM * 132 or plan.warps == 1
+    assert plan.smem >= plan.stages * plan.rows * 2 * plan.threads * 16
+    assert plan.smem >= plan.warps * (kw + 1) * 32 * vec * 4
+    assert plan.smem <= 48 * 1024 * 2

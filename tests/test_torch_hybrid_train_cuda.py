@@ -1,7 +1,9 @@
 """Hybrid and MoE training on the card: K8' (``conv1d_causal_bwd``) and K9'
-(``moe_gmm_bwd``) against their plain versions on both routes and both
-dtypes, the same bits twice; autograd through K8 and K9 on the card runs
-the backward kernels.
+(``moe_gmm_bwd``) against their plain versions on every route and both
+dtypes, the same bits twice: K8''s "tile" route (and "vec" forced on the
+same inputs), K9''s "wgmma" route at bm 64 and 128 with ragged T, D and F,
+-1 tiles and experts with no rows (and "mma" forced on the same inputs);
+autograd through K8 and K9 on the card runs the backward kernels.
 
 These need an NVIDIA GPU with the CUDA toolkit (``nvcc``): a CUDA kernel has
 no CPU mode, so elsewhere they skip.  On the card:
@@ -22,15 +24,24 @@ pytestmark = pytest.mark.gpu
 KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 # b, l, d, kw, x read in place from a (b, l, 2d) projection, act, bias: the
-# training cut's Mamba shape, a ragged L, an odd D (the thread route)
+# training cut's Mamba shape, a ragged L, an odd D (the thread route); then
+# the tile route's tails: a D that leaves threads of the last block idle
+# and a ragged L, and the cut's D with a last block whose warps walk short
+# or no sub-runs
 CONV_CASES = [(2, 512, 16384, 4, True, "silu", True),
               (2, 77, 1024, 4, True, "none", False),
-              (1, 33, 1002, 3, False, "silu", True)]
+              (1, 33, 1002, 3, False, "silu", True),
+              (2, 77, 1000, 3, False, "silu", True),
+              (2, 300, 16384, 4, True, "silu", False)]
 # t, d, f, e, bm, tile_eid: the cut's tiles of 128 (an expert with no rows,
-# -1 tail tiles), tiles of 64, tiles of 16 with D and F off the 16-byte rule
+# -1 tail tiles), tiles of 64, tiles of 16 with D and F off the 16-byte rule;
+# then the wgmma route's tails: T, D and F multiples of no block (a ragged
+# last tile), -1 tiles in the middle and at the end, experts with no rows
 MOE_CASES = [(1152, 512, 1024, 4, 128, [0, 0, 1, 1, 3, -1, -1, -1, -1]),
              (300, 256, 384, 3, 64, [2, 0, 0, -1, -1]),
-             (77, 1003, 517, 3, 16, [0, 2, -1, 1, 0])]
+             (77, 1003, 517, 3, 16, [0, 2, -1, 1, 0]),
+             (333, 520, 392, 4, 64, [1, -1, 0, 2, 2, 0]),
+             (700, 1032, 776, 5, 128, [4, -1, 0, 0, -1, 2])]
 
 
 @pytest.fixture
@@ -65,13 +76,15 @@ def test_conv1d_bwd_kernel_matches_plain(cuda, case, dtype):
     x, w, bias, dy = _conv_inputs(case, dtype, cuda)
     exp = k8.conv1d_causal_bwd_plain(x, w, dy, bias=bias, act=act)
     path = k8.route_bwd(x, w, bias, dy)
-    assert path == ("vec" if case[2] % k8.BWD_VEC == 0 else "thread")
-    before = (k8.launches_bwd, k8.launches_bwd_vec)
+    assert path == ("tile" if case[2] % (16 // x.element_size()) == 0
+                    else "vec" if case[2] % k8.BWD_VEC == 0 else "thread")
+    before = (k8.launches_bwd, k8.launches_bwd_vec, k8.launches_bwd_tile)
     got = k8.conv1d_causal_bwd(x, w, dy, bias=bias, act=act)
     again = k8.conv1d_causal_bwd(x, w, dy, bias=bias, act=act)
     torch.cuda.synchronize()
-    assert (k8.launches_bwd - before[0], k8.launches_bwd_vec - before[1]) \
-        == (2, 2 * int(path == "vec"))
+    assert (k8.launches_bwd - before[0], k8.launches_bwd_vec - before[1],
+            k8.launches_bwd_tile - before[2]) \
+        == (2, 2 * int(path == "vec"), 2 * int(path == "tile"))
     assert (got[2] is None) == (bias is None)
     for name, a, e, a2 in zip(("dx", "dw", "db"), got, exp, again):
         if e is None:
@@ -79,6 +92,29 @@ def test_conv1d_bwd_kernel_matches_plain(cuda, case, dtype):
         assert a.dtype == dtype and a.shape == e.shape
         assert _rel(a, e) <= KERNEL_TOL[dtype], (name, _rel(a, e))
         assert torch.equal(a, a2), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [c for c in CONV_CASES
+                                  if c[2] % 8 == 0])
+def test_conv1d_bwd_vec_route_forced_agrees(cuda, monkeypatch, case, dtype):
+    """The vec route, which the tile route took over where rows start on
+    16-byte boundaries, forced on the same inputs: against the plain
+    version and the tile route's result, within the same limit."""
+    act = case[5]
+    x, w, bias, dy = _conv_inputs(case, dtype, cuda, seed=4)
+    exp = k8.conv1d_causal_bwd_plain(x, w, dy, bias=bias, act=act)
+    tile = k8.conv1d_causal_bwd(x, w, dy, bias=bias, act=act)
+    monkeypatch.setattr(k8, "route_bwd", lambda *a, **k: "vec")
+    before = k8.launches_bwd_vec
+    vec = k8.conv1d_causal_bwd(x, w, dy, bias=bias, act=act)
+    torch.cuda.synchronize()
+    assert k8.launches_bwd_vec - before == 1
+    for name, a, b, e in zip(("dx", "dw", "db"), vec, tile, exp):
+        if e is None:
+            continue
+        assert _rel(a, e) <= KERNEL_TOL[dtype], (name, _rel(a, e))
+        assert _rel(b, e) <= KERNEL_TOL[dtype], (name, _rel(b, e))
 
 
 def _moe_inputs(case, dtype, dev, seed=1):
@@ -98,14 +134,17 @@ def test_moe_gmm_bwd_kernel_matches_plain(cuda, case, dtype):
     bm, ids = case[4], case[5]
     tokens, weights, tile_eid, dout = _moe_inputs(case, dtype, cuda)
     exp = k9.moe_gmm_bwd_plain(tokens, weights, tile_eid, dout, bm=bm)
-    path = k9.route_bwd(tokens, weights)
-    assert path == ("mma" if dtype == torch.bfloat16 else "simt")
-    before = (k9.launches_bwd, k9.launches_bwd_mma)
+    path = k9.route_bwd(tokens, weights, bm, dout)
+    wgmma = bm % 64 == 0 and case[1] % 8 == 0 and case[2] % 8 == 0
+    assert path == ("simt" if dtype == torch.float32 else
+                    "wgmma" if wgmma else "mma")
+    before = (k9.launches_bwd, k9.launches_bwd_mma, k9.launches_bwd_wgmma)
     got = k9.moe_gmm_bwd(tokens, weights, tile_eid, dout, bm=bm)
     again = k9.moe_gmm_bwd(tokens, weights, tile_eid, dout, bm=bm)
     torch.cuda.synchronize()
-    assert (k9.launches_bwd - before[0], k9.launches_bwd_mma - before[1]) \
-        == (2, 2 * int(path == "mma"))
+    assert (k9.launches_bwd - before[0], k9.launches_bwd_mma - before[1],
+            k9.launches_bwd_wgmma - before[2]) \
+        == (2, 2 * int(path == "mma"), 2 * int(path == "wgmma"))
     for name, a, e, a2 in zip(("dtokens", "dweights"), got, exp, again):
         assert a.dtype == dtype and a.shape == e.shape
         assert _rel(a, e) <= KERNEL_TOL[dtype], (name, _rel(a, e))
@@ -115,6 +154,33 @@ def test_moe_gmm_bwd_kernel_matches_plain(cuda, case, dtype):
     for h in range(case[3]):
         if h not in ids:
             assert not got[1][h].any()
+
+
+@pytest.mark.parametrize("case", [c for c in MOE_CASES
+                                  if c[4] % 64 == 0])
+def test_moe_gmm_bwd_mma_route_forced_agrees(cuda, monkeypatch, case):
+    """The mma route, which the wgmma route took over for bf16 at bm a
+    multiple of 64, forced on the same inputs: against the plain version,
+    -1 rows and empty experts exactly zero, within the bf16 limit of the
+    wgmma route's result."""
+    bm, ids = case[4], case[5]
+    tokens, weights, tile_eid, dout = _moe_inputs(case, torch.bfloat16, cuda,
+                                                  seed=5)
+    exp = k9.moe_gmm_bwd_plain(tokens, weights, tile_eid, dout, bm=bm)
+    new = k9.moe_gmm_bwd(tokens, weights, tile_eid, dout, bm=bm)
+    monkeypatch.setattr(k9, "route_bwd", lambda *a, **k: "mma")
+    before = k9.launches_bwd_mma
+    old = k9.moe_gmm_bwd(tokens, weights, tile_eid, dout, bm=bm)
+    torch.cuda.synchronize()
+    assert k9.launches_bwd_mma - before == 1
+    for name, a, b, e in zip(("dtokens", "dweights"), old, new, exp):
+        assert _rel(a, e) <= KERNEL_TOL[torch.bfloat16], (name, _rel(a, e))
+        assert _rel(b, e) <= KERNEL_TOL[torch.bfloat16], (name, _rel(b, e))
+    dead = [r for r in range(case[0]) if ids[r // bm] < 0]
+    assert not old[0][dead].any()
+    for h in range(case[3]):
+        if h not in ids:
+            assert not old[1][h].any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -83,7 +83,7 @@ def test_library_name_keys_on_the_headers_the_source_includes(tmp_path,
         assert (_build.library_path(name) != names[name]) == includes, name
     assert {n for n in _build.KERNELS if _build.library_path(n) != names[n]} \
         == {"flash_attention", "flash_attention_bwd", "matmul_fused",
-            "moe_gmm"}
+            "moe_gmm", "moe_gmm_bwd"}
     (csrc / "k.cu").write_text('#include "a.cuh"\n')
     (csrc / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
     (csrc / "b.cuh").write_text("// one\n")

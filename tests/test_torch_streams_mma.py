@@ -30,7 +30,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from _tf32_emulation import stage_run
+from _tf32_emulation import single_thread, stage_run
 from repro.core import streams as jax_streams
 from repro.kernels.conv2d_streams import conv2d_streams as jax_conv2d_streams
 from repro_torch import tune
@@ -190,7 +190,15 @@ def test_mma_stage_c_fits_small_blocks(c_blk, depth):
 
 def emulate(x, w, bias, sched, *, stride, padding, rb_p, k_blk, c_blk,
             adder):
-    """The mma route's output, run by run in the schedule's order."""
+    """The mma route's output, run by run in the schedule's order, on one
+    torch thread."""
+    with single_thread():
+        return _emulate(x, w, bias, sched, stride=stride, padding=padding,
+                        rb_p=rb_p, k_blk=k_blk, c_blk=c_blk, adder=adder)
+
+
+def _emulate(x, w, bias, sched, *, stride, padding, rb_p, k_blk, c_blk,
+             adder):
     n, h, wd, c = x.shape
     r, s, _, k = w.shape
     p = (h + 2 * padding - r) // stride + 1
