@@ -185,8 +185,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
     epilogue in torch (TF32 off).  Each shape's route is printed and held
     (bf16 through the wgmma kernel, f32 through the SIMT one), and the
     wgmma launches of the first pass over the six bf16 shapes must be 6;
-    then the bf16 sum beside the library's and the bound.  No model path
-    calls K6, in the reference either: its launches are this phase's.
+    then the bf16 sum beside the library's and the bound.  Then each of
+    the twelve M = 4096 shapes is tuned (``tune.autotune_matmul`` into a
+    temporary cache: every ``MatmulPlan`` of its route timed by device
+    time, the default kept unless another is 2 % faster), every candidate
+    plan's output held to the same limit, and the default plan's device
+    time printed beside the tuned one's.  No model path calls K6, in the
+    reference either: its launches are this phase's.
 16. LM serving, the slice's main path: full Qwen2-1.5B (28 layers, bf16,
     random weights from ``init_lm`` with seed 0) through
     ``launch.serve.serve_continuous`` with 8 lanes, max_len 2048, 32 new
@@ -456,14 +461,52 @@ Phases, each of which fails the run (nonzero exit, no result line):
     overridden decisions printed and held to at most PIN_MAX_OVERRIDDEN,
     2): loss within 1e-4 relative, updates
     within 1e-3 of max |CPU update|.
-32. The whole-plane, Inception-v3, plan-tuning, chains, whole-plane
-    tuning, LM serving, LM training, RWKV serving, hybrid training and
-    hybrid serving summary lines, the int8 serving and training summary
+32. Data-parallel and resilient training, this slice's main path: two
+    rank processes share the card over a gloo group (``launch.ranks``, a
+    ``file://`` rendezvous; NCCL refuses two ranks on one device), each
+    building full ResNet-50 (1000 classes, 224x224, params from seed 0)
+    with cuDNN's deterministic algorithms for the stem conv.  (a) Identical
+    shards (16 images on both ranks), the f32 reduction: one step with
+    K1 and K2's counts set to 0 just before and read just after (113 and
+    52 a rank, all on the mma route, the single-device step's at batch 16)
+    and each rank's params and loss equal to the single-device
+    ``make_cnn_train_step`` bit for bit; the step's ms p50 by host clock.
+    (b) Distinct shards (phase 10's batch of 32 as 2 x 16): the step
+    against the reference's semantics computed on the card (each half's
+    loss, gradients and BN statistics from ``GxM.local_grads``, the first
+    half of the single-device ``GxM.sgd_train_step``, averaged, then its
+    second half ``apply_sgd``: one SGD step, ``apply_bn_updates``) within
+    1e-6 of max |expected
+    update| and 1e-6 relative on the loss, the bits' equality printed.
+    The f32 and int8 reductions of one gradient tree alone: ms by host
+    clock and bytes.  (c) The int8 reduction, 4 steps: each step's reduced
+    gradient equal, bit for bit, to ``compressed_psum``'s formula applied
+    on the card to both ranks' gathered gradients and residuals; n x mean
+    + the new residuals within 1e-6 of max |g| of the gradients plus the
+    old residuals, leaf by leaf; losses finite.  A checkpoint of the
+    gathered int8 state: save and restore seconds.  (d) Resilience: the
+    int8 run through ``ResilientLoop`` (checkpoints every 2 steps, rank 0
+    writes) for 6 steps, uninterrupted and under a ``ChaosSchedule`` that
+    corrupts the newest checkpoint and faults the step at step 5: one
+    restart from step 2 past step 4, and the final params and residual
+    equal to the uninterrupted run's bit for bit.  (e) A 2 -> 1 elastic
+    re-scale (``elastic_reshard_cnn`` onto a one-rank group) from the last
+    checkpoint keeps the residual's sum exactly.  (f) The data-parallel LM
+    step of phase 29's reduced f32 Qwen2 (Dh 64, 2 layers, vocab 1024) on
+    2 x 128 tokens a rank against the single-device step on 4 x 128,
+    plain SGD at lr 1: loss within 1e-4 relative, updates within 1e-3 of
+    max |update|.  A rank that fails a check fails the phase.  The
+    phase's working directory (the ranks' logs and the checkpoints of
+    full ResNet-50) is removed at its end.
+33. The whole-plane, Inception-v3, plan-tuning, chains, whole-plane
+    tuning, LM serving, LM training, RWKV serving, hybrid training,
+    data-parallel training and hybrid serving summary lines, the int8 serving and training summary
     lines, every phase's seconds and the run's against its 1200 s budget
     (each phase's also printed as it ends), the kernels line (K1, K2, K3,
     K4, K7, K6, K7's backward, K8, K9, K8's and K9's backwards, K10a, K10b,
-    K10c, K5; K1, K2 and K3 with their launches under tuned plans), then
-    the device line last.
+    K10c, K5; K1, K2 and K3 with their launches under tuned plans, K1 and
+    K2 with both ranks' data-parallel step, K6 with its tuned device
+    times), then the device line last.
 
 Device times by kernel come from ``trace_device``: a ``torch.profiler``
 trace with one warm-up step, whose recorded launches of each port kernel
@@ -482,6 +525,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2801,6 +2845,40 @@ def bound_for(flops: float, nbytes: float, dtype) -> tuple[float, str]:
                              else roofline.F32_PEAK_FLOPS)
 
 
+def matmul_tuned(a, b, kw, plain, tol, cache) -> dict:
+    """Phase 15's tuning of one shape: ``tune.autotune_matmul`` (every
+    candidate plan of the route timed by device time, the default kept
+    unless another is 2 % faster) into ``cache``; then every candidate
+    plan's output on the shape's inputs held against the plain version
+    within ``tol``.  Returns the plans, their device us and the worst
+    max_rel."""
+    import torch
+    from repro_torch import tune
+    from repro_torch.kernels import matmul_fused as k6
+    m, kk = a.shape
+    n = b.shape[1]
+    db = a.element_size()
+    plan = tune.autotune_matmul(m, n, kk, dtype_bytes=db, backend="cuda",
+                                cache=cache, persist=False)
+    entry = cache.lookup(tune.matmul_key(m=m, n=n, k=kk, dtype_bytes=db,
+                                         backend="cuda"))
+    check(entry["source"] == "measured", f"K6's tuning at {(m, kk, n)} was "
+          f"not timed on the card")
+    cands = tune.plan_candidates("matmul", m=m, n=n, k=kk, dtype_bytes=db)
+    worst = 0.0
+    for pl in cands:
+        out = k6.matmul_fused(a, b, plan=pl, **kw)
+        torch.cuda.synchronize()
+        _, rel = rel_err(out.float(), plain.float())
+        check(rel <= tol, f"K6 under plan {pl} disagrees with its plain "
+              f"version at {(m, kk, n)}: max_rel {rel:.3e} > {tol}")
+        worst = max(worst, rel)
+    return dict(plan=dataclasses.asdict(plan),
+                default_plan=dataclasses.asdict(cands[0]),
+                default_us=entry["default_us"], tuned_us=entry["score_us"],
+                candidates=len(cands), max_rel=worst)
+
+
 def matmul_signatures(device):
     """Phase 15: K6 against its plain version at Qwen2-1.5B's projections
     at M = 4096 tokens (q/o 1536->1536 + bias, k/v 1536->256 + bias, gate
@@ -2817,7 +2895,9 @@ def matmul_signatures(device):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import matmul_fused as k6
+    from repro_torch.tune import TuneCache
 
+    cache = TuneCache(os.path.join(tempfile.mkdtemp(), "matmul.json"))
     acts = {"none": lambda x: x, "relu": torch.relu, "silu": F.silu,
             "gelu": lambda x: F.gelu(x, approximate="tanh")}
     cases = [(dtype, MATMUL_M, kk, n, act, has_bias, has_res,
@@ -2867,7 +2947,9 @@ def matmul_signatures(device):
             if res is not None:
                 y = y + res
             return acts[act](y)
-        ms = auto_ms(lambda: k6.matmul_fused(a, b, **kw))
+        # 20 ms of launches, not auto_ms's 60: K6 is on no model path and
+        # the run's 1200 s budget is tight
+        ms = auto_ms(lambda: k6.matmul_fused(a, b, **kw), target_ms=20.0)
         device_ms, recorded = kernel_device_ms(
             lambda: k6.matmul_fused(a, b, **kw), "matmul_fused_kernel",
             k6)
@@ -2895,9 +2977,19 @@ def matmul_signatures(device):
         check(max_rel <= tol, f"K6 disagrees with its plain version at "
               f"{(m, kk, n, act, rec['dtype'])}: max_rel {max_rel:.3e} > "
               f"{tol}")
+        if m == MATMUL_M:
+            rec["tuned"] = matmul_tuned(a, b, kw, plain, tol, cache)
         del a, b, bias, res, out, plain
     check(pass_wgmma == len(MATMUL_SHAPES), f"{pass_wgmma} wgmma launches in "
           f"one pass over the {len(MATMUL_SHAPES)} bf16 shapes")
+    print("  K6 tuned (tune.autotune_matmul, every candidate timed by device "
+          "time; each candidate plan held to the limit above):")
+    for r_ in rows:
+        t_ = r_["tuned"]
+        print(f"    {r_['dtype']:8s}{r_['k']:6d}{r_['n']:6d} default "
+              f"{t_['default_plan']} {t_['default_us']:.2f} us, tuned "
+              f"{t_['plan']} {t_['tuned_us']:.2f} us; {t_['candidates']} "
+              f"candidates, worst max_rel {t_['max_rel']:.2e}")
     launches = k6.launches
     bf16 = [r_ for r_ in rows if r_["dtype"] == "bfloat16"]
     wide = [r_ for r_ in bf16 if 8960 in (r_["k"], r_["n"])]
@@ -6376,6 +6468,429 @@ def hybrid_training_phase(device) -> dict:
                 summary=summary)
 
 
+# ---------------------------------------------------------------------------
+# Phase 32: data-parallel and resilient training, two ranks on one card
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+DP_LOCAL_BATCH = TRAIN_BATCH // DP_RANKS      # phase 10's 32, as 2 x 16
+DP_TIMED_STEPS = 5
+DP_INT8_STEPS = 4
+DP_LOOP_STEPS = 6
+DP_CKPT_EVERY = 2
+DP_FAULT_STEP = 5          # the newest checkpoint (step 4) is corrupted,
+                           # then the step faults: walk back to step 2
+DP_UPDATE_TOL = 1e-6       # of max |expected update|, distinct shards
+DP_LOSS_TOL = 1e-6         # relative, distinct shards
+DP_MASS_TOL = 1e-6         # of max |g|, the int8 reduction's mass
+DP_TIMEOUT_S = 600         # one deadline for both rank processes
+
+
+def _dp_gather(tensors, group) -> list:
+    """Each rank's ``tensors`` (a list), concatenated flat and gathered
+    over ``group``: one flat f32 tensor per rank."""
+    import torch
+    import torch.distributed as dist
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    parts = [torch.empty_like(flat) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, flat, group=group)
+    return parts
+
+
+def _dp_split(flat, like) -> list:
+    out, at = [], 0
+    for t in like:
+        out.append(flat[at:at + t.numel()].reshape(t.shape))
+        at += t.numel()
+    return out
+
+
+def _dp_differ(got, want) -> list[str]:
+    """The leaves of two params trees that differ, each as "task/leaf max
+    |diff|"."""
+    import torch
+    return [f"{name}/{leaf} {float((got[name][leaf] - v).abs().max()):.3e}"
+            for name in want for leaf, v in want[name].items()
+            if not torch.equal(got[name][leaf], v)]
+
+
+def _dp_counts(reset: bool = False) -> dict:
+    from repro_torch.kernels import conv2d_direct as k1
+    from repro_torch.kernels import conv2d_wu as k2
+    if reset:
+        k1.launches = k1.launches_mma = k2.launches = k2.launches_mma = 0
+    return {"k1": k1.launches, "k1_mma": k1.launches_mma,
+            "k2": k2.launches, "k2_mma": k2.launches_mma}
+
+
+def dp_rank(rank, group, *, workdir, device="cuda", full=True,
+            image=IMAGE, classes=1000) -> dict:
+    """One rank of phase 32 (``launch.ranks.run_ranks`` starts both, each
+    on the one card): full ResNet-50 under the data-parallel step at 16
+    images a rank, the checks of PERF.md section 2 held on this rank, and
+    the reduced Qwen2 data-parallel step.  Returns this rank's numbers.
+    ``device="cpu", full=False`` and a small ``image`` rehearse it on the
+    CPU (one block a stage; no kernel launches to count)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.backend import resolve_device
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_to
+    from repro_torch.data import SyntheticImageData, SyntheticLMData
+    from repro_torch.graph import GxM, resnet50
+    from repro_torch.nn import transformer as T
+    from repro_torch.optim import compress
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import distributed as D
+    from repro_torch.train.chaos import (ChaosEngine, ChaosSchedule,
+                                         CorruptCheckpoint, StepFault)
+    from repro_torch.train.fault_tolerance import (ResilientLoop,
+                                                   elastic_reshard_cnn)
+    from repro_torch.train.step import (make_cnn_train_step, make_train_step,
+                                        to_device)
+
+    def say(msg):
+        print(f"  [rank {rank}] {msg}", flush=True)
+
+    device = resolve_device(device)
+    # the stem conv (C = 3) and its gradient are cuDNN's (kernels/ref.py),
+    # whose default weight-gradient algorithms may sum in another order on
+    # each call: the bit-for-bit checks below (identical shards, the chaos
+    # replay) need one order, so this phase asks cuDNN for its
+    # deterministic algorithms
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    backend = dist.get_backend(group)
+    probe = torch.full((4,), float(rank + 1), device=device)
+    dist.all_reduce(probe, group=group)
+    check(bool((probe == 3.0).all()), f"{backend} did not reduce a CUDA "
+          f"tensor: {probe.tolist()}")
+    say(f"backend {backend} (tensors on {device} reduced), {DP_RANKS} ranks"
+        + (f" on {torch.cuda.get_device_name(0)}" if device.type == "cuda"
+           else ""))
+    gxm = GxM(resnet50(classes, stages=(3, 4, 6, 3) if full
+                       else (1, 1, 1, 1)), device=device, num_classes=classes)
+    params = gxm.init(torch.Generator().manual_seed(SEED))
+    shards = [SyntheticImageData(hw=image, n_classes=classes,
+                                 global_batch=TRAIN_BATCH, seed=SEED,
+                                 n_shards=DP_RANKS, shard=s)
+              for s in range(DP_RANKS)]
+    mine = shards[rank]
+    out = {"backend": backend}
+
+    # -- identical shards, f32: the single-device step's bits ---------------
+    same = to_device(shards[0].batch_at(0), device)
+    dp = D.make_cnn_train_step_dp(gxm, group, lr=TRAIN_LR,
+                                  grad_compress="off")
+    state0 = D.init_cnn_train_state_dp(params, group, grad_compress="off")
+    dp(state0, same)
+    sync()
+    times = []
+    for _ in range(DP_TIMED_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        got, metrics = dp(state0, same)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    _dp_counts(reset=True)
+    got, metrics = dp(state0, same)
+    sync()
+    dp_counts = _dp_counts()
+    single = make_cnn_train_step(gxm, lr=TRAIN_LR)
+    _dp_counts(reset=True)
+    ref_params, ref_loss = single(params, same)
+    sync()
+    single_counts = _dp_counts()
+    say(f"identical shards: launches per rank {dp_counts}, single-device "
+        f"step at batch {DP_LOCAL_BATCH} {single_counts}")
+    expect = (113, 52) if device.type == "cuda" and full else \
+        (dp_counts["k1"], dp_counts["k2"])
+    check(dp_counts == single_counts and dp_counts["k1"] == expect[0]
+          and dp_counts["k2"] == expect[1]
+          and dp_counts["k1_mma"] == expect[0]
+          and dp_counts["k2_mma"] == expect[1], f"the data-parallel step "
+          f"launched {dp_counts}, the single-device step {single_counts}; expected "
+          f"K1 113 and K2 52, all on the mma route")
+    diff = _dp_differ(got["params"], ref_params)
+    same_loss = float(metrics["loss"]) == float(ref_loss)
+    say(f"identical shards: params equal bit for bit "
+        f"{not diff}, loss {float(metrics['loss'])!r} vs single "
+        f"{float(ref_loss)!r}")
+    check(not diff and same_loss, f"identical shards differ from the "
+          f"single-device step: {len(diff)} params leaves ({diff[:4]}), "
+          f"loss equal {same_loss}")
+    out.update(step_ms=times, step_ms_p50=float(np.median(times)),
+               counts=dp_counts)
+    del got, ref_params
+
+    # -- distinct shards, f32: the reference's semantics ---------------------
+    # each half's loss, statistics and gradients from the single-device
+    # step's own first half (GxM.sgd_train_step is local_grads, then
+    # apply_sgd), averaged here, then that step's SGD and BN update
+    halves = [to_device(s_.batch_at(0), device) for s_ in shards]
+    got, metrics = dp(state0, halves[rank])
+    sync()
+    parts = [gxm.local_grads(params, h) for h in halves]
+    gavg = tree_map(lambda a, b: (a + b) / 2, parts[0][2], parts[1][2])
+    savg = {k: tuple((a + b) / 2 for a, b in zip(parts[0][1][k],
+                                                   parts[1][1][k]))
+            for k in parts[0][1]}
+    exp = gxm.apply_sgd(params, gavg, savg, TRAIN_LR, bn_momentum=0.9)
+    max_upd = max(float((exp[n][k] - params[n][k]).abs().max())
+                  for n in exp for k in exp[n])
+    max_diff = max(float((got["params"][n][k] - exp[n][k]).abs().max())
+                   for n in exp for k in exp[n])
+    bits = all(torch.equal(got["params"][n][k], exp[n][k])
+               for n in exp for k in exp[n])
+    loss_exp = (float(parts[0][0]) + float(parts[1][0])) / 2
+    loss_rel = abs(float(metrics["loss"]) - loss_exp) / abs(loss_exp)
+    say(f"distinct shards: max |diff| {max_diff:.3e} of max |expected "
+        f"update| {max_upd:.3e} ({max_diff / max_upd:.3e}; limit "
+        f"{DP_UPDATE_TOL}), bits equal {bits}; loss {loss_rel:.3e} relative "
+        f"(limit {DP_LOSS_TOL})")
+    check(max_diff <= DP_UPDATE_TOL * max_upd, f"distinct shards: params "
+          f"{max_diff:.3e} from the reference's semantics, over "
+          f"{DP_UPDATE_TOL} x {max_upd:.3e}")
+    check(loss_rel <= DP_LOSS_TOL, f"distinct shards: loss {loss_rel:.3e} "
+          f"relative from the mean of the halves'")
+    out.update(distinct=dict(rel=max_diff / max_upd, bits_equal=bits,
+                             loss_rel=loss_rel))
+
+    # -- the reductions alone, by host clock ---------------------------------
+    grads = parts[rank][2]
+    leaves = tree_leaves(grads)
+    reduce_ms = {}
+    for name_, fn in (
+            ("f32", lambda: D.allreduce_mean(leaves, group)),
+            ("int8", lambda: compress.compressed_psum_tree(
+                grads, group, tree_map(torch.zeros_like, grads)))):
+        fn()
+        ts = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        reduce_ms[name_] = float(np.median(ts))
+    wire = {"f32": 4 * sum(t.numel() for t in leaves),
+            "int8": compress.wire_bytes(grads)}
+    say(f"reduction of {len(leaves)} leaves, {sum(t.numel() for t in leaves)}"
+        f" values: f32 {reduce_ms['f32']:.3f} ms, {wire['f32']} bytes; int8 "
+        f"{reduce_ms['int8']:.3f} ms, {wire['int8']} bytes (int32 codes)")
+    out.update(reduce_ms=reduce_ms, wire_bytes=wire)
+    del got, parts, gavg, savg, exp, grads, leaves, halves, same
+
+    # -- int8: the formula on the card, and no gradient mass lost -----------
+    dp8 = D.make_cnn_train_step_dp(gxm, group, lr=TRAIN_LR,
+                                   grad_compress="int8", return_grads=True)
+    st = D.init_cnn_train_state_dp(params, group, grad_compress="int8")
+    losses, worst_mass, formula_bits = [], 0.0, True
+    for i in range(DP_INT8_STEPS):
+        old_r = [r[0] for r in tree_leaves(st["residual"])]
+        new, metrics = dp8(st, mine.batch_at(1 + i))
+        g_loc = tree_leaves(metrics["local_grads"])
+        red = tree_leaves(metrics["grads"])
+        new_r = [r[0] for r in tree_leaves(new["residual"])]
+        gs = [_dp_split(f, g_loc) for f in _dp_gather(g_loc, group)]
+        rs = [_dp_split(f, old_r) for f in _dp_gather(old_r, group)]
+        nrs = [_dp_split(f, new_r) for f in _dp_gather(new_r, group)]
+        for j, want in enumerate(red):
+            g32 = [gs[r_][j] + rs[r_][j] for r_ in range(DP_RANKS)]
+            scale = torch.stack([x.abs().max() / 127.0 + 1e-12
+                                 for x in g32]).max()
+            acc = sum(torch.clamp(torch.round(x / scale), -127, 127)
+                      .to(torch.int8).to(torch.int32) for x in g32)
+            formula = acc.to(torch.float32) * scale / float(DP_RANKS)
+            formula_bits &= torch.equal(formula, want)
+            lhs = DP_RANKS * want + sum(nrs[r_][j] for r_ in range(DP_RANKS))
+            rhs = sum(g32)
+            gmax = max(float(gs[r_][j].abs().max()) for r_ in range(DP_RANKS))
+            err = float((lhs - rhs).abs().max())
+            check(err <= DP_MASS_TOL * gmax, f"int8 step {i}: leaf {j} lost "
+                  f"gradient mass: {err:.3e} > {DP_MASS_TOL} x {gmax:.3e}")
+            worst_mass = max(worst_mass, err / gmax if gmax else err)
+        losses.append(float(metrics["loss"]))
+        st = new
+        del gs, rs, nrs, metrics
+    say(f"int8: {DP_INT8_STEPS} steps, losses {losses}, reduced gradients "
+        f"equal compressed_psum's formula on the gathered gradients bit for "
+        f"bit {formula_bits}, worst mass error {worst_mass:.3e} of max |g| "
+        f"(limit {DP_MASS_TOL})")
+    check(formula_bits, "the int8 step's reduced gradient differs from "
+          "compressed_psum's formula on the gathered gradients")
+    check(all(math.isfinite(v) for v in losses), f"int8 losses {losses}")
+    out.update(int8=dict(losses=losses, mass_rel=worst_mass))
+    del st, new
+
+    # -- checkpoint I/O of the gathered state ---------------------------------
+    st = D.init_cnn_train_state_dp(params, group, grad_compress="int8")
+    io_dir = os.path.join(workdir, "ckpt_io")
+    sync()
+    t0 = time.perf_counter()
+    snap = D.gather_cnn_state(st, group)
+    if rank == 0:
+        ckpt_lib.save(io_dir, 1, snap)
+    save_s = time.perf_counter() - t0
+    dist.barrier(group=group)
+    t0 = time.perf_counter()
+    back, _ = ckpt_lib.restore_latest(io_dir, snap)
+    back = D.reshard_cnn_state(back, group)
+    sync()
+    restore_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(snap))
+    say(f"checkpoint of the gathered int8 state ({nbytes} bytes): save "
+        f"{save_s:.3f} s (gather + write by rank 0), restore {restore_s:.3f}"
+        f" s (read + this rank's row)")
+    out.update(ckpt=dict(bytes=nbytes, save_s=save_s, restore_s=restore_s))
+    del st, snap, back
+
+    # -- resilience: a chaos replay against an uninterrupted run ------------
+    class Shard:
+        def batch_at(self, step):
+            return mine.batch_at(100 + step)
+
+    finals, loops = [], []
+    for name_, chaos in (("clean", False), ("chaos", True)):
+        ckpt_dir = os.path.join(workdir, f"ckpt_{name_}")
+        engine = None
+        if chaos:
+            engine = ChaosEngine(
+                ChaosSchedule((CorruptCheckpoint(DP_FAULT_STEP),
+                               StepFault(DP_FAULT_STEP))),
+                hosts=["host0", "host1"], ckpt_dir=ckpt_dir,
+                writer=rank == 0)
+        kw = D.cnn_dp_resilience(ckpt_dir, group)
+        loop = ResilientLoop(
+            step_fn=D.make_cnn_train_step_dp(gxm, group, lr=TRAIN_LR,
+                                             grad_compress="int8"),
+            state=D.init_cnn_train_state_dp(params, group,
+                                            grad_compress="int8"),
+            data=Shard(), ckpt_dir=ckpt_dir, ckpt_every=DP_CKPT_EVERY,
+            policy_every=0, chaos=engine,
+            heartbeat=engine.make_heartbeat() if engine else None, **kw)
+        t0 = time.perf_counter()
+        finals.append(loop.run(DP_LOOP_STEPS))
+        sync()
+        loops.append((loop, time.perf_counter() - t0, kw["restore_fn"]))
+    (clean, clean_s, _), (hit, hit_s, restore_fn) = loops
+    diff = _dp_differ(finals[1]["params"], finals[0]["params"])
+    rdiff = [i for i, (a, b) in enumerate(zip(
+        tree_leaves(finals[0]["residual"]),
+        tree_leaves(finals[1]["residual"]))) if not torch.equal(a, b)]
+    skipped = [s_ for s_, _ in restore_fn.skipped]
+    summary = hit.resilience_summary()
+    say(f"resilience: {DP_LOOP_STEPS} int8 steps, checkpoints every "
+        f"{DP_CKPT_EVERY}; under chaos {summary} in {hit_s:.2f} s "
+        f"(uninterrupted {clean_s:.2f} s), walked past checkpoints "
+        f"{skipped}; params equal bit for bit {not diff}, residual "
+        f"{not rdiff}")
+    check(summary["restarts"] == 1 and summary["lost_steps"] == 3
+          and skipped == [4], f"the chaos run recovered otherwise than by "
+          f"one restart from step 2 past the corrupted step 4: {summary}, "
+          f"skipped {skipped}")
+    check(not diff and not rdiff, f"the chaos replay's state differs from "
+          f"the uninterrupted run's: params {diff[:4]}, "
+          f"{len(rdiff)} residual leaves")
+    out.update(resilience=dict(summary, skipped=skipped, seconds=hit_s,
+                               clean_seconds=clean_s))
+
+    # -- elastic 2 -> 1 from the chaos run's last checkpoint -----------------
+    ckpt_dir = os.path.join(workdir, "ckpt_chaos")
+    last = ckpt_lib.latest_step(ckpt_dir)
+    one = dist.new_group([0])
+    if rank == 0:
+        full_t = dict(finals[1], residual=tree_map(
+            lambda r: torch.zeros((DP_RANKS, *r.shape[1:]), device=device),
+            finals[1]["residual"]))
+        whole = ckpt_lib.restore(ckpt_dir, last, full_t)
+        folded = elastic_reshard_cnn(ckpt_dir, last, full_t, one)
+        kept = all(torch.equal(f[0], w[0] + w[1]) for f, w in zip(
+            tree_leaves(folded["residual"]), tree_leaves(whole["residual"])))
+        mass = sum(float(w.abs().sum()) for w in
+                   tree_leaves(whole["residual"]))
+        say(f"elastic 2 -> 1 from checkpoint step {last}: the residual's "
+            f"rows fold to one, their sum kept exactly {kept} (total |r| "
+            f"{mass:.3e})")
+        check(kept and mass > 0, "the 2 -> 1 fold did not keep the residual's "
+              "sum exactly (or the residual was empty)")
+        out.update(elastic=dict(step=last, kept=kept))
+    dist.barrier(group=group)
+    del finals, loops, clean, hit
+    torch.cuda.empty_cache()
+
+    # -- the LM: reduced f32 Qwen2, data-parallel step vs the full batch -----
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), **TRAIN_PARITY)
+    base = T.init_lm(cfg, torch.Generator(device=device).manual_seed(SEED),
+                     device=device)
+    b, l = TRAIN_PARITY_BATCH
+    full = SyntheticLMData(cfg.vocab, l, b, seed=SEED + 29).batch_at(0)
+    half = {k: v[rank * b // DP_RANKS:(rank + 1) * b // DP_RANKS]
+            for k, v in full.items()}
+    runs = {}
+    for name_, batch, grp in (("single", full, None), ("dp", half, group)):
+        p = params_to(base, device)
+        state = {"params": p, "opt": {}, "step": torch.zeros(
+            (), dtype=torch.int32, device=device)}
+        step = make_train_step(cfg, Sgd(), lr=PARITY_LR, clip=1.0, group=grp)
+        state, m = step(state, batch)
+        runs[name_] = (float(m["loss"]), state["params"])
+    loss_rel = abs(runs["dp"][0] - runs["single"][0]) / abs(runs["single"][0])
+    upd = max(float((a.detach() - c.detach()).abs().max()) for a, c in zip(
+        tree_leaves(runs["single"][1]), tree_leaves(base)))
+    dif = max(float((a.detach() - c.detach()).abs().max()) for a, c in zip(
+        tree_leaves(runs["dp"][1]), tree_leaves(runs["single"][1])))
+    say(f"LM: {cfg.name} f32 (Dh {cfg.head_dim}, {cfg.n_layers} layers, "
+        f"vocab {cfg.vocab}), 2 ranks of {b // DP_RANKS} x {l} against one "
+        f"step on {b} x {l}, SGD lr {PARITY_LR}: loss {loss_rel:.3e} "
+        f"relative (limit {LOSS_REL_TOL}), update {dif / upd:.3e} of max "
+        f"|update| (limit {UPDATE_REL_TOL})")
+    check(loss_rel <= LOSS_REL_TOL and dif <= UPDATE_REL_TOL * upd,
+          f"the data-parallel LM step differs from the full-batch step: loss "
+          f"{loss_rel:.3e}, update {dif / upd:.3e}")
+    out.update(lm=dict(loss_rel=loss_rel, update_rel=dif / upd))
+    return out
+
+
+def dp_phase(card: str) -> dict:
+    """Phase 32: two rank processes on the one card over a gloo group
+    (``launch.ranks.run_ranks``, a ``file://`` rendezvous), each running
+    ``dp_rank``; a rank that fails a check fails the phase.  ``card`` is
+    the header's name and power limit, printed beside the phase's
+    numbers.  Returns both ranks' numbers."""
+    from repro_torch.launch.ranks import run_ranks
+    print(f"\ndata-parallel and resilient training: full ResNet-50 "
+          f"{IMAGE}x{IMAGE}, 1000 classes, {DP_RANKS} ranks of "
+          f"{DP_LOCAL_BATCH} on one card over gloo (NCCL refuses two ranks "
+          f"on one device)", flush=True)
+    workdir = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    try:
+        results, _ = run_ranks(
+            "chip_smoke:dp_rank", DP_RANKS, workdir=workdir,
+            args={"workdir": workdir}, timeout_s=DP_TIMEOUT_S,
+            env={"PYTHONPATH": os.pathsep.join([SRC, ROOT])}, echo=True)
+    finally:
+        # the phase's checkpoints of full ResNet-50 and the ranks' logs
+        shutil.rmtree(workdir, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    r0 = results[0]
+    p50 = [round(r["step_ms_p50"], 3) for r in results]
+    print(f"  ranks done in {seconds:.1f}s (start-up included); step p50 by "
+          f"host clock per rank {p50} ms; reduction {r0['reduce_ms']} ms for {r0['wire_bytes']} bytes;"
+          f" checkpoint save {r0['ckpt']['save_s']:.3f} s, restore "
+          f"{r0['ckpt']['restore_s']:.3f} s ({r0['ckpt']['bytes']} bytes); "
+          f"card {card}")
+    return {"seconds": seconds, "card": card, "ranks": results}
+
+
 def totals(rows) -> dict:
     """Per-pass sums over signature records (each time x its count; a
     library time only where one exists), and what bounds most of the
@@ -6592,6 +7107,13 @@ def main() -> int:
     with phase("31 (hybrid and MoE training)"):
         hybrid_train = hybrid_training_phase(device)
     hy_train = hybrid_train["counts"]
+    torch.cuda.empty_cache()
+    with phase("32 (data-parallel and resilient training)"):
+        dp_train = dp_phase(card)
+    dp_k1 = sum(r_["counts"]["k1"] for r_ in dp_train["ranks"])
+    dp_k1_mma = sum(r_["counts"]["k1_mma"] for r_ in dp_train["ranks"])
+    dp_k2 = sum(r_["counts"]["k2"] for r_ in dp_train["ranks"])
+    dp_k2_mma = sum(r_["counts"]["k2_mma"] for r_ in dp_train["ranks"])
     k10a = totals(whole_rows)
     k10b = totals(k10b_rows)
     k10c = totals(k10c_rows)
@@ -6624,12 +7146,13 @@ def main() -> int:
         "source": "src/repro_torch/csrc/conv2d_direct.cu",
         "replaces": "src/repro/kernels/conv2d_direct.py:295",
         "launches": serve_launches + train_counts["conv2d_direct"]
-        + chain_k1,
+        + chain_k1 + dp_k1,
         "launches_mma": serve_launches + train_counts["conv2d_direct_mma"]
-        + chain_k1,
+        + chain_k1 + dp_k1_mma,
         "launches_by_path": {"serving": serve_launches,
                              "training_step": train_counts["conv2d_direct"],
-                             "chains": chain_k1},
+                             "chains": chain_k1,
+                             "dp_training_step_both_ranks": dp_k1},
         "launches_by_path_chains_1MiB": chains["resnet50"][
             "tiled_1MiB"]["launches_on"],
         "max_abs_err": max(r["max_abs_err"] for r in rows + k1_rows),
@@ -6674,8 +7197,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/conv2d_wu.cu",
         "replaces": "src/repro/kernels/conv2d_wu.py:159",
-        "launches": train_counts["conv2d_wu"],
-        "launches_mma": train_counts["conv2d_wu_mma"],
+        "launches": train_counts["conv2d_wu"] + dp_k2,
+        "launches_mma": train_counts["conv2d_wu_mma"] + dp_k2_mma,
+        "launches_by_path": {"training_step": train_counts["conv2d_wu"],
+                             "dp_training_step_both_ranks": dp_k2},
         "max_abs_err": max(r["max_abs_err"] for r in wu_rows),
         "max_rel_err": max(r["max_rel_err"] for r in wu_rows),
         **timing(k2),
@@ -6819,6 +7344,15 @@ def main() -> int:
         **timing(mm_bf16),
         "device_ms": sum(r_["device_ms"] for r_ in mm_rows
                          if r_["dtype"] == "bfloat16"),
+        "tuned": {dt: {"default_device_us": sum(
+                          r_["tuned"]["default_us"] for r_ in mm_rows
+                          if r_["dtype"] == dt),
+                       "tuned_device_us": sum(
+                          r_["tuned"]["tuned_us"] for r_ in mm_rows
+                          if r_["dtype"] == dt),
+                       "plans": [r_["tuned"]["plan"] for r_ in mm_rows
+                                 if r_["dtype"] == dt]}
+                  for dt in ("bfloat16", "float32")},
         "f32": timing(mm_f32),
         "routes": {"bfloat16": "wgmma (TMA + wgmma bf16)",
                    "float32": "simt (f32 FMA)"},
@@ -7187,6 +7721,7 @@ def main() -> int:
     print(json.dumps({"lm_training": lm_train}))
     print(json.dumps({"rwkv_serving": rwkv}))
     print(json.dumps({"hybrid_training": hybrid_train["summary"]}))
+    print(json.dumps({"dp_training": dp_train}))
     print(json.dumps({"hybrid_serving": hy_summary}))
     print(json.dumps({"serving_int8": {
         "images_per_s": q8_stats["images_per_s"],

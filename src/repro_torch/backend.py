@@ -6,8 +6,9 @@ CPU tensor takes each kernel's plain PyTorch version, a CUDA tensor launches
 the hand-written kernel.  What remains to decide is the device itself,
 whether inference runs the int8 path (``REPRO_QUANTIZE``), where
 blockings come from (``REPRO_AUTOTUNE``), which input strategy the
-conv kernels take (``REPRO_CONV_TILING``), and whether inference runs
-conv->conv chains depth-first (``REPRO_CHAIN_FUSION``).
+conv kernels take (``REPRO_CONV_TILING``), whether inference runs
+conv->conv chains depth-first (``REPRO_CHAIN_FUSION``), and the wire
+format of the data-parallel gradient reduction (``REPRO_GRAD_COMPRESS``).
 """
 from __future__ import annotations
 
@@ -20,9 +21,11 @@ VALID_QUANTIZE = ("off", "int8")
 VALID_AUTOTUNE = ("off", "cache", "tune")
 VALID_CONV_TILING = ("tiled", "whole")
 VALID_CHAIN_FUSION = ("off", "on")
+VALID_GRAD_COMPRESS = ("off", "int8")
 _autotune: str | None = None     # set_autotune's value; None reads the env
 _conv_tiling: str | None = None  # set_conv_tiling's value; None reads the env
 _chain_fusion: str | None = None  # set_chain_fusion's value; None: the env
+_grad_compress: str | None = None  # set_grad_compress's value; None: the env
 
 
 def get_quantize() -> str:
@@ -157,6 +160,50 @@ def use_chain_fusion(mode: str):
         yield
     finally:
         _chain_fusion = prev
+
+
+def _valid_grad_compress(mode: str, source: str) -> str:
+    if mode not in VALID_GRAD_COMPRESS:
+        raise ValueError(f"{source}={mode!r}; valid: "
+                         f"{', '.join(VALID_GRAD_COMPRESS)}")
+    return mode
+
+
+def get_grad_compress() -> str:
+    """The data-parallel gradient reduction's wire format: "off" (default)
+    = an exact f32 all-reduce mean; "int8" = the error-feedback compressed
+    reduction of ``optim.compress`` (a residual carried in the train
+    state; see ``train.distributed``).  ``set_grad_compress`` overrides
+    ``REPRO_GRAD_COMPRESS``, which is read at each call otherwise.  An
+    invalid value raises."""
+    if _grad_compress is not None:
+        return _grad_compress
+    return _valid_grad_compress(os.environ.get("REPRO_GRAD_COMPRESS", "off"),
+                                "REPRO_GRAD_COMPRESS")
+
+
+def set_grad_compress(mode: str) -> None:
+    """Pin the reduction's wire format for this process, over
+    ``REPRO_GRAD_COMPRESS``."""
+    global _grad_compress
+    _grad_compress = _valid_grad_compress(mode, "grad_compress")
+
+
+@contextmanager
+def use_grad_compress(mode: str):
+    global _grad_compress
+    prev = _grad_compress
+    set_grad_compress(mode)
+    try:
+        yield
+    finally:
+        _grad_compress = prev
+
+
+def resolve_grad_compress(mode: str | None) -> str:
+    """``mode`` if given (validated), else ``get_grad_compress()``."""
+    return get_grad_compress() if mode is None \
+        else _valid_grad_compress(mode, "grad_compress")
 
 
 def resolve_device(device=None) -> torch.device:

@@ -322,3 +322,71 @@ def chain_blocking(layers, *, vmem_budget: int | None = None,
                              fits=False)
     return ChainBlocking(rb=best, n_bands=math.ceil(p_final / best),
                          vmem_bytes=ws(best), fits=True)
+
+
+# -- the fused matmul (K6) ----------------------------------------------------
+
+MATMUL_EDGE = 128   # the reference's matmul block edge (its matrix unit's)
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulBlocking:
+    """The reference's matmul blocking: (bm, bn, bk) blocks and their
+    working set."""
+    bm: int
+    bn: int
+    bk: int
+    vmem_bytes: int
+
+
+def matmul_blocking_analytic(m: int, n: int, k: int, *, dtype_bytes: int = 2,
+                             vmem_budget: int = WHOLE_PLANE_BUDGET
+                             ) -> MatmulBlocking:
+    """The reference's analytic matmul blocking, its arithmetic and its
+    default budget (16 MiB) unchanged: bm, bn at most ``MATMUL_EDGE``; the
+    largest bk (halving from 512) that divides k and whose blocks fit the
+    budget.
+    The port's K6 takes a ``MatmulPlan`` instead (``matmul_blocking``);
+    this is the reference's record of the same shape, and the seed of
+    ``tune.space.matmul_candidates``."""
+    bm = min(m, MATMUL_EDGE)
+    bn = min(n, MATMUL_EDGE)
+    bk = min(k, 512)
+    while k % bk:
+        bk //= 2
+
+    def ws(bk_):
+        return (bm * bk_ + bk_ * bn) * dtype_bytes + 2 * bm * bn * 4
+    while bk > LANE and ws(bk) > vmem_budget:
+        bk //= 2
+    return MatmulBlocking(bm=bm, bn=bn, bk=max(bk, 1), vmem_bytes=ws(bk))
+
+
+def matmul_blocking(m: int, n: int, k: int, *, dtype_bytes: int = 2,
+                    backend: str | None = None,
+                    autotune: str | None = None):
+    """The plan K6 takes for an (m, k) x (k, n) product of
+    ``dtype_bytes`` elements on ``backend`` ("cuda" or "cpu"; None: the
+    default device's type), by the autotune mode (``autotune``, else
+    ``REPRO_AUTOTUNE``): under "off", and on a miss under "cache", None
+    (the kernel's default plan); else the cached or newly tuned
+    ``MatmulPlan`` (``tune.lookup_matmul`` / ``tune.autotune_matmul``).
+    The counterpart of the reference's ``matmul_blocking``, which
+    ``ops.matmul`` consults the same way."""
+    mode = be.resolve_autotune(autotune)
+    if mode == "off":
+        return None
+    if backend is None:
+        backend = be.resolve_device(None).type
+    return _tuned_matmul(mode, m, n, k, dtype_bytes=dtype_bytes,
+                         backend=backend)
+
+
+def _tuned_matmul(mode: str, m, n, k, *, dtype_bytes, backend):
+    # lazy: repro_torch.tune imports this module
+    from repro_torch import tune
+    if mode == "tune":
+        return tune.autotune_matmul(m, n, k, dtype_bytes=dtype_bytes,
+                                    backend=backend)
+    return tune.lookup_matmul(m, n, k, dtype_bytes=dtype_bytes,
+                              backend=backend)

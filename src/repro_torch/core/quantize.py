@@ -1,6 +1,15 @@
-"""Reduced precision for CNN serving (paper §II-K), the port's copy of the
-CNN half of ``repro/core/quantize.py``.
+"""Reduced precision (paper §II-K), the port's copy of
+``repro/core/quantize.py``.
 
+LM weights (``quantize_int8`` / ``dequantize``): matrices stored int8 with
+per-output-channel scales (the max over every axis but the last), small
+tensors as they are, dequantized to bf16 or f32 for the math;
+``quantization_error`` reports each leaf's reconstruction error.  Their
+callers in the reference are its dry-run tools and its reduced-precision
+bench; the reference's ``quantized_specs`` mirrors a logical-axis specs
+tree, which the port does not have yet.
+
+CNN serving:
 Per-conv activation scales are calibrated from warmup batches, weights are
 stored int8 with per-K-channel scales, and K3 (``kernels.conv2d_q8``)
 multiplies int8 by int8 into int32 and dequantizes in its f32 epilogue.
@@ -11,6 +20,56 @@ tensor quantizes to zeros instead of dividing by zero.  Rounding is
 from __future__ import annotations
 
 import torch
+
+
+def _is_leaf_dict(x) -> bool:
+    return isinstance(x, dict) and set(x) == {"q", "s"}
+
+
+def _tree_map(fn, tree, *, is_leaf=lambda x: False):
+    if isinstance(tree, dict) and not is_leaf(tree):
+        return {key: _tree_map(fn, v, is_leaf=is_leaf)
+                for key, v in tree.items()}
+    return fn(tree)
+
+
+def quantize_int8(params, *, min_size: int = 1024):
+    """Per-output-channel symmetric int8 for matrices; a leaf of fewer than
+    2 dims or ``min_size`` elements stays as it is.  Returns the tree with
+    each quantized leaf a ``{"q": int8, "s": f32 (last dim,)}`` dict, its
+    scale ``max|p|`` over every axis but the last, / 127 + 1e-12."""
+    def leaf(p):
+        if p.dim() < 2 or p.numel() < min_size:
+            return p
+        p32 = p.to(torch.float32)
+        scale = p32.abs().amax(dim=tuple(range(p.dim() - 1))) / 127.0 \
+            + 1e-12
+        q = torch.clamp(torch.round(p32 / scale), -127, 127).to(torch.int8)
+        return {"q": q, "s": scale.to(torch.float32)}
+    return _tree_map(leaf, params)
+
+
+def dequantize(qparams, dtype=torch.bfloat16):
+    """``quantize_int8``'s tree back to dense leaves of ``dtype``: q x s in
+    f32, cast; other leaves as they are."""
+    def leaf(x):
+        if _is_leaf_dict(x):
+            return (x["q"].to(torch.float32) * x["s"]).to(dtype)
+        return x
+    return _tree_map(leaf, qparams, is_leaf=_is_leaf_dict)
+
+
+def quantization_error(params, dtype=torch.bfloat16):
+    """Max relative reconstruction error per leaf, as Python floats:
+    ``max|p - dequantize(quantize_int8(p))| / (max|p| + 1e-9)`` in f32."""
+    deq = dequantize(quantize_int8(params), dtype)
+
+    def walk(a, b):
+        if isinstance(a, dict):
+            return {key: walk(v, b[key]) for key, v in a.items()}
+        a, b = a.to(torch.float32), b.to(torch.float32)
+        return float((a - b).abs().max() / (a.abs().max() + 1e-9))
+    return walk(params, deq)
 
 
 def quantize_act(x, scale):

@@ -16,19 +16,20 @@
 //
 // matmul_fused_kernel_wgmma, bf16 with K and N multiples of 8 and a, b, out
 // 16-byte aligned (TMA needs 16-byte row strides and bases):
-//   * a block owns a 128 x 128 output tile; one thread of its producer warp
-//     starts TMA loads (cp.async.bulk.tensor) of the a tile (128 x 64,
-//     K-major) and of the b tile (64 x 128, as two 64-column boxes: b stays
-//     row-major (K, N) and is read MN-major through the transpose bit of
-//     wgmma) into a ring of 3 shared-memory stages with 128-byte swizzle,
-//     each stage completing on an mbarrier;
-//   * two consumer warpgroups each run wgmma.mma_async m64n128k16 bf16 ->
+//   * a block owns a 128 x BN output tile (BN 128 by default, or 256 by a
+//     tuned plan); one thread of its producer warp starts TMA loads
+//     (cp.async.bulk.tensor) of the a tile (128 x 64, K-major) and of the
+//     b tile (64 x BN, as BN / 64 boxes of 64 columns: b stays row-major
+//     (K, N) and is read MN-major through the transpose bit of wgmma) into
+//     a ring of shared-memory stages (3 by default; 2 or 4 by a plan) with
+//     128-byte swizzle, each stage completing on an mbarrier;
+//   * two consumer warpgroups each run wgmma.mma_async m64nBNk16 bf16 ->
 //     f32 on 64 rows of the tile, keep one group of products in flight, and
 //     free a stage (a second mbarrier) once the products that read it are
 //     done;
-//   * two blocks share an SM (97 KB of shared memory and 94 registers a
-//     thread each), so one block's epilogue and the fill of its ring overlap
-//     the other's products; blocks are numbered down groups of 8 row tiles,
+//   * at the default plan two blocks share an SM (97 KB of shared memory
+//     and 94 registers a thread each), so one block's epilogue and the fill
+//     of its ring overlap the other's products; blocks are numbered down groups of 8 row tiles,
 //     so the blocks in flight share their a and b tiles in L2;
 //   * TMA zero-fills the M, N and K tails of every box, so the mainloop
 //     has no bounds tests;
@@ -263,24 +264,33 @@ matmul_fused_kernel(const MmArgs p) {
   }
 }
 
-template <typename T>
-int launch(const MmArgs& p, cudaStream_t stream) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      sms = 132;
-  }
-  const int64_t big = ((p.m + 127) / 128) * static_cast<int64_t>((p.n + 127) / 128);
-  if (big >= sms) {
-    const dim3 grid((p.n + 127) / 128, (p.m + 127) / 128);
-    matmul_fused_kernel<T, 128, 128><<<grid, kThreads, 0, stream>>>(p);
-  } else {
-    const dim3 grid((p.n + 63) / 64, (p.m + 63) / 64);
-    matmul_fused_kernel<T, 64, 64><<<grid, kThreads, 0, stream>>>(p);
-  }
+template <typename T, int BM, int BN>
+int launch_tile(const MmArgs& p, cudaStream_t stream) {
+  const dim3 grid((p.n + BN - 1) / BN, (p.m + BM - 1) / BM);
+  matmul_fused_kernel<T, BM, BN><<<grid, kThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// bm x bn: a plan's tile (64 or 128 each), or 0 x 0 for the default rule:
+// 128 x 128 where those tiles give every SM a block, else 64 x 64.
+template <typename T>
+int launch(const MmArgs& p, int bm, int bn, cudaStream_t stream) {
+  if (bm == 0 && bn == 0) {
+    static int sms = 0;
+    if (sms == 0) {
+      int dev = 0;
+      if (cudaGetDevice(&dev) != cudaSuccess ||
+          cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+        sms = 132;
+    }
+    const int64_t big = ((p.m + 127) / 128) * static_cast<int64_t>((p.n + 127) / 128);
+    bm = bn = big >= sms ? 128 : 64;
+  }
+  if (bm == 128 && bn == 128) return launch_tile<T, 128, 128>(p, stream);
+  if (bm == 128 && bn == 64) return launch_tile<T, 128, 64>(p, stream);
+  if (bm == 64 && bn == 128) return launch_tile<T, 64, 128>(p, stream);
+  if (bm == 64 && bn == 64) return launch_tile<T, 64, 64>(p, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---- the bf16 route: TMA + wgmma ----------------------------------------
@@ -288,19 +298,23 @@ int launch(const MmArgs& p, cudaStream_t stream) {
 namespace wg {
 
 constexpr int kBM = 128;                      // output rows of a block
-constexpr int kBN = 128;                      // output columns of a block
 constexpr int kBK = 64;                       // k of a stage: 128 bytes of bf16
-constexpr int kStages = 3;                    // the shared-memory ring
 constexpr int kConsumers = 2;                 // warpgroups of 64 rows each
 constexpr int kThreads = 128 * kConsumers + 32;  // + one producer warp
-constexpr int kBlocksPerSm = 2;               // one's epilogue overlaps the other's loop
 constexpr int kABytes = kBM * kBK * 2;        // a tile, K-major, 128 B rows
 constexpr int kBBox = kBK * 64 * 2;           // one 64-column box of b
 constexpr int kGroupM = 8;                    // row tiles of a raster group
 
-constexpr int kBBytes = kBK * kBN * 2;        // b tile: kBN / 64 boxes
-constexpr int kStageBytes = kABytes + kBBytes;
-constexpr int kSmem = kStages * kStageBytes + 1024;  // + slack to align to 1 KB
+// The plan's coordinates: kBN output columns of a block (128: m64n128k16
+// products, two blocks an SM, one's epilogue overlapping the other's loop;
+// 256: m64n256k16, one block an SM) and a ring of kStages stages.
+template <int kBN, int kStages>
+struct Tile {
+  static constexpr int kBBytes = kBK * kBN * 2;  // b tile: kBN / 64 boxes
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kSmem = kStages * kStageBytes + 1024;  // + slack to align to 1 KB
+  static constexpr int kBlocksPerSm = kBN == 128 ? 2 : 1;
+};
 
 struct Args {
   const void* bias;      // may be null
@@ -331,13 +345,15 @@ __device__ __forceinline__ float activate_bf16(float x, int act) {
   }
 }
 
-// One block: a 128 x 128 output tile.  Blocks are numbered down groups of
+// One block: a 128 x kBN output tile.  Blocks are numbered down groups of
 // kGroupM row tiles, column by column, so the blocks in flight share a few
 // row and column tiles of a and b in L2.
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+template <int kBN, int kStages>
+__global__ void __launch_bounds__(kThreads, (Tile<kBN, kStages>::kBlocksPerSm))
 matmul_fused_kernel_wgmma(const __grid_constant__ CUtensorMap map_a,
                           const __grid_constant__ CUtensorMap map_b,
                           const __grid_constant__ CUtensorMap map_out, const Args p) {
+  constexpr int kStageBytes = Tile<kBN, kStages>::kStageBytes;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages];   // the stage's loads landed
   __shared__ __align__(8) uint64_t empty[kStages];  // both consumers are done with it
@@ -383,7 +399,7 @@ matmul_fused_kernel_wgmma(const __grid_constant__ CUtensorMap map_a,
   }
 
   // a consumer: rows m0 + w*64 .. + 63 of the tile
-  float acc[kBN / 2];
+  float acc[kBN / 2];  // the warpgroup's 64 x kBN
 #pragma unroll
   for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
   for (int kt = 0; kt < k_tiles; ++kt) {
@@ -396,9 +412,10 @@ matmul_fused_kernel_wgmma(const __grid_constant__ CUtensorMap map_a,
     for (int kk = 0; kk < kBK / 16; ++kk) {
       // a: 16 k = 32 bytes along the swizzled 128-byte rows, 8-row groups
       // 1 KB apart; b: 16 k rows = 2 KB on, 8-row groups 1 KB apart
-      // (stride), 64-column boxes kBBox apart (leading)
+      // (stride), 64-column boxes kBBox apart (leading); m64n128k16 or
+      // m64n256k16 by the size of acc
       wgmma_bf16(acc, desc_sw128(sa + kk * 32, 16, 1024),
-                 desc_sw128(sb + kk * 16 * 128, kBBox, 1024));
+                 desc_sw128(sb + kk * 16 * 128, kBBox, 1024), 1);
     }
     wgmma_commit();
     wgmma_wait<1>();  // the products of stage kt-1 are done: free it
@@ -409,14 +426,14 @@ matmul_fused_kernel_wgmma(const __grid_constant__ CUtensorMap map_a,
   for (int i = 0; i < kBN / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
 
   // Both consumers are past their last wgmma: the ring is free.  Each
-  // warpgroup writes its 64 x 128 bf16 results into 16 KB of it, as two
-  // 64 x 64 boxes in the 128-byte swizzle (a warp's 8 rows of 16 bytes fall
+  // warpgroup writes its 64 x kBN bf16 results into kBN / 8 KB of it, as
+  // kBN / 64 boxes of 64 x 64 in the 128-byte swizzle (a warp's 8 rows of 16 bytes fall
   // on 8 different bank groups), and one thread stores them with TMA,
   // which drops what lies past M or N.
   asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
   uint8_t* tile = ring + w * (kBN / 64) * kBBox;
   // the fragment: thread t holds rows 16*(t/32) + (t%32)/4 (+ 8) and column
-  // pairs 8*j + 2*(t%4) of the warpgroup's 64 x 128
+  // pairs 8*j + 2*(t%4) of the warpgroup's 64 x kBN
   const __nv_bfloat16* bias = static_cast<const __nv_bfloat16*>(p.bias);
   const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(p.residual);
   const int t = threadIdx.x % 128;
@@ -484,10 +501,12 @@ bool aligned(const void* ptr, uintptr_t bytes) {
 }  // namespace
 
 // act: 0 none, 1 relu, 2 gelu (tanh), 3 silu.  dtype: 0 = f32, 1 = bf16 for
-// a, b, bias, residual and out alike.  Returns a cudaError_t (0 on success).
+// a, b, bias, residual and out alike.  bm x bn: the block's output tile, 64
+// or 128 each (a plan of kernels/matmul_fused.MatmulPlan), or 0 x 0 for the
+// default rule.  Returns a cudaError_t (0 on success).
 extern "C" int repro_matmul_fused(const void* a, const void* b, const void* bias,
                                   const void* residual, void* out, int m, int n, int k, int act,
-                                  int dtype, void* stream) {
+                                  int dtype, int bm, int bn, void* stream) {
   if (m <= 0 || n <= 0 || k < 0 || act < kNone || act > kSilu || (m + 63) / 64 > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t quad = dtype == 0 ? 16 : 8;  // bytes of four elements
@@ -496,24 +515,50 @@ extern "C" int repro_matmul_fused(const void* a, const void* b, const void* bias
   p.vec_n = n % 4 == 0 && aligned(b, quad) && aligned(bias, quad) && aligned(residual, quad) &&
             aligned(out, quad);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(p, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(p, s);
+  if (dtype == 0) return launch<float>(p, bm, bn, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(p, bm, bn, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+namespace {
+
+template <int kBN, int kStages>
+int launch_wgmma(const CUtensorMap& map_a, const CUtensorMap& map_b, const CUtensorMap& map_out,
+                 const wg::Args& p, cudaStream_t stream) {
+  constexpr int kSmem = wg::Tile<kBN, kStages>::kSmem;
+  // per call: the attribute belongs to the current device
+  const cudaError_t err = cudaFuncSetAttribute(wg::matmul_fused_kernel_wgmma<kBN, kStages>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t blocks =
+      static_cast<int64_t>((p.m + wg::kBM - 1) / wg::kBM) * ((p.n + kBN - 1) / kBN);
+  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  wg::matmul_fused_kernel_wgmma<kBN, kStages>
+      <<<static_cast<unsigned>(blocks), wg::kThreads, kSmem, stream>>>(map_a, map_b, map_out, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // The bf16 route: a (M,K), b (K,N), bias (N,) or null, residual (M,N) or
 // null, out (M,N), all bf16, with K and N positive multiples of 8 and a, b,
-// out 16-byte aligned (kernels/matmul_fused.route).  act as above.  Returns
-// a cudaError_t: cudaErrorInvalidValue for arguments off that rule or a
-// tensor map cuTensorMapEncodeTiled refuses, cudaErrorNotSupported when
-// libcuda has no cuTensorMapEncodeTiled.
+// out 16-byte aligned (kernels/matmul_fused.route).  act as above.  bn x
+// stages: the block's output columns (128 or 256) and the ring's stages (2,
+// 3 or 4), a plan of kernels/matmul_fused.MatmulPlan, or 0 x 0 for the
+// default, 128 x 3.  Returns a cudaError_t: cudaErrorInvalidValue for
+// arguments off that rule or a tensor map cuTensorMapEncodeTiled refuses,
+// cudaErrorNotSupported when libcuda has no cuTensorMapEncodeTiled.
 extern "C" int repro_matmul_fused_wgmma(const void* a, const void* b, const void* bias,
                                         const void* residual, void* out, int m, int n, int k,
-                                        int act, void* stream) {
+                                        int act, int bn, int stages, void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || k % 8 || n % 8 || act < kNone || act > kSilu ||
       !aligned(a, 16) || !aligned(b, 16) || !aligned(out, 16) || a == nullptr || b == nullptr ||
       out == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (bn == 0 && stages == 0) {
+    bn = 128;
+    stages = 3;
+  }
   const wg::EncodeTiled fn = wg::encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap map_a, map_b, map_out;
@@ -521,15 +566,13 @@ extern "C" int repro_matmul_fused_wgmma(const void* a, const void* b, const void
       !wg::encode(fn, &map_b, b, k, n, wg::kBK, 64) ||
       !wg::encode(fn, &map_out, out, m, n, 64, 64))
     return static_cast<int>(cudaErrorInvalidValue);
-  // per call: the attribute belongs to the current device
-  const cudaError_t err = cudaFuncSetAttribute(
-      wg::matmul_fused_kernel_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t blocks =
-      static_cast<int64_t>((m + wg::kBM - 1) / wg::kBM) * ((n + wg::kBN - 1) / wg::kBN);
-  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
   wg::Args p{bias, residual, m, n, k, act, aligned(bias, 4) && aligned(residual, 4)};
-  wg::matmul_fused_kernel_wgmma<<<static_cast<unsigned>(blocks), wg::kThreads, wg::kSmem,
-                                  static_cast<cudaStream_t>(stream)>>>(map_a, map_b, map_out, p);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bn == 128 && stages == 2) return launch_wgmma<128, 2>(map_a, map_b, map_out, p, s);
+  if (bn == 128 && stages == 3) return launch_wgmma<128, 3>(map_a, map_b, map_out, p, s);
+  if (bn == 128 && stages == 4) return launch_wgmma<128, 4>(map_a, map_b, map_out, p, s);
+  if (bn == 256 && stages == 2) return launch_wgmma<256, 2>(map_a, map_b, map_out, p, s);
+  if (bn == 256 && stages == 3) return launch_wgmma<256, 3>(map_a, map_b, map_out, p, s);
+  if (bn == 256 && stages == 4) return launch_wgmma<256, 4>(map_a, map_b, map_out, p, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

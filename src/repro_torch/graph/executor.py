@@ -354,24 +354,42 @@ class GxM:
         return loss
 
     def sgd_train_step(self, params, batch, lr=0.1, *, bn_momentum=0.9):
-        """One SGD step: ``(new_params, loss)``.  Not in place: ``params`` is
-        left as it was and the new tree holds new tensors.  Every leaf but
-        the running statistics gets ``p - lr * grad``; the running
-        statistics take the detached batch statistics
-        (``apply_bn_updates``)."""
+        """One SGD step: ``(new_params, loss)``, ``local_grads`` then
+        ``apply_sgd``.  Not in place: ``params`` is left as it was and the
+        new tree holds new tensors."""
+        loss, stats, grads = self.local_grads(params, batch)
+        return self.apply_sgd(params, grads, stats, lr,
+                              bn_momentum=bn_momentum), loss
+
+    def local_grads(self, params, batch):
+        """``(loss, stats, grads)`` of ``batch``: the detached loss, the BN
+        batch statistics ``loss(..., collect_stats=True)`` collects and the
+        gradient tree by autograd, which has every leaf of ``params``
+        (zeros for the running statistics, which SGD does not train).  The
+        data-parallel step reduces these between this and ``apply_sgd``."""
         leaves = {name: {leaf: v.detach().requires_grad_(
                              leaf not in RUNNING_STATS)
                          for leaf, v in p.items()}
                   for name, p in params.items()}
         trained = [(name, leaf) for name, p in leaves.items()
                    for leaf, v in p.items() if v.requires_grad]
-        loss, stats = self.loss(leaves, batch, collect_stats=True)
-        grads = torch.autograd.grad(
-            loss, [leaves[name][leaf] for name, leaf in trained])
-        new = {name: {leaf: v.detach() for leaf, v in p.items()}
-               for name, p in leaves.items()}
-        with torch.no_grad():
-            for (name, leaf), g in zip(trained, grads):
-                new[name][leaf] = new[name][leaf] - lr * g
-        apply_bn_updates(new, stats, bn_momentum)
-        return new, loss.detach()
+        with torch.enable_grad():
+            loss, stats = self.loss(leaves, batch, collect_stats=True)
+            grads = torch.autograd.grad(
+                loss, [leaves[name][leaf] for name, leaf in trained])
+        got = dict(zip(trained, grads))
+        tree = {name: {leaf: got[name, leaf] if (name, leaf) in got
+                       else torch.zeros_like(v) for leaf, v in p.items()}
+                for name, p in params.items()}
+        return loss.detach(), {k: (a.detach(), b.detach())
+                               for k, (a, b) in stats.items()}, tree
+
+    @torch.no_grad()
+    def apply_sgd(self, params, grads, stats, lr, *, bn_momentum=0.9):
+        """The new params tree: ``p - lr * grad`` for every leaf but the
+        running statistics, which take ``stats`` (``apply_bn_updates``)."""
+        new = {name: {leaf: v.detach() if leaf in RUNNING_STATS
+                      else v.detach() - lr * grads[name][leaf]
+                      for leaf, v in p.items()}
+               for name, p in params.items()}
+        return apply_bn_updates(new, stats, bn_momentum)

@@ -23,6 +23,17 @@ Two versions live here:
   a register-tiled f32 GEMM on the SIMT cores (each thread keeps an 8x8
   or 4x4 tile of outputs and reuses every staged value 8 or 4 times).
 
+Each route takes a plan (``MatmulPlan``, from the tuner's kind "matmul":
+``tune.autotune_matmul``): on the wgmma route the n-width of the block's
+output tile (128 or 256) and the ring's stage count (2, 3 or 4); on the
+SIMT route the block's BM x BN tile (64 or 128 each).  ``plan=None`` is the
+kernel's default (``default_matmul_plan``: 128 x 128 with 3 stages on
+wgmma; on SIMT 128 x 128 where those tiles give every SM a block, else 64
+x 64), launched exactly as before plans existed.  A plan changes only
+which block computes an output, not the order of its sums, so every plan
+gives the same bits.  ``check_matmul_plan`` refuses a plan the route
+cannot run, on both devices.
+
 ``matmul_fused`` takes the plain version for a CPU tensor and launches the
 route's kernel for a CUDA tensor; there is no fallback between them, nor
 between the routes: a launch that fails raises.  ``launches`` counts the
@@ -39,6 +50,7 @@ arithmetic rate: 989 TFLOP/s on the bf16 tensor cores, 67 TFLOP/s f32.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -53,6 +65,62 @@ _fn_wgmma = None
 
 ACTS = ("none", "relu", "gelu", "silu")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("wgmma", "simt")
+# the plans each route's .cu file instantiates
+WGMMA_BM = 128
+WGMMA_BN = (128, 256)
+WGMMA_STAGES = (2, 3, 4)
+SIMT_TILES = (64, 128)
+SIMT_STAGES = 2            # the SIMT kernel's slices are double buffered
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulPlan:
+    """A K6 launch's plan: its ``route``, the block's ``bm`` x ``bn`` output
+    tile and the stages of its ring of staged k-slices (fixed at 2 on the
+    SIMT route)."""
+    route: str
+    bm: int
+    bn: int
+    stages: int
+
+
+def default_matmul_plan(route_: str, m: int, n: int, *,
+                        sms: int = H100_SMS) -> MatmulPlan:
+    """The plan a launch takes without one: on "wgmma" 128 x 128 with 3
+    stages; on "simt" 128 x 128 where those tiles give each of ``sms``
+    SMs a block, else 64 x 64 (the kernel's own rule, which reads the
+    card's SM count)."""
+    if route_ == "wgmma":
+        return MatmulPlan("wgmma", WGMMA_BM, 128, 3)
+    if route_ != "simt":
+        raise ValueError(f"route {route_!r}; valid: {', '.join(ROUTES)}")
+    big = -(-m // 128) * -(-n // 128) >= sms
+    tile = 128 if big else 64
+    return MatmulPlan("simt", tile, tile, SIMT_STAGES)
+
+
+def check_matmul_plan(plan, *, route_: str, m: int, n: int, k: int) -> None:
+    """Raises ``ValueError`` unless ``plan`` is a ``MatmulPlan`` that the
+    kernel of ``route_`` runs on an (m, k) x (k, n) product: on "wgmma" bm
+    128, bn 128 or 256, 2 to 4 stages; on "simt" bm and bn 64 or 128, 2
+    stages and at most 65535 row tiles."""
+    if not isinstance(plan, MatmulPlan):
+        raise ValueError(f"a K6 plan is a MatmulPlan, not {plan!r}")
+    if plan.route != route_:
+        raise ValueError(f"plan for route {plan.route!r} given to a "
+                         f"{route_!r} launch")
+    if route_ == "wgmma":
+        ok = (plan.bm == WGMMA_BM and plan.bn in WGMMA_BN
+              and plan.stages in WGMMA_STAGES)
+    else:
+        ok = (plan.bm in SIMT_TILES and plan.bn in SIMT_TILES
+              and plan.stages == SIMT_STAGES
+              and -(-m // plan.bm) <= 65535)
+    if not ok:
+        raise ValueError(f"K6's {route_} route cannot run {plan} on "
+                         f"m={m}, n={n}, k={k}")
 
 
 def _check(a, b, bias, act, residual):
@@ -84,9 +152,17 @@ def route(a, b) -> str:
     and bases; the output the wrapper allocates always is), else "simt".
     A dispatch by shape, not a fallback: each route raises on failure."""
     k, n = b.shape
-    if (a.dtype == b.dtype == torch.bfloat16 and k > 0 and k % 8 == 0
-            and n % 8 == 0 and a.data_ptr() % 16 == 0
-            and b.data_ptr() % 16 == 0):
+    if (a.dtype == b.dtype == torch.bfloat16
+            and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0):
+        return route_for(k, n, 2)
+    return "simt"
+
+
+def route_for(k: int, n: int, dtype_bytes: int) -> str:
+    """``route`` by shape and element bytes alone, for operands on 16-byte
+    boundaries (as every fresh tensor is): "wgmma" for bf16 (2 bytes) with
+    K and N positive multiples of 8, else "simt"."""
+    if dtype_bytes == 2 and k > 0 and k % 8 == 0 and n % 8 == 0:
         return "wgmma"
     return "simt"
 
@@ -95,7 +171,7 @@ def _kernel_fn_wgmma():
     global _fn_wgmma
     if _fn_wgmma is None:
         fn = _build.load("matmul_fused").repro_matmul_fused_wgmma
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn_wgmma = fn
@@ -106,20 +182,26 @@ def _kernel_fn():
     global _fn
     if _fn is None:
         fn = _build.load("matmul_fused").repro_matmul_fused
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def matmul_fused(a, b, *, bias=None, act: str = "none", residual=None):
+def matmul_fused(a, b, *, bias=None, act: str = "none", residual=None,
+                 plan: MatmulPlan | None = None):
     """act(a @ b + bias [+ residual]).  a: (M,K), b: (K,N) -> (M,N) in a's
     dtype.  A CPU tensor takes ``matmul_fused_plain``; a CUDA tensor
     launches the sm_90a kernel of its ``route`` on the current stream or
-    raises."""
+    raises.  ``plan``: None for the kernel's default, else a
+    ``MatmulPlan`` of the call's route (``check_matmul_plan`` refuses any
+    other, on either device)."""
     global launches, launches_wgmma
     _check(a, b, bias, act, residual)
+    if plan is not None:
+        check_matmul_plan(plan, route_=route(a, b), m=a.shape[0],
+                          n=b.shape[1], k=a.shape[1])
     if a.device.type == "cpu":
         return matmul_fused_plain(a, b, bias=bias, act=act, residual=residual)
     if a.device.type != "cuda":
@@ -152,13 +234,16 @@ def matmul_fused(a, b, *, bias=None, act: str = "none", residual=None):
             fn = _kernel_fn_wgmma()
             launches += 1
             launches_wgmma += 1
-            err = fn(*args, stream)
+            err = fn(*args, *((plan.bn, plan.stages) if plan else (0, 0)),
+                     stream)
         else:
             fn = _kernel_fn()
             launches += 1
-            err = fn(*args, _DTYPES[a.dtype], stream)
+            err = fn(*args, _DTYPES[a.dtype],
+                     *((plan.bm, plan.bn) if plan else (0, 0)), stream)
     if err != 0:
         raise RuntimeError(f"matmul_fused kernel launch failed ({path} "
-                           f"route): CUDA error {err} (a {tuple(a.shape)}, "
-                           f"b {tuple(b.shape)}, {a.dtype})")
+                           f"route, plan {plan}): CUDA error {err} (a "
+                           f"{tuple(a.shape)}, b {tuple(b.shape)}, "
+                           f"{a.dtype})")
     return out

@@ -23,7 +23,23 @@ from __future__ import annotations
 
 from repro_torch.kernels.attention import flash_attention as attention
 from repro_torch.kernels.conv1d_causal import conv1d_causal as conv1d
-from repro_torch.kernels.matmul_fused import matmul_fused as matmul
+from repro_torch.kernels.matmul_fused import matmul_fused
 from repro_torch.kernels.moe_gmm import moe_gmm as moe_grouped_matmul
+
+
+def matmul(a, b, *, bias=None, act: str = "none", residual=None,
+           autotune: str | None = None):
+    """K6 under the plan ``core.blocking.matmul_blocking`` gives the shape
+    by the autotune mode (``autotune``, else ``REPRO_AUTOTUNE``): under
+    "off" the kernel's default plan, exactly ``matmul_fused``; under
+    "cache" the cached plan (the default on a miss); under "tune" the
+    cached or newly tuned plan, as the reference's ``ops.matmul`` consults
+    its ``matmul_blocking`` (``repro/kernels/ops.py:35``)."""
+    from repro_torch.core.blocking import matmul_blocking
+    plan = matmul_blocking(a.shape[0], b.shape[1], a.shape[1],
+                           dtype_bytes=a.element_size(),
+                           backend=a.device.type, autotune=autotune)
+    return matmul_fused(a, b, bias=bias, act=act, residual=residual,
+                        plan=plan)
 
 __all__ = ["attention", "conv1d", "matmul", "moe_grouped_matmul"]

@@ -33,9 +33,18 @@ import torch
 import torch.nn.functional as F
 
 
+def _true_f32():
+    """cuDNN in true f32 (TF32 off) for the block, its ``benchmark`` and
+    ``deterministic`` choices left as the caller set them
+    (``cudnn.flags`` would reset both to False)."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
+
+
 def conv2d(x, w, *, stride: int = 1, padding: int = 0):
     """Forward conv in f32. x: (N,H,W,C), w: (R,S,C,K) -> (N,P,Q,K)."""
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+    with _true_f32():
         out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
                        stride=stride, padding=padding)
     return out.permute(0, 2, 3, 1).contiguous()
@@ -67,7 +76,7 @@ def conv2d_bwd_data(do, w, *, stride: int = 1, padding: int = 0, input_hw):
     c = w.shape[2]
     h, wd = input_hw
     with torch.enable_grad(), \
-            torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            _true_f32():
         x0 = torch.zeros((n, h, wd, c), dtype=torch.float32,
                          device=do.device, requires_grad=True)
         out = conv2d(x0, w.detach(), stride=stride, padding=padding)
@@ -88,7 +97,7 @@ def conv2d_bwd_weights(x, do, *, stride: int = 1, padding: int = 0,
         r = h + 2 * padding - (p - 1) * stride
         s = wd + 2 * padding - (q - 1) * stride
     with torch.enable_grad(), \
-            torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            _true_f32():
         w0 = torch.zeros((r, s, c, k), dtype=torch.float32, device=x.device,
                          requires_grad=True)
         out = conv2d(x.detach(), w0, stride=stride, padding=padding)

@@ -7,8 +7,13 @@ autograd, the reference's ``jax.value_and_grad``, over ``accum_steps``
 microbatches summed in f32; the global-norm clip; the optimizer.  On the
 card every attention forward is K7 and its gradient K7's backward kernel,
 every Mamba conv1d K8 with K8' as its gradient and every MoE grouped
-matmul K9 with K9'.  The reference's ``train_state_specs`` waits for data
-parallelism (ROADMAP Queue 1 item 10).
+matmul K9 with K9'.  With ``group`` (a ``torch.distributed`` process group,
+``launch.mesh``) the step is data-parallel: each rank takes its slice of
+the batch, and the loss and gradients are the mean over every unmasked
+label of the group's batch (one f32 all-reduce) before the clip and the
+optimizer, so every rank applies the same update to params it holds
+whole.  The reference's
+``train_state_specs`` waits for the specs tree (ROADMAP Queue 1 step 4).
 
 ``make_cnn_train_step`` routes every conv through
 ``core.conv.conv2d_train``: the forward is K1, dI comes from the §II-I
@@ -46,7 +51,7 @@ def loss_for_batch(params, cfg, batch):
 
 
 def make_train_step(cfg, opt, *, lr: float = 3e-4, clip: float = 1.0,
-                    accum_steps: int = 1):
+                    accum_steps: int = 1, group=None):
     """``train_step(state, batch) -> (state, {"loss", "grad_norm"})`` on
     the params' device.  With ``accum_steps`` > 1 the batch splits into
     that many microbatches along its first axis, whose gradients are summed
@@ -54,7 +59,28 @@ def make_train_step(cfg, opt, *, lr: float = 3e-4, clip: float = 1.0,
     returns the new params and slots (AdamW writes them in place); the
     step counter advances.  A leaf the loss does not reach raises, save
     the token table under "embeds", whose gradient is zero as the
-    reference's is."""
+    reference's is.
+
+    With ``group`` (an initialised process group; None here means no data
+    parallelism, not the default group) the batch is this rank's slice,
+    and the loss and gradients are those of the mean over every unmasked
+    label of the group's batch, as the reference's step under a mesh takes
+    it: each rank weights microbatch i's loss and gradients by its share
+    of the group's unmasked labels in microbatch i (one all-reduce of the
+    counts), and one f32 all-reduce SUM (``allreduce_sum``) adds them
+    before the global-norm clip.  A config with an MoE layer raises under
+    ``group``: its router aux loss is a function of the whole batch's
+    routing, which a per-rank loss cannot weight back together."""
+    if group is not None:
+        from repro_torch.launch.mesh import require_group
+        from repro_torch.train.distributed import allreduce_sum
+        require_group(group)
+        if any(kind == "moe" for _, kind in cfg.block_pattern):
+            raise ValueError(
+                f"{cfg.name}: data-parallel training of an MoE config would "
+                f"average per-rank router aux losses, which differ from the "
+                f"full batch's; it waits for ROADMAP Queue 1 step 4")
+
     def grads_of(params, leaves, batch):
         loss = loss_for_batch(params, cfg, batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -70,14 +96,23 @@ def make_train_step(cfg, opt, *, lr: float = 3e-4, clip: float = 1.0,
             out.append(g)
         return loss.detach(), out
 
+    def weights(batch):
+        """Under ``group``: each microbatch's weight, this rank's unmasked
+        labels there over the group's, / ``accum_steps``."""
+        counts = torch.stack([(lab >= 0).sum() for lab in
+                              batch["labels"].chunk(accum_steps)]).float()
+        total = allreduce_sum([counts], group)[0]
+        return counts / total.clamp_min(1.0) / accum_steps
+
     def train_step(state, batch):
         params = state["params"]
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
         batch = lm_batch(batch, leaves[0].device)
+        w = None if group is None else weights(batch)
         with torch.enable_grad():
-            if accum_steps == 1:
+            if accum_steps == 1 and w is None:
                 loss, grads = grads_of(params, leaves, batch)
             else:
                 acc = [torch.zeros(p.shape, dtype=torch.float32,
@@ -88,10 +123,21 @@ def make_train_step(cfg, opt, *, lr: float = 3e-4, clip: float = 1.0,
                     micro = {key: v.chunk(accum_steps)[i]
                              for key, v in batch.items()}
                     l, g = grads_of(params, leaves, micro)
-                    acc = [a + gi for a, gi in zip(acc, g)]
-                    loss = loss + l
-                grads = [a / accum_steps for a in acc]
-                loss = loss / accum_steps
+                    if w is None:
+                        acc = [a + gi for a, gi in zip(acc, g)]
+                        loss = loss + l
+                    else:
+                        acc = [a + w[i] * gi for a, gi in zip(acc, g)]
+                        loss = loss + w[i] * l
+                if w is None:
+                    grads = [a / accum_steps for a in acc]
+                    loss = loss / accum_steps
+                else:
+                    # the data-parallel reduction point: every rank's
+                    # gradients are in, the clip and the optimizer have
+                    # not run
+                    *grads, loss = allreduce_sum(acc + [loss], group)
+                    grads = [g.to(p.dtype) for g, p in zip(grads, leaves)]
         it = iter(grads)
         grads, gnorm = clip_by_global_norm(tree_map(lambda _: next(it),
                                                     params), clip)
@@ -163,7 +209,7 @@ def make_cnn_train_step(gxm, *, lr: float = 0.1, bn_momentum: float = 0.9,
 
 def warmup_cnn_train(gxm, *, image_hw=(224, 224), minibatch: int = 1,
                      mode: str = "tune", backend=None, cache=None,
-                     bwd_mode: str | None = None) -> list[dict]:
+                     bwd_mode: str | None = None, group=None) -> list[dict]:
     """Pre-tune every plan one training step of ``gxm`` at batch
     ``minibatch`` launches: kind "fwd" for each distinct conv, "bwd" for
     the dual conv(s) of its backward-data pass (under ``bwd_mode``, else
@@ -171,10 +217,20 @@ def warmup_cnn_train(gxm, *, image_hw=(224, 224), minibatch: int = 1,
     ``REPRO_CONV_TILING=whole`` the whole-plane blockings of "fwd_whole",
     "bwd_whole" and "wu_whole"; the training counterpart of
     ``CnnInferenceEngine.warmup``.  ``backend`` None is the GxM's device
-    type.  Returns the ``tune.warmup_convs`` report."""
+    type.  With ``group`` (the reference's ``mesh=``), ``minibatch`` is
+    the global batch and the entries are keyed at the per-rank batch the
+    data-parallel step runs (``train.distributed.warmup_cnn_train_dp``
+    adds the broadcast).  Returns the ``tune.warmup_convs`` report."""
     from repro_torch import tune
     from repro_torch.graph.serving import (conv_shapes,
                                            distinct_conv_signatures)
+    if group is not None:
+        from repro_torch.launch.mesh import data_axis_size
+        ranks = data_axis_size(group)
+        if minibatch % ranks:
+            raise ValueError(f"global batch {minibatch} does not split into "
+                             f"{ranks} ranks")
+        minibatch //= ranks
     sigs = distinct_conv_signatures(conv_shapes(gxm.etg, image_hw))
     kinds = ("fwd", "bwd", "wu")
     if be.get_conv_tiling() == "whole":

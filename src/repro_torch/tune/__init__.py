@@ -21,7 +21,12 @@ What is tuned is what each port kernel takes:
 * "fwd_whole", "bwd_whole" (K10a), "q8_whole" (K10c) and "wu_whole"
   (K10b): the whole-plane kernels' ``ConvBlocking`` (rb_p, k_blk), the
   same way (``space.WHOLE_KINDS``), consulted per launch by
-  ``core.conv.whole_blocking``; the analytic blocking is the default.
+  ``core.conv.whole_blocking``; the analytic blocking is the default;
+* "matmul" (K6): its ``MatmulPlan`` per (m, n, k, dtype bytes), through
+  ``lookup_matmul`` / ``autotune_matmul`` under the reference's
+  ``matmul_key``, which ``core.blocking.matmul_blocking`` and so
+  ``kernels.ops.matmul`` consult; every candidate timed on the card, the
+  default kept unless another is ``MIN_GAIN`` faster.
 
   mode "off"    the analytic blocking / the kernel's default plan (default)
   mode "cache"  consult the cache, fall back to those on a miss
@@ -48,13 +53,20 @@ from repro_torch.kernels.conv2d_direct import MmaPlan
 from repro_torch.kernels.conv2d_q8 import RingPlan
 from repro_torch.kernels.conv2d_wu import WuPlan
 from repro_torch.tune.cache import _ENV_VAR as _CACHE_ENV
+from repro_torch.kernels.matmul_fused import (MatmulPlan,  # noqa: F401
+                                              check_matmul_plan,
+                                              route_for)
 from repro_torch.tune.cache import (CACHE_VERSION, TuneCache,  # noqa: F401
-                                    conv_key, default_cache, device_kind)
+                                    conv_key, default_cache, device_kind,
+                                    matmul_key)
 from repro_torch.tune.measure import (can_measure, conv_cost_us,  # noqa: F401
-                                      plan_cost_us, rank_conv, rank_plans)
+                                      matmul_plan_cost_us, plan_cost_us,
+                                      rank_conv, rank_matmul_plans,
+                                      rank_plans)
 from repro_torch.tune.space import (PLAN_KINDS,  # noqa: F401
                                     WHOLE_KINDS, check_plan,
-                                    conv_candidates, default_plan, out_dim,
+                                    conv_candidates, default_plan,
+                                    matmul_candidates, out_dim,
                                     plan_applies, plan_candidates)
 
 PLAN_TYPES = {"fwd": MmaPlan, "bwd": MmaPlan, "wu": WuPlan, "q8": RingPlan,
@@ -329,3 +341,67 @@ def warmup_convs(shapes, *, minibatches=(1,), kinds=("fwd",), mode="tune",
             print(f"repro_torch.tune: warmup cache not persisted "
                   f"({cache.path}: {e})", file=sys.stderr)
     return report
+
+
+def _to_matmul(entry: dict, *, m: int, n: int, k: int, dtype_bytes: int):
+    """The ``MatmulPlan`` an entry holds, or None where it holds none the
+    shape's route runs (a missing or mistyped field, or a plan
+    ``check_matmul_plan`` refuses)."""
+    fields = entry.get("blocking", {})
+    try:
+        values = {f.name: fields[f.name]
+                  for f in dataclasses.fields(MatmulPlan)}
+    except (KeyError, TypeError):
+        return None
+    for name, v in values.items():
+        if type(v) is not (str if name == "route" else int):
+            return None
+    plan = MatmulPlan(**values)
+    try:
+        check_matmul_plan(plan, route_=route_for(k, n, dtype_bytes), m=m,
+                          n=n, k=k)
+    except ValueError:
+        return None
+    return plan
+
+
+def lookup_matmul(m, n, k, *, dtype_bytes=2, backend="cuda",
+                  cache: TuneCache | None = None) -> MatmulPlan | None:
+    """Cache-only consult of K6's plan for an (m, k) x (k, n) product;
+    None on a miss or an entry its route cannot run."""
+    cache = default_cache() if cache is None else cache
+    entry = cache.lookup(matmul_key(m=m, n=n, k=k, dtype_bytes=dtype_bytes,
+                                    backend=backend))
+    if not entry:
+        return None
+    return _to_matmul(entry, m=m, n=n, k=k, dtype_bytes=dtype_bytes)
+
+
+def autotune_matmul(m, n, k, *, dtype_bytes=2, backend="cuda",
+                    cache: TuneCache | None = None,
+                    persist: bool = True) -> MatmulPlan:
+    """Cache hit, else rank K6's plans (``rank_matmul_plans``: each timed
+    by device time on the card, scored by the model elsewhere), persist
+    the winner under the reference's ``matmul_key`` and return it.  The
+    entry holds the plan's fields, its score, the candidates and, where
+    timed, the default plan's time."""
+    cache = default_cache() if cache is None else cache
+    hit = lookup_matmul(m, n, k, dtype_bytes=dtype_bytes, backend=backend,
+                        cache=cache)
+    if hit is not None:
+        return hit
+    cands = plan_candidates("matmul", m=m, n=n, k=k, dtype_bytes=dtype_bytes)
+    ranked = rank_matmul_plans(m, n, k, cands, dtype_bytes=dtype_bytes,
+                               backend=backend)
+    score, best = ranked[0]
+    measured = can_measure(backend)
+    extra = {"candidates": len(cands), "timed": len(ranked) if measured
+             else 0}
+    if measured:
+        extra["default_us"] = next(t for t, pl in ranked if pl == cands[0])
+    cache.store(matmul_key(m=m, n=n, k=k, dtype_bytes=dtype_bytes,
+                           backend=backend),
+                dataclasses.asdict(best),
+                source="measured" if measured else "model", score_us=score,
+                persist=persist, extra=extra)
+    return best

@@ -57,6 +57,14 @@ def conv_key(*, kind: str, h: int, w: int, c: int, k: int, r: int, s: int,
             f"|st{stride}pd{padding}|b{dtype_bytes}|{backend}|{device}")
 
 
+def matmul_key(*, m: int, n: int, k: int, dtype_bytes: int, backend: str,
+               device: str | None = None) -> str:
+    """The reference's matmul key: the kind "matmul" of the tuner (K6's
+    plans)."""
+    device = device or device_kind()
+    return f"matmul|m{m}n{n}k{k}|b{dtype_bytes}|{backend}|{device}"
+
+
 class TuneCache:
     """In-memory dict over a versioned JSON file.  Thread-safe; loaded on
     first use."""
@@ -141,6 +149,36 @@ class TuneCache:
                     print(f"repro_torch.tune: cache not persisted "
                           f"({self.path}: {e}); continuing in-memory",
                           file=sys.stderr)
+
+    def export_entries(self, keys=None) -> dict[str, dict]:
+        """A copy of the entries (all, or those of ``keys`` present) as a
+        JSON-serialisable payload: the sending half of tune-once warmup,
+        where rank 0 tunes and the other ranks ``merge_entries`` it."""
+        with self._lock:
+            entries = self._load_locked()
+            if keys is None:
+                return {k: dict(v) for k, v in entries.items()}
+            return {k: dict(entries[k]) for k in keys if k in entries}
+
+    def merge_entries(self, payload: dict[str, dict], *,
+                      persist: bool = True) -> int:
+        """Install a payload of entries as they are (their times and
+        sources kept), saving the file where ``persist``.  Returns how many
+        entries were installed."""
+        with self._lock:
+            self._load_locked().update(
+                {k: dict(v) for k, v in payload.items()})
+            TuneCache.changes += 1
+        if persist:
+            try:
+                self.save()
+            except OSError as e:
+                if not self._warned_readonly:
+                    self._warned_readonly = True
+                    print(f"repro_torch.tune: cache not persisted "
+                          f"({self.path}: {e}); continuing in-memory",
+                          file=sys.stderr)
+        return len(payload)
 
     def __len__(self) -> int:
         with self._lock:

@@ -44,7 +44,7 @@ scores a plan by the kernel's own model: K1's ``_mma_cost``, K2's rounds
 x chunk (``conv2d_wu.mma_cost``), K3's ring estimate
 (``conv2d_q8.ring_cost``).  ``rank_plans`` always times the kernel's
 default plan, and keeps it unless another plan measured at least
-``MIN_GAIN`` faster.  The whole-plane kinds ("fwd_whole", "bwd_whole",
+``MIN_GAIN`` faster, there and again in turns with it.  The whole-plane kinds ("fwd_whole", "bwd_whole",
 "q8_whole", "wu_whole") rank their ``ConvBlocking`` candidates the same
 way: the model is ``conv_cost_us`` of the base kind with the whole plane
 shipped per step (the reference's bytes of the legacy kernels), and the
@@ -359,6 +359,64 @@ def plan_cost_us(kind: str, shape: dict, plan, *,
     return sec * 1e6
 
 
+def matmul_plan_cost_us(m: int, n: int, k: int, plan, *,
+                        dtype_bytes: int = 2) -> float:
+    """Modeled microseconds of one K6 launch under ``plan``: the blocks
+    run in waves of (SMs x blocks an SM) and each block takes its share of
+    the route's peak for its tile's FLOPs (``2 bm bn k``), bounded below by
+    the bytes each block reads (its a rows and b columns) over HBM; a
+    shallower ring adds a tenth per stage short of 4, for the loads it
+    cannot hide."""
+    from repro_torch.kernels import matmul_fused as k6
+    from repro_torch.launch.roofline import (BF16_PEAK_FLOPS,
+                                             HBM_BYTES_PER_S)
+    per_sm = 2 if plan.route == "wgmma" and plan.bn == 128 else 1
+    slots = k6.H100_SMS * per_sm
+    tiles = -(-m // plan.bm) * -(-n // plan.bn)
+    waves = -(-tiles // slots)
+    peak = BF16_PEAK_FLOPS if plan.route == "wgmma" else F32_PEAK_FLOPS
+    flop_s = 2.0 * plan.bm * plan.bn * k / (peak / slots)
+    byte_s = (plan.bm + plan.bn) * k * dtype_bytes / (HBM_BYTES_PER_S / slots)
+    fill = 1.0 + 0.1 * max(0, 4 - plan.stages)
+    return waves * max(flop_s, byte_s) * fill * 1e6
+
+
+def measure_matmul_us(m: int, n: int, k: int, plan, *,
+                      dtype_bytes: int = 2) -> float:
+    """Device microseconds of one K6 launch under ``plan`` on seeded
+    random operands of ``dtype_bytes`` (bf16 or f32), bias and no act
+    (``device_us``)."""
+    import torch
+
+    from repro_torch.kernels import matmul_fused as k6
+    dtype = torch.bfloat16 if dtype_bytes == 2 else torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    b = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+    bias = torch.randn((n,), generator=gen, device="cuda").to(dtype)
+    return device_us(lambda: k6.matmul_fused(a, b, bias=bias, plan=plan))
+
+
+def rank_matmul_plans(m: int, n: int, k: int, candidates: list, *,
+                      dtype_bytes: int = 2, backend: str = "cuda"
+                      ) -> list[tuple[float, object]]:
+    """``rank_plans`` for K6: the model (``matmul_plan_cost_us``) orders
+    the candidates; on the card every candidate (at most six) is timed and
+    the default, ``candidates[0]``, stays first unless another plan is at
+    least ``MIN_GAIN`` faster (``keep_default_unless_faster``)."""
+    scored = sorted(((matmul_plan_cost_us(m, n, k, pl,
+                                          dtype_bytes=dtype_bytes), i, pl)
+                     for i, pl in enumerate(candidates)),
+                    key=lambda t: t[:2])
+    if not can_measure(backend):
+        return [(score, pl) for score, _, pl in scored]
+
+    def time_of(pl):
+        return measure_matmul_us(m, n, k, pl, dtype_bytes=dtype_bytes)
+    return keep_default_unless_faster([(time_of(pl), pl) for pl in candidates],
+                                      time_of)
+
+
 def can_measure(backend: str) -> bool:
     """Timings mean something only on the card: backend "cuda"."""
     return backend == "cuda"
@@ -534,8 +592,9 @@ def rank_plans(kind: str, shape: dict, candidates: list, *,
     The model (``plan_cost_us``) scores all.  On the card the shortlist is
     the default plan and the model's ``measure_top - 1`` best of the rest;
     each is timed (``measure_conv_us``), and the list is sorted by time,
-    except that the default stays first unless another plan measured at
-    least ``MIN_GAIN`` faster.  A candidate that fails on the card raises."""
+    except that the default stays first unless another plan is at least
+    ``MIN_GAIN`` faster (``keep_default_unless_faster``).  A candidate
+    that fails on the card raises."""
     default = candidates[0]
     scored = sorted(((plan_cost_us(kind, shape, pl, minibatch=minibatch), i,
                       pl) for i, pl in enumerate(candidates)),
@@ -544,10 +603,26 @@ def rank_plans(kind: str, shape: dict, candidates: list, *,
         return [(score, pl) for score, _, pl in scored]
     short = [default] + [pl for _, _, pl in scored
                          if pl != default][:measure_top - 1]
-    timed = [(measure_conv_us(shape, pl, kind=kind, minibatch=minibatch), pl)
-             for pl in short]
-    base = timed[0][0]
-    timed.sort(key=lambda t: t[0])
-    if timed[0][1] != default and timed[0][0] > (1 - MIN_GAIN) * base:
-        timed.sort(key=lambda t: t[1] != default)
-    return timed
+
+    def time_of(pl):
+        return measure_conv_us(shape, pl, kind=kind, minibatch=minibatch)
+    return keep_default_unless_faster([(time_of(pl), pl) for pl in short],
+                                      time_of)
+
+
+def keep_default_unless_faster(timed: list, time_of) -> list:
+    """``timed``, (us, plan) pairs with the default plan first, sorted by
+    time, except that the default stays first unless the fastest plan
+    measured at least ``MIN_GAIN`` faster both there and again in turns
+    with it (default, plan, plan, default, summed; ``time_of(plan)``
+    times one plan): one reading taken while the card's clocks moved
+    must not replace the default with a slower plan."""
+    default, base = timed[0][1], timed[0][0]
+    ranked = sorted(timed, key=lambda t: t[0])
+    best_us, best = ranked[0]
+    if best != default and best_us <= (1 - MIN_GAIN) * base:
+        ds, bs = [time_of(default)], [time_of(best), time_of(best)]
+        ds.append(time_of(default))
+        if sum(bs) <= (1 - MIN_GAIN) * sum(ds):
+            return ranked
+    return sorted(ranked, key=lambda t: t[1] != default)

@@ -23,6 +23,13 @@ tile the kernel's ``.cu`` file instantiates, crossed with the splits whose
 chunks keep the kernel's own least chunk, with the kernel's default plan
 first.
 
+The fused matmul K6 takes a ``MatmulPlan`` (kind "matmul"): on its wgmma
+route the block's n-width and the ring's stages, on its SIMT route the
+block's BM x BN.  ``plan_candidates("matmul", m=, n=, k=, dtype_bytes=)``
+lists every plan the route's ``.cu`` file instantiates, the default
+first; ``matmul_candidates`` is the reference's list of
+``MatmulBlocking`` for the same shape, kept for its record.
+
 The whole-plane kernels K10a, K10b and K10c take the reference's
 ``ConvBlocking`` (rb_p output rows by the full row, k_blk output
 channels), which the kinds "fwd_whole" and "bwd_whole" (K10a's forward
@@ -38,15 +45,19 @@ from __future__ import annotations
 
 from repro_torch.core.blocking import (LANE, SUBLANE, VMEM_BUDGET,
                                        WHOLE_PLANE_BUDGET, ConvBlocking,
+                                       MatmulBlocking,
                                        conv_blocking_analytic,
-                                       conv_working_set, divisors)
+                                       conv_working_set, divisors,
+                                       matmul_blocking_analytic)
 from repro_torch.kernels import conv2d_direct as k1
 from repro_torch.kernels import conv2d_q8 as k3
 from repro_torch.kernels import conv2d_wu as k2
+from repro_torch.kernels import matmul_fused as k6
 
 ORDERS = ("nkpc", "npkc", "knpc", "pknc")
 MAX_CANDIDATES = 128
 PLAN_KINDS = ("fwd", "bwd", "wu", "q8")
+MATMUL_KIND = "matmul"
 WHOLE_KINDS = ("fwd_whole", "bwd_whole", "q8_whole", "wu_whole")
 
 
@@ -318,14 +329,75 @@ def _ring_plans(*, n, p, q, c, k, r, s):
     return out
 
 
-def plan_candidates(kind: str, *, h: int, w: int, c: int, k: int, r: int,
-                    s: int, stride: int, padding: int,
-                    minibatch: int = 1) -> list:
+def matmul_candidates(m: int, n: int, k: int, *, dtype_bytes: int = 2,
+                      vmem_budget: int = WHOLE_PLANE_BUDGET
+                      ) -> list[MatmulBlocking]:
+    """The reference's matmul tile candidates (bm, bn, bk dividing the
+    problem), its analytic seed first where it divides: its arithmetic and
+    its default budget (16 MiB) unchanged."""
+    seed = matmul_blocking_analytic(m, n, k, dtype_bytes=dtype_bytes,
+                                    vmem_budget=vmem_budget)
+
+    def largest_divisor(dim: int, cap: int) -> int:
+        return max(d for d in divisors(dim) if d <= cap)
+
+    bms = [d for d in (64, 128, 256) if m % d == 0] or [largest_divisor(m, 256)]
+    bns = [d for d in (64, 128, 256) if n % d == 0] or [largest_divisor(n, 256)]
+    bks = ([d for d in (128, 256, 512, 1024) if k % d == 0]
+           or [largest_divisor(k, 1024)])
+
+    def ws(bm, bn, bk):
+        return (bm * bk + bk * bn) * dtype_bytes + 2 * bm * bn * 4
+
+    out, seen = [], set()
+    if m % seed.bm == 0 and n % seed.bn == 0 and k % seed.bk == 0:
+        out.append(seed)
+        seen.add((seed.bm, seed.bn, seed.bk))
+    for bm in bms:
+        for bn in bns:
+            for bk in bks:
+                if (bm, bn, bk) in seen or ws(bm, bn, bk) > vmem_budget:
+                    continue
+                seen.add((bm, bn, bk))
+                out.append(MatmulBlocking(bm=bm, bn=bn, bk=bk,
+                                          vmem_bytes=ws(bm, bn, bk)))
+    return out[:MAX_CANDIDATES] or [seed]
+
+
+def matmul_plan_candidates(*, m: int, n: int, k: int,
+                           dtype_bytes: int) -> list:
+    """K6's plans on the route an (m, k) x (k, n) product of
+    ``dtype_bytes`` elements takes (``matmul_fused.route_for``), the
+    default first: on "wgmma" each n-width by each stage count; on "simt"
+    each BM x BN."""
+    route = k6.route_for(k, n, dtype_bytes)
+    default = k6.default_matmul_plan(route, m, n)
+    if route == "wgmma":
+        pool = [k6.MatmulPlan("wgmma", k6.WGMMA_BM, bn, st)
+                for bn in k6.WGMMA_BN for st in k6.WGMMA_STAGES]
+    else:
+        pool = [k6.MatmulPlan("simt", bm, bn, k6.SIMT_STAGES)
+                for bm in k6.SIMT_TILES for bn in k6.SIMT_TILES]
+    return [default] + [pl for pl in pool if pl != default]
+
+
+def plan_candidates(kind: str, *, minibatch: int = 1, **shape) -> list:
     """Every plan of ``kind`` the kernel can run on the shape at batch
     ``minibatch``, the kernel's default plan first (it is always a
     candidate), deduplicated, capped at ``MAX_CANDIDATES`` by spread
     sampling of the rest.  A pure function of (kind, shape, minibatch).
-    A whole-plane kind's list holds one blocking per (rb_p, k_blk)."""
+    A conv kind's shape is h, w, c, k, r, s, stride, padding; a
+    whole-plane kind's list holds one blocking per (rb_p, k_blk).  The
+    kind "matmul" takes m, n, k and dtype_bytes
+    (``matmul_plan_candidates``)."""
+    if kind == MATMUL_KIND:
+        return matmul_plan_candidates(**shape)
+    return _conv_plan_candidates(kind, minibatch=minibatch, **shape)
+
+
+def _conv_plan_candidates(kind: str, *, h: int, w: int, c: int, k: int,
+                          r: int, s: int, stride: int, padding: int,
+                          minibatch: int = 1) -> list:
     n = minibatch
     p, q = out_dim(h, r, stride, padding), out_dim(w, s, stride, padding)
     shape = dict(n=n, p=p, q=q, c=c, k=k, r=r, s=s)
