@@ -126,7 +126,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
     route (``conv2d_streams.route``; held by ``launches_mma``); per
     signature the route, the mma CTA sub-tile (``mma_tile_config``), the
     steps and RLE segments, K4's CUDA-event and profiler device times on
-    the mma route and with the SIMT route forced, the plain replay's, K1's
+    the mma route and with the SIMT route forced, the plain replay's (its
+    check's call of the timed order, by CUDA events), K1's
     with the same bias and ReLU, the library yardstick (cuDNN
     ``F.conv2d`` in true f32 plus bias and ReLU) and both bounds (f32
     SIMT; 3 x the FLOPs at the TF32 rate).
@@ -134,14 +135,15 @@ Phases, each of which fails the run (nonzero exit, no result line):
     serving shape at batch 16, kind "streams", mode "tune", into a cache
     in a temporary directory (``REPRO_TUNE_CACHE``): the cost model's 8
     best candidates of each (ranked by the model of the route K4 takes)
-    are timed on the card, every launch on the mma route; every entry must
-    say "measured".  Then ``conv2d_streams_auto(autotune="cache")`` runs
-    each signature once with K4's counts set to 0 just before and read
-    just after (one launch each, all on the mma route), no candidate timed
-    and every lookup a hit; each result within 1e-5 of the plain replay;
+    are timed on the card over TUNE_ITERS_SMOKE calls each, every launch
+    on the mma route; every entry must say "measured".  Then
+    ``conv2d_streams_auto(autotune="cache")`` runs each signature once
+    with K4's counts set to 0 just before and read just after (one launch
+    each, all on the mma route), no candidate timed and every lookup a
+    hit; each result within 1e-5 of the plain replay;
     per signature the route, the tile, the tuned times on the mma route
-    and with the SIMT route forced, the analytic ones and K1's, and per
-    52-conv forward.
+    and with the SIMT route forced, the analytic ones and K1's, the plain
+    replay's (its check's call), and per 52-conv forward.
 13b. The plan tuner (§II-D over K1, K2 and K3), into a cache in a
     temporary directory: ``CnnInferenceEngine.warmup(autotune="tune")``
     on an f32 and an int8 ResNet-50 engine (kinds "fwd" and "q8", every
@@ -340,7 +342,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
     under ``whole``: the serving warmups ("fwd_whole", "q8_whole" at every
     bucket) and ``warmup_cnn_train`` ("fwd_whole", "bwd_whole",
     "wu_whole" at batch 32) into a temporary cache, at most 8 blockings
-    timed a signature, the analytic one among them; per signature the
+    timed a signature over TUNE_ITERS_SMOKE calls each, the analytic one
+    among them; per signature the
     tuned launch against its plain version (K10a, K10b <= 1e-5, K10c the
     same bits) and the analytic and tuned blockings timed again in turns
     (the tuned at most 1.03x the analytic), the sums per forward and per
@@ -409,13 +412,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
     its own gradient, so a nearly cancelling gradient's rounding sets the
     sign of its update).
 30. RWKV-6 served: ``rwkv6-1.6b`` (bf16, uncut) through
-    ``serve_continuous`` (8 lanes, 8 untimed then 16 requests of 128-512
+    ``serve_continuous`` (8 lanes, 1 untimed then 16 requests of 128-512
     tokens, 32 new each; no port kernel on its path, K7 held to 0), a
-    batch-8 prefill at 512 tokens and 16 decode steps with their
-    profiles; then an f32 RWKV at d_model 1024, Dh 64, 2 layers, vocab
-    1024, its bonus ``u`` drawn: card vs CPU prefill and 4 decode steps
-    within 1e-4 * max |logit|, decode vs forward within 1e-3, and one
-    training step within phase 29's limits.
+    batch-8 prefill at 512 tokens (one timed call) and 16 decode steps
+    with their profiles; then an f32 RWKV at d_model 1024, Dh 64, 2
+    layers, vocab 1024, its bonus ``u`` drawn: card vs CPU prefill and 4
+    decode steps within 1e-4 * max |logit|, decode vs forward within
+    1e-3, and one training step within phase 29's limits.
 31. Hybrid and MoE training, this slice's main path.  (a) K8's backward
     (``conv1d_causal_bwd``, ``csrc/conv1d_causal_bwd.cu``) against
     ``conv1d_causal_bwd_plain`` on dx, dw and db at the training cut's
@@ -498,15 +501,52 @@ Phases, each of which fails the run (nonzero exit, no result line):
     max |update|.  A rank that fails a check fails the phase.  The
     phase's working directory (the ranks' logs and the checkpoints of
     full ResNet-50) is removed at its end.
-33. The whole-plane, Inception-v3, plan-tuning, chains, whole-plane
+33. The serving fleet, this slice's main path, run right after phase 7
+    on phases 3 and 6's engines (``fleet_phase``): four replicas behind
+    ``serve.FleetRouter`` share the f32 engine (K1) and the calibrated
+    int8 twin (K3); 24 Poisson arrivals at 1.5 a simulated second with
+    images, under a replica death, a straggler x3, two flaky dispatches
+    and a burst of 8 (``fleet_schedule``), deadline 3 simulated seconds.
+    Held: ``slo_handled_rate`` 1.0; at least one eviction, respawn,
+    hedge, retry and degraded completion; K1 and K3 counts (set to 0 just
+    before the run, read just after) 52 per f32 and per degraded
+    completion, all on the mma and ring routes; every result the bits of
+    ``f32.infer`` or ``q8.infer`` of its image alone; a degraded image's
+    lane the same bits beside a zero and a junk lane; the report, events
+    included, equal to the modelled replay's (no image).  Printed: the
+    degraded results' top-1 agreement with f32.  Then
+    ``launch/serve_cnn.main(["--fleet", "4", "--fleet-chaos-seed", "3",
+    "--autotune", "off"])``, the user's entry point (its SLO held, 52
+    launches a completion).
+34. ZeRO-3 and MoE training over a data group, this slice's main path
+    (``zero3_phase``): two rank processes share the card over gloo on the
+    host mesh (``launch.mesh.make_host_mesh``).  (a) ``qwen3-8b`` at its
+    published widths, depth 36 -> 2 (1.631 B parameters), bf16, a rank's
+    batch 1 x 256: one whole-parameter data-parallel step, then two
+    ZeRO-3 steps from the same seed; the first ZeRO-3 loss equal to the
+    whole-parameter step's bit for bit, this rank's slice of the update
+    within 1e-2 of max |update|, its held bytes at most 0.55 of the whole
+    rank's, K7 and K7' all on the wgmma route (8 and 4 a rank in two
+    steps); step, all-gather and reduction ms and bytes, peak memory.  (b)
+    Reduced f32 ``qwen3-8b``, ZeRO-3 against one device on the whole
+    batch, SGD: within 1e-6 of max |update| and of the loss with the
+    batch as the ranks' halves, at phase 29's limits as one microbatch;
+    the checkpoint round trip bit for bit.  (c) Phi-3.5-MoE reduced
+    (HYBRID_PARITY), f32, ZeRO-3 against one device with the routing
+    pinned to the ranks' (at most 2 decisions overridden): loss within
+    1e-5 relative, update within 1e-3 of max |update|; K9 and K9'
+    counted.
+35. The whole-plane, Inception-v3, plan-tuning, chains, whole-plane
     tuning, LM serving, LM training, RWKV serving, hybrid training,
-    data-parallel training and hybrid serving summary lines, the int8 serving and training summary
-    lines, every phase's seconds and the run's against its 1200 s budget
-    (each phase's also printed as it ends), the kernels line (K1, K2, K3,
-    K4, K7, K6, K7's backward, K8, K9, K8's and K9's backwards, K10a, K10b,
-    K10c, K5; K1, K2 and K3 with their launches under tuned plans, K1 and
-    K2 with both ranks' data-parallel step, K6 with its tuned device
-    times), then the device line last.
+    data-parallel training, serving fleet, ZeRO-3 training and hybrid
+    serving summary lines, the int8 serving and training summary lines,
+    every phase's seconds beside 68d2b16's (``BEFORE_S``) and the run's
+    against its 1200 s budget (each phase's also printed as it ends), the
+    kernels line (K1, K2, K3, K4, K7, K6, K7's backward, K8, K9, K8's and
+    K9's backwards, K10a, K10b, K10c, K5; K1, K2 and K3 with their
+    launches under tuned plans, K1 and K2 with both ranks' data-parallel
+    step, K1 and K3 with the fleet's, K7, K7', K9 and K9' with phase 34's,
+    K6 with its tuned device times), then the device line last.
 
 Device times by kernel come from ``trace_device``: a ``torch.profiler``
 trace with one warm-up step, whose recorded launches of each port kernel
@@ -571,8 +611,63 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def plain_once(fn):
+    """(``fn()``, its device ms by CUDA events around that one call): a
+    plain replay timed by the call its check makes, not run again."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 RUN_BUDGET_S = 1200          # the whole run, the kernels' builds included
 PHASE_SECONDS = {}           # phase -> seconds, in the order they ran
+# each phase's seconds in a run of this script at commit 68d2b16, before
+# phases 12, 13, 24c and 30 were trimmed and 33 and 34 added (NVIDIA H100
+# 80GB HBM3 at 700.00 W): 869.4 s of phases
+BEFORE_S = {
+    "1 (header, kernel builds)": 48.0,
+    "2 (K1 serving signatures)": 20.1,
+    "3 (ResNet-50 serving)": 3.2,
+    "4 (serving parity)": 0.5,
+    "5 (K3 signatures)": 26.8,
+    "6 (int8 serving)": 5.8,
+    "7 (int8 parity)": 0.4,
+    "7b (Inception-v3 serving)": 6.7,
+    "8 (K1 training signatures)": 20.6,
+    "9 (K2 signatures)": 8.6,
+    "10 (ResNet-50 training)": 12.5,
+    "11 (training parity)": 1.7,
+    "12 (K4 signatures)": 67.4,
+    "13 (tuned replay)": 66.6,
+    "13b (plan tuning)": 39.2,
+    "14 (K7 signatures)": 23.5,
+    "15 (K6 signatures)": 8.1,
+    "16 (Qwen2-1.5B serving)": 33.6,
+    "17 (Qwen2-1.5B parity)": 5.1,
+    "18 (K8 signatures)": 17.2,
+    "18b (K9 signatures)": 9.6,
+    "19 (hybrid serving)": 29.1,
+    "20 (decode vs forward)": 1.0,
+    "21 (hybrid parity)": 36.4,
+    "22 (K10a signatures)": 18.7,
+    "23 (whole-plane serving)": 2.5,
+    "24 (K10c signatures)": 29.5,
+    "24b (chains)": 6.1,
+    "24c (whole blockings tuned)": 73.0,
+    "25 (K10b signatures)": 13.0,
+    "26 (whole-plane training)": 11.9,
+    "27 (K5)": 0.4,
+    "28 (K7 backward signatures)": 20.4,
+    "29 (Qwen2-1.5B training)": 20.6,
+    "30 (RWKV-6)": 117.8,
+    "31 (hybrid and MoE training)": 15.9,
+    "32 (data-parallel and resilient training)": 47.0}
 
 
 @contextlib.contextmanager
@@ -598,6 +693,23 @@ def returning(module, name: str, value):
         yield
     finally:
         setattr(module, name, rule)
+
+
+@contextlib.contextmanager
+def setting(module, name: str, value):
+    """``module.name`` set to ``value`` for the block."""
+    prev = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, prev)
+
+
+# calls each tuning candidate is timed over in phases 13 and 24c (the
+# tuner's ``measure.TUNE_ITERS``: 10); a winner is still timed again in
+# turns with the default before it is taken
+TUNE_ITERS_SMOKE = 5
 
 
 def header():
@@ -1493,11 +1605,14 @@ def trace_device(fn, iters: int, counters: dict,
     shows no device time), the host-clock ms per iteration, the device ms
     per iteration inside each ``record_function`` range of the port
     (``ranges``: "mamba.scan", "moe.experts"), the traces refused and
-    ``clock_lag_ms``; each trace also goes into TRACES."""
+    ``clock_lag_ms`` and the seconds the call took (``seconds``: every
+    attempt, warm-up, idle edges and the reading of the records); each
+    trace also goes into TRACES."""
     import torch
     from torch.profiler import ProfilerActivity, schedule
 
     cuda = torch.autograd.DeviceType.CUDA
+    t_trace = time.perf_counter()
 
     def kernel(e):
         return e.device_type == cuda and not getattr(
@@ -1594,7 +1709,8 @@ def trace_device(fn, iters: int, counters: dict,
                 device_ms=sum(ms for ms, _, _ in by_name),
                 busy_share=busy_us / span_us if span_us else None,
                 wall_ms=wall_ms / iters, ranges=ranges,
-                refused=attempt - 1, clock_lag_ms=clock_lag_ms)
+                refused=attempt - 1, clock_lag_ms=clock_lag_ms,
+                seconds=time.perf_counter() - t_trace)
 
 
 def device_ms_of(trace: dict, needle: str) -> float:
@@ -1919,11 +2035,15 @@ def streams_signatures(device, sigs):
         check(path == "mma", f"K4 at {key} takes the {path} route")
         k4.launches = k4.launches_mma = 0
         worst = (0.0, 0.0)
+        plain_ms = None
         for order in ("nkpc", STREAM_ORDERS[i % len(STREAM_ORDERS)]):
             sched = stream_schedule(x, wt, blk, order, kw["relu"], st, pad)
             out = k4.conv2d_streams(x, wt, schedule=sched, **knobs)
-            plain = k4.conv2d_streams_plain(x, wt, schedule=sched, **knobs)
-            torch.cuda.synchronize()
+            # the replay of the timed order is timed by its check's call
+            plain, ms_ = plain_once(lambda: k4.conv2d_streams_plain(
+                x, wt, schedule=sched, **knobs))
+            if order == blk.order:
+                plain_ms = ms_
             check(bool(torch.isfinite(out).all()), f"K4 non-finite at {key}")
             err = rel_err(out, plain)
             worst = max(worst, err, key=lambda e: e[1])
@@ -1963,8 +2083,9 @@ def streams_signatures(device, sigs):
         ms, dev = k4_times(run)
         with returning(k4, "route", "simt"):
             simt_ms, simt_dev = k4_times(run)
-        plain_ms = cuda_ms(lambda: k4.conv2d_streams_plain(
-            x, wt, schedule=sched, **knobs), 1)
+        if plain_ms is None:
+            plain_ms = plain_once(lambda: k4.conv2d_streams_plain(
+                x, wt, schedule=sched, **knobs))[1]
         k1_ms = cuda_ms(k1_run, 30)
         trace = trace_device(lambda i: k1_run(), 10, {K1_NEEDLE: k1},
                              sync_each=True)
@@ -2060,9 +2181,10 @@ def tuned_replay(device, sigs, rows):
         try:
             k4.launches = k4.launches_mma = measure.measurements = 0
             t0 = time.perf_counter()
-            report = tune.warmup_convs(shapes, minibatches=(BATCH,),
-                                       kinds=("streams",), mode="tune",
-                                       backend="cuda")
+            with setting(measure, "TUNE_ITERS", TUNE_ITERS_SMOKE):
+                report = tune.warmup_convs(shapes, minibatches=(BATCH,),
+                                           kinds=("streams",), mode="tune",
+                                           backend="cuda")
             torch.cuda.synchronize()
             tune_s = time.perf_counter() - t0
             tuning = dict(launches=k4.launches, launches_mma=k4.launches_mma,
@@ -2133,7 +2255,9 @@ def tuned_replay(device, sigs, rows):
         knobs = dict(stride=kw["stride"], padding=kw["padding"],
                      bias=kw["bias"], rb_p=blk.rb_p, k_blk=blk.k_blk,
                      c_blk=blk.c_blk)
-        plain = k4.conv2d_streams_plain(x, wt, schedule=sched, **knobs)
+        # one plain replay: the check's call, timed
+        plain, plain_ms = plain_once(lambda: k4.conv2d_streams_plain(
+            x, wt, schedule=sched, **knobs))
         max_abs, max_rel = rel_err(outs[key], plain)
         check(max_rel <= KERNEL_REL_TOL,
               f"tuned K4 disagrees with its plain replay at {key}: max_rel "
@@ -2150,8 +2274,6 @@ def tuned_replay(device, sigs, rows):
         ms, dev = k4_times(run)
         with returning(k4, "route", "simt"):
             simt_ms, simt_dev = k4_times(run)
-        plain_ms = cuda_ms(lambda: k4.conv2d_streams_plain(
-            x, wt, schedule=sched, **knobs), 1)
         a = analytic[key]
         rec = dict(a, blocking=dict(rb_p=blk.rb_p, k_blk=blk.k_blk,
                                     c_blk=blk.c_blk, order=blk.order),
@@ -3018,13 +3140,15 @@ def lm_prompts(n: int, vocab: int, seed: int, lengths=LM_PROMPT_LEN):
 
 def lm_serving(device, arch: str, widths: tuple, kernels: dict,
                wgmma: dict, route_counts: dict | None = None, *,
-               requests: int = LM_REQUESTS, prompt_len=LM_PROMPT_LEN):
+               requests: int = LM_REQUESTS, prompt_len=LM_PROMPT_LEN,
+               warm_requests: int = LM_WARM_REQUESTS,
+               prefill_repeats: int = 3):
     """Phase 16 (Qwen2-1.5B), phase 19 (the Jamba cut) and phase 30
     (RWKV-6), each a slice's
     main path: ``arch`` in bf16 (random weights from ``init_lm``, seed 0;
     ``widths`` = (n_layers, d_model, n_heads, n_kv_heads, head_dim, d_ff,
     vocab, dtype) are checked) through ``serve_continuous``: an untimed
-    pass of LM_WARM_REQUESTS requests, then a window of ``requests`` with
+    pass of ``warm_requests`` requests, then a window of ``requests`` with
     prompts of ``prompt_len`` tokens, every prompt made before it opens.  ``kernels`` maps a kernel's name to
     (module, kernel-name needle, launches per forward, launches per decode
     step): each count is set to 0 just before the window and read just
@@ -3037,7 +3161,8 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict,
     kernel's name to (its route's counter, the kernel-name suffix of that
     route, launches per forward, launches per decode step), held the same
     way (K8's tile route).  Then a batch-8 prefill
-    at 512 tokens
+    at 512 tokens (the median of ``prefill_repeats`` timed calls after an
+    untimed one)
     and 16 decode steps through ``forward`` / ``decode_step``, and both
     under ``torch.profiler`` (``trace_device``, each kernel's recorded
     launches held to its counter).  For a model with MoE layers, the decode
@@ -3071,12 +3196,12 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict,
           f"max_len {LM_MAX_LEN}, max_new {LM_MAX_NEW}, prompts of "
           f"{prompt_len[0]}-{prompt_len[1]} tokens")
     window = lm_prompts(requests, cfg.vocab, SEED, prompt_len)
-    warm = lm_prompts(LM_WARM_REQUESTS, cfg.vocab, SEED + 1, prompt_len)
+    warm = lm_prompts(warm_requests, cfg.vocab, SEED + 1, prompt_len)
     kw = dict(lanes=LM_LANES, max_len=LM_MAX_LEN, max_new=LM_MAX_NEW, eos=-1)
     t0 = time.perf_counter()
     serve_continuous(params, cfg, warm, **kw)
     torch.cuda.synchronize()
-    print(f"  untimed pass: {LM_WARM_REQUESTS} requests in "
+    print(f"  untimed pass: {warm_requests} requests in "
           f"{time.perf_counter() - t0:.2f}s")
     calls = {}
     for mod, _, _, _ in kernels.values():
@@ -3184,7 +3309,7 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict,
     check(bool(torch.isfinite(logits[:, -1].float()).all()),
           "non-finite prefill logits")
     host, events = [], []
-    for _ in range(3):
+    for _ in range(prefill_repeats):
         del logits, cache
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -3199,7 +3324,7 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict,
     prefill_ms = float(np.median(host))
     print(f"  prefill, batch {b} x {l} tokens: {prefill_ms:.3f} ms by host "
           f"clock, {float(np.median(events)):.3f} by CUDA events (median of "
-          f"3); {b * l / prefill_ms * 1e3:.0f} tokens/s")
+          f"{prefill_repeats}); {b * l / prefill_ms * 1e3:.0f} tokens/s")
     last = logits[:, -1:].argmax(dim=-1)
     step_ms = []
     before = {name: mod.launches for name, (mod, _, _, _) in kernels.items()}
@@ -3258,7 +3383,9 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict,
         shares.update(trace["ranges"])
         print(f"  profile of {name}: {trace['wall_ms']:.3f} ms by host clock,"
               f" device {device_ms:.3f} ms in {n_launch:.0f} kernel "
-              f"launches, busy {'n/a' if busy is None else f'{busy:.4f}'}; "
+              f"launches, busy {'n/a' if busy is None else f'{busy:.4f}'} "
+              f"(the trace, its warm-up, idle edges and reading "
+              f"{trace['seconds']:.1f} s); "
               + ", ".join(f"{kname} {ms:.3f} ms "
                           f"({ms / max(device_ms, 1e-9):.4f} of device time)"
                           for kname, ms in shares.items()))
@@ -3266,6 +3393,7 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict,
             print(f"    {ms:9.3f} ms  x{n:6.1f}  {kname[:100]}")
         return dict(wall_ms=trace["wall_ms"], device_ms=device_ms,
                     launches=n_launch, busy_share=busy, kernel_ms=shares,
+                    trace_s=trace["seconds"],
                     top=[dict(ms=ms, launches=n, name=kname[:120])
                          for ms, n, kname in trace["by_name"][:8]])
     del logits, cache
@@ -4763,15 +4891,17 @@ def whole_plan_tuning(device, sigs, fwd, dual, wu, serve_params) -> dict:
                                          image_hw=(IMAGE, IMAGE),
                                          max_batch=BATCH,
                                          quantized=quantized)
-                rep = eng.warmup(autotune="tune")
+                with setting(measure, "TUNE_ITERS", TUNE_ITERS_SMOKE):
+                    rep = eng.warmup(autotune="tune")
                 engines["int8" if quantized else "f32"] = (eng, rep)
             serve_s = time.perf_counter() - t0
             gxm_t, params_t, step_cache, data = build_trainer(
                 full=True, num_classes=1000, image=IMAGE, batch=TRAIN_BATCH,
                 lr=TRAIN_LR, device=device, seed=SEED, autotune="cache")
             t1 = time.perf_counter()
-            rep_t = warmup_cnn_train(gxm_t, image_hw=(IMAGE, IMAGE),
-                                     minibatch=TRAIN_BATCH)
+            with setting(measure, "TUNE_ITERS", TUNE_ITERS_SMOKE):
+                rep_t = warmup_cnn_train(gxm_t, image_hw=(IMAGE, IMAGE),
+                                         minibatch=TRAIN_BATCH)
             torch.cuda.synchronize()
             train_s = time.perf_counter() - t1
             c = conv_counts()
@@ -5245,6 +5375,7 @@ K7_BWD_SUM = "flash_attention_bwd_split_sum"  # the wgmma route's split sum
 RWKV_ARCH = "rwkv6-1.6b"
 RWKV_WIDTHS = (24, 2048, 32, 32, 64, 7168, 65536, "bfloat16")
 RWKV_REQUESTS = 16
+RWKV_WARM_REQUESTS = 1        # phase 30's untimed pass (phase 16's: 8)
 RWKV_PROMPT_LEN = (128, 512)
 RWKV_PARITY = dict(n_layers=2, d_model=1024, n_heads=16, n_kv_heads=16,
                    d_head=64, d_ff=3584, vocab=1024, dtype="float32")
@@ -5278,7 +5409,9 @@ class Sgd:
     def init(self, params) -> dict:
         return {}
 
-    def update(self, grads, state, params, lr):
+    def update(self, grads, state, params, lr, **_):
+        """``**_``: the sharded step's ``dims`` and ``group``, which an
+        elementwise update does not need."""
         import torch
         from repro_torch.optim.adamw import tree_map
         with torch.no_grad():
@@ -5779,10 +5912,15 @@ def rwkv_phase(device) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import attention as k7
 
+    # the window's requests and lengths as before; its untimed pass is one
+    # request (no port kernel to build: the window's first prefill is warm
+    # after it) and the batch-8 prefill is timed once after its untimed
+    # call, where 8 and 3 re-timed what the window and the profile time
     launches, summary, params, _ = lm_serving(
         device, RWKV_ARCH, RWKV_WIDTHS,
         {"flash_attention": (k7, "flash_attention_kernel", 0, 0)}, {},
-        requests=RWKV_REQUESTS, prompt_len=RWKV_PROMPT_LEN)
+        requests=RWKV_REQUESTS, prompt_len=RWKV_PROMPT_LEN,
+        warm_requests=RWKV_WARM_REQUESTS, prefill_repeats=1)
     del params
     torch.cuda.empty_cache()
     cfg = dataclasses.replace(get_config(RWKV_ARCH), **RWKV_PARITY)
@@ -6891,6 +7029,543 @@ def dp_phase(card: str) -> dict:
     return {"seconds": seconds, "card": card, "ranks": results}
 
 
+# ---------------------------------------------------------------------------
+# Phase 33: the resilient serving fleet over full ResNet-50 (K1 and K3)
+# ---------------------------------------------------------------------------
+
+FLEET_REPLICAS = 4
+FLEET_REQUESTS = 24          # Poisson arrivals, run_fleet's traffic
+FLEET_RATE = 1.5             # a simulated second
+FLEET_BURST = 8
+FLEET_DEADLINE_S = 3.0       # the burst's requests flip to the int8 twin
+FLEET_CLI_SEED = 3           # --fleet-chaos-seed of the CLI run
+
+
+def fleet_schedule():
+    """Phase 33's fault schedule: a replica dies (eviction, respawn), one
+    runs three times slower (hedging), one fails two dispatches (bounded
+    retry), and a burst deepens the queue (degrades to the int8 twin)."""
+    from repro_torch.serve import (FlakyInfer, ReplicaDeath, RequestBurst,
+                                   ServeChaosSchedule, SlowReplica)
+    return ServeChaosSchedule((
+        ReplicaDeath(3.0, "r1"), SlowReplica(1.0, "r2", factor=3.0,
+                                             until=9.0),
+        FlakyInfer(2.0, "r3", times=2), RequestBurst(6.0, FLEET_BURST)))
+
+
+def fleet_phase(card: str, f32, q8, *, cli_args=()) -> dict:
+    """Phase 33: ``serve.FleetRouter`` over FLEET_REPLICAS replicas sharing
+    phase 3's f32 engine (K1) and phase 6's calibrated int8 twin (K3), full
+    ResNet-50 at 224 x 224: FLEET_REQUESTS Poisson arrivals with images
+    under ``fleet_schedule``.  Held: every admitted request handled within
+    the SLO, at least one eviction, respawn, hedge, retry and degraded
+    completion; K1 52 launches per f32 completion and K3 52 per degraded
+    one (the counts set to 0 just before the run, read just after; every
+    K1 launch on the mma route, every K3 on the ring); every result the
+    bits of ``f32.infer`` or ``q8.infer`` of its image alone; a degraded
+    image's lane the same bits beside a zero lane and beside a junk one; the
+    report, events included, equal to the run of the same arrivals and
+    schedule with modelled requests.  Then the user's entry point,
+    ``launch/serve_cnn.main(["--fleet", "4", "--fleet-chaos-seed", ...])``
+    with the plans left at their defaults (``--autotune off``, as every
+    other serving phase).  Returns the numbers.  On CPU engines (reduced
+    ResNet-50, with ``cli_args`` ``--smoke --device cpu``) it rehearses the
+    phase; the launch counts are held on the card only."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import conv2d_direct as k1
+    from repro_torch.kernels import conv2d_q8 as k3
+    from repro_torch.launch import serve_cnn
+    from repro_torch.serve import (FleetRouter, Replica, ServeChaosEngine,
+                                   poisson_arrivals)
+
+    t0 = time.perf_counter()
+    on_card = f32.device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+    names = [f"r{i}" for i in range(FLEET_REPLICAS)]
+    arrivals = poisson_arrivals(0, n=FLEET_REQUESTS, rate_per_s=FLEET_RATE)
+    hw = f32.image_hw[0]
+    images = np.random.default_rng(SEED + 33).standard_normal(
+        (FLEET_REQUESTS + FLEET_BURST, hw, hw, 3)).astype(np.float32)
+
+    def router(real: bool):
+        def make(name):
+            return Replica(name, infer_fn=f32.infer if real else None,
+                           q8_infer_fn=q8.infer if real else None)
+        return FleetRouter(
+            [make(n) for n in names],
+            chaos=ServeChaosEngine(fleet_schedule()),
+            deadline_s=FLEET_DEADLINE_S, replica_factory=make,
+            burst_image_fn=(lambda i: images[FLEET_REQUESTS + i])
+            if real else None)
+
+    print(f"\nserving fleet: {FLEET_REPLICAS} replicas of ResNet-50 "
+          f"{hw}x{hw} (phase 3's f32 engine, K1; phase 6's int8 twin, "
+          f"K3), {FLEET_REQUESTS} Poisson arrivals at {FLEET_RATE}/s and a "
+          f"burst of {FLEET_BURST}, deadline {FLEET_DEADLINE_S} s "
+          f"(simulated); schedule "
+          f"{[type(e).__name__ for e in fleet_schedule().events]}")
+    real = router(True)
+    k1.launches = k1.launches_mma = k3.launches = k3.launches_ring = 0
+    sync()
+    t1 = time.perf_counter()
+    report = real.run([(t, images[i]) for i, (t, _) in enumerate(arrivals)])
+    sync()
+    run_s = time.perf_counter() - t1
+    counts = dict(k1=k1.launches, k1_mma=k1.launches_mma, k3=k3.launches,
+                  k3_ring=k3.launches_ring)
+    modelled = router(False).run(arrivals)
+    done = [r_ for r_ in real.requests.values() if r_.status == "done"]
+    degraded = [r_ for r_ in done if r_.degraded]
+    summary = {key: report[key] for key in (
+        "offered", "admitted", "completed", "failed", "shed", "in_deadline",
+        "degraded_completed", "hedges", "retries", "evictions", "respawns",
+        "slo_handled_rate", "p50_ms", "p99_ms", "sim_time_s")}
+    print(f"  report: {summary}; {run_s:.2f} s by host clock; launches "
+          f"{counts}")
+    check(report["slo_handled_rate"] == 1.0, f"an admitted request busted "
+          f"its deadline without degrading: {summary}")
+    check(min(report["evictions"], report["respawns"], report["hedges"],
+              report["retries"], report["degraded_completed"]) >= 1,
+          f"the schedule did not exercise every policy: {summary}")
+    check(report == modelled, "the router decided otherwise with modelled "
+          "requests: its decisions depend on the engines")
+    check(not on_card or (
+        counts["k1"] == 52 * (len(done) - len(degraded)) == counts["k1_mma"]
+        and counts["k3"] == 52 * len(degraded) == counts["k3_ring"]),
+        f"{counts} launches for {len(done) - len(degraded)} f32 and "
+        f"{len(degraded)} int8 completions, expected 52 each, all on the "
+        f"mma and ring routes")
+
+    def row(engine, image):
+        return engine.infer(image[None]).cpu().numpy()[0]
+    bits = dict(f32=0, int8=0)
+    agree = 0
+    for r_ in done:
+        check(r_.result is not None, f"request {r_.rid} done without result")
+        want = row(q8 if r_.degraded else f32, r_.image)
+        check(np.array_equal(r_.result, want), f"request {r_.rid} "
+              f"({'int8' if r_.degraded else 'f32'}): the fleet's result is "
+              f"not the engine's bits")
+        bits["int8" if r_.degraded else "f32"] += 1
+        if r_.degraded:
+            agree += int(np.argmax(r_.result) ==
+                         np.argmax(row(f32, r_.image)))
+    flipped = degraded[0]
+    junk = 100 * np.random.default_rng(SEED + 34).standard_normal(
+        (hw, hw, 3)).astype(np.float32)
+    with_zero = q8.infer(np.stack([flipped.image, np.zeros_like(junk)]))
+    with_junk = q8.infer(np.stack([flipped.image, junk]))
+    lane = bool(torch.equal(with_zero[0], with_junk[0]))
+    solo = bool(np.array_equal(with_zero[0].cpu().numpy(), flipped.result))
+    print(f"  results: {bits['f32']} f32 and {bits['int8']} int8 equal "
+          f"f32.infer / q8.infer of their image bit for bit; degraded top-1 "
+          f"agreement with f32 {agree} of {len(degraded)}; a degraded "
+          f"image's lane beside a zero and a junk lane (bucket 2): same bits "
+          f"{lane} (equal to its bucket-1 result {solo}, printed)")
+    check(lane, "a junk lane changed the int8 twin's real lane")
+
+    k1.launches = k3.launches = 0
+    t1 = time.perf_counter()
+    cli = serve_cnn.main(["--fleet", str(FLEET_REPLICAS),
+                          "--fleet-chaos-seed", str(FLEET_CLI_SEED),
+                          "--autotune", "off", *cli_args])
+    cli_s = time.perf_counter() - t1
+    check(cli["slo_handled_rate"] == 1.0 and cli["failed"] == 0,
+          f"the fleet CLI: {cli}")
+    check(not on_card or cli["conv2d_direct_launches"]
+          + cli["conv2d_q8_launches"] == 52 * cli["completed"],
+          f"the fleet CLI launched K1 "
+          f"{cli['conv2d_direct_launches']} and K3 "
+          f"{cli['conv2d_q8_launches']} times for {cli['completed']} "
+          f"completions")
+    seconds = time.perf_counter() - t0
+    print(f"  the CLI (--fleet {FLEET_REPLICAS} --fleet-chaos-seed "
+          f"{FLEET_CLI_SEED}): {cli['completed']} done, "
+          f"{cli['degraded_completed']} degraded, K1 "
+          f"{cli['conv2d_direct_launches']}, K3 {cli['conv2d_q8_launches']}, "
+          f"in {cli_s:.1f} s with its engines' build and warmup; the phase "
+          f"{seconds:.1f} s; card {card}")
+    return dict(report=summary, launches=counts, run_s=run_s,
+                degraded_top1_agree=[agree, len(degraded)], lane_bits=lane,
+                lane_equals_bucket1=solo, cli=cli, cli_s=cli_s,
+                k1=counts["k1"] + cli["conv2d_direct_launches"],
+                k3=counts["k3"] + cli["conv2d_q8_launches"],
+                seconds=seconds, card=card)
+
+
+# ---------------------------------------------------------------------------
+# Phase 34: ZeRO-3 and MoE training over a data group, two ranks on one card
+# ---------------------------------------------------------------------------
+
+ZERO3_ARCH = "qwen3-8b"
+ZERO3_WIDTHS = (36, 4096, 32, 8, 128, 12288, 151936, "bfloat16")
+ZERO3_LAYERS = 2             # the depth cut: 36 -> 2
+ZERO3_BATCH = (1, 256)       # a rank's sequences x tokens
+ZERO3_STEPS = 2
+ZERO3_UPDATE_TOL = 1e-2      # bf16, of max |update| (PERF.md section 2)
+ZERO3_HELD_SHARE = 0.55      # a rank's held bytes over a whole rank's
+ZERO3_F32_TOL = 1e-6         # (b): of max |update|, and the loss relative
+ZERO3_SMALL_BATCH = (4, 64)  # (b), (c): the group's sequences x tokens
+# (b)'s SGD rate: an update of 16 x the clipped gradient, so that one ulp
+# of a param near 1 (the norm scales) reads under 1e-7 of the largest
+# update; at PARITY_LR one ulp there reads about 6e-7 of it
+ZERO3_PARITY_LR = 16.0
+ZERO3_MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+ZERO3_MOE_LOSS_TOL = 1e-5    # relative
+ZERO3_TIMEOUT_S = 300        # one deadline for both rank processes
+
+
+class _Timed:
+    """Wraps ``module.name`` for the block: each call timed by host clock
+    (device synchronised on both sides), the times kept in ``ms``."""
+
+    def __init__(self, module, name, sync):
+        self.module, self.name, self.sync = module, name, sync
+        self.ms = []
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.module, self.name)
+
+        def timed(*a, **kw):
+            self.sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.sync()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def zero3_rank(rank, group, *, workdir, device="cuda", full=True) -> dict:
+    """One rank of phase 34 (``launch.ranks.run_ranks`` starts both, each
+    on the one card; the host mesh's data group over gloo):
+
+    (a) ``qwen3-8b`` at its published widths, depth 36 -> 2, bf16: one
+        whole-parameter data-parallel step and ZERO3_STEPS ZeRO-3
+        steps from the same seed; the first ZeRO-3 loss the same bits, this
+        rank's slice of the update within ZERO3_UPDATE_TOL of max |update|,
+        its held bytes at most ZERO3_HELD_SHARE of the whole rank's, K7 and
+        K7' on the wgmma route; step ms, all-gather and reduction ms and
+        bytes, peak memory;
+    (b) reduced f32 ``qwen3-8b`` (the smoke widths), ZeRO-3 against the
+        single-device step on the whole batch (SGD at ZERO3_PARITY_LR):
+        taken in the ranks' halves as two microbatches, within
+        ZERO3_F32_TOL of max
+        |update| and of the loss; taken in one, at phase 29's limits (the
+        batch split sums each weight gradient in another order); the
+        checkpoint round trip bit for bit;
+    (c) ``phi3.5-moe`` reduced (HYBRID_PARITY), f32, ZeRO-3 against the
+        single-device step on the whole batch with the routing pinned to
+        the ranks' (at most PIN_MAX_OVERRIDDEN overridden): the loss within
+        ZERO3_MOE_LOSS_TOL relative, the update within UPDATE_REL_TOL of
+        max |update|; K9 and K9' counted.
+
+    ``device="cpu", full=False`` rehearses it on the CPU (the smoke
+    widths in bf16 for (a); no kernel launches to count)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.backend import resolve_device
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import attention as k7
+    from repro_torch.kernels import moe_gmm as k9
+    from repro_torch.launch.decode_parity import Router, _with_router
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.adamw import AdamW, tree_leaves
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import distributed as D
+    from repro_torch.train import fsdp
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    def say(msg):
+        print(f"  [rank {rank}] {msg}", flush=True)
+
+    device = resolve_device(device)
+    card = device.type == "cuda"
+    if card:
+        torch.cuda.set_device(device.index or 0)
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    mesh = make_host_mesh(device_type=device.type)
+    data = mesh.get_group("data")
+    n = data.size()
+    out = {"mesh": dict(zip(mesh.mesh_dim_names, tuple(mesh.shape))),
+           "backend": dist.get_backend(data)}
+
+    def halves(cfg, shape, seed):
+        b, l = shape
+        whole = SyntheticLMData(cfg.vocab, l, b, seed=seed).batch_at(0)
+        m = b // n
+        return whole, {k: v[rank * m:(rank + 1) * m]
+                       for k, v in whole.items()}
+
+    def flat(tree):
+        return torch.cat([t.detach().float().reshape(-1).cpu()
+                          for t in tree_leaves(tree)])
+
+    # -- (a) qwen3-8b, published widths, bf16 --------------------------------
+    cfg = get_config(ZERO3_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.dtype) == ZERO3_WIDTHS
+          and cfg.fsdp and cfg.qk_norm, f"{ZERO3_ARCH}: {cfg}")
+    cfg = dataclasses.replace(cfg, n_layers=ZERO3_LAYERS) if full else \
+        dataclasses.replace(smoke_config(cfg), dtype="bfloat16")
+    opt = AdamW()
+    b, l = ZERO3_BATCH
+    _, half = halves(cfg, (b * n, l), SEED + 34)
+    placements = fsdp.state_placements(cfg, opt, mesh)
+    dims = fsdp.dims_of(placements)
+    pdims = dims["params"]
+
+    def seeded():
+        return torch.Generator(device=device).manual_seed(SEED)
+    def mine(params):
+        """Copies of this rank's slices of ``params``."""
+        return [t.detach().clone()
+                for t in tree_leaves(fsdp.shard(params, pdims, data))]
+    state = init_train_state(cfg, opt, seeded(), device=device)
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    whole_bytes = fsdp.held_bytes(state)
+    old = mine(state["params"])
+    step = make_train_step(cfg, opt, lr=TRAIN_LM_LR, clip=1.0, group=data)
+    sync()
+    t0 = time.perf_counter()
+    state, m = step(state, half)
+    sync()
+    dp_ms = (time.perf_counter() - t0) * 1e3
+    dp_loss = float(m["loss"])
+    dp_new = mine(state["params"])
+    max_upd = max(float((x.float() - y.float()).abs().max())
+                  for x, y in zip(dp_new, old))
+    dp_peak = torch.cuda.max_memory_allocated() if card else 0
+    del state, step, m, old
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    state = fsdp.init_state(cfg, opt, placements, seeded(), device=device,
+                            group=data)
+    held = fsdp.held_bytes(state)
+    sharded = [d is not None for d in tree_leaves(pdims)]
+    step = make_train_step(cfg, opt, lr=TRAIN_LM_LR, clip=1.0, group=data,
+                           shardings=placements)
+    k7.launches = k7.launches_wgmma = k7.launches_bwd = 0
+    k7.launches_bwd_wgmma = 0
+    losses, step_ms = [], []
+    with _Timed(fsdp, "gather", sync) as gathers, \
+            _Timed(D, "allreduce_sum_", sync) as reduces:
+        for i in range(ZERO3_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            state, m = step(state, half)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            if i == 0:
+                # both steps start from the same params: their updates
+                # differ by what their new params differ by
+                diff = max(float((x.detach().float() - y.float()).abs().max())
+                           for x, y in zip(tree_leaves(state["params"]),
+                                           dp_new))
+                del dp_new
+    k7_counts = dict(fwd=k7.launches, fwd_wgmma=k7.launches_wgmma,
+                     bwd=k7.launches_bwd, bwd_wgmma=k7.launches_bwd_wgmma)
+    peak = torch.cuda.max_memory_allocated() if card else 0
+    rel = diff / max_upd
+    gather_bytes = sum(t.numel() * t.element_size() * n
+                       for t, s_ in zip(tree_leaves(state["params"]), sharded)
+                       if s_)
+    reduce_bytes = 4 * n_params
+    say(f"(a) {cfg.name} {cfg.dtype}, {n_params / 1e9:.3f} B params, "
+        f"{cfg.n_layers} layers, a rank's batch {b} x {l}: ZeRO-3 holds "
+        f"{held} of a whole rank's {whole_bytes} bytes "
+        f"({held / whole_bytes:.4f}; limit {ZERO3_HELD_SHARE}), "
+        f"{sum(sharded)} of {len(sharded)} param leaves split; first loss "
+        f"{losses[0]!r} vs the whole-parameter step's {dp_loss!r}; update "
+        f"{rel:.3e} of max |update| {max_upd:.3e} (limit "
+        f"{ZERO3_UPDATE_TOL}); step ms {[f'{x:.1f}' for x in step_ms]} "
+        f"(whole-parameter {dp_ms:.1f}); all-gather "
+        f"{[f'{x:.1f}' for x in gathers.ms]} ms for {gather_bytes} bytes a "
+        f"step, reduction {[f'{x:.1f}' for x in reduces.ms]} ms for "
+        f"{reduce_bytes} f32 bytes; peak {peak / 1e9:.3f} GB (whole-"
+        f"parameter {dp_peak / 1e9:.3f}); K7 {k7_counts}")
+    check(held <= ZERO3_HELD_SHARE * whole_bytes, f"a ZeRO-3 rank holds "
+          f"{held} bytes, over {ZERO3_HELD_SHARE} of {whole_bytes}")
+    check(losses[0] == dp_loss, f"the first ZeRO-3 loss {losses[0]!r} is "
+          f"not the whole-parameter step's {dp_loss!r}")
+    check(rel <= ZERO3_UPDATE_TOL, f"ZeRO-3 update {rel:.3e} of max "
+          f"|update| from the whole-parameter step's")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    if card:
+        per = ZERO3_STEPS * cfg.n_layers
+        check(k7_counts["fwd"] == k7_counts["fwd_wgmma"] == 2 * per
+              and k7_counts["bwd"] == k7_counts["bwd_wgmma"] == per,
+              f"K7 in {ZERO3_STEPS} ZeRO-3 steps: {k7_counts}, expected "
+              f"{2 * per} forward (remat) and {per} backward, all wgmma")
+    out["a"] = dict(arch=cfg.name, layers=cfg.n_layers, params=n_params,
+                    batch=[b, l], held_bytes=held, whole_bytes=whole_bytes,
+                    held_share=held / whole_bytes, losses=losses,
+                    dp_loss=dp_loss, update_rel=rel, step_ms=step_ms,
+                    dp_step_ms=dp_ms, gather_ms=gathers.ms,
+                    gather_bytes=gather_bytes, reduce_ms=reduces.ms,
+                    reduce_bytes=reduce_bytes, peak_bytes=peak,
+                    dp_peak_bytes=dp_peak, k7=k7_counts)
+    del state, step
+    if card:
+        torch.cuda.empty_cache()
+
+    # -- (b) reduced f32 qwen3-8b: ZeRO-3 against one device ------------------
+    cfg = smoke_config(get_config(ZERO3_ARCH))
+    whole, half = halves(cfg, ZERO3_SMALL_BATCH, SEED + 35)
+    pl = fsdp.state_placements(cfg, Sgd(), mesh)
+    dm = fsdp.dims_of(pl)
+    state = fsdp.init_state(cfg, Sgd(), pl, seeded(), device=device,
+                            group=data)
+    state, mz = make_train_step(cfg, Sgd(), lr=ZERO3_PARITY_LR, clip=1.0,
+                                group=data, shardings=pl)(state, half)
+    gathered = fsdp.gather(state, dm, data)
+    got = flat(gathered["params"])
+    rels = {}
+    # one device on the whole batch: in the ranks' halves as its two
+    # microbatches (the same sums a token, so the same rounding), held to
+    # ZERO3_F32_TOL; in one microbatch (each weight gradient summed over
+    # the whole batch in another order), held to phase 29's limits
+    for accum in (n, 1):
+        single = init_train_state(cfg, Sgd(), seeded(), device=device)
+        p0 = flat(single["params"])
+        single, ms_ = make_train_step(cfg, Sgd(), lr=ZERO3_PARITY_LR,
+                                      clip=1.0, accum_steps=accum)(
+            single, whole)
+        upd = flat(single["params"]) - p0
+        rels[accum] = (float((got - p0 - upd).abs().max())
+                       / float(upd.abs().max()),
+                       abs(float(mz["loss"]) - float(ms_["loss"]))
+                       / abs(float(ms_["loss"])))
+    rel_b, loss_b = rels[n]
+    rel_1, loss_1 = rels[1]
+    ckdir = os.path.join(workdir, "zero3_ckpt")
+    if rank == 0:
+        ckpt_lib.save(ckdir, 1, gathered)
+    back, at = fsdp.resilience(ckdir, dm, data)["restore_fn"](state)
+    round_bits = at == 1 and all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(back), tree_leaves(state)))
+    whole_bits = all(torch.equal(x.to(y.device), y) for x, y in zip(
+        tree_leaves(ckpt_lib.restore(ckdir, 1, gathered)),
+        tree_leaves(gathered)))
+    say(f"(b) {cfg.name} f32, ZeRO-3 on {n} x {ZERO3_SMALL_BATCH[0] // n} "
+        f"against one device on {ZERO3_SMALL_BATCH[0]} x "
+        f"{ZERO3_SMALL_BATCH[1]} (SGD lr {ZERO3_PARITY_LR}): as {n} "
+        f"microbatches update {rel_b:.3e} of max |update|, loss "
+        f"{loss_b:.3e} relative "
+        f"(limit {ZERO3_F32_TOL}); as one, update {rel_1:.3e}, loss "
+        f"{loss_1:.3e} (limits {UPDATE_REL_TOL}, {LOSS_REL_TOL}); "
+        f"checkpoint round trip into the slices bit for bit {round_bits}, "
+        f"into the whole state {whole_bits}")
+    check(rel_b <= ZERO3_F32_TOL and loss_b <= ZERO3_F32_TOL,
+          f"(b) ZeRO-3 against one device in {n} microbatches: update "
+          f"{rel_b:.3e}, loss {loss_b:.3e}")
+    check(rel_1 <= UPDATE_REL_TOL and loss_1 <= LOSS_REL_TOL,
+          f"(b) ZeRO-3 against one device in one batch: update {rel_1:.3e},"
+          f" loss {loss_1:.3e}")
+    check(round_bits and whole_bits, "(b) the ZeRO-3 checkpoint round trip "
+          "changed bits")
+    out["b"] = dict(update_rel=rel_b, loss_rel=loss_b, update_rel_one=rel_1,
+                    loss_rel_one=loss_1, ckpt_bits=round_bits,
+                    ckpt_whole_bits=whole_bits)
+    del single, state, gathered, back
+
+    # -- (c) phi3.5-moe reduced, f32, the routing pinned ---------------------
+    cfg = dataclasses.replace(get_config(ZERO3_MOE_ARCH), **HYBRID_PARITY)
+    whole, half = halves(cfg, ZERO3_SMALL_BATCH, SEED + 36)
+    pl = fsdp.state_placements(cfg, Sgd(), mesh)
+    dm = fsdp.dims_of(pl)
+    state = fsdp.init_state(cfg, Sgd(), pl, seeded(), device=device,
+                            group=data)
+    p0 = flat(fsdp.gather(state, dm, data)["params"])
+    k9.launches = k9.launches_bwd = 0
+    recorder = Router()
+    state, mz = _with_router(recorder, lambda: make_train_step(
+        cfg, Sgd(), lr=PARITY_LR, clip=1.0, group=data, shardings=pl)(
+        state, half))
+    k9_counts = dict(fwd=k9.launches, bwd=k9.launches_bwd)
+    got = flat(fsdp.gather(state, dm, data)["params"]) - p0
+    every = [None] * n
+    dist.all_gather_object(every, [r_.cpu() for r_ in recorder.recorded],
+                           group=data)
+    pinned = [torch.cat([rk[i] for rk in every]).to(device)
+              for i in range(len(every[0]))]
+    router = Router(pinned)
+    single = init_train_state(cfg, Sgd(), seeded(), device=device)
+    single, ms_ = _with_router(router, lambda: make_train_step(
+        cfg, Sgd(), lr=PARITY_LR, clip=1.0)(single, whole))
+    upd = flat(single["params"]) - p0
+    rel_c = float((got - upd).abs().max()) / float(upd.abs().max())
+    loss_c = abs(float(mz["loss"]) - float(ms_["loss"])) \
+        / abs(float(ms_["loss"]))
+    say(f"(c) {cfg.name} f32 (d_model {cfg.d_model}, {cfg.moe.n_experts} "
+        f"experts top-{cfg.moe.top_k}), ZeRO-3 on 2 ranks against one device "
+        f"on the whole batch: loss {loss_c:.3e} relative (limit "
+        f"{ZERO3_MOE_LOSS_TOL}), update {rel_c:.3e} of max |update| (limit "
+        f"{UPDATE_REL_TOL}); the single device took the ranks' routing: "
+        f"{router.differ} of {router.decisions} decisions overridden; K9 "
+        f"{k9_counts}")
+    check(loss_c <= ZERO3_MOE_LOSS_TOL and rel_c <= UPDATE_REL_TOL,
+          f"(c) the MoE step under the group: loss {loss_c:.3e}, update "
+          f"{rel_c:.3e}")
+    check(router.differ <= PIN_MAX_OVERRIDDEN, f"(c) the pin overrode "
+          f"{router.differ} decisions, more than {PIN_MAX_OVERRIDDEN}")
+    if card:
+        check(k9_counts["fwd"] > 0 and k9_counts["bwd"] > 0,
+              f"(c) K9 {k9_counts}")
+    out["c"] = dict(loss_rel=loss_c, update_rel=rel_c, k9=k9_counts,
+                    routing=[router.differ, router.decisions])
+    return out
+
+
+def zero3_phase(card: str) -> dict:
+    """Phase 34: two rank processes on the one card over a gloo group,
+    each running ``zero3_rank``; a rank that fails a check fails the
+    phase.  Returns both ranks' numbers."""
+    from repro_torch.launch.ranks import run_ranks
+    print(f"\nZeRO-3 and MoE training over a data group: {ZERO3_ARCH} at "
+          f"its published widths, depth {ZERO3_WIDTHS[0]} -> {ZERO3_LAYERS}, "
+          f"bf16, 2 ranks of {ZERO3_BATCH[0]} x {ZERO3_BATCH[1]} on one card "
+          f"over gloo; reduced f32 {ZERO3_ARCH} and {ZERO3_MOE_ARCH} against "
+          f"one device", flush=True)
+    workdir = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    try:
+        results, _ = run_ranks(
+            "chip_smoke:zero3_rank", 2, workdir=workdir,
+            args={"workdir": workdir}, timeout_s=ZERO3_TIMEOUT_S,
+            env={"PYTHONPATH": os.pathsep.join([SRC, ROOT])}, echo=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    a = [r_["a"] for r_ in results]
+    print(f"  ranks done in {seconds:.1f}s (start-up included); ZeRO-3 step "
+          f"ms per rank {[r_['step_ms'] for r_ in a]}, whole-parameter "
+          f"{[round(r_['dp_step_ms'], 1) for r_ in a]}; peak "
+          f"{[round(r_['peak_bytes'] / 1e9, 3) for r_ in a]} GB; card {card}")
+    return {"seconds": seconds, "card": card, "ranks": results,
+            "k7": sum(r_["a"]["k7"]["fwd"] for r_ in results),
+            "k7_bwd": sum(r_["a"]["k7"]["bwd"] for r_ in results),
+            "k9": sum(r_["c"]["k9"]["fwd"] for r_ in results),
+            "k9_bwd": sum(r_["c"]["k9"]["bwd"] for r_ in results)}
+
+
 def totals(rows) -> dict:
     """Per-pass sums over signature records (each time x its count; a
     library time only where one exists), and what bounds most of the
@@ -6937,8 +7612,8 @@ def main() -> int:
     with phase("4 (serving parity)"):
         parity(engine)
     params = serve_params = engine.params
+    f32_engine = engine        # phase 33's f32 replicas
     del engine
-    torch.cuda.empty_cache()
 
     with phase("5 (K3 signatures)"):
         q8_rows = q8_signatures(device, sigs, rows)
@@ -6951,9 +7626,12 @@ def main() -> int:
         q8_step = int8_breakdown(engine, k3["ms"])
     with phase("7 (int8 parity)"):
         q8_parity = int8_parity(engine)
+    # phases 3 and 6's engines serve the fleet while they are warm
+    with phase("33 (serving fleet)"):
+        fleet = fleet_phase(card, f32_engine, engine)
     # phase 3's params and phase 6's quantized tree serve phases 23 and 24
     q8_gxm, qparams = engine.gxm, engine.qparams
-    del engine
+    del engine, f32_engine
     torch.cuda.empty_cache()
     with phase("7b (Inception-v3 serving)"):
         inception = inception_serving(device, f32_stats, q8_stats)
@@ -7110,6 +7788,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("32 (data-parallel and resilient training)"):
         dp_train = dp_phase(card)
+    with phase("34 (ZeRO-3 and MoE training over a data group)"):
+        zero3 = zero3_phase(card)
     dp_k1 = sum(r_["counts"]["k1"] for r_ in dp_train["ranks"])
     dp_k1_mma = sum(r_["counts"]["k1_mma"] for r_ in dp_train["ranks"])
     dp_k2 = sum(r_["counts"]["k2"] for r_ in dp_train["ranks"])
@@ -7131,8 +7811,9 @@ def main() -> int:
           f"({TRACES[-1][0]:.0f} s in), {min(lags)} ms at least")
     total_s = time.perf_counter() - t_start
     print(f"all phases in {total_s:.1f}s of the {RUN_BUDGET_S} s budget "
-          f"({total_s / RUN_BUDGET_S:.3f}); by phase: "
-          + ", ".join(f"{name} {sec:.1f}s"
+          f"({total_s / RUN_BUDGET_S:.3f}; {sum(BEFORE_S.values()):.1f}s at "
+          f"68d2b16); by phase, this run's seconds (68d2b16's): "
+          + ", ".join(f"{name} {sec:.1f}s ({BEFORE_S.get(name, 0.0):.1f})"
                       for name, sec in PHASE_SECONDS.items()))
 
     def timing(d):
@@ -7146,13 +7827,14 @@ def main() -> int:
         "source": "src/repro_torch/csrc/conv2d_direct.cu",
         "replaces": "src/repro/kernels/conv2d_direct.py:295",
         "launches": serve_launches + train_counts["conv2d_direct"]
-        + chain_k1 + dp_k1,
+        + chain_k1 + dp_k1 + fleet["k1"],
         "launches_mma": serve_launches + train_counts["conv2d_direct_mma"]
-        + chain_k1 + dp_k1_mma,
+        + chain_k1 + dp_k1_mma + fleet["launches"]["k1_mma"],
         "launches_by_path": {"serving": serve_launches,
                              "training_step": train_counts["conv2d_direct"],
                              "chains": chain_k1,
-                             "dp_training_step_both_ranks": dp_k1},
+                             "dp_training_step_both_ranks": dp_k1,
+                             "fleet": fleet["k1"]},
         "launches_by_path_chains_1MiB": chains["resnet50"][
             "tiled_1MiB"]["launches_on"],
         "max_abs_err": max(r["max_abs_err"] for r in rows + k1_rows),
@@ -7223,9 +7905,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/conv2d_q8.cu",
         "replaces": "src/repro/kernels/conv2d_q8.py:204",
-        "launches": q8_launches,
-        "launches_ring": q8_launches,
-        "launches_by_path": {"serving_int8": q8_launches},
+        "launches": q8_launches + fleet["k3"],
+        "launches_ring": q8_launches + fleet["launches"]["k3_ring"],
+        "launches_by_path": {"serving_int8": q8_launches,
+                             "fleet_int8": fleet["k3"]},
         "max_abs_err": max(max(r["max_abs_err"], r["sync_abs_err"])
                            for r in q8_rows),
         "ms": k3["ms"], "device_ms": weighted(q8_rows, "k3_device_ms"),
@@ -7307,15 +7990,16 @@ def main() -> int:
         "replaces": "src/repro/kernels/attention.py:87",
         "launches": lm_launches["flash_attention"]
         + hy_launches["flash_attention"] + train_fwd
-        + hy_train["k7.launches"],
+        + hy_train["k7.launches"] + zero3["k7"],
         "launches_wgmma": lm_wgmma["flash_attention"]
         + hy_wgmma["flash_attention"] + train_fwd
-        + hy_train["k7.launches_wgmma"],
+        + hy_train["k7.launches_wgmma"] + zero3["k7"],
         "launches_by_path": {
             "lm_serving": lm_launches["flash_attention"],
             "hybrid_serving": hy_launches["flash_attention"],
             "lm_training": train_fwd,
-            "hybrid_training": hy_train["k7.launches"]},
+            "hybrid_training": hy_train["k7.launches"],
+            "zero3_training_both_ranks": zero3["k7"]},
         "max_abs_err": max(r_["max_abs_err"] for r_ in attn_rows),
         "max_rel_err": max(r_["max_rel_err"] for r_ in attn_rows),
         **{key: k7_row[key] for key in ("ms", "plain_ms", "library_ms",
@@ -7379,12 +8063,13 @@ def main() -> int:
                        "XLA's autodiff of ref.attention_chunked "
                        "(src/repro/kernels/ref.py:173), the function K7 "
                        "(src/repro/kernels/attention.py:87) computes",
-        "launches": train_bwd + hy_train["k7.launches_bwd"],
+        "launches": train_bwd + hy_train["k7.launches_bwd"] + zero3["k7_bwd"],
         "launches_wgmma": lm_train["k7_bwd_wgmma_launches"]
-        + hy_train["k7.launches_bwd_wgmma"],
+        + hy_train["k7.launches_bwd_wgmma"] + zero3["k7_bwd"],
         "launches_by_path": {"lm_training": train_bwd,
                              "per_training_step": 28,
-                             "hybrid_training": hy_train["k7.launches_bwd"]},
+                             "hybrid_training": hy_train["k7.launches_bwd"],
+                             "zero3_training_both_ranks": zero3["k7_bwd"]},
         "max_abs_err": max(r_["max_abs_err"] for r_ in bwd_rows),
         "max_rel_err": max(r_["max_rel_err"] for r_ in bwd_rows),
         **{key: k7_bwd[key] for key in ("ms", "plain_ms", "library_ms",
@@ -7461,13 +8146,15 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm.py:61",
-        "launches": hy_launches["moe_gmm"] + hy_train["k9.launches"],
+        "launches": hy_launches["moe_gmm"] + hy_train["k9.launches"]
+        + zero3["k9"],
         "launches_wgmma": hy_wgmma["moe_gmm"] + hy_train["k9.launches_wgmma"],
         "launches_stream": hy_summary["window"]["launches_stream"],
         "launches_by_path": {
             "hybrid_serving": hy_launches["moe_gmm"],
             "per_forward": 12, "per_decode_step": 12,
-            "hybrid_training": hy_train["k9.launches"]},
+            "hybrid_training": hy_train["k9.launches"],
+            "moe_dp_training_both_ranks": zero3["k9"]},
         "max_abs_err": max(r_["max_abs_err"] for r_ in moe_rows),
         "max_rel_err": max(r_["max_rel_err"] for r_ in moe_rows),
         **{key: k9_decode[key] for key in ("ms", "plain_ms", "library_ms",
@@ -7554,11 +8241,12 @@ def main() -> int:
                        "XLA's autodiff of ref.moe_gmm "
                        "(src/repro/kernels/ref.py:217), the function K9 "
                        "(src/repro/kernels/moe_gmm.py:61) computes",
-        "launches": hy_train["k9.launches_bwd"],
+        "launches": hy_train["k9.launches_bwd"] + zero3["k9_bwd"],
         "launches_wgmma": hy_train["k9.launches_bwd_wgmma"],
         "launches_mma": hy_train["k9.launches_bwd_mma"],
         "launches_by_path": {"hybrid_training": hy_train["k9.launches_bwd"],
-                             "per_training_step": 3},
+                             "per_training_step": 3,
+                             "moe_dp_training_both_ranks": zero3["k9_bwd"]},
         "max_abs_err": max(r_["max_abs_err"]
                            for r_ in hybrid_train["moe_rows"]),
         "max_rel_err": max(r_["max_rel_err"]
@@ -7722,6 +8410,8 @@ def main() -> int:
     print(json.dumps({"rwkv_serving": rwkv}))
     print(json.dumps({"hybrid_training": hybrid_train["summary"]}))
     print(json.dumps({"dp_training": dp_train}))
+    print(json.dumps({"serving_fleet": fleet}))
+    print(json.dumps({"zero3_training": zero3}))
     print(json.dumps({"hybrid_serving": hy_summary}))
     print(json.dumps({"serving_int8": {
         "images_per_s": q8_stats["images_per_s"],
@@ -7737,7 +8427,7 @@ def main() -> int:
                     if key != "top"},
         "parity": summary["parity"]}))
     print(json.dumps({"phases_s": PHASE_SECONDS, "total_s": total_s,
-                      "budget_s": RUN_BUDGET_S}))
+                      "budget_s": RUN_BUDGET_S, "before_s": BEFORE_S}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,8 @@ per-output-channel scales (the max over every axis but the last), small
 tensors as they are, dequantized to bf16 or f32 for the math;
 ``quantization_error`` reports each leaf's reconstruction error.  Their
 callers in the reference are its dry-run tools and its reduced-precision
-bench; the reference's ``quantized_specs`` mirrors a logical-axis specs
-tree, which the port does not have yet.
+bench; ``quantized_specs`` mirrors a logical-axis spec tree
+(``nn/transformer.param_specs``) onto the quantized structure.
 
 CNN serving:
 Per-conv activation scales are calibrated from warmup batches, weights are
@@ -18,6 +18,8 @@ tensor quantizes to zeros instead of dividing by zero.  Rounding is
 ``torch.round``: half to even, as ``jnp.round``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -57,6 +59,25 @@ def dequantize(qparams, dtype=torch.bfloat16):
             return (x["q"].to(torch.float32) * x["s"]).to(dtype)
         return x
     return _tree_map(leaf, qparams, is_leaf=_is_leaf_dict)
+
+
+def quantized_specs(param_specs, params_or_shapes, *,
+                    min_size: int = 1024):
+    """Mirror the logical-axis spec tree onto ``quantize_int8``'s structure
+    (``repro/core/quantize.py:52-61``): a leaf it quantizes becomes
+    {"q": its axes, "s": its last axis}, the rest keep their axes.
+    ``params_or_shapes`` holds tensors or anything with a ``.shape``."""
+    def leaf(spec, p):
+        shape = tuple(p.shape)
+        if len(shape) < 2 or math.prod(shape) < min_size:
+            return spec
+        return {"q": spec, "s": spec[-1:]}
+
+    def walk(spec, p):
+        if isinstance(spec, dict):
+            return {key: walk(v, p[key]) for key, v in spec.items()}
+        return leaf(spec, p)
+    return walk(param_specs, params_or_shapes)
 
 
 def quantization_error(params, dtype=torch.bfloat16):

@@ -2,6 +2,13 @@
 the reference's ``repro/launch/mesh.py``, whose mesh axis "data" becomes a
 ``torch.distributed`` process group here.
 
+``make_host_mesh(model=1)`` is the reference's host mesh over the ranks of
+the initialised group: a ``torch.distributed.device_mesh.DeviceMesh`` with
+axes ("data", "model"), whose ``get_group("data")`` is the data group the
+steps take and whose named shape ``nn/partitioning`` reads.  A "model"
+axis wider than 1 (tensor parallelism) waits for the port's
+tensor-parallel slice and raises.
+
 ``data_axis_size(group)`` is the group's width (the reference's
 ``mesh.shape["data"]``); ``init_data_group`` makes the default group from
 what ``torchrun`` sets in the environment (``RANK``, ``WORLD_SIZE``,
@@ -86,6 +93,33 @@ def init_data_group(*, backend: str | None = None,
                             rank=rank, world_size=world_size,
                             timeout=datetime.timedelta(seconds=timeout_s))
     return dist.group.WORLD
+
+
+def make_host_mesh(model: int = 1, data: int | None = None, *,
+                   device_type: str | None = None):
+    """A ("data", "model") ``DeviceMesh`` over every rank of the
+    initialised default group: ``data`` defaults to the ranks / ``model``.
+    ``device_type`` defaults to "cuda" where a GPU is present, else "cpu".
+    ``model`` > 1 raises: tensor parallelism over "model" (Megatron-style
+    collectives in every mixer, a vocab-parallel loss, expert parallelism,
+    sharded decode caches) is the port's tensor-parallel slice, not yet
+    written."""
+    from torch.distributed.device_mesh import init_device_mesh
+    require_group()
+    world = dist.get_world_size()
+    if model != 1:
+        raise NotImplementedError(
+            f"make_host_mesh(model={model}): a model axis wider than 1 "
+            f"needs tensor parallelism, which waits for the port's "
+            f"tensor-parallel slice (ROADMAP Queue 1)")
+    data = world // model if data is None else data
+    if data * model != world:
+        raise ValueError(f"a {data} x {model} mesh does not cover the "
+                         f"{world} ranks of the group")
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    return init_device_mesh(device_type, (data, model),
+                            mesh_dim_names=("data", "model"))
 
 
 def local_device(device=None) -> torch.device:

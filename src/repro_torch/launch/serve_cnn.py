@@ -6,6 +6,8 @@ the counterpart of ``repro/launch/serve_cnn.py`` on one GPU.
   PYTHONPATH=src python -m repro_torch.launch.serve_cnn --arch inception
   REPRO_QUANTIZE=int8 PYTHONPATH=src python -m repro_torch.launch.serve_cnn
   PYTHONPATH=src python -m repro_torch.launch.serve_cnn --autotune off
+  PYTHONPATH=src python -m repro_torch.launch.serve_cnn --fleet 4 --fleet-chaos-seed 3
+  PYTHONPATH=src python -m repro_torch.launch.serve_cnn --smoke --fleet 2 --device cpu
 
 ``--autotune`` is warmup's plan-cache mode, as in the reference's CLI:
 "tune" (default) tunes the kernel plan of every conv signature x bucket
@@ -26,12 +28,22 @@ untimed pass of bursts then
 serves every bucket once more before the measured window opens.  The
 weights are random, drawn from seed 0, and the request images are made
 before the window opens, so the load generator costs the window nothing.
+
+``--fleet N`` runs the resilient multi-replica mode instead, as the
+reference's CLI does: N replicas sharing the warmed engine pair (f32
+through K1, and an int8 twin through K3, calibrated at its warmup) behind
+``serve.FleetRouter`` (deadlines of ``--deadline`` simulated seconds,
+hedging, health eviction + respawn, load shed, degrade-to-int8), replaying
+``--requests`` (24 by default in this mode) seeded Poisson arrivals at 1.5
+a simulated second against the seeded replica-fault schedule of
+``--fleet-chaos-seed`` or ``REPRO_SERVE_CHAOS=<seed>``.
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import json
+import os
 import time
 
 import numpy as np
@@ -181,6 +193,53 @@ def serve_window(engine: CnnInferenceEngine, *, requests: int, seed: int = 0,
     return server, serve_bursts(server, window, rng=rng)
 
 
+def run_fleet(args, engine, q8_engine, image: int) -> dict:
+    """The resilient multi-replica mode: ``args.fleet`` replicas sharing the
+    warmed engine pair behind ``serve.FleetRouter``, replaying seeded
+    Poisson arrivals against the ``REPRO_SERVE_CHAOS``-seeded fault
+    schedule (the reference's ``run_fleet``).  Prints and returns the
+    summary: the router's report without its events, and the K1 and K3
+    launches of the run."""
+    from repro_torch.serve import (FleetRouter, Replica, ServeChaosEngine,
+                                   ServeChaosSchedule, poisson_arrivals)
+    names = [f"r{i}" for i in range(args.fleet)]
+    make_replica = lambda name: Replica(  # noqa: E731
+        name, infer_fn=engine.infer,
+        q8_infer_fn=q8_engine.infer if q8_engine is not None else None)
+    arrivals = poisson_arrivals(0, n=args.requests, rate_per_s=1.5)
+    horizon = max(t for t, _ in arrivals)
+    chaos = None
+    if args.fleet_chaos_seed is not None:
+        schedule = ServeChaosSchedule.generate(
+            args.fleet_chaos_seed, horizon_s=horizon, replicas=names)
+        chaos = ServeChaosEngine(schedule)
+        print(f"chaos: seed {args.fleet_chaos_seed}, "
+              f"{len(schedule.events)} events over {horizon:.0f}s")
+    rng = np.random.default_rng(0)
+    image_fn = lambda _i: rng.standard_normal(  # noqa: E731
+        (image, image, 3)).astype(np.float32)
+    router = FleetRouter([make_replica(n) for n in names], chaos=chaos,
+                         deadline_s=args.deadline,
+                         replica_factory=make_replica,
+                         burst_image_fn=image_fn)
+    requests = [(t, image_fn(0)) for t, _ in arrivals]
+    k1.launches = k3.launches = 0
+    report = router.run(requests)
+    report.pop("events")
+    summary = {"arch": args.arch, "device": str(engine.device),
+               "fleet": args.fleet, "chaos_seed": args.fleet_chaos_seed,
+               **report, "conv2d_direct_launches": k1.launches,
+               "conv2d_q8_launches": k3.launches}
+    print(json.dumps(summary))
+    if not all(r.result is not None for r in router.requests.values()
+               if r.status == "done"):
+        raise RuntimeError("a done request has no result")
+    if report["slo_handled_rate"] != 1.0:
+        raise RuntimeError("an admitted request busted its deadline without "
+                           "degrading")
+    return summary
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=("resnet50", "inception"),
@@ -190,11 +249,26 @@ def main(argv=None):
                          "32x32; Inception-v3: 48x48), 10 classes")
     ap.add_argument("--autotune", choices=("off", "cache", "tune"),
                     default="tune", help="warmup's plan-cache mode")
-    ap.add_argument("--requests", type=int, default=512)
+    ap.add_argument("--requests", type=int, default=None,
+                    help="requests to serve (512; 24 with --fleet)")
     ap.add_argument("--max-batch", type=int, default=16)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without a GPU)")
+    ap.add_argument("--fleet", type=int, default=0,
+                    help="serve from N replicas behind the resilient "
+                         "FleetRouter (0: single-engine batching)")
+    ap.add_argument("--fleet-chaos-seed", type=int,
+                    default=(int(os.environ["REPRO_SERVE_CHAOS"])
+                             if os.environ.get("REPRO_SERVE_CHAOS")
+                             else None),
+                    help="inject a seeded replica-fault schedule "
+                         "(serve/chaos.py) into --fleet mode; also "
+                         "settable via REPRO_SERVE_CHAOS=<seed>")
+    ap.add_argument("--deadline", type=float, default=6.0,
+                    help="--fleet per-request deadline (simulated seconds)")
     args = ap.parse_args(argv)
+    if args.requests is None:
+        args.requests = 24 if args.fleet else 512
 
     m, image = build_model(smoke=args.smoke, device=args.device,
                            arch=args.arch)
@@ -209,6 +283,20 @@ def main(argv=None):
           f"{report['tune_entries']} plan-cache entries "
           f"({args.autotune}), buckets {report['buckets']}, "
           f"{'int8' if report['quantized'] else 'f32'}, in {warm_s:.1f}s")
+
+    if args.fleet:
+        if engine.quantized:
+            raise ValueError("--fleet serves an f32 engine with an int8 "
+                             "twin: unset REPRO_QUANTIZE")
+        mq, _ = build_model(smoke=args.smoke, device=args.device,
+                            arch=args.arch)
+        # quantized=True re-marks mq's ETG: the int8 degrade twin, on the
+        # same f32 params, calibrated by its warmup
+        q8_engine = CnnInferenceEngine(mq, params, image_hw=(image, image),
+                                       max_batch=args.max_batch,
+                                       quantized=True)
+        q8_engine.warmup(autotune="off")
+        return run_fleet(args, engine, q8_engine, image)
 
     server, results = serve_window(engine, requests=args.requests)
     st = server.stats()

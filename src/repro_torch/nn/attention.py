@@ -36,6 +36,18 @@ def init(generator, cfg, dtype, device=None):
     return p
 
 
+def specs(cfg) -> dict:
+    """The logical axes of each leaf ``init`` makes (the reference's spec
+    tree, ``attention.py:15-31``)."""
+    s = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+         "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+    if cfg.qkv_bias:
+        s.update(bq=("heads",), bk=("kv_heads",), bv=("kv_heads",))
+    if cfg.qk_norm:
+        s.update(q_norm=(None,), k_norm=(None,))
+    return s
+
+
 def _project(p, cfg, x):
     """x: (B,L,D) -> q (B,Hq,L,Dh), k and v (B,Hkv,L,Dh), contiguous."""
     b, l, _ = x.shape

@@ -1,8 +1,11 @@
 """Shared NN primitives: RMS norm, rotary embeddings, init helpers.
 
 The counterpart of ``repro/nn/common.py``, with the LM loss
-``softmax_xent``.  Params are plain dicts of tensors; the reference's
-logical-axis specs have no counterpart on one device.
+``softmax_xent``.  Params are plain dicts of tensors.  Each module's
+``specs(cfg)`` mirrors its ``init``'s tree with tuples of *logical* axis
+names ("embed", "heads", "mlp", "vocab", "expert", ...), as the reference's
+init functions return beside their params; ``nn/partitioning.py`` maps
+them onto a mesh.
 """
 from __future__ import annotations
 
@@ -18,13 +21,20 @@ def rms_norm(x, scale, *, eps: float = 1e-5):
     return (x * scale.float()).to(dtype)
 
 
+def rms_norm_specs() -> tuple:
+    """The logical axes of an RMS norm's scale (``common.py:22-23``)."""
+    return ("embed",)
+
+
 def dense_init(generator: torch.Generator, shape, *, scale=None,
                dtype=torch.float32, device=None):
     """Normal(0, 1) * ``scale`` (default fan_in ** -0.5, fan_in =
     shape[0]), drawn in f32 on the generator's device, then cast to
-    ``dtype`` and moved to ``device``."""
+    ``dtype`` and moved to ``device``; without a generator (the meta
+    device: shapes only) drawn on ``device``."""
     scale = scale if scale is not None else shape[0] ** -0.5
-    w = torch.randn(shape, generator=generator, device=generator.device)
+    w = torch.randn(shape, generator=generator, device=(
+        generator.device if generator is not None else device))
     return (w * scale).to(dtype=dtype, device=device)
 
 

@@ -36,8 +36,8 @@ def dt_rank(cfg) -> int:
 def init(generator, cfg, dtype, device=None):
     d, di, ds, dc = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.d_conv
     r = dt_rank(cfg)
-    conv_w = torch.randn((dc, di), generator=generator,
-                         device=generator.device) * dc ** -0.5
+    conv_w = torch.randn((dc, di), generator=generator, device=(
+        generator.device if generator is not None else device)) * dc ** -0.5
     a_log = torch.log(torch.arange(1, ds + 1, dtype=torch.float32)
                       .repeat(di, 1))
     return {
@@ -54,6 +54,15 @@ def init(generator, cfg, dtype, device=None):
         "out_proj": dense_init(generator, (di, d), dtype=dtype,
                                device=device),
     }
+
+
+def specs(cfg) -> dict:
+    """The logical axes of ``init``'s leaves (``mamba.py:24-41``)."""
+    return {"in_proj": ("embed", "inner"), "conv_w": (None, "inner"),
+            "conv_b": ("inner",), "x_proj": ("inner", None),
+            "dt_proj": (None, "inner"), "dt_bias": ("inner",),
+            "A_log": ("inner", None), "D": ("inner",),
+            "out_proj": ("inner", "embed")}
 
 
 def _ssm_inputs(p, cfg, xc):

@@ -17,6 +17,12 @@ def init(generator, cfg, dtype, device=None):
                                 ("w_down", (dff, d)))}
 
 
+def specs(cfg) -> dict:
+    """The logical axes of ``init``'s leaves (``mlp.py:11-18``)."""
+    return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+            "w_down": ("mlp", "embed")}
+
+
 def apply(p, cfg, x):
     g = F.silu(x @ p["w_gate"])
     u = x @ p["w_up"]
@@ -30,6 +36,12 @@ def init_rwkv_cm(generator, cfg, dtype, device=None):
                               device=device),
             "w_v": dense_init(generator, (dff, d), dtype=dtype,
                               device=device)}
+
+
+def rwkv_cm_specs(cfg) -> dict:
+    """The logical axes of ``init_rwkv_cm``'s leaves (``mlp.py:29-36``)."""
+    return {"mu_k": ("embed",), "w_k": ("embed", "mlp"),
+            "w_v": ("mlp", "embed")}
 
 
 def apply_rwkv_cm(p, cfg, x, x_prev):

@@ -30,9 +30,19 @@ experts' entries are replayed, and the layer returns the part of the
 combined output that they give, so the shares of all devices sum to the
 full layer.
 
-Aux losses: load balancing (Switch) and the router z-loss.
+Aux losses: load balancing (Switch) and the router z-loss.  Under
+``data_group(group)`` (the data-parallel LM step) each rank holds a slice
+of the batch, and the reference's losses are over the whole batch: the
+mean router probabilities ``me`` and the top-1 shares ``ce`` become the
+group's (one all-reduce that autograd differentiates,
+``torch.distributed.nn.functional.all_reduce``), and the layer returns
+this rank's share of each loss, its tokens over the group's: the group's
+``lb_loss`` x that share, and its tokens' sum of logsumexp² over the
+group's tokens, so the ranks' shares add up to the whole batch's losses.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +51,19 @@ from repro_torch.kernels import moe_gmm as k9
 from repro_torch.nn.common import dense_init
 
 GROUP_SIZE = 512
+_GROUP = None              # the data group of ``data_group``, or None
+
+
+@contextlib.contextmanager
+def data_group(group):
+    """Compute the aux losses over ``group``'s whole batch (see the module
+    docstring) inside the block; None keeps them this device's."""
+    global _GROUP
+    prev, _GROUP = _GROUP, group
+    try:
+        yield
+    finally:
+        _GROUP = prev
 
 
 def init(generator, cfg, dtype, device=None):
@@ -61,6 +84,15 @@ def init(generator, cfg, dtype, device=None):
         "w_down": dense_init(generator, (held, dff, d), scale=scale,
                              dtype=dtype, device=device),
     }
+
+
+def specs(cfg) -> dict:
+    """The logical axes of ``init``'s leaves (``moe.py:27-38``): the held
+    experts' stacks lead with "expert"."""
+    return {"router": ("embed", None),
+            "w_gate": ("expert", "embed", "mlp"),
+            "w_up": ("expert", "embed", "mlp"),
+            "w_down": ("expert", "mlp", "embed")}
 
 
 def route(probs, k: int):
@@ -180,8 +212,21 @@ def apply(p, cfg, x):
         out = out.to(x.dtype)
 
     # --- aux losses over the full router ----------------------------------
-    me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(gate_idx[..., 0], e).float().mean(dim=(0, 1))
-    lb_loss = e * (me * ce).sum()
-    z_loss = (torch.logsumexp(logits, dim=-1) ** 2).mean()
+    top1 = F.one_hot(gate_idx[..., 0], e).float()
+    lse2 = torch.logsumexp(logits, dim=-1) ** 2
+    if _GROUP is None:
+        me = probs.mean(dim=(0, 1))
+        ce = top1.mean(dim=(0, 1))
+        lb_loss = e * (me * ce).sum()
+        z_loss = lse2.mean()
+    else:
+        from torch.distributed.nn.functional import all_reduce
+        tokens = float(g * s)
+        sums = all_reduce(torch.cat([
+            probs.sum(dim=(0, 1)), top1.sum(dim=(0, 1)),
+            probs.new_full((1,), tokens)]), group=_GROUP)
+        total = sums[-1].detach()
+        me, ce = sums[:e] / total, sums[e:2 * e] / total
+        lb_loss = e * (me * ce).sum() * (tokens / total)
+        z_loss = lse2.sum() / total
     return out.reshape(b, l, d), {"lb_loss": lb_loss, "z_loss": z_loss}

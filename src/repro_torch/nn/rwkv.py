@@ -57,6 +57,17 @@ def init(generator, cfg, dtype, device=None):
     return p
 
 
+def specs(cfg) -> dict:
+    """The logical axes of ``init``'s leaves (``rwkv.py:20-37``)."""
+    s = {name: ("embed", "heads") for name in ("w_r", "w_k", "w_v", "w_g")}
+    s.update(w_o=("heads", "embed"), w_dec_a=("embed", None),
+             w_dec_b=(None, "heads"), dec_bias=("heads",),
+             u=("heads", None), ln_x=("heads",))
+    s.update({name: ("embed",) for name in ("mu_r", "mu_k", "mu_v", "mu_g",
+                                            "mu_w")})
+    return s
+
+
 def _mix(x, x_prev, mu):
     return x + mu * (x_prev - x)
 

@@ -35,9 +35,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.backend import resolve_device
 from repro_torch.nn import attention, mamba, mlp, moe, rwkv
-from repro_torch.nn.common import rms_norm, softmax_xent
+from repro_torch.nn.common import rms_norm, rms_norm_specs, softmax_xent
 
 MIXERS = {"attn": attention, "mamba": mamba, "rwkv": rwkv}
+MLP_SPECS = {"dense": mlp.specs, "moe": moe.specs,
+             "rwkv_cm": mlp.rwkv_cm_specs}
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -89,6 +91,32 @@ def init_block(generator, cfg, pos: int, dtype, device=None):
             "norm2": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
 
 
+def block_specs(cfg, pos: int) -> dict:
+    """The logical axes of ``init_block``'s leaves at pattern position
+    ``pos`` (one layer, before stacking)."""
+    mixer, mlp_kind = cfg.block_pattern[pos]
+    return {"mixer": MIXERS[mixer].specs(cfg),
+            "mlp": MLP_SPECS[mlp_kind](cfg),
+            "norm1": rms_norm_specs(), "norm2": rms_norm_specs()}
+
+
+def param_specs(cfg) -> dict:
+    """The reference's spec tree of ``init_lm``'s params (``init_lm`` of
+    ``repro/nn/transformer.py`` returns it beside them), built without
+    drawing a weight: a tuple of logical axis names per leaf, ``embed``
+    ("vocab", "embed"), ``head`` ("embed", "vocab"), and every block leaf
+    with the stacked "layers" axis first."""
+    def stacked(tree):
+        return {key: stacked(v) if isinstance(v, dict) else ("layers",) + v
+                for key, v in tree.items()}
+    specs = {"embed": ("vocab", "embed"), "final_norm": rms_norm_specs()}
+    if not cfg.tie_embeddings:
+        specs["head"] = ("embed", "vocab")
+    specs["blocks"] = {str(pos): stacked(block_specs(cfg, pos))
+                       for pos in range(len(cfg.block_pattern))}
+    return specs
+
+
 def _stack(trees: list[dict]) -> dict:
     return {key: _stack([t[key] for t in trees])
             if isinstance(trees[0][key], dict)
@@ -102,15 +130,18 @@ def init_lm(cfg, generator: torch.Generator | None = None, *,
     0.02 embeddings, fan-in normal projections, unit norms, zero biases),
     block leaves stacked over pattern repeats.  Drawn from ``generator``
     (default: seed 0 on ``device``) on its device, then moved to
-    ``device`` (default cuda).  Only the params: the reference's specs tree
-    waits for data parallelism."""
+    ``device`` (default cuda).  On the meta device nothing is drawn: the
+    tree of shapes and dtypes, for sizing and placements.  Only the
+    params, which many callers take; ``param_specs(cfg)`` is the
+    reference's spec tree of them."""
     device = resolve_device(device)
-    if generator is None:
+    if generator is None and device.type != "meta":
         generator = torch.Generator(device=device).manual_seed(0)
     dtype = _dtype(cfg)
 
     def normal(shape, std):
-        w = torch.randn(shape, generator=generator, device=generator.device)
+        w = torch.randn(shape, generator=generator, device=(
+            generator.device if generator is not None else device))
         return (w * std).to(dtype=dtype, device=device)
 
     params = {"embed": normal((cfg.vocab, cfg.d_model), 0.02),

@@ -21,6 +21,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
+
+CHUNK = 1 << 24        # values a slice of a large leaf's elementwise update
 
 
 def tree_map(fn, tree, *rest):
@@ -70,38 +73,76 @@ class AdamW:
         return {"mu": tree_map(leaf, params), "count": count}
 
     @torch.no_grad()
-    def update(self, grads, state, params, lr):
+    def update(self, grads, state, params, lr, *, dims=None, group=None):
         """One AdamW step with bias corrections (the reference's
         ``update``), written into ``params`` and ``state`` in place;
-        returns (params, state)."""
+        returns (params, state).
+
+        With ``dims`` (a tree of ints or None beside ``params``) and
+        ``group``, each leaf is this rank's slice along its dim of a leaf
+        split over the group (``train/fsdp.py``): the elementwise update
+        is the same, and the factored second moment's means over a split
+        dim are the group's (an all-reduce of the slices' sums)."""
         count = state["count"] + 1
         one = torch.ones((), dtype=torch.float32, device=count.device)
         b1c = 1 - torch.pow(one * self.b1, count.float())
         b2c = 1 - torch.pow(one * self.b2, count.float())
+        n = 1 if group is None else dist.get_world_size(group)
 
-        def leaf(g, s, p):
+        def mean(x, dim, split: bool):
+            if not split:
+                return x.mean(dim=dim)
+            total = x.sum(dim=dim)
+            dist.all_reduce(total, group=group)
+            return total / (x.shape[dim] * n)
+
+        def dense(g, s_m, s_v, p):
+            g32 = g.float()
+            m = self.b1 * s_m.float() + (1 - self.b1) * g32
+            v = self.b2 * s_v.float() + (1 - self.b2) * g32 * g32
+            vhat = v / b2c
+            s_v.copy_(v)
+            s_m.copy_(m)
+            upd = (m / b1c) / (torch.sqrt(vhat) + self.eps)
+            upd = upd + self.weight_decay * p.float()
+            p.copy_(p.float() - lr * upd)
+
+        def leaf(g, s, p, d=None):
+            if "v" in s:
+                # elementwise: a large leaf in chunks of CHUNK values, so
+                # its f32 temporaries are a chunk's, with the same bits
+                parts = (g, s["m"], s["v"], p)
+                if p.numel() <= CHUNK or not all(t.is_contiguous()
+                                                 for t in parts):
+                    return dense(*parts)
+                flat = [t.view(-1) for t in parts]
+                for at in range(0, p.numel(), CHUNK):
+                    dense(*(t[at:at + CHUNK] for t in flat))
+                return
             g32 = g.float()
             m = self.b1 * s["m"].float() + (1 - self.b1) * g32
-            if "v" in s:
-                v = self.b2 * s["v"].float() + (1 - self.b2) * g32 * g32
-                vhat = v / b2c
-                s["v"].copy_(v)
-            else:
-                g2 = g32 * g32
-                vr = self.b2 * s["vr"] + (1 - self.b2) * g2.mean(dim=-1)
-                vc = self.b2 * s["vc"] + (1 - self.b2) * g2.mean(dim=-2)
-                # rank-1 reconstruction (Adafactor)
-                denom = vr.mean(dim=-1, keepdim=True).clamp_min(1e-30)
-                vhat = (vr[..., None] * vc[..., None, :]
-                        / denom[..., None]) / b2c
-                s["vr"].copy_(vr)
-                s["vc"].copy_(vc)
+            g2 = g32 * g32
+            last, second = g.dim() - 1, g.dim() - 2
+            vr = self.b2 * s["vr"] + (1 - self.b2) * mean(
+                g2, -1, d == last)
+            vc = self.b2 * s["vc"] + (1 - self.b2) * mean(
+                g2, -2, d == second)
+            # rank-1 reconstruction (Adafactor)
+            denom = mean(vr, -1, d == second)[..., None] \
+                .clamp_min(1e-30)
+            vhat = (vr[..., None] * vc[..., None, :]
+                    / denom[..., None]) / b2c
+            s["vr"].copy_(vr)
+            s["vc"].copy_(vc)
             s["m"].copy_(m)
             upd = (m / b1c) / (torch.sqrt(vhat) + self.eps)
             upd = upd + self.weight_decay * p.float()
             p.copy_(p.float() - lr * upd)
 
-        tree_map(leaf, grads, state["mu"], params)
+        if dims is None:
+            tree_map(leaf, grads, state["mu"], params)
+        else:
+            tree_map(leaf, grads, state["mu"], params, dims)
         state["count"] = count
         return params, state
 

@@ -171,6 +171,34 @@ def allreduce_sum(tensors, group) -> list:
     return out
 
 
+REDUCE_BUCKET = 1 << 26      # f32 values a bucket of ``allreduce_sum_``
+
+
+def allreduce_sum_(tensors, group) -> list:
+    """The group's sum of each f32 tensor, written in place: the tensors
+    in buckets of at most ``REDUCE_BUCKET`` values, one all-reduce SUM a
+    bucket, so a reduction of every gradient of a large model holds one
+    bucket beside them, not a second copy.  The same sums, element for
+    element, as ``allreduce_sum``.  Returns ``tensors``."""
+    at = 0
+    while at < len(tensors):
+        end, size = at, 0
+        while end < len(tensors) and (end == at or size + tensors[end]
+                                      .numel() <= REDUCE_BUCKET):
+            size += tensors[end].numel()
+            end += 1
+        chunk = tensors[at:end]
+        flat = torch.cat([t.reshape(-1) for t in chunk])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        pos = 0
+        for t in chunk:
+            t.copy_(flat[pos:pos + t.numel()].view(t.shape))
+            pos += t.numel()
+        del flat
+        at = end
+    return tensors
+
+
 def allreduce_mean(tensors, group) -> list:
     """The group's mean of each tensor: ``allreduce_sum``, then / n, cast
     back to each tensor's dtype."""
@@ -261,16 +289,19 @@ def shard_cnn_batch(batch, group=None) -> dict:
 
 # -- resilience --------------------------------------------------------------
 
-def restore_latest_dp(ckpt_dir, template, group=None, *, on_skip=None):
+def restore_latest_dp(ckpt_dir, template, group=None, *, on_skip=None,
+                      device=None):
     """``checkpoint.restore_latest`` on every rank of ``group``, after a
     barrier that waits for the writer (rank 0, whose loop drained its
     background save before it).  Raises where the ranks restored different
     steps (a rank that cannot see the writer's directory, for one), so
-    that no rank goes on from a state its peers do not hold."""
+    that no rank goes on from a state its peers do not hold.  ``device``
+    is ``checkpoint.restore_latest``'s."""
     from repro_torch.train import checkpoint as ckpt_lib
     group = require_group(group)
     dist.barrier(group=group)
-    tree, step = ckpt_lib.restore_latest(ckpt_dir, template, on_skip=on_skip)
+    tree, step = ckpt_lib.restore_latest(ckpt_dir, template, on_skip=on_skip,
+                                         device=device)
     steps = [None] * data_axis_size(group)
     dist.all_gather_object(steps, step, group=group)
     if len(set(steps)) != 1:

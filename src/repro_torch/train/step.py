@@ -9,11 +9,13 @@ card every attention forward is K7 and its gradient K7's backward kernel,
 every Mamba conv1d K8 with K8' as its gradient and every MoE grouped
 matmul K9 with K9'.  With ``group`` (a ``torch.distributed`` process group,
 ``launch.mesh``) the step is data-parallel: each rank takes its slice of
-the batch, and the loss and gradients are the mean over every unmasked
-label of the group's batch (one f32 all-reduce) before the clip and the
-optimizer, so every rank applies the same update to params it holds
-whole.  The reference's
-``train_state_specs`` waits for the specs tree (ROADMAP Queue 1 step 4).
+the batch, and the loss and gradients are those of the group's batch (the
+mean over every unmasked label, the MoE router statistics over every
+token; one f32 all-reduce) before the clip and the optimizer, so every
+rank applies the same update.  With ``shardings`` each rank holds only
+its slices of the params and the optimizer slots (ZeRO-3 over "data",
+``train/fsdp.py``), placed by ``train_state_specs``, the reference's spec
+tree of the train state.
 
 ``make_cnn_train_step`` routes every conv through
 ``core.conv.conv2d_train``: the forward is K1, dI comes from the §II-I
@@ -29,7 +31,9 @@ import contextlib
 import torch
 
 from repro_torch import backend as be
+from repro_torch.nn import moe
 from repro_torch.nn import transformer as T
+from repro_torch.nn.common import softmax_xent
 from repro_torch.optim.adamw import clip_by_global_norm, tree_leaves, \
     tree_map
 
@@ -43,15 +47,22 @@ def lm_batch(batch: dict, device) -> dict:
             for key, v in batch.items()}
 
 
+def loss_parts(params, cfg, batch):
+    """(the mean cross-entropy, the MoE aux loss) of ``batch``: the two
+    terms of ``transformer.lm_loss`` (``lm_loss_embeds`` for a batch with
+    "embeds")."""
+    key = "embeds" if "embeds" in batch else "tokens"
+    logits, aux = T.forward(params, cfg, **{key: batch[key]})
+    return softmax_xent(logits, batch["labels"]), aux
+
+
 def loss_for_batch(params, cfg, batch):
-    if "embeds" in batch:
-        return T.lm_loss_embeds(params, cfg, batch["embeds"],
-                                batch["labels"])
-    return T.lm_loss(params, cfg, batch["tokens"], batch["labels"])
+    xent, aux = loss_parts(params, cfg, batch)
+    return xent + aux
 
 
 def make_train_step(cfg, opt, *, lr: float = 3e-4, clip: float = 1.0,
-                    accum_steps: int = 1, group=None):
+                    accum_steps: int = 1, group=None, shardings=None):
     """``train_step(state, batch) -> (state, {"loss", "grad_norm"})`` on
     the params' device.  With ``accum_steps`` > 1 the batch splits into
     that many microbatches along its first axis, whose gradients are summed
@@ -61,29 +72,59 @@ def make_train_step(cfg, opt, *, lr: float = 3e-4, clip: float = 1.0,
     the token table under "embeds", whose gradient is zero as the
     reference's is.
 
-    With ``group`` (an initialised process group; None here means no data
-    parallelism, not the default group) the batch is this rank's slice,
-    and the loss and gradients are those of the mean over every unmasked
-    label of the group's batch, as the reference's step under a mesh takes
-    it: each rank weights microbatch i's loss and gradients by its share
-    of the group's unmasked labels in microbatch i (one all-reduce of the
-    counts), and one f32 all-reduce SUM (``allreduce_sum``) adds them
-    before the global-norm clip.  A config with an MoE layer raises under
-    ``group``: its router aux loss is a function of the whole batch's
-    routing, which a per-rank loss cannot weight back together."""
+    With ``group`` (an initialised process group, the host mesh's
+    ``get_group("data")``; None here means no data parallelism, not the
+    default group) the batch is this rank's slice, and the loss and
+    gradients are those of the whole group's batch, as the reference's
+    step under a mesh takes them: each rank's microbatch i contributes its
+    cross-entropy weighted by its share of the group's unmasked labels in
+    microbatch i (one all-reduce of the counts), plus its share of the MoE
+    aux loss, whose router statistics are the group's
+    (``nn.moe.data_group``), each divided by ``accum_steps``; autograd
+    differentiates that sum, and an f32 all-reduce SUM
+    (``distributed.allreduce_sum_``, in place, bucket by bucket) adds the
+    ranks' gradients and losses before the global-norm clip.  An MoE
+    config whose devices hold a share of the experts
+    (``MoECfg.expert_share``) raises under ``group``.
+
+    ``shardings`` (the train state's placements,
+    ``train.fsdp.state_placements``; needs ``group``) makes the step
+    ZeRO-3: ``state`` holds this rank's slices (``train.fsdp.init_state``),
+    each gathered whole for the forward and freed after the backward; each
+    rank keeps its slice of the reduced gradient, the clip's norm is the
+    group's, and AdamW updates the slices in place."""
+    dims = None
     if group is not None:
         from repro_torch.launch.mesh import require_group
-        from repro_torch.train.distributed import allreduce_sum
+        from repro_torch.train import distributed as D
         require_group(group)
-        if any(kind == "moe" for _, kind in cfg.block_pattern):
+        if cfg.moe is not None and \
+                tuple(cfg.moe.expert_share) != (0, 1):
             raise ValueError(
-                f"{cfg.name}: data-parallel training of an MoE config would "
-                f"average per-rank router aux losses, which differ from the "
-                f"full batch's; it waits for ROADMAP Queue 1 step 4")
+                f"{cfg.name}: data-parallel training with a share of the "
+                f"experts per device (expert_share {cfg.moe.expert_share}) "
+                f"is expert parallelism, which waits for the port's "
+                f"tensor-parallel slice")
+    if shardings is not None:
+        from repro_torch.train import fsdp
+        if group is None:
+            raise ValueError("shardings without a group: ZeRO-3 storage "
+                             "splits the state over a data group")
+        dims = fsdp.dims_of(shardings)["params"]
 
-    def grads_of(params, leaves, batch):
-        loss = loss_for_batch(params, cfg, batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    def grads_of(params, leaves, batch, weight=None):
+        """The loss and its gradients; under ``group`` the loss is
+        ``weight`` x the cross-entropy + the aux loss / ``accum_steps``, and
+        the group's router statistics hold through the backward too (a
+        remat recompute runs the layer again there)."""
+        if weight is None:
+            loss = loss_for_batch(params, cfg, batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        else:
+            with moe.data_group(group):
+                xent, aux = loss_parts(params, cfg, batch)
+                loss = weight * xent + aux / accum_steps
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         out = []
         for p, g in zip(leaves, grads):
             if g is None:
@@ -101,11 +142,12 @@ def make_train_step(cfg, opt, *, lr: float = 3e-4, clip: float = 1.0,
         labels there over the group's, / ``accum_steps``."""
         counts = torch.stack([(lab >= 0).sum() for lab in
                               batch["labels"].chunk(accum_steps)]).float()
-        total = allreduce_sum([counts], group)[0]
+        total = D.allreduce_sum([counts], group)[0]
         return counts / total.clamp_min(1.0) / accum_steps
 
     def train_step(state, batch):
-        params = state["params"]
+        held = state["params"]
+        params = held if dims is None else fsdp.gather(held, dims, group)
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -122,13 +164,12 @@ def make_train_step(cfg, opt, *, lr: float = 3e-4, clip: float = 1.0,
                 for i in range(accum_steps):
                     micro = {key: v.chunk(accum_steps)[i]
                              for key, v in batch.items()}
-                    l, g = grads_of(params, leaves, micro)
-                    if w is None:
-                        acc = [a + gi for a, gi in zip(acc, g)]
-                        loss = loss + l
-                    else:
-                        acc = [a + w[i] * gi for a, gi in zip(acc, g)]
-                        loss = loss + w[i] * l
+                    l, g = grads_of(params, leaves, micro,
+                                    None if w is None else w[i])
+                    for a, gi in zip(acc, g):
+                        a.add_(gi)
+                    del g
+                    loss = loss + l
                 if w is None:
                     grads = [a / accum_steps for a in acc]
                     loss = loss / accum_steps
@@ -136,15 +177,29 @@ def make_train_step(cfg, opt, *, lr: float = 3e-4, clip: float = 1.0,
                     # the data-parallel reduction point: every rank's
                     # gradients are in, the clip and the optimizer have
                     # not run
-                    *grads, loss = allreduce_sum(acc + [loss], group)
+                    *grads, loss = D.allreduce_sum_(acc + [loss[None]],
+                                                    group)
+                    loss = loss[0]
+                    del acc
+                    if dims is not None:
+                        # this rank's slice of each reduced gradient
+                        grads = [fsdp.take(g, d, group) for g, d in
+                                 zip(grads, tree_leaves(dims))]
                     grads = [g.to(p.dtype) for g, p in zip(grads, leaves)]
+        del leaves
         it = iter(grads)
-        grads, gnorm = clip_by_global_norm(tree_map(lambda _: next(it),
-                                                    params), clip)
-        state["params"], state["opt"] = opt.update(grads, state["opt"],
-                                                   params, lr)
+        grads = tree_map(lambda _: next(it), held)
+        if dims is None:
+            grads, gnorm = clip_by_global_norm(grads, clip)
+        else:
+            del params                      # the gathered leaves
+            grads, gnorm = fsdp.clip_by_global_norm(grads, dims, clip, group)
+        state["params"], state["opt"] = opt.update(
+            grads, state["opt"], held, lr,
+            **({} if dims is None else {"dims": dims, "group": group}))
         state["step"] = state["step"] + 1
         return state, {"loss": loss, "grad_norm": gnorm}
+    train_step.shardings = shardings
     return train_step
 
 
@@ -166,17 +221,39 @@ def make_decode_step(cfg):
 
 
 def init_train_state(cfg, opt, generator: torch.Generator | None = None, *,
-                     device=None) -> dict:
+                     device=None, with_specs: bool = False):
     """``{"params", "opt", "step"}``: ``transformer.init_lm``'s params (each
     a leaf that requires grad), ``opt.init`` of them and an int32 step 0.
-    The reference also returns its specs tree, which waits for data
-    parallelism."""
+    With ``with_specs``, (state, the params' spec tree), as the
+    reference's ``init_train_state`` returns them."""
     params = T.init_lm(cfg, generator, device=device)
     for p in tree_leaves(params):
         p.requires_grad_(True)
-    return {"params": params, "opt": opt.init(params),
-            "step": torch.zeros((), dtype=torch.int32,
-                                device=params["embed"].device)}
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32,
+                                 device=params["embed"].device)}
+    return (state, T.param_specs(cfg)) if with_specs else state
+
+
+def train_state_specs(param_specs, opt_state) -> dict:
+    """Logical-axis spec tree for the full train state
+    (``repro/train/step.py:149-168``): optimizer slots inherit their
+    parameter's axes, the factored accumulators drop the reduced dim ("vr"
+    the last, "vc" the second-last).  Only ``opt_state``'s structure is
+    read."""
+    def slots(spec, slot):
+        if isinstance(spec, dict):
+            return {key: slots(v, slot[key]) for key, v in spec.items()}
+        out = {"m": spec}
+        if "v" in slot:
+            out["v"] = spec
+        if "vr" in slot:
+            out["vr"] = spec[:-1]
+            out["vc"] = spec[:-2] + spec[-1:]
+        return out
+    return {"params": param_specs,
+            "opt": {"mu": slots(param_specs, opt_state["mu"]), "count": ()},
+            "step": ()}
 
 
 def to_device(batch: dict, device) -> dict:

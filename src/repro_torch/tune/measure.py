@@ -80,6 +80,8 @@ MIN_GAIN = 0.02
 # Events around queued launches read under this many ms apart when the
 # card runs them back to back; a wider gap means the host fell behind.
 _GAP_MS = 0.01
+# Calls a candidate is timed over while tuning (``measure_conv_us``).
+TUNE_ITERS = 10
 _sleep_cycles_per_ms: float | None = None
 
 
@@ -544,11 +546,12 @@ def kernel_call(kind: str, shape: dict, args: dict, blk):
 
 def measure_conv_us(shape: dict, blk, *, kind: str = "fwd",
                     minibatch: int = 1, warmup: int = 2,
-                    iters: int = 10) -> float:
+                    iters: int | None = None) -> float:
     """Median device microseconds of one launch of the real kernel of
-    ``kind`` (``kernel_call``, timed by ``device_us``) on inputs made on
-    the card from seed 0 (``conv_inputs``).  Needs the card: on the CPU it
-    raises for every kind."""
+    ``kind`` (``kernel_call``, timed by ``device_us`` over ``iters`` calls,
+    None: ``TUNE_ITERS``) on inputs made on the card from seed 0
+    (``conv_inputs``).  Needs the card: on the CPU it raises for every
+    kind."""
     global measurements
     import torch
     if kind not in ("streams", "fwd", "bwd", "wu", "q8") + WHOLE_KINDS:
@@ -561,7 +564,7 @@ def measure_conv_us(shape: dict, blk, *, kind: str = "fwd",
                        minibatch)
     measurements += 1
     return device_us(kernel_call(kind, shape, args, blk), warmup=warmup,
-                     iters=iters)
+                     iters=TUNE_ITERS if iters is None else iters)
 
 
 def rank_conv(shape: dict, candidates: list[ConvBlocking], *,

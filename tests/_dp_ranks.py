@@ -108,8 +108,8 @@ def lm_step_rank(rank, group, *, arch, tree, opt_state, batch, lr,
                  moe_arch=None):
     """One data-parallel LM step (AdamW eps 1e-3, clip 1.0) of the
     reference's params on this rank's half of ``batch``; with
-    ``moe_arch``, also the error ``make_train_step`` raises for that
-    config under the group."""
+    ``moe_arch``, also the error ``make_train_step`` raises under the
+    group for that config holding half of its experts."""
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.convert import params_from_jax
     from repro_torch.optim.adamw import AdamW
@@ -127,9 +127,12 @@ def lm_step_rank(rank, group, *, arch, tree, opt_state, batch, lr,
     out = {"params": _np(new["params"]), "loss": float(metrics["loss"]),
            "grad_norm": float(metrics["grad_norm"])}
     if moe_arch is not None:
+        import dataclasses
+        moe_cfg = smoke_config(get_config(moe_arch))
+        moe_cfg = dataclasses.replace(moe_cfg, moe=dataclasses.replace(
+            moe_cfg.moe, expert_share=(0, 2)))
         try:
-            step_lib.make_train_step(smoke_config(get_config(moe_arch)),
-                                     AdamW(), group=group)
+            step_lib.make_train_step(moe_cfg, AdamW(), group=group)
             out["moe_error"] = "no error"
         except ValueError as e:
             out["moe_error"] = str(e)
@@ -232,3 +235,141 @@ def one_rank_fails_rank(rank, group, *, ckpt_dir, fail_step):
     except Exception as e:  # noqa: BLE001
         error = repr(e)
     return {"error": error, "restarts": loop.restarts, "began": began}
+
+
+# -- train/fsdp: ZeRO-3 over the data group -----------------------------------
+
+def _lm_cfg(arch, widths):
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+    return dataclasses.replace(smoke_config(get_config(arch)), **widths)
+
+
+def fsdp_rank(rank, group, *, arch, widths, tree, batch, lr, factored,
+              ckpt_dir):
+    """On the host mesh over the group: one whole-parameter data-parallel
+    step and one ZeRO-3 step (``train.fsdp``) at lr 1.0, and a ZeRO-3 step
+    at ``lr``, of the reference's params on this rank's half of ``batch``
+    (AdamW eps 1e-3, clip 1.0); each rank's
+    held bytes; and the checkpoint round trip both ways (the ZeRO-3 state
+    gathered and written by rank 0, restored whole and re-sharded; the
+    whole-parameter state restored into slices)."""
+    import torch.distributed as dist
+
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.adamw import AdamW, tree_leaves
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import fsdp
+    from repro_torch.train import step as step_lib
+    cfg = _lm_cfg(arch, widths)
+    mesh = make_host_mesh(device_type="cpu")
+    data = mesh.get_group("data")
+    opt = AdamW(eps=1e-3, factored=factored)
+    n = data.size()
+    b = len(batch["labels"]) // n
+    half = {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
+
+    def fresh():
+        p = params_from_jax(tree, "cpu")
+        return {"params": p, "opt": opt.init(p),
+                "step": torch.zeros((), dtype=torch.int32)}
+    dp_state = fresh()
+    whole_bytes = fsdp.held_bytes(dp_state)
+    placements = fsdp.state_placements(cfg, opt, mesh)
+    dims = fsdp.dims_of(placements)
+    held = fsdp.held_bytes(fsdp.shard(fresh(), dims, data))
+    runs = {}
+    # against the whole-parameter step at lr 1.0, where an update is
+    # large beside the rounding of p - lr u (at lr 1e-2 one ulp of a param
+    # of 1 reads 4e-6 of the largest update); against the reference at
+    # ``lr``
+    for name, sharded, rate in (("dp", False, 1.0), ("zero3", True, 1.0),
+                                ("zero3_lr", True, lr)):
+        st = fsdp.shard(fresh(), dims, data) if sharded else fresh()
+        step = step_lib.make_train_step(
+            cfg, opt, lr=rate, clip=1.0, group=data,
+            shardings=placements if sharded else None)
+        st, m_ = step(st, half)
+        runs[name] = (st, m_)
+    dp_state, dp_m = runs["dp"]
+    state, m = runs["zero3"]
+    gathered = fsdp.gather(state, dims, data)
+    lr_state, lr_m = runs["zero3_lr"]
+    lr_params = fsdp.gather(lr_state, dims, data)["params"]
+
+    # ZeRO-3 -> checkpoint -> ZeRO-3, and -> the whole state
+    out_dir = f"{ckpt_dir}/zero3"
+    if rank == 0:
+        ckpt_lib.save(out_dir, 1, gathered)
+    restored, at = fsdp.resilience(out_dir, dims, data)["restore_fn"](state)
+    back_bits = at == 1 and all(torch.equal(a, c) for a, c in zip(
+        tree_leaves(restored), tree_leaves(state)))
+    whole_bits = all(torch.equal(a, c) for a, c in zip(
+        tree_leaves(ckpt_lib.restore(out_dir, 1, gathered)),
+        tree_leaves(gathered)))
+    # the whole-parameter state -> checkpoint -> ZeRO-3 slices
+    in_dir = f"{ckpt_dir}/whole"
+    if rank == 0:
+        ckpt_lib.save(in_dir, 1, dp_state)
+    dist.barrier(group=data)
+    sliced, at2 = fsdp.resilience(in_dir, dims, data)["restore_fn"](state)
+    slice_bits = at2 == 1 and all(torch.equal(a, c) for a, c in zip(
+        tree_leaves(sliced), tree_leaves(fsdp.shard(dp_state, dims,
+                                                          data))))
+    return {"params": _np(gathered["params"]),
+            "dp_params": _np(dp_state["params"]),
+            "loss": float(m["loss"]), "dp_loss": float(dp_m["loss"]),
+            "grad_norm": float(m["grad_norm"]),
+            "dp_grad_norm": float(dp_m["grad_norm"]),
+            "lr_params": _np(lr_params), "lr_loss": float(lr_m["loss"]),
+            "lr_grad_norm": float(lr_m["grad_norm"]),
+            "held_bytes": held, "whole_bytes": whole_bytes,
+            "sharded_leaves": sum(d is not None for d in
+                                  tree_leaves(dims["params"])),
+            "whole_leaves": sum(d is None for d in
+                                tree_leaves(dims["params"])),
+            "ckpt_zero3_bits": back_bits, "ckpt_whole_bits": whole_bits,
+            "ckpt_into_slices_bits": slice_bits}
+
+
+def moe_dp_rank(rank, group, *, arch, tree, batch, lr, zero3):
+    """One data-parallel step of an MoE config (AdamW eps 1e-3, clip 1.0)
+    of the reference's params on this rank's half of ``batch``, on the
+    host mesh's data group, ZeRO-3 where ``zero3``; returns the whole
+    params after it, the loss and the gradient norm.  Also the error an
+    MoE config holding a share of the experts raises under the group."""
+    import dataclasses
+
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import fsdp
+    from repro_torch.train import step as step_lib
+    cfg = _lm_cfg(arch, {})
+    mesh = make_host_mesh(device_type="cpu")
+    data = mesh.get_group("data")
+    opt = AdamW(eps=1e-3)
+    b = len(batch["labels"]) // data.size()
+    half = {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
+    p = params_from_jax(tree, "cpu")
+    state = {"params": p, "opt": opt.init(p),
+             "step": torch.zeros((), dtype=torch.int32)}
+    placements = fsdp.state_placements(cfg, opt, mesh) if zero3 else None
+    if zero3:
+        state = fsdp.shard(state, fsdp.dims_of(placements), data)
+    step = step_lib.make_train_step(cfg, opt, lr=lr, clip=1.0, group=data,
+                                    shardings=placements)
+    state, m = step(state, half)
+    if zero3:
+        state = fsdp.gather(state, fsdp.dims_of(placements), data)
+    try:
+        shared = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, expert_share=(0, 2)))
+        step_lib.make_train_step(shared, opt, group=data)
+        share_error = "no error"
+    except ValueError as e:
+        share_error = str(e)
+    return {"params": _np(state["params"]), "loss": float(m["loss"]),
+            "grad_norm": float(m["grad_norm"]), "share_error": share_error}
