@@ -629,7 +629,9 @@ RUN_BUDGET_S = 1200          # the whole run, the kernels' builds included
 PHASE_SECONDS = {}           # phase -> seconds, in the order they ran
 # each phase's seconds in a run of this script at commit 68d2b16, before
 # phases 12, 13, 24c and 30 were trimmed and 33 and 34 added (NVIDIA H100
-# 80GB HBM3 at 700.00 W): 869.4 s of phases
+# 80GB HBM3 at 700.00 W): 868.5 s summed by phase, 869.4 s from the first
+# phase's start to the last's end (BEFORE_TOTAL_S)
+BEFORE_TOTAL_S = 869.4
 BEFORE_S = {
     "1 (header, kernel builds)": 48.0,
     "2 (K1 serving signatures)": 20.1,
@@ -3141,14 +3143,13 @@ def lm_prompts(n: int, vocab: int, seed: int, lengths=LM_PROMPT_LEN):
 def lm_serving(device, arch: str, widths: tuple, kernels: dict,
                wgmma: dict, route_counts: dict | None = None, *,
                requests: int = LM_REQUESTS, prompt_len=LM_PROMPT_LEN,
-               warm_requests: int = LM_WARM_REQUESTS,
                prefill_repeats: int = 3):
     """Phase 16 (Qwen2-1.5B), phase 19 (the Jamba cut) and phase 30
     (RWKV-6), each a slice's
     main path: ``arch`` in bf16 (random weights from ``init_lm``, seed 0;
     ``widths`` = (n_layers, d_model, n_heads, n_kv_heads, head_dim, d_ff,
     vocab, dtype) are checked) through ``serve_continuous``: an untimed
-    pass of ``warm_requests`` requests, then a window of ``requests`` with
+    pass of LM_WARM_REQUESTS requests, then a window of ``requests`` with
     prompts of ``prompt_len`` tokens, every prompt made before it opens.  ``kernels`` maps a kernel's name to
     (module, kernel-name needle, launches per forward, launches per decode
     step): each count is set to 0 just before the window and read just
@@ -3196,12 +3197,12 @@ def lm_serving(device, arch: str, widths: tuple, kernels: dict,
           f"max_len {LM_MAX_LEN}, max_new {LM_MAX_NEW}, prompts of "
           f"{prompt_len[0]}-{prompt_len[1]} tokens")
     window = lm_prompts(requests, cfg.vocab, SEED, prompt_len)
-    warm = lm_prompts(warm_requests, cfg.vocab, SEED + 1, prompt_len)
+    warm = lm_prompts(LM_WARM_REQUESTS, cfg.vocab, SEED + 1, prompt_len)
     kw = dict(lanes=LM_LANES, max_len=LM_MAX_LEN, max_new=LM_MAX_NEW, eos=-1)
     t0 = time.perf_counter()
     serve_continuous(params, cfg, warm, **kw)
     torch.cuda.synchronize()
-    print(f"  untimed pass: {warm_requests} requests in "
+    print(f"  untimed pass: {LM_WARM_REQUESTS} requests in "
           f"{time.perf_counter() - t0:.2f}s")
     calls = {}
     for mod, _, _, _ in kernels.values():
@@ -5375,7 +5376,6 @@ K7_BWD_SUM = "flash_attention_bwd_split_sum"  # the wgmma route's split sum
 RWKV_ARCH = "rwkv6-1.6b"
 RWKV_WIDTHS = (24, 2048, 32, 32, 64, 7168, 65536, "bfloat16")
 RWKV_REQUESTS = 16
-RWKV_WARM_REQUESTS = 1        # phase 30's untimed pass (phase 16's: 8)
 RWKV_PROMPT_LEN = (128, 512)
 RWKV_PARITY = dict(n_layers=2, d_model=1024, n_heads=16, n_kv_heads=16,
                    d_head=64, d_ff=3584, vocab=1024, dtype="float32")
@@ -5912,15 +5912,14 @@ def rwkv_phase(device) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import attention as k7
 
-    # the window's requests and lengths as before; its untimed pass is one
-    # request (no port kernel to build: the window's first prefill is warm
-    # after it) and the batch-8 prefill is timed once after its untimed
-    # call, where 8 and 3 re-timed what the window and the profile time
+    # the window's requests and lengths and its untimed pass as before; the
+    # batch-8 prefill is timed once after its untimed call, where 3 re-timed
+    # what the window and the profile time
     launches, summary, params, _ = lm_serving(
         device, RWKV_ARCH, RWKV_WIDTHS,
         {"flash_attention": (k7, "flash_attention_kernel", 0, 0)}, {},
         requests=RWKV_REQUESTS, prompt_len=RWKV_PROMPT_LEN,
-        warm_requests=RWKV_WARM_REQUESTS, prefill_repeats=1)
+        prefill_repeats=1)
     del params
     torch.cuda.empty_cache()
     cfg = dataclasses.replace(get_config(RWKV_ARCH), **RWKV_PARITY)
@@ -7182,6 +7181,11 @@ def fleet_phase(card: str, f32, q8, *, cli_args=()) -> dict:
           f"{cli['conv2d_direct_launches']} and K3 "
           f"{cli['conv2d_q8_launches']} times for {cli['completed']} "
           f"completions")
+    check(not on_card or (
+        cli["conv2d_direct_launches"] == cli["conv2d_direct_mma_launches"]
+        and cli["conv2d_q8_launches"] == cli["conv2d_q8_ring_launches"]),
+          f"the fleet CLI's K1 launches not all on the mma route or its K3 "
+          f"not all on the ring: {cli}")
     seconds = time.perf_counter() - t0
     print(f"  the CLI (--fleet {FLEET_REPLICAS} --fleet-chaos-seed "
           f"{FLEET_CLI_SEED}): {cli['completed']} done, "
@@ -7193,7 +7197,9 @@ def fleet_phase(card: str, f32, q8, *, cli_args=()) -> dict:
                 degraded_top1_agree=[agree, len(degraded)], lane_bits=lane,
                 lane_equals_bucket1=solo, cli=cli, cli_s=cli_s,
                 k1=counts["k1"] + cli["conv2d_direct_launches"],
+                k1_mma=counts["k1_mma"] + cli["conv2d_direct_mma_launches"],
                 k3=counts["k3"] + cli["conv2d_q8_launches"],
+                k3_ring=counts["k3_ring"] + cli["conv2d_q8_ring_launches"],
                 seconds=seconds, card=card)
 
 
@@ -7221,11 +7227,13 @@ ZERO3_TIMEOUT_S = 300        # one deadline for both rank processes
 
 class _Timed:
     """Wraps ``module.name`` for the block: each call timed by host clock
-    (device synchronised on both sides), the times kept in ``ms``."""
+    (device synchronised on both sides), the times kept in ``ms``, and
+    ``bytes_of(args, result)`` of each call summed in ``bytes``."""
 
-    def __init__(self, module, name, sync):
+    def __init__(self, module, name, sync, bytes_of):
         self.module, self.name, self.sync = module, name, sync
-        self.ms = []
+        self.bytes_of = bytes_of
+        self.ms, self.bytes = [], 0
 
     def __enter__(self):
         fn = self.fn = getattr(self.module, self.name)
@@ -7236,6 +7244,7 @@ class _Timed:
             out = fn(*a, **kw)
             self.sync()
             self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.bytes += self.bytes_of(a, out)
             return out
         setattr(self.module, self.name, timed)
         return self
@@ -7282,7 +7291,6 @@ def zero3_rank(rank, group, *, workdir, device="cuda", full=True) -> dict:
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim.adamw import AdamW, tree_leaves
     from repro_torch.train import checkpoint as ckpt_lib
-    from repro_torch.train import distributed as D
     from repro_torch.train import fsdp
     from repro_torch.train.step import init_train_state, make_train_step
 
@@ -7364,8 +7372,11 @@ def zero3_rank(rank, group, *, workdir, device="cuda", full=True) -> dict:
     k7.launches = k7.launches_wgmma = k7.launches_bwd = 0
     k7.launches_bwd_wgmma = 0
     losses, step_ms = [], []
-    with _Timed(fsdp, "gather", sync) as gathers, \
-            _Timed(D, "allreduce_sum_", sync) as reduces:
+    # each all-gather's whole leaf, and each reduction's f32 whole gradient
+    with _Timed(fsdp, "gather_leaf", sync,
+                lambda a, out: out.numel() * out.element_size()) as gathers, \
+            _Timed(fsdp, "reduce_leaf", sync,
+                   lambda a, out: 4 * a[0].numel()) as reduces:
         for i in range(ZERO3_STEPS):
             sync()
             t0 = time.perf_counter()
@@ -7384,10 +7395,12 @@ def zero3_rank(rank, group, *, workdir, device="cuda", full=True) -> dict:
                      bwd=k7.launches_bwd, bwd_wgmma=k7.launches_bwd_wgmma)
     peak = torch.cuda.max_memory_allocated() if card else 0
     rel = diff / max_upd
-    gather_bytes = sum(t.numel() * t.element_size() * n
-                       for t, s_ in zip(tree_leaves(state["params"]), sharded)
-                       if s_)
-    reduce_bytes = 4 * n_params
+    # per step: the all-gathers' and reductions' summed host-clock ms and
+    # bytes (every block leaf gathered twice under remat)
+    gather_ms = sum(gathers.ms) / ZERO3_STEPS
+    gather_bytes = gathers.bytes // ZERO3_STEPS
+    reduce_ms = sum(reduces.ms) / ZERO3_STEPS
+    reduce_bytes = reduces.bytes // ZERO3_STEPS
     say(f"(a) {cfg.name} {cfg.dtype}, {n_params / 1e9:.3f} B params, "
         f"{cfg.n_layers} layers, a rank's batch {b} x {l}: ZeRO-3 holds "
         f"{held} of a whole rank's {whole_bytes} bytes "
@@ -7396,10 +7409,11 @@ def zero3_rank(rank, group, *, workdir, device="cuda", full=True) -> dict:
         f"{losses[0]!r} vs the whole-parameter step's {dp_loss!r}; update "
         f"{rel:.3e} of max |update| {max_upd:.3e} (limit "
         f"{ZERO3_UPDATE_TOL}); step ms {[f'{x:.1f}' for x in step_ms]} "
-        f"(whole-parameter {dp_ms:.1f}); all-gather "
-        f"{[f'{x:.1f}' for x in gathers.ms]} ms for {gather_bytes} bytes a "
-        f"step, reduction {[f'{x:.1f}' for x in reduces.ms]} ms for "
-        f"{reduce_bytes} f32 bytes; peak {peak / 1e9:.3f} GB (whole-"
+        f"(whole-parameter {dp_ms:.1f}); a step's "
+        f"{len(gathers.ms) // ZERO3_STEPS} all-gathers {gather_ms:.1f} ms "
+        f"for {gather_bytes} bytes, its "
+        f"{len(reduces.ms) // ZERO3_STEPS} reductions {reduce_ms:.1f} ms "
+        f"for {reduce_bytes} f32 bytes; peak {peak / 1e9:.3f} GB (whole-"
         f"parameter {dp_peak / 1e9:.3f}); K7 {k7_counts}")
     check(held <= ZERO3_HELD_SHARE * whole_bytes, f"a ZeRO-3 rank holds "
           f"{held} bytes, over {ZERO3_HELD_SHARE} of {whole_bytes}")
@@ -7407,6 +7421,8 @@ def zero3_rank(rank, group, *, workdir, device="cuda", full=True) -> dict:
           f"not the whole-parameter step's {dp_loss!r}")
     check(rel <= ZERO3_UPDATE_TOL, f"ZeRO-3 update {rel:.3e} of max "
           f"|update| from the whole-parameter step's")
+    check(not card or peak < dp_peak, f"a ZeRO-3 step's peak {peak} bytes "
+          f"is not under the whole-parameter step's {dp_peak}")
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     if card:
         per = ZERO3_STEPS * cfg.n_layers
@@ -7418,8 +7434,8 @@ def zero3_rank(rank, group, *, workdir, device="cuda", full=True) -> dict:
                     batch=[b, l], held_bytes=held, whole_bytes=whole_bytes,
                     held_share=held / whole_bytes, losses=losses,
                     dp_loss=dp_loss, update_rel=rel, step_ms=step_ms,
-                    dp_step_ms=dp_ms, gather_ms=gathers.ms,
-                    gather_bytes=gather_bytes, reduce_ms=reduces.ms,
+                    dp_step_ms=dp_ms, gather_ms=gather_ms,
+                    gather_bytes=gather_bytes, reduce_ms=reduce_ms,
                     reduce_bytes=reduce_bytes, peak_bytes=peak,
                     dp_peak_bytes=dp_peak, k7=k7_counts)
     del state, step
@@ -7811,8 +7827,10 @@ def main() -> int:
           f"({TRACES[-1][0]:.0f} s in), {min(lags)} ms at least")
     total_s = time.perf_counter() - t_start
     print(f"all phases in {total_s:.1f}s of the {RUN_BUDGET_S} s budget "
-          f"({total_s / RUN_BUDGET_S:.3f}; {sum(BEFORE_S.values()):.1f}s at "
-          f"68d2b16); by phase, this run's seconds (68d2b16's): "
+          f"({total_s / RUN_BUDGET_S:.3f}; {BEFORE_TOTAL_S:.1f}s at "
+          f"68d2b16), {sum(PHASE_SECONDS.values()):.1f}s summed by phase "
+          f"({sum(BEFORE_S.values()):.1f}s); by phase, this run's seconds "
+          f"(68d2b16's): "
           + ", ".join(f"{name} {sec:.1f}s ({BEFORE_S.get(name, 0.0):.1f})"
                       for name, sec in PHASE_SECONDS.items()))
 
@@ -7829,7 +7847,7 @@ def main() -> int:
         "launches": serve_launches + train_counts["conv2d_direct"]
         + chain_k1 + dp_k1 + fleet["k1"],
         "launches_mma": serve_launches + train_counts["conv2d_direct_mma"]
-        + chain_k1 + dp_k1_mma + fleet["launches"]["k1_mma"],
+        + chain_k1 + dp_k1_mma + fleet["k1_mma"],
         "launches_by_path": {"serving": serve_launches,
                              "training_step": train_counts["conv2d_direct"],
                              "chains": chain_k1,
@@ -7906,7 +7924,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/conv2d_q8.cu",
         "replaces": "src/repro/kernels/conv2d_q8.py:204",
         "launches": q8_launches + fleet["k3"],
-        "launches_ring": q8_launches + fleet["launches"]["k3_ring"],
+        "launches_ring": q8_launches + fleet["k3_ring"],
         "launches_by_path": {"serving_int8": q8_launches,
                              "fleet_int8": fleet["k3"]},
         "max_abs_err": max(max(r["max_abs_err"], r["sync_abs_err"])

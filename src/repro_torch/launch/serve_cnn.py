@@ -199,7 +199,7 @@ def run_fleet(args, engine, q8_engine, image: int) -> dict:
     Poisson arrivals against the ``REPRO_SERVE_CHAOS``-seeded fault
     schedule (the reference's ``run_fleet``).  Prints and returns the
     summary: the router's report without its events, and the K1 and K3
-    launches of the run."""
+    launches of the run with K1's on the mma route and K3's on the ring."""
     from repro_torch.serve import (FleetRouter, Replica, ServeChaosEngine,
                                    ServeChaosSchedule, poisson_arrivals)
     names = [f"r{i}" for i in range(args.fleet)]
@@ -223,13 +223,15 @@ def run_fleet(args, engine, q8_engine, image: int) -> dict:
                          replica_factory=make_replica,
                          burst_image_fn=image_fn)
     requests = [(t, image_fn(0)) for t, _ in arrivals]
-    k1.launches = k3.launches = 0
+    k1.launches = k3.launches = k1.launches_mma = k3.launches_ring = 0
     report = router.run(requests)
     report.pop("events")
     summary = {"arch": args.arch, "device": str(engine.device),
                "fleet": args.fleet, "chaos_seed": args.fleet_chaos_seed,
                **report, "conv2d_direct_launches": k1.launches,
-               "conv2d_q8_launches": k3.launches}
+               "conv2d_direct_mma_launches": k1.launches_mma,
+               "conv2d_q8_launches": k3.launches,
+               "conv2d_q8_ring_launches": k3.launches_ring}
     print(json.dumps(summary))
     if not all(r.result is not None for r in router.requests.values()
                if r.status == "done"):

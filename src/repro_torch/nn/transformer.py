@@ -200,7 +200,8 @@ def _apply_block(p, cfg, pos: int, x, positions, *,
 
 
 def forward(params, cfg, *, tokens=None, embeds=None, positions=None,
-            return_cache: bool = False, cache_len: int | None = None):
+            return_cache: bool = False, cache_len: int | None = None,
+            gather=None):
     """-> (logits (B,L,V), aux) [+ cache].  ``embeds`` (B,L,D) bypasses the
     token embedding (the VLM/audio frontend stubs).  ``aux`` is the
     reference's MoE loss term (0.01 lb_loss + 1e-3 z_loss summed over the
@@ -208,7 +209,13 @@ def forward(params, cfg, *, tokens=None, embeds=None, positions=None,
     ``return_cache`` every layer's decode state comes back in the cache
     layout: keys and values zero-padded to ``cache_len`` positions, the
     other states (Mamba's conv and ssm, RWKV's token shifts and WKV state)
-    as they are."""
+    as they are.  ``gather(path, tree)`` (``train.fsdp.gatherer``) makes
+    ``params`` a tree of held slices, each read whole through it: the
+    top-level leaves once, a block's leaves at the start of each repeat
+    (inside its remat, so the backward gathers them again)."""
+    if gather is not None:
+        params = {key: v if key == "blocks" else gather((key,), v)
+                  for key, v in params.items()}
     if embeds is None:
         embeds = params["embed"][tokens.long()]
     x = embeds
@@ -231,6 +238,8 @@ def forward(params, cfg, *, tokens=None, embeds=None, positions=None,
         sts = []
         for pos in range(npos):
             layer_p = _layer(unbound[pos], i)
+            if gather is not None:
+                layer_p = gather(("blocks", str(pos)), layer_p)
             if inner_remat:
                 xx, aux_i, st = checkpoint(block, layer_p, xx, pos=pos,
                                            use_reentrant=False)

@@ -159,27 +159,15 @@ def cnn_local_grads(gxm, params, batch, *, accum_steps: int = 1):
     return loss, stats, grads
 
 
+REDUCE_BUCKET = 1 << 26      # f32 values a bucket of ``allreduce_sum``
+
+
 def allreduce_sum(tensors, group) -> list:
-    """The group's sum of each tensor, in one f32 all-reduce SUM over
-    their concatenation, each returned in f32."""
-    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-    out, at = [], 0
-    for t in tensors:
-        out.append(flat[at:at + t.numel()].reshape(t.shape))
-        at += t.numel()
-    return out
-
-
-REDUCE_BUCKET = 1 << 26      # f32 values a bucket of ``allreduce_sum_``
-
-
-def allreduce_sum_(tensors, group) -> list:
     """The group's sum of each f32 tensor, written in place: the tensors
     in buckets of at most ``REDUCE_BUCKET`` values, one all-reduce SUM a
     bucket, so a reduction of every gradient of a large model holds one
-    bucket beside them, not a second copy.  The same sums, element for
-    element, as ``allreduce_sum``.  Returns ``tensors``."""
+    bucket beside them, not a second copy.  A caller that needs its
+    inputs passes f32 copies.  Returns ``tensors``."""
     at = 0
     while at < len(tensors):
         end, size = at, 0
@@ -200,11 +188,12 @@ def allreduce_sum_(tensors, group) -> list:
 
 
 def allreduce_mean(tensors, group) -> list:
-    """The group's mean of each tensor: ``allreduce_sum``, then / n, cast
-    back to each tensor's dtype."""
+    """The group's mean of each tensor: ``allreduce_sum`` of f32 copies,
+    then / n, cast back to each tensor's dtype."""
     n = float(data_axis_size(group))
-    return [(s / n).to(t.dtype)
-            for s, t in zip(allreduce_sum(tensors, group), tensors)]
+    sums = allreduce_sum([t.detach().to(torch.float32, copy=True)
+                          for t in tensors], group)
+    return [(s / n).to(t.dtype) for s, t in zip(sums, tensors)]
 
 
 def make_cnn_train_step_dp(gxm, group=None, *, lr: float = 0.1,

@@ -14,13 +14,19 @@ contiguous; "embed" is not always dim 0 (``head`` is ("embed", "vocab"),
 block leaves lead with "layers").  A whole leaf is held whole on every
 rank.
 
-The step (``train.step.make_train_step(shardings=)``) all-gathers every
-held shard along its dim before the forward (``gather``), computes the
-whole batch's gradient with the data-parallel step's weighting, reduces it
-by one f32 all-reduce and keeps its own slice (``take``; gloo has no
-reduce-scatter, so a reduce-scatter is an all-reduce then a slice here on
-every backend), takes the global norm over the shards with each whole leaf
-counted once (``clip_by_global_norm``), and lets AdamW update the shards
+The step (``train.step.make_train_step(shardings=)``) hands the held slices
+to ``transformer.forward`` with ``gatherer``: each leaf is all-gathered
+whole where the forward reads it, the top-level leaves once a forward and
+one repeat's blocks at the start of that repeat, so under ``cfg.remat``
+(whose recompute gathers the repeat again in the backward) a rank holds
+one repeat's whole blocks at a time, not the whole model.  The gather is
+an autograd op (``_Gather``) whose backward is the reduce-scatter of the
+whole leaf's gradient (``reduce_leaf``: its f32 sum over the group, of
+which this rank keeps its slice; gloo has no reduce-scatter, so it is an
+all-reduce then a slice here on every backend), so each whole gradient
+lives only until its leaf's backward is done and the step accumulates
+slices.  The clip takes the global norm over the slices with each whole
+leaf counted once (``clip_by_global_norm``), and AdamW updates the slices
 in place; the factored second moment's means over a split dim are
 all-reduced (``optim.adamw.AdamW.update(dims=, group=)``).
 
@@ -125,11 +131,59 @@ def gather_leaf(t, d, group=None):
     return torch.cat(parts, dim=d)
 
 
+def reduce_leaf(g, d, group=None):
+    """This rank's slice along ``d`` of the group's f32 sum of the whole
+    gradient ``g`` (the reduce-scatter of ``_Gather``'s backward), in
+    ``g``'s dtype."""
+    s = g.to(torch.float32, copy=True,
+             memory_format=torch.contiguous_format)
+    dist.all_reduce(s, op=dist.ReduceOp.SUM, group=require_group(group))
+    return take(s, d, group).to(g.dtype)
+
+
+class _Gather(torch.autograd.Function):
+    """The whole leaf of a held slice (``gather_leaf``); the gradient of
+    the slice is ``reduce_leaf`` of the whole leaf's.  A leaf held whole
+    passes through, and its gradient is the group's sum all the same."""
+
+    @staticmethod
+    def forward(ctx, t, d, group):
+        ctx.d, ctx.group = d, group
+        return t.view_as(t) if d is None else gather_leaf(t, d, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_leaf(g, ctx.d, ctx.group), None, None
+
+
+def gatherer(dims, group=None):
+    """``transformer.forward``'s ``gather`` for params held as slices
+    placed by ``dims`` (the params' dims tree): ``gather(path, tree)`` is
+    the whole leaves of the held subtree at ``path``, through ``_Gather``,
+    a block subtree (path ("blocks", pos)) one layer's views without their
+    leading "layers" axis."""
+    group = require_group(group)
+
+    def gather(path, tree):
+        at = dims
+        for key in path:
+            at = at[key]
+        shift = 1 if path[0] == "blocks" else 0
+
+        def leaf(d, t):
+            if d is not None and d < shift:
+                raise ValueError(f"{path}: a leaf split over its layers "
+                                 f"axis cannot be gathered a layer at a "
+                                 f"time")
+            return _Gather.apply(t, None if d is None else d - shift, group)
+        return _map(leaf, at, tree)
+    return gather
+
+
 def gather(tree, dims, group=None):
     """Every leaf of a held tree whole (``gather_leaf``; a collective:
-    every rank calls it), detached from the held one: the step's params,
-    or the whole train state in the reference's layout, what a checkpoint
-    holds."""
+    every rank calls it), detached from the held one: the whole train
+    state in the reference's layout, what a checkpoint holds."""
     return _map(lambda d, t: gather_leaf(t.detach(), d, group), dims, tree)
 
 

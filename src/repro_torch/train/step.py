@@ -15,7 +15,8 @@ token; one f32 all-reduce) before the clip and the optimizer, so every
 rank applies the same update.  With ``shardings`` each rank holds only
 its slices of the params and the optimizer slots (ZeRO-3 over "data",
 ``train/fsdp.py``), placed by ``train_state_specs``, the reference's spec
-tree of the train state.
+tree of the train state: the forward gathers each leaf where it reads it,
+and the backward reduce-scatters its gradient.
 
 ``make_cnn_train_step`` routes every conv through
 ``core.conv.conv2d_train``: the forward is K1, dI comes from the §II-I
@@ -47,12 +48,13 @@ def lm_batch(batch: dict, device) -> dict:
             for key, v in batch.items()}
 
 
-def loss_parts(params, cfg, batch):
+def loss_parts(params, cfg, batch, gather=None):
     """(the mean cross-entropy, the MoE aux loss) of ``batch``: the two
     terms of ``transformer.lm_loss`` (``lm_loss_embeds`` for a batch with
-    "embeds")."""
+    "embeds"); ``gather`` is ``transformer.forward``'s."""
     key = "embeds" if "embeds" in batch else "tokens"
-    logits, aux = T.forward(params, cfg, **{key: batch[key]})
+    logits, aux = T.forward(params, cfg, gather=gather,
+                            **{key: batch[key]})
     return softmax_xent(logits, batch["labels"]), aux
 
 
@@ -82,7 +84,7 @@ def make_train_step(cfg, opt, *, lr: float = 3e-4, clip: float = 1.0,
     aux loss, whose router statistics are the group's
     (``nn.moe.data_group``), each divided by ``accum_steps``; autograd
     differentiates that sum, and an f32 all-reduce SUM
-    (``distributed.allreduce_sum_``, in place, bucket by bucket) adds the
+    (``distributed.allreduce_sum``, in place, bucket by bucket) adds the
     ranks' gradients and losses before the global-norm clip.  An MoE
     config whose devices hold a share of the experts
     (``MoECfg.expert_share``) raises under ``group``.
@@ -90,10 +92,13 @@ def make_train_step(cfg, opt, *, lr: float = 3e-4, clip: float = 1.0,
     ``shardings`` (the train state's placements,
     ``train.fsdp.state_placements``; needs ``group``) makes the step
     ZeRO-3: ``state`` holds this rank's slices (``train.fsdp.init_state``),
-    each gathered whole for the forward and freed after the backward; each
-    rank keeps its slice of the reduced gradient, the clip's norm is the
-    group's, and AdamW updates the slices in place."""
-    dims = None
+    each gathered whole where the forward reads it (``fsdp.gatherer``: a
+    repeat's blocks within that repeat, again in its remat's recompute);
+    the backward reduce-scatters each whole gradient as it is done, so the
+    step sums slices of the group's gradients and only the loss is
+    all-reduced after it; the clip's norm is the group's, and AdamW
+    updates the slices in place."""
+    dims = gather = None
     if group is not None:
         from repro_torch.launch.mesh import require_group
         from repro_torch.train import distributed as D
@@ -111,6 +116,7 @@ def make_train_step(cfg, opt, *, lr: float = 3e-4, clip: float = 1.0,
             raise ValueError("shardings without a group: ZeRO-3 storage "
                              "splits the state over a data group")
         dims = fsdp.dims_of(shardings)["params"]
+        gather = fsdp.gatherer(dims, group)
 
     def grads_of(params, leaves, batch, weight=None):
         """The loss and its gradients; under ``group`` the loss is
@@ -122,7 +128,7 @@ def make_train_step(cfg, opt, *, lr: float = 3e-4, clip: float = 1.0,
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         else:
             with moe.data_group(group):
-                xent, aux = loss_parts(params, cfg, batch)
+                xent, aux = loss_parts(params, cfg, batch, gather)
                 loss = weight * xent + aux / accum_steps
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         out = []
@@ -142,12 +148,11 @@ def make_train_step(cfg, opt, *, lr: float = 3e-4, clip: float = 1.0,
         labels there over the group's, / ``accum_steps``."""
         counts = torch.stack([(lab >= 0).sum() for lab in
                               batch["labels"].chunk(accum_steps)]).float()
-        total = D.allreduce_sum([counts], group)[0]
+        total = D.allreduce_sum([counts.clone()], group)[0]
         return counts / total.clamp_min(1.0) / accum_steps
 
     def train_step(state, batch):
-        held = state["params"]
-        params = held if dims is None else fsdp.gather(held, dims, group)
+        params = state["params"]
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -156,6 +161,11 @@ def make_train_step(cfg, opt, *, lr: float = 3e-4, clip: float = 1.0,
         with torch.enable_grad():
             if accum_steps == 1 and w is None:
                 loss, grads = grads_of(params, leaves, batch)
+            elif accum_steps == 1 and dims is not None:
+                # ZeRO-3 in one pass: its backward reduced each gradient,
+                # the loss is left
+                loss, grads = grads_of(params, leaves, batch, w[0])
+                loss = D.allreduce_sum([loss.float()[None]], group)[0]
             else:
                 acc = [torch.zeros(p.shape, dtype=torch.float32,
                                    device=p.device) for p in leaves]
@@ -175,27 +185,24 @@ def make_train_step(cfg, opt, *, lr: float = 3e-4, clip: float = 1.0,
                     loss = loss / accum_steps
                 else:
                     # the data-parallel reduction point: every rank's
-                    # gradients are in, the clip and the optimizer have
-                    # not run
-                    *grads, loss = D.allreduce_sum_(acc + [loss[None]],
-                                                    group)
+                    # gradients are in (under ZeRO-3 each was reduced in
+                    # its backward, and the loss is left), the clip and
+                    # the optimizer have not run
+                    loss = loss[None]
+                    D.allreduce_sum((acc if dims is None else []) + [loss],
+                                    group)
                     loss = loss[0]
+                    grads = [a.to(p.dtype) for a, p in zip(acc, leaves)]
                     del acc
-                    if dims is not None:
-                        # this rank's slice of each reduced gradient
-                        grads = [fsdp.take(g, d, group) for g, d in
-                                 zip(grads, tree_leaves(dims))]
-                    grads = [g.to(p.dtype) for g, p in zip(grads, leaves)]
         del leaves
         it = iter(grads)
-        grads = tree_map(lambda _: next(it), held)
+        grads = tree_map(lambda _: next(it), params)
         if dims is None:
             grads, gnorm = clip_by_global_norm(grads, clip)
         else:
-            del params                      # the gathered leaves
             grads, gnorm = fsdp.clip_by_global_norm(grads, dims, clip, group)
         state["params"], state["opt"] = opt.update(
-            grads, state["opt"], held, lr,
+            grads, state["opt"], params, lr,
             **({} if dims is None else {"dims": dims, "group": group}))
         state["step"] = state["step"] + 1
         return state, {"loss": loss, "grad_norm": gnorm}
@@ -221,18 +228,17 @@ def make_decode_step(cfg):
 
 
 def init_train_state(cfg, opt, generator: torch.Generator | None = None, *,
-                     device=None, with_specs: bool = False):
+                     device=None) -> dict:
     """``{"params", "opt", "step"}``: ``transformer.init_lm``'s params (each
     a leaf that requires grad), ``opt.init`` of them and an int32 step 0.
-    With ``with_specs``, (state, the params' spec tree), as the
-    reference's ``init_train_state`` returns them."""
+    The reference also returns the params' spec tree, which is
+    ``transformer.param_specs(cfg)`` here."""
     params = T.init_lm(cfg, generator, device=device)
     for p in tree_leaves(params):
         p.requires_grad_(True)
-    state = {"params": params, "opt": opt.init(params),
-             "step": torch.zeros((), dtype=torch.int32,
-                                 device=params["embed"].device)}
-    return (state, T.param_specs(cfg)) if with_specs else state
+    return {"params": params, "opt": opt.init(params),
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=params["embed"].device)}
 
 
 def train_state_specs(param_specs, opt_state) -> dict:

@@ -285,14 +285,43 @@ def fsdp_rank(rank, group, *, arch, widths, tree, batch, lr, factored,
     # large beside the rounding of p - lr u (at lr 1e-2 one ulp of a param
     # of 1 reads 4e-6 of the largest update); against the reference at
     # ``lr``
+    calls = {"gather_leaf": 0, "reduce_leaf": 0}
+
+    def counted(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
     for name, sharded, rate in (("dp", False, 1.0), ("zero3", True, 1.0),
                                 ("zero3_lr", True, lr)):
         st = fsdp.shard(fresh(), dims, data) if sharded else fresh()
         step = step_lib.make_train_step(
             cfg, opt, lr=rate, clip=1.0, group=data,
             shardings=placements if sharded else None)
-        st, m_ = step(st, half)
+        if name == "zero3":
+            # the step's collectives, counted: a leaf gathered where the
+            # forward reads it (a repeat's blocks again in its remat), its
+            # gradient reduced once
+            fns = {key: getattr(fsdp, key) for key in calls}
+            for key, fn in fns.items():
+                setattr(fsdp, key, counted(key, fn))
+            try:
+                st, m_ = step(st, half)
+            finally:
+                for key, fn in fns.items():
+                    setattr(fsdp, key, fn)
+        else:
+            st, m_ = step(st, half)
         runs[name] = (st, m_)
+    pdims = dims["params"]
+    top = [d for key, v in pdims.items() if key != "blocks"
+           for d in tree_leaves(v)]
+    blocks = tree_leaves(pdims["blocks"])
+    expected = {
+        "gather_leaf": sum(d is not None for d in top)
+        + sum(d is not None for d in blocks) * cfg.pattern_repeats
+        * (2 if cfg.remat else 1),
+        "reduce_leaf": len(top) + len(blocks) * cfg.pattern_repeats}
     dp_state, dp_m = runs["dp"]
     state, m = runs["zero3"]
     gathered = fsdp.gather(state, dims, data)
@@ -331,7 +360,8 @@ def fsdp_rank(rank, group, *, arch, widths, tree, batch, lr, factored,
             "whole_leaves": sum(d is None for d in
                                 tree_leaves(dims["params"])),
             "ckpt_zero3_bits": back_bits, "ckpt_whole_bits": whole_bits,
-            "ckpt_into_slices_bits": slice_bits}
+            "ckpt_into_slices_bits": slice_bits,
+            "calls": calls, "expected_calls": expected}
 
 
 def moe_dp_rank(rank, group, *, arch, tree, batch, lr, zero3):

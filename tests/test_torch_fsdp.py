@@ -3,7 +3,9 @@
 the host mesh (``launch.mesh.make_host_mesh``): smoke ``qwen3-8b`` and a
 factored-AdamW config (smoke ``dbrx-132b`` at d_model 128, d_ff 256, so
 its embedding, head and expert weights take the factored second moment,
-split along their last dim and along their second-last).
+split along their last dim and along their second-last), and smoke
+``qwen3-8b`` under remat, whose recompute gathers each repeat's blocks
+again in the backward.
 
 Held: the ZeRO-3 step equals the whole-parameter data-parallel step within
 1e-6 of max |update| at lr 1.0 (the same gradient bits, a norm and the
@@ -16,7 +18,9 @@ reference's single-device step on the whole batch
 max |update|, AdamW at eps 1e-3); each rank holds at most 0.55 of the
 whole state's bytes; a checkpoint the ZeRO-3 ranks write restores into
 the whole state and back into the slices bit for bit, and a whole state's
-checkpoint into the slices.  Then the trainer under ZeRO-3 on two ranks,
+checkpoint into the slices; the step gathers each split leaf where the
+forward reads it (a repeat's blocks twice under remat) and reduces each
+leaf's gradient once.  Then the trainer under ZeRO-3 on two ranks,
 uninterrupted and under seeded chaos."""
 import jax
 import jax.numpy as jnp
@@ -35,8 +39,9 @@ LOSS_TOL = 1e-5
 UPDATE_TOL = 1e-4
 HELD_SHARE = 0.55
 LR = 1e-2
-CASES = {"qwen3-8b": ({}, False),
-         "dbrx-132b": ({"d_model": 128, "d_ff": 256}, True)}
+CASES = {"qwen3-8b": ("qwen3-8b", {}, False),
+         "qwen3-8b-remat": ("qwen3-8b", {"remat": True}, False),
+         "dbrx-132b": ("dbrx-132b", {"d_model": 128, "d_ff": 256}, True)}
 
 
 def _flat(tree, prefix=""):
@@ -48,10 +53,10 @@ def _flat(tree, prefix=""):
     return {prefix: tree}
 
 
-@pytest.mark.parametrize("arch", sorted(CASES))
-def test_zero3_step_matches_dp_and_the_reference(arch, tmp_path):
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_zero3_step_matches_dp_and_the_reference(case, tmp_path):
     import dataclasses
-    widths, factored = CASES[arch]
+    arch, widths, factored = CASES[case]
     cfg = dataclasses.replace(jax_smoke_config(jax_get_config(arch)),
                               **widths)
     assert cfg.fsdp and cfg.factored_opt == factored
@@ -80,6 +85,7 @@ def test_zero3_step_matches_dp_and_the_reference(arch, tmp_path):
         assert res["whole_leaves"] > 0 or arch != "qwen3-8b"
         assert res["held_bytes"] <= HELD_SHARE * res["whole_bytes"], \
             (res["held_bytes"], res["whole_bytes"])
+        assert res["calls"] == res["expected_calls"], res["calls"]
         assert res["ckpt_zero3_bits"] and res["ckpt_whole_bits"] \
             and res["ckpt_into_slices_bits"]
         assert res["loss"] == res["dp_loss"]

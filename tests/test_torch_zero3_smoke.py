@@ -28,7 +28,9 @@ def test_phase_34_rank_body_on_the_cpu(tmp_path):
         a = res["a"]
         assert a["losses"][0] == a["dp_loss"]
         assert a["held_share"] <= 0.55 and a["update_rel"] <= 1e-2
-        assert len(a["step_ms"]) == len(a["gather_ms"]) == 2
+        assert len(a["step_ms"]) == 2
+        assert a["gather_ms"] > 0 and a["gather_bytes"] > 0
+        assert a["reduce_ms"] > 0 and a["reduce_bytes"] > 0
         assert res["b"]["update_rel"] <= 1e-6 and res["b"]["ckpt_bits"]
         assert res["c"]["loss_rel"] <= 1e-5
         assert res["c"]["routing"][0] <= 2
